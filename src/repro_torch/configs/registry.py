@@ -1,0 +1,32 @@
+"""Architecture registry: ``--arch <id>`` resolution.
+
+Only the architectures whose family the port serves are listed; the other
+arch modules of ``repro.configs`` come with the slices that port their
+families.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.configs.base import ArchConfig
+
+_ARCH_MODULES = {
+    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+}
+
+
+def arch_ids() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def get_arch(name: str) -> ArchConfig:
+    if name.endswith("-smoke"):
+        return get_arch(name[: -len("-smoke")]).reduced()
+    try:
+        mod = importlib.import_module(_ARCH_MODULES[name])
+    except KeyError as e:
+        raise KeyError(
+            f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}"
+        ) from e
+    return mod.CONFIG

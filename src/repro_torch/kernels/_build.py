@@ -1,0 +1,145 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a`` and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  Nothing is built when the
+package is imported: ``lib()`` builds at the first kernel launch.  The
+library's file name carries a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.
+
+The build directory (``kernels/build``) lies inside the package and is
+listed in ``.gitignore``.  Every function of the library returns the
+``cudaGetLastError()`` of its launch; the Python wrappers raise when it is
+not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import List, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+]
+
+# dtype codes of the C interface (csrc/common.cuh: repro::DType)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# C signature of every exported launcher: (argtypes, ...); restype is int
+_SIGNATURES = {
+    # a, b, c, M, N, K, lda, ldb, b_k_contiguous, dtype, vec_ok, stream
+    "repro_gemm": [_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _P],
+    # x, w, out, rows, D, ldx, eps, dtype, stream
+    "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _F, _I, _P],
+    # m, v, out, M, N, ldm, dtype, stream
+    "repro_bias_add_rows": [_P, _P, _P, _I, _I, _L, _I, _P],
+    # q, k, v, lens, out, B, Smax, Hkv, G, D,
+    # q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh,
+    # window, scale, dtype, stream
+    "repro_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                           _I, _F, _I, _P],
+}
+
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else ``$CUDA_HOME/bin/nvcc``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or under $CUDA_HOME/bin; the Hopper "
+            "kernels are built from csrc/*.cu on the machine with the card"
+        )
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile and link the library unless this source hash is built.
+    ``verbose`` prints ptxas' register/spill report for every kernel."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cc = nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    tag = f"{os.getpid()}"
+    procs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [cc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )))
+    failed = []
+    for src, _, p in procs:
+        so, se = p.communicate()
+        if verbose and (so or se):
+            print(f"[nvcc {src.name}]\n{so}{se}", flush=True)
+        if p.returncode != 0:
+            failed.append(f"{src.name} (rc {p.returncode}):\n{se}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out.with_suffix(f".{tag}.tmp")
+    link = subprocess.run(
+        [cc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in procs]],
+        capture_output=True, text=True,
+    )
+    for _, obj, _ in procs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built at the first call)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = handle
+    return _LIB
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a launcher's non-zero ``cudaGetLastError()``."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed (CUDA error {rc})")

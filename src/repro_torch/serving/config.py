@@ -1,0 +1,93 @@
+"""Typed serving configuration (the port's ``repro.serving.config``).
+
+``CacheConfig`` shapes the decode state and ``EngineConfig`` drives the
+loop, with the JAX package's field names and defaults.  This slice serves
+the defaults: the contiguous KV cache and token-by-token greedy decoding.
+Every field it does not serve raises ``NotImplementedError`` naming the
+slice that brings it; none is silently ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+# the slices of the port that serve each feature (ROADMAP.md, Queue 1)
+PAGED = "slice 2 (pager, paged and chunked-prefill kernels)"
+RECURRENT = "the ssm/hybrid slice (recurrent-state snapshots)"
+SHARING = "the prefix-sharing slice"
+PRESSURE = "the pressure slice (host spill tier)"
+SPEC = "the speculative-decoding slice"
+QUANT = "the quantized-KV slice"
+SAMPLING = "a later slice (sampling)"
+
+
+def _unserved(obj: Any, field: str, served, slice_name: str) -> None:
+    value = getattr(obj, field)
+    if value not in served:
+        raise NotImplementedError(
+            f"{type(obj).__name__}.{field}={value!r} is not served by this "
+            f"slice of the port; it comes with {slice_name}"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheConfig:
+    """Decode-cache shape: what ``init_decode_state`` allocates.  Only the
+    contiguous slab is served; the page fields belong to the paged layout."""
+
+    layout: str = "contiguous"
+    page_size: int = 16
+    n_pages: Optional[int] = None
+    snapshots: bool = False
+    host_spill: Optional[bool] = None
+    kv_dtype: str = "f32"
+
+    def __post_init__(self) -> None:
+        if self.layout not in ("contiguous", "paged"):
+            raise ValueError(f"unknown KV-cache layout {self.layout!r}")
+        if self.page_size < 1:
+            raise ValueError("page_size must be >= 1")
+        if self.n_pages is not None and self.n_pages < 1:
+            raise ValueError("n_pages must be >= 1 (None = worst case)")
+        if self.kv_dtype not in ("f32", "bf16", "int8"):
+            raise ValueError(
+                f"unknown kv_dtype {self.kv_dtype!r} "
+                "(expected 'f32', 'bf16', or 'int8')"
+            )
+        _unserved(self, "layout", ("contiguous",), PAGED)
+        _unserved(self, "page_size", (16,), PAGED)
+        _unserved(self, "n_pages", (None,), PAGED)
+        _unserved(self, "snapshots", (False,), RECURRENT)
+        _unserved(self, "host_spill", (None, False), PRESSURE)
+        _unserved(self, "kv_dtype", ("f32",), QUANT)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Serving-loop behaviour: ``steps_per_sync`` fused decode steps per
+    harvest sync.  Chunked prefill, prefix sharing, prefill budgets,
+    sampling and speculation come with later slices."""
+
+    steps_per_sync: int = 8
+    prefill_chunk: int = 1
+    prefix_sharing: bool = False
+    prefill_budget: int = 0
+    temperature: float = 0.0
+    top_k: int = 0
+    spec: Optional[Any] = None
+
+    def __post_init__(self) -> None:
+        if self.steps_per_sync < 1:
+            raise ValueError("steps_per_sync must be >= 1")
+        if self.prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        if self.prefill_budget < 0:
+            raise ValueError("prefill_budget must be >= 0 (0 = unbounded)")
+        if self.top_k < 0:
+            raise ValueError("top_k must be >= 0 (0 = full vocab)")
+        _unserved(self, "prefill_chunk", (1,), PAGED)
+        _unserved(self, "prefill_budget", (0,), PAGED)
+        _unserved(self, "prefix_sharing", (False,), SHARING)
+        _unserved(self, "temperature", (0.0,), SAMPLING)
+        _unserved(self, "top_k", (0,), SAMPLING)
+        _unserved(self, "spec", (None,), SPEC)

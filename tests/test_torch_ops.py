@@ -1,0 +1,153 @@
+"""The port's op layer on the CPU: each plain PyTorch version against the
+JAX Pallas kernel (interpret mode) and the JAX oracle on the same numpy
+inputs, at f32 with atol = rtol = 1e-5 (summation order is the only
+difference); plus the backend policy and the op registry."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import registry as jax_registry  # noqa: E402
+from repro.kernels import ops as jax_ops  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.eltwise import bias_add_rows_pallas  # noqa: E402
+from repro.kernels.flash_attention import flash_decode_pallas  # noqa: E402
+from repro.kernels.gemm import gemm_pallas  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm_pallas  # noqa: E402
+from repro_torch.core import policy  # noqa: E402
+from repro_torch.core.registry import coverage, list_ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.eltwise import bias_add_rows  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_decode  # noqa: E402
+from repro_torch.kernels.gemm import gemm  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _rnd(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _close(port, *jax_outs):
+    for want in jax_outs:
+        np.testing.assert_allclose(port.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("m,k,n,nt", [
+    (4, 64, 128, False),    # a projection at the smoke width
+    (3, 50, 70, False),     # ragged edges
+    (4, 64, 128, True),     # the tied head: B is embed.T, a strided view
+])
+def test_gemm_matches_jax(m, k, n, nt):
+    rng = np.random.default_rng(0)
+    a = _rnd(rng, m, k)
+    b = _rnd(rng, n, k).T if nt else _rnd(rng, k, n)
+    tb = torch.from_numpy(np.ascontiguousarray(b.T)).T if nt \
+        else torch.from_numpy(b)
+    got = ref.gemm(torch.from_numpy(a), tb)
+    _close(got, gemm_pallas(jnp.asarray(a), jnp.asarray(b), interpret=True),
+           jax_ref.gemm(jnp.asarray(a), jnp.asarray(b)))
+
+
+@pytest.mark.parametrize("shape", [(5, 64), (2, 3, 64), (1, 48)])
+def test_rmsnorm_matches_jax(shape):
+    rng = np.random.default_rng(1)
+    x = _rnd(rng, *shape)
+    w = (1 + 0.1 * _rnd(rng, shape[-1])).astype(np.float32)
+    got = ref.rmsnorm(torch.from_numpy(x), torch.from_numpy(w))
+    _close(got,
+           rmsnorm_pallas(jnp.asarray(x), jnp.asarray(w), interpret=True),
+           jax_ref.rmsnorm(jnp.asarray(x), jnp.asarray(w)))
+
+
+@pytest.mark.parametrize("m,n", [(4, 64), (3, 16), (7, 130)])
+def test_bias_add_rows_matches_jax(m, n):
+    rng = np.random.default_rng(2)
+    x, v = _rnd(rng, m, n), _rnd(rng, n)
+    got = ref.bias_add_rows(torch.from_numpy(x), torch.from_numpy(v))
+    _close(got,
+           bias_add_rows_pallas(jnp.asarray(x), jnp.asarray(v),
+                                interpret=True),
+           jax_ref.bias_add_rows(jnp.asarray(x), jnp.asarray(v)))
+
+
+@pytest.mark.parametrize("lens,window,hkv", [
+    ([1, 17, 40], None, 1),      # per-row lengths, GQA group of 4
+    ([40, 9, 23], 16, 1),        # sliding window
+    (29, None, 2),               # scalar cache_len, two kv heads
+])
+def test_attention_decode_matches_jax(lens, window, hkv):
+    rng = np.random.default_rng(3)
+    b, hq, d, smax = 3, 4, 16, 40
+    q = _rnd(rng, b, hq, d)
+    kc, vc = _rnd(rng, b, smax, hkv, d), _rnd(rng, b, smax, hkv, d)
+    cl = np.asarray(lens, np.int32)
+    got = ref.attention_decode(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        torch.from_numpy(cl), window=window)
+    jq, jk, jv, jl = map(jnp.asarray, (q, kc, vc, cl))
+    _close(got,
+           flash_decode_pallas(jq, jk, jv, jl, window=window, interpret=True),
+           jax_ops._attention_decode_ref(jq, jk, jv, jl, window=window))
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    """A kernel wrapper given CPU tensors computes its plain version (the
+    CUDA kernel only ever sees CUDA tensors)."""
+    rng = np.random.default_rng(4)
+    a, b = torch.from_numpy(_rnd(rng, 3, 8)), torch.from_numpy(_rnd(rng, 8, 5))
+    w = torch.from_numpy(_rnd(rng, 8))
+    q = torch.from_numpy(_rnd(rng, 2, 4, 8))
+    kc = torch.from_numpy(_rnd(rng, 2, 6, 1, 8))
+    assert torch.equal(gemm(a, b), ref.gemm(a, b))
+    assert torch.equal(rmsnorm(a, w), ref.rmsnorm(a, w))
+    assert torch.equal(bias_add_rows(a, w), ref.bias_add_rows(a, w))
+    assert torch.equal(flash_decode(q, kc, kc, 4),
+                       ref.attention_decode(q, kc, kc, 4))
+    assert gemm.launches == rmsnorm.launches == 0
+    assert bias_add_rows.launches == flash_decode.launches == 0
+
+
+def test_policy_device_decides():
+    """auto: the tensor's device decides; hopper on a CPU tensor raises;
+    reference is always allowed; the scoped stack beats the default."""
+    x = torch.ones(2, 4)
+    w = torch.ones(4)
+    assert not policy.use_hopper(x)
+    with policy.use_backend("hopper"):
+        with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+            ops.rmsnorm(x, w)
+        with policy.use_backend("reference"):
+            assert policy.current_backend() is policy.Backend.REFERENCE
+            assert torch.equal(ops.rmsnorm(x, w), ref.rmsnorm(x, w))
+    assert policy.current_backend() is policy.Backend.AUTO
+    with pytest.raises(ValueError, match="unknown backend"):
+        policy.Backend.parse("pallas")
+
+
+def test_policy_env_and_default(monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_BACKEND", "reference")
+    assert policy.current_backend() is policy.Backend.REFERENCE
+    # the JAX package's variable means nothing to the port
+    monkeypatch.delenv("REPRO_TORCH_BACKEND")
+    monkeypatch.setenv("REPRO_BACKEND", "pallas")
+    assert policy.current_backend() is policy.Backend.AUTO
+    policy.set_default_backend("hopper")
+    try:
+        assert policy.current_backend() is policy.Backend.HOPPER
+        with pytest.raises(RuntimeError):
+            ops.matmul(torch.ones(1, 2), torch.ones(2, 3))
+    finally:
+        policy.set_default_backend(None)
+
+
+def test_registry_covers_the_slice():
+    cov = coverage()
+    assert set(cov) == {"matmul", "bias_add_rows", "rmsnorm",
+                        "attention_decode"}
+    assert all(c == {"reference": True, "hopper": True} for c in cov.values())
+    # the port's op names are the JAX registry's: the gap is computed
+    assert set(list_ops()) <= set(jax_registry.list_ops())
