@@ -10,16 +10,22 @@ failure (non-zero exit, no result line):
 1. device   — CUDA present, sm_90; prints nvidia-smi's name and power limit.
 2. build    — compiles every ``csrc/*.cu`` kernel with nvcc for sm_90a.
 3. kernels  — each kernel against its plain PyTorch version at the main
-              path's shapes (bf16 and f32), with CUDA-event timings of the
-              kernel, the plain version and one library call as yardstick.
+              paths' shapes (bf16 and f32), with CUDA-event timings of the
+              kernel, the plain version and one library call as yardstick;
+              an all-unmapped paged row must come out as zeros.
 4. serving  — full-width qwen2.5-3b (36 layers, bf16, seeded random weights
               with non-zero biases) through the port's ServingEngine on the
-              hopper backend; the fused decode loop runs under
-              ``torch.cuda.set_sync_debug_mode("error")``; launch counts
-              must be 253 / 73 / 108 / 36 per decode step; the first
+              hopper backend, three times: the paged pool with chunked
+              prefill (C = 16), the contiguous slab token by token, and the
+              contiguous slab with chunked prefill.  The prefill and decode
+              loops run under ``torch.cuda.set_sync_debug_mode("error")``;
+              launch counts must be 253 / 73 / 108 per prefill and per
+              decode step, plus 36 of the layout's chunk kernel per prefill
+              step and 36 of its decode kernel per decode step; the first
               steps' logits are held against the reference backend.
 5. f32      — full width at 2 layers in f32: hopper and reference token
-              streams must be identical.
+              streams must be identical for {contiguous, paged} x
+              {prefill chunk 1, 16}.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -86,6 +92,9 @@ def main() -> int:
     launches = phase_serving(torch)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if not k["launches"]:
+            raise SystemExit(f"chip_smoke: {k['name']} never launched on "
+                             "a serving path")
 
     # ---------------------------------------------------------------- 5
     phase_f32(torch)
@@ -146,7 +155,12 @@ def phase_kernels(torch):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.eltwise import bias_add_rows
-    from repro_torch.kernels.flash_attention import flash_decode
+    from repro_torch.kernels.flash_attention import (
+        flash_decode,
+        flash_decode_paged,
+        flash_prefill_chunk,
+        flash_prefill_chunk_paged,
+    )
     from repro_torch.kernels.gemm import gemm
     from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -169,18 +183,22 @@ def phase_kernels(torch):
 
     # bf16 tolerance: one bf16 ulp at the largest magnitude (both sides
     # round the same f32 value; a different summation order moves it by at
-    # most one rounding step).  flash_decode rounds p to bf16 only in the
-    # plain version: two ulps.  f32: summation order over K terms.
+    # most one rounding step).  The attention kernels round p to bf16 only
+    # in the plain version: two ulps.  f32: summation order over K terms.
+    attn = ("flash_decode", "flash_decode_paged", "flash_prefill_chunk",
+            "flash_prefill_chunk_paged")
     TOL = {("bfloat16", "gemm"): 2 ** -7, ("bfloat16", "rmsnorm"): 2 ** -7,
            ("bfloat16", "bias_add_rows"): 0.0,
-           ("bfloat16", "flash_decode"): 2 ** -6,
            ("float32", "gemm"): 1e-5, ("float32", "rmsnorm"): 1e-6,
-           ("float32", "bias_add_rows"): 0.0,
-           ("float32", "flash_decode"): 1e-5}
+           ("float32", "bias_add_rows"): 0.0}
+    TOL.update({("bfloat16", n): 2 ** -6 for n in attn})
+    TOL.update({("float32", n): 1e-5 for n in attn})
     cfg_d, d_ff, vocab = 2048, 11008, 151936
     rows = []          # one per (kernel, case)
 
-    def run(kernel, case, dtype, count, kfn, pfn, lfn, nbytes, flops):
+    def run(kernel, case, dtype, step, count, kfn, pfn, lfn, nbytes, flops):
+        """``count``: launches of this case in one bf16 ``step``
+        ("decode" or "prefill") of the serving phase at B = 4."""
         name = kernel.__name__
         err = check(f"{name} {case} {dtype}", kfn(), pfn(),
                     TOL[(str(dtype).split(".")[1], name)])
@@ -188,115 +206,232 @@ def phase_kernels(torch):
         ms, p_ms = timer(kfn), timer(pfn)
         l_ms = timer(lfn) if lfn is not None else None
         b_ms, by = bound_ms(nbytes, flops, dt)
-        rows.append(dict(name=name, case=case, dtype=dt, count=count,
-                         err=err, ms=ms, plain_ms=p_ms, library_ms=l_ms,
-                         bound_ms=b_ms, bound_by=by))
+        rows.append(dict(name=name, case=case, dtype=dt, step=step,
+                         count=count, err=err, ms=ms, plain_ms=p_ms,
+                         library_ms=l_ms, bound_ms=b_ms, bound_by=by))
         lib = f"{l_ms:.4f}" if l_ms is not None else "n/a"
-        print(f"[3 kernels] {name:14s} {case:34s} {dt:8s} x{count:<3d} "
-              f"{ms:.4f} ms  bound {b_ms:.4f} ms ({by})  plain {p_ms:.4f} ms"
-              f"  library {lib} ms  max_abs_err {err:.3g}", flush=True)
+        print(f"[3 kernels] {name:25s} {case:44s} {dt:8s} {step:7s} "
+              f"x{count:<3d} {ms:.4f} ms  bound {b_ms:.4f} ms ({by})  plain "
+              f"{p_ms:.4f} ms  library {lib} ms  max_abs_err {err:.3g}",
+              flush=True)
 
+    hq, hkv, hd, smax, page, c = 16, 2, 128, 128, 16, 16
+    lens_l = [96, 64, 40, 17]
+    # the chunk cases: the last chunk of each row's prompt, ending at the
+    # decode lengths -- two full chunks, a partial one and a width-1 row
+    start_l, width_l = [80, 48, 32, 16], [16, 16, 8, 1]
+    maxb = smax // page
     for dtype in (torch.bfloat16, torch.float32):
         es = torch.tensor([], dtype=dtype).element_size()
         a = rnd((B, cfg_d), dtype)
         h = rnd((B, d_ff), dtype)
-        # (case, a, b, decode-step count); weights at init scale
+        a64 = rnd((B * c, cfg_d), dtype)
+        h64 = rnd((B * c, d_ff), dtype)
+        w_qo = rnd((cfg_d, cfg_d), dtype, cfg_d ** -0.5)
+        w_kv = rnd((cfg_d, 256), dtype, cfg_d ** -0.5)
+        w_gi = rnd((cfg_d, d_ff), dtype, cfg_d ** -0.5)
+        w_o = rnd((d_ff, cfg_d), dtype, d_ff ** -0.5)
+        # (case, a, b, step, count per step); weights at init scale
         gemms = [
-            ("wq,wo 4x2048 @ 2048x2048", a, rnd((cfg_d, cfg_d), dtype,
-                                                cfg_d ** -0.5), 36 * 2),
-            ("wk,wv 4x2048 @ 2048x256", a, rnd((cfg_d, 256), dtype,
-                                               cfg_d ** -0.5), 36 * 2),
-            ("wg,wi 4x2048 @ 2048x11008", a, rnd((cfg_d, d_ff), dtype,
-                                                 cfg_d ** -0.5), 36 * 2),
-            ("wo 4x11008 @ 11008x2048", h, rnd((d_ff, cfg_d), dtype,
-                                               d_ff ** -0.5), 36),
+            ("wq,wo 4x2048 @ 2048x2048", a, w_qo, "decode", 36 * 2),
+            ("wk,wv 4x2048 @ 2048x256", a, w_kv, "decode", 36 * 2),
+            ("wg,wi 4x2048 @ 2048x11008", a, w_gi, "decode", 36 * 2),
+            ("wo 4x11008 @ 11008x2048", h, w_o, "decode", 36),
             ("head 4x2048 @ embed.T (NT)", a,
-             rnd((vocab, cfg_d), dtype, 0.02).T, 1),
+             rnd((vocab, cfg_d), dtype, 0.02).T, "decode", 1),
+            # the chunk's projections: M = B * C = 64 rows
+            ("wq,wo 64x2048 @ 2048x2048", a64, w_qo, "prefill", 36 * 2),
+            ("wk,wv 64x2048 @ 2048x256", a64, w_kv, "prefill", 36 * 2),
+            ("wg,wi 64x2048 @ 2048x11008", a64, w_gi, "prefill", 36 * 2),
+            ("wo 64x11008 @ 11008x2048", h64, w_o, "prefill", 36),
         ]
-        for case, x, w, count in gemms:
+        for case, x, w, step, count in gemms:
             m, k = x.shape
             n = w.shape[1]
-            run(gemm, case, dtype, count,
+            run(gemm, case, dtype, step, count,
                 lambda x=x, w=w: gemm(x, w), lambda x=x, w=w: ref.gemm(x, w),
                 lambda x=x, w=w: torch.matmul(x, w),
                 (m * k + k * n + m * n) * es, 2.0 * m * n * k)
-        del gemms
+        del gemms, w_qo, w_kv, w_gi, w_o
         wn = (1 + 0.1 * rnd((cfg_d,), torch.float32)).to(dtype)
-        run(rmsnorm, "4x2048", dtype, 73,
+        run(rmsnorm, "4x2048", dtype, "decode", 73,
             lambda: rmsnorm(a, wn), lambda: ref.rmsnorm(a, wn),
             lambda: F.rms_norm(a, (cfg_d,), wn, 1e-6),
             (2 * B * cfg_d + cfg_d) * es, 4.0 * B * cfg_d)
         for n, count in ((2048, 36), (256, 72)):
             mm, v = rnd((B, n), dtype), rnd((n,), dtype, 0.1)
-            run(bias_add_rows, f"4x{n} + {n}", dtype, count,
+            run(bias_add_rows, f"4x{n} + {n}", dtype, "decode", count,
                 lambda mm=mm, v=v: bias_add_rows(mm, v),
                 lambda mm=mm, v=v: ref.bias_add_rows(mm, v),
                 lambda mm=mm, v=v: mm + v,
                 (2 * B * n + n) * es, 1.0 * B * n)
-        hq, hkv, hd, smax = 16, 2, 128, 128
-        lens_l = [96, 64, 40, 17]
+
+        # -- attention: the contiguous cache and a shuffled page pool that
+        # holds the same keys (every block below a row's length mapped)
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        start = torch.tensor(start_l, dtype=torch.int32, device="cuda")
+        width = torch.tensor(width_l, dtype=torch.int32, device="cuda")
         q = rnd((B, hq, hd), dtype)
+        qc = rnd((B, c, hq, hd), dtype)
         kc, vc = rnd((B, smax, hkv, hd), dtype), rnd((B, smax, hkv, hd), dtype)
-        mask = (torch.arange(smax, device="cuda")[None, :]
-                < lens[:, None])[:, None, None, :]
-        qs, ks, vs = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
-        live = sum(lens_l)
+        n_pages = 2 * B * maxb
+        ids = torch.randperm(n_pages, generator=gen, device="cuda").int()
+        bt = torch.full((B, maxb), -1, dtype=torch.int32, device="cuda")
+        kp = rnd((n_pages + 1, page, hkv, hd), dtype)
+        vp = rnd((n_pages + 1, page, hkv, hd), dtype)
+        at = 0
+        for i, n in enumerate(lens_l):
+            nb = -(-n // page)
+            bt[i, :nb] = ids[at: at + nb]
+            at += nb
+        # the library yardstick reads a contiguous copy of the pages: the
+        # gather runs once, outside the timed call
+        kg = ref._gather_pages(kp, bt, B).transpose(1, 2)
+        vg = ref._gather_pages(vp, bt, B).transpose(1, 2)
+        kpos = torch.arange(smax, device="cuda")
+        qpos = start[:, None] + torch.minimum(
+            torch.arange(c, device="cuda")[None, :], width[:, None] - 1)
+        qs, qcs = q[:, :, None, :], qc.transpose(1, 2)
+        ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)
+        bt_bytes = B * maxb * 4
         for window in (None, 32):
-            wmask = mask if window is None else mask & (
-                torch.arange(smax, device="cuda")[None, :]
-                >= (lens[:, None] - window))[:, None, None, :]
-            keys = live if window is None else sum(min(n, window)
-                                                   for n in lens_l)
-            run(flash_decode,
-                f"q 4x16x128, cache 4x128x2x128"
-                + (f" win {window}" if window else ""), dtype,
-                36 if window is None else 0,
+            dmask = kpos[None, :] < lens[:, None]
+            cmask = kpos[None, None, :] <= qpos[:, :, None]
+            if window is not None:
+                dmask = dmask & (kpos[None, :] >= lens[:, None] - window)
+                cmask = cmask & (kpos[None, None, :]
+                                 > qpos[:, :, None] - window)
+            dmask, cmask = dmask[:, None, None, :], cmask[:, None, :, :]
+            win = f" win {window}" if window else ""
+            count = 36 if window is None else 0
+            # decode: every live key read once
+            keys = sum(n if window is None else min(n, window)
+                       for n in lens_l)
+            dbytes = (2 * B * hq * hd + 2 * keys * hkv * hd) * es
+            dflops = 4.0 * keys * hq * hd
+            run(flash_decode, f"q 4x16x128, cache 4x128x2x128{win}", dtype,
+                "decode", count,
                 lambda w=window: flash_decode(q, kc, vc, lens, window=w),
                 lambda w=window: ref.attention_decode(q, kc, vc, lens,
                                                       window=w),
-                lambda m_=wmask: F.scaled_dot_product_attention(
+                lambda m_=dmask: F.scaled_dot_product_attention(
                     qs, ks, vs, attn_mask=m_, enable_gqa=True),
-                (2 * B * hq * hd + 2 * keys * hkv * hd) * es,
-                4.0 * keys * hq * hd)
-        del kc, vc
+                dbytes, dflops)
+            run(flash_decode_paged,
+                f"q 4x16x128, pool {n_pages}+1x16x2x128{win}", dtype,
+                "decode", count,
+                lambda w=window: flash_decode_paged(q, kp, vp, lens, bt,
+                                                    window=w),
+                lambda w=window: ref.attention_decode_paged(q, kp, vp, lens,
+                                                            bt, window=w),
+                lambda m_=dmask: F.scaled_dot_product_attention(
+                    qs, kg, vg, attn_mask=m_, enable_gqa=True),
+                dbytes + bt_bytes, dflops)
+            # chunk: the keys the tile union needs, once; every query row
+            # (padding rows alias the last real one) over its valid keys
+            ckeys = sum(s0 + w0 - (0 if window is None
+                                   else max(0, s0 - window + 1))
+                        for s0, w0 in zip(start_l, width_l))
+            nvalid = cmask.sum().item()
+            cbytes = (2 * B * c * hq * hd + 2 * ckeys * hkv * hd) * es
+            cflops = 4.0 * nvalid * hq * hd
+            run(flash_prefill_chunk, f"q 4x16x16x128, cache 4x128x2x128{win}",
+                dtype, "prefill", count,
+                lambda w=window: flash_prefill_chunk(qc, kc, vc, start, width,
+                                                     window=w),
+                lambda w=window: ref.attention_prefill_chunk(
+                    qc, kc, vc, start, width, window=w),
+                lambda m_=cmask: F.scaled_dot_product_attention(
+                    qcs, ks, vs, attn_mask=m_, enable_gqa=True),
+                cbytes, cflops)
+            run(flash_prefill_chunk_paged,
+                f"q 4x16x16x128, pool {n_pages}+1x16x2x128{win}", dtype,
+                "prefill", count,
+                lambda w=window: flash_prefill_chunk_paged(
+                    qc, kp, vp, start, width, bt, window=w),
+                lambda w=window: ref.attention_prefill_chunk_paged(
+                    qc, kp, vp, start, width, bt, window=w),
+                lambda m_=cmask: F.scaled_dot_product_attention(
+                    qcs, kg, vg, attn_mask=m_, enable_gqa=True),
+                cbytes + bt_bytes, cflops)
+        # a row whose pages are all unmapped (a released row) returns zeros
+        bt_u = bt.clone()
+        bt_u[B - 1] = -1
+        for name, fn in (
+                ("flash_decode_paged",
+                 lambda t: flash_decode_paged(q, kp, vp, lens, t)),
+                ("flash_prefill_chunk_paged",
+                 lambda t: flash_prefill_chunk_paged(qc, kp, vp, start,
+                                                     width, t))):
+            got, full = fn(bt_u), fn(bt)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(got).all() and not got[B - 1].any()
+                    and torch.equal(got[: B - 1], full[: B - 1])):
+                raise SystemExit(f"chip_smoke: {name}: an all-unmapped row "
+                                 "is not zeros, or it moved the other rows")
+        print(f"[3 kernels] all-unmapped row: zeros from both paged kernels "
+              f"({dtype})", flush=True)
+        del kc, vc, kp, vp, kg, vg
         torch.cuda.empty_cache()
 
-    # per-kernel totals over one bf16 decode step at B = 4
+    # per-kernel totals over one bf16 step at B = 4: a decode step for the
+    # decode-path kernels, a prefill step (C = 16) for the chunk kernels
     sources = {
         "gemm": ("src/repro_torch/kernels/csrc/gemm.cu",
-                 "src/repro/kernels/gemm.py:52"),
+                 "src/repro/kernels/gemm.py:52", "decode"),
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                    "src/repro/kernels/rmsnorm.py:29"),
+                    "src/repro/kernels/rmsnorm.py:29", "decode"),
         "bias_add_rows": ("src/repro_torch/kernels/csrc/eltwise.cu",
-                          "src/repro/kernels/eltwise.py:98"),
+                          "src/repro/kernels/eltwise.py:98", "decode"),
         "flash_decode": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                         "src/repro/kernels/flash_attention.py:459"),
+                         "src/repro/kernels/flash_attention.py:459",
+                         "decode"),
+        "flash_decode_paged": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:547", "decode"),
+        "flash_prefill_chunk": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:809", "prefill"),
+        "flash_prefill_chunk_paged": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:909", "prefill"),
     }
-    out = []
-    for name, (src, tpu) in sources.items():
-        sel = [r for r in rows if r["name"] == name
+
+    def totals(name, step):
+        sel = [r for r in rows if r["name"] == name and r["step"] == step
                and r["dtype"] == "bfloat16" and r["count"]]
         tot = {key: sum(r[key] * r["count"] for r in sel)
                for key in ("ms", "plain_ms", "bound_ms")}
-        lib = (sum(r["library_ms"] * r["count"] for r in sel)
-               if all(r["library_ms"] is not None for r in sel) else None)
-        t_bytes = sum(r["bound_ms"] * r["count"] for r in sel
-                      if r["bound_by"] == "bytes")
+        tot["library_ms"] = (
+            sum(r["library_ms"] * r["count"] for r in sel)
+            if all(r["library_ms"] is not None for r in sel) else None)
+        tot["bytes_ms"] = sum(r["bound_ms"] * r["count"] for r in sel
+                              if r["bound_by"] == "bytes")
+        return tot
+
+    out = []
+    for name, (src, tpu, step) in sources.items():
+        tot = totals(name, step)
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": 0,
             "max_abs_err": max(r["err"] for r in rows if r["name"] == name),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
-            "bound_by": "bytes" if t_bytes >= tot["bound_ms"] / 2
+            "bound_by": "bytes" if tot["bytes_ms"] >= tot["bound_ms"] / 2
             else "operations",
-            "library_ms": lib,
+            "library_ms": tot["library_ms"],
         })
-        print(f"[3 kernels] {name}: one bf16 decode step at B={B}: "
+        lib = tot["library_ms"]
+        print(f"[3 kernels] {name}: one bf16 {step} step at B={B}: "
               f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
               f"{tot['plain_ms']:.3f} ms, library "
               f"{lib if lib is None else round(lib, 3)} ms", flush=True)
+    tot = totals("gemm", "prefill")
+    print(f"[3 kernels] gemm: one bf16 prefill step at M={B * c} (the "
+          f"chunk's projections; the head runs at M={B}): {tot['ms']:.3f} ms"
+          f" vs bound {tot['bound_ms']:.3f} ms, plain {tot['plain_ms']:.3f}"
+          f" ms, library {tot['library_ms']:.3f} ms", flush=True)
     return out
 
 
@@ -328,25 +463,150 @@ def requests(n, lo, hi, vocab, seed):
             for _ in range(n)]
 
 
-KERNELS = ("gemm", "rmsnorm", "bias_add_rows", "flash_decode")
+KERNELS = ("gemm", "rmsnorm", "bias_add_rows", "flash_decode",
+           "flash_decode_paged", "flash_prefill_chunk",
+           "flash_prefill_chunk_paged")
+# launches per prefill step and per decode step at 36 layers: 7 projections
+# and 2 norms per layer plus the head and the final norm; 3 bias adds
 PER_STEP = {"gemm": 36 * 7 + 1, "rmsnorm": 36 * 2 + 1,
-            "bias_add_rows": 36 * 3, "flash_decode": 36}
+            "bias_add_rows": 36 * 3}
+# the attention kernels of each layout: (decode step, prefill step)
+ATTN = {"contiguous": ("flash_decode", "flash_prefill_chunk"),
+        "paged": ("flash_decode_paged", "flash_prefill_chunk_paged")}
+PAGE, CHUNK, GEN_LEN, MAX_LEN = 16, 16, 32, 128
 
 
 def kernel_fns():
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.eltwise import bias_add_rows
-    from repro_torch.kernels.flash_attention import flash_decode
     from repro_torch.kernels.gemm import gemm
     from repro_torch.kernels.rmsnorm import rmsnorm
-    return {"gemm": gemm, "rmsnorm": rmsnorm, "bias_add_rows": bias_add_rows,
-            "flash_decode": flash_decode}
+    fns = {"gemm": gemm, "rmsnorm": rmsnorm, "bias_add_rows": bias_add_rows}
+    fns.update({name: getattr(FA, name) for name in KERNELS[3:]})
+    return fns
+
+
+def serve_path(torch, model, params, reqs, layout, chunk):
+    """Serve ``reqs`` on the hopper backend with the launch counts set to
+    0 just before and read just after; the prefill and decode loops may
+    not synchronise with the host.  Returns (launches, outputs)."""
+    from repro_torch.core.policy import use_backend
+    from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
+
+    eng = ServingEngine(model, params, batch=B, max_len=MAX_LEN,
+                        cache=CacheConfig(layout=layout, page_size=PAGE),
+                        config=EngineConfig(steps_per_sync=8,
+                                            prefill_chunk=chunk))
+    for toks in reqs:
+        eng.submit(toks, GEN_LEN)
+    fns = kernel_fns()
+    tag = f"[4 serving] {layout}, prefill chunk {chunk}:"
+    with use_backend("hopper"):
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        t_pre = t_dec = t_harvest = 0.0
+        while eng.busy():
+            eng.admit()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t1 = time.perf_counter()
+                eng.prefill()
+                t2 = time.perf_counter()
+                eng.decode()
+                t3 = time.perf_counter()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            eng.harvest()
+            t_pre += t2 - t1
+            t_dec += t3 - t2
+            t_harvest += time.perf_counter() - t3
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in fns.items()}
+    s = eng.stats()
+    pre, dec = eng.prefill_steps, eng.steps
+    print(f"{tag} {len(reqs)} requests (prompts "
+          f"{min(len(r) for r in reqs)}-{max(len(r) for r in reqs)}), gen "
+          f"{GEN_LEN}, batch {B}: {pre} prefill + {dec} decode steps in "
+          f"{wall:.2f} s = {1e3 * wall / (pre + dec):.2f} ms/step, "
+          f"{s['generated_tokens'] / wall:.1f} generated tok/s, mean TTFT "
+          f"{1e3 * s['mean_ttft_s']:.1f} ms", flush=True)
+    # prefill() and decode() only enqueue: if the host is the bottleneck,
+    # the harvest finds the device nearly done; if the device is, it waits
+    print(f"{tag} host: prefill enqueue "
+          f"{1e3 * t_pre / pre if pre else 0.0:.2f} ms/step, decode enqueue "
+          f"{1e3 * t_dec / dec:.2f} ms/step, harvest wait "
+          f"{1e3 * t_harvest / (pre + dec):.2f} ms/step", flush=True)
+    if "kv_pages" in s:
+        print(f"{tag} peak pages {int(s['kv_pages_peak'])} of "
+              f"{int(s['kv_pages'])} "
+              f"({s['kv_resident_bytes_peak'] / 2 ** 20:.1f} MiB of KV)",
+              flush=True)
+    print(f"{tag} launches {launches}", flush=True)
+    want = {name: 0 for name in KERNELS}
+    want.update({name: n * (pre + dec) for name, n in PER_STEP.items()})
+    k_dec, k_pre = ATTN[layout]
+    want[k_dec] = 36 * dec
+    want[k_pre] = 36 * pre
+    if launches != want or (chunk > 1) != (pre > 0):
+        raise SystemExit(f"chip_smoke: {layout} chunk {chunk}: launches "
+                         f"{launches}, expected {want} for {pre} prefill + "
+                         f"{dec} decode steps")
+    outs = eng.outputs
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(o) != GEN_LEN or o.min() < 0 or o.max() >= model.cfg.vocab_size
+            for o in outs.values()):
+        raise SystemExit(f"chip_smoke: {layout} chunk {chunk}: serving "
+                         "outputs malformed")
+    return launches, outs
+
+
+def check_logits(torch, model, params, reqs, layout):
+    """The first steps' logits, hopper vs reference, same inputs: one
+    16-token prefill chunk then 4 decode steps (paged), or 6 decode steps
+    (contiguous)."""
+    from repro_torch.core.policy import use_backend
+
+    toks = torch.as_tensor(
+        np.stack([np.resize(r, CHUNK + 4) for r in reqs[:B]]), device="cuda")
+    logits = {}
+    for backend in ("hopper", "reference"):
+        with use_backend(backend):
+            if layout == "paged":
+                state = model.init_decode_state(
+                    B, MAX_LEN, per_row_pos=True, layout="paged",
+                    page_size=PAGE)
+                lg, state = model.prefill_chunk(
+                    params, state, toks[:, :CHUNK],
+                    torch.full((B,), CHUNK, device="cuda"))
+                steps_l = [lg.float()]
+                feed = toks[:, CHUNK:]
+            else:
+                state = model.init_decode_state(B, MAX_LEN, per_row_pos=True)
+                steps_l, feed = [], toks[:, :6]
+            for j in range(feed.shape[1]):
+                lg, state = model.decode_step(params, state, feed[:, j])
+                steps_l.append(lg.float())
+            logits[backend] = torch.stack(steps_l)
+    hop, refl = logits["hopper"], logits["reference"]
+    err = (hop - refl).abs().max().item()
+    scale = refl.abs().max().item()
+    agree = (hop.argmax(-1) == refl.argmax(-1)).float().mean().item()
+    print(f"[4 serving] {layout}: first {hop.shape[0]} steps' logits vs "
+          f"reference: max_abs_err {err:.4g} (max|logit| {scale:.4g}), top-1 "
+          f"agreement {agree:.3f}", flush=True)
+    # bf16 through 36 layers: the two sides round at different places
+    # (the attention kernels' p, rmsnorm's rsqrt), so hold them to 5% of
+    # the scale
+    if not (np.isfinite(err) and err <= 0.05 * scale):
+        raise SystemExit(f"chip_smoke: {layout}: bf16 logits differ by "
+                         f"{err:.4g}")
 
 
 def phase_serving(torch):
     from repro_torch.configs.registry import get_arch
-    from repro_torch.core.policy import use_backend
     from repro_torch.models.model import build_model
-    from repro_torch.serving import EngineConfig, ServingEngine
 
     cfg = get_arch("qwen2.5-3b")
     model = build_model(cfg)
@@ -358,84 +618,26 @@ def phase_serving(torch):
           f"vocab {cfg.vocab_size}, {cfg.dtype}; params in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     reqs = requests(8, 16, 64, cfg.vocab_size, SEED)
-    gen_len, max_len = 32, 128
-    eng = ServingEngine(model, params, batch=B, max_len=max_len,
-                        config=EngineConfig(steps_per_sync=8))
-    for toks in reqs:
-        eng.submit(toks, gen_len)
-    fns = kernel_fns()
-    with use_backend("hopper"):
-        for fn in fns.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        t_enqueue = t_harvest = 0.0
-        while eng.busy():
-            eng.admit()
-            # the fused decode loop may not synchronise with the host
-            torch.cuda.set_sync_debug_mode("error")
-            t1 = time.perf_counter()
-            try:
-                eng.decode()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            t2 = time.perf_counter()
-            eng.harvest()
-            t_enqueue += t2 - t1
-            t_harvest += time.perf_counter() - t2
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in fns.items()}
-    s = eng.stats()
-    steps = eng.steps
-    print(f"[4 serving] {len(reqs)} requests (prompts "
-          f"{min(len(r) for r in reqs)}-{max(len(r) for r in reqs)}), gen "
-          f"{gen_len}, batch {B}: {steps} decode steps in {wall:.2f} s = "
-          f"{1e3 * wall / steps:.2f} ms/step, {s['generated_tokens'] / wall:.1f}"
-          f" generated tok/s, mean TTFT {1e3 * s['mean_ttft_s']:.1f} ms",
-          flush=True)
-    # decode() only enqueues: if the host is the bottleneck, the harvest
-    # finds the device nearly done; if the device is, the harvest waits
-    print(f"[4 serving] host: decode enqueue {1e3 * t_enqueue / steps:.2f} "
-          f"ms/step, harvest wait {1e3 * t_harvest / steps:.2f} ms/step",
-          flush=True)
-    print(f"[4 serving] launches {launches} over {steps} steps", flush=True)
-    for name in KERNELS:
-        if launches[name] != PER_STEP[name] * steps:
-            raise SystemExit(
-                f"chip_smoke: {name}: {launches[name]} launches, expected "
-                f"{PER_STEP[name]} x {steps} steps")
-    outs = eng.outputs
-    if sorted(outs) != list(range(len(reqs))) or any(
-            len(o) != gen_len or o.min() < 0 or o.max() >= cfg.vocab_size
-            for o in outs.values()):
-        raise SystemExit("chip_smoke: serving outputs malformed")
-
-    # the first decode steps' logits, hopper vs reference, same inputs
-    first = torch.as_tensor(np.stack([r[:6] for r in reqs[:B]]),
-                            device="cuda")
-    logits = {}
-    for backend in ("hopper", "reference"):
-        with use_backend(backend):
-            state = model.init_decode_state(B, max_len, per_row_pos=True)
-            steps_l = []
-            for j in range(first.shape[1]):
-                lg, state = model.decode_step(params, state, first[:, j])
-                steps_l.append(lg.float())
-            logits[backend] = torch.stack(steps_l)
-    hop, refl = logits["hopper"], logits["reference"]
-    err = (hop - refl).abs().max().item()
-    scale = refl.abs().max().item()
-    agree = (hop.argmax(-1) == refl.argmax(-1)).float().mean().item()
-    print(f"[4 serving] first {first.shape[1]} steps' logits vs reference: "
-          f"max_abs_err {err:.4g} (max|logit| {scale:.4g}), top-1 agreement "
-          f"{agree:.3f}", flush=True)
-    # bf16 through 36 layers: the two sides round at different places
-    # (flash_decode's p, rmsnorm's rsqrt), so hold them to 5% of the scale
-    if not (np.isfinite(err) and err <= 0.05 * scale):
-        raise SystemExit(f"chip_smoke: bf16 logits differ by {err:.4g}")
-    del params, eng, state, logits
+    total = {name: 0 for name in KERNELS}
+    streams = {}
+    # the slice-2 path first, then slice 1's, then the contiguous chunk
+    for layout, chunk in (("paged", CHUNK), ("contiguous", 1),
+                          ("contiguous", CHUNK)):
+        launches, streams[layout, chunk] = serve_path(
+            torch, model, params, reqs, layout, chunk)
+        for name in KERNELS:
+            total[name] += launches[name]
+    same = sum(np.array_equal(streams["paged", CHUNK][i],
+                              streams["contiguous", 1][i])
+               for i in range(len(reqs)))
+    print(f"[4 serving] bf16 streams, paged chunk {CHUNK} vs contiguous "
+          f"token by token: {same} of {len(reqs)} identical (bf16 rounds "
+          "differently per schedule; phase 5 holds f32)", flush=True)
+    for layout in ("paged", "contiguous"):
+        check_logits(torch, model, params, reqs, layout)
+    del params
     torch.cuda.empty_cache()
-    return launches
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -446,7 +648,7 @@ def phase_f32(torch):
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.policy import use_backend
     from repro_torch.models.model import build_model
-    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
 
     cfg = dataclasses.replace(get_arch("qwen2.5-3b"), n_layers=2,
                               dtype="float32")
@@ -454,20 +656,28 @@ def phase_f32(torch):
     params = model.init_params(SEED)
     perturb(torch, params, SEED + 1)
     reqs = requests(6, 8, 24, cfg.vocab_size, SEED + 2)
-    streams = {}
-    for backend in ("hopper", "reference"):
-        with use_backend(backend):
-            eng = ServingEngine(model, params, batch=B, max_len=64,
-                                config=EngineConfig(steps_per_sync=4))
-            for toks in reqs:
-                eng.submit(toks, 16)
-            streams[backend] = eng.run()
-    same = all(np.array_equal(streams["hopper"][i], streams["reference"][i])
-               for i in range(len(reqs)))
-    print(f"[5 f32] 2 layers at full width, {len(reqs)} requests x 16 tokens: "
-          f"hopper == reference token streams: {same}", flush=True)
-    if not same:
-        raise SystemExit("chip_smoke: f32 token streams differ")
+    for layout in ("contiguous", "paged"):
+        for chunk in (1, CHUNK):
+            streams = {}
+            for backend in ("hopper", "reference"):
+                with use_backend(backend):
+                    eng = ServingEngine(
+                        model, params, batch=B, max_len=64,
+                        cache=CacheConfig(layout=layout, page_size=PAGE),
+                        config=EngineConfig(steps_per_sync=4,
+                                            prefill_chunk=chunk))
+                    for toks in reqs:
+                        eng.submit(toks, 16)
+                    streams[backend] = eng.run()
+            same = all(np.array_equal(streams["hopper"][i],
+                                      streams["reference"][i])
+                       for i in range(len(reqs)))
+            print(f"[5 f32] 2 layers at full width, {layout}, prefill chunk "
+                  f"{chunk}, {len(reqs)} requests x 16 tokens: hopper == "
+                  f"reference token streams: {same}", flush=True)
+            if not same:
+                raise SystemExit(f"chip_smoke: f32 token streams differ "
+                                 f"({layout}, chunk {chunk})")
 
 
 if __name__ == "__main__":

@@ -47,12 +47,12 @@ _SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _F, _I, _P],
     # m, v, out, M, N, ldm, dtype, stream
     "repro_bias_add_rows": [_P, _P, _P, _I, _I, _L, _I, _P],
-    # q, k, v, lens, out, B, Smax, Hkv, G, D,
-    # q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh,
-    # window, scale, dtype, stream
-    "repro_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                           _I, _F, _I, _P],
+    # q, k, v, out, pos0, width, block_table, B, Hkv, G, C, D, n_keys,
+    # page, bt_sb, q_sb, q_sc, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+    # o_sb, o_sc, o_sh, window, scale, dtype, stream
+    "repro_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                        _L, _L, _L, _I, _F, _I, _P],
 }
 
 _LOCK = threading.Lock()

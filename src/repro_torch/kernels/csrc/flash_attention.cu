@@ -1,22 +1,45 @@
-// Decode attention over the contiguous KV cache: one query token per row,
-// q (B, Hq, D) against k/v (B, Smax, Hkv, D) read in place by their strides,
-// a per-row valid length (lens), an optional sliding window, f32 online
-// softmax, output in the storage dtype.
+// Attention over the KV cache for decode and chunked prefill, contiguous or
+// paged: C query tokens per row (C = 1 at decode), q (B, C, Hq, D) against
+// keys read in place by their strides, f32 online softmax, output in the
+// storage dtype.  One kernel template serves the four ported kernels:
 //
-// Replaces src/repro/kernels/flash_attention.py:flash_decode_pallas, whose
-// TPU grid (B, Hkv, S/bk) walks the key blocks in order on one core with the
-// softmax state in VMEM scratch, after transposing and padding the cache on
-// every call.  Here a block owns one (row, kv head) pair and the sequential
-// key axis becomes a loop inside the block; the GQA group (G = Hq/Hkv query
-// heads) is folded into the block's rows, so each K/V tile is loaded once
-// for all G heads.  Tiles that lie wholly past the valid length or before
-// the window are never visited, and a row with no valid key writes zeros
-// (the l == 0 guard).
+//   flash_decode               contiguous (B, Smax, Hkv, D), C = 1
+//   flash_decode_paged         page pool (P, page, Hkv, D) + block table, C = 1
+//   flash_prefill_chunk        contiguous, C query tokens at start .. start+C-1
+//   flash_prefill_chunk_paged  page pool + block table, C query tokens
 //
-// What bounds it on Hopper: bytes -- each live key and value is read once,
-// B * len * Hkv * D * 2 elements.  At decode the grid is only B * Hkv blocks
-// (8 at B = 4 for qwen2.5-3b), so the card is mostly idle during this
-// kernel; splitting the key axis across blocks (split-K) is later work.
+// Replaces src/repro/kernels/flash_attention.py:flash_decode_pallas,
+// flash_decode_paged_pallas, flash_prefill_chunk_pallas and
+// flash_prefill_chunk_paged_pallas.  Their TPU grids (B, Hkv, key blocks)
+// walk the key blocks in order on one core with the softmax state in VMEM
+// scratch, after transposing (and padding) the cache on every call, and the
+// paged ones pick each page in a BlockSpec index map from a scalar-prefetched
+// block table.  Here a block owns one (row, kv head, query-row tile) and the
+// sequential key axis becomes a loop inside the block:
+//
+//   * query rows: row r of the (row, kv head) pair is chunk token i = r / G
+//     and group head g = r % G, so the GQA group is folded into the rows and
+//     each K/V tile serves all of them.  A tile holds kRows = 8 rows (the
+//     whole group at decode for G <= 8); the third grid axis walks the
+//     G * C rows of a chunk in tiles (128 rows at qwen2.5-3b with C = 16).
+//   * positions: chunk token i sits at qpos = start + min(i, width - 1)
+//     (padding tokens alias the last real one, so every row keeps a finite
+//     score); decode passes the valid length instead, qpos = len - 1.  Key s
+//     is valid for a row when s <= qpos and, windowed, s > qpos - window.
+//     A tile walks keys only from its lowest row's window start to its
+//     highest row's qpos.
+//   * addresses: contiguous key s of row b is at b * k_sb + s * k_ss; paged,
+//     it is at bt[b, s / page] * k_sb + (s % page) * k_ss, and an unmapped
+//     block (-1) is masked.  The block loads its own table entries (no
+//     scalar prefetch): one thread per key of the tile resolves its offset
+//     into shared memory, and a tile with no live key is skipped.
+//   * a row with no valid key writes zeros (the l == 0 guard).
+//
+// What bounds it on Hopper: bytes -- each live key and value is read once
+// per query-row tile, B * keys * Hkv * D * 2 elements at decode.  The
+// scores and the PV product are scalar FMAs over shared-memory tiles; the
+// grid is only B * Hkv * ceil(G * C / 8) blocks (8 at decode, B = 4).
+// Tensor cores (mma.sync / wgmma), split-K and TMA are later work.
 #include "common.cuh"
 
 namespace {
@@ -26,32 +49,69 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 32;     // keys per tile: one per lane when scoring
 constexpr int kDMax = 128;  // head dim limit (checked by the wrapper)
-constexpr int kGMax = 8;    // query heads per kv head limit (wrapper-checked)
-constexpr int kRowsPerWarp = kGMax / kWarps;
+constexpr int kRows = 8;    // query rows per block
+constexpr int kRowsPerWarp = kRows / kWarps;
 constexpr int kDPerLane = kDMax / 32;
 constexpr float kNegInf = -1e30f;
 
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  const int* pos0;   // (B,) chunk start; with width == nullptr, valid length
+  const int* width;  // (B,) real tokens per chunk, or nullptr (decode)
+  const int* bt;     // (B, .) block table, or nullptr (contiguous)
+  int C, G, D;
+  int n_keys;        // Smax, or max_blocks * page
+  int page;
+  int window;        // < 0: none
+  long bt_sb;
+  long q_sb, q_sc, q_sh;
+  long k_sb, k_ss, k_sh;  // k_sb: batch stride, or page stride when paged
+  long v_sb, v_ss, v_sh;
+  long o_sb, o_sc, o_sh;
+  float scale;
+};
+
+__device__ __forceinline__ int query_pos(const AttnArgs& a, int b, int i) {
+  return a.width ? a.pos0[b] + min(i, a.width[b] - 1) : a.pos0[b] - 1;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lens,
-                    T* __restrict__ out, int Smax, int G, int D, long q_sb,
-                    long q_sh, long k_sb, long k_ss, long k_sh, long v_sb,
-                    long v_ss, long v_sh, long o_sb, long o_sh, int window,
-                    float scale) {
-  __shared__ float qs[kGMax][kDMax];
+__global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
+  __shared__ float qs[kRows][kDMax];
   __shared__ float ks[kBK][kDMax + 1];  // +1: lanes read distinct rows
   __shared__ float vs[kBK][kDMax];
+  __shared__ long koff[kBK], voff[kBK];  // element offsets; -1 = masked
+  __shared__ int qpos[kRows];
 
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  T* out = static_cast<T*>(a.out);
   const int b = blockIdx.x, h = blockIdx.y;
+  const int r0 = blockIdx.z * kRows;
+  const int nr = min(kRows, a.G * a.C - r0);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int len = lens[b];
-  const int hi = min(len, Smax);
-  const int lo = window >= 0 ? max(0, len - window) : 0;
+  const int D = a.D;
 
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    qs[g][d] = to_f32(q[b * q_sb + (long)(h * G + g) * q_sh + d]);
+  // rows are ordered by chunk token, so the tile's first row has the
+  // lowest position and its last row the highest
+  const int q_lo = query_pos(a, b, r0 / a.G);
+  const int q_hi = query_pos(a, b, (r0 + nr - 1) / a.G);
+  const int hi = min(q_hi + 1, a.n_keys);
+  const int lo = a.window >= 0 ? max(0, q_lo - a.window + 1) : 0;
+
+  if (tid < kRows) qpos[tid] = tid < nr ? query_pos(a, b, (r0 + tid) / a.G) : -1;
+  for (int i = tid; i < kRows * D; i += kThreads) {
+    const int rr = i / D, d = i % D;
+    float x = 0.f;
+    if (rr < nr) {
+      const int r = r0 + rr, ci = r / a.G, g = r % a.G;
+      x = to_f32(q[b * a.q_sb + ci * a.q_sc + (long)(h * a.G + g) * a.q_sh + d]);
+    }
+    qs[rr][d] = x;
   }
 
   float m_run[kRowsPerWarp], l_run[kRowsPerWarp];
@@ -64,32 +124,49 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kDPerLane; ++i) acc[r][i] = 0.f;
   }
 
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
   for (int t0 = (lo / kBK) * kBK; t0 < hi; t0 += kBK) {
     __syncthreads();  // q staged / previous tile consumed
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int j = i / D, d = i % D, s = t0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (s < hi) {
-        kv = to_f32(kb[s * k_ss + d]);
-        vv = to_f32(vb[s * v_ss + d]);
+    bool live = false;
+    if (tid < kBK) {
+      const int s = t0 + tid;
+      long ko = -1, vo = -1;
+      if (s >= lo && s < hi) {
+        if (a.bt) {
+          const int pg = a.bt[b * a.bt_sb + s / a.page];
+          if (pg >= 0) {
+            ko = (long)pg * a.k_sb + (long)(s % a.page) * a.k_ss;
+            vo = (long)pg * a.v_sb + (long)(s % a.page) * a.v_ss;
+          }
+        } else {
+          ko = (long)b * a.k_sb + (long)s * a.k_ss;
+          vo = (long)b * a.v_sb + (long)s * a.v_ss;
+        }
       }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
+      koff[tid] = ko;
+      voff[tid] = vo;
+      live = ko >= 0;
+    }
+    if (!__syncthreads_or(live)) continue;  // no live key in this tile
+    for (int i = tid; i < kBK * D; i += kThreads) {
+      const int j = i / D, d = i % D;
+      const long ko = koff[j], vo = voff[j];
+      ks[j][d] = ko >= 0 ? to_f32(k[ko + h * a.k_sh + d]) : 0.f;
+      vs[j][d] = vo >= 0 ? to_f32(v[vo + h * a.v_sh + d]) : 0.f;
     }
     __syncthreads();
 
-    const int pos = t0 + lane;
-    bool valid = pos < hi;
-    if (window >= 0) valid = valid && pos >= len - window;
+    const int kpos = t0 + lane;
+    const bool mapped = koff[lane] >= 0;
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int g = warp + r * kWarps;
-      if (g < G) {  // warp-uniform
+      const int rr = warp + r * kWarps;
+      if (rr < nr) {  // warp-uniform
+        const int qp = qpos[rr];
+        bool valid = mapped && kpos <= qp;
+        if (a.window >= 0) valid = valid && kpos > qp - a.window;
         float s = 0.f;
-        for (int d = 0; d < D; ++d) s = fmaf(qs[g][d], ks[lane][d], s);
-        s = valid ? s * scale : kNegInf;
+        for (int d = 0; d < D; ++d) s = fmaf(qs[rr][d], ks[lane][d], s);
+        s = valid ? s * a.scale : kNegInf;
         const float m_new = fmaxf(m_run[r], warp_max(s));
         const float p = valid ? expf(s - m_new) : 0.f;
         const float alpha = expf(m_run[r] - m_new);
@@ -111,14 +188,15 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int g = warp + r * kWarps;
-    if (g < G) {
+    const int rr = warp + r * kWarps;
+    if (rr < nr) {
+      const int row = r0 + rr, ci = row / a.G, g = row % a.G;
       const float inv = 1.f / (l_run[r] == 0.f ? 1.f : l_run[r]);
 #pragma unroll
       for (int i = 0; i < kDPerLane; ++i) {
         const int d = lane + 32 * i;
         if (d < D)
-          out[b * o_sb + (long)(h * G + g) * o_sh + d] =
+          out[b * a.o_sb + ci * a.o_sc + (long)(h * a.G + g) * a.o_sh + d] =
               from_f32<T>(acc[r][i] * inv);
       }
     }
@@ -127,28 +205,26 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 }  // namespace
 
-extern "C" int repro_flash_decode(
-    const void* q, const void* k, const void* v, const void* lens, void* out,
-    int B, int Smax, int Hkv, int G, int D, long long q_sb, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long o_sb, long long o_sh,
-    int window, float scale, int dtype, void* stream) {
+extern "C" int repro_attention(
+    const void* q, const void* k, const void* v, void* out, const void* pos0,
+    const void* width, const void* bt, int B, int Hkv, int G, int C, int D,
+    int n_keys, int page, long long bt_sb, long long q_sb, long long q_sc,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_sc, long long o_sh, int window, float scale, int dtype,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D > kDMax || G > kGMax) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, Hkv), block(kThreads);
-  const int* pl = static_cast<const int*>(lens);
+  if (D > kDMax || D < 1 || G < 1 || C < 1 || (bt && page < 1))
+    return (int)cudaErrorInvalidValue;
+  AttnArgs a{q, k, v, out, static_cast<const int*>(pos0),
+             static_cast<const int*>(width), static_cast<const int*>(bt),
+             C, G, D, n_keys, page, window, bt_sb, q_sb, q_sc, q_sh,
+             k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sc, o_sh, scale};
+  const dim3 grid(B, Hkv, (G * C + kRows - 1) / kRows), block(kThreads);
   if (dtype == kBF16)
-    flash_decode_kernel<bf16><<<grid, block, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), pl, static_cast<bf16*>(out), Smax, G, D,
-        q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh, window,
-        scale);
+    attention_kernel<bf16><<<grid, block, 0, s>>>(a);
   else if (dtype == kF32)
-    flash_decode_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), pl, static_cast<float*>(out), Smax, G,
-        D, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh, window,
-        scale);
+    attention_kernel<float><<<grid, block, 0, s>>>(a);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1,16 +1,21 @@
-"""Decode attention over the contiguous KV cache — Hopper kernel.
+"""Attention over the KV cache — Hopper kernels for decode and chunked
+prefill, over the contiguous slab or the paged pool.
 
-Replaces ``repro/kernels/flash_attention.py:flash_decode_pallas``.  The
-kernel (``csrc/flash_attention.cu``) reads the ``(B, Smax, Hkv, D)`` cache
-in place by its strides (the TPU wrapper transposed and padded it on every
-call); one block per (row, kv head) walks the valid key range in tiles with
-an f32 online softmax, the GQA group folded into the block's rows.  Tiles
-past the row's valid length or before the window are skipped, and a row
-with no valid key returns zeros.  Bound by bytes (each live K/V element read
-once); at decode the grid is only ``B * Hkv`` blocks.
+Replaces ``repro/kernels/flash_attention.py``'s ``flash_decode_pallas``,
+``flash_decode_paged_pallas``, ``flash_prefill_chunk_pallas`` and
+``flash_prefill_chunk_paged_pallas``.  All four launch one kernel template
+(``csrc/flash_attention.cu``): one block per (row, kv head, tile of 8 query
+rows) walks the valid key range in tiles with an f32 online softmax, the
+GQA group folded into the block's rows.  The caches and pools are read in
+place by their strides (the TPU wrappers transposed them on every call);
+the paged kernels resolve each key's page from the block table inside the
+block.  Keys past a row's position, before its window or in unmapped
+pages are masked, tiles with no live key are skipped, and a row with no
+valid key returns zeros.  Bound by bytes (each live K/V element read once
+per query-row tile).
 
-The paged and chunked-prefill kernels of the same JAX module come with the
-next slice.
+The kernel trusts the block table: every entry is -1 or a page of the
+pool (the pager never maps the sentinel page).
 """
 from __future__ import annotations
 
@@ -19,20 +24,83 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels._build import DTYPES
-from repro_torch.kernels.ref import attention_decode as flash_decode_ref
 
 MAX_HEAD_DIM = 128
-MAX_GROUP = 8
 
 
-def _lens(cache_len, b: int, device: torch.device) -> torch.Tensor:
-    """Per-row valid lengths as a (B,) int32 device tensor (no host sync)."""
-    if isinstance(cache_len, torch.Tensor):
-        lens = cache_len.to(device=device, dtype=torch.int32).reshape(-1)
-        return lens.expand(b).contiguous()
-    return torch.full((b,), int(cache_len), dtype=torch.int32, device=device)
+def _launch(name: str, q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out4: torch.Tensor, pos0: torch.Tensor,
+            width: Optional[torch.Tensor],
+            block_table: Optional[torch.Tensor], window: Optional[int],
+            scale: Optional[float]) -> None:
+    """Check and launch ``repro_attention``.  ``q4``/``out4`` are
+    (B, C, Hq, D) views; ``k``/``v`` the (B, Smax, Hkv, D) cache or the
+    (P, page, Hkv, D) pool (with ``block_table``)."""
+    b, c, hq, d = q4.shape
+    if k.dim() != 4 or v.shape != k.shape or k.shape[3] != d \
+            or hq % k.shape[2]:
+        raise ValueError(f"{name}: q {tuple(q4.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM} not "
+                         "supported")
+    if q4.dtype not in DTYPES or k.dtype != q4.dtype or v.dtype != q4.dtype:
+        raise TypeError(f"{name}: dtypes {q4.dtype}, {k.dtype}, {v.dtype}")
+    if q4.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError(f"{name}: head dim needs unit stride")
+    if k.device != q4.device or v.device != q4.device:
+        raise ValueError(f"{name}: q and caches on different devices")
+    if block_table is None:
+        n_keys, page, bt, bt_sb = k.shape[1], 1, None, 0
+    else:
+        if (block_table.dtype != torch.int32 or block_table.dim() != 2
+                or block_table.shape[0] != b or block_table.stride(1) != 1
+                or block_table.device != q4.device):
+            raise ValueError(
+                f"{name}: block table {tuple(block_table.shape)} "
+                f"{block_table.dtype} on {block_table.device} needs (B, "
+                "max_blocks) int32 with unit column stride on q's device")
+        page = k.shape[1]
+        n_keys = block_table.shape[1] * page
+        bt, bt_sb = block_table.data_ptr(), block_table.stride(0)
+    if out4.numel() == 0:
+        return
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    rc = _build.lib().repro_attention(
+        q4.data_ptr(), k.data_ptr(), v.data_ptr(), out4.data_ptr(),
+        pos0.data_ptr(), None if width is None else width.data_ptr(), bt,
+        b, k.shape[2], hq // k.shape[2], c, d, n_keys, page, bt_sb,
+        q4.stride(0), q4.stride(1), q4.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out4.stride(0), out4.stride(1), out4.stride(2),
+        -1 if window is None else int(window), float(scale),
+        DTYPES[q4.dtype], torch.cuda.current_stream(q4.device).cuda_stream,
+    )
+    _build.check(rc, name)
+
+
+def _decode(name, q, k, v, cache_len, block_table, window, scale):
+    if q.dim() != 3:
+        raise ValueError(f"{name}: q {tuple(q.shape)} is not (B, Hq, D)")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(name, q.unsqueeze(1), k, v, out.unsqueeze(1),
+            ref._rows(cache_len, q.shape[0], q.device).contiguous(), None,
+            block_table, window, scale)
+    return out
+
+
+def _chunk(name, q, k, v, start, width, block_table, window, scale):
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q {tuple(q.shape)} is not (B, C, Hq, D)")
+    b = q.shape[0]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(name, q, k, v, out, ref._rows(start, b, q.device).contiguous(),
+            ref._rows(width, b, q.device).contiguous(), block_table, window,
+            scale)
+    return out
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -43,47 +111,68 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     if not q.is_cuda:
-        return flash_decode_ref(q, k_cache, v_cache, cache_len,
-                                window=window, scale=scale)
-    b, hq, d = q.shape
-    _, smax, hkv, d2 = k_cache.shape
-    if v_cache.shape != k_cache.shape or d2 != d or hq % hkv:
-        raise ValueError(
-            f"flash_decode: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
-            f"v {tuple(v_cache.shape)}"
-        )
-    g = hq // hkv
-    if d > MAX_HEAD_DIM or g > MAX_GROUP:
-        raise ValueError(
-            f"flash_decode: head dim {d} > {MAX_HEAD_DIM} or group {g} > "
-            f"{MAX_GROUP} not supported"
-        )
-    if q.dtype not in DTYPES or k_cache.dtype != q.dtype \
-            or v_cache.dtype != q.dtype:
-        raise TypeError(f"flash_decode: dtypes {q.dtype}, {k_cache.dtype}, "
-                        f"{v_cache.dtype}")
-    if q.stride(2) != 1 or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
-        raise ValueError("flash_decode: head dim needs unit stride")
-    if k_cache.device != q.device or v_cache.device != q.device:
-        raise ValueError("flash_decode: q and caches on different devices")
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    lens = _lens(cache_len, b, q.device)
-    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    rc = _build.lib().repro_flash_decode(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), b, smax, hkv, g, d,
-        q.stride(0), q.stride(1),
-        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
-        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-        out.stride(0), out.stride(1),
-        -1 if window is None else int(window), float(scale),
-        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(rc, "flash_decode")
+        return ref.attention_decode(q, k_cache, v_cache, cache_len,
+                                    window=window, scale=scale)
+    out = _decode("flash_decode", q, k_cache, v_cache, cache_len, None,
+                  window, scale)
     flash_decode.launches += 1
     return out
 
 
+def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, cache_len,
+                       block_table: torch.Tensor, *,
+                       window: Optional[int] = None,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,Hq,D) against a (P,page,Hkv,D) pool through a (B,max_blocks)
+    int32 block table.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    if not q.is_cuda:
+        return ref.attention_decode_paged(q, k_pages, v_pages, cache_len,
+                                          block_table, window=window,
+                                          scale=scale)
+    out = _decode("flash_decode_paged", q, k_pages, v_pages, cache_len,
+                  block_table, window, scale)
+    flash_decode_paged.launches += 1
+    return out
+
+
+def flash_prefill_chunk(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, start, width, *,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,C,Hq,D) against a (B,Smax,Hkv,D) cache holding the chunk's
+    K/V; ``start``/``width`` () or (B,).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if not q.is_cuda:
+        return ref.attention_prefill_chunk(q, k_cache, v_cache, start,
+                                           width, window=window, scale=scale)
+    out = _chunk("flash_prefill_chunk", q, k_cache, v_cache, start, width,
+                 None, window, scale)
+    flash_prefill_chunk.launches += 1
+    return out
+
+
+def flash_prefill_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, start, width,
+                              block_table: torch.Tensor, *,
+                              window: Optional[int] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,C,Hq,D) against a (P,page,Hkv,D) pool through the block table;
+    every block covering ``start .. start+width-1`` must be mapped.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if not q.is_cuda:
+        return ref.attention_prefill_chunk_paged(
+            q, k_pages, v_pages, start, width, block_table, window=window,
+            scale=scale)
+    out = _chunk("flash_prefill_chunk_paged", q, k_pages, v_pages, start,
+                 width, block_table, window, scale)
+    flash_prefill_chunk_paged.launches += 1
+    return out
+
+
 flash_decode.launches = 0
+flash_decode_paged.launches = 0
+flash_prefill_chunk.launches = 0
+flash_prefill_chunk_paged.launches = 0

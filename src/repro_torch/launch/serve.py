@@ -1,11 +1,12 @@
 """Serving CLI — a thin command line over the port's continuous-batching engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
-        --batch 4 --requests 8 --prompt-len 32 --gen 32
+        --batch 4 --requests 8 --prompt-len 32 --gen 32 \\
+        [--layout paged --page-size 16 --n-pages N] [--prefill-chunk 16]
 
 Random weights from ``--seed``, random prompts, greedy decoding through the
-Hopper kernels; prints tokens/s, time per decode step and mean time to
-first token.  Runs on the card (``--device cuda``, the default) and raises
+Hopper kernels; prints tokens/s, time per decode step, mean time to first
+token, the chunked-prefill step count and, paged, the peak pages in use.  Runs on the card (``--device cuda``, the default) and raises
 when there is none; ``--device cpu`` runs the plain PyTorch versions.
 
 ``--profile`` serves the requests a second time under ``torch.profiler``
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.models.model import build_model
-from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
 
 
 def main(argv=None) -> int:
@@ -34,6 +35,17 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--steps-per-sync", type=int, default=8)
+    ap.add_argument("--layout", choices=["contiguous", "paged"],
+                    default="contiguous",
+                    help="KV-cache layout (paged: pool+block-table)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="page-pool size (default: batch*max_len/page_size;"
+                         " a smaller pool queues requests until pages are "
+                         "released)")
+    ap.add_argument("--prefill-chunk", type=int, default=1,
+                    help="prompt tokens ingested per engine step (chunked "
+                         "prefill; 1 = token-by-token)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
@@ -48,11 +60,18 @@ def main(argv=None) -> int:
     prompts = np.random.default_rng(args.seed + 1).integers(
         0, cfg.vocab_size, (n_req, args.prompt_len))
 
+    # no host tier in the port: a pool below the worst case queues
+    cache = CacheConfig(layout=args.layout, page_size=args.page_size,
+                        n_pages=args.n_pages,
+                        host_spill=False if args.n_pages else None)
+    config = EngineConfig(steps_per_sync=args.steps_per_sync,
+                          prefill_chunk=args.prefill_chunk)
+
     def serve():
         eng = ServingEngine(
             model, params, batch=args.batch,
-            max_len=args.prompt_len + args.gen + 1,
-            config=EngineConfig(steps_per_sync=args.steps_per_sync),
+            max_len=args.prompt_len + args.gen + 1, cache=cache,
+            config=config,
         )
         rids = [eng.submit(p, args.gen) for p in prompts]
         return eng, rids, eng.run()
@@ -61,9 +80,16 @@ def main(argv=None) -> int:
     s = eng.stats()
     print(f"{cfg.name} on {model.device}: {n_req} requests x {args.gen} "
           f"tokens, batch {args.batch}: {s['tok_per_s']:.1f} generated tok/s, "
-          f"{s['ms_per_step']:.2f} ms per decode step "
-          f"({int(s['decode_steps'])} steps), mean TTFT "
+          f"{s['ms_per_step']:.2f} ms per step "
+          f"({int(s['decode_steps'])} decode + {int(s['prefill_steps'])} "
+          f"prefill steps), mean TTFT "
           f"{1e3 * s['mean_ttft_s']:.1f} ms")
+    line = f"layout {args.layout}, prefill chunk {args.prefill_chunk}"
+    if "kv_pages" in s:
+        line += (f": peak pages {int(s['kv_pages_peak'])} of "
+                 f"{int(s['kv_pages'])} "
+                 f"({int(s['kv_resident_bytes_peak'])} bytes of KV)")
+    print(line)
     print("sample:", outs[rids[0]][:16].tolist())
     if args.profile:
         profile(serve)
@@ -77,13 +103,18 @@ def profile(serve) -> None:
 
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve()
+        eng = serve()[0]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = sorted(prof.key_averages(),
                     key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in events) / 1e6   # us -> s
-    print(f"profile: wall {wall:.3f} s, device busy {busy:.3f} s "
+    s = eng.stats()
+    steps = s["prefill_steps"] + s["decode_steps"]
+    print(f"profile: wall {wall:.3f} s for {int(s['prefill_steps'])} prefill"
+          f" + {int(s['decode_steps'])} decode steps "
+          f"({1e3 * wall / steps:.2f} ms/step, mean TTFT "
+          f"{1e3 * s['mean_ttft_s']:.1f} ms), device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for e in events[:12]:
         print(f"  {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d}x  "

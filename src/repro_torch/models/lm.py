@@ -1,14 +1,16 @@
-"""Decoder-only LM, dense family, contiguous KV cache (the port's subset of
-``repro.models.lm``).
+"""Decoder-only LM, dense family, contiguous or paged KV cache (the port's
+subset of ``repro.models.lm``).
 
 Public functions mirror the JAX module: ``init_params``,
-``init_decode_state``, ``decode_step``, ``reset_decode_rows`` and
-``lm_logits``.  Where JAX scans over stacked layer params, the port keeps a
-list of per-layer dicts and loops in Python.  JAX's functions are pure; the
-port updates the decode caches **in place** (``decode_step`` and
-``reset_decode_rows`` write into ``state["k"]``/``state["v"]`` and return a
-dict that shares them), which saves a full rewrite of the cache slab on
-every step.
+``init_decode_state``, ``decode_step``, ``prefill_chunk``,
+``reset_decode_rows`` and ``lm_logits``.  Where JAX scans over stacked
+layer params, the port keeps a list of per-layer dicts and loops in
+Python.  JAX's functions are pure; the port updates the decode caches and
+page pools **in place** (``decode_step``, ``prefill_chunk`` and
+``reset_decode_rows`` write into ``state["k"]``/``state["v"]`` or
+``state["kp"]``/``state["vp"]`` and return a dict that shares them), which
+saves a full rewrite of the cache on every step.  The small allocator
+tensors (block table, free list, refcounts) are replaced, as in JAX.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import components as C
+from repro_torch.serving import pager as PG
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -62,24 +65,48 @@ def lm_logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       per_row_pos: bool = False,
+                      layout: str = "contiguous", page_size: int = 16,
+                      n_pages: Optional[int] = None, cache=None,
                       device: str | torch.device = "cuda"
                       ) -> Dict[str, torch.Tensor]:
-    """Contiguous decode caches ``(layers, B, max_len, Hkv, hd)``.
+    """Decode caches: the contiguous slab ``(layers, B, max_len, Hkv, hd)``,
+    or (``layout="paged"``) page pools ``(layers, n_pages + 1, page_size,
+    Hkv, hd)`` with the allocator state (``repro_torch.serving.pager``; the
+    trailing page is the write-drop sentinel).  ``n_pages=None`` sizes the
+    pool at the worst case, ``batch * ceil(max_len / page_size)``.
+    ``cache`` (a ``CacheConfig``) supplies layout, page size and pool size.
     ``per_row_pos=True`` keeps ``pos`` as a (B,) vector so rows may sit at
     different depths (continuous batching)."""
     check_family(cfg)
+    if cache is not None:
+        layout, page_size, n_pages = cache.layout, cache.page_size, \
+            cache.n_pages
+    if layout not in ("contiguous", "paged"):
+        raise ValueError(f"unknown KV-cache layout {layout!r}")
     dev = resolve_device(device)
     dt = cfg.dtype_()
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    state = {"pos": torch.zeros((batch,) if per_row_pos else (),
+                                dtype=torch.int32, device=dev)}
+    if layout == "paged":
+        # absolute positions (no window ring): the table covers max_len
+        max_blocks = -(-max_len // page_size)
+        pages = batch * max_blocks if n_pages is None else n_pages
+        ps = PG.init_pager(pages, dev)
+        shape = (cfg.n_layers, pages + 1, page_size, hkv, hd)
+        state.update({
+            "kp": torch.zeros(shape, dtype=dt, device=dev),
+            "vp": torch.zeros(shape, dtype=dt, device=dev),
+            "block_table": PG.init_block_table(batch, max_blocks, dev),
+            "page_free": ps.free, "page_top": ps.top, "page_rc": ps.rc,
+        })
+        return state
     # sliding-window archs only ever need `window` cache slots (ring buffer)
     eff = min(max_len, cfg.window) if cfg.window else max_len
     shape = (cfg.n_layers, batch, eff, hkv, hd)
-    return {
-        "pos": torch.zeros((batch,) if per_row_pos else (), dtype=torch.int32,
-                           device=dev),
-        "k": torch.zeros(shape, dtype=dt, device=dev),
-        "v": torch.zeros(shape, dtype=dt, device=dev),
-    }
+    state["k"] = torch.zeros(shape, dtype=dt, device=dev)
+    state["v"] = torch.zeros(shape, dtype=dt, device=dev)
+    return state
 
 
 def _cache_index(cfg: ArchConfig, pos: torch.Tensor) -> torch.Tensor:
@@ -105,6 +132,37 @@ def _cache_update(cache: torch.Tensor, new: torch.Tensor,
     cache.scatter_(1, slot, val)
 
 
+def _cache_update_chunk(cache: torch.Tensor, new: torch.Tensor,
+                        posmat: torch.Tensor, valid: torch.Tensor) -> None:
+    """Write a chunk of C tokens' K/V into a (B, S, Hkv, hd) cache, in
+    place: token i of row b lands at ``posmat[b, i]`` where ``valid``.
+
+    JAX routes invalid entries past the sequence axis and drops them.
+    Here they are clamped to ``S - 1`` and scatter back the value they
+    already hold.  That is safe because no clamped entry shares a target
+    with a live one: unclamped invalid entries are padding at positions
+    past the row's live ones (or rows that write nothing), and a live
+    write never lands on ``S - 1`` — a request writes cache positions
+    ``0 .. total_len - 2 <= max_len - 2``.
+    """
+    s = cache.shape[1]
+    tgt = posmat.clamp(0, s - 1).long()[:, :, None, None].expand(
+        *posmat.shape, *cache.shape[2:])
+    val = torch.where(valid[:, :, None, None], new.to(cache.dtype),
+                      cache.gather(1, tgt))
+    cache.scatter_(1, tgt, val)
+
+
+def _pager(state) -> PG.PagerState:
+    return PG.PagerState(state["page_free"], state["page_top"],
+                         state["page_rc"])
+
+
+def _paged_commit(state, pstate: PG.PagerState, bt: torch.Tensor):
+    return {**state, "page_free": pstate.free, "page_top": pstate.top,
+            "page_rc": pstate.rc, "block_table": bt}
+
+
 def decode_step(
     cfg: ArchConfig, params, state, token: torch.Tensor,   # (B,) int
     *, active: Optional[torch.Tensor] = None,               # (B,) bool
@@ -113,19 +171,28 @@ def decode_step(
 
     ``state["pos"]`` may be a scalar (all rows in lockstep) or a (B,) vector
     (rows at independent depths).  ``active`` (per-row ``pos`` only) masks
-    rows that are between requests: their caches are not written and their
-    ``pos`` does not advance.  The caches are updated in place.
+    rows that are between requests: their caches are not written, no pages
+    are allocated, and their ``pos`` does not advance.  A ``block_table``
+    key in the state selects the paged layout (pages are mapped on write,
+    positions are absolute and windows are masked in attention); the
+    caches are updated in place.
     """
     pos = state["pos"]
+    paged = "block_table" in state
     x = params["embed"].index_select(0, token).to(cfg.dtype_())   # (B, d)
-    idx = _cache_index(cfg, pos)
-    if cfg.window:
+    idx = pos if paged else _cache_index(cfg, pos)
+    if cfg.window and not paged:
         cache_len = torch.clamp(pos + 1, max=cfg.window)
     else:
         cache_len = pos + 1
     rope_pos = pos[..., None] if pos.dim() == 1 else pos[None]
+    if paged:
+        pstate, bt = PG.alloc_on_write(
+            _pager(state), state["block_table"], idx, active,
+            page_size=state["kp"].shape[2])
+        state = _paged_commit(state, pstate, bt)
     # inactive rows are routed to slot -1, which _cache_update drops
-    if active is not None and idx.dim() == 1:
+    if active is not None and not paged and idx.dim() == 1:
         w_idx = torch.where(active, idx, -1)
     else:
         w_idx = idx
@@ -142,10 +209,17 @@ def decode_step(
         v_new = C.dense(xn, a["wv"], a.get("bv")).reshape(b, hkv, hd)
         q = C.apply_rope(q, cos, sin).reshape(b, cfg.n_heads, hd)
         k_new = C.apply_rope(k_new, cos, sin).reshape(b, hkv, hd)
-        ck, cv = state["k"][layer], state["v"][layer]
-        _cache_update(ck, k_new, w_idx)
-        _cache_update(cv, v_new, w_idx)
-        o = ops.attention_decode(q, ck, cv, cache_len)
+        if paged:
+            ck, cv = state["kp"][layer], state["vp"][layer]
+            PG.write_page(ck, k_new, bt, idx, active)
+            PG.write_page(cv, v_new, bt, idx, active)
+            o = ops.attention_decode(q, ck, cv, cache_len, block_table=bt,
+                                     window=cfg.window)
+        else:
+            ck, cv = state["k"][layer], state["v"][layer]
+            _cache_update(ck, k_new, w_idx)
+            _cache_update(cv, v_new, w_idx)
+            o = ops.attention_decode(q, ck, cv, cache_len)
         x = x + C.dense(o.reshape(b, -1), a["wo"])
         x = C.mlp_block(cfg, p["mlp"], x)
 
@@ -158,25 +232,116 @@ def decode_step(
     return logits, {**state, "pos": new_pos}
 
 
+def prefill_chunk(
+    cfg: ArchConfig, params, state, toks: torch.Tensor,   # (B, C) int
+    width,                                               # () or (B,) int
+    *, active: Optional[torch.Tensor] = None,             # (B,) bool
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Ingest up to C prompt tokens per row in one step.
+
+    Row b's real tokens are ``toks[b, :width[b]]`` at absolute positions
+    ``pos[b] .. pos[b]+width[b]-1``; the rest of the chunk is padding and
+    never reaches a real cache slot or page.  Returns logits at each row's
+    *last real* position — what a ``decode_step`` fed that position would
+    return — and the state with ``pos`` advanced by ``width`` for active
+    rows.  The chunk's projections run as B*C-row GEMMs and attention as
+    one (C, hd) query block per row; the final norm and the LM head run on
+    the B gathered last positions only.  Requires ``per_row_pos`` state;
+    sliding-window archs need the paged layout (the contiguous ring cache
+    recycles slots the in-chunk queries still read).
+    """
+    pos = state["pos"]
+    if pos.dim() != 1:
+        raise ValueError("prefill_chunk needs per_row_pos=True decode state")
+    paged = "block_table" in state
+    b, c = toks.shape
+    if cfg.window and not paged:
+        raise NotImplementedError(
+            "chunked prefill with a sliding window needs layout='paged': "
+            "the contiguous ring cache overwrites slots the in-chunk "
+            "queries still read"
+        )
+    dev = toks.device
+    if active is None:
+        active = torch.ones((b,), dtype=torch.bool, device=dev)
+    width = torch.as_tensor(width, device=dev).to(torch.int32).reshape(
+        -1).expand(b).clamp(1, c)
+    x = params["embed"].index_select(0, toks.reshape(-1)).reshape(
+        b, c, -1).to(cfg.dtype_())                        # (B, C, d)
+    offs = torch.arange(c, dtype=torch.int32, device=dev)[None, :]
+    posmat = pos[:, None] + offs                          # (B, C) absolute
+    valid = active[:, None] & (offs < width[:, None])     # real tokens
+    if paged:
+        # map every block the chunk touches up front (admission-time
+        # reservation guarantees the pops succeed)
+        pstate, bt = PG.alloc_range(
+            _pager(state), state["block_table"], pos, pos + width - 1,
+            active, page_size=state["kp"].shape[2], max_chunk=c)
+        state = _paged_commit(state, pstate, bt)
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    cos, sin = C.rope_freqs(cfg, posmat)                  # (B, C, hd/2)
+
+    for layer, p in enumerate(params["layers"]):
+        a = p["attn"]
+        xn = C.norm(cfg, a["ln"], x)
+        q = C.dense(xn, a["wq"], a.get("bq")).reshape(b, c, cfg.n_heads, hd)
+        k_new = C.dense(xn, a["wk"], a.get("bk")).reshape(b, c, hkv, hd)
+        v_new = C.dense(xn, a["wv"], a.get("bv")).reshape(b, c, hkv, hd)
+        q = C.apply_rope(q, cos, sin)
+        k_new = C.apply_rope(k_new, cos, sin)
+        if paged:
+            ck, cv = state["kp"][layer], state["vp"][layer]
+            PG.write_page_chunk(ck, k_new, bt, pos, width, active)
+            PG.write_page_chunk(cv, v_new, bt, pos, width, active)
+            o = ops.attention_prefill_chunk(q, ck, cv, pos, width,
+                                            block_table=bt,
+                                            window=cfg.window)
+        else:
+            ck, cv = state["k"][layer], state["v"][layer]
+            _cache_update_chunk(ck, k_new, posmat, valid)
+            _cache_update_chunk(cv, v_new, posmat, valid)
+            o = ops.attention_prefill_chunk(q, ck, cv, pos, width)
+        x = x + C.dense(o.reshape(b, c, -1), a["wo"])
+        x = C.mlp_block(cfg, p["mlp"], x)
+
+    # the last real position of each row, gathered *before* the final norm
+    # and the head (both are position-wise), so the head runs at M = B
+    last = x.gather(1, (width.long() - 1)[:, None, None].expand(
+        b, 1, x.shape[-1]))[:, 0]
+    logits = lm_logits(cfg, params, C.norm(cfg, params["ln_f"], last))
+    return logits, {**state, "pos": pos + torch.where(active, width, 0)}
+
+
 def reset_decode_rows(
     cfg: ArchConfig, state: Dict[str, torch.Tensor],
     mask: torch.Tensor,                                   # (B,) bool
     start=0,                                              # () or (B,) int
 ) -> Dict[str, torch.Tensor]:
-    """Zero the caches of the rows selected by ``mask`` (in place) and put
-    their decode clock at ``start`` — the serving engine's slot refill.
-    Requires per-row ``pos`` state."""
+    """Reset the rows selected by ``mask`` and put their decode clock at
+    ``start`` — the serving engine's slot refill and release.  Contiguous
+    caches are zeroed in place; under the paged layout the rows *release*
+    their pages (the pool is never zeroed: a recycled page is written by
+    its next owner before any masked-in read can see it).  Requires
+    per-row ``pos`` state."""
     if state["pos"].dim() != 1:
         raise ValueError(
             "reset_decode_rows needs per_row_pos=True decode state"
         )
-    unknown = set(state) - {"pos", "k", "v"}
+    paged_keys = {"kp", "vp", "block_table", "page_free", "page_top",
+                  "page_rc"}
+    unknown = set(state) - {"pos", "k", "v"} - paged_keys
     if unknown:
         # a silently skipped cache key would leak the previous request's
         # state into the slot's next occupant
         raise ValueError(
             f"reset_decode_rows: unhandled decode-state keys {sorted(unknown)}"
         )
+    out = {**state, "pos": torch.where(mask, start, state["pos"])}
+    if "block_table" in state:
+        pstate, bt = PG.release_rows(_pager(state), state["block_table"],
+                                     mask)
+        out = _paged_commit(out, pstate, bt)
     for key in ("k", "v"):
-        state[key].masked_fill_(mask.view(1, -1, 1, 1, 1), 0)
-    return {**state, "pos": torch.where(mask, start, state["pos"])}
+        if key in state:
+            state[key].masked_fill_(mask.view(1, -1, 1, 1, 1), 0)
+    return out

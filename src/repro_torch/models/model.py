@@ -26,11 +26,16 @@ class Model:
         return lm.init_params(self.cfg, gen)
 
     def init_decode_state(self, batch: int, max_len: int, **kw):
+        """Contiguous slab or (``layout="paged"`` / ``cache=``) page pool;
+        ``lm.init_decode_state`` has the keywords."""
         return lm.init_decode_state(self.cfg, batch, max_len,
                                     device=self.device, **kw)
 
     def decode_step(self, params, state, token, **kw):
         return lm.decode_step(self.cfg, params, state, token, **kw)
+
+    def prefill_chunk(self, params, state, toks, width, **kw):
+        return lm.prefill_chunk(self.cfg, params, state, toks, width, **kw)
 
     def reset_decode_rows(self, state, mask, **kw):
         return lm.reset_decode_rows(self.cfg, state, mask, **kw)

@@ -1,9 +1,10 @@
 """Typed serving configuration (the port's ``repro.serving.config``).
 
 ``CacheConfig`` shapes the decode state and ``EngineConfig`` drives the
-loop, with the JAX package's field names and defaults.  This slice serves
-the defaults: the contiguous KV cache and token-by-token greedy decoding.
-Every field it does not serve raises ``NotImplementedError`` naming the
+loop, with the JAX package's field names and defaults.  The port serves
+both KV layouts (the contiguous slab and the paged pool, any page size and
+pool size), chunked prefill of any width, and greedy decoding.  Every
+field it does not serve yet raises ``NotImplementedError`` naming the
 slice that brings it; none is silently ignored.
 """
 from __future__ import annotations
@@ -12,10 +13,9 @@ import dataclasses
 from typing import Any, Optional
 
 # the slices of the port that serve each feature (ROADMAP.md, Queue 1)
-PAGED = "slice 2 (pager, paged and chunked-prefill kernels)"
 RECURRENT = "the ssm/hybrid slice (recurrent-state snapshots)"
 SHARING = "the prefix-sharing slice"
-PRESSURE = "the pressure slice (host spill tier)"
+PRESSURE = "the pressure slice (host spill tier, prefill budgets)"
 SPEC = "the speculative-decoding slice"
 QUANT = "the quantized-KV slice"
 SAMPLING = "a later slice (sampling)"
@@ -32,8 +32,10 @@ def _unserved(obj: Any, field: str, served, slice_name: str) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
-    """Decode-cache shape: what ``init_decode_state`` allocates.  Only the
-    contiguous slab is served; the page fields belong to the paged layout."""
+    """Decode-cache shape: what ``init_decode_state`` allocates.  The page
+    fields belong to the paged layout; ``host_spill=None`` means "no host
+    tier" here (the engine refuses a pool so small that the JAX engine
+    would preempt into one)."""
 
     layout: str = "contiguous"
     page_size: int = 16
@@ -54,9 +56,6 @@ class CacheConfig:
                 f"unknown kv_dtype {self.kv_dtype!r} "
                 "(expected 'f32', 'bf16', or 'int8')"
             )
-        _unserved(self, "layout", ("contiguous",), PAGED)
-        _unserved(self, "page_size", (16,), PAGED)
-        _unserved(self, "n_pages", (None,), PAGED)
         _unserved(self, "snapshots", (False,), RECURRENT)
         _unserved(self, "host_spill", (None, False), PRESSURE)
         _unserved(self, "kv_dtype", ("f32",), QUANT)
@@ -65,8 +64,9 @@ class CacheConfig:
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Serving-loop behaviour: ``steps_per_sync`` fused decode steps per
-    harvest sync.  Chunked prefill, prefix sharing, prefill budgets,
-    sampling and speculation come with later slices."""
+    harvest sync, ``prefill_chunk`` prompt tokens per row per prefill
+    step.  Prefix sharing, prefill budgets, sampling and speculation come
+    with later slices."""
 
     steps_per_sync: int = 8
     prefill_chunk: int = 1
@@ -85,8 +85,7 @@ class EngineConfig:
             raise ValueError("prefill_budget must be >= 0 (0 = unbounded)")
         if self.top_k < 0:
             raise ValueError("top_k must be >= 0 (0 = full vocab)")
-        _unserved(self, "prefill_chunk", (1,), PAGED)
-        _unserved(self, "prefill_budget", (0,), PAGED)
+        _unserved(self, "prefill_budget", (0,), PRESSURE)
         _unserved(self, "prefix_sharing", (False,), SHARING)
         _unserved(self, "temperature", (0.0,), SAMPLING)
         _unserved(self, "top_k", (0,), SAMPLING)

@@ -69,6 +69,16 @@ class RequestQueue:
             self._q.append(Request(rid, toks, int(max_new_tokens)))
         return rid
 
+    def peek(self) -> Optional[Request]:
+        """The next request ``pop`` would return, or None."""
+        with self._lock:
+            return self._q[0] if self._q else None
+
+    def peek_next_id(self) -> int:
+        """The id the next successful ``submit`` will assign."""
+        with self._lock:
+            return self._next_id
+
     def pop(self) -> Request:
         with self._lock:
             if not self._q:

@@ -122,3 +122,119 @@ def test_params_from_jax_bf16_bits():
         torch.int16).numpy(), wq[2].view(np.int16))
     with pytest.raises(NotImplementedError, match="families"):
         params_from_jax({"groups": {}}, device="cpu")
+
+
+def _same_paged_state(state, jstate):
+    """Pools on the real pages, block tables and allocators equal JAX's."""
+    n_pages = jstate["kp"].shape[1]
+    top = int(jstate["page_top"])
+    assert int(state["page_top"]) == top
+    np.testing.assert_array_equal(state["block_table"].numpy(),
+                                  np.asarray(jstate["block_table"]))
+    np.testing.assert_array_equal(state["page_free"][:top].numpy(),
+                                  np.asarray(jstate["page_free"])[:top])
+    np.testing.assert_array_equal(state["page_rc"][:n_pages].numpy(),
+                                  np.asarray(jstate["page_rc"]))
+    for key in ("kp", "vp"):
+        np.testing.assert_allclose(state[key][:, :n_pages].numpy(),
+                                   np.asarray(jstate[key]), **TOL)
+
+
+def _same_state(state, jstate, paged):
+    np.testing.assert_array_equal(state["pos"].numpy(),
+                                  np.asarray(jstate["pos"]))
+    if paged:
+        _same_paged_state(state, jstate)
+    else:
+        for key in ("k", "v"):
+            np.testing.assert_allclose(state[key].numpy(),
+                                       np.asarray(jstate[key]), **TOL)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_prefill_chunk_then_decode_match_jax(layout):
+    """Chunks of ragged per-row widths (partial chunks, width 1, a row
+    that sits one chunk out), then decode steps, then a release and a
+    refill: the logits at each row's last real position, the caches (or
+    pools and block tables) and the clocks equal JAX's after every call.
+    Page size 4 with chunk 4 starting mid-page crosses page boundaries."""
+    jcfg, tree, jparams = jax_params(seed=4)
+    cfg = get_arch(ARCH)
+    params = params_from_jax(tree, device="cpu")
+    b, max_len, c, page = 3, 24, 4, 4
+    paged = layout == "paged"
+    kw = dict(layout=layout, page_size=page) if paged else {}
+    jstate = jax_lm.init_decode_state(jcfg, b, max_len, per_row_pos=True,
+                                      **kw)
+    state = lm.init_decode_state(cfg, b, max_len, per_row_pos=True,
+                                 device="cpu", **kw)
+    rng = np.random.default_rng(8)
+    schedule = [  # (widths, active)
+        ([4, 3, 1], [True, True, True]),
+        ([2, 4, 4], [True, False, True]),
+        ([4, 1, 3], [True, True, True]),
+    ]
+    for widths, act in schedule:
+        toks = rng.integers(0, cfg.vocab_size, (b, c)).astype(np.int32)
+        w, a = np.asarray(widths, np.int32), np.asarray(act)
+        jlogits, jstate = jax_lm.prefill_chunk(
+            jcfg, jparams, jstate, jnp.asarray(toks), jnp.asarray(w),
+            active=jnp.asarray(a))
+        logits, state = lm.prefill_chunk(
+            cfg, params, state, torch.from_numpy(toks), torch.from_numpy(w),
+            active=torch.from_numpy(a))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   **TOL)
+        _same_state(state, jstate, paged)
+    for step in range(4):
+        tok = rng.integers(0, cfg.vocab_size, (b,)).astype(np.int32)
+        a = np.array([True, step != 1, True])
+        jlogits, jstate = jax_lm.decode_step(jcfg, jparams, jstate,
+                                             jnp.asarray(tok),
+                                             active=jnp.asarray(a))
+        logits, state = lm.decode_step(cfg, params, state,
+                                       torch.from_numpy(tok),
+                                       active=torch.from_numpy(a))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   **TOL)
+        _same_state(state, jstate, paged)
+    mask = np.array([False, True, False])
+    jstate = jax_lm.reset_decode_rows(jcfg, jstate, jnp.asarray(mask))
+    state = lm.reset_decode_rows(cfg, state, torch.from_numpy(mask))
+    _same_state(state, jstate, paged)
+    toks = rng.integers(0, cfg.vocab_size, (b, c)).astype(np.int32)
+    w = np.asarray([1, 4, 2], np.int32)
+    jlogits, jstate = jax_lm.prefill_chunk(jcfg, jparams, jstate,
+                                           jnp.asarray(toks), jnp.asarray(w))
+    logits, state = lm.prefill_chunk(cfg, params, state,
+                                     torch.from_numpy(toks),
+                                     torch.from_numpy(w))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    _same_state(state, jstate, paged)
+
+
+def test_paged_decode_small_pool_matches_jax():
+    """A pool of 5 pages for 3 rows of up to 4 blocks: rows past the
+    free list stay unmapped and their writes drop, as in JAX."""
+    jcfg, tree, jparams = jax_params(seed=5)
+    cfg = get_arch(ARCH)
+    params = params_from_jax(tree, device="cpu")
+    b, max_len = 3, 8
+    kw = dict(layout="paged", page_size=2, n_pages=5)
+    jstate = jax_lm.init_decode_state(jcfg, b, max_len, per_row_pos=True,
+                                      **kw)
+    state = lm.init_decode_state(cfg, b, max_len, per_row_pos=True,
+                                 device="cpu", **kw)
+    assert state["kp"].shape[1] == 6      # five real pages + the sentinel
+    rng = np.random.default_rng(9)
+    for _ in range(5):
+        tok = rng.integers(0, cfg.vocab_size, (b,)).astype(np.int32)
+        jlogits, jstate = jax_lm.decode_step(jcfg, jparams, jstate,
+                                             jnp.asarray(tok))
+        logits, state = lm.decode_step(cfg, params, state,
+                                       torch.from_numpy(tok))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   **TOL)
+        _same_paged_state(state, jstate)
+    assert int(state["page_top"]) == 0
+    assert (state["block_table"] < 0).any()

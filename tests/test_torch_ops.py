@@ -1,7 +1,8 @@
 """The port's op layer on the CPU: each plain PyTorch version against the
 JAX Pallas kernel (interpret mode) and the JAX oracle on the same numpy
 inputs, at f32 with atol = rtol = 1e-5 (summation order is the only
-difference); plus the backend policy and the op registry."""
+difference; the attention ops are held to 1e-5 of max |ref|); plus the
+backend policy and the op registry."""
 import numpy as np
 import pytest
 
@@ -13,14 +14,24 @@ from repro.core import registry as jax_registry  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.eltwise import bias_add_rows_pallas  # noqa: E402
-from repro.kernels.flash_attention import flash_decode_pallas  # noqa: E402
+from repro.kernels.flash_attention import (  # noqa: E402
+    flash_decode_paged_pallas,
+    flash_decode_pallas,
+    flash_prefill_chunk_paged_pallas,
+    flash_prefill_chunk_pallas,
+)
 from repro.kernels.gemm import gemm_pallas  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm_pallas  # noqa: E402
 from repro_torch.core import policy  # noqa: E402
 from repro_torch.core.registry import coverage, list_ops  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.eltwise import bias_add_rows  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_decode  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_decode,
+    flash_decode_paged,
+    flash_prefill_chunk,
+    flash_prefill_chunk_paged,
+)
 from repro_torch.kernels.gemm import gemm  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 
@@ -94,6 +105,117 @@ def test_attention_decode_matches_jax(lens, window, hkv):
            jax_ops._attention_decode_ref(jq, jk, jv, jl, window=window))
 
 
+def _close_rel(port, *jax_outs, tol=1e-5):
+    """max |port - want| <= tol * max |want| for every JAX output."""
+    for want in jax_outs:
+        want = np.asarray(want)
+        err = np.abs(port.numpy() - want).max()
+        assert err <= tol * np.abs(want).max(), err
+
+
+def _paged_case(rng, b, hkv, d, page, maxb, mapped):
+    """A pool of ``sum(mapped)`` shuffled pages plus a block table mapping
+    ``mapped[i]`` leading blocks of row i (the rest unmapped, -1)."""
+    n_pages = sum(mapped) + 1
+    kp, vp = _rnd(rng, n_pages, page, hkv, d), _rnd(rng, n_pages, page, hkv, d)
+    ids = rng.permutation(n_pages)
+    bt = np.full((b, maxb), -1, np.int32)
+    at = 0
+    for i, n in enumerate(mapped):
+        bt[i, :n] = ids[at: at + n]
+        at += n
+    return kp, vp, bt
+
+
+# the three attention kernels of the paged + chunked path: GQA group of 4
+# (Hkv 1) or 2 (Hkv 2), windows None and 4
+ATTN_CASES = [(None, 1), (4, 1), (None, 2), (4, 2)]
+
+
+@pytest.mark.parametrize("window,hkv", ATTN_CASES)
+def test_attention_decode_paged_matches_jax(window, hkv):
+    """Per-row lengths, unmapped tail blocks (row 2 maps 3 of 5 blocks);
+    every block below a row's length is mapped."""
+    rng = np.random.default_rng(10)
+    b, hq, d, page, maxb = 3, 4, 16, 4, 5
+    kp, vp, bt = _paged_case(rng, b, hkv, d, page, maxb, [5, 2, 3])
+    q = _rnd(rng, b, hq, d)
+    cl = np.asarray([19, 5, 12], np.int32)
+    got = ref.attention_decode_paged(
+        *map(torch.from_numpy, (q, kp, vp, cl, bt)), window=window)
+    jq, jk, jv, jl, jb = map(jnp.asarray, (q, kp, vp, cl, bt))
+    _close_rel(got,
+               flash_decode_paged_pallas(jq, jk, jv, jl, jb, window=window,
+                                         interpret=True),
+               jax_ops._attention_decode_paged_ref(jq, jk, jv, jl, jb,
+                                                   window=window))
+
+
+@pytest.mark.parametrize("window,hkv", ATTN_CASES)
+def test_attention_prefill_chunk_matches_jax(window, hkv):
+    """Ragged widths: a full chunk, a partial one with padding rows, and a
+    width-1 row (a decode-phase row riding along)."""
+    rng = np.random.default_rng(11)
+    b, c, hq, d, smax = 3, 5, 4, 16, 24
+    q = _rnd(rng, b, c, hq, d)
+    kc, vc = _rnd(rng, b, smax, hkv, d), _rnd(rng, b, smax, hkv, d)
+    start = np.asarray([0, 7, 18], np.int32)
+    width = np.asarray([5, 3, 1], np.int32)
+    got = ref.attention_prefill_chunk(
+        *map(torch.from_numpy, (q, kc, vc, start, width)), window=window)
+    jq, jk, jv, js, jw = map(jnp.asarray, (q, kc, vc, start, width))
+    _close_rel(got,
+               flash_prefill_chunk_pallas(jq, jk, jv, js, jw, window=window,
+                                          interpret=True),
+               jax_ops._attention_prefill_chunk_ref(jq, jk, jv, js, jw,
+                                                    window=window))
+
+
+@pytest.mark.parametrize("window,hkv", ATTN_CASES)
+def test_attention_prefill_chunk_paged_matches_jax(window, hkv):
+    """The chunk math through a block table, chunks crossing a page
+    boundary, unmapped blocks past each row's chunk."""
+    rng = np.random.default_rng(12)
+    b, c, hq, d, page, maxb = 3, 5, 4, 16, 4, 6
+    kp, vp, bt = _paged_case(rng, b, hkv, d, page, maxb, [2, 3, 6])
+    q = _rnd(rng, b, c, hq, d)
+    start = np.asarray([0, 7, 20], np.int32)
+    width = np.asarray([5, 3, 1], np.int32)
+    got = ref.attention_prefill_chunk_paged(
+        *map(torch.from_numpy, (q, kp, vp, start, width, bt)), window=window)
+    jq, jk, jv, js, jw, jb = map(jnp.asarray, (q, kp, vp, start, width, bt))
+    _close_rel(got,
+               flash_prefill_chunk_paged_pallas(jq, jk, jv, js, jw, jb,
+                                                window=window,
+                                                interpret=True),
+               jax_ops._attention_prefill_chunk_paged_ref(
+                   jq, jk, jv, js, jw, jb, window=window))
+
+
+def test_ops_switch_layouts():
+    """``block_table`` selects the paged lowering in both attention ops,
+    and an all-unmapped row still returns finite values (the plain
+    version attends to page 0; the kernel returns zeros)."""
+    rng = np.random.default_rng(13)
+    kp, vp, bt = _paged_case(rng, 2, 1, 8, 4, 3, [2, 0])
+    kp, vp, bt = map(torch.from_numpy, (kp, vp, bt))
+    q = torch.from_numpy(_rnd(rng, 2, 4, 8))
+    cl = torch.tensor([6, 0], dtype=torch.int32)
+    got = ops.attention_decode(q, kp, vp, torch.tensor([6, 1]),
+                               block_table=bt)
+    assert torch.equal(got, ref.attention_decode_paged(
+        q, kp, vp, torch.tensor([6, 1]), bt))
+    assert torch.isfinite(ref.attention_decode_paged(q, kp, vp, cl + 1,
+                                                     bt)).all()
+    qc = torch.from_numpy(_rnd(rng, 2, 3, 4, 8))
+    kc = torch.from_numpy(_rnd(rng, 2, 8, 1, 8))
+    assert torch.equal(ops.attention_prefill_chunk(qc, kc, kc, 2, 3),
+                       ref.attention_prefill_chunk(qc, kc, kc, 2, 3))
+    assert torch.equal(
+        ops.attention_prefill_chunk(qc, kp, vp, 2, 3, block_table=bt),
+        ref.attention_prefill_chunk_paged(qc, kp, vp, 2, 3, bt))
+
+
 def test_wrappers_take_plain_version_on_cpu():
     """A kernel wrapper given CPU tensors computes its plain version (the
     CUDA kernel only ever sees CUDA tensors)."""
@@ -107,8 +229,20 @@ def test_wrappers_take_plain_version_on_cpu():
     assert torch.equal(bias_add_rows(a, w), ref.bias_add_rows(a, w))
     assert torch.equal(flash_decode(q, kc, kc, 4),
                        ref.attention_decode(q, kc, kc, 4))
+    bt = torch.tensor([[1, 0], [-1, -1]], dtype=torch.int32)
+    pool = torch.from_numpy(_rnd(rng, 3, 4, 1, 8))
+    qc = torch.from_numpy(_rnd(rng, 2, 3, 4, 8))
+    assert torch.equal(flash_decode_paged(q, pool, pool, 5, bt),
+                       ref.attention_decode_paged(q, pool, pool, 5, bt))
+    assert torch.equal(flash_prefill_chunk(qc, kc, kc, 1, 2),
+                       ref.attention_prefill_chunk(qc, kc, kc, 1, 2))
+    assert torch.equal(flash_prefill_chunk_paged(qc, pool, pool, 2, 3, bt),
+                       ref.attention_prefill_chunk_paged(qc, pool, pool, 2,
+                                                         3, bt))
     assert gemm.launches == rmsnorm.launches == 0
     assert bias_add_rows.launches == flash_decode.launches == 0
+    assert flash_decode_paged.launches == flash_prefill_chunk.launches == 0
+    assert flash_prefill_chunk_paged.launches == 0
 
 
 def test_policy_device_decides():
@@ -147,7 +281,9 @@ def test_policy_env_and_default(monkeypatch):
 def test_registry_covers_the_slice():
     cov = coverage()
     assert set(cov) == {"matmul", "bias_add_rows", "rmsnorm",
-                        "attention_decode"}
+                        "attention_decode", "attention_decode_paged",
+                        "attention_prefill_chunk",
+                        "attention_prefill_chunk_paged"}
     assert all(c == {"reference": True, "hopper": True} for c in cov.values())
     # the port's op names are the JAX registry's: the gap is computed
     assert set(list_ops()) <= set(jax_registry.list_ops())
