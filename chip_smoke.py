@@ -9,23 +9,49 @@ failure (non-zero exit, no result line):
 
 1. device   — CUDA present, sm_90; prints nvidia-smi's name and power limit.
 2. build    — compiles every ``csrc/*.cu`` kernel with nvcc for sm_90a.
-3. kernels  — each kernel against its plain PyTorch version at the main
-              paths' shapes (bf16 and f32), with CUDA-event timings of the
-              kernel, the plain version and one library call as yardstick;
-              an all-unmapped paged row must come out as zeros.
-4. serving  — full-width qwen2.5-3b (36 layers, bf16, seeded random weights
-              with non-zero biases) through the port's ServingEngine on the
-              hopper backend, three times: the paged pool with chunked
-              prefill (C = 16), the contiguous slab token by token, and the
-              contiguous slab with chunked prefill.  The prefill and decode
-              loops run under ``torch.cuda.set_sync_debug_mode("error")``;
-              launch counts must be 253 / 73 / 108 per prefill and per
-              decode step, plus 36 of the layout's chunk kernel per prefill
-              step and 36 of its decode kernel per decode step; the first
-              steps' logits are held against the reference backend.
-5. f32      — full width at 2 layers in f32: hopper and reference token
-              streams must be identical for {contiguous, paged} x
-              {prefill chunk 1, 16}.
+3. kernels  — each of the nine kernels against its plain PyTorch version at
+              the main paths' shapes (bf16 and f32), with CUDA-event
+              timings of the kernel, the plain version and one library call
+              as yardstick (none for the SSD scan); an all-unmapped paged
+              row must come out as zeros, an SSD row with no real token
+              must keep its carried state bit for bit, the SSD state written
+              in place must equal a new one bit for bit, and grouped B/C
+              must raise in the ops layer.
+4. serving  — full width, seeded random weights with perturbed biases,
+              norm weights and Mamba decay/step/skip parameters, through
+              the port's ServingEngine on the hopper backend: qwen2.5-3b
+              (36 layers, bf16) paged with chunked prefill (C = 16), the
+              contiguous slab token by token and contiguous with C = 16;
+              mamba2-2.7b (64 layers) token by token and with C = 16 (it
+              has no KV, so no layout); zamba2-2.7b (54 Mamba layers, the
+              shared attention block 9 times) paged with C = 16 and
+              contiguous token by token.  The prefill and decode loops run
+              under ``torch.cuda.set_sync_debug_mode("error")``; launch
+              counts per prefill and decode step are exact (``per_step``
+              derives them from the config); the first steps' logits are
+              held against the reference backend (qwen in bf16 at full
+              depth, the Mamba stacks in f32 at 12 layers, see below).
+5. f32      — full width in f32 at reduced depth (qwen2.5-3b and
+              mamba2-2.7b at 2 layers, zamba2-2.7b at 12 = 2 groups):
+              hopper and reference token streams must be identical for
+              {contiguous, paged} x {prefill chunk 1, 16} (mamba2: chunk
+              1 and 16 only).
+6. check    — ``--check``'s helper (``serving/checks.py``) for each arch
+              on the hopper backend: token-by-token decode of a 160-token
+              prompt (which crosses mamba2's SSD chunk of 128 in the
+              forward) against the teacher-forced forward, in f32 at the
+              phase-5 depths within JAX's 2e-2 (and mamba2 at 12 layers),
+              and qwen2.5-3b in bf16 at full depth within 5% of the
+              logits' scale, with exact launch counts.
+
+The random 64- and 54-layer Mamba stacks are chaotic: the plain reference
+alone, in bf16 and in f32 on the same weights, disagrees on nearly every
+top-1 token, and f32 rounding alone grows to several per cent of the
+logits at full depth (PERF.md, section 6).  So no end-to-end tolerance at
+full depth can tell a kernel fault from amplified rounding: phase 4
+prints the full-depth bf16 numbers and holds mamba2 and zamba2 in f32 at
+full width and 12 layers, and phases 5 and 6 hold them at reduced depth.
+Nothing is cut in width; depth is cut only in those checks.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -50,6 +76,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 B = 4                      # decode batch of the serving phase
 SEED = 0
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -90,15 +117,20 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 4
     launches = phase_serving(torch)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if not k["launches"]:
-            raise SystemExit(f"chip_smoke: {k['name']} never launched on "
-                             "a serving path")
 
     # ---------------------------------------------------------------- 5
     phase_f32(torch)
 
+    # ---------------------------------------------------------------- 6
+    for name, n in phase_check(torch).items():
+        launches[name] += n
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        if not k["launches"]:
+            raise SystemExit(f"chip_smoke: {k['name']} never launched on "
+                             "a serving or check path")
+
+    print(f"[done] {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -153,15 +185,17 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 def phase_kernels(torch):
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.eltwise import bias_add_rows
     from repro_torch.kernels.flash_attention import (
+        flash_attention,
         flash_decode,
         flash_decode_paged,
         flash_prefill_chunk,
         flash_prefill_chunk_paged,
     )
     from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.mamba_scan import ssd_scan
     from repro_torch.kernels.rmsnorm import rmsnorm
 
     timer = Timer(torch)
@@ -172,7 +206,11 @@ def phase_kernels(torch):
                 * scale).to(dtype)
 
     def check(name, got, want, tol_rel):
-        """max |got - want| <= tol_rel * max |want|."""
+        """max |got - want| <= tol_rel * max |want|, for each output of a
+        kernel that returns several (y and state; out and lse)."""
+        if isinstance(got, tuple):
+            return max(check(f"{name}[{i}]", g, w, tol_rel)
+                       for i, (g, w) in enumerate(zip(got, want)))
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
@@ -193,6 +231,12 @@ def phase_kernels(torch):
            ("float32", "bias_add_rows"): 0.0}
     TOL.update({("bfloat16", n): 2 ** -6 for n in attn})
     TOL.update({("float32", n): 1e-5 for n in attn})
+    # the forward attention as its siblings; the SSD scan computes in f32
+    # on both sides from the same inputs and rounds y once: one bf16 ulp
+    TOL.update({("bfloat16", "flash_attention"): 2 ** -6,
+                ("float32", "flash_attention"): 1e-5,
+                ("bfloat16", "ssd_scan"): 2 ** -7,
+                ("float32", "ssd_scan"): 1e-5})
     cfg_d, d_ff, vocab = 2048, 11008, 151936
     rows = []          # one per (kernel, case)
 
@@ -245,6 +289,29 @@ def phase_kernels(torch):
             ("wg,wi 64x2048 @ 2048x11008", a64, w_gi, "prefill", 36 * 2),
             ("wo 64x11008 @ 11008x2048", h64, w_o, "prefill", 36),
         ]
+        # the recurrent archs' decode steps (d 2560, d_inner 5120): extra
+        # figures, not in the JSON line's qwen totals
+        a25, h51 = rnd((B, 2560), dtype), rnd((B, 5120), dtype)
+        h10 = rnd((B, 10240), dtype)
+        w_o51 = rnd((5120, 2560), dtype, 5120 ** -0.5)
+        gemms += [
+            ("w_in 4x2560 @ 2560x10576", a25,
+             rnd((2560, 10576), dtype, 2560 ** -0.5), "mamba2 decode", 64),
+            ("w_out 4x5120 @ 5120x2560", h51, w_o51, "mamba2 decode", 64),
+            ("head 4x2560 @ embed.T 50280 (NT)", a25,
+             rnd((50280, 2560), dtype, 0.02).T, "mamba2 decode", 1),
+            ("w_in 4x2560 @ 2560x10448", a25,
+             rnd((2560, 10448), dtype, 2560 ** -0.5), "zamba2 decode", 54),
+            ("w_out 4x5120 @ 5120x2560", h51, w_o51, "zamba2 decode", 54),
+            ("wq,wk,wv,wo 4x2560 @ 2560x2560", a25,
+             rnd((2560, 2560), dtype, 2560 ** -0.5), "zamba2 decode", 36),
+            ("wg,wi 4x2560 @ 2560x10240", a25,
+             rnd((2560, 10240), dtype, 2560 ** -0.5), "zamba2 decode", 18),
+            ("wo 4x10240 @ 10240x2560", h10,
+             rnd((10240, 2560), dtype, 10240 ** -0.5), "zamba2 decode", 9),
+            ("head 4x2560 @ 2560x32000", a25,
+             rnd((2560, 32000), dtype, 2560 ** -0.5), "zamba2 decode", 1),
+        ]
         for case, x, w, step, count in gemms:
             m, k = x.shape
             n = w.shape[1]
@@ -258,6 +325,17 @@ def phase_kernels(torch):
             lambda: rmsnorm(a, wn), lambda: ref.rmsnorm(a, wn),
             lambda: F.rms_norm(a, (cfg_d,), wn, 1e-6),
             (2 * B * cfg_d + cfg_d) * es, 4.0 * B * cfg_d)
+        for wd, step, count in ((2560, "mamba2 decode", 65),
+                                (5120, "mamba2 decode", 64),
+                                (2560, "zamba2 decode", 73),
+                                (5120, "zamba2 decode", 54)):
+            xr = rnd((B, wd), dtype)
+            wr = (1 + 0.1 * rnd((wd,), torch.float32)).to(dtype)
+            run(rmsnorm, f"4x{wd}", dtype, step, count,
+                lambda xr=xr, wr=wr: rmsnorm(xr, wr),
+                lambda xr=xr, wr=wr: ref.rmsnorm(xr, wr),
+                lambda xr=xr, wr=wr, wd=wd: F.rms_norm(xr, (wd,), wr, 1e-6),
+                (2 * B * wd + wd) * es, 4.0 * B * wd)
         for n, count in ((2048, 36), (256, 72)):
             mm, v = rnd((B, n), dtype), rnd((n,), dtype, 0.1)
             run(bias_add_rows, f"4x{n} + {n}", dtype, "decode", count,
@@ -267,111 +345,237 @@ def phase_kernels(torch):
                 (2 * B * n + n) * es, 1.0 * B * n)
 
         # -- attention: the contiguous cache and a shuffled page pool that
-        # holds the same keys (every block below a row's length mapped)
-        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-        start = torch.tensor(start_l, dtype=torch.int32, device="cuda")
-        width = torch.tensor(width_l, dtype=torch.int32, device="cuda")
-        q = rnd((B, hq, hd), dtype)
-        qc = rnd((B, c, hq, hd), dtype)
-        kc, vc = rnd((B, smax, hkv, hd), dtype), rnd((B, smax, hkv, hd), dtype)
-        n_pages = 2 * B * maxb
-        ids = torch.randperm(n_pages, generator=gen, device="cuda").int()
-        bt = torch.full((B, maxb), -1, dtype=torch.int32, device="cuda")
-        kp = rnd((n_pages + 1, page, hkv, hd), dtype)
-        vp = rnd((n_pages + 1, page, hkv, hd), dtype)
-        at = 0
-        for i, n in enumerate(lens_l):
-            nb = -(-n // page)
-            bt[i, :nb] = ids[at: at + nb]
-            at += nb
-        # the library yardstick reads a contiguous copy of the pages: the
-        # gather runs once, outside the timed call
-        kg = ref._gather_pages(kp, bt, B).transpose(1, 2)
-        vg = ref._gather_pages(vp, bt, B).transpose(1, 2)
-        kpos = torch.arange(smax, device="cuda")
-        qpos = start[:, None] + torch.minimum(
-            torch.arange(c, device="cuda")[None, :], width[:, None] - 1)
-        qs, qcs = q[:, :, None, :], qc.transpose(1, 2)
-        ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)
-        bt_bytes = B * maxb * 4
-        for window in (None, 32):
-            dmask = kpos[None, :] < lens[:, None]
-            cmask = kpos[None, None, :] <= qpos[:, :, None]
+        # holds the same keys (every block below a row's length mapped), at
+        # qwen2.5-3b's heads (16/2 of 128, 36 layers) and zamba2-2.7b's
+        # shared block (32/32 of 80, applied 9 times per step)
+        for hq, hkv, hd, arch in ((16, 2, 128, ""), (32, 32, 80, "zamba2 ")):
+            lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+            start = torch.tensor(start_l, dtype=torch.int32, device="cuda")
+            width = torch.tensor(width_l, dtype=torch.int32, device="cuda")
+            q = rnd((B, hq, hd), dtype)
+            qc = rnd((B, c, hq, hd), dtype)
+            kc = rnd((B, smax, hkv, hd), dtype)
+            vc = rnd((B, smax, hkv, hd), dtype)
+            n_pages = 2 * B * maxb
+            ids = torch.randperm(n_pages, generator=gen, device="cuda").int()
+            bt = torch.full((B, maxb), -1, dtype=torch.int32, device="cuda")
+            kp = rnd((n_pages + 1, page, hkv, hd), dtype)
+            vp = rnd((n_pages + 1, page, hkv, hd), dtype)
+            at = 0
+            for i, n in enumerate(lens_l):
+                nb = -(-n // page)
+                bt[i, :nb] = ids[at: at + nb]
+                at += nb
+            # the library yardstick reads a contiguous copy of the pages: the
+            # gather runs once, outside the timed call
+            kg = ref._gather_pages(kp, bt, B).transpose(1, 2)
+            vg = ref._gather_pages(vp, bt, B).transpose(1, 2)
+            kpos = torch.arange(smax, device="cuda")
+            qpos = start[:, None] + torch.minimum(
+                torch.arange(c, device="cuda")[None, :], width[:, None] - 1)
+            qs, qcs = q[:, :, None, :], qc.transpose(1, 2)
+            ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)
+            bt_bytes = B * maxb * 4
+            for window in (None, 32):
+                dmask = kpos[None, :] < lens[:, None]
+                cmask = kpos[None, None, :] <= qpos[:, :, None]
+                if window is not None:
+                    dmask = dmask & (kpos[None, :] >= lens[:, None] - window)
+                    cmask = cmask & (kpos[None, None, :]
+                                     > qpos[:, :, None] - window)
+                dmask, cmask = dmask[:, None, None, :], cmask[:, None, :, :]
+                win = f" win {window}" if window else ""
+                count = (9 if arch else 36) if window is None else 0
+                # decode: every live key read once
+                keys = sum(n if window is None else min(n, window)
+                           for n in lens_l)
+                dbytes = (2 * B * hq * hd + 2 * keys * hkv * hd) * es
+                dflops = 4.0 * keys * hq * hd
+                run(flash_decode,
+                    f"q 4x{hq}x{hd}, cache 4x128x{hkv}x{hd}{win}", dtype,
+                    arch + "decode", count,
+                    lambda w=window: flash_decode(q, kc, vc, lens, window=w),
+                    lambda w=window: ref.attention_decode(q, kc, vc, lens,
+                                                          window=w),
+                    lambda m_=dmask: F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=m_, enable_gqa=True),
+                    dbytes, dflops)
+                run(flash_decode_paged,
+                    f"q 4x{hq}x{hd}, pool {n_pages}+1x16x{hkv}x{hd}{win}",
+                    dtype, arch + "decode", count,
+                    lambda w=window: flash_decode_paged(q, kp, vp, lens, bt,
+                                                        window=w),
+                    lambda w=window: ref.attention_decode_paged(
+                        q, kp, vp, lens, bt, window=w),
+                    lambda m_=dmask: F.scaled_dot_product_attention(
+                        qs, kg, vg, attn_mask=m_, enable_gqa=True),
+                    dbytes + bt_bytes, dflops)
+                # chunk: the keys the tile union needs, once; every query row
+                # (padding rows alias the last real one) over its valid keys
+                ckeys = sum(s0 + w0 - (0 if window is None
+                                       else max(0, s0 - window + 1))
+                            for s0, w0 in zip(start_l, width_l))
+                nvalid = cmask.sum().item()
+                cbytes = (2 * B * c * hq * hd + 2 * ckeys * hkv * hd) * es
+                cflops = 4.0 * nvalid * hq * hd
+                run(flash_prefill_chunk,
+                    f"q 4x16x{hq}x{hd}, cache 4x128x{hkv}x{hd}{win}",
+                    dtype, arch + "prefill", count,
+                    lambda w=window: flash_prefill_chunk(
+                        qc, kc, vc, start, width, window=w),
+                    lambda w=window: ref.attention_prefill_chunk(
+                        qc, kc, vc, start, width, window=w),
+                    lambda m_=cmask: F.scaled_dot_product_attention(
+                        qcs, ks, vs, attn_mask=m_, enable_gqa=True),
+                    cbytes, cflops)
+                run(flash_prefill_chunk_paged,
+                    f"q 4x16x{hq}x{hd}, pool {n_pages}+1x16x{hkv}x{hd}{win}",
+                    dtype, arch + "prefill", count,
+                    lambda w=window: flash_prefill_chunk_paged(
+                        qc, kp, vp, start, width, bt, window=w),
+                    lambda w=window: ref.attention_prefill_chunk_paged(
+                        qc, kp, vp, start, width, bt, window=w),
+                    lambda m_=cmask: F.scaled_dot_product_attention(
+                        qcs, kg, vg, attn_mask=m_, enable_gqa=True),
+                    cbytes + bt_bytes, cflops)
+            # a row whose pages are all unmapped (a released row) returns zeros
+            bt_u = bt.clone()
+            bt_u[B - 1] = -1
+            for name, fn in (
+                    ("flash_decode_paged",
+                     lambda t: flash_decode_paged(q, kp, vp, lens, t)),
+                    ("flash_prefill_chunk_paged",
+                     lambda t: flash_prefill_chunk_paged(qc, kp, vp, start,
+                                                         width, t))):
+                got, full = fn(bt_u), fn(bt)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(got).all() and not got[B - 1].any()
+                        and torch.equal(got[: B - 1], full[: B - 1])):
+                    raise SystemExit(
+                        f"chip_smoke: {name}: an all-unmapped row is not "
+                        "zeros, or it moved the other rows")
+            print(f"[3 kernels] all-unmapped row: zeros from both paged "
+                  f"kernels ({arch or 'qwen2.5-3b '}heads, {dtype})",
+                  flush=True)
+            del kc, vc, kp, vp, kg, vg
+
+        # -- the SSD scan.  B and C are column slices of an in_proj output
+        # (row width 2 d_inner + 2 N + H), read in place as the model
+        # passes them.  (arch, N, B, S, carried state, step, count):
+        # mamba2's decode step and C = 16 prefill step run it 64 times;
+        # the forward case is two chunks of 128.
+        ssd_cases = [("mamba2", 128, B, 1, True, "decode", 64),
+                     ("mamba2", 128, B, c, True, "prefill", 64),
+                     ("zamba2", 64, B, 1, True, "decode", 0),
+                     ("zamba2", 64, B, c, True, "prefill", 0),
+                     ("mamba2", 128, 2, 256, False, "forward", 0)]
+        h_ssm, p_ssm, d_in = 80, 64, 5120
+        for arch, n, bb, ss, carried, step, count in ssd_cases:
+            zx = rnd((bb, ss, 2 * d_in + 2 * n + h_ssm), dtype)
+            bm = zx[..., 2 * d_in: 2 * d_in + n].reshape(bb, ss, 1, n)
+            cm = zx[..., 2 * d_in + n: 2 * d_in + 2 * n].reshape(bb, ss, 1, n)
+            xs = rnd((bb, ss, h_ssm, p_ssm), dtype)
+            dts = F.softplus(rnd((bb, ss, h_ssm), torch.float32))
+            a_ = -torch.exp(0.5 * rnd((h_ssm,), torch.float32))
+            h0 = rnd((bb, h_ssm, p_ssm, n), torch.float32) if carried \
+                else None
+            chunk = min(128, ss)
+            cases = [(f"{arch} {bb}x{ss}x{h_ssm}x{p_ssm} N {n} chunk "
+                      f"{chunk}{' state' if carried else ''}", dts, count)]
+            if carried and ss > 1:
+                # dt == 0 at two positions and in the whole last row
+                dz = dts.clone()
+                dz[:, 3] = 0
+                dz[:, 9] = 0
+                dz[bb - 1] = 0
+                cases.append((cases[0][0] + ", dt = 0 gaps, empty row", dz,
+                              0))
+            nl = sum(min(chunk, ss - t) * (min(chunk, ss - t) + 1) // 2
+                     for t in range(0, ss, chunk))
+            sbytes = ((2 * bb * ss * h_ssm * p_ssm + 2 * bb * ss * n) * es
+                      + 4 * (bb * ss * h_ssm + h_ssm)
+                      + 4 * bb * h_ssm * p_ssm * n * (2 if carried else 1))
+            sflops = 2.0 * bb * h_ssm * (nl * (n + p_ssm)
+                                         + 2 * ss * p_ssm * n)
+            for case, d_, cnt in cases:
+                run(ssd_scan, case, dtype, step, cnt,
+                    lambda d_=d_, h0=h0: ssd_scan(xs, d_, a_, bm, cm,
+                                                  chunk=128,
+                                                  initial_state=h0),
+                    lambda d_=d_, h0=h0: ref.ssd_scan(xs, d_, a_, bm, cm,
+                                                      chunk=chunk,
+                                                      initial_state=h0),
+                    None, sbytes, sflops)
+                if d_ is not dts:
+                    _, fin = ssd_scan(xs, d_, a_, bm, cm, chunk=128,
+                                      initial_state=h0)
+                    torch.cuda.synchronize()
+                    if not torch.equal(fin[bb - 1], h0[bb - 1]):
+                        raise SystemExit("chip_smoke: ssd_scan: a row with "
+                                         "no real token changed its state")
+            del zx, xs, h0
+        print(f"[3 kernels] ssd_scan: a row with dt = 0 throughout kept its "
+              f"carried state bit for bit ({dtype})", flush=True)
+        # the serving path has the kernel write the new state over the
+        # carried one; grouped B/C (no configuration has them) raise in
+        # the ops layer instead of taking the plain version
+        xs = rnd((B, c, h_ssm, p_ssm), dtype)
+        bm, cm = rnd((B, c, 1, 128), dtype), rnd((B, c, 1, 128), dtype)
+        dts = F.softplus(rnd((B, c, h_ssm), torch.float32))
+        h0 = rnd((B, h_ssm, p_ssm, 128), torch.float32)
+        y0, fin = ssd_scan(xs, dts, a_, bm, cm, chunk=128, initial_state=h0)
+        y1, fin1 = ssd_scan(xs, dts, a_, bm, cm, chunk=128, initial_state=h0,
+                            final_state=h0)
+        torch.cuda.synchronize()
+        if not (fin1 is h0 and torch.equal(fin1, fin)
+                and torch.equal(y1, y0)):
+            raise SystemExit("chip_smoke: ssd_scan: writing the state in "
+                             "place differs from writing a new one")
+        try:
+            ops.ssd_scan(xs, dts, a_, torch.cat([bm, bm], 2),
+                         torch.cat([cm, cm], 2), chunk=16)
+        except ValueError:
+            pass
+        else:
+            raise SystemExit("chip_smoke: ops.ssd_scan took grouped B/C on "
+                             "the card")
+        del xs, h0, fin, fin1
+        print(f"[3 kernels] ssd_scan: the in-place state equals a new one "
+              f"bit for bit; grouped B/C raise ({dtype})", flush=True)
+
+        # -- the forward attention at the --check phase's shape, B = 2 and
+        # 160 tokens: qwen2.5-3b (16/2 heads of 128) and zamba2-2.7b's
+        # shared block (32/32 heads of 80), causal, and once windowed
+        s_f = 160
+        for hq_, hkv_, d_, window, count in ((16, 2, 128, None, 36),
+                                             (32, 32, 80, None, 0),
+                                             (16, 2, 128, 64, 0)):
+            qf = rnd((2, s_f, hq_, d_), dtype)
+            kf, vf = rnd((2, s_f, hkv_, d_), dtype), rnd((2, s_f, hkv_, d_),
+                                                         dtype)
+            qpos_f = torch.arange(s_f, device="cuda")
+            fmask = qpos_f[None, :] <= qpos_f[:, None]
             if window is not None:
-                dmask = dmask & (kpos[None, :] >= lens[:, None] - window)
-                cmask = cmask & (kpos[None, None, :]
-                                 > qpos[:, :, None] - window)
-            dmask, cmask = dmask[:, None, None, :], cmask[:, None, :, :]
+                fmask &= qpos_f[None, :] > qpos_f[:, None] - window
+            pairs = int(fmask.sum().item())
+            fbytes = 2 * s_f * (2 * hq_ + 2 * hkv_) * d_ * es \
+                + 4 * 2 * hq_ * s_f
+            qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
             win = f" win {window}" if window else ""
-            count = 36 if window is None else 0
-            # decode: every live key read once
-            keys = sum(n if window is None else min(n, window)
-                       for n in lens_l)
-            dbytes = (2 * B * hq * hd + 2 * keys * hkv * hd) * es
-            dflops = 4.0 * keys * hq * hd
-            run(flash_decode, f"q 4x16x128, cache 4x128x2x128{win}", dtype,
-                "decode", count,
-                lambda w=window: flash_decode(q, kc, vc, lens, window=w),
-                lambda w=window: ref.attention_decode(q, kc, vc, lens,
-                                                      window=w),
-                lambda m_=dmask: F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=m_, enable_gqa=True),
-                dbytes, dflops)
-            run(flash_decode_paged,
-                f"q 4x16x128, pool {n_pages}+1x16x2x128{win}", dtype,
-                "decode", count,
-                lambda w=window: flash_decode_paged(q, kp, vp, lens, bt,
-                                                    window=w),
-                lambda w=window: ref.attention_decode_paged(q, kp, vp, lens,
-                                                            bt, window=w),
-                lambda m_=dmask: F.scaled_dot_product_attention(
-                    qs, kg, vg, attn_mask=m_, enable_gqa=True),
-                dbytes + bt_bytes, dflops)
-            # chunk: the keys the tile union needs, once; every query row
-            # (padding rows alias the last real one) over its valid keys
-            ckeys = sum(s0 + w0 - (0 if window is None
-                                   else max(0, s0 - window + 1))
-                        for s0, w0 in zip(start_l, width_l))
-            nvalid = cmask.sum().item()
-            cbytes = (2 * B * c * hq * hd + 2 * ckeys * hkv * hd) * es
-            cflops = 4.0 * nvalid * hq * hd
-            run(flash_prefill_chunk, f"q 4x16x16x128, cache 4x128x2x128{win}",
-                dtype, "prefill", count,
-                lambda w=window: flash_prefill_chunk(qc, kc, vc, start, width,
-                                                     window=w),
-                lambda w=window: ref.attention_prefill_chunk(
-                    qc, kc, vc, start, width, window=w),
-                lambda m_=cmask: F.scaled_dot_product_attention(
-                    qcs, ks, vs, attn_mask=m_, enable_gqa=True),
-                cbytes, cflops)
-            run(flash_prefill_chunk_paged,
-                f"q 4x16x16x128, pool {n_pages}+1x16x2x128{win}", dtype,
-                "prefill", count,
-                lambda w=window: flash_prefill_chunk_paged(
-                    qc, kp, vp, start, width, bt, window=w),
-                lambda w=window: ref.attention_prefill_chunk_paged(
-                    qc, kp, vp, start, width, bt, window=w),
-                lambda m_=cmask: F.scaled_dot_product_attention(
-                    qcs, kg, vg, attn_mask=m_, enable_gqa=True),
-                cbytes + bt_bytes, cflops)
-        # a row whose pages are all unmapped (a released row) returns zeros
-        bt_u = bt.clone()
-        bt_u[B - 1] = -1
-        for name, fn in (
-                ("flash_decode_paged",
-                 lambda t: flash_decode_paged(q, kp, vp, lens, t)),
-                ("flash_prefill_chunk_paged",
-                 lambda t: flash_prefill_chunk_paged(qc, kp, vp, start,
-                                                     width, t))):
-            got, full = fn(bt_u), fn(bt)
-            torch.cuda.synchronize()
-            if not (torch.isfinite(got).all() and not got[B - 1].any()
-                    and torch.equal(got[: B - 1], full[: B - 1])):
-                raise SystemExit(f"chip_smoke: {name}: an all-unmapped row "
-                                 "is not zeros, or it moved the other rows")
-        print(f"[3 kernels] all-unmapped row: zeros from both paged kernels "
-              f"({dtype})", flush=True)
-        del kc, vc, kp, vp, kg, vg
+            run(flash_attention,
+                f"2x{s_f}x{hq_}x{d_}, kv {hkv_} heads, causal{win}", dtype,
+                "forward", count,
+                lambda w=window, q_=qf, k_=kf, v_=vf: flash_attention(
+                    q_, k_, v_, window=w),
+                lambda w=window, q_=qf, k_=kf, v_=vf: ref.mha_attention(
+                    q_, k_, v_, window=w),
+                (lambda q_=qt, k_=kt, v_=vt: F.scaled_dot_product_attention(
+                    q_, k_, v_, is_causal=True, enable_gqa=True))
+                if window is None else
+                (lambda q_=qt, k_=kt, v_=vt, m_=fmask:
+                 F.scaled_dot_product_attention(q_, k_, v_, attn_mask=m_,
+                                                enable_gqa=True)),
+                fbytes, 4.0 * 2 * hq_ * d_ * pairs)
         torch.cuda.empty_cache()
 
     # per-kernel totals over one bf16 step at B = 4: a decode step for the
@@ -395,6 +599,11 @@ def phase_kernels(torch):
         "flash_prefill_chunk_paged": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:909", "prefill"),
+        "flash_attention": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:120", "forward"),
+        "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/kernels/mamba_scan.py:79", "decode"),
     }
 
     def totals(name, step):
@@ -423,10 +632,26 @@ def phase_kernels(torch):
             "library_ms": tot["library_ms"],
         })
         lib = tot["library_ms"]
-        print(f"[3 kernels] {name}: one bf16 {step} step at B={B}: "
+        at = "B=2, 160 tokens" if step == "forward" else f"B={B}"
+        print(f"[3 kernels] {name}: one bf16 {step} step at {at}: "
               f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
               f"{tot['plain_ms']:.3f} ms, library "
               f"{lib if lib is None else round(lib, 3)} ms", flush=True)
+    for step in ("mamba2 decode", "zamba2 decode", "zamba2 prefill"):
+        for name in ("gemm", "rmsnorm", "flash_decode", "flash_decode_paged",
+                     "flash_prefill_chunk", "flash_prefill_chunk_paged"):
+            tot = totals(name, step)
+            if tot["ms"]:
+                lib = tot["library_ms"]
+                print(f"[3 kernels] {name}: one bf16 {step} step at B={B}:"
+                      f" {tot['ms']:.3f} ms vs bound {tot['bound_ms']:.4f} "
+                      f"ms, plain {tot['plain_ms']:.3f} ms, library "
+                      f"{lib if lib is None else round(lib, 3)} ms",
+                      flush=True)
+    tot = totals("ssd_scan", "prefill")
+    print(f"[3 kernels] ssd_scan: one bf16 mamba2 prefill step (C = {c}): "
+          f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms", flush=True)
     tot = totals("gemm", "prefill")
     print(f"[3 kernels] gemm: one bf16 prefill step at M={B * c} (the "
           f"chunk's projections; the head runs at M={B}): {tot['ms']:.3f} ms"
@@ -440,21 +665,38 @@ def phase_kernels(torch):
 # ---------------------------------------------------------------------------
 
 def perturb(torch, params, seed: int) -> None:
-    """Non-zero qkv biases and non-unit norm weights (the JAX init sets
-    them to 0 and 1, which would leave the bias kernel and the weight
-    multiply untested)."""
+    """Non-zero qkv biases, non-unit norm weights and, in the Mamba blocks,
+    non-trivial decay, step bias and skip (the JAX init sets them to 0, 1,
+    a_log = dt_bias = 0 and d_skip = 1, which would leave the bias kernel,
+    the weight multiply and the per-head decay untested)."""
     gen = torch.Generator(device=params["embed"].device).manual_seed(seed)
 
     def noise(t, scale):
         return (torch.randn(t.shape, generator=gen, device=t.device)
                 * scale).to(t.dtype)
 
-    params["ln_f"] = params["ln_f"] + noise(params["ln_f"], 0.1)
-    for p in params["layers"]:
+    def attn_mlp(attn, mlp):
         for key in ("bq", "bk", "bv"):
-            p["attn"][key] = noise(p["attn"][key], 0.05)
-        for blk in ("attn", "mlp"):
-            p[blk]["ln"] = p[blk]["ln"] + noise(p[blk]["ln"], 0.1)
+            if key in attn:
+                attn[key] = noise(attn[key], 0.05)
+        for blk in (attn, mlp):
+            blk["ln"] = blk["ln"] + noise(blk["ln"], 0.1)
+
+    def mamba(m):
+        for key, scale in (("a_log", 0.5), ("dt_bias", 0.5),
+                           ("d_skip", 0.1), ("ln", 0.1), ("ln_inner", 0.1)):
+            m[key] = m[key] + noise(m[key], scale)
+
+    params["ln_f"] = params["ln_f"] + noise(params["ln_f"], 0.1)
+    layers = params.get("layers", []) + [
+        p for group in params.get("groups", []) for p in group]
+    for p in layers:
+        if "attn" in p:
+            attn_mlp(p["attn"], p["mlp"])
+        else:
+            mamba(p["mamba"])
+    if "shared_attn" in params:
+        attn_mlp(params["shared_attn"], params["shared_mlp"])
 
 
 def requests(n, lo, hi, vocab, seed):
@@ -465,24 +707,49 @@ def requests(n, lo, hi, vocab, seed):
 
 KERNELS = ("gemm", "rmsnorm", "bias_add_rows", "flash_decode",
            "flash_decode_paged", "flash_prefill_chunk",
-           "flash_prefill_chunk_paged")
-# launches per prefill step and per decode step at 36 layers: 7 projections
-# and 2 norms per layer plus the head and the final norm; 3 bias adds
-PER_STEP = {"gemm": 36 * 7 + 1, "rmsnorm": 36 * 2 + 1,
-            "bias_add_rows": 36 * 3}
+           "flash_prefill_chunk_paged", "flash_attention", "ssd_scan")
 # the attention kernels of each layout: (decode step, prefill step)
 ATTN = {"contiguous": ("flash_decode", "flash_prefill_chunk"),
         "paged": ("flash_decode_paged", "flash_prefill_chunk_paged")}
 PAGE, CHUNK, GEN_LEN, MAX_LEN = 16, 16, 32, 128
+# the serving paths of each arch, (layout, prefill chunk), in run order;
+# mamba2-2.7b has no KV cache, so its layout is moot
+PATHS = {"qwen2.5-3b": (("paged", CHUNK), ("contiguous", 1),
+                        ("contiguous", CHUNK)),
+         "mamba2-2.7b": (("contiguous", 1), ("contiguous", CHUNK)),
+         "zamba2-2.7b": (("paged", CHUNK), ("contiguous", 1))}
+
+
+def per_step(cfg):
+    """Kernel launches of one prefill or decode step (and of one forward),
+    from the config, and the number of attention blocks: each attention
+    block runs 4 projections (q, k, v, o), a norm, 3 bias adds when the
+    arch has qkv biases, and its layout's attention kernel; each MLP
+    (one per attention block) 3 projections and a norm; each Mamba block
+    2 projections (in, out), 2 norms (ln, ln_inner) and one SSD scan; the
+    head one projection and the final norm one norm.  Dense runs an
+    attention block and an MLP per layer, ssm a Mamba block per layer,
+    hybrid a Mamba block per layer and the shared attention block and MLP
+    once per group of ``attn_every`` layers."""
+    n_attn = {"dense": cfg.n_layers, "ssm": 0,
+              "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+    n_mamba = 0 if cfg.family == "dense" else cfg.n_layers
+    return {"gemm": 7 * n_attn + 2 * n_mamba + 1,
+            "rmsnorm": 2 * n_attn + 2 * n_mamba + 1,
+            "bias_add_rows": 3 * n_attn if cfg.qkv_bias else 0,
+            "ssd_scan": n_mamba}, n_attn
 
 
 def kernel_fns():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.eltwise import bias_add_rows
     from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.mamba_scan import ssd_scan
     from repro_torch.kernels.rmsnorm import rmsnorm
-    fns = {"gemm": gemm, "rmsnorm": rmsnorm, "bias_add_rows": bias_add_rows}
-    fns.update({name: getattr(FA, name) for name in KERNELS[3:]})
+    fns = {"gemm": gemm, "rmsnorm": rmsnorm, "bias_add_rows": bias_add_rows,
+           "ssd_scan": ssd_scan}
+    fns.update({name: getattr(FA, name) for name in KERNELS
+                if name.startswith("flash_")})
     return fns
 
 
@@ -500,7 +767,7 @@ def serve_path(torch, model, params, reqs, layout, chunk):
     for toks in reqs:
         eng.submit(toks, GEN_LEN)
     fns = kernel_fns()
-    tag = f"[4 serving] {layout}, prefill chunk {chunk}:"
+    tag = f"[4 serving] {model.cfg.name}, {layout}, prefill chunk {chunk}:"
     with use_backend("hopper"):
         for fn in fns.values():
             fn.launches = 0
@@ -544,99 +811,147 @@ def serve_path(torch, model, params, reqs, layout, chunk):
               f"({s['kv_resident_bytes_peak'] / 2 ** 20:.1f} MiB of KV)",
               flush=True)
     print(f"{tag} launches {launches}", flush=True)
+    steps, n_attn = per_step(model.cfg)
     want = {name: 0 for name in KERNELS}
-    want.update({name: n * (pre + dec) for name, n in PER_STEP.items()})
+    want.update({name: n * (pre + dec) for name, n in steps.items()})
     k_dec, k_pre = ATTN[layout]
-    want[k_dec] = 36 * dec
-    want[k_pre] = 36 * pre
+    want[k_dec] += n_attn * dec
+    want[k_pre] += n_attn * pre
     if launches != want or (chunk > 1) != (pre > 0):
-        raise SystemExit(f"chip_smoke: {layout} chunk {chunk}: launches "
+        raise SystemExit(f"chip_smoke: {tag} launches "
                          f"{launches}, expected {want} for {pre} prefill + "
                          f"{dec} decode steps")
     outs = eng.outputs
     if sorted(outs) != list(range(len(reqs))) or any(
             len(o) != GEN_LEN or o.min() < 0 or o.max() >= model.cfg.vocab_size
             for o in outs.values()):
-        raise SystemExit(f"chip_smoke: {layout} chunk {chunk}: serving "
-                         "outputs malformed")
+        raise SystemExit(f"chip_smoke: {tag} serving outputs malformed")
     return launches, outs
 
 
-def check_logits(torch, model, params, reqs, layout):
-    """The first steps' logits, hopper vs reference, same inputs: one
-    16-token prefill chunk then 4 decode steps (paged), or 6 decode steps
-    (contiguous)."""
+def first_logits(torch, model, params, toks, layout, backend):
+    """The first steps' logits on ``backend``: one 16-token prefill chunk
+    then 4 decode steps (``layout="paged"``; for mamba2 the chunk route
+    without pages), or 6 decode steps (contiguous)."""
     from repro_torch.core.policy import use_backend
 
+    with use_backend(backend):
+        if layout == "paged":
+            state = model.init_decode_state(
+                B, MAX_LEN, per_row_pos=True, layout="paged",
+                page_size=PAGE)
+            lg, state = model.prefill_chunk(
+                params, state, toks[:, :CHUNK],
+                torch.full((B,), CHUNK, device="cuda"))
+            steps_l = [lg.float()]
+            feed = toks[:, CHUNK:]
+        else:
+            state = model.init_decode_state(B, MAX_LEN, per_row_pos=True)
+            steps_l, feed = [], toks[:, :6]
+        for j in range(feed.shape[1]):
+            lg, state = model.decode_step(params, state, feed[:, j])
+            steps_l.append(lg.float())
+    return torch.stack(steps_l)
+
+
+def compare(got, want):
+    """(max |got - want|, max |want|, top-1 agreement)."""
+    return ((got - want).abs().max().item(), want.abs().max().item(),
+            (got.argmax(-1) == want.argmax(-1)).float().mean().item())
+
+
+def to_f32(tree):
+    if isinstance(tree, dict):
+        return {k: to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_f32(v) for v in tree]
+    return tree.float()
+
+
+# the depth at which the Mamba stacks' logits are held (two zamba2 groups)
+GATE_LAYERS = 12
+
+
+def check_logits(torch, model, params, reqs, layout):
+    """The first steps' logits, hopper vs reference, same inputs.  qwen2.5-3b
+    is held in bf16 within 5% of the scale: the two sides round at
+    different places (the attention kernels' p, rmsnorm's rsqrt).  The
+    random 64- and 54-layer Mamba stacks are chaotic: the reference alone,
+    in bf16 and in f32 on the same bf16-valued weights, disagrees on
+    nearly every top-1 token at full depth (PERF.md, section 6).  So
+    mamba2 and zamba2 print their full-depth bf16 numbers and are held in
+    f32 at full width and ``GATE_LAYERS`` layers (their first layers'
+    weights), within 1% of the scale."""
+    from repro_torch.models.model import build_model
+
+    cfg = model.cfg
+    tag = f"[4 serving] {cfg.name}, {layout}:"
     toks = torch.as_tensor(
         np.stack([np.resize(r, CHUNK + 4) for r in reqs[:B]]), device="cuda")
-    logits = {}
-    for backend in ("hopper", "reference"):
-        with use_backend(backend):
-            if layout == "paged":
-                state = model.init_decode_state(
-                    B, MAX_LEN, per_row_pos=True, layout="paged",
-                    page_size=PAGE)
-                lg, state = model.prefill_chunk(
-                    params, state, toks[:, :CHUNK],
-                    torch.full((B,), CHUNK, device="cuda"))
-                steps_l = [lg.float()]
-                feed = toks[:, CHUNK:]
-            else:
-                state = model.init_decode_state(B, MAX_LEN, per_row_pos=True)
-                steps_l, feed = [], toks[:, :6]
-            for j in range(feed.shape[1]):
-                lg, state = model.decode_step(params, state, feed[:, j])
-                steps_l.append(lg.float())
-            logits[backend] = torch.stack(steps_l)
-    hop, refl = logits["hopper"], logits["reference"]
-    err = (hop - refl).abs().max().item()
-    scale = refl.abs().max().item()
-    agree = (hop.argmax(-1) == refl.argmax(-1)).float().mean().item()
-    print(f"[4 serving] {layout}: first {hop.shape[0]} steps' logits vs "
-          f"reference: max_abs_err {err:.4g} (max|logit| {scale:.4g}), top-1 "
+    hop, refl = (first_logits(torch, model, params, toks, layout, b)
+                 for b in ("hopper", "reference"))
+    err, scale, agree = compare(hop, refl)
+    print(f"{tag} first {hop.shape[0]} steps' bf16 logits vs reference: "
+          f"max_abs_err {err:.4g} (max|logit| {scale:.4g}), top-1 "
           f"agreement {agree:.3f}", flush=True)
-    # bf16 through 36 layers: the two sides round at different places
-    # (the attention kernels' p, rmsnorm's rsqrt), so hold them to 5% of
-    # the scale
-    if not (np.isfinite(err) and err <= 0.05 * scale):
-        raise SystemExit(f"chip_smoke: {layout}: bf16 logits differ by "
-                         f"{err:.4g}")
+    tol = 0.05
+    if cfg.family != "dense":
+        if "groups" in params:
+            cut = {**params, "groups": params["groups"][:GATE_LAYERS
+                                                        // cfg.attn_every]}
+        else:
+            cut = {**params, "layers": params["layers"][:GATE_LAYERS]}
+        p32 = to_f32(cut)
+        m32 = build_model(dataclasses.replace(cfg, n_layers=GATE_LAYERS,
+                                              dtype="float32"))
+        err, scale, agree = compare(*(
+            first_logits(torch, m32, p32, toks, layout, b)
+            for b in ("hopper", "reference")))
+        print(f"{tag} f32 at {GATE_LAYERS} layers, hopper vs reference: "
+              f"max_abs_err {err:.4g} (max|logit| {scale:.4g}), top-1 "
+              f"agreement {agree:.3f}", flush=True)
+        tol = 0.01
+        del p32
+    if not (np.isfinite(err) and err <= tol * scale):
+        raise SystemExit(f"chip_smoke: {cfg.name}, {layout}: logits differ "
+                         f"by {err:.4g} (max|logit| {scale:.4g})")
 
 
 def phase_serving(torch):
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.model import build_model
 
-    cfg = get_arch("qwen2.5-3b")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init_params(SEED)
-    perturb(torch, params, SEED + 1)
-    torch.cuda.synchronize()
-    print(f"[4 serving] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"vocab {cfg.vocab_size}, {cfg.dtype}; params in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    reqs = requests(8, 16, 64, cfg.vocab_size, SEED)
     total = {name: 0 for name in KERNELS}
-    streams = {}
-    # the slice-2 path first, then slice 1's, then the contiguous chunk
-    for layout, chunk in (("paged", CHUNK), ("contiguous", 1),
-                          ("contiguous", CHUNK)):
-        launches, streams[layout, chunk] = serve_path(
-            torch, model, params, reqs, layout, chunk)
-        for name in KERNELS:
-            total[name] += launches[name]
-    same = sum(np.array_equal(streams["paged", CHUNK][i],
-                              streams["contiguous", 1][i])
-               for i in range(len(reqs)))
-    print(f"[4 serving] bf16 streams, paged chunk {CHUNK} vs contiguous "
-          f"token by token: {same} of {len(reqs)} identical (bf16 rounds "
-          "differently per schedule; phase 5 holds f32)", flush=True)
-    for layout in ("paged", "contiguous"):
-        check_logits(torch, model, params, reqs, layout)
-    del params
-    torch.cuda.empty_cache()
+    for arch, paths in PATHS.items():
+        cfg = get_arch(arch)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init_params(SEED)
+        perturb(torch, params, SEED + 1)
+        torch.cuda.synchronize()
+        print(f"[4 serving] {cfg.name}: {cfg.family}, {cfg.n_layers} "
+              f"layers, d {cfg.d_model}, vocab {cfg.vocab_size}, "
+              f"{cfg.dtype}; params in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        reqs = requests(8, 16, 64, cfg.vocab_size, SEED)
+        streams = {}
+        for layout, chunk in paths:
+            launches, streams[layout, chunk] = serve_path(
+                torch, model, params, reqs, layout, chunk)
+            for name in KERNELS:
+                total[name] += launches[name]
+        (l0, c0), (l1, c1) = paths[:2]
+        same = sum(np.array_equal(streams[l0, c0][i], streams[l1, c1][i])
+                   for i in range(len(reqs)))
+        print(f"[4 serving] {cfg.name}: bf16 streams, {l0} chunk {c0} vs "
+              f"{l1} chunk {c1}: {same} of {len(reqs)} identical (bf16 "
+              "rounds differently per schedule; phase 5 holds f32)",
+              flush=True)
+        # the chunk route (paged, for the archs with KV) and token by token
+        for layout in ("paged", "contiguous"):
+            check_logits(torch, model, params, reqs, layout)
+        del params
+        torch.cuda.empty_cache()
     return total
 
 
@@ -644,40 +959,127 @@ def phase_serving(torch):
 # phase 5: f32, IEEE on both sides: identical token streams
 # ---------------------------------------------------------------------------
 
+# (arch, layers, layouts): reduced depth, full width; zamba2 needs 12
+# layers to keep attn_every = 6 with 2 groups
+F32_CASES = (("qwen2.5-3b", 2, ("contiguous", "paged")),
+             ("mamba2-2.7b", 2, ("contiguous",)),
+             ("zamba2-2.7b", 12, ("contiguous", "paged")))
+
+
 def phase_f32(torch):
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.policy import use_backend
     from repro_torch.models.model import build_model
     from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
 
-    cfg = dataclasses.replace(get_arch("qwen2.5-3b"), n_layers=2,
-                              dtype="float32")
-    model = build_model(cfg)
-    params = model.init_params(SEED)
-    perturb(torch, params, SEED + 1)
-    reqs = requests(6, 8, 24, cfg.vocab_size, SEED + 2)
-    for layout in ("contiguous", "paged"):
-        for chunk in (1, CHUNK):
-            streams = {}
-            for backend in ("hopper", "reference"):
-                with use_backend(backend):
-                    eng = ServingEngine(
-                        model, params, batch=B, max_len=64,
-                        cache=CacheConfig(layout=layout, page_size=PAGE),
-                        config=EngineConfig(steps_per_sync=4,
-                                            prefill_chunk=chunk))
-                    for toks in reqs:
-                        eng.submit(toks, 16)
-                    streams[backend] = eng.run()
-            same = all(np.array_equal(streams["hopper"][i],
-                                      streams["reference"][i])
-                       for i in range(len(reqs)))
-            print(f"[5 f32] 2 layers at full width, {layout}, prefill chunk "
-                  f"{chunk}, {len(reqs)} requests x 16 tokens: hopper == "
-                  f"reference token streams: {same}", flush=True)
-            if not same:
-                raise SystemExit(f"chip_smoke: f32 token streams differ "
-                                 f"({layout}, chunk {chunk})")
+    for arch, layers, layouts in F32_CASES:
+        model = build_model(dataclasses.replace(
+            get_arch(arch), n_layers=layers, dtype="float32"))
+        cfg = model.cfg
+        params = model.init_params(SEED)
+        perturb(torch, params, SEED + 1)
+        reqs = requests(6, 8, 24, cfg.vocab_size, SEED + 2)
+        for layout in layouts:
+            for chunk in (1, CHUNK):
+                streams = {}
+                for backend in ("hopper", "reference"):
+                    with use_backend(backend):
+                        eng = ServingEngine(
+                            model, params, batch=B, max_len=64,
+                            cache=CacheConfig(layout=layout, page_size=PAGE),
+                            config=EngineConfig(steps_per_sync=4,
+                                                prefill_chunk=chunk))
+                        for toks in reqs:
+                            eng.submit(toks, 16)
+                        streams[backend] = eng.run()
+                same = all(np.array_equal(streams["hopper"][i],
+                                          streams["reference"][i])
+                           for i in range(len(reqs)))
+                print(f"[5 f32] {arch}, {layers} layers at full width, "
+                      f"{layout}, prefill chunk {chunk}, {len(reqs)} "
+                      f"requests x 16 tokens: hopper == reference token "
+                      f"streams: {same}", flush=True)
+                if not same:
+                    raise SystemExit(f"chip_smoke: f32 token streams differ "
+                                     f"({arch}, {layout}, chunk {chunk})")
+        del params
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serving CLI's --check, decode vs the teacher-forced forward
+# ---------------------------------------------------------------------------
+
+CHECK_LEN, CHECK_B = 160, 2
+# (arch, ((layers, dtype), ...)): f32 at the phase-5 depth; then qwen2.5-3b
+# in bf16 at full depth, and mamba2 in f32 at ``GATE_LAYERS``: the random
+# Mamba stacks are chaotic at full depth (``check_logits``)
+CHECK_CASES = (("qwen2.5-3b", ((2, "float32"), (36, "bfloat16"))),
+               ("mamba2-2.7b", ((2, "float32"), (GATE_LAYERS, "float32"))),
+               ("zamba2-2.7b", ((GATE_LAYERS, "float32"),)))
+
+
+def phase_check(torch):
+    """For each arch at full width and the depths of ``CHECK_CASES`` (f32
+    within JAX's 2e-2 for all three; bf16 within 5% of the logits' scale
+    for qwen2.5-3b only, at full depth): ``--check``'s helper
+    on the hopper backend with the launch counts set to 0 just before and
+    read just after.  One forward runs every kernel of a step once per block
+    (plus the head), and the attention forward once per attention block;
+    the 160 decode steps run the step's kernels and the contiguous decode
+    attention."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.policy import use_backend
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.checks import (
+        assert_decode_matches_teacher_forced,
+    )
+
+    fns = kernel_fns()
+    total = {name: 0 for name in KERNELS}
+    for arch, cases in CHECK_CASES:
+        for layers, dtype in cases:
+            f32 = dtype == "float32"
+            model = build_model(dataclasses.replace(
+                get_arch(arch), n_layers=layers, dtype=dtype))
+            cfg = model.cfg
+            params = model.init_params(SEED + 3)
+            perturb(torch, params, SEED + 4)
+            prompt = torch.as_tensor(np.random.default_rng(SEED + 5).integers(
+                0, cfg.vocab_size, (CHECK_B, CHECK_LEN)), device="cuda")
+            with use_backend("hopper"):
+                for fn in fns.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                try:
+                    err, scale = assert_decode_matches_teacher_forced(
+                        model, params, prompt, CHECK_LEN + 32,
+                        scale_tol=None if f32 else 0.05)
+                except AssertionError as e:
+                    raise SystemExit(f"chip_smoke: --check {cfg.name} "
+                                     f"({cfg.dtype}): {e}")
+                secs = time.perf_counter() - t0
+                launches = {name: fn.launches for name, fn in fns.items()}
+            steps, n_attn = per_step(cfg)
+            want = {name: 0 for name in KERNELS}
+            want.update({name: n * (CHECK_LEN + 1)
+                         for name, n in steps.items()})
+            want["flash_attention"] = n_attn
+            want["flash_decode"] = n_attn * CHECK_LEN
+            tol = "2e-2" if f32 else f"5% of {scale:.4g}"
+            print(f"[6 check] {cfg.name} {cfg.n_layers} layers {cfg.dtype}:"
+                  f" decode of {CHECK_B}x{CHECK_LEN} tokens vs teacher-forced"
+                  f" forward: max |diff| {err:.4g} (max |logit| "
+                  f"{scale:.4g}, allowed {tol}) in {secs:.1f} s; launches "
+                  f"{launches}", flush=True)
+            if launches != want:
+                raise SystemExit(f"chip_smoke: --check {cfg.name}: launches "
+                                 f"{launches}, expected {want}")
+            for name in KERNELS:
+                total[name] += launches[name]
+            del params
+            torch.cuda.empty_cache()
+    return total
 
 
 if __name__ == "__main__":

@@ -13,6 +13,8 @@ from repro_torch.configs.base import ArchConfig
 
 _ARCH_MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
 

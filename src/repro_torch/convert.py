@@ -2,10 +2,13 @@
 
 ``params_from_jax`` takes a ``repro.models.lm.init_params`` tree whose
 leaves are numpy arrays (``jax.device_get`` of the params) and returns the
-port's params: the stacked leading layer axis of ``params["layers"]`` is
-split into a list of per-layer dicts.  numpy's bf16 is the ``ml_dtypes``
-type, which torch cannot take directly, so bf16 leaves cross as 16-bit
-integers and are reinterpreted as ``torch.bfloat16`` bit for bit.
+port's params: the stacked leading layer axis of ``params["layers"]``
+(dense, ssm) is split into a list of per-layer dicts, and the two stacked
+axes of the hybrid ``params["groups"]`` (group, layer in the group) into
+lists of lists; ``shared_attn`` and ``shared_mlp`` are not stacked.
+numpy's bf16 is the ``ml_dtypes`` type, which torch cannot take directly,
+so bf16 leaves cross as 16-bit integers and are reinterpreted as
+``torch.bfloat16`` bit for bit.
 """
 from __future__ import annotations
 
@@ -32,23 +35,36 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(tree, fn):
+    """A tree stacked on its leading axis -> a list of ``fn(subtree)``."""
+    first = tree
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return [fn(_map(tree, lambda a, i=i: np.asarray(a)[i]))
+            for i in range(np.shape(first)[0])]
+
+
 def params_from_jax(tree: Dict[str, Any], *,
                     device: str | torch.device = "cuda") -> Dict[str, Any]:
-    """Dense-family params tree (numpy leaves) -> the port's params."""
+    """Dense, ssm or hybrid params tree (numpy leaves) -> the port's
+    params."""
     dev = resolve_device(device)
-    unknown = set(tree) - {"embed", "ln_f", "lm_head", "layers"}
+    unknown = set(tree) - {"embed", "ln_f", "lm_head", "layers", "groups",
+                           "shared_attn", "shared_mlp"}
     if unknown:
         raise NotImplementedError(
             f"params_from_jax: keys {sorted(unknown)} belong to families "
-            "this slice of the port does not serve"
+            "the port does not serve yet"
         )
-    out = {k: _to_tensor(v, dev) for k, v in tree.items() if k != "layers"}
-    first = tree["layers"]
-    while isinstance(first, dict):
-        first = next(iter(first.values()))
-    n_layers = np.shape(first)[0]
-    out["layers"] = [
-        _map(tree["layers"], lambda a, i=i: _to_tensor(np.asarray(a)[i], dev))
-        for i in range(n_layers)
-    ]
+
+    def leaf(a):
+        return _to_tensor(a, dev)
+
+    out = {k: _map(v, leaf) for k, v in tree.items()
+           if k not in ("layers", "groups")}
+    if "layers" in tree:
+        out["layers"] = _unstack(tree["layers"], lambda t: _map(t, leaf))
+    if "groups" in tree:
+        out["groups"] = _unstack(tree["groups"], lambda g: _unstack(
+            g, lambda t: _map(t, leaf)))
     return out

@@ -53,6 +53,18 @@ _SIGNATURES = {
     "repro_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                         _L, _L, _L, _I, _F, _I, _P],
+    # q, k, v, out, lse, B, Hkv, G, Sq, Sk, D, q_sb, q_ss, q_sh, k_sb, k_ss,
+    # k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, l_sb, l_sh, causal, window,
+    # scale, dtype, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                              _L, _L, _I, _I, _F, _I, _P],
+    # x, dt, A, B, C, h0, y, hf, B, S, H, P, N, chunk, x_sb, x_ss, x_sh,
+    # dt_sb, dt_ss, dt_sh, b_sb, b_ss, c_sb, c_ss, y_sb, y_ss, y_sh, dtype,
+    # stream
+    "repro_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                       _L, _I, _P],
 }
 
 _LOCK = threading.Lock()

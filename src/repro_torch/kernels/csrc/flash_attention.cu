@@ -1,21 +1,25 @@
-// Attention over the KV cache for decode and chunked prefill, contiguous or
-// paged: C query tokens per row (C = 1 at decode), q (B, C, Hq, D) against
-// keys read in place by their strides, f32 online softmax, output in the
-// storage dtype.  One kernel template serves the four ported kernels:
+// Attention for decode, chunked prefill and the full forward: C query tokens
+// per row (C = 1 at decode), q (B, C, Hq, D) against keys read in place by
+// their strides, f32 online softmax, output in the storage dtype.  One
+// kernel template serves the five ported kernels:
 //
 //   flash_decode               contiguous (B, Smax, Hkv, D), C = 1
 //   flash_decode_paged         page pool (P, page, Hkv, D) + block table, C = 1
 //   flash_prefill_chunk        contiguous, C query tokens at start .. start+C-1
 //   flash_prefill_chunk_paged  page pool + block table, C query tokens
+//   flash_attention            forward: q (B, Sq, Hq, D) against k, v
+//                              (B, Sk, Hkv, D), query i at position i,
+//                              causal or not, plus lse (B, Hq, Sq) f32
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_decode_pallas,
-// flash_decode_paged_pallas, flash_prefill_chunk_pallas and
-// flash_prefill_chunk_paged_pallas.  Their TPU grids (B, Hkv, key blocks)
-// walk the key blocks in order on one core with the softmax state in VMEM
-// scratch, after transposing (and padding) the cache on every call, and the
-// paged ones pick each page in a BlockSpec index map from a scalar-prefetched
-// block table.  Here a block owns one (row, kv head, query-row tile) and the
-// sequential key axis becomes a loop inside the block:
+// flash_decode_paged_pallas, flash_prefill_chunk_pallas,
+// flash_prefill_chunk_paged_pallas and flash_attention_pallas.  Their TPU
+// grids (B, Hkv or Hq, [query blocks,] key blocks) walk the key blocks in
+// order on one core with the softmax state in VMEM scratch, after
+// transposing (and padding) q and the cache on every call, and the paged
+// ones pick each page in a BlockSpec index map from a scalar-prefetched
+// block table.  Here a block owns one (row, kv head, query-row tile) and
+// the sequential key axis becomes a loop inside the block:
 //
 //   * query rows: row r of the (row, kv head) pair is chunk token i = r / G
 //     and group head g = r % G, so the GQA group is folded into the rows and
@@ -24,8 +28,9 @@
 //     G * C rows of a chunk in tiles (128 rows at qwen2.5-3b with C = 16).
 //   * positions: chunk token i sits at qpos = start + min(i, width - 1)
 //     (padding tokens alias the last real one, so every row keeps a finite
-//     score); decode passes the valid length instead, qpos = len - 1.  Key s
-//     is valid for a row when s <= qpos and, windowed, s > qpos - window.
+//     score); decode passes the valid length instead, qpos = len - 1; the
+//     forward has qpos = i.  Key s is valid for a row when s <= qpos
+//     (causal; the forward may drop it) and, windowed, s > qpos - window.
 //     A tile walks keys only from its lowest row's window start to its
 //     highest row's qpos.
 //   * addresses: contiguous key s of row b is at b * k_sb + s * k_ss; paged,
@@ -33,13 +38,16 @@
 //     block (-1) is masked.  The block loads its own table entries (no
 //     scalar prefetch): one thread per key of the tile resolves its offset
 //     into shared memory, and a tile with no live key is skipped.
-//   * a row with no valid key writes zeros (the l == 0 guard).
+//   * a row with no valid key writes zeros (the l == 0 guard); lse is
+//     m + log(l) with l == 0 taken as 1 (flash_attention.py:99-104).
 //
 // What bounds it on Hopper: bytes -- each live key and value is read once
 // per query-row tile, B * keys * Hkv * D * 2 elements at decode.  The
 // scores and the PV product are scalar FMAs over shared-memory tiles; the
 // grid is only B * Hkv * ceil(G * C / 8) blocks (8 at decode, B = 4).
-// Tensor cores (mma.sync / wgmma), split-K and TMA are later work.
+// Tensor cores (mma.sync / wgmma), split-K and TMA are later work; the
+// forward, which reads every key once per tile of 8 query rows, is the
+// first to want them.
 #include "common.cuh"
 
 namespace {
@@ -62,6 +70,9 @@ struct AttnArgs {
   const int* pos0;   // (B,) chunk start; with width == nullptr, valid length
   const int* width;  // (B,) real tokens per chunk, or nullptr (decode)
   const int* bt;     // (B, .) block table, or nullptr (contiguous)
+  float* lse;        // (B, Hq, C) f32, or nullptr
+  int fwd;           // 1: query i sits at position i (pos0, width unused)
+  int causal;        // 0: no upper bound on the keys (forward only)
   int C, G, D;
   int n_keys;        // Smax, or max_blocks * page
   int page;
@@ -71,10 +82,12 @@ struct AttnArgs {
   long k_sb, k_ss, k_sh;  // k_sb: batch stride, or page stride when paged
   long v_sb, v_ss, v_sh;
   long o_sb, o_sc, o_sh;
+  long l_sb, l_sh;
   float scale;
 };
 
 __device__ __forceinline__ int query_pos(const AttnArgs& a, int b, int i) {
+  if (a.fwd) return i;
   return a.width ? a.pos0[b] + min(i, a.width[b] - 1) : a.pos0[b] - 1;
 }
 
@@ -100,7 +113,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
   // lowest position and its last row the highest
   const int q_lo = query_pos(a, b, r0 / a.G);
   const int q_hi = query_pos(a, b, (r0 + nr - 1) / a.G);
-  const int hi = min(q_hi + 1, a.n_keys);
+  const int hi = a.causal ? min(q_hi + 1, a.n_keys) : a.n_keys;
   const int lo = a.window >= 0 ? max(0, q_lo - a.window + 1) : 0;
 
   if (tid < kRows) qpos[tid] = tid < nr ? query_pos(a, b, (r0 + tid) / a.G) : -1;
@@ -162,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
       const int rr = warp + r * kWarps;
       if (rr < nr) {  // warp-uniform
         const int qp = qpos[rr];
-        bool valid = mapped && kpos <= qp;
+        bool valid = mapped && (!a.causal || kpos <= qp);
         if (a.window >= 0) valid = valid && kpos > qp - a.window;
         float s = 0.f;
         for (int d = 0; d < D; ++d) s = fmaf(qs[rr][d], ks[lane][d], s);
@@ -191,7 +204,11 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
     const int rr = warp + r * kWarps;
     if (rr < nr) {
       const int row = r0 + rr, ci = row / a.G, g = row % a.G;
-      const float inv = 1.f / (l_run[r] == 0.f ? 1.f : l_run[r]);
+      const float l_safe = l_run[r] == 0.f ? 1.f : l_run[r];
+      const float inv = 1.f / l_safe;
+      if (a.lse && lane == 0)
+        a.lse[b * a.l_sb + (long)(h * a.G + g) * a.l_sh + ci] =
+            m_run[r] + logf(l_safe);
 #pragma unroll
       for (int i = 0; i < kDPerLane; ++i) {
         const int d = lane + 32 * i;
@@ -201,6 +218,19 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
       }
     }
   }
+}
+
+int launch(const AttnArgs& a, int B, int Hkv, int dtype, cudaStream_t s) {
+  if (a.D > kDMax || a.D < 1 || a.G < 1 || a.C < 1 || (a.bt && a.page < 1))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(B, Hkv, (a.G * a.C + kRows - 1) / kRows), block(kThreads);
+  if (dtype == kBF16)
+    attention_kernel<bf16><<<grid, block, 0, s>>>(a);
+  else if (dtype == kF32)
+    attention_kernel<float><<<grid, block, 0, s>>>(a);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -213,19 +243,24 @@ extern "C" int repro_attention(
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_sc, long long o_sh, int window, float scale, int dtype,
     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D > kDMax || D < 1 || G < 1 || C < 1 || (bt && page < 1))
-    return (int)cudaErrorInvalidValue;
   AttnArgs a{q, k, v, out, static_cast<const int*>(pos0),
              static_cast<const int*>(width), static_cast<const int*>(bt),
-             C, G, D, n_keys, page, window, bt_sb, q_sb, q_sc, q_sh,
-             k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sc, o_sh, scale};
-  const dim3 grid(B, Hkv, (G * C + kRows - 1) / kRows), block(kThreads);
-  if (dtype == kBF16)
-    attention_kernel<bf16><<<grid, block, 0, s>>>(a);
-  else if (dtype == kF32)
-    attention_kernel<float><<<grid, block, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+             nullptr, 0, 1, C, G, D, n_keys, page, window, bt_sb,
+             q_sb, q_sc, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+             o_sb, o_sc, o_sh, 0, 0, scale};
+  return launch(a, B, Hkv, dtype, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_flash_attention(
+    const void* q, const void* k, const void* v, void* out, void* lse, int B,
+    int Hkv, int G, int Sq, int Sk, int D, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, long long l_sb, long long l_sh,
+    int causal, int window, float scale, int dtype, void* stream) {
+  AttnArgs a{q, k, v, out, nullptr, nullptr, nullptr,
+             static_cast<float*>(lse), 1, causal, Sq, G, D, Sk, 1, window, 0,
+             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+             o_sb, o_ss, o_sh, l_sb, l_sh, scale};
+  return launch(a, B, Hkv, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,10 @@
-"""Attention over the KV cache — Hopper kernels for decode and chunked
-prefill, over the contiguous slab or the paged pool.
+"""Attention — Hopper kernels for decode and chunked prefill over the
+contiguous slab or the paged pool, and for the full forward.
 
 Replaces ``repro/kernels/flash_attention.py``'s ``flash_decode_pallas``,
-``flash_decode_paged_pallas``, ``flash_prefill_chunk_pallas`` and
-``flash_prefill_chunk_paged_pallas``.  All four launch one kernel template
+``flash_decode_paged_pallas``, ``flash_prefill_chunk_pallas``,
+``flash_prefill_chunk_paged_pallas`` and ``flash_attention_pallas``.  All
+five launch one kernel template
 (``csrc/flash_attention.cu``): one block per (row, kv head, tile of 8 query
 rows) walks the valid key range in tiles with an f32 online softmax, the
 GQA group folded into the block's rows.  The caches and pools are read in
@@ -11,8 +12,10 @@ place by their strides (the TPU wrappers transposed them on every call);
 the paged kernels resolve each key's page from the block table inside the
 block.  Keys past a row's position, before its window or in unmapped
 pages are masked, tiles with no live key are skipped, and a row with no
-valid key returns zeros.  Bound by bytes (each live K/V element read once
-per query-row tile).
+valid key returns zeros.  The forward is the chunk walk with query ``i``
+at position ``i`` over ``k``/``v`` themselves, causal or not, and also
+writes the log-sum-exp of each query row's scaled scores.  Bound by bytes
+(each live K/V element read once per query-row tile).
 
 The kernel trusts the block table: every entry is -1 or a page of the
 pool (the pager never maps the sentinel page).
@@ -20,7 +23,7 @@ pool (the pager never maps the sentinel page).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,15 +33,12 @@ from repro_torch.kernels._build import DTYPES
 MAX_HEAD_DIM = 128
 
 
-def _launch(name: str, q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            out4: torch.Tensor, pos0: torch.Tensor,
-            width: Optional[torch.Tensor],
-            block_table: Optional[torch.Tensor], window: Optional[int],
-            scale: Optional[float]) -> None:
-    """Check and launch ``repro_attention``.  ``q4``/``out4`` are
-    (B, C, Hq, D) views; ``k``/``v`` the (B, Smax, Hkv, D) cache or the
-    (P, page, Hkv, D) pool (with ``block_table``)."""
-    b, c, hq, d = q4.shape
+def _check(name: str, q4: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor) -> None:
+    """What every kernel of the template takes: (B, C, Hq, D) queries
+    against 4-d keys and values of the same head dim, Hq a multiple of
+    their heads, D <= 128 with unit stride, one dtype, one device."""
+    d, hq = q4.shape[3], q4.shape[2]
     if k.dim() != 4 or v.shape != k.shape or k.shape[3] != d \
             or hq % k.shape[2]:
         raise ValueError(f"{name}: q {tuple(q4.shape)}, k {tuple(k.shape)}, "
@@ -51,7 +51,19 @@ def _launch(name: str, q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q4.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{name}: head dim needs unit stride")
     if k.device != q4.device or v.device != q4.device:
-        raise ValueError(f"{name}: q and caches on different devices")
+        raise ValueError(f"{name}: q, k and v on different devices")
+
+
+def _launch(name: str, q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out4: torch.Tensor, pos0: torch.Tensor,
+            width: Optional[torch.Tensor],
+            block_table: Optional[torch.Tensor], window: Optional[int],
+            scale: Optional[float]) -> None:
+    """Check and launch ``repro_attention``.  ``q4``/``out4`` are
+    (B, C, Hq, D) views; ``k``/``v`` the (B, Smax, Hkv, D) cache or the
+    (P, page, Hkv, D) pool (with ``block_table``)."""
+    _check(name, q4, k, v)
+    b, c, hq, d = q4.shape
     if block_table is None:
         n_keys, page, bt, bt_sb = k.shape[1], 1, None, 0
     else:
@@ -172,6 +184,45 @@ def flash_prefill_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q (B,Sq,Hq,D) against k/v (B,Sk,Hkv,D) -> (out (B,Sq,Hq,D) in
+    ``q.dtype``, lse (B,Hq,Sq) f32); query ``i`` sits at position ``i``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if not q.is_cuda:
+        return ref.mha_attention(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+    name = "flash_attention"
+    if q.dim() != 4 or k.dim() != 4 or k.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    _check(name, q, k, v)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    rc = _build.lib().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, hkv, hq // hkv, sq, sk, d,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+        lse.stride(0), lse.stride(1), int(causal),
+        -1 if window is None else int(window), float(scale),
+        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, name)
+    flash_attention.launches += 1
+    return out, lse
+
+
+flash_attention.launches = 0
 flash_decode.launches = 0
 flash_decode_paged.launches = 0
 flash_prefill_chunk.launches = 0

@@ -5,9 +5,10 @@ lowerings — the plain PyTorch version (``kernels/ref.py``) and the Hopper
 kernel wrapper — and exposed as a plain function; the policy
 (``repro_torch.core.policy``) decides per call from the backend and the
 tensor's device which one runs.  Registered so far: the ops of the
-contiguous and paged decode paths and of chunked prefill; the rest of
-``repro.kernels.ops`` comes with later slices.  Forward only: training
-(and with it autograd) is a later slice.
+contiguous and paged decode paths, of chunked prefill, of the Mamba-2
+blocks and of the full forward; the rest of ``repro.kernels.ops`` comes
+with later slices.  Forward only: training (and with it autograd) is a
+later slice.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
 from repro_torch.kernels.eltwise import bias_add_rows as bias_add_rows_hopper
 from repro_torch.kernels.gemm import gemm
+from repro_torch.kernels.mamba_scan import ssd_scan as ssd_scan_hopper
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_hopper
 
 
@@ -84,6 +86,50 @@ def attention_prefill_chunk(
     )
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """GQA attention (B,Sq,Hq,D) x (B,Sk,Hkv,D) -> (B,Sq,Hq,D), query
+    ``i`` at position ``i`` (both lowerings also return the lse, which
+    only the training backward would read)."""
+    return dispatch("attention", q)(q, k, v, causal=causal, window=window,
+                                    scale=scale)[0]
+
+
+def _ssd(name: str, x, dt, A, B_, C, chunk: int, state, out=None):
+    """The chunk is clamped to the token count (a chunk longer than the
+    sequence is the same math on padding).  The plain version takes
+    grouped B/C; the kernel takes one state group and raises on more (no
+    configuration has more)."""
+    c = max(1, min(int(chunk), x.shape[1]))
+    return dispatch(name, x)(x, dt, A, B_, C, chunk=c, initial_state=state,
+                             final_state=out)
+
+
+def ssd_scan(x, dt, A, B_, C, *, chunk: int = 64) -> torch.Tensor:
+    """Mamba-2 SSD over a whole sequence from a zero state; B_/C
+    (B,S,G,N).  Returns y (the serving scan, ``ssd_prefill_chunk``,
+    carries the state)."""
+    return _ssd("ssd_scan", x, dt, A, B_, C, chunk, None)[0]
+
+
+def ssd_prefill_chunk(
+    x: torch.Tensor,      # (B, C, H, P): C tokens per sequence
+    dt: torch.Tensor,     # (B, C, H) f32; dt == 0 marks padding (no-op)
+    A: torch.Tensor,      # (H,)
+    B_: torch.Tensor,     # (B, C, G, N)
+    C: torch.Tensor,      # (B, C, G, N)
+    state: torch.Tensor,  # (B, H, P, N) f32: carried recurrent state
+    *,
+    chunk: int = 64,
+    out: Optional[torch.Tensor] = None,   # (B, H, P, N) f32, may be state
+):
+    """The serving scan: C tokens against the carried state, decode being
+    the C = 1 call.  Returns (y (B,C,H,P), new state (B,H,P,N) f32); the
+    new state is written into ``out`` where one is given."""
+    return _ssd("ssd_prefill_chunk", x, dt, A, B_, C, chunk, state, out)
+
+
 register_op("matmul", reference=ref.gemm, hopper=gemm,
             doc="skinny streaming GEMM (NN / NT by strides)")
 register_op("bias_add_rows", reference=ref.bias_add_rows,
@@ -102,3 +148,11 @@ register_op("attention_prefill_chunk_paged",
             reference=ref.attention_prefill_chunk_paged,
             hopper=FA.flash_prefill_chunk_paged,
             doc="block-table paged chunked-prefill attention")
+register_op("attention", reference=ref.mha_attention,
+            hopper=FA.flash_attention, doc="GQA flash attention (fwd + lse)")
+register_op("ssd_scan", reference=ref.ssd_scan, hopper=ssd_scan_hopper,
+            doc="Mamba-2 SSD chunked scan")
+register_op("ssd_prefill_chunk", reference=ref.ssd_scan,
+            hopper=ssd_scan_hopper,
+            doc="chunked-SSD serving scan (C-token chunk vs carried state; "
+                "decode is the C=1 case)")

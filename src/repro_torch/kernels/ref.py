@@ -9,9 +9,10 @@ a card is present unless the ``reference`` backend is asked for.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def _rows(x, b: int, device: torch.device) -> torch.Tensor:
@@ -132,3 +133,109 @@ def attention_prefill_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
         q, _gather_pages(k_pages, block_table, b),
         _gather_pages(v_pages, block_table, b), start, width,
         window=window, scale=scale)
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GQA attention (B,Sq,Hq,D) x (B,Sk,Hkv,D) -> (out (B,Sq,Hq,D),
+    lse (B,Hq,Sq) f32), query ``i`` at position ``i``
+    (``repro/kernels/ref.py:mha_attention``; the log-sum-exp of the scaled
+    scores is what ``flash_attention_pallas`` returns beside ``out``)."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * (
+        scale if scale is not None else 1.0 / math.sqrt(d)
+    )
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1).reshape(b, hq, sq)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    return out.reshape(b, sq, hq, d), lse
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B_: torch.Tensor, C: torch.Tensor, *, chunk: int = 64,
+             initial_state: Optional[torch.Tensor] = None,
+             final_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD, the chunked formulation of ``repro/kernels/ref.py:
+    ssd_scan``: x (B,S,H,P), dt (B,S,H) f32, A (H,) f32, B_/C (B,S,G,N),
+    optional carried state (B,H,P,N).  The sequence is zero-padded to a
+    chunk multiple (a padding position has ``dt == 0``: decay exp(0) = 1
+    and no input, an exact no-op on the state); each chunk's quadratic
+    term is added to its carried-state term, and the state passes from
+    chunk to chunk.  Returns (y (B,S,H,P) in ``x.dtype``, final state
+    (B,H,P,N) f32).  All arithmetic is f32, as in the Pallas kernel; y is
+    cast once at the end, as the kernel casts it.  A ``final_state``
+    (B,H,P,N) f32 receives the final state, which is then returned; it may
+    be ``initial_state`` itself."""
+    b, s, h, p = x.shape
+    g, n = B_.shape[2], B_.shape[3]
+    pad = (-s) % chunk
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = B_.float(), C.float()
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bf = F.pad(Bf, (0, 0, 0, 0, 0, pad))
+        Cf = F.pad(Cf, (0, 0, 0, 0, 0, pad))
+    nc = (s + pad) // chunk
+    rep = h // g
+    xc = xf.reshape(b, nc, chunk, h, p)
+    dtc = dtf.reshape(b, nc, chunk, h)
+    Bc = Bf.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    Cc = Cf.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    cum = torch.cumsum(dtc * A.float(), dim=2)            # (b,nc,L,h)
+    # exp(cum_t - cum_u) overflows for u > t: select, never multiply by 0
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    decay = torch.where(tri[None, None, :, :, None],
+                        torch.exp(cum[:, :, :, None] - cum[:, :, None]),
+                        0.0)                                # (b,nc,t,u,h)
+    cb = torch.einsum("bclhn,bcuhn->bcluh", Cc, Bc)
+    att = cb * decay * dtc[:, :, None]
+    y_intra = torch.einsum("bcluh,bcuhp->bclhp", att, xc)
+    chunk_decay = torch.exp(cum[:, :, -1:] - cum)           # (b,nc,L,h)
+    states = torch.einsum("bclh,bclhn,bclhp->bchpn", chunk_decay * dtc, Bc,
+                          xc)
+    total_decay = torch.exp(cum[:, :, -1])                  # (b,nc,h)
+    carry = (initial_state.float() if initial_state is not None
+             else torch.zeros((b, h, p, n), device=x.device))
+    prev = []
+    for c in range(nc):            # state *before* each chunk
+        prev.append(carry)
+        carry = carry * total_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                  # (b,nc,h,p,n)
+    y_inter = torch.einsum("bclhn,bclh,bchpn->bclhp", Cc, torch.exp(cum),
+                           prev_states)
+    y = (y_intra + y_inter).reshape(b, nc * chunk, h, p)[:, :s].to(x.dtype)
+    if final_state is not None:
+        carry = final_state.copy_(carry)
+    return y, carry
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B_: torch.Tensor, C: torch.Tensor, state: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token of the recurrence, the sequential oracle of ``ssd_scan``
+    (``repro/kernels/ref.py:ssd_decode_step``): x (B,H,P), dt (B,H),
+    B_/C (B,G,N), state (B,H,P,N) -> (y (B,H,P) in ``x.dtype``, state)."""
+    h, g = x.shape[1], B_.shape[1]
+    Bh = B_.repeat_interleave(h // g, dim=1)                # (B,H,N)
+    Ch = C.repeat_interleave(h // g, dim=1)
+    decay = torch.exp(dt * A[None, :])
+    new = (state * decay[:, :, None, None]
+           + (dt[:, :, None] * x)[..., None] * Bh[:, :, None, :])
+    y = torch.einsum("bhpn,bhn->bhp", new, Ch)
+    return y.to(x.dtype), new

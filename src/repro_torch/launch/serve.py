@@ -2,12 +2,25 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --batch 4 --requests 8 --prompt-len 32 --gen 32 \\
-        [--layout paged --page-size 16 --n-pages N] [--prefill-chunk 16]
+        [--layout paged --page-size 16 --n-pages N] [--prefill-chunk 16] \\
+        [--check]
 
-Random weights from ``--seed``, random prompts, greedy decoding through the
-Hopper kernels; prints tokens/s, time per decode step, mean time to first
-token, the chunked-prefill step count and, paged, the peak pages in use.  Runs on the card (``--device cuda``, the default) and raises
-when there is none; ``--device cpu`` runs the plain PyTorch versions.
+``--arch`` takes qwen2.5-3b, mamba2-2.7b, zamba2-2.7b or their ``-smoke``
+variants.  Random weights from ``--seed``, random prompts, greedy decoding
+through the Hopper kernels; prints tokens/s, time per decode step, mean
+time to first token, the chunked-prefill step count and, paged, the peak
+pages in use.  Runs on the card (``--device cuda``, the default) and
+raises when there is none; ``--device cpu`` runs the plain PyTorch
+versions.
+
+``--check`` then holds token-by-token decode of the first ``--batch``
+prompts against the teacher-forced forward at the last prompt position
+(``serving/checks.py``): within 2e-2 in f32, as the JAX package holds
+it, and within 5% of the largest |logit| in bf16.  It refuses the bf16
+Mamba archs (mamba2-2.7b, zamba2-2.7b): with random weights their full
+64- and 54-layer stacks are chaotic, so bf16 rounding alone moves the
+logits by about their own scale and no tolerance can hold them (their
+``-smoke`` variants, in f32, are checked).
 
 ``--profile`` serves the requests a second time under ``torch.profiler``
 (device activity only) and prints the device's busy share of the wall time
@@ -24,6 +37,7 @@ import torch
 from repro_torch.configs.registry import get_arch
 from repro_torch.models.model import build_model
 from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
+from repro_torch.serving.checks import assert_decode_matches_teacher_forced
 
 
 def main(argv=None) -> int:
@@ -48,12 +62,22 @@ def main(argv=None) -> int:
                          "prefill; 1 = token-by-token)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--check", action="store_true",
+                    help="verify the decode path against the "
+                         "teacher-forced forward (dense archs and the "
+                         "f32 -smoke variants; refused for bf16 Mamba "
+                         "stacks)")
     ap.add_argument("--profile", action="store_true",
                     help="serve again under torch.profiler and print the "
                          "device busy share and the top kernels")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
+    if args.check and cfg.family != "dense" and cfg.dtype == "bfloat16":
+        ap.error(f"--check cannot hold {cfg.name} in bf16: its random "
+                 f"{cfg.n_layers}-layer Mamba stack is chaotic, so rounding "
+                 f"alone moves the logits by about their scale; check "
+                 f"{cfg.name}-smoke instead")
     model = build_model(cfg, device=args.device)
     params = model.init_params(args.seed)
     n_req = args.requests or args.batch
@@ -91,6 +115,13 @@ def main(argv=None) -> int:
                  f"({int(s['kv_resident_bytes_peak'])} bytes of KV)")
     print(line)
     print("sample:", outs[rids[0]][:16].tolist())
+    if args.check:
+        prompt = torch.as_tensor(prompts[: args.batch], device=model.device)
+        err, scale = assert_decode_matches_teacher_forced(
+            model, params, prompt, args.prompt_len + args.gen + 1,
+            scale_tol=0.05 if cfg.dtype == "bfloat16" else None)
+        print(f"decode path matches teacher-forced forward (max |diff| "
+              f"{err:.3g}, max |logit| {scale:.3g})")
     if args.profile:
         profile(serve)
     return 0

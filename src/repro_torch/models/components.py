@@ -1,5 +1,5 @@
-"""Model components of the dense decoder (the port's subset of
-``repro.models.components``).
+"""Model components of the dense decoder and the Mamba-2 block (the port's
+subset of ``repro.models.components``).
 
 Everything is built on the portable ops (``repro_torch.kernels.ops``), so
 the model is single-source across the reference and hopper backends.
@@ -101,3 +101,149 @@ def mlp_block(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     xn = norm(cfg, p["ln"], x)
     h = F.silu(dense(xn, p["wg"])) * dense(xn, p["wi"])
     return x + dense(h, p["wo"])
+
+
+def attention_block(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
+                    positions: Optional[torch.Tensor] = None,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Pre-norm self-attention with residual over a whole sequence
+    x (B, S, d): RoPE at ``positions`` (default ``0 .. S-1``), then the
+    flash-attention forward."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    xn = norm(cfg, p["ln"], x)
+    q = dense(xn, p["wq"], p.get("bq")).reshape(b, s, h, hd)
+    k = dense(xn, p["wk"], p.get("bk")).reshape(b, s, hkv, hd)
+    v = dense(xn, p["wv"], p.get("bv")).reshape(b, s, hkv, hd)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    cos, sin = rope_freqs(cfg, positions)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = ops.attention(q, k, v, causal=causal, window=window)
+    return x + dense(o.reshape(b, s, h * hd), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 block (conv1d + SSD): whole sequence, chunk and decode
+# ---------------------------------------------------------------------------
+
+def init_mamba(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    d, di = cfg.d_model, cfg.d_inner
+    n, h = cfg.ssm_state, cfg.ssm_heads
+    dt, dev = cfg.dtype_(), gen.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        # in_proj emits [z (di), x (di), B (n), C (n), dt (h)]
+        "w_in": init_normal(gen, (d, 2 * di + 2 * n + h),
+                            1.0 / math.sqrt(d), dt),
+        "conv_w": init_normal(gen, (cfg.ssm_conv, di), 0.1, dt),
+        "a_log": torch.zeros((h,), **f32),
+        "d_skip": torch.ones((h,), **f32),
+        "dt_bias": torch.zeros((h,), **f32),
+        "w_out": init_normal(gen, (di, d), 1.0 / math.sqrt(di), dt),
+        "ln": torch.ones((d,), dtype=dt, device=dev),
+        "ln_inner": torch.ones((di,), dtype=dt, device=dev),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d, x (B, S, di), w (K, di): the K shifted
+    products summed left to right in the storage dtype."""
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    return sum(xp[:, i: i + x.shape[1]] * w[i][None, None, :]
+               for i in range(k))
+
+
+def _split_mamba_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
+    """Column views of the in_proj output (nothing is copied; the SSD
+    kernel reads B and C by their strides)."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    z = zxbcdt[..., :di]
+    xs = zxbcdt[..., di: 2 * di]
+    b_ = zxbcdt[..., 2 * di: 2 * di + n]
+    c_ = zxbcdt[..., 2 * di + n: 2 * di + 2 * n]
+    dt = zxbcdt[..., 2 * di + 2 * n:]
+    return z, xs, b_, c_, dt
+
+
+def _mamba_out(cfg: ArchConfig, p: Params, x: torch.Tensor, y, xs, z):
+    """Skip term, gate, inner norm and out projection with residual:
+    ``y + xs * d_skip`` promotes to f32 and is cast after ``* silu(z)``."""
+    b, s = x.shape[:2]
+    h, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    y = y + xs.reshape(b, s, h, hd) * p["d_skip"][None, None, :, None]
+    y = (y.reshape(b, s, cfg.d_inner) * F.silu(z)).to(x.dtype)
+    y = ops.rmsnorm(y, p["ln_inner"])
+    return x + dense(y, p["w_out"])
+
+
+def mamba_block(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 block with residual over a whole sequence x (B, S, d), from
+    a zero state."""
+    b, s, _ = x.shape
+    n, h, hd = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    xn = norm(cfg, p["ln"], x)
+    z, xs, b_, c_, dt = _split_mamba_proj(cfg, dense(xn, p["w_in"]))
+    xs = F.silu(_causal_conv(xs, p["conv_w"]))
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    y = ops.ssd_scan(xs.reshape(b, s, h, hd), dt, a,
+                     b_.reshape(b, s, 1, n), c_.reshape(b, s, 1, n),
+                     chunk=cfg.ssm_chunk)
+    return _mamba_out(cfg, p, x, y, xs, z)
+
+
+def mamba_prefill_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                        ssm_state: torch.Tensor, conv_state: torch.Tensor,
+                        valid: torch.Tensor,
+                        ssm_out: Optional[torch.Tensor] = None):
+    """Chunked Mamba-2 block with carried state
+    (``repro.models.components.mamba_prefill_block``): x (B, C, d),
+    ssm_state (B, H, P, N) f32, conv_state (B, K-1, di), valid (B, C) a
+    prefix mask of real tokens.  A padding position's ``dt`` is zeroed
+    (an exact no-op on the SSD state) and the new conv window ends at each
+    row's last real token, so a row with no real tokens carries both
+    states through bit for bit.  Returns (x, ssm_state, conv_state); the
+    conv state is a new tensor, and so is the SSD state unless ``ssm_out``
+    (which may be ``ssm_state`` itself) is given to receive it."""
+    b, c, _ = x.shape
+    n, h, hd = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    k = cfg.ssm_conv
+    xn = norm(cfg, p["ln"], x)
+    z, xs, b_, c_, dt = _split_mamba_proj(cfg, dense(xn, p["w_in"]))
+    # position i of the chunk reads raw inputs i-K+1 .. i, reaching into
+    # the carried window for i < K-1
+    win = torch.cat([conv_state, xs], dim=1)              # (B, K-1+C, di)
+    xs = sum(win[:, i: i + c] * p["conv_w"][i][None, None, :]
+             for i in range(k))
+    # the last K-1 inputs up to each row's width (width 0 gathers the old
+    # window verbatim)
+    width = valid.sum(dim=1)                               # (B,)
+    gidx = width[:, None] + torch.arange(k - 1, device=x.device)[None, :]
+    conv_state = win.gather(1, gidx[:, :, None].expand(b, k - 1,
+                                                       win.shape[2]))
+    xs = F.silu(xs)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    dt = torch.where(valid[:, :, None], dt, 0.0)          # padding: no-op
+    a = -torch.exp(p["a_log"])
+    y, ssm_state = ops.ssd_prefill_chunk(
+        xs.reshape(b, c, h, hd), dt, a, b_.reshape(b, c, 1, n),
+        c_.reshape(b, c, 1, n), ssm_state, chunk=cfg.ssm_chunk, out=ssm_out)
+    return _mamba_out(cfg, p, x, y, xs, z), ssm_state, conv_state
+
+
+def mamba_decode_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                       ssm_state: torch.Tensor, conv_state: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None,
+                       ssm_out: Optional[torch.Tensor] = None):
+    """Single-token decode, the C = 1 case of ``mamba_prefill_block``;
+    ``valid`` (B, 1) marks live rows (None: all)."""
+    if valid is None:
+        valid = torch.ones((x.shape[0], 1), dtype=torch.bool,
+                           device=x.device)
+    y, ssm_state, conv_state = mamba_prefill_block(
+        cfg, p, x[:, None], ssm_state, conv_state, valid, ssm_out)
+    return y[:, 0], ssm_state, conv_state

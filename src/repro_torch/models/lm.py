@@ -1,16 +1,20 @@
-"""Decoder-only LM, dense family, contiguous or paged KV cache (the port's
-subset of ``repro.models.lm``).
+"""Decoder-only LM: the dense, ssm (Mamba-2) and hybrid (Zamba2) families,
+contiguous or paged KV cache (the port's subset of ``repro.models.lm``).
 
-Public functions mirror the JAX module: ``init_params``,
+Public functions mirror the JAX module: ``init_params``, ``forward``,
 ``init_decode_state``, ``decode_step``, ``prefill_chunk``,
 ``reset_decode_rows`` and ``lm_logits``.  Where JAX scans over stacked
-layer params, the port keeps a list of per-layer dicts and loops in
-Python.  JAX's functions are pure; the port updates the decode caches and
-page pools **in place** (``decode_step``, ``prefill_chunk`` and
-``reset_decode_rows`` write into ``state["k"]``/``state["v"]`` or
-``state["kp"]``/``state["vp"]`` and return a dict that shares them), which
-saves a full rewrite of the cache on every step.  The small allocator
-tensors (block table, free list, refcounts) are replaced, as in JAX.
+layer params, the port keeps lists of per-layer dicts and loops in
+Python: ``params["layers"]`` (dense, ssm) or ``params["groups"]``, ``g``
+lists of ``attn_every`` Mamba layers each followed by the shared
+attention and MLP block (hybrid).  JAX's functions are pure; the port
+updates the KV caches and page pools **in place** (``decode_step``,
+``prefill_chunk`` and ``reset_decode_rows`` write into
+``state["k"]``/``state["v"]`` or ``state["kp"]``/``state["vp"]`` and
+return a dict that shares them), which saves a full rewrite of the cache
+on every step; the recurrent ``ssm``/``conv`` states are written layer by
+layer into their stacks the same way.  The small allocator tensors (block
+table, free list, refcounts) are replaced, as in JAX.
 """
 from __future__ import annotations
 
@@ -26,18 +30,24 @@ from repro_torch.models import components as C
 from repro_torch.serving import pager as PG
 
 
+FAMILIES = ("dense", "ssm", "hybrid")
+
+
 def check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: this slice of the port serves the dense "
-            "family only (moe, ssm, hybrid, vlm, encdec come with later slices)"
+            f"family {cfg.family!r}: the port serves {', '.join(FAMILIES)} "
+            "(moe, vlm, encdec come with later slices)"
         )
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     """Random params with ``repro.models.lm.init_params``'s shapes and
     scales, drawn from ``gen`` on its device.  ``params["layers"]`` is a
-    list of ``{"attn": ..., "mlp": ...}`` dicts (JAX stacks them)."""
+    list of ``{"attn": ..., "mlp": ...}`` (dense) or ``{"mamba": ...}``
+    (ssm) dicts; hybrid has ``params["groups"]``, ``g`` lists of
+    ``attn_every`` ``{"mamba": ...}`` dicts, and the unstacked
+    ``shared_attn`` and ``shared_mlp`` (JAX stacks the layers)."""
     check_family(cfg)
     dt = cfg.dtype_()
     params: Dict[str, Any] = {
@@ -49,11 +59,37 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
             gen, (cfg.d_model, cfg.vocab_size), 1.0 / math.sqrt(cfg.d_model),
             dt,
         )
-    params["layers"] = [
-        {"attn": C.init_attention(cfg, gen), "mlp": C.init_mlp(cfg, gen)}
-        for _ in range(cfg.n_layers)
-    ]
+    if cfg.family == "dense":
+        params["layers"] = [
+            {"attn": C.init_attention(cfg, gen), "mlp": C.init_mlp(cfg, gen)}
+            for _ in range(cfg.n_layers)
+        ]
+    elif cfg.family == "ssm":
+        params["layers"] = [{"mamba": C.init_mamba(cfg, gen)}
+                            for _ in range(cfg.n_layers)]
+    else:
+        params["groups"] = [
+            [{"mamba": C.init_mamba(cfg, gen)}
+             for _ in range(cfg.attn_every)]
+            for _ in range(cfg.n_layers // cfg.attn_every)
+        ]
+        params["shared_attn"] = C.init_attention(cfg, gen)
+        params["shared_mlp"] = C.init_mlp(cfg, gen)
     return params
+
+
+def forward(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced forward over tokens (B, S) from empty caches: the
+    final-normed hidden states (B, S, d) (``repro.models.lm.forward``)."""
+    check_family(cfg)
+    x = params["embed"][tokens].to(cfg.dtype_())
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _trunk(
+        cfg, params, x,
+        lambda p, x, _: C.attention_block(cfg, p, x, positions=positions,
+                                          window=cfg.window),
+        lambda p, x, _: C.mamba_block(cfg, p, x))
+    return C.norm(cfg, params["ln_f"], x)
 
 
 def lm_logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
@@ -69,12 +105,17 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       n_pages: Optional[int] = None, cache=None,
                       device: str | torch.device = "cuda"
                       ) -> Dict[str, torch.Tensor]:
-    """Decode caches: the contiguous slab ``(layers, B, max_len, Hkv, hd)``,
-    or (``layout="paged"``) page pools ``(layers, n_pages + 1, page_size,
+    """Decode caches: the contiguous slab ``(stacks, B, max_len, Hkv, hd)``,
+    or (``layout="paged"``) page pools ``(stacks, n_pages + 1, page_size,
     Hkv, hd)`` with the allocator state (``repro_torch.serving.pager``; the
-    trailing page is the write-drop sentinel).  ``n_pages=None`` sizes the
-    pool at the worst case, ``batch * ceil(max_len / page_size)``.
-    ``cache`` (a ``CacheConfig``) supplies layout, page size and pool size.
+    trailing page is the write-drop sentinel).  ``stacks`` is the layer
+    count (dense) or the group count (hybrid: one KV cache per application
+    of the shared block).  The recurrent families add ``ssm`` ``(layers, B,
+    H, P, N)`` f32 and ``conv`` ``(layers, B, K-1, d_inner)`` in the
+    storage dtype, which stay contiguous under either layout; ssm has no
+    KV and so no pool whatever the layout.  ``n_pages=None`` sizes the pool
+    at the worst case, ``batch * ceil(max_len / page_size)``.  ``cache``
+    (a ``CacheConfig``) supplies layout, page size and pool size.
     ``per_row_pos=True`` keeps ``pos`` as a (B,) vector so rows may sit at
     different depths (continuous batching)."""
     check_family(cfg)
@@ -88,12 +129,23 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
     state = {"pos": torch.zeros((batch,) if per_row_pos else (),
                                 dtype=torch.int32, device=dev)}
+    if cfg.family in ("ssm", "hybrid"):
+        state["ssm"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+             cfg.ssm_state), dtype=torch.float32, device=dev)
+        state["conv"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dt,
+            device=dev)
+    if cfg.family == "ssm":
+        return state
+    stacks = (cfg.n_layers if cfg.family == "dense"
+              else cfg.n_layers // cfg.attn_every)
     if layout == "paged":
         # absolute positions (no window ring): the table covers max_len
         max_blocks = -(-max_len // page_size)
         pages = batch * max_blocks if n_pages is None else n_pages
         ps = PG.init_pager(pages, dev)
-        shape = (cfg.n_layers, pages + 1, page_size, hkv, hd)
+        shape = (stacks, pages + 1, page_size, hkv, hd)
         state.update({
             "kp": torch.zeros(shape, dtype=dt, device=dev),
             "vp": torch.zeros(shape, dtype=dt, device=dev),
@@ -103,7 +155,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
         return state
     # sliding-window archs only ever need `window` cache slots (ring buffer)
     eff = min(max_len, cfg.window) if cfg.window else max_len
-    shape = (cfg.n_layers, batch, eff, hkv, hd)
+    shape = (stacks, batch, eff, hkv, hd)
     state["k"] = torch.zeros(shape, dtype=dt, device=dev)
     state["v"] = torch.zeros(shape, dtype=dt, device=dev)
     return state
@@ -163,6 +215,37 @@ def _paged_commit(state, pstate: PG.PagerState, bt: torch.Tensor):
             "page_rc": pstate.rc, "block_table": bt}
 
 
+def _trunk(cfg: ArchConfig, params, x: torch.Tensor, attn, mamba):
+    """The layer stack of every family: ``attn(p, x, stack)`` and
+    ``mamba(p, x, layer)`` are the caller's blocks (``stack`` indexes the
+    KV caches: the layer for dense, the group for hybrid)."""
+    if cfg.family == "ssm":
+        for layer, p in enumerate(params["layers"]):
+            x = mamba(p["mamba"], x, layer)
+    elif cfg.family == "dense":
+        for layer, p in enumerate(params["layers"]):
+            x = C.mlp_block(cfg, p["mlp"], attn(p["attn"], x, layer))
+    else:
+        for g, group in enumerate(params["groups"]):
+            for i, p in enumerate(group):
+                x = mamba(p["mamba"], x, g * cfg.attn_every + i)
+            x = attn(params["shared_attn"], x, g)
+            x = C.mlp_block(cfg, params["shared_mlp"], x)
+    return x
+
+
+def _recurrent(state, block):
+    """A ``mamba(p, x, layer)`` for ``_trunk`` that runs ``block(p, x,
+    ssm, conv)`` on the layer's carried states: the block writes the new
+    SSD state over the old one (the scan's ``out``), and the new conv
+    window is copied back into the stack."""
+    def mamba(p, x, layer):
+        x, _, s_conv = block(p, x, state["ssm"][layer], state["conv"][layer])
+        state["conv"][layer].copy_(s_conv)
+        return x
+    return mamba
+
+
 def decode_step(
     cfg: ArchConfig, params, state, token: torch.Tensor,   # (B,) int
     *, active: Optional[torch.Tensor] = None,               # (B,) bool
@@ -171,38 +254,38 @@ def decode_step(
 
     ``state["pos"]`` may be a scalar (all rows in lockstep) or a (B,) vector
     (rows at independent depths).  ``active`` (per-row ``pos`` only) masks
-    rows that are between requests: their caches are not written, no pages
-    are allocated, and their ``pos`` does not advance.  A ``block_table``
-    key in the state selects the paged layout (pages are mapped on write,
-    positions are absolute and windows are masked in attention); the
-    caches are updated in place.
+    rows that are between requests: their caches and recurrent states are
+    not written, no pages are allocated, and their ``pos`` does not
+    advance.  A ``block_table`` key in the state selects the paged layout
+    (pages are mapped on write, positions are absolute and windows are
+    masked in attention); the caches and states are updated in place.
     """
     pos = state["pos"]
     paged = "block_table" in state
     x = params["embed"].index_select(0, token).to(cfg.dtype_())   # (B, d)
-    idx = pos if paged else _cache_index(cfg, pos)
-    if cfg.window and not paged:
-        cache_len = torch.clamp(pos + 1, max=cfg.window)
-    else:
-        cache_len = pos + 1
-    rope_pos = pos[..., None] if pos.dim() == 1 else pos[None]
-    if paged:
-        pstate, bt = PG.alloc_on_write(
-            _pager(state), state["block_table"], idx, active,
-            page_size=state["kp"].shape[2])
-        state = _paged_commit(state, pstate, bt)
-    # inactive rows are routed to slot -1, which _cache_update drops
-    if active is not None and not paged and idx.dim() == 1:
-        w_idx = torch.where(active, idx, -1)
-    else:
-        w_idx = idx
     b = x.shape[0]
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
-    # one rotation for all layers (JAX recomputes it inside the scan body)
-    cos, sin = C.rope_freqs(cfg, rope_pos)
+    if cfg.family != "ssm":
+        idx = pos if paged else _cache_index(cfg, pos)
+        if cfg.window and not paged:
+            cache_len = torch.clamp(pos + 1, max=cfg.window)
+        else:
+            cache_len = pos + 1
+        rope_pos = pos[..., None] if pos.dim() == 1 else pos[None]
+        if paged:
+            pstate, bt = PG.alloc_on_write(
+                _pager(state), state["block_table"], idx, active,
+                page_size=state["kp"].shape[2])
+            state = _paged_commit(state, pstate, bt)
+        # inactive rows are routed to slot -1, which _cache_update drops
+        if active is not None and not paged and idx.dim() == 1:
+            w_idx = torch.where(active, idx, -1)
+        else:
+            w_idx = idx
+        # one rotation for all layers (JAX recomputes it inside the scan)
+        cos, sin = C.rope_freqs(cfg, rope_pos)
 
-    for layer, p in enumerate(params["layers"]):
-        a = p["attn"]
+    def attn(a, x, stack):
         xn = C.norm(cfg, a["ln"], x)
         q = C.dense(xn, a["wq"], a.get("bq")).reshape(b, 1, cfg.n_heads, hd)
         k_new = C.dense(xn, a["wk"], a.get("bk")).reshape(b, 1, hkv, hd)
@@ -210,18 +293,23 @@ def decode_step(
         q = C.apply_rope(q, cos, sin).reshape(b, cfg.n_heads, hd)
         k_new = C.apply_rope(k_new, cos, sin).reshape(b, hkv, hd)
         if paged:
-            ck, cv = state["kp"][layer], state["vp"][layer]
+            ck, cv = state["kp"][stack], state["vp"][stack]
             PG.write_page(ck, k_new, bt, idx, active)
             PG.write_page(cv, v_new, bt, idx, active)
             o = ops.attention_decode(q, ck, cv, cache_len, block_table=bt,
                                      window=cfg.window)
         else:
-            ck, cv = state["k"][layer], state["v"][layer]
+            ck, cv = state["k"][stack], state["v"][stack]
             _cache_update(ck, k_new, w_idx)
             _cache_update(cv, v_new, w_idx)
             o = ops.attention_decode(q, ck, cv, cache_len)
-        x = x + C.dense(o.reshape(b, -1), a["wo"])
-        x = C.mlp_block(cfg, p["mlp"], x)
+        return x + C.dense(o.reshape(b, -1), a["wo"])
+
+    # inactive rows carry their recurrent states through bit for bit
+    val = active[:, None] if active is not None else None
+    x = _trunk(cfg, params, x, attn, _recurrent(
+        state, lambda p, x, s1, s2: C.mamba_decode_block(
+            cfg, p, x, s1, s2, valid=val, ssm_out=s1)))
 
     x = C.norm(cfg, params["ln_f"], x)
     logits = lm_logits(cfg, params, x)
@@ -241,12 +329,14 @@ def prefill_chunk(
 
     Row b's real tokens are ``toks[b, :width[b]]`` at absolute positions
     ``pos[b] .. pos[b]+width[b]-1``; the rest of the chunk is padding and
-    never reaches a real cache slot or page.  Returns logits at each row's
-    *last real* position — what a ``decode_step`` fed that position would
-    return — and the state with ``pos`` advanced by ``width`` for active
-    rows.  The chunk's projections run as B*C-row GEMMs and attention as
-    one (C, hd) query block per row; the final norm and the LM head run on
-    the B gathered last positions only.  Requires ``per_row_pos`` state;
+    never reaches a real cache slot or page, nor the recurrent states
+    (its ``dt`` is zeroed).  Returns logits at each row's *last real*
+    position — what a ``decode_step`` fed that position would return — and
+    the state with ``pos`` advanced by ``width`` for active rows.  The
+    chunk's projections run as B*C-row GEMMs, attention as one (C, hd)
+    query block per row and each Mamba block as one SSD scan seeded with
+    the carried state; the final norm and the LM head run on the B
+    gathered last positions only.  Requires ``per_row_pos`` state;
     sliding-window archs need the paged layout (the contiguous ring cache
     recycles slots the in-chunk queries still read).
     """
@@ -255,7 +345,7 @@ def prefill_chunk(
         raise ValueError("prefill_chunk needs per_row_pos=True decode state")
     paged = "block_table" in state
     b, c = toks.shape
-    if cfg.window and not paged:
+    if cfg.window and not paged and cfg.family != "ssm":
         raise NotImplementedError(
             "chunked prefill with a sliding window needs layout='paged': "
             "the contiguous ring cache overwrites slots the in-chunk "
@@ -271,18 +361,18 @@ def prefill_chunk(
     offs = torch.arange(c, dtype=torch.int32, device=dev)[None, :]
     posmat = pos[:, None] + offs                          # (B, C) absolute
     valid = active[:, None] & (offs < width[:, None])     # real tokens
-    if paged:
-        # map every block the chunk touches up front (admission-time
-        # reservation guarantees the pops succeed)
-        pstate, bt = PG.alloc_range(
-            _pager(state), state["block_table"], pos, pos + width - 1,
-            active, page_size=state["kp"].shape[2], max_chunk=c)
-        state = _paged_commit(state, pstate, bt)
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
-    cos, sin = C.rope_freqs(cfg, posmat)                  # (B, C, hd/2)
+    if cfg.family != "ssm":
+        if paged:
+            # map every block the chunk touches up front (admission-time
+            # reservation guarantees the pops succeed)
+            pstate, bt = PG.alloc_range(
+                _pager(state), state["block_table"], pos, pos + width - 1,
+                active, page_size=state["kp"].shape[2], max_chunk=c)
+            state = _paged_commit(state, pstate, bt)
+        cos, sin = C.rope_freqs(cfg, posmat)              # (B, C, hd/2)
 
-    for layer, p in enumerate(params["layers"]):
-        a = p["attn"]
+    def attn(a, x, stack):
         xn = C.norm(cfg, a["ln"], x)
         q = C.dense(xn, a["wq"], a.get("bq")).reshape(b, c, cfg.n_heads, hd)
         k_new = C.dense(xn, a["wk"], a.get("bk")).reshape(b, c, hkv, hd)
@@ -290,19 +380,22 @@ def prefill_chunk(
         q = C.apply_rope(q, cos, sin)
         k_new = C.apply_rope(k_new, cos, sin)
         if paged:
-            ck, cv = state["kp"][layer], state["vp"][layer]
+            ck, cv = state["kp"][stack], state["vp"][stack]
             PG.write_page_chunk(ck, k_new, bt, pos, width, active)
             PG.write_page_chunk(cv, v_new, bt, pos, width, active)
             o = ops.attention_prefill_chunk(q, ck, cv, pos, width,
                                             block_table=bt,
                                             window=cfg.window)
         else:
-            ck, cv = state["k"][layer], state["v"][layer]
+            ck, cv = state["k"][stack], state["v"][stack]
             _cache_update_chunk(ck, k_new, posmat, valid)
             _cache_update_chunk(cv, v_new, posmat, valid)
             o = ops.attention_prefill_chunk(q, ck, cv, pos, width)
-        x = x + C.dense(o.reshape(b, c, -1), a["wo"])
-        x = C.mlp_block(cfg, p["mlp"], x)
+        return x + C.dense(o.reshape(b, c, -1), a["wo"])
+
+    x = _trunk(cfg, params, x, attn, _recurrent(
+        state, lambda p, x, s1, s2: C.mamba_prefill_block(
+            cfg, p, x, s1, s2, valid, ssm_out=s1)))
 
     # the last real position of each row, gathered *before* the final norm
     # and the head (both are position-wise), so the head runs at M = B
@@ -319,17 +412,17 @@ def reset_decode_rows(
 ) -> Dict[str, torch.Tensor]:
     """Reset the rows selected by ``mask`` and put their decode clock at
     ``start`` — the serving engine's slot refill and release.  Contiguous
-    caches are zeroed in place; under the paged layout the rows *release*
-    their pages (the pool is never zeroed: a recycled page is written by
-    its next owner before any masked-in read can see it).  Requires
-    per-row ``pos`` state."""
+    caches and the recurrent ``ssm``/``conv`` states are zeroed in place;
+    under the paged layout the rows *release* their pages (the pool is
+    never zeroed: a recycled page is written by its next owner before any
+    masked-in read can see it).  Requires per-row ``pos`` state."""
     if state["pos"].dim() != 1:
         raise ValueError(
             "reset_decode_rows needs per_row_pos=True decode state"
         )
     paged_keys = {"kp", "vp", "block_table", "page_free", "page_top",
                   "page_rc"}
-    unknown = set(state) - {"pos", "k", "v"} - paged_keys
+    unknown = set(state) - {"pos", "k", "v", "ssm", "conv"} - paged_keys
     if unknown:
         # a silently skipped cache key would leak the previous request's
         # state into the slot's next occupant
@@ -341,7 +434,8 @@ def reset_decode_rows(
         pstate, bt = PG.release_rows(_pager(state), state["block_table"],
                                      mask)
         out = _paged_commit(out, pstate, bt)
-    for key in ("k", "v"):
+    for key in ("k", "v", "ssm", "conv"):
         if key in state:
-            state[key].masked_fill_(mask.view(1, -1, 1, 1, 1), 0)
+            t = state[key]                    # (stacks, B, ...)
+            t.masked_fill_(mask.view(1, -1, *[1] * (t.dim() - 2)), 0)
     return out

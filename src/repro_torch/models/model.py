@@ -31,6 +31,11 @@ class Model:
         return lm.init_decode_state(self.cfg, batch, max_len,
                                     device=self.device, **kw)
 
+    def forward(self, params, tokens):
+        """Final-normed hidden states (B, S, d) of the teacher-forced
+        forward; ``lm_logits`` maps them to logits."""
+        return lm.forward(self.cfg, params, tokens)
+
     def decode_step(self, params, state, token, **kw):
         return lm.decode_step(self.cfg, params, state, token, **kw)
 

@@ -13,8 +13,7 @@ import dataclasses
 from typing import Any, Optional
 
 # the slices of the port that serve each feature (ROADMAP.md, Queue 1)
-RECURRENT = "the ssm/hybrid slice (recurrent-state snapshots)"
-SHARING = "the prefix-sharing slice"
+SHARING = "the prefix-sharing slice (with recurrent-state snapshots)"
 PRESSURE = "the pressure slice (host spill tier, prefill budgets)"
 SPEC = "the speculative-decoding slice"
 QUANT = "the quantized-KV slice"
@@ -56,7 +55,7 @@ class CacheConfig:
                 f"unknown kv_dtype {self.kv_dtype!r} "
                 "(expected 'f32', 'bf16', or 'int8')"
             )
-        _unserved(self, "snapshots", (False,), RECURRENT)
+        _unserved(self, "snapshots", (False,), SHARING)
         _unserved(self, "host_spill", (None, False), PRESSURE)
         _unserved(self, "kv_dtype", ("f32",), QUANT)
 

@@ -1,5 +1,6 @@
 """Continuous-batching serving engine (the port's ``repro.serving.engine``:
-contiguous or paged KV layout, token-by-token or chunked prefill, greedy).
+the dense, ssm and hybrid families, contiguous or paged KV layout,
+token-by-token or chunked prefill, greedy).
 
 The control state of every batch row lives on the device as fixed-shape
 tensors (``SlotState``): the token buffer holds the prompt and then the
@@ -154,7 +155,8 @@ class ServingEngine:
         self.cache = cache if cache is not None else CacheConfig()
         self.config = config if config is not None else EngineConfig()
         if (self.config.prefill_chunk > 1 and model.cfg.window
-                and self.cache.layout != "paged"):
+                and self.cache.layout != "paged"
+                and model.cfg.family in ("dense", "hybrid")):
             raise ValueError(
                 "chunked prefill on a sliding-window arch needs "
                 "layout='paged' (the contiguous ring cache recycles slots "
@@ -172,6 +174,7 @@ class ServingEngine:
         self._mstate = model.init_decode_state(batch, max_len,
                                                per_row_pos=True,
                                                cache=self.cache)
+        # attention-free families have no pages whatever the layout
         self._paged = "block_table" in self._mstate
         self.n_pages = 0
         self._kv_bytes_per_page = 0

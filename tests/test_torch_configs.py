@@ -9,13 +9,16 @@ from repro.configs.registry import get_arch as jax_get_arch  # noqa: E402
 from repro_torch.configs import ArchConfig, arch_ids, get_arch  # noqa: E402
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen2.5-3b-smoke"])
+@pytest.mark.parametrize("arch", [
+    "qwen2.5-3b", "qwen2.5-3b-smoke", "mamba2-2.7b", "mamba2-2.7b-smoke",
+    "zamba2-2.7b", "zamba2-2.7b-smoke"])
 def test_fields_match_jax(arch):
     port, ref = get_arch(arch), jax_get_arch(arch)
     assert [f.name for f in dataclasses.fields(port)] == \
         [f.name for f in dataclasses.fields(ref)]
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-    assert port.head_dim_ == ref.head_dim_
+    for prop in ("head_dim_", "d_inner", "ssm_heads", "is_attention_free"):
+        assert getattr(port, prop) == getattr(ref, prop), prop
     assert port.dtype_() == {"bfloat16": torch.bfloat16,
                              "float32": torch.float32}[ref.dtype]
 
@@ -33,6 +36,6 @@ def test_reduced_matches_jax_for_every_family_branch():
 
 
 def test_registry_lists_the_served_archs():
-    assert arch_ids() == ["qwen2.5-3b"]
+    assert arch_ids() == ["qwen2.5-3b", "mamba2-2.7b", "zamba2-2.7b"]
     with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("mamba2-2.7b")
+        get_arch("mixtral-8x7b")

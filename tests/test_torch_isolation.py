@@ -64,6 +64,7 @@ def test_build_needs_no_toolchain_at_import():
     from repro_torch.kernels import _build
 
     assert {p.name for p in _build.sources()} == {
-        "gemm.cu", "rmsnorm.cu", "eltwise.cu", "flash_attention.cu"}
+        "gemm.cu", "rmsnorm.cu", "eltwise.cu", "flash_attention.cu",
+        "ssd_scan.cu"}
     assert _build._LIB is None
     assert _build.library_path().parent == _build.BUILD_DIR

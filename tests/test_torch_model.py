@@ -121,7 +121,7 @@ def test_params_from_jax_bf16_bits():
     assert np.array_equal(out["layers"][2]["attn"]["wq"].view(
         torch.int16).numpy(), wq[2].view(np.int16))
     with pytest.raises(NotImplementedError, match="families"):
-        params_from_jax({"groups": {}}, device="cpu")
+        params_from_jax({"cross": {}}, device="cpu")
 
 
 def _same_paged_state(state, jstate):
