@@ -9,11 +9,14 @@ failure (non-zero exit, no result line):
 
 1. device   — CUDA present, sm_90; prints nvidia-smi's name and power limit.
 2. build    — compiles every ``csrc/*.cu`` kernel with nvcc for sm_90a.
-3. kernels  — each of the nine kernels against its plain PyTorch version at
-              the main paths' shapes (bf16 and f32), with CUDA-event
+3. kernels  — each of the eleven kernels against its plain PyTorch version
+              at the main paths' shapes (bf16 and f32; qwen2.5-3b's,
+              the recurrent archs' and mixtral-8x7b's), with CUDA-event
               timings of the kernel, the plain version and one library call
-              as yardstick (none for the SSD scan); an all-unmapped paged
-              row must come out as zeros, an SSD row with no real token
+              as yardstick (none for the SSD scan); the int8 pools are
+              filled by the pager's quantized writes, and the paged kernels
+              also read a bf16 pool under f32 queries; an all-unmapped
+              paged row must come out as zeros, an SSD row with no real token
               must keep its carried state bit for bit, the SSD state written
               in place must equal a new one bit for bit, and grouped B/C
               must raise in the ops layer.
@@ -25,24 +28,36 @@ failure (non-zero exit, no result line):
               mamba2-2.7b (64 layers) token by token and with C = 16 (it
               has no KV, so no layout); zamba2-2.7b (54 Mamba layers, the
               shared attention block 9 times) paged with C = 16 and
-              contiguous token by token.  The prefill and decode loops run
-              under ``torch.cuda.set_sync_debug_mode("error")``; launch
-              counts per prefill and decode step are exact (``per_step``
-              derives them from the config); the first steps' logits are
-              held against the reference backend (qwen in bf16 at full
-              depth, the Mamba stacks in f32 at 12 layers, see below).
-5. f32      — full width in f32 at reduced depth (qwen2.5-3b and
-              mamba2-2.7b at 2 layers, zamba2-2.7b at 12 = 2 groups):
+              contiguous token by token; qwen2.5-3b and zamba2-2.7b also
+              from an int8 pool (paged, C = 16); mixtral-8x7b at 16 of its
+              32 layers (its 32 do not fit in 80 GB) paged with C = 16 from
+              the bf16 pool and from an int8 pool, whose resident KV bytes
+              must be exactly half the bf16 pool's at the same peak pages.
+              The prefill and decode loops run under
+              ``torch.cuda.set_sync_debug_mode("error")``; launch counts per
+              prefill and decode step are exact (``per_step`` derives them
+              from the config); the first steps' logits are held against
+              the reference backend (qwen in bf16 at full depth, the Mamba
+              stacks in f32 at 12 layers, mixtral in f32 at 16 with its
+              bf16 numbers printed, see below).  Each model's weights are
+              freed before the next one loads.
+5. f32      — full width in f32 at reduced depth (qwen2.5-3b, mamba2-2.7b
+              and mixtral-8x7b at 2 layers, zamba2-2.7b at 12 = 2 groups):
               hopper and reference token streams must be identical for
               {contiguous, paged} x {prefill chunk 1, 16} (mamba2: chunk
-              1 and 16 only).
+              1 and 16 only; mixtral: paged, its window refuses
+              contiguous chunks) and, paged, for the bf16 and int8 pools
+              (mixtral over the bf16 pool token by token: identical, or
+              split at a shown near tie, see below).
 6. check    — ``--check``'s helper (``serving/checks.py``) for each arch
               on the hopper backend: token-by-token decode of a 160-token
               prompt (which crosses mamba2's SSD chunk of 128 in the
               forward) against the teacher-forced forward, in f32 at the
-              phase-5 depths within JAX's 2e-2 (and mamba2 at 12 layers),
-              and qwen2.5-3b in bf16 at full depth within 5% of the
-              logits' scale, with exact launch counts.
+              phase-5 depths within JAX's 2e-2 (and mamba2 at 12 layers;
+              mixtral with capacity_factor lifted to its expert count, as
+              the forward and decode otherwise drop different tokens), and
+              qwen2.5-3b in bf16 at full depth within 5% of the logits'
+              scale, with exact launch counts.
 
 The random 64- and 54-layer Mamba stacks are chaotic: the plain reference
 alone, in bf16 and in f32 on the same weights, disagrees on nearly every
@@ -51,7 +66,19 @@ logits at full depth (PERF.md, section 6).  So no end-to-end tolerance at
 full depth can tell a kernel fault from amplified rounding: phase 4
 prints the full-depth bf16 numbers and holds mamba2 and zamba2 in f32 at
 full width and 12 layers, and phases 5 and 6 hold them at reduced depth.
-Nothing is cut in width; depth is cut only in those checks.
+A top-k router is discontinuous in the same way: a near tie that rounds
+the other way on one side sends a token to another expert, and the plain
+reference's own bf16 and f32 runs on the same weights disagree as much
+as hopper and reference do.  So mixtral's bf16 logits are printed beside
+that gap, its f32 logits are held within 1% at 16 layers (each layer's
+weights cast to f32 only while it runs), and phase 3 holds every kernel
+at its shapes.  Over a bf16 pool the same router can turn a last-bit
+difference that rounds to the neighbouring bf16 value into another
+token: where phase 5 finds mixtral's streams split there, it finds the
+first decision the two runs take differently and requires it to be a
+near tie, and each step from the same caches to agree
+(``synced_steps``).  Nothing is cut in width; depth is cut only in
+those checks and, for mixtral, to fit the card.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -191,9 +218,12 @@ def phase_kernels(torch):
         flash_attention,
         flash_decode,
         flash_decode_paged,
+        flash_decode_paged_quant,
         flash_prefill_chunk,
         flash_prefill_chunk_paged,
+        flash_prefill_chunk_paged_quant,
     )
+    from repro_torch.serving import pager as PG
     from repro_torch.kernels.gemm import gemm
     from repro_torch.kernels.mamba_scan import ssd_scan
     from repro_torch.kernels.rmsnorm import rmsnorm
@@ -223,8 +253,11 @@ def phase_kernels(torch):
     # round the same f32 value; a different summation order moves it by at
     # most one rounding step).  The attention kernels round p to bf16 only
     # in the plain version: two ulps.  f32: summation order over K terms.
+    # The int8 kernels' plain versions return f32 (the dequantized V is
+    # f32), the kernels round once to q's dtype: two bf16 ulps as well.
     attn = ("flash_decode", "flash_decode_paged", "flash_prefill_chunk",
-            "flash_prefill_chunk_paged")
+            "flash_prefill_chunk_paged", "flash_decode_paged_quant",
+            "flash_prefill_chunk_paged_quant")
     TOL = {("bfloat16", "gemm"): 2 ** -7, ("bfloat16", "rmsnorm"): 2 ** -7,
            ("bfloat16", "bias_add_rows"): 0.0,
            ("float32", "gemm"): 1e-5, ("float32", "rmsnorm"): 1e-6,
@@ -254,7 +287,7 @@ def phase_kernels(torch):
                          count=count, err=err, ms=ms, plain_ms=p_ms,
                          library_ms=l_ms, bound_ms=b_ms, bound_by=by))
         lib = f"{l_ms:.4f}" if l_ms is not None else "n/a"
-        print(f"[3 kernels] {name:25s} {case:44s} {dt:8s} {step:7s} "
+        print(f"[3 kernels] {name:31s} {case:50s} {dt:8s} {step:7s} "
               f"x{count:<3d} {ms:.4f} ms  bound {b_ms:.4f} ms ({by})  plain "
               f"{p_ms:.4f} ms  library {lib} ms  max_abs_err {err:.3g}",
               flush=True)
@@ -312,6 +345,23 @@ def phase_kernels(torch):
             ("head 4x2560 @ 2560x32000", a25,
              rnd((2560, 32000), dtype, 2560 ** -0.5), "zamba2 decode", 1),
         ]
+        # mixtral-8x7b at 16 layers (d 4096, 8 kv heads of 128, untied
+        # head): its attention projections and head at M = 4 and M = 64 (the
+        # prefill step's head runs at M = 4); its experts run outside the
+        # kernels
+        a40, a40c = rnd((B, 4096), dtype), rnd((B * c, 4096), dtype)
+        w_mq = rnd((4096, 4096), dtype, 4096 ** -0.5)
+        w_mkv = rnd((4096, 1024), dtype, 4096 ** -0.5)
+        w_mh = rnd((4096, 32000), dtype, 4096 ** -0.5)
+        for x_, m_, step in ((a40, B, "mixtral decode"),
+                             (a40c, B * c, "mixtral prefill")):
+            gemms += [
+                (f"wq,wo {m_}x4096 @ 4096x4096", x_, w_mq, step, 16 * 2),
+                (f"wk,wv {m_}x4096 @ 4096x1024", x_, w_mkv, step, 16 * 2),
+                (f"head {m_}x4096 @ 4096x32000", x_, w_mh, step,
+                 1 if m_ == B else 0)]
+        gemms.append(("head 4x4096 @ 4096x32000", a40, w_mh,
+                      "mixtral prefill", 1))
         for case, x, w, step, count in gemms:
             m, k = x.shape
             n = w.shape[1]
@@ -319,23 +369,28 @@ def phase_kernels(torch):
                 lambda x=x, w=w: gemm(x, w), lambda x=x, w=w: ref.gemm(x, w),
                 lambda x=x, w=w: torch.matmul(x, w),
                 (m * k + k * n + m * n) * es, 2.0 * m * n * k)
-        del gemms, w_qo, w_kv, w_gi, w_o
+        del gemms, w_qo, w_kv, w_gi, w_o, w_mq, w_mkv, w_mh
         wn = (1 + 0.1 * rnd((cfg_d,), torch.float32)).to(dtype)
         run(rmsnorm, "4x2048", dtype, "decode", 73,
             lambda: rmsnorm(a, wn), lambda: ref.rmsnorm(a, wn),
             lambda: F.rms_norm(a, (cfg_d,), wn, 1e-6),
             (2 * B * cfg_d + cfg_d) * es, 4.0 * B * cfg_d)
-        for wd, step, count in ((2560, "mamba2 decode", 65),
-                                (5120, "mamba2 decode", 64),
-                                (2560, "zamba2 decode", 73),
-                                (5120, "zamba2 decode", 54)):
-            xr = rnd((B, wd), dtype)
+        # mixtral: an attention norm and the moe ln per layer, the final
+        # norm at M = 4 (in a prefill step too)
+        for wd, m_, step, count in ((2560, B, "mamba2 decode", 65),
+                                    (5120, B, "mamba2 decode", 64),
+                                    (2560, B, "zamba2 decode", 73),
+                                    (5120, B, "zamba2 decode", 54),
+                                    (4096, B, "mixtral decode", 33),
+                                    (4096, B * c, "mixtral prefill", 32),
+                                    (4096, B, "mixtral prefill", 1)):
+            xr = rnd((m_, wd), dtype)
             wr = (1 + 0.1 * rnd((wd,), torch.float32)).to(dtype)
-            run(rmsnorm, f"4x{wd}", dtype, step, count,
+            run(rmsnorm, f"{m_}x{wd}", dtype, step, count,
                 lambda xr=xr, wr=wr: rmsnorm(xr, wr),
                 lambda xr=xr, wr=wr: ref.rmsnorm(xr, wr),
                 lambda xr=xr, wr=wr, wd=wd: F.rms_norm(xr, (wd,), wr, 1e-6),
-                (2 * B * wd + wd) * es, 4.0 * B * wd)
+                (2 * m_ * wd + wd) * es, 4.0 * m_ * wd)
         for n, count in ((2048, 36), (256, 72)):
             mm, v = rnd((B, n), dtype), rnd((n,), dtype, 0.1)
             run(bias_add_rows, f"4x{n} + {n}", dtype, "decode", count,
@@ -346,9 +401,15 @@ def phase_kernels(torch):
 
         # -- attention: the contiguous cache and a shuffled page pool that
         # holds the same keys (every block below a row's length mapped), at
-        # qwen2.5-3b's heads (16/2 of 128, 36 layers) and zamba2-2.7b's
-        # shared block (32/32 of 80, applied 9 times per step)
-        for hq, hkv, hd, arch in ((16, 2, 128, ""), (32, 32, 80, "zamba2 ")):
+        # qwen2.5-3b's heads (16/2 of 128, 36 layers), zamba2-2.7b's
+        # shared block (32/32 of 80, applied 9 times per step) and
+        # mixtral-8x7b's (32/8 of 128, 16 layers, served paged only; its
+        # window of 4096 spans the cache like None).  (launches per step
+        # on the contiguous slab, on the pool)
+        for hq, hkv, hd, arch in ((16, 2, 128, ""), (32, 32, 80, "zamba2 "),
+                                  (32, 8, 128, "mixtral ")):
+            n_slab, n_pool = {"": (36, 36), "zamba2 ": (9, 9),
+                              "mixtral ": (0, 16)}[arch]
             lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
             start = torch.tensor(start_l, dtype=torch.int32, device="cuda")
             width = torch.tensor(width_l, dtype=torch.int32, device="cuda")
@@ -385,7 +446,8 @@ def phase_kernels(torch):
                                      > qpos[:, :, None] - window)
                 dmask, cmask = dmask[:, None, None, :], cmask[:, None, :, :]
                 win = f" win {window}" if window else ""
-                count = (9 if arch else 36) if window is None else 0
+                count, pcount = ((n_slab, n_pool) if window is None
+                                 else (0, 0))
                 # decode: every live key read once
                 keys = sum(n if window is None else min(n, window)
                            for n in lens_l)
@@ -402,7 +464,7 @@ def phase_kernels(torch):
                     dbytes, dflops)
                 run(flash_decode_paged,
                     f"q 4x{hq}x{hd}, pool {n_pages}+1x16x{hkv}x{hd}{win}",
-                    dtype, arch + "decode", count,
+                    dtype, arch + "decode", pcount,
                     lambda w=window: flash_decode_paged(q, kp, vp, lens, bt,
                                                         window=w),
                     lambda w=window: ref.attention_decode_paged(
@@ -430,7 +492,7 @@ def phase_kernels(torch):
                     cbytes, cflops)
                 run(flash_prefill_chunk_paged,
                     f"q 4x16x{hq}x{hd}, pool {n_pages}+1x16x{hkv}x{hd}{win}",
-                    dtype, arch + "prefill", count,
+                    dtype, arch + "prefill", pcount,
                     lambda w=window: flash_prefill_chunk_paged(
                         qc, kp, vp, start, width, bt, window=w),
                     lambda w=window: ref.attention_prefill_chunk_paged(
@@ -438,6 +500,105 @@ def phase_kernels(torch):
                     lambda m_=cmask: F.scaled_dot_product_attention(
                         qcs, kg, vg, attn_mask=m_, enable_gqa=True),
                     cbytes + bt_bytes, cflops)
+            # -- the int8 pool: the cache's keys and values written position
+            # by position through the pager's quantized write (scales reset
+            # at each page's slot 0, max-merged, slots requantized), read
+            # with their per-(page, head) scales; the library yardstick
+            # reads a dequantized, gathered copy made outside the timed call
+            kq = torch.zeros((n_pages + 1, page, hkv, hd), dtype=torch.int8,
+                             device="cuda")
+            vq = torch.zeros_like(kq)
+            ksc = torch.zeros((n_pages + 1, hkv), device="cuda")
+            vsc = torch.zeros_like(ksc)
+            for p_ in range(smax):
+                pos_ = torch.full((B,), p_, dtype=torch.int32, device="cuda")
+                PG.write_page_quant(kq, ksc, kc[:, p_], bt, pos_, lens > p_)
+                PG.write_page_quant(vq, vsc, vc[:, p_], bt, pos_, lens > p_)
+            kqg = ref._gather_pages(ref._dequant(kq, ksc), bt, B).to(
+                dtype).transpose(1, 2)
+            vqg = ref._gather_pages(ref._dequant(vq, vsc), bt, B).to(
+                dtype).transpose(1, 2)
+            for window in (None, 32):
+                dmask = kpos[None, :] < lens[:, None]
+                cmask = kpos[None, None, :] <= qpos[:, :, None]
+                if window is not None:
+                    dmask = dmask & (kpos[None, :] >= lens[:, None] - window)
+                    cmask = cmask & (kpos[None, None, :]
+                                     > qpos[:, :, None] - window)
+                dmask, cmask = dmask[:, None, None, :], cmask[:, None, :, :]
+                win = f" win {window}" if window else ""
+                count = n_pool if window is None else 0
+                # int8 keys and values once, one f32 scale per page and
+                # head for each of k and v, q and out at q's width
+                lo_d = [0 if window is None else max(0, n - window)
+                        for n in lens_l]
+                keys = sum(n - lo for n, lo in zip(lens_l, lo_d))
+                pages_d = sum(-(-n // page) - lo // page
+                              for n, lo in zip(lens_l, lo_d))
+                qbytes = (2 * B * hq * hd * es + 2 * keys * hkv * hd
+                          + 2 * pages_d * hkv * 4 + bt_bytes)
+                run(flash_decode_paged_quant,
+                    f"q 4x{hq}x{hd}, int8 pool {n_pages}+1x16x{hkv}x{hd}"
+                    f"{win}", dtype, arch + "decode", count,
+                    lambda w=window: flash_decode_paged_quant(
+                        q, kq, vq, ksc, vsc, lens, bt, window=w),
+                    lambda w=window: ref.attention_decode_paged_quant(
+                        q, kq, vq, ksc, vsc, lens, bt, window=w),
+                    lambda m_=dmask: F.scaled_dot_product_attention(
+                        qs, kqg, vqg, attn_mask=m_, enable_gqa=True),
+                    qbytes, 4.0 * keys * hq * hd + 2.0 * keys * hkv * hd)
+                lo_c = [0 if window is None else max(0, s0 - window + 1)
+                        for s0 in start_l]
+                ckeys = sum(s0 + w0 - lo
+                            for s0, w0, lo in zip(start_l, width_l, lo_c))
+                pages_c = sum(-(-(s0 + w0) // page) - lo // page
+                              for s0, w0, lo in zip(start_l, width_l, lo_c))
+                nvalid = cmask.sum().item()
+                qcbytes = (2 * B * c * hq * hd * es + 2 * ckeys * hkv * hd
+                           + 2 * pages_c * hkv * 4 + bt_bytes)
+                run(flash_prefill_chunk_paged_quant,
+                    f"q 4x16x{hq}x{hd}, int8 pool {n_pages}+1x16x{hkv}x{hd}"
+                    f"{win}", dtype, arch + "prefill", count,
+                    lambda w=window: flash_prefill_chunk_paged_quant(
+                        qc, kq, vq, ksc, vsc, start, width, bt, window=w),
+                    lambda w=window: ref.attention_prefill_chunk_paged_quant(
+                        qc, kq, vq, ksc, vsc, start, width, bt, window=w),
+                    lambda m_=cmask: F.scaled_dot_product_attention(
+                        qcs, kqg, vqg, attn_mask=m_, enable_gqa=True),
+                    qcbytes,
+                    4.0 * nvalid * hq * hd + 2.0 * ckeys * hkv * hd)
+            if dtype == torch.float32:
+                # a bf16 pool under f32 queries (kv_dtype="bf16" of an f32
+                # model): both sides read the pool upcast to f32
+                kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+                kbg = ref._gather_pages(kb, bt, B).float().transpose(1, 2)
+                vbg = ref._gather_pages(vb, bt, B).float().transpose(1, 2)
+                dmask = (kpos[None, :] < lens[:, None])[:, None, None, :]
+                cmask = (kpos[None, None, :]
+                         <= qpos[:, :, None])[:, None, :, :]
+                keys = sum(lens_l)
+                run(flash_decode_paged,
+                    f"q 4x{hq}x{hd}, bf16 pool {n_pages}+1x16x{hkv}x{hd}",
+                    dtype, arch + "decode", 0,
+                    lambda: flash_decode_paged(q, kb, vb, lens, bt),
+                    lambda: ref.attention_decode_paged(q, kb, vb, lens, bt),
+                    lambda m_=dmask: F.scaled_dot_product_attention(
+                        qs, kbg, vbg, attn_mask=m_, enable_gqa=True),
+                    2 * B * hq * hd * es + 2 * keys * hkv * hd * 2
+                    + bt_bytes, 4.0 * keys * hq * hd)
+                ckeys = sum(s0 + w0 for s0, w0 in zip(start_l, width_l))
+                run(flash_prefill_chunk_paged,
+                    f"q 4x16x{hq}x{hd}, bf16 pool {n_pages}+1x16x{hkv}x{hd}",
+                    dtype, arch + "prefill", 0,
+                    lambda: flash_prefill_chunk_paged(qc, kb, vb, start,
+                                                      width, bt),
+                    lambda: ref.attention_prefill_chunk_paged(
+                        qc, kb, vb, start, width, bt),
+                    lambda m_=cmask: F.scaled_dot_product_attention(
+                        qcs, kbg, vbg, attn_mask=m_, enable_gqa=True),
+                    2 * B * c * hq * hd * es + 2 * ckeys * hkv * hd * 2
+                    + bt_bytes, 4.0 * cmask.sum().item() * hq * hd)
+                del kb, vb, kbg, vbg
             # a row whose pages are all unmapped (a released row) returns zeros
             bt_u = bt.clone()
             bt_u[B - 1] = -1
@@ -446,7 +607,13 @@ def phase_kernels(torch):
                      lambda t: flash_decode_paged(q, kp, vp, lens, t)),
                     ("flash_prefill_chunk_paged",
                      lambda t: flash_prefill_chunk_paged(qc, kp, vp, start,
-                                                         width, t))):
+                                                         width, t)),
+                    ("flash_decode_paged_quant",
+                     lambda t: flash_decode_paged_quant(q, kq, vq, ksc, vsc,
+                                                        lens, t)),
+                    ("flash_prefill_chunk_paged_quant",
+                     lambda t: flash_prefill_chunk_paged_quant(
+                         qc, kq, vq, ksc, vsc, start, width, t))):
                 got, full = fn(bt_u), fn(bt)
                 torch.cuda.synchronize()
                 if not (torch.isfinite(got).all() and not got[B - 1].any()
@@ -454,10 +621,10 @@ def phase_kernels(torch):
                     raise SystemExit(
                         f"chip_smoke: {name}: an all-unmapped row is not "
                         "zeros, or it moved the other rows")
-            print(f"[3 kernels] all-unmapped row: zeros from both paged "
+            print(f"[3 kernels] all-unmapped row: zeros from the four paged "
                   f"kernels ({arch or 'qwen2.5-3b '}heads, {dtype})",
                   flush=True)
-            del kc, vc, kp, vp, kg, vg
+            del kc, vc, kp, vp, kg, vg, kq, vq, kqg, vqg
 
         # -- the SSD scan.  B and C are column slices of an in_proj output
         # (row width 2 d_inner + 2 N + H), read in place as the model
@@ -599,6 +766,12 @@ def phase_kernels(torch):
         "flash_prefill_chunk_paged": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:909", "prefill"),
+        "flash_decode_paged_quant": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:654", "decode"),
+        "flash_prefill_chunk_paged_quant": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:1019", "prefill"),
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:120", "forward"),
@@ -637,9 +810,12 @@ def phase_kernels(torch):
               f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
               f"{tot['plain_ms']:.3f} ms, library "
               f"{lib if lib is None else round(lib, 3)} ms", flush=True)
-    for step in ("mamba2 decode", "zamba2 decode", "zamba2 prefill"):
+    for step in ("mamba2 decode", "zamba2 decode", "zamba2 prefill",
+                 "mixtral decode", "mixtral prefill"):
         for name in ("gemm", "rmsnorm", "flash_decode", "flash_decode_paged",
-                     "flash_prefill_chunk", "flash_prefill_chunk_paged"):
+                     "flash_prefill_chunk", "flash_prefill_chunk_paged",
+                     "flash_decode_paged_quant",
+                     "flash_prefill_chunk_paged_quant"):
             tot = totals(name, step)
             if tot["ms"]:
                 lib = tot["library_ms"]
@@ -676,6 +852,8 @@ def perturb(torch, params, seed: int) -> None:
                 * scale).to(t.dtype)
 
     def attn_mlp(attn, mlp):
+        """``mlp``: the MLP, or the MoE block (its norm before the
+        router)."""
         for key in ("bq", "bk", "bv"):
             if key in attn:
                 attn[key] = noise(attn[key], 0.05)
@@ -692,7 +870,7 @@ def perturb(torch, params, seed: int) -> None:
         p for group in params.get("groups", []) for p in group]
     for p in layers:
         if "attn" in p:
-            attn_mlp(p["attn"], p["mlp"])
+            attn_mlp(p["attn"], p["mlp"] if "mlp" in p else p["moe"])
         else:
             mamba(p["mamba"])
     if "shared_attn" in params:
@@ -707,17 +885,29 @@ def requests(n, lo, hi, vocab, seed):
 
 KERNELS = ("gemm", "rmsnorm", "bias_add_rows", "flash_decode",
            "flash_decode_paged", "flash_prefill_chunk",
-           "flash_prefill_chunk_paged", "flash_attention", "ssd_scan")
-# the attention kernels of each layout: (decode step, prefill step)
-ATTN = {"contiguous": ("flash_decode", "flash_prefill_chunk"),
-        "paged": ("flash_decode_paged", "flash_prefill_chunk_paged")}
+           "flash_prefill_chunk_paged", "flash_decode_paged_quant",
+           "flash_prefill_chunk_paged_quant", "flash_attention", "ssd_scan")
+# the attention kernels of each (layout, pool): (decode step, prefill step)
+ATTN = {("contiguous", "f32"): ("flash_decode", "flash_prefill_chunk"),
+        ("paged", "f32"): ("flash_decode_paged", "flash_prefill_chunk_paged"),
+        ("paged", "bf16"): ("flash_decode_paged",
+                            "flash_prefill_chunk_paged"),
+        ("paged", "int8"): ("flash_decode_paged_quant",
+                            "flash_prefill_chunk_paged_quant")}
 PAGE, CHUNK, GEN_LEN, MAX_LEN = 16, 16, 32, 128
-# the serving paths of each arch, (layout, prefill chunk), in run order;
-# mamba2-2.7b has no KV cache, so its layout is moot
-PATHS = {"qwen2.5-3b": (("paged", CHUNK), ("contiguous", 1),
-                        ("contiguous", CHUNK)),
-         "mamba2-2.7b": (("contiguous", 1), ("contiguous", CHUNK)),
-         "zamba2-2.7b": (("paged", CHUNK), ("contiguous", 1))}
+# mixtral-8x7b's 32 layers hold 93 GB of bf16 weights: 16 fit the card
+MOE_LAYERS = 16
+# the serving paths of each arch, (layout, prefill chunk, kv_dtype), in run
+# order ("f32" is the model's own dtype, here bf16); mamba2-2.7b has no KV
+# cache, so its layout is moot
+PATHS = {"qwen2.5-3b": (("paged", CHUNK, "f32"), ("contiguous", 1, "f32"),
+                        ("contiguous", CHUNK, "f32"),
+                        ("paged", CHUNK, "int8")),
+         "mamba2-2.7b": (("contiguous", 1, "f32"),
+                         ("contiguous", CHUNK, "f32")),
+         "zamba2-2.7b": (("paged", CHUNK, "f32"), ("contiguous", 1, "f32"),
+                         ("paged", CHUNK, "int8")),
+         "mixtral-8x7b": (("paged", CHUNK, "f32"), ("paged", CHUNK, "int8"))}
 
 
 def per_step(cfg):
@@ -725,17 +915,22 @@ def per_step(cfg):
     from the config, and the number of attention blocks: each attention
     block runs 4 projections (q, k, v, o), a norm, 3 bias adds when the
     arch has qkv biases, and its layout's attention kernel; each MLP
-    (one per attention block) 3 projections and a norm; each Mamba block
-    2 projections (in, out), 2 norms (ln, ln_inner) and one SSD scan; the
-    head one projection and the final norm one norm.  Dense runs an
-    attention block and an MLP per layer, ssm a Mamba block per layer,
-    hybrid a Mamba block per layer and the shared attention block and MLP
-    once per group of ``attn_every`` layers."""
-    n_attn = {"dense": cfg.n_layers, "ssm": 0,
+    (one per attention block but in moe) 3 projections and a norm; each
+    MoE block (one per moe layer) a norm, its router and expert products
+    running outside the kernels as in JAX; each Mamba block 2 projections
+    (in, out), 2 norms (ln, ln_inner) and one SSD scan; the head one
+    projection and the final norm one norm.  Dense runs an attention block
+    and an MLP per layer, moe an attention block and a MoE block per
+    layer, ssm a Mamba block per layer, hybrid a Mamba block per layer and
+    the shared attention block and MLP once per group of ``attn_every``
+    layers."""
+    n_attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
               "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
-    n_mamba = 0 if cfg.family == "dense" else cfg.n_layers
-    return {"gemm": 7 * n_attn + 2 * n_mamba + 1,
-            "rmsnorm": 2 * n_attn + 2 * n_mamba + 1,
+    n_mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_mlp = 0 if cfg.family == "moe" else n_attn
+    n_moe = n_attn - n_mlp
+    return {"gemm": 4 * n_attn + 3 * n_mlp + 2 * n_mamba + 1,
+            "rmsnorm": n_attn + n_mlp + n_moe + 2 * n_mamba + 1,
             "bias_add_rows": 3 * n_attn if cfg.qkv_bias else 0,
             "ssd_scan": n_mamba}, n_attn
 
@@ -753,21 +948,24 @@ def kernel_fns():
     return fns
 
 
-def serve_path(torch, model, params, reqs, layout, chunk):
+def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
     """Serve ``reqs`` on the hopper backend with the launch counts set to
     0 just before and read just after; the prefill and decode loops may
-    not synchronise with the host.  Returns (launches, outputs)."""
+    not synchronise with the host.  Returns (launches, outputs, stats)."""
     from repro_torch.core.policy import use_backend
     from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
 
     eng = ServingEngine(model, params, batch=B, max_len=MAX_LEN,
-                        cache=CacheConfig(layout=layout, page_size=PAGE),
+                        cache=CacheConfig(layout=layout, page_size=PAGE,
+                                          kv_dtype=kv_dtype),
                         config=EngineConfig(steps_per_sync=8,
                                             prefill_chunk=chunk))
     for toks in reqs:
         eng.submit(toks, GEN_LEN)
     fns = kernel_fns()
-    tag = f"[4 serving] {model.cfg.name}, {layout}, prefill chunk {chunk}:"
+    pool = f", {kv_dtype} pool" if kv_dtype != "f32" else ""
+    tag = (f"[4 serving] {model.cfg.name}, {layout}{pool}, prefill chunk "
+           f"{chunk}:")
     with use_backend("hopper"):
         for fn in fns.values():
             fn.launches = 0
@@ -814,7 +1012,7 @@ def serve_path(torch, model, params, reqs, layout, chunk):
     steps, n_attn = per_step(model.cfg)
     want = {name: 0 for name in KERNELS}
     want.update({name: n * (pre + dec) for name, n in steps.items()})
-    k_dec, k_pre = ATTN[layout]
+    k_dec, k_pre = ATTN[layout, kv_dtype]
     want[k_dec] += n_attn * dec
     want[k_pre] += n_attn * pre
     if launches != want or (chunk > 1) != (pre > 0):
@@ -826,7 +1024,7 @@ def serve_path(torch, model, params, reqs, layout, chunk):
             len(o) != GEN_LEN or o.min() < 0 or o.max() >= model.cfg.vocab_size
             for o in outs.values()):
         raise SystemExit(f"chip_smoke: {tag} serving outputs malformed")
-    return launches, outs
+    return launches, outs, s
 
 
 def first_logits(torch, model, params, toks, layout, backend):
@@ -868,6 +1066,21 @@ def to_f32(tree):
     return tree.float()
 
 
+class LazyF32:
+    """A list of bf16 layers that yields each one cast to f32 only while
+    the model's layer loop runs it, so an f32 run of a model whose f32
+    weights do not fit the card holds one f32 layer at a time."""
+
+    def __init__(self, layers):
+        self.layers = layers
+
+    def __iter__(self):
+        return (to_f32(p) for p in self.layers)
+
+    def __len__(self):
+        return len(self.layers)
+
+
 # the depth at which the Mamba stacks' logits are held (two zamba2 groups)
 GATE_LAYERS = 12
 
@@ -881,7 +1094,13 @@ def check_logits(torch, model, params, reqs, layout):
     nearly every top-1 token at full depth (PERF.md, section 6).  So
     mamba2 and zamba2 print their full-depth bf16 numbers and are held in
     f32 at full width and ``GATE_LAYERS`` layers (their first layers'
-    weights), within 1% of the scale."""
+    weights), within 1% of the scale.  mixtral's top-2 router flips at a
+    near tie when the two sides round differently, and the reference's own
+    bf16 run is as far from its f32 run on the same weights as the hopper
+    run is from the reference (PERF.md, section 6): its bf16 numbers are
+    printed beside that gap, and it is held in f32 at its 16 layers within
+    1% (each layer cast while it runs); phase 3 holds its kernels at its
+    shapes in bf16."""
     from repro_torch.models.model import build_model
 
     cfg = model.cfg
@@ -895,7 +1114,29 @@ def check_logits(torch, model, params, reqs, layout):
           f"max_abs_err {err:.4g} (max|logit| {scale:.4g}), top-1 "
           f"agreement {agree:.3f}", flush=True)
     tol = 0.05
-    if cfg.family != "dense":
+    if cfg.family == "moe":
+        p32 = {**to_f32({k: v for k, v in params.items() if k != "layers"}),
+               "layers": LazyF32(params["layers"])}
+        m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        ref32 = first_logits(torch, m32, p32, toks, layout, "reference")
+        own, own_scale, own_agree = compare(refl, ref32)
+        hop_f, _, hop_agree = compare(hop, ref32)
+        print(f"{tag} vs the reference in f32 (same bf16 weights): the "
+              f"reference's own bf16 logits max_abs_err {own:.4g} (max|logit|"
+              f" {own_scale:.4g}), top-1 agreement {own_agree:.3f}; hopper's "
+              f"bf16 logits {hop_f:.4g}, top-1 agreement {hop_agree:.3f} "
+              "(printed; held in f32 below)", flush=True)
+        if not torch.isfinite(hop).all():
+            raise SystemExit(f"chip_smoke: {cfg.name}, {layout}: bf16 "
+                             "logits not finite")
+        err, scale, agree = compare(
+            first_logits(torch, m32, p32, toks, layout, "hopper"), ref32)
+        print(f"{tag} f32 at {cfg.n_layers} layers, hopper vs reference: "
+              f"max_abs_err {err:.4g} (max|logit| {scale:.4g}), top-1 "
+              f"agreement {agree:.3f}", flush=True)
+        tol = 0.01
+        del p32, ref32
+    elif cfg.family != "dense":
         if "groups" in params:
             cut = {**params, "groups": params["groups"][:GATE_LAYERS
                                                         // cfg.attn_every]}
@@ -924,6 +1165,8 @@ def phase_serving(torch):
     total = {name: 0 for name in KERNELS}
     for arch, paths in PATHS.items():
         cfg = get_arch(arch)
+        if cfg.family == "moe":
+            cfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS)
         model = build_model(cfg)
         t0 = time.perf_counter()
         params = model.init_params(SEED)
@@ -934,23 +1177,37 @@ def phase_serving(torch):
               f"{cfg.dtype}; params in {time.perf_counter() - t0:.1f} s",
               flush=True)
         reqs = requests(8, 16, 64, cfg.vocab_size, SEED)
-        streams = {}
-        for layout, chunk in paths:
-            launches, streams[layout, chunk] = serve_path(
-                torch, model, params, reqs, layout, chunk)
+        streams, stats = {}, {}
+        for path in paths:
+            launches, streams[path], stats[path] = serve_path(
+                torch, model, params, reqs, *path)
             for name in KERNELS:
                 total[name] += launches[name]
-        (l0, c0), (l1, c1) = paths[:2]
-        same = sum(np.array_equal(streams[l0, c0][i], streams[l1, c1][i])
+        p0, p1 = paths[:2]
+        same = sum(np.array_equal(streams[p0][i], streams[p1][i])
                    for i in range(len(reqs)))
-        print(f"[4 serving] {cfg.name}: bf16 streams, {l0} chunk {c0} vs "
-              f"{l1} chunk {c1}: {same} of {len(reqs)} identical (bf16 "
-              "rounds differently per schedule; phase 5 holds f32)",
-              flush=True)
+        print(f"[4 serving] {cfg.name}: bf16 streams, {p0} vs {p1}: {same} "
+              f"of {len(reqs)} identical (bf16 and int8 round differently "
+              "per schedule and pool; phase 5 holds f32)", flush=True)
+        # the int8 pool holds the same pages at half the bf16 pool's bytes
+        s16, s8 = stats.get(("paged", CHUNK, "f32")), stats.get(
+            ("paged", CHUNK, "int8"))
+        if s8 is not None:
+            b16, b8 = s16["kv_resident_bytes_peak"], \
+                s8["kv_resident_bytes_peak"]
+            print(f"[4 serving] {cfg.name}: peak resident KV, paged chunk "
+                  f"{CHUNK}: bf16 pool {int(b16)} bytes at "
+                  f"{int(s16['kv_pages_peak'])} pages, int8 pool {int(b8)} "
+                  f"bytes at {int(s8['kv_pages_peak'])} pages", flush=True)
+            if not (s8["kv_pages_peak"] == s16["kv_pages_peak"]
+                    and 2 * b8 == b16 > 0):
+                raise SystemExit(f"chip_smoke: {cfg.name}: the int8 pool's "
+                                 f"{b8} bytes are not half the bf16 pool's "
+                                 f"{b16} at the same peak pages")
         # the chunk route (paged, for the archs with KV) and token by token
         for layout in ("paged", "contiguous"):
             check_logits(torch, model, params, reqs, layout)
-        del params
+        del params, model
         torch.cuda.empty_cache()
     return total
 
@@ -959,51 +1216,282 @@ def phase_serving(torch):
 # phase 5: f32, IEEE on both sides: identical token streams
 # ---------------------------------------------------------------------------
 
-# (arch, layers, layouts): reduced depth, full width; zamba2 needs 12
-# layers to keep attn_every = 6 with 2 groups
-F32_CASES = (("qwen2.5-3b", 2, ("contiguous", "paged")),
-             ("mamba2-2.7b", 2, ("contiguous",)),
-             ("zamba2-2.7b", 12, ("contiguous", "paged")))
+# (arch, layers, ((layout, kv_dtype, prefill chunks), ...)): reduced
+# depth, full width; zamba2 needs 12 layers to keep attn_every = 6 with 2
+# groups; mixtral's window refuses contiguous chunks
+BOTH = (1, CHUNK)
+F32_CASES = (
+    ("qwen2.5-3b", 2, (("contiguous", "f32", BOTH), ("paged", "f32", BOTH),
+                       ("paged", "bf16", BOTH), ("paged", "int8", BOTH))),
+    ("mamba2-2.7b", 2, (("contiguous", "f32", BOTH),)),
+    ("zamba2-2.7b", 12, (("contiguous", "f32", BOTH), ("paged", "f32", BOTH),
+                         ("paged", "bf16", BOTH), ("paged", "int8", BOTH))),
+    ("mixtral-8x7b", 2, (("contiguous", "f32", (1,)), ("paged", "f32", BOTH),
+                         ("paged", "bf16", BOTH), ("paged", "int8", BOTH))))
+
+
+def synced_steps(torch, model, params, reqs, kv_dtype, chunk):
+    """Hopper against reference one step at a time from the same state:
+    before each step the reference gets a copy of the hopper side's
+    caches, so only that step's arithmetic differs.  The first 8 tokens
+    of each of the first B requests go in as one 8-token chunk (``chunk >
+    1``) or 8 decode steps, then 8 decode steps feed the hopper side's
+    argmax.  Returns (max |logit diff| / max |logit| over the steps, max
+    difference of the first layer's bf16 pages in bf16 ulps: 2^-7 of the
+    larger value but at least 1e-5 of the pool's largest value, the f32
+    noise of two summation orders on values near zero).  Only the first
+    layer's K/V come from identical inputs: a new element one ulp apart
+    there moves the next layer's input, and so its K/V, by more than an
+    ulp within the same call."""
+    from repro_torch.core.policy import use_backend
+
+    state = model.init_decode_state(B, 64, per_row_pos=True, layout="paged",
+                                    page_size=PAGE, kv_dtype=kv_dtype)
+    toks = torch.as_tensor(np.stack([np.asarray(r[:8]) for r in reqs[:B]]),
+                           device="cuda")
+    if chunk > 1:
+        feeds = [lambda m, p, s: m.prefill_chunk(p, s, toks, 8)]
+    else:
+        feeds = [lambda m, p, s, j=j: m.decode_step(p, s, toks[:, j])
+                 for j in range(8)]
+    worst_rel = worst_pool = 0.0
+    nxt = None
+    for n in range(len(feeds) + 8):
+        ref_state = {k: v.clone() for k, v in state.items()}
+        fn = feeds[n] if n < len(feeds) else (
+            lambda m, p, s, t=nxt: m.decode_step(p, s, t))
+        with use_backend("hopper"):
+            lh, state = fn(model, params, state)
+        with use_backend("reference"):
+            lr, ref_state = fn(model, params, ref_state)
+        worst_rel = max(worst_rel, ((lh - lr).abs().max()
+                                    / lr.abs().max()).item())
+        for key in ("kp", "vp"):   # layer 0's real pages, not the sentinel
+            a, b = state[key][0, :-1].float(), ref_state[key][0, :-1].float()
+            step = torch.clamp(2 ** -7 * torch.maximum(a.abs(), b.abs()),
+                               min=1e-5 * b.abs().max().item())
+            worst_pool = max(worst_pool, ((a - b).abs() / step).max().item())
+        nxt = lh.argmax(-1)
+    return worst_rel, worst_pool
+
+
+class Decisions:
+    """While active, records the router probabilities of every MoE call
+    (the input of ``components._top_k``) and the logits of every engine
+    step (the input of ``engine._sample``), so that two runs can be
+    searched for the first decision they take differently."""
+
+    def __init__(self):
+        from repro_torch.models import components
+        from repro_torch.serving import engine
+        self.hooks = ((components, "_top_k"), (engine, "_sample"))
+        self.probs, self.logits = [], []
+
+    def __enter__(self):
+        top_k, sample = self.saved = [getattr(m, n) for m, n in self.hooks]
+
+        def traced_top_k(probs, k):
+            self.probs.append(probs.detach().clone())
+            return top_k(probs, k)
+
+        def traced_sample(logits):
+            self.logits.append(logits.detach().float().clone())
+            return sample(logits)
+
+        for (m, n), fn in zip(self.hooks, (traced_top_k, traced_sample)):
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.hooks, self.saved):
+            setattr(m, n, fn)
+
+
+def first_split(torch, hop, refd, k, n_layers,
+                names=("hopper", "reference")):
+    """The first decision two runs of one schedule (``Decisions`` of the
+    runs ``names``, by default the hopper and the reference run) take
+    differently: a token's top-k expert picks, or a row's argmax.
+    Returns (description, the second run's margin at it relative to the
+    value it separates); when they never split, (how closely they agree,
+    None)."""
+    a_, b_ = names
+    gap_p = gap_l = 0.0
+    for step, (lh, lr) in enumerate(zip(hop.logits, refd.logits)):
+        lh, lr = lh.cpu(), lr.cpu()
+        for layer in range(n_layers):
+            ph, pr = (d.probs[step * n_layers + layer].cpu()
+                      for d in (hop, refd))
+            pick_h, pick_r = (torch.sort(-p, dim=-1, stable=True)
+                              .indices[:, :k].sort(dim=-1).values
+                              for p in (ph, pr))
+            rows = (pick_h != pick_r).any(-1).nonzero()
+            if len(rows):
+                r0 = int(rows[0])
+                top_r = torch.sort(pr[r0], descending=True).values[:k + 1]
+                top_h = torch.sort(ph[r0], descending=True).values[:k + 1]
+                margin = (top_r[k - 1] - top_r[k]).item()
+                return (f"step {step}, layer {layer}, token {r0} of "
+                        f"{pr.shape[0]}: router picks differ; {b_}'s "
+                        f"top-{k + 1} probabilities {top_r.tolist()}, "
+                        f"{a_}'s {top_h.tolist()}: margin {margin:.3g} "
+                        f"between pick {k} and {k + 1}; before it the "
+                        f"probabilities agreed within {gap_p:.3g} and the "
+                        f"logits within {gap_l:.3g}",
+                        margin / top_r[k - 1].item())
+            gap_p = max(gap_p, (ph - pr).abs().max().item())
+        rows = (lh.argmax(-1) != lr.argmax(-1)).nonzero()
+        if len(rows):
+            r0 = int(rows[0])
+            top2 = torch.topk(lr[r0], 2).values
+            margin = (top2[0] - top2[1]).item()
+            scale = lr[r0].abs().max().item()
+            return (f"step {step}, row {r0}: argmax differs; {b_}'s "
+                    f"top-2 logits {top2.tolist()}: margin {margin:.3g} "
+                    f"(max|logit| {scale:.4g}); before it the router "
+                    f"probabilities agreed within {gap_p:.3g} and the logits "
+                    f"within {gap_l:.3g}", margin / scale)
+        gap_l = max(gap_l, (lh - lr).abs().max().item())
+    return (f"none in {len(refd.logits)} steps; the router probabilities "
+            f"agree within {gap_p:.3g} and the logits within {gap_l:.3g}",
+            None)
+
+
+# (arch, kv_dtype, prefill chunk) whose f32 streams may split at a near
+# tie: mixtral over a bf16 pool token by token.  A last-bit difference in
+# a new K/V element can round to the neighbouring bf16 value (2^-8 of it),
+# and a top-2 router or an argmax closer than that turns it into another
+# token.  The split must be such a tie (the reference's margin at the
+# first differing decision within 2^-8 of the value), and each step from
+# the same caches must agree (``synced_steps``).  As a witness, the same
+# engine on the reference backend also runs on the CPU (same code and
+# semantics, other f32 arithmetic) and its streams are compared with both
+# card runs.
+NEAR_TIE = {("mixtral-8x7b", "bf16", 1)}
+
+
+def cpu_witness(torch, model, params, engine_kw, reqs, card):
+    """The reference engine of ``engine_kw`` on the CPU, its streams and
+    decisions compared with the card runs' (``card``: backend ->
+    (streams, Decisions)); prints, gates nothing."""
+    from repro_torch.core.policy import use_backend
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServingEngine
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.cpu()
+
+    t0 = time.perf_counter()
+    cpu_model = build_model(model.cfg, device="cpu")
+    with use_backend("reference"), Decisions() as trace:
+        eng = ServingEngine(cpu_model, to_cpu(params), **engine_kw)
+        for toks in reqs:
+            eng.submit(toks, 16)
+        got = eng.run()
+    for backend, (streams, dec) in card.items():
+        same = sum(np.array_equal(got[i], streams[i])
+                   for i in range(len(reqs)))
+        split = first_split(torch, trace, dec, model.cfg.top_k,
+                            model.cfg.n_layers,
+                            names=("CPU reference", f"card {backend}"))
+        print(f"[5 f32] witness: the reference engine on the CPU vs the "
+              f"{backend} run on the card: {same} of {len(reqs)} streams "
+              f"identical; first split: {split[0]}", flush=True)
+    print(f"[5 f32] witness took {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def phase_f32(torch):
+    """Every case runs; the phase fails after the last one if any pair of
+    streams differed (with the first differing request and position),
+    except a case of ``NEAR_TIE`` whose split is shown to be a near tie.
+    Where both chunks ran, the two runs of each backend are compared too
+    (printed): the chunk changes the summation order, over an int8 pool
+    the requantization sequence, and for moe the capacity, which counts
+    the B*C tokens of a chunk step."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.policy import use_backend
     from repro_torch.models.model import build_model
     from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
 
-    for arch, layers, layouts in F32_CASES:
+    failed = []
+    for arch, layers, cases in F32_CASES:
         model = build_model(dataclasses.replace(
             get_arch(arch), n_layers=layers, dtype="float32"))
         cfg = model.cfg
         params = model.init_params(SEED)
         perturb(torch, params, SEED + 1)
         reqs = requests(6, 8, 24, cfg.vocab_size, SEED + 2)
-        for layout in layouts:
-            for chunk in (1, CHUNK):
-                streams = {}
+        for layout, kv_dtype, chunks in cases:
+            pool = f", {kv_dtype} pool" if kv_dtype != "f32" else ""
+            streams = {}
+            for chunk in chunks:
+                trace = {}
+                engine_kw = dict(
+                    batch=B, max_len=64,
+                    cache=CacheConfig(layout=layout, page_size=PAGE,
+                                      kv_dtype=kv_dtype),
+                    config=EngineConfig(steps_per_sync=4,
+                                        prefill_chunk=chunk))
                 for backend in ("hopper", "reference"):
-                    with use_backend(backend):
-                        eng = ServingEngine(
-                            model, params, batch=B, max_len=64,
-                            cache=CacheConfig(layout=layout, page_size=PAGE),
-                            config=EngineConfig(steps_per_sync=4,
-                                                prefill_chunk=chunk))
+                    with use_backend(backend), Decisions() as trace[backend]:
+                        eng = ServingEngine(model, params, **engine_kw)
                         for toks in reqs:
                             eng.submit(toks, 16)
-                        streams[backend] = eng.run()
-                same = all(np.array_equal(streams["hopper"][i],
-                                          streams["reference"][i])
-                           for i in range(len(reqs)))
+                        streams[backend, chunk] = eng.run()
+                got, want = streams["hopper", chunk], \
+                    streams["reference", chunk]
+                diff = [(i, int(np.argmax(got[i] != want[i])))
+                        for i in range(len(reqs))
+                        if not np.array_equal(got[i], want[i])]
                 print(f"[5 f32] {arch}, {layers} layers at full width, "
-                      f"{layout}, prefill chunk {chunk}, {len(reqs)} "
+                      f"{layout}{pool}, prefill chunk {chunk}, {len(reqs)} "
                       f"requests x 16 tokens: hopper == reference token "
-                      f"streams: {same}", flush=True)
-                if not same:
-                    raise SystemExit(f"chip_smoke: f32 token streams differ "
-                                     f"({arch}, {layout}, chunk {chunk})")
-        del params
+                      f"streams: {not diff}"
+                      + (f" (first differing (request, token): {diff})"
+                         if diff else ""), flush=True)
+                if not diff:
+                    continue
+                split = (first_split(torch, trace["hopper"],
+                                     trace["reference"], cfg.top_k,
+                                     cfg.n_layers)
+                         if cfg.family == "moe" else None)
+                if split is not None:
+                    print(f"[5 f32] {arch}{pool}, chunk {chunk}: first "
+                          f"split: {split[0]}", flush=True)
+                    split = split[1]
+                if (arch, kv_dtype, chunk) not in NEAR_TIE:
+                    failed.append((arch, layout, kv_dtype, chunk))
+                    continue
+                rel, pool_steps = synced_steps(torch, model, params, reqs,
+                                               kv_dtype, chunk)
+                print(f"[5 f32] {arch}{pool}, chunk {chunk}, step by step "
+                      f"from the same caches: logits within {rel:.3g} of "
+                      f"their scale, pools within {pool_steps:.3g} storage "
+                      f"steps", flush=True)
+                cpu_witness(torch, model, params, engine_kw, reqs, {
+                    b: (streams[b, chunk], trace[b])
+                    for b in ("reference", "hopper")})
+                if not (split is not None and split <= 2 ** -8
+                        and rel <= 0.01 and pool_steps <= 1.0):
+                    failed.append((arch, layout, kv_dtype, chunk))
+            if len(chunks) > 1:
+                same = {b: sum(np.array_equal(streams[b, 1][i],
+                                              streams[b, chunks[-1]][i])
+                               for i in range(len(reqs)))
+                        for b in ("hopper", "reference")}
+                print(f"[5 f32] {arch}, {layout}{pool}: chunk 1 vs "
+                      f"{chunks[-1]} on one backend: reference "
+                      f"{same['reference']} of {len(reqs)} streams "
+                      f"identical, hopper {same['hopper']}", flush=True)
+        del params, model
         torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: f32 token streams differ: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -1016,18 +1504,22 @@ CHECK_LEN, CHECK_B = 160, 2
 # Mamba stacks are chaotic at full depth (``check_logits``)
 CHECK_CASES = (("qwen2.5-3b", ((2, "float32"), (36, "bfloat16"))),
                ("mamba2-2.7b", ((2, "float32"), (GATE_LAYERS, "float32"))),
-               ("zamba2-2.7b", ((GATE_LAYERS, "float32"),)))
+               ("zamba2-2.7b", ((GATE_LAYERS, "float32"),)),
+               ("mixtral-8x7b", ((2, "float32"),)))
 
 
 def phase_check(torch):
     """For each arch at full width and the depths of ``CHECK_CASES`` (f32
-    within JAX's 2e-2 for all three; bf16 within 5% of the logits' scale
+    within JAX's 2e-2 for all four; bf16 within 5% of the logits' scale
     for qwen2.5-3b only, at full depth): ``--check``'s helper
     on the hopper backend with the launch counts set to 0 just before and
-    read just after.  One forward runs every kernel of a step once per block
-    (plus the head), and the attention forward once per attention block;
-    the 160 decode steps run the step's kernels and the contiguous decode
-    attention."""
+    read just after.  The moe arch's capacity_factor is lifted to its
+    expert count, as ``launch/serve.py --check`` lifts it: the forward
+    routes B*S tokens at once and decode B, so with capacity dropping the
+    two would drop different tokens.  One forward runs every kernel of a
+    step once per block (plus the head), and the attention forward once
+    per attention block; the 160 decode steps run the step's kernels and
+    the contiguous decode attention."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.policy import use_backend
     from repro_torch.models.model import build_model
@@ -1040,8 +1532,11 @@ def phase_check(torch):
     for arch, cases in CHECK_CASES:
         for layers, dtype in cases:
             f32 = dtype == "float32"
+            cfg = get_arch(arch)
+            lift = ({"capacity_factor": float(cfg.n_experts)}
+                    if cfg.n_experts else {})
             model = build_model(dataclasses.replace(
-                get_arch(arch), n_layers=layers, dtype=dtype))
+                cfg, n_layers=layers, dtype=dtype, **lift))
             cfg = model.cfg
             params = model.init_params(SEED + 3)
             perturb(torch, params, SEED + 4)
@@ -1077,7 +1572,7 @@ def phase_check(torch):
                                  f"{launches}, expected {want}")
             for name in KERNELS:
                 total[name] += launches[name]
-            del params
+            del params, model
             torch.cuda.empty_cache()
     return total
 

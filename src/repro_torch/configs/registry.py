@@ -15,6 +15,8 @@ _ARCH_MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
 }
 
 

@@ -3,7 +3,9 @@
 ``params_from_jax`` takes a ``repro.models.lm.init_params`` tree whose
 leaves are numpy arrays (``jax.device_get`` of the params) and returns the
 port's params: the stacked leading layer axis of ``params["layers"]``
-(dense, ssm) is split into a list of per-layer dicts, and the two stacked
+(dense, moe, ssm) is split into a list of per-layer dicts (a moe layer's
+``router`` stays f32 and its ``wg``/``wi``/``wo`` keep their leading
+expert axis), and the two stacked
 axes of the hybrid ``params["groups"]`` (group, layer in the group) into
 lists of lists; ``shared_attn`` and ``shared_mlp`` are not stacked.
 numpy's bf16 is the ``ml_dtypes`` type, which torch cannot take directly,
@@ -46,7 +48,7 @@ def _unstack(tree, fn):
 
 def params_from_jax(tree: Dict[str, Any], *,
                     device: str | torch.device = "cuda") -> Dict[str, Any]:
-    """Dense, ssm or hybrid params tree (numpy leaves) -> the port's
+    """Dense, moe, ssm or hybrid params tree (numpy leaves) -> the port's
     params."""
     dev = resolve_device(device)
     unknown = set(tree) - {"embed", "ln_f", "lm_head", "layers", "groups",

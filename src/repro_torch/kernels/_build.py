@@ -32,8 +32,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
-# dtype codes of the C interface (csrc/common.cuh: repro::DType)
+# dtype codes of the C interface (csrc/common.cuh: repro::DType); int8 is
+# a storage type of the quantized KV pages only
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+INT8 = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,12 +49,13 @@ _SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _F, _I, _P],
     # m, v, out, M, N, ldm, dtype, stream
     "repro_bias_add_rows": [_P, _P, _P, _I, _I, _L, _I, _P],
-    # q, k, v, out, pos0, width, block_table, B, Hkv, G, C, D, n_keys,
-    # page, bt_sb, q_sb, q_sc, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-    # o_sb, o_sc, o_sh, window, scale, dtype, stream
-    "repro_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                        _L, _L, _L, _I, _F, _I, _P],
+    # q, k, v, out, pos0, width, block_table, ksc, vsc, B, Hkv, G, C, D,
+    # n_keys, page, bt_sb, q_sb, q_sc, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+    # v_sh, o_sb, o_sc, o_sh, sc_sp, sc_sh, window, scale, dtype, kv_dtype,
+    # stream
+    "repro_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                        _L, _L, _L, _L, _L, _I, _F, _I, _I, _P],
     # q, k, v, out, lse, B, Hkv, G, Sq, Sk, D, q_sb, q_ss, q_sh, k_sb, k_ss,
     # k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, l_sb, l_sh, causal, window,
     # scale, dtype, stream

@@ -8,13 +8,15 @@
 
 namespace repro {
 
-// dtype codes passed from Python (kernels/_build.py callers)
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// dtype codes passed from Python (kernels/_build.py callers); int8 is a
+// storage type only (the quantized KV pages)
+enum DType : int { kF32 = 0, kBF16 = 1, kInt8 = 2 };
 
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {

@@ -1,21 +1,24 @@
 // Attention for decode, chunked prefill and the full forward: C query tokens
 // per row (C = 1 at decode), q (B, C, Hq, D) against keys read in place by
-// their strides, f32 online softmax, output in the storage dtype.  One
-// kernel template serves the five ported kernels:
+// their strides, f32 online softmax, output in the query's dtype.  One
+// kernel template serves the seven ported kernels:
 //
 //   flash_decode               contiguous (B, Smax, Hkv, D), C = 1
 //   flash_decode_paged         page pool (P, page, Hkv, D) + block table, C = 1
+//   flash_decode_paged_quant   int8 page pool + f32 scales (P, Hkv), C = 1
 //   flash_prefill_chunk        contiguous, C query tokens at start .. start+C-1
 //   flash_prefill_chunk_paged  page pool + block table, C query tokens
+//   flash_prefill_chunk_paged_quant  int8 page pool + scales, C query tokens
 //   flash_attention            forward: q (B, Sq, Hq, D) against k, v
 //                              (B, Sk, Hkv, D), query i at position i,
 //                              causal or not, plus lse (B, Hq, Sq) f32
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_decode_pallas,
-// flash_decode_paged_pallas, flash_prefill_chunk_pallas,
-// flash_prefill_chunk_paged_pallas and flash_attention_pallas.  Their TPU
-// grids (B, Hkv or Hq, [query blocks,] key blocks) walk the key blocks in
-// order on one core with the softmax state in VMEM scratch, after
+// flash_decode_paged_pallas, flash_decode_paged_quant_pallas,
+// flash_prefill_chunk_pallas, flash_prefill_chunk_paged_pallas,
+// flash_prefill_chunk_paged_quant_pallas and flash_attention_pallas.
+// Their TPU grids (B, Hkv or Hq, [query blocks,] key blocks) walk the key
+// blocks in order on one core with the softmax state in VMEM scratch, after
 // transposing (and padding) q and the cache on every call, and the paged
 // ones pick each page in a BlockSpec index map from a scalar-prefetched
 // block table.  Here a block owns one (row, kv head, query-row tile) and
@@ -38,11 +41,21 @@
 //     block (-1) is masked.  The block loads its own table entries (no
 //     scalar prefetch): one thread per key of the tile resolves its offset
 //     into shared memory, and a tile with no live key is skipped.
+//   * storage: K/V have their own type TKV (float, bf16 or int8) beside the
+//     query/output type T; instantiated for (f32, f32), (bf16, bf16),
+//     (f32, bf16) -- a half-width pool under an f32 model -- and (f32,
+//     int8), (bf16, int8).  Every K/V element is upcast to f32 as its tile
+//     is loaded; an int8 pool comes with f32 scale pools ksc/vsc, one
+//     scale per (page, kv head), multiplied in right after the upcast
+//     (the TPU kernels' _decode_accum/_prefill_chunk_accum do the same).
+//     The page comes from the block-table entry the tile already
+//     resolves; an unmapped key reads no scale.
 //   * a row with no valid key writes zeros (the l == 0 guard); lse is
 //     m + log(l) with l == 0 taken as 1 (flash_attention.py:99-104).
 //
 // What bounds it on Hopper: bytes -- each live key and value is read once
-// per query-row tile, B * keys * Hkv * D * 2 elements at decode.  The
+// per query-row tile, B * keys * Hkv * D * 2 elements at decode (one byte
+// each from an int8 pool, plus a 4-byte scale per key and page).  The
 // scores and the PV product are scalar FMAs over shared-memory tiles; the
 // grid is only B * Hkv * ceil(G * C / 8) blocks (8 at decode, B = 4).
 // Tensor cores (mma.sync / wgmma), split-K and TMA are later work; the
@@ -70,6 +83,8 @@ struct AttnArgs {
   const int* pos0;   // (B,) chunk start; with width == nullptr, valid length
   const int* width;  // (B,) real tokens per chunk, or nullptr (decode)
   const int* bt;     // (B, .) block table, or nullptr (contiguous)
+  const float* ksc;  // (P, Hkv) f32 scales of an int8 pool, or nullptr
+  const float* vsc;
   float* lse;        // (B, Hq, C) f32, or nullptr
   int fwd;           // 1: query i sits at position i (pos0, width unused)
   int causal;        // 0: no upper bound on the keys (forward only)
@@ -83,6 +98,7 @@ struct AttnArgs {
   long v_sb, v_ss, v_sh;
   long o_sb, o_sc, o_sh;
   long l_sb, l_sh;
+  long sc_sp, sc_sh;  // scale pools: page and head strides
   float scale;
 };
 
@@ -91,17 +107,18 @@ __device__ __forceinline__ int query_pos(const AttnArgs& a, int b, int i) {
   return a.width ? a.pos0[b] + min(i, a.width[b] - 1) : a.pos0[b] - 1;
 }
 
-template <typename T>
+template <typename T, typename TKV>
 __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
   __shared__ float qs[kRows][kDMax];
   __shared__ float ks[kBK][kDMax + 1];  // +1: lanes read distinct rows
   __shared__ float vs[kBK][kDMax];
   __shared__ long koff[kBK], voff[kBK];  // element offsets; -1 = masked
+  __shared__ float ksf[kBK], vsf[kBK];   // per-key dequant scales
   __shared__ int qpos[kRows];
 
   const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const TKV* k = static_cast<const TKV*>(a.k);
+  const TKV* v = static_cast<const TKV*>(a.v);
   T* out = static_cast<T*>(a.out);
   const int b = blockIdx.x, h = blockIdx.y;
   const int r0 = blockIdx.z * kRows;
@@ -143,12 +160,18 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
     if (tid < kBK) {
       const int s = t0 + tid;
       long ko = -1, vo = -1;
+      float kf = 1.f, vf = 1.f;
       if (s >= lo && s < hi) {
         if (a.bt) {
           const int pg = a.bt[b * a.bt_sb + s / a.page];
           if (pg >= 0) {
             ko = (long)pg * a.k_sb + (long)(s % a.page) * a.k_ss;
             vo = (long)pg * a.v_sb + (long)(s % a.page) * a.v_ss;
+            if (a.ksc) {
+              const long so = (long)pg * a.sc_sp + (long)h * a.sc_sh;
+              kf = a.ksc[so];
+              vf = a.vsc[so];
+            }
           }
         } else {
           ko = (long)b * a.k_sb + (long)s * a.k_ss;
@@ -157,14 +180,17 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
       }
       koff[tid] = ko;
       voff[tid] = vo;
+      ksf[tid] = kf;
+      vsf[tid] = vf;
       live = ko >= 0;
     }
     if (!__syncthreads_or(live)) continue;  // no live key in this tile
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int j = i / D, d = i % D;
       const long ko = koff[j], vo = voff[j];
-      ks[j][d] = ko >= 0 ? to_f32(k[ko + h * a.k_sh + d]) : 0.f;
-      vs[j][d] = vo >= 0 ? to_f32(v[vo + h * a.v_sh + d]) : 0.f;
+      // the dequant scale (1 for an unquantized pool) right after the upcast
+      ks[j][d] = ko >= 0 ? to_f32(k[ko + h * a.k_sh + d]) * ksf[j] : 0.f;
+      vs[j][d] = vo >= 0 ? to_f32(v[vo + h * a.v_sh + d]) * vsf[j] : 0.f;
     }
     __syncthreads();
 
@@ -220,14 +246,24 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(AttnArgs a) {
   }
 }
 
-int launch(const AttnArgs& a, int B, int Hkv, int dtype, cudaStream_t s) {
-  if (a.D > kDMax || a.D < 1 || a.G < 1 || a.C < 1 || (a.bt && a.page < 1))
+// (query/output type, K/V storage type) pairs; an int8 pool needs scales
+int launch(const AttnArgs& a, int B, int Hkv, int dtype, int kv_dtype,
+           cudaStream_t s) {
+  if (a.D > kDMax || a.D < 1 || a.G < 1 || a.C < 1 || (a.bt && a.page < 1) ||
+      ((kv_dtype == kInt8) != (a.ksc != nullptr && a.vsc != nullptr)) ||
+      (a.ksc && !a.bt))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(B, Hkv, (a.G * a.C + kRows - 1) / kRows), block(kThreads);
-  if (dtype == kBF16)
-    attention_kernel<bf16><<<grid, block, 0, s>>>(a);
-  else if (dtype == kF32)
-    attention_kernel<float><<<grid, block, 0, s>>>(a);
+  if (dtype == kBF16 && kv_dtype == kBF16)
+    attention_kernel<bf16, bf16><<<grid, block, 0, s>>>(a);
+  else if (dtype == kF32 && kv_dtype == kF32)
+    attention_kernel<float, float><<<grid, block, 0, s>>>(a);
+  else if (dtype == kF32 && kv_dtype == kBF16)
+    attention_kernel<float, bf16><<<grid, block, 0, s>>>(a);
+  else if (dtype == kF32 && kv_dtype == kInt8)
+    attention_kernel<float, int8_t><<<grid, block, 0, s>>>(a);
+  else if (dtype == kBF16 && kv_dtype == kInt8)
+    attention_kernel<bf16, int8_t><<<grid, block, 0, s>>>(a);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -237,18 +273,21 @@ int launch(const AttnArgs& a, int B, int Hkv, int dtype, cudaStream_t s) {
 
 extern "C" int repro_attention(
     const void* q, const void* k, const void* v, void* out, const void* pos0,
-    const void* width, const void* bt, int B, int Hkv, int G, int C, int D,
-    int n_keys, int page, long long bt_sb, long long q_sb, long long q_sc,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_sc, long long o_sh, int window, float scale, int dtype,
-    void* stream) {
+    const void* width, const void* bt, const void* ksc, const void* vsc,
+    int B, int Hkv, int G, int C, int D, int n_keys, int page,
+    long long bt_sb, long long q_sb, long long q_sc, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long o_sb, long long o_sc,
+    long long o_sh, long long sc_sp, long long sc_sh, int window,
+    float scale, int dtype, int kv_dtype, void* stream) {
   AttnArgs a{q, k, v, out, static_cast<const int*>(pos0),
              static_cast<const int*>(width), static_cast<const int*>(bt),
+             static_cast<const float*>(ksc), static_cast<const float*>(vsc),
              nullptr, 0, 1, C, G, D, n_keys, page, window, bt_sb,
              q_sb, q_sc, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-             o_sb, o_sc, o_sh, 0, 0, scale};
-  return launch(a, B, Hkv, dtype, static_cast<cudaStream_t>(stream));
+             o_sb, o_sc, o_sh, 0, 0, sc_sp, sc_sh, scale};
+  return launch(a, B, Hkv, dtype, kv_dtype,
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_flash_attention(
@@ -258,9 +297,9 @@ extern "C" int repro_flash_attention(
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, long long l_sb, long long l_sh,
     int causal, int window, float scale, int dtype, void* stream) {
-  AttnArgs a{q, k, v, out, nullptr, nullptr, nullptr,
+  AttnArgs a{q, k, v, out, nullptr, nullptr, nullptr, nullptr, nullptr,
              static_cast<float*>(lse), 1, causal, Sq, G, D, Sk, 1, window, 0,
              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-             o_sb, o_ss, o_sh, l_sb, l_sh, scale};
-  return launch(a, B, Hkv, dtype, static_cast<cudaStream_t>(stream));
+             o_sb, o_ss, o_sh, l_sb, l_sh, 0, 0, scale};
+  return launch(a, B, Hkv, dtype, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,12 @@
 """Attention — Hopper kernels for decode and chunked prefill over the
-contiguous slab or the paged pool, and for the full forward.
+contiguous slab or the paged pool (of the model's dtype, bf16 under an f32
+model, or int8 with per-(page, head) scales), and for the full forward.
 
 Replaces ``repro/kernels/flash_attention.py``'s ``flash_decode_pallas``,
-``flash_decode_paged_pallas``, ``flash_prefill_chunk_pallas``,
-``flash_prefill_chunk_paged_pallas`` and ``flash_attention_pallas``.  All
-five launch one kernel template
+``flash_decode_paged_pallas``, ``flash_decode_paged_quant_pallas``,
+``flash_prefill_chunk_pallas``, ``flash_prefill_chunk_paged_pallas``,
+``flash_prefill_chunk_paged_quant_pallas`` and ``flash_attention_pallas``.
+All seven launch one kernel template
 (``csrc/flash_attention.cu``): one block per (row, kv head, tile of 8 query
 rows) walks the valid key range in tiles with an f32 online softmax, the
 GQA group folded into the block's rows.  The caches and pools are read in
@@ -14,8 +16,11 @@ block.  Keys past a row's position, before its window or in unmapped
 pages are masked, tiles with no live key are skipped, and a row with no
 valid key returns zeros.  The forward is the chunk walk with query ``i``
 at position ``i`` over ``k``/``v`` themselves, causal or not, and also
-writes the log-sum-exp of each query row's scaled scores.  Bound by bytes
-(each live K/V element read once per query-row tile).
+writes the log-sum-exp of each query row's scaled scores.  K/V tiles are
+upcast to f32 as they are loaded; an int8 pool's scale for the key's
+(page, head) is multiplied in right there, so scores and the softmax stay
+f32.  Bound by bytes (each live K/V element read once per query-row
+tile).
 
 The kernel trusts the block table: every entry is -1 or a page of the
 pool (the pager never maps the sentinel page).
@@ -28,16 +33,21 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._build import DTYPES
+from repro_torch.kernels._build import DTYPES, INT8
 
 MAX_HEAD_DIM = 128
 
+Scales = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
-def _check(name: str, q4: torch.Tensor, k: torch.Tensor,
-           v: torch.Tensor) -> None:
+
+def _check(name: str, q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           scales: Scales = None, paged: bool = False) -> None:
     """What every kernel of the template takes: (B, C, Hq, D) queries
     against 4-d keys and values of the same head dim, Hq a multiple of
-    their heads, D <= 128 with unit stride, one dtype, one device."""
+    their heads, D <= 128 with unit stride, one device.  K/V share one
+    storage dtype: the query's; on a ``paged`` pool also bf16 under f32
+    queries, or (with ``scales``, f32 (P, Hkv) pools) int8; nothing
+    else."""
     d, hq = q4.shape[3], q4.shape[2]
     if k.dim() != 4 or v.shape != k.shape or k.shape[3] != d \
             or hq % k.shape[2]:
@@ -46,23 +56,44 @@ def _check(name: str, q4: torch.Tensor, k: torch.Tensor,
     if d > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM} not "
                          "supported")
-    if q4.dtype not in DTYPES or k.dtype != q4.dtype or v.dtype != q4.dtype:
-        raise TypeError(f"{name}: dtypes {q4.dtype}, {k.dtype}, {v.dtype}")
+    if scales is not None and not paged:
+        raise ValueError(f"{name}: scales need a block table")
+    if scales is None:
+        kv_ok = k.dtype == q4.dtype or (paged and q4.dtype == torch.float32
+                                        and k.dtype == torch.bfloat16)
+    else:
+        kv_ok = k.dtype == torch.int8
+    if q4.dtype not in DTYPES or v.dtype != k.dtype or not kv_ok:
+        raise TypeError(f"{name}: dtypes {q4.dtype}, {k.dtype}, {v.dtype}"
+                        f"{' with' if scales is not None else ' without'} "
+                        "scales")
     if q4.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{name}: head dim needs unit stride")
     if k.device != q4.device or v.device != q4.device:
         raise ValueError(f"{name}: q, k and v on different devices")
+    if scales is not None:
+        ksc, vsc = scales
+        want = (k.shape[0], k.shape[2])
+        if (ksc.dtype != torch.float32 or vsc.dtype != torch.float32
+                or tuple(ksc.shape) != want or tuple(vsc.shape) != want
+                or ksc.stride() != vsc.stride()
+                or ksc.device != q4.device or vsc.device != q4.device):
+            raise ValueError(
+                f"{name}: scales {tuple(ksc.shape)} {ksc.dtype}, "
+                f"{tuple(vsc.shape)} {vsc.dtype} need two f32 {want} pools "
+                "of one layout on q's device")
 
 
 def _launch(name: str, q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out4: torch.Tensor, pos0: torch.Tensor,
             width: Optional[torch.Tensor],
             block_table: Optional[torch.Tensor], window: Optional[int],
-            scale: Optional[float]) -> None:
+            scale: Optional[float], scales: Scales = None) -> None:
     """Check and launch ``repro_attention``.  ``q4``/``out4`` are
     (B, C, Hq, D) views; ``k``/``v`` the (B, Smax, Hkv, D) cache or the
-    (P, page, Hkv, D) pool (with ``block_table``)."""
-    _check(name, q4, k, v)
+    (P, page, Hkv, D) pool (with ``block_table``; an int8 pool also with
+    its (P, Hkv) ``scales``)."""
+    _check(name, q4, k, v, scales, paged=block_table is not None)
     b, c, hq, d = q4.shape
     if block_table is None:
         n_keys, page, bt, bt_sb = k.shape[1], 1, None, 0
@@ -80,38 +111,49 @@ def _launch(name: str, q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out4.numel() == 0:
         return
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if scales is None:
+        ksc = vsc = None
+        sc_sp = sc_sh = 0
+        kv_dtype = DTYPES[k.dtype]
+    else:
+        ksc, vsc = scales[0].data_ptr(), scales[1].data_ptr()
+        sc_sp, sc_sh = scales[0].stride()
+        kv_dtype = INT8
     rc = _build.lib().repro_attention(
         q4.data_ptr(), k.data_ptr(), v.data_ptr(), out4.data_ptr(),
         pos0.data_ptr(), None if width is None else width.data_ptr(), bt,
-        b, k.shape[2], hq // k.shape[2], c, d, n_keys, page, bt_sb,
+        ksc, vsc, b, k.shape[2], hq // k.shape[2], c, d, n_keys, page, bt_sb,
         q4.stride(0), q4.stride(1), q4.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        out4.stride(0), out4.stride(1), out4.stride(2),
+        out4.stride(0), out4.stride(1), out4.stride(2), sc_sp, sc_sh,
         -1 if window is None else int(window), float(scale),
-        DTYPES[q4.dtype], torch.cuda.current_stream(q4.device).cuda_stream,
+        DTYPES[q4.dtype], kv_dtype,
+        torch.cuda.current_stream(q4.device).cuda_stream,
     )
     _build.check(rc, name)
 
 
-def _decode(name, q, k, v, cache_len, block_table, window, scale):
+def _decode(name, q, k, v, cache_len, block_table, window, scale,
+            scales=None):
     if q.dim() != 3:
         raise ValueError(f"{name}: q {tuple(q.shape)} is not (B, Hq, D)")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(name, q.unsqueeze(1), k, v, out.unsqueeze(1),
             ref._rows(cache_len, q.shape[0], q.device).contiguous(), None,
-            block_table, window, scale)
+            block_table, window, scale, scales)
     return out
 
 
-def _chunk(name, q, k, v, start, width, block_table, window, scale):
+def _chunk(name, q, k, v, start, width, block_table, window, scale,
+           scales=None):
     if q.dim() != 4:
         raise ValueError(f"{name}: q {tuple(q.shape)} is not (B, C, Hq, D)")
     b = q.shape[0]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(name, q, k, v, out, ref._rows(start, b, q.device).contiguous(),
             ref._rows(width, b, q.device).contiguous(), block_table, window,
-            scale)
+            scale, scales)
     return out
 
 
@@ -136,9 +178,10 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        block_table: torch.Tensor, *,
                        window: Optional[int] = None,
                        scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,Hq,D) against a (P,page,Hkv,D) pool through a (B,max_blocks)
-    int32 block table.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    """q (B,Hq,D) against a (P,page,Hkv,D) pool (of q's dtype, or bf16
+    under f32 queries) through a (B,max_blocks) int32 block table.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if not q.is_cuda:
         return ref.attention_decode_paged(q, k_pages, v_pages, cache_len,
                                           block_table, window=window,
@@ -146,6 +189,26 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     out = _decode("flash_decode_paged", q, k_pages, v_pages, cache_len,
                   block_table, window, scale)
     flash_decode_paged.launches += 1
+    return out
+
+
+def flash_decode_paged_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, k_scale: torch.Tensor,
+                             v_scale: torch.Tensor, cache_len,
+                             block_table: torch.Tensor, *,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,Hq,D) against an int8 (P,page,Hkv,D) pool with f32 (P,Hkv)
+    per-(page, head) scales, through the block table; output in
+    ``q.dtype``.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    if not q.is_cuda:
+        return ref.attention_decode_paged_quant(
+            q, k_pages, v_pages, k_scale, v_scale, cache_len, block_table,
+            window=window, scale=scale)
+    out = _decode("flash_decode_paged_quant", q, k_pages, v_pages,
+                  cache_len, block_table, window, scale, (k_scale, v_scale))
+    flash_decode_paged_quant.launches += 1
     return out
 
 
@@ -181,6 +244,29 @@ def flash_prefill_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
     out = _chunk("flash_prefill_chunk_paged", q, k_pages, v_pages, start,
                  width, block_table, window, scale)
     flash_prefill_chunk_paged.launches += 1
+    return out
+
+
+def flash_prefill_chunk_paged_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                                    v_pages: torch.Tensor,
+                                    k_scale: torch.Tensor,
+                                    v_scale: torch.Tensor, start, width,
+                                    block_table: torch.Tensor, *,
+                                    window: Optional[int] = None,
+                                    scale: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """q (B,C,Hq,D) against an int8 pool with its f32 (P,Hkv) scales
+    through the block table; every block covering ``start ..
+    start+width-1`` must be mapped.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    if not q.is_cuda:
+        return ref.attention_prefill_chunk_paged_quant(
+            q, k_pages, v_pages, k_scale, v_scale, start, width,
+            block_table, window=window, scale=scale)
+    out = _chunk("flash_prefill_chunk_paged_quant", q, k_pages, v_pages,
+                 start, width, block_table, window, scale,
+                 (k_scale, v_scale))
+    flash_prefill_chunk_paged_quant.launches += 1
     return out
 
 
@@ -225,5 +311,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_decode.launches = 0
 flash_decode_paged.launches = 0
+flash_decode_paged_quant.launches = 0
 flash_prefill_chunk.launches = 0
 flash_prefill_chunk_paged.launches = 0
+flash_prefill_chunk_paged_quant.launches = 0

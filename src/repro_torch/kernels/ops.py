@@ -5,14 +5,14 @@ lowerings — the plain PyTorch version (``kernels/ref.py``) and the Hopper
 kernel wrapper — and exposed as a plain function; the policy
 (``repro_torch.core.policy``) decides per call from the backend and the
 tensor's device which one runs.  Registered so far: the ops of the
-contiguous and paged decode paths, of chunked prefill, of the Mamba-2
-blocks and of the full forward; the rest of ``repro.kernels.ops`` comes
-with later slices.  Forward only: training (and with it autograd) is a
-later slice.
+contiguous and paged (and int8 paged) decode paths, of chunked prefill,
+of the Mamba-2 blocks and of the full forward; the rest of
+``repro.kernels.ops`` comes with later slices.  Forward only: training
+(and with it autograd) is a later slice.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,17 +47,26 @@ def attention_decode(
     cache_len,                # int32 () or (B,): valid prefix incl. new token
     *,
     block_table: Optional[torch.Tensor] = None,  # (B, max_blocks) int32
+    kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     window: Optional[int] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-token decode attention over the KV cache.  The layout switch
     point: ``block_table=None`` selects the contiguous per-row slab, a
-    block table the shared page pool (``repro_torch.serving.pager``)."""
+    block table the shared page pool (``repro_torch.serving.pager``);
+    ``kv_scales=(ksc, vsc)``, (P, Hkv) f32 each, marks an int8 pool."""
     if block_table is not None:
+        if kv_scales is not None:
+            ksc, vsc = kv_scales
+            return dispatch("attention_decode_paged_quant", q)(
+                q, k_cache, v_cache, ksc, vsc, cache_len, block_table,
+                window=window, scale=scale,
+            )
         return dispatch("attention_decode_paged", q)(
             q, k_cache, v_cache, cache_len, block_table, window=window,
             scale=scale,
         )
+    _contiguous_unquantized(kv_scales)
     return dispatch("attention_decode", q)(
         q, k_cache, v_cache, cache_len, window=window, scale=scale
     )
@@ -71,19 +80,36 @@ def attention_prefill_chunk(
     width,                    # int32 () or (B,): real tokens in the chunk
     *,
     block_table: Optional[torch.Tensor] = None,
+    kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     window: Optional[int] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Chunked-prefill attention over the KV cache, the chunk's own K/V
-    already written; the same layout switch as ``attention_decode``."""
+    already written; the same layout and int8 switch as
+    ``attention_decode``."""
     if block_table is not None:
+        if kv_scales is not None:
+            ksc, vsc = kv_scales
+            return dispatch("attention_prefill_chunk_paged_quant", q)(
+                q, k_cache, v_cache, ksc, vsc, start, width, block_table,
+                window=window, scale=scale,
+            )
         return dispatch("attention_prefill_chunk_paged", q)(
             q, k_cache, v_cache, start, width, block_table, window=window,
             scale=scale,
         )
+    _contiguous_unquantized(kv_scales)
     return dispatch("attention_prefill_chunk", q)(
         q, k_cache, v_cache, start, width, window=window, scale=scale
     )
+
+
+def _contiguous_unquantized(kv_scales) -> None:
+    if kv_scales is not None:
+        raise ValueError(
+            "kv_scales needs the paged layout (block_table) — the "
+            "contiguous slab is never quantized"
+        )
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -148,6 +174,14 @@ register_op("attention_prefill_chunk_paged",
             reference=ref.attention_prefill_chunk_paged,
             hopper=FA.flash_prefill_chunk_paged,
             doc="block-table paged chunked-prefill attention")
+register_op("attention_decode_paged_quant",
+            reference=ref.attention_decode_paged_quant,
+            hopper=FA.flash_decode_paged_quant,
+            doc="int8 paged decode attention (in-kernel per-page dequant)")
+register_op("attention_prefill_chunk_paged_quant",
+            reference=ref.attention_prefill_chunk_paged_quant,
+            hopper=FA.flash_prefill_chunk_paged_quant,
+            doc="int8 paged chunked-prefill attention (in-kernel dequant)")
 register_op("attention", reference=ref.mha_attention,
             hopper=FA.flash_attention, doc="GQA flash attention (fwd + lse)")
 register_op("ssd_scan", reference=ref.ssd_scan, hopper=ssd_scan_hopper,

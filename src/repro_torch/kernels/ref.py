@@ -24,11 +24,18 @@ def _rows(x, b: int, device: torch.device) -> torch.Tensor:
 
 
 def _gather_pages(pages: torch.Tensor, block_table: torch.Tensor,
-                  b: int) -> torch.Tensor:
+                  b: int, dtype: torch.dtype = None) -> torch.Tensor:
     """Each row's pages as a logical (B, max_blocks*page, Hkv, D) cache.
-    Unmapped blocks (-1) gather page 0; readers mask them by position."""
+    Unmapped blocks (-1) gather page 0; readers mask them by position.
+    A pool narrower than the queries (bf16 under f32) is read at the
+    queries' ``dtype``, as the kernels upcast each K/V tile: the pool's
+    dtype is storage only, and p and the output stay f32 (JAX's oracle,
+    written for one dtype, would round p to the pool's)."""
     bt = block_table.clamp(0, pages.shape[0] - 1).long()
-    return pages[bt].reshape(b, -1, *pages.shape[2:])
+    out = pages[bt].reshape(b, -1, *pages.shape[2:])
+    if dtype == torch.float32 and pages.dtype == torch.bfloat16:
+        out = out.float()
+    return out
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -85,8 +92,9 @@ def attention_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     through a (B,max_blocks) block table
     (``repro/kernels/ops.py:_attention_decode_paged_ref``)."""
     b = q.shape[0]
-    return attention_decode(q, _gather_pages(k_pages, block_table, b),
-                            _gather_pages(v_pages, block_table, b),
+    return attention_decode(q, _gather_pages(k_pages, block_table, b,
+                                             q.dtype),
+                            _gather_pages(v_pages, block_table, b, q.dtype),
                             cache_len, window=window, scale=scale)
 
 
@@ -130,9 +138,42 @@ def attention_prefill_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
     (``repro/kernels/ops.py:_attention_prefill_chunk_paged_ref``)."""
     b = q.shape[0]
     return attention_prefill_chunk(
-        q, _gather_pages(k_pages, block_table, b),
-        _gather_pages(v_pages, block_table, b), start, width,
+        q, _gather_pages(k_pages, block_table, b, q.dtype),
+        _gather_pages(v_pages, block_table, b, q.dtype), start, width,
         window=window, scale=scale)
+
+
+def _dequant(pages: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """An int8 pool (P, page, Hkv, D) times its f32 per-(page, head)
+    scales (P, Hkv), in f32 (the scales stay f32 end to end)."""
+    return pages.float() * scales[:, None, :, None]
+
+
+def attention_decode_paged_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor, k_scale: torch.Tensor,
+                                 v_scale: torch.Tensor, cache_len,
+                                 block_table: torch.Tensor, *,
+                                 window: Optional[int] = None,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """Decode over an int8 pool: dequantize, then the paged plain version
+    (``repro/kernels/ops.py:_attention_decode_paged_quant_ref``)."""
+    return attention_decode_paged(q, _dequant(k_pages, k_scale),
+                                  _dequant(v_pages, v_scale), cache_len,
+                                  block_table, window=window, scale=scale)
+
+
+def attention_prefill_chunk_paged_quant(
+        q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+        k_scale: torch.Tensor, v_scale: torch.Tensor, start, width,
+        block_table: torch.Tensor, *, window: Optional[int] = None,
+        scale: Optional[float] = None) -> torch.Tensor:
+    """The chunk math over an int8 pool: dequantize, then the paged plain
+    version
+    (``repro/kernels/ops.py:_attention_prefill_chunk_paged_quant_ref``)."""
+    return attention_prefill_chunk_paged(
+        q, _dequant(k_pages, k_scale), _dequant(v_pages, v_scale), start,
+        width, block_table, window=window, scale=scale)
 
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -2,16 +2,21 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --batch 4 --requests 8 --prompt-len 32 --gen 32 \\
-        [--layout paged --page-size 16 --n-pages N] [--prefill-chunk 16] \\
-        [--check]
+        [--layout paged --page-size 16 --n-pages N [--kv-dtype int8]] \\
+        [--prefill-chunk 16] [--check]
 
-``--arch`` takes qwen2.5-3b, mamba2-2.7b, zamba2-2.7b or their ``-smoke``
-variants.  Random weights from ``--seed``, random prompts, greedy decoding
-through the Hopper kernels; prints tokens/s, time per decode step, mean
-time to first token, the chunked-prefill step count and, paged, the peak
-pages in use.  Runs on the card (``--device cuda``, the default) and
-raises when there is none; ``--device cpu`` runs the plain PyTorch
-versions.
+``--arch`` takes qwen2.5-3b, mamba2-2.7b, zamba2-2.7b, mixtral-8x7b,
+qwen3-moe-235b-a22b or their ``-smoke`` variants.  ``--kv-dtype`` (paged
+only) stores the page pool in the model's dtype (``f32``, the default),
+``bf16`` or ``int8`` with per-(page, head) scales.  ``--n-layers`` cuts
+the depth and keeps the width: mixtral-8x7b's 32 layers do not fit one
+80 GB card, 16 do.  Random weights from
+``--seed``, random prompts, greedy decoding through the Hopper kernels;
+prints tokens/s, time per decode step, mean time to first token, the
+chunked-prefill step count and, paged, the peak pages in use and the
+resident KV bytes at that peak.  Runs on the card (``--device cuda``, the
+default) and raises when there is none; ``--device cpu`` runs the plain
+PyTorch versions.
 
 ``--check`` then holds token-by-token decode of the first ``--batch``
 prompts against the teacher-forced forward at the last prompt position
@@ -20,7 +25,10 @@ it, and within 5% of the largest |logit| in bf16.  It refuses the bf16
 Mamba archs (mamba2-2.7b, zamba2-2.7b): with random weights their full
 64- and 54-layer stacks are chaotic, so bf16 rounding alone moves the
 logits by about their own scale and no tolerance can hold them (their
-``-smoke`` variants, in f32, are checked).
+``-smoke`` variants, in f32, are checked).  For the moe archs the check
+lifts ``capacity_factor`` to the expert count: the forward routes B*S
+tokens and decode B at a time, so with capacity dropping the two drop
+different tokens.
 
 ``--profile`` serves the requests a second time under ``torch.profiler``
 (device activity only) and prints the device's busy share of the wall time
@@ -29,6 +37,7 @@ and the kernels that took the most device time.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -43,6 +52,9 @@ from repro_torch.serving.checks import assert_decode_matches_teacher_forced
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="serve the arch at full width with this many "
+                         "layers (default: all)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=None,
                     help="requests to serve (default: --batch)")
@@ -53,6 +65,10 @@ def main(argv=None) -> int:
                     default="contiguous",
                     help="KV-cache layout (paged: pool+block-table)")
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--kv-dtype", choices=["f32", "bf16", "int8"],
+                    default="f32",
+                    help="paged pool storage: the model's dtype (f32), "
+                         "bf16, or int8 with per-(page, head) scales")
     ap.add_argument("--n-pages", type=int, default=None,
                     help="page-pool size (default: batch*max_len/page_size;"
                          " a smaller pool queues requests until pages are "
@@ -73,7 +89,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
-    if args.check and cfg.family != "dense" and cfg.dtype == "bfloat16":
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    if (args.check and cfg.family in ("ssm", "hybrid")
+            and cfg.dtype == "bfloat16"):
         ap.error(f"--check cannot hold {cfg.name} in bf16: its random "
                  f"{cfg.n_layers}-layer Mamba stack is chaotic, so rounding "
                  f"alone moves the logits by about their scale; check "
@@ -86,7 +105,7 @@ def main(argv=None) -> int:
 
     # no host tier in the port: a pool below the worst case queues
     cache = CacheConfig(layout=args.layout, page_size=args.page_size,
-                        n_pages=args.n_pages,
+                        n_pages=args.n_pages, kv_dtype=args.kv_dtype,
                         host_spill=False if args.n_pages else None)
     config = EngineConfig(steps_per_sync=args.steps_per_sync,
                           prefill_chunk=args.prefill_chunk)
@@ -109,6 +128,8 @@ def main(argv=None) -> int:
           f"prefill steps), mean TTFT "
           f"{1e3 * s['mean_ttft_s']:.1f} ms")
     line = f"layout {args.layout}, prefill chunk {args.prefill_chunk}"
+    if args.layout == "paged":
+        line += f", kv dtype {args.kv_dtype}"
     if "kv_pages" in s:
         line += (f": peak pages {int(s['kv_pages_peak'])} of "
                  f"{int(s['kv_pages'])} "
@@ -117,6 +138,9 @@ def main(argv=None) -> int:
     print("sample:", outs[rids[0]][:16].tolist())
     if args.check:
         prompt = torch.as_tensor(prompts[: args.batch], device=model.device)
+        if cfg.n_experts:
+            model = dataclasses.replace(model, cfg=dataclasses.replace(
+                cfg, capacity_factor=float(cfg.n_experts)))
         err, scale = assert_decode_matches_teacher_forced(
             model, params, prompt, args.prompt_len + args.gen + 1,
             scale_tol=0.05 if cfg.dtype == "bfloat16" else None)

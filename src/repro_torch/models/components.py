@@ -1,5 +1,5 @@
-"""Model components of the dense decoder and the Mamba-2 block (the port's
-subset of ``repro.models.components``).
+"""Model components of the dense decoder, the MoE block and the Mamba-2
+block (the port's subset of ``repro.models.components``).
 
 Everything is built on the portable ops (``repro_torch.kernels.ops``), so
 the model is single-source across the reference and hopper backends.
@@ -123,6 +123,84 @@ def attention_block(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     k = apply_rope(k, cos, sin)
     o = ops.attention(q, k, v, causal=causal, window=window)
     return x + dense(o.reshape(b, s, h * hd), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, capacity-based dispatch), single device
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = cfg.dtype_()
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
+    return {
+        "router": init_normal(gen, (d, e), s_in, torch.float32),
+        "wg": init_normal(gen, (e, d, ff), s_in, dt),
+        "wi": init_normal(gen, (e, d, ff), s_in, dt),
+        "wo": init_normal(gen, (e, ff, d), s_out, dt),
+        "ln": torch.ones((d,), dtype=dt, device=gen.device),
+    }
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: descending, and of equal
+    values the lower index first (``torch.topk`` promises no tie order, a
+    stable sort does)."""
+    idx = torch.sort(-probs, dim=-1, stable=True).indices[..., :k]
+    return probs.gather(-1, idx), idx
+
+
+def _bmm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert product (E, c, K) @ (E, K, N) in the promoted dtype, as
+    JAX's einsum promotes mixed inputs."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return torch.bmm(a.to(dt), w.to(dt))
+
+
+def moe_block(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Token-drop capacity MoE with residual over x (B, S, d)
+    (``repro.models.components.moe_block`` with one token group).
+
+    The router runs in f32: softmax, top-k of the probabilities (JAX's
+    tie order), gates renormalized over the k picks.  Every one of the
+    B*S tokens, padding and idle rows included, takes a rank in its
+    experts' queues by a cumsum of one-hots in flattened (token, k)
+    order; ranks past ``ceil(t * k / e * capacity_factor)`` are dropped
+    (they add exact zeros into the last slot).  The expert SwiGLU runs
+    as batched products over the (E, capacity, d) buffer, outside the
+    kernels as in JAX; the combine gathers each pick's output, weighted
+    by its gate and summed over k."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    xn = norm(cfg, p["ln"], x).reshape(t, d)
+    logits = torch.matmul(xn.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = _top_k(probs, k)                          # (t, k)
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+    cap = max(1, int(math.ceil(t * k / e * cfg.capacity_factor)))
+
+    flat_e = idx.reshape(t * k)
+    # one-hots by comparison: F.one_hot validates its input on the host
+    onehot = (flat_e[:, None] == torch.arange(e, device=x.device)).long()
+    ranks = torch.cumsum(onehot, dim=0) - onehot
+    rank = ranks.gather(1, flat_e[:, None])[:, 0]
+    keep = rank < cap
+    rank_c = rank.clamp(max=cap - 1)
+    tok = torch.arange(t * k, device=x.device) // k
+    keep_x = keep[:, None].to(xn.dtype)
+    # JAX's buf.at[flat_e, rank_c].add: kept picks own distinct slots, so
+    # the adds are exact in any order
+    buf = torch.zeros((e * cap, d), dtype=xn.dtype, device=x.device)
+    buf.index_add_(0, flat_e * cap + rank_c, xn[tok] * keep_x)
+    buf = buf.view(e, cap, d)
+    h = (F.silu(_bmm(buf, p["wg"]).to(xn.dtype))
+         * _bmm(buf, p["wi"]).to(xn.dtype))
+    out_e = _bmm(h, p["wo"]).to(xn.dtype)                  # (E, cap, d)
+    pulled = out_e[flat_e, rank_c] * keep_x                # (t*k, d)
+    combined = (pulled.reshape(t, k, d)
+                * gates[..., None].to(xn.dtype)).sum(dim=1)
+    return x + combined.reshape(b, s, d)
 
 
 # ---------------------------------------------------------------------------

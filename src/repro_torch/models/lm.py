@@ -1,19 +1,21 @@
-"""Decoder-only LM: the dense, ssm (Mamba-2) and hybrid (Zamba2) families,
-contiguous or paged KV cache (the port's subset of ``repro.models.lm``).
+"""Decoder-only LM: the dense, moe, ssm (Mamba-2) and hybrid (Zamba2)
+families, contiguous or paged KV cache, the paged pool in the model's
+dtype, bf16 or int8 (the port's subset of ``repro.models.lm``).
 
 Public functions mirror the JAX module: ``init_params``, ``forward``,
 ``init_decode_state``, ``decode_step``, ``prefill_chunk``,
 ``reset_decode_rows`` and ``lm_logits``.  Where JAX scans over stacked
 layer params, the port keeps lists of per-layer dicts and loops in
-Python: ``params["layers"]`` (dense, ssm) or ``params["groups"]``, ``g``
-lists of ``attn_every`` Mamba layers each followed by the shared
+Python: ``params["layers"]`` (dense, moe, ssm) or ``params["groups"]``,
+``g`` lists of ``attn_every`` Mamba layers each followed by the shared
 attention and MLP block (hybrid).  JAX's functions are pure; the port
 updates the KV caches and page pools **in place** (``decode_step``,
 ``prefill_chunk`` and ``reset_decode_rows`` write into
-``state["k"]``/``state["v"]`` or ``state["kp"]``/``state["vp"]`` and
-return a dict that shares them), which saves a full rewrite of the cache
-on every step; the recurrent ``ssm``/``conv`` states are written layer by
-layer into their stacks the same way.  The small allocator tensors (block
+``state["k"]``/``state["v"]`` or ``state["kp"]``/``state["vp"]`` (and an
+int8 pool's scales ``state["ksc"]``/``state["vsc"]``) and return a dict
+that shares them), which saves a full rewrite of the cache on every
+step; the recurrent ``ssm``/``conv`` states are written layer by layer
+into their stacks the same way.  The small allocator tensors (block
 table, free list, refcounts) are replaced, as in JAX.
 """
 from __future__ import annotations
@@ -30,24 +32,26 @@ from repro_torch.models import components as C
 from repro_torch.serving import pager as PG
 
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+KV_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
 
 
 def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r}: the port serves {', '.join(FAMILIES)} "
-            "(moe, vlm, encdec come with later slices)"
+            "(vlm, encdec come with later slices)"
         )
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     """Random params with ``repro.models.lm.init_params``'s shapes and
     scales, drawn from ``gen`` on its device.  ``params["layers"]`` is a
-    list of ``{"attn": ..., "mlp": ...}`` (dense) or ``{"mamba": ...}``
-    (ssm) dicts; hybrid has ``params["groups"]``, ``g`` lists of
-    ``attn_every`` ``{"mamba": ...}`` dicts, and the unstacked
-    ``shared_attn`` and ``shared_mlp`` (JAX stacks the layers)."""
+    list of ``{"attn": ..., "mlp": ...}`` (dense), ``{"attn": ...,
+    "moe": ...}`` (moe) or ``{"mamba": ...}`` (ssm) dicts; hybrid has
+    ``params["groups"]``, ``g`` lists of ``attn_every`` ``{"mamba": ...}``
+    dicts, and the unstacked ``shared_attn`` and ``shared_mlp`` (JAX
+    stacks the layers)."""
     check_family(cfg)
     dt = cfg.dtype_()
     params: Dict[str, Any] = {
@@ -62,6 +66,11 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     if cfg.family == "dense":
         params["layers"] = [
             {"attn": C.init_attention(cfg, gen), "mlp": C.init_mlp(cfg, gen)}
+            for _ in range(cfg.n_layers)
+        ]
+    elif cfg.family == "moe":
+        params["layers"] = [
+            {"attn": C.init_attention(cfg, gen), "moe": C.init_moe(cfg, gen)}
             for _ in range(cfg.n_layers)
         ]
     elif cfg.family == "ssm":
@@ -102,28 +111,43 @@ def lm_logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       per_row_pos: bool = False,
                       layout: str = "contiguous", page_size: int = 16,
-                      n_pages: Optional[int] = None, cache=None,
-                      device: str | torch.device = "cuda"
+                      n_pages: Optional[int] = None, kv_dtype: str = "f32",
+                      cache=None, device: str | torch.device = "cuda"
                       ) -> Dict[str, torch.Tensor]:
     """Decode caches: the contiguous slab ``(stacks, B, max_len, Hkv, hd)``,
     or (``layout="paged"``) page pools ``(stacks, n_pages + 1, page_size,
     Hkv, hd)`` with the allocator state (``repro_torch.serving.pager``; the
     trailing page is the write-drop sentinel).  ``stacks`` is the layer
-    count (dense) or the group count (hybrid: one KV cache per application
-    of the shared block).  The recurrent families add ``ssm`` ``(layers, B,
-    H, P, N)`` f32 and ``conv`` ``(layers, B, K-1, d_inner)`` in the
-    storage dtype, which stay contiguous under either layout; ssm has no
-    KV and so no pool whatever the layout.  ``n_pages=None`` sizes the pool
+    count (dense, moe) or the group count (hybrid: one KV cache per
+    application of the shared block).  ``kv_dtype`` (paged only) is the
+    pools' storage: ``"f32"`` the model's dtype, ``"bf16"``, or ``"int8"``
+    with f32 per-(page, head) scale pools ``ksc``/``vsc`` ``(stacks,
+    n_pages + 1, Hkv)``, zero until a page's first write.  The recurrent
+    families add ``ssm`` ``(layers, B, H, P, N)`` f32 and ``conv``
+    ``(layers, B, K-1, d_inner)`` in the storage dtype, which stay
+    contiguous under either layout; ssm has no KV and so no pool whatever
+    the layout.  ``n_pages=None`` sizes the pool
     at the worst case, ``batch * ceil(max_len / page_size)``.  ``cache``
-    (a ``CacheConfig``) supplies layout, page size and pool size.
+    (a ``CacheConfig``) supplies layout, page size, pool size and
+    ``kv_dtype``.
     ``per_row_pos=True`` keeps ``pos`` as a (B,) vector so rows may sit at
     different depths (continuous batching)."""
     check_family(cfg)
     if cache is not None:
         layout, page_size, n_pages = cache.layout, cache.page_size, \
             cache.n_pages
+        kv_dtype = cache.kv_dtype
     if layout not in ("contiguous", "paged"):
         raise ValueError(f"unknown KV-cache layout {layout!r}")
+    if kv_dtype not in ("f32", "bf16", "int8"):
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
+                         "(expected 'f32', 'bf16', or 'int8')")
+    if kv_dtype != "f32" and layout != "paged":
+        raise ValueError(
+            "sub-f32 KV storage is a paged-pool feature (quantized "
+            "scales are per page) — layout='paged' required for "
+            f"kv_dtype={kv_dtype!r}"
+        )
     dev = resolve_device(device)
     dt = cfg.dtype_()
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
@@ -138,7 +162,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
             device=dev)
     if cfg.family == "ssm":
         return state
-    stacks = (cfg.n_layers if cfg.family == "dense"
+    stacks = (cfg.n_layers if cfg.family in ("dense", "moe")
               else cfg.n_layers // cfg.attn_every)
     if layout == "paged":
         # absolute positions (no window ring): the table covers max_len
@@ -146,12 +170,18 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
         pages = batch * max_blocks if n_pages is None else n_pages
         ps = PG.init_pager(pages, dev)
         shape = (stacks, pages + 1, page_size, hkv, hd)
+        kv_dt = KV_DTYPES.get(kv_dtype, dt)
         state.update({
-            "kp": torch.zeros(shape, dtype=dt, device=dev),
-            "vp": torch.zeros(shape, dtype=dt, device=dev),
+            "kp": torch.zeros(shape, dtype=kv_dt, device=dev),
+            "vp": torch.zeros(shape, dtype=kv_dt, device=dev),
             "block_table": PG.init_block_table(batch, max_blocks, dev),
             "page_free": ps.free, "page_top": ps.top, "page_rc": ps.rc,
         })
+        if kv_dtype == "int8":
+            # zero scale = empty page (write_page_quant resets at slot 0)
+            for key in ("ksc", "vsc"):
+                state[key] = torch.zeros((stacks, pages + 1, hkv),
+                                         dtype=torch.float32, device=dev)
         return state
     # sliding-window archs only ever need `window` cache slots (ring buffer)
     eff = min(max_len, cfg.window) if cfg.window else max_len
@@ -215,16 +245,26 @@ def _paged_commit(state, pstate: PG.PagerState, bt: torch.Tensor):
             "page_rc": pstate.rc, "block_table": bt}
 
 
+def _ffn(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """A layer's MLP or MoE block on (B, d) (decode: the MoE block sees
+    (B, 1, d)) or (B, C, d)."""
+    if "moe" not in p:
+        return C.mlp_block(cfg, p["mlp"], x)
+    if x.dim() == 2:
+        return C.moe_block(cfg, p["moe"], x[:, None])[:, 0]
+    return C.moe_block(cfg, p["moe"], x)
+
+
 def _trunk(cfg: ArchConfig, params, x: torch.Tensor, attn, mamba):
     """The layer stack of every family: ``attn(p, x, stack)`` and
     ``mamba(p, x, layer)`` are the caller's blocks (``stack`` indexes the
-    KV caches: the layer for dense, the group for hybrid)."""
+    KV caches: the layer for dense and moe, the group for hybrid)."""
     if cfg.family == "ssm":
         for layer, p in enumerate(params["layers"]):
             x = mamba(p["mamba"], x, layer)
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "moe"):
         for layer, p in enumerate(params["layers"]):
-            x = C.mlp_block(cfg, p["mlp"], attn(p["attn"], x, layer))
+            x = _ffn(cfg, p, attn(p["attn"], x, layer))
     else:
         for g, group in enumerate(params["groups"]):
             for i, p in enumerate(group):
@@ -262,6 +302,7 @@ def decode_step(
     """
     pos = state["pos"]
     paged = "block_table" in state
+    quant = paged and "ksc" in state          # int8 pools with scales
     x = params["embed"].index_select(0, token).to(cfg.dtype_())   # (B, d)
     b = x.shape[0]
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
@@ -292,7 +333,15 @@ def decode_step(
         v_new = C.dense(xn, a["wv"], a.get("bv")).reshape(b, hkv, hd)
         q = C.apply_rope(q, cos, sin).reshape(b, cfg.n_heads, hd)
         k_new = C.apply_rope(k_new, cos, sin).reshape(b, hkv, hd)
-        if paged:
+        if quant:
+            ck, cv = state["kp"][stack], state["vp"][stack]
+            ksc, vsc = state["ksc"][stack], state["vsc"][stack]
+            PG.write_page_quant(ck, ksc, k_new, bt, idx, active)
+            PG.write_page_quant(cv, vsc, v_new, bt, idx, active)
+            o = ops.attention_decode(q, ck, cv, cache_len, block_table=bt,
+                                     kv_scales=(ksc, vsc),
+                                     window=cfg.window)
+        elif paged:
             ck, cv = state["kp"][stack], state["vp"][stack]
             PG.write_page(ck, k_new, bt, idx, active)
             PG.write_page(cv, v_new, bt, idx, active)
@@ -344,6 +393,7 @@ def prefill_chunk(
     if pos.dim() != 1:
         raise ValueError("prefill_chunk needs per_row_pos=True decode state")
     paged = "block_table" in state
+    quant = paged and "ksc" in state
     b, c = toks.shape
     if cfg.window and not paged and cfg.family != "ssm":
         raise NotImplementedError(
@@ -379,7 +429,16 @@ def prefill_chunk(
         v_new = C.dense(xn, a["wv"], a.get("bv")).reshape(b, c, hkv, hd)
         q = C.apply_rope(q, cos, sin)
         k_new = C.apply_rope(k_new, cos, sin)
-        if paged:
+        if quant:
+            ck, cv = state["kp"][stack], state["vp"][stack]
+            ksc, vsc = state["ksc"][stack], state["vsc"][stack]
+            PG.write_page_chunk_quant(ck, ksc, k_new, bt, pos, width, active)
+            PG.write_page_chunk_quant(cv, vsc, v_new, bt, pos, width, active)
+            o = ops.attention_prefill_chunk(q, ck, cv, pos, width,
+                                            block_table=bt,
+                                            kv_scales=(ksc, vsc),
+                                            window=cfg.window)
+        elif paged:
             ck, cv = state["kp"][stack], state["vp"][stack]
             PG.write_page_chunk(ck, k_new, bt, pos, width, active)
             PG.write_page_chunk(cv, v_new, bt, pos, width, active)
@@ -415,13 +474,14 @@ def reset_decode_rows(
     caches and the recurrent ``ssm``/``conv`` states are zeroed in place;
     under the paged layout the rows *release* their pages (the pool is
     never zeroed: a recycled page is written by its next owner before any
-    masked-in read can see it).  Requires per-row ``pos`` state."""
+    masked-in read can see it, and a page's scales are reset by the write
+    of its slot 0).  Requires per-row ``pos`` state."""
     if state["pos"].dim() != 1:
         raise ValueError(
             "reset_decode_rows needs per_row_pos=True decode state"
         )
-    paged_keys = {"kp", "vp", "block_table", "page_free", "page_top",
-                  "page_rc"}
+    paged_keys = {"kp", "vp", "ksc", "vsc", "block_table", "page_free",
+                  "page_top", "page_rc"}
     unknown = set(state) - {"pos", "k", "v", "ssm", "conv"} - paged_keys
     if unknown:
         # a silently skipped cache key would leak the previous request's

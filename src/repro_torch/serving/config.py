@@ -1,9 +1,10 @@
 """Typed serving configuration (the port's ``repro.serving.config``).
 
 ``CacheConfig`` shapes the decode state and ``EngineConfig`` drives the
-loop, with the JAX package's field names and defaults.  The port serves
-both KV layouts (the contiguous slab and the paged pool, any page size and
-pool size), chunked prefill of any width, and greedy decoding.  Every
+loop, with the JAX package's field names, defaults and ``ValueError``s.
+The port serves both KV layouts (the contiguous slab and the paged pool,
+any page size and pool size), the paged pool's storage precisions
+(``kv_dtype``), chunked prefill of any width, and greedy decoding.  Every
 field it does not serve yet raises ``NotImplementedError`` naming the
 slice that brings it; none is silently ignored.
 """
@@ -16,7 +17,6 @@ from typing import Any, Optional
 SHARING = "the prefix-sharing slice (with recurrent-state snapshots)"
 PRESSURE = "the pressure slice (host spill tier, prefill budgets)"
 SPEC = "the speculative-decoding slice"
-QUANT = "the quantized-KV slice"
 SAMPLING = "a later slice (sampling)"
 
 
@@ -34,7 +34,10 @@ class CacheConfig:
     """Decode-cache shape: what ``init_decode_state`` allocates.  The page
     fields belong to the paged layout; ``host_spill=None`` means "no host
     tier" here (the engine refuses a pool so small that the JAX engine
-    would preempt into one)."""
+    would preempt into one).  ``kv_dtype`` is the paged pool's storage:
+    ``"f32"`` the model's own dtype, ``"bf16"`` half-width pages read by
+    the same kernels (which upcast K/V to f32), ``"int8"`` pages with f32
+    per-(page, head) scales, dequantized inside the attention kernels."""
 
     layout: str = "contiguous"
     page_size: int = 16
@@ -50,14 +53,24 @@ class CacheConfig:
             raise ValueError("page_size must be >= 1")
         if self.n_pages is not None and self.n_pages < 1:
             raise ValueError("n_pages must be >= 1 (None = worst case)")
+        if self.snapshots and self.layout != "paged":
+            raise ValueError(
+                "recurrent-state snapshots use page-boundary granularity — "
+                "layout='paged' required"
+            )
         if self.kv_dtype not in ("f32", "bf16", "int8"):
             raise ValueError(
                 f"unknown kv_dtype {self.kv_dtype!r} "
                 "(expected 'f32', 'bf16', or 'int8')"
             )
+        if self.kv_dtype != "f32" and self.layout != "paged":
+            raise ValueError(
+                "sub-f32 KV storage is a paged-pool feature (quantized "
+                "scales are per page) — layout='paged' required for "
+                f"kv_dtype={self.kv_dtype!r}"
+            )
         _unserved(self, "snapshots", (False,), SHARING)
         _unserved(self, "host_spill", (None, False), PRESSURE)
-        _unserved(self, "kv_dtype", ("f32",), QUANT)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,7 @@
 """Continuous-batching serving engine (the port's ``repro.serving.engine``:
-the dense, ssm and hybrid families, contiguous or paged KV layout,
-token-by-token or chunked prefill, greedy).
+the dense, moe, ssm and hybrid families, contiguous or paged KV layout,
+the paged pool in the model's dtype, bf16 or int8, token-by-token or
+chunked prefill, greedy).
 
 The control state of every batch row lives on the device as fixed-shape
 tensors (``SlotState``): the token buffer holds the prompt and then the
@@ -156,7 +157,7 @@ class ServingEngine:
         self.config = config if config is not None else EngineConfig()
         if (self.config.prefill_chunk > 1 and model.cfg.window
                 and self.cache.layout != "paged"
-                and model.cfg.family in ("dense", "hybrid")):
+                and model.cfg.family in ("dense", "moe", "hybrid")):
             raise ValueError(
                 "chunked prefill on a sliding-window arch needs "
                 "layout='paged' (the contiguous ring cache recycles slots "
@@ -181,6 +182,9 @@ class ServingEngine:
         if self._paged:
             kp = self._mstate["kp"]       # (layers, n_pages + 1, page, ...)
             self.n_pages = kp.shape[1] - 1
+            # the payload's bytes at its storage width (int8: 1); an int8
+            # pool's scale pools are left out, as the JAX engine leaves
+            # them out
             self._kv_bytes_per_page = (2 * kp.element_size() * kp.shape[0]
                                        * int(np.prod(kp.shape[2:])))
             worst = batch * -(-max_len // self.page_size)

@@ -1,7 +1,7 @@
 """Device-side page allocator for the paged KV-cache layout (the port's
 subset of ``repro.serving.pager``: allocation, release and the paged K/V
-writes; sharing, copy-on-write, spill and the quantized writes come with
-later slices).
+writes, plain and int8; sharing, copy-on-write (with ``copy_page_scale``)
+and spill come with later slices).
 
 Layout contract (the JAX package's, plus one trash page):
 
@@ -25,6 +25,15 @@ trailing pool page, ``free[n_pages]`` or ``rc[n_pages]``.  The sentinel is
 never on the free list and never in a block table, so no reader sees it;
 what lands there is garbage.  Comparisons with the reference use
 ``[:n_pages]``.
+
+**Quantized pools** (``kv_dtype="int8"``): the payload pool is int8 and a
+scale pool ``(layers, n_pages + 1, Hkv)`` f32 rides beside it, one
+symmetric scale per (page, kv head), its trailing entry the sentinel's.
+A page's scale is reset by the write that lands its slot 0 and
+max-merged by every later one; when it grows, the page's written slots
+are requantized in the same whole-page write (``write_page_quant``).  A
+dropped payload write drops its scale write too (both go to the
+sentinel), so the two pools never disagree about a real page.
 
 Every function is pure tensor work with fixed shapes — no ``.item()``, no
 boolean-mask indexing, no ``nonzero``, no Python branch on a tensor — so
@@ -234,3 +243,125 @@ def write_page_chunk(
         ok &= active[:, None]
     page = torch.where(ok, page.long(), sentinel)
     pool.index_put_((page, posmat % page_size), new.to(pool.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Quantized writes (kv_dtype="int8"): int8 payload + per-(page, head) f32
+# scales, with the JAX package's arithmetic step for step
+# ---------------------------------------------------------------------------
+
+_QMAX = 127.0
+
+
+def _quant_safe(scale: torch.Tensor) -> torch.Tensor:
+    """Divide-safe scale: a zero scale encodes an all-zero payload, so any
+    positive stand-in quantizes it to exact zeros."""
+    return torch.where(scale > 0, scale, torch.ones_like(scale))
+
+
+def _requant(pool: torch.Tensor, scale: torch.Tensor, tgt: torch.Tensor,
+             s_cand: torch.Tensor, fresh: torch.Tensor):
+    """The target pages' merged scales (reset where ``fresh``, else the
+    running max) and their contents requantized to them: ``(s_new,
+    merged)``, merged (B, page, Hkv, hd) f32 before the new tokens land.
+    A fresh page's stale payload rescales to zero."""
+    s_old = scale[tgt]                                   # (B, Hkv)
+    s_new = torch.where(fresh, s_cand, torch.maximum(s_old, s_cand))
+    ratio = torch.where(fresh, 0.0, s_old / _quant_safe(s_new))
+    merged = torch.round(pool[tgt].float() * ratio[:, None, :, None])
+    return s_new, merged
+
+
+def write_page_quant(
+    pool: torch.Tensor,          # (n_pages + 1, page_size, Hkv, hd) int8
+    scale: torch.Tensor,         # (n_pages + 1, Hkv) f32
+    new: torch.Tensor,           # (B, Hkv, hd): one token per row
+    block_table: torch.Tensor,   # (B, max_blocks) int32
+    idx,                         # () or (B,): absolute position
+    active: Optional[torch.Tensor] = None,
+) -> None:
+    """``write_page`` for the int8 pool, in place: the target page's
+    scale is reset at slot 0 and max-merged after, its written slots are
+    requantized when the scale grows, and the new token is quantized by
+    division, ``round(x / s)`` clipped to +-127.  Rows that are inactive,
+    out of range or unmapped write the sentinel page and its scale."""
+    sentinel, page_size = pool.shape[0] - 1, pool.shape[1]
+    b, max_blocks = block_table.shape
+    dev = pool.device
+    idx_b = _per_row(idx, b, dev)
+    blk = idx_b // page_size
+    page = block_table.gather(1, blk.clamp(0, max_blocks - 1)[:, None])[:, 0]
+    ok = (blk < max_blocks) & (page >= 0)
+    if active is not None:
+        ok &= active
+    tgt = torch.where(ok, page.long(), sentinel)
+    slot = idx_b % page_size
+
+    newf = new.float()                                   # (B, Hkv, hd)
+    s_cand = newf.abs().amax(dim=-1) / _QMAX             # (B, Hkv)
+    s_new, merged = _requant(pool, scale, tgt, s_cand,
+                             (slot == 0)[:, None])
+    q_tok = torch.round(newf / _quant_safe(s_new)[:, :, None])
+    sl = torch.arange(page_size, device=dev)[None, :, None, None]
+    merged = torch.where(sl == slot[:, None, None, None], q_tok[:, None],
+                         merged).clamp(-_QMAX, _QMAX)
+    pool.index_put_((tgt,), merged.to(pool.dtype))
+    scale.index_put_((tgt,), s_new)
+
+
+def write_page_chunk_quant(
+    pool: torch.Tensor,          # (n_pages + 1, page_size, Hkv, hd) int8
+    scale: torch.Tensor,         # (n_pages + 1, Hkv) f32
+    new: torch.Tensor,           # (B, C, Hkv, hd): C tokens per row
+    block_table: torch.Tensor,   # (B, max_blocks) int32
+    start,                       # () or (B,): position of chunk token 0
+    width,                       # () or (B,): real tokens (1..C)
+    active: Optional[torch.Tensor] = None,
+) -> None:
+    """``write_page_chunk`` for the int8 pool, in place.  The scale must
+    be merged once per page the chunk touches, so this runs the
+    ``(C-1)//page_size + 2``-rung ladder of ``alloc_range``: rung ``k``
+    quantizes the tokens landing in block ``start//page_size + k``
+    against that page's merged scale (reset when the rung covers the
+    page's slot 0, i.e. ``blk * page_size >= start``).  A slot of the page
+    takes chunk token ``blk * page_size + slot - start`` where that is a
+    real token of the chunk, and keeps its requantized content otherwise
+    (a mask, never a wrapped index).  Rungs touch disjoint pages per row;
+    masked rungs write the sentinel page and its scale."""
+    sentinel, page_size = pool.shape[0] - 1, pool.shape[1]
+    b, max_blocks = block_table.shape
+    c = new.shape[1]
+    dev = pool.device
+    start_b = _per_row(start, b, dev)
+    w_b = _per_row(width, b, dev)
+    if active is None:
+        active = torch.ones((b,), dtype=torch.bool, device=dev)
+    i = torch.arange(c, device=dev)[None, :]
+    posmat = start_b[:, None] + i                        # (B, C)
+    end_blk = (start_b + w_b.clamp(min=1) - 1) // page_size
+    start_blk = start_b // page_size
+    newf = new.float()                                   # (B, C, Hkv, hd)
+    absf = newf.abs()
+    sl = torch.arange(page_size, device=dev)[None, :]
+    for k in range((c - 1) // page_size + 2):
+        blk = start_blk + k
+        on = active & (w_b > 0) & (blk <= end_blk) & (blk < max_blocks)
+        page = block_table.gather(
+            1, blk.clamp(0, max_blocks - 1)[:, None])[:, 0]
+        on &= page >= 0
+        tgt = torch.where(on, page.long(), sentinel)
+        in_rung = (posmat // page_size == blk[:, None]) & (i < w_b[:, None])
+        amax = torch.where(in_rung[:, :, None, None], absf, 0.0).amax(
+            dim=(1, 3))                                  # (B, Hkv)
+        s_new, merged = _requant(pool, scale, tgt, amax / _QMAX,
+                                 (blk * page_size >= start_b)[:, None])
+        q_tok = torch.round(newf / _quant_safe(s_new)[:, None, :, None])
+        # chunk token of each slot of the page; a real one lands there
+        ci = blk[:, None] * page_size + sl - start_b[:, None]   # (B, page)
+        land = (ci >= 0) & (ci < w_b[:, None]) & (ci < c)
+        tok = q_tok.gather(1, ci.clamp(0, c - 1)[:, :, None, None].expand(
+            -1, -1, *q_tok.shape[2:]))
+        merged = torch.where(land[:, :, None, None], tok,
+                             merged).clamp(-_QMAX, _QMAX)
+        pool.index_put_((tgt,), merged.to(pool.dtype))
+        scale.index_put_((tgt,), s_new)

@@ -11,7 +11,8 @@ from repro_torch.configs import ArchConfig, arch_ids, get_arch  # noqa: E402
 
 @pytest.mark.parametrize("arch", [
     "qwen2.5-3b", "qwen2.5-3b-smoke", "mamba2-2.7b", "mamba2-2.7b-smoke",
-    "zamba2-2.7b", "zamba2-2.7b-smoke"])
+    "zamba2-2.7b", "zamba2-2.7b-smoke", "mixtral-8x7b", "mixtral-8x7b-smoke",
+    "qwen3-moe-235b-a22b", "qwen3-moe-235b-a22b-smoke"])
 def test_fields_match_jax(arch):
     port, ref = get_arch(arch), jax_get_arch(arch)
     assert [f.name for f in dataclasses.fields(port)] == \
@@ -36,6 +37,7 @@ def test_reduced_matches_jax_for_every_family_branch():
 
 
 def test_registry_lists_the_served_archs():
-    assert arch_ids() == ["qwen2.5-3b", "mamba2-2.7b", "zamba2-2.7b"]
+    assert arch_ids() == ["qwen2.5-3b", "mamba2-2.7b", "zamba2-2.7b",
+                          "mixtral-8x7b", "qwen3-moe-235b-a22b"]
     with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("mixtral-8x7b")
+        get_arch("llama-3.2-vision-90b")

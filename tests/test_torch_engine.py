@@ -200,9 +200,18 @@ def test_served_config_fields(cls, field, value):
     (EngineConfig, "spec", object()),
 ])
 def test_unserved_config_fields_raise(cls, field, value):
-    """Fields of later slices are never silently ignored."""
+    """Fields of later slices are never silently ignored.  A sub-f32
+    ``kv_dtype`` is served on the paged pool and refused, as JAX refuses
+    it, on the contiguous slab; snapshots need the paged layout before
+    they reach the prefix-sharing slice's refusal."""
+    if field == "kv_dtype":
+        with pytest.raises(ValueError, match="layout='paged' required"):
+            cls(**{field: value})
+        assert cls(layout="paged", **{field: value}).kv_dtype == value
+        return
+    kw = {"layout": "paged"} if field == "snapshots" else {}
     with pytest.raises(NotImplementedError, match="comes with"):
-        cls(**{field: value})
+        cls(**kw, **{field: value})
 
 
 def test_config_validation_matches_jax():

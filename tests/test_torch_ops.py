@@ -283,7 +283,9 @@ def test_registry_covers_the_slice():
     assert set(cov) == {"matmul", "bias_add_rows", "rmsnorm",
                         "attention_decode", "attention_decode_paged",
                         "attention_prefill_chunk",
-                        "attention_prefill_chunk_paged", "attention",
+                        "attention_prefill_chunk_paged",
+                        "attention_decode_paged_quant",
+                        "attention_prefill_chunk_paged_quant", "attention",
                         "ssd_scan", "ssd_prefill_chunk"}
     assert all(c == {"reference": True, "hopper": True} for c in cov.values())
     # the port's op names are the JAX registry's: the gap is computed

@@ -3,11 +3,11 @@
 Both sides get the same numbers: parameters come from the JAX package's
 ``init_params`` and cross to the port through numpy (``params_from_jax``),
 because ``jax.random`` cannot be reproduced in torch.  The JAX init sets the
-qkv biases to zero, the norm weights to one and, in the Mamba blocks,
-``a_log`` and ``dt_bias`` to zero and ``d_skip`` to one, which would leave
-the bias add, the norms' weight multiply, the per-head decay, the step
-bias and the skip scale untested, so all of them are perturbed with seeded
-numpy noise before either side sees them.
+qkv biases to zero, the norm weights (the moe block's too) to one and, in
+the Mamba blocks, ``a_log`` and ``dt_bias`` to zero and ``d_skip`` to
+one, which would leave the bias add, the norms' weight multiply, the
+per-head decay, the step bias and the skip scale untested, so all of them
+are perturbed with seeded numpy noise before either side sees them.
 """
 from __future__ import annotations
 
@@ -48,7 +48,9 @@ def jax_params(seed: int = 0, noise_seed: int = 1, arch: str = ARCH,
 
     layers = tree.get("layers", {})
     if "attn" in layers:
-        attn_mlp(layers["attn"], layers["mlp"])
+        # a moe layer's norm before the router is perturbed like the MLP's
+        attn_mlp(layers["attn"], layers["mlp"] if "mlp" in layers
+                 else layers["moe"])
     if "mamba" in layers:
         mamba(layers["mamba"])
     if "groups" in tree:
