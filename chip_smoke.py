@@ -9,17 +9,28 @@ failure (non-zero exit, no result line):
 
 1. device   — CUDA present, sm_90; prints nvidia-smi's name and power limit.
 2. build    — compiles every ``csrc/*.cu`` kernel with nvcc for sm_90a.
-3. kernels  — each of the eleven kernels against its plain PyTorch version
-              at the main paths' shapes (bf16 and f32; qwen2.5-3b's,
-              the recurrent archs' and mixtral-8x7b's), with CUDA-event
+3. kernels  — each of the thirteen kernels against its plain PyTorch
+              version at the main paths' shapes (bf16 and f32; qwen2.5-3b's,
+              the recurrent archs' and mixtral-8x7b's, and the training
+              step's: rmsnorm_bwd at 512 rows of 2048 and 5120,
+              flash_attention_bwd at B 2 x S 256 with qwen2.5-3b's,
+              zamba2-2.7b's and, windowed, mixtral-8x7b's heads, and the
+              gemm in every layout of the forward and both backward
+              products, the tied head's included), with CUDA-event
               timings of the kernel, the plain version and one library call
-              as yardstick (none for the SSD scan); the int8 pools are
+              as yardstick (none for the SSD scan; the backward of
+              ``F.rms_norm`` and of ``F.scaled_dot_product_attention``
+              for the backward kernels); the int8 pools are
               filled by the pager's quantized writes, and the paged kernels
               also read a bf16 pool under f32 queries; an all-unmapped
               paged row must come out as zeros, an SSD row with no real token
               must keep its carried state bit for bit, the SSD state written
-              in place must equal a new one bit for bit, and grouped B/C
-              must raise in the ops layer.
+              in place must equal a new one bit for bit, grouped B/C
+              must raise in the ops layer, and rmsnorm_bwd must take its
+              widest row and raise on the next.  The gemm's two kernels are
+              also timed against each other at qwen2.5-3b's projection and
+              head shapes for M from 16 to 320: their crossover sets
+              ``kernels/gemm.py``'s ``SKINNY_MAX_M``.
 4. serving  — full width, seeded random weights with perturbed biases,
               norm weights and Mamba decay/step/skip parameters, through
               the port's ServingEngine on the hopper backend: qwen2.5-3b
@@ -58,6 +69,18 @@ failure (non-zero exit, no result line):
               the forward and decode otherwise drop different tokens), and
               qwen2.5-3b in bf16 at full depth within 5% of the logits'
               scale, with exact launch counts.
+7. train    — (a) qwen2.5-3b at full width and depth in bf16: one loss
+              and grads on the hopper lowering against the reference
+              lowering from the same params (loss within 1%, each grad
+              leaf within 5% in relative L2), the reference's own
+              bf16-vs-f32 gap printed beside it; (b) 4 AdamW steps at B 2 x
+              S 256 through ``launch/train.py``'s loop, each step under
+              ``set_sync_debug_mode("error")`` with exact launch counts
+              (remat runs each layer's forward twice), then one step under
+              the profiler for the device's busy share; (c) qwen2.5-3b and
+              mamba2-2.7b in f32 at 2 layers: loss and grads, then 2
+              ``make_train_step`` steps, hopper against reference
+              (``close_state`` states the tolerances).
 
 The random 64- and 54-layer Mamba stacks are chaotic: the plain reference
 alone, in bf16 and in f32 on the same weights, disagrees on nearly every
@@ -78,15 +101,18 @@ token: where phase 5 finds mixtral's streams split there, it finds the
 first decision the two runs take differently and requires it to be a
 near tie, and each step from the same caches to agree
 (``synced_steps``).  Nothing is cut in width; depth is cut only in
-those checks and, for mixtral, to fit the card.
+those checks, in phase 7's f32 comparisons (2 layers) and, for mixtral,
+to fit the card.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -102,6 +128,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 B = 4                      # decode batch of the serving phase
+TRAIN_B, TRAIN_S = 2, 256  # the training phase's batch: 512 tokens a step
 SEED = 0
 T_START = time.perf_counter()
 
@@ -151,11 +178,15 @@ def main() -> int:
     # ---------------------------------------------------------------- 6
     for name, n in phase_check(torch).items():
         launches[name] += n
+
+    # ---------------------------------------------------------------- 7
+    for name, n in phase_train(torch).items():
+        launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "
-                             "a serving or check path")
+                             "a serving, check or training path")
 
     print(f"[done] {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -270,18 +301,29 @@ def phase_kernels(torch):
                 ("float32", "flash_attention"): 1e-5,
                 ("bfloat16", "ssd_scan"): 2 ** -7,
                 ("float32", "ssd_scan"): 1e-5})
+    # the backward kernels: both sides compute in f32 from the same inputs
+    # and round each output once (one bf16 ulp); f32: summation order
+    TOL.update({("bfloat16", "rmsnorm_bwd"): 2 ** -7,
+                ("float32", "rmsnorm_bwd"): 1e-5,
+                ("bfloat16", "flash_attention_bwd"): 2 ** -7,
+                ("float32", "flash_attention_bwd"): 1e-5})
+    # the training shapes' products take 5 timed launches each (the
+    # head's take 15-30 ms)
+    slow = Timer(torch, reps=5, warm=1)
     cfg_d, d_ff, vocab = 2048, 11008, 151936
     rows = []          # one per (kernel, case)
 
-    def run(kernel, case, dtype, step, count, kfn, pfn, lfn, nbytes, flops):
+    def run(kernel, case, dtype, step, count, kfn, pfn, lfn, nbytes, flops,
+            tol=None, clock=timer):
         """``count``: launches of this case in one bf16 ``step``
-        ("decode" or "prefill") of the serving phase at B = 4."""
+        ("decode" or "prefill") of the serving phase at B = 4, or one
+        ``train`` step of phase 7 (B = 2, S = 256)."""
         name = kernel.__name__
-        err = check(f"{name} {case} {dtype}", kfn(), pfn(),
-                    TOL[(str(dtype).split(".")[1], name)])
         dt = str(dtype).split(".")[1]
-        ms, p_ms = timer(kfn), timer(pfn)
-        l_ms = timer(lfn) if lfn is not None else None
+        err = check(f"{name} {case} {dtype}", kfn(), pfn(),
+                    TOL[(dt, name)] if tol is None else tol)
+        ms, p_ms = clock(kfn), clock(pfn)
+        l_ms = clock(lfn) if lfn is not None else None
         b_ms, by = bound_ms(nbytes, flops, dt)
         rows.append(dict(name=name, case=case, dtype=dt, step=step,
                          count=count, err=err, ms=ms, plain_ms=p_ms,
@@ -743,6 +785,8 @@ def phase_kernels(torch):
                  F.scaled_dot_product_attention(q_, k_, v_, attn_mask=m_,
                                                 enable_gqa=True)),
                 fbytes, 4.0 * 2 * hq_ * d_ * pairs)
+        train_kernels(torch, F, rnd, run, slow, dtype, es)
+        gemm_crossover(torch, rnd, check, slow, dtype, TOL)
         torch.cuda.empty_cache()
 
     # per-kernel totals over one bf16 step at B = 4: a decode step for the
@@ -777,6 +821,11 @@ def phase_kernels(torch):
             "src/repro/kernels/flash_attention.py:120", "forward"),
         "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/mamba_scan.py:79", "decode"),
+        "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm.py:74", "train"),
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:267", "train"),
     }
 
     def totals(name, step):
@@ -805,7 +854,8 @@ def phase_kernels(torch):
             "library_ms": tot["library_ms"],
         })
         lib = tot["library_ms"]
-        at = "B=2, 160 tokens" if step == "forward" else f"B={B}"
+        at = {"forward": "B=2, 160 tokens",
+              "train": f"B={TRAIN_B}, S={TRAIN_S}"}.get(step, f"B={B}")
         print(f"[3 kernels] {name}: one bf16 {step} step at {at}: "
               f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
               f"{tot['plain_ms']:.3f} ms, library "
@@ -833,7 +883,201 @@ def phase_kernels(torch):
           f"chunk's projections; the head runs at M={B}): {tot['ms']:.3f} ms"
           f" vs bound {tot['bound_ms']:.3f} ms, plain {tot['plain_ms']:.3f}"
           f" ms, library {tot['library_ms']:.3f} ms", flush=True)
+    tot = totals("gemm", "train")
+    print(f"[3 kernels] gemm: one bf16 train step (B={TRAIN_B}, S={TRAIN_S}:"
+          f" forward, rematerialized forward and both backward products): "
+          f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms",
+          flush=True)
     return out
+
+
+CROSS_M = (16, 32, 64, 96, 128, 192, 256, 320)
+
+
+def gemm_crossover(torch, rnd, check, clock, dtype, tol):
+    """The gemm's two kernels at qwen2.5-3b's projection and head shapes
+    over the M of ``CROSS_M`` (chunked prefill runs at B*C = 64, the
+    check's teacher-forced forward at CHECK_B*CHECK_LEN = 320), each held
+    against the plain version: the skinny kernel by raising
+    ``gemm.SKINNY_MAX_M`` to M, the tiled by setting it to 0.  Prints each
+    time and, for each M, the products of one qwen2.5-3b forward (36
+    layers and the head) with either kernel, whose crossover sets
+    ``SKINNY_MAX_M``."""
+    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ref
+
+    dt = str(dtype).split(".")[1]
+    d, d_ff, vocab, layers = 2048, 11008, 151936, 36
+    weights = [("wq,wo", rnd((d, d), dtype, d ** -0.5), 2 * layers),
+               ("wk,wv", rnd((d, 256), dtype, d ** -0.5), 2 * layers),
+               ("wg,wi", rnd((d, d_ff), dtype, d ** -0.5), 2 * layers),
+               ("wo", rnd((d_ff, d), dtype, d_ff ** -0.5), layers),
+               ("head (NT)", rnd((vocab, d), dtype, 0.02).T, 1)]
+    saved, wins = gemm_mod.SKINNY_MAX_M, []
+    try:
+        for m in CROSS_M:
+            total = [0.0, 0.0]
+            for name, w, count in weights:
+                x = rnd((m, w.shape[0]), dtype)
+                want = ref.gemm(x, w)
+                ms = []
+                for i, cut in enumerate((m, 0)):
+                    gemm_mod.SKINNY_MAX_M = cut
+                    check(f"gemm {('skinny', 'tiled')[i]} {name} M={m} {dt}",
+                          gemm_mod.gemm(x, w), want, tol[(dt, "gemm")])
+                    ms.append(clock(lambda x=x, w=w: gemm_mod.gemm(x, w)))
+                    total[i] += count * ms[-1]
+                print(f"[3 kernels] gemm crossover {dt} {name} "
+                      f"{m}x{w.shape[0]} @ {w.shape[0]}x{w.shape[1]}: skinny "
+                      f"{ms[0]:.4f} ms, tiled {ms[1]:.4f} ms", flush=True)
+                del x, want
+            wins.append(m if total[0] <= total[1] else None)
+            print(f"[3 kernels] gemm crossover {dt} M={m}: one qwen2.5-3b "
+                  f"forward's products (36 layers and the head): skinny "
+                  f"{total[0]:.3f} ms, tiled {total[1]:.3f} ms", flush=True)
+    finally:
+        gemm_mod.SKINNY_MAX_M = saved
+    print(f"[3 kernels] gemm crossover {dt}: the skinny kernel is faster at "
+          f"M in {[m for m in wins if m]} of {list(CROSS_M)}; SKINNY_MAX_M "
+          f"= {saved}", flush=True)
+    del weights
+
+
+def train_kernels(torch, F, rnd, run, clock, dtype, es):
+    """Phase 3 at the training shapes of phase 7 (qwen2.5-3b, B = 2,
+    S = 256, so 512 rows): the two backward kernels and the gemm in the
+    layouts of the forward and both backward products, each against its
+    plain version, beside one PyTorch call: the backward of ``F.rms_norm``
+    and of ``F.scaled_dot_product_attention`` (without their forwards)
+    and ``torch.matmul``.  Counts are launches per train step (``count``
+    of ``train_per_step``): every layer's forward runs twice (remat)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.rmsnorm import MAX_BWD_WIDTH, rmsnorm_bwd
+
+    rows, d, d_ff, vocab, layers = TRAIN_B * TRAIN_S, 2048, 11008, 151936, 36
+    # rmsnorm_bwd: the layer norms and the final norm (d 2048); the Mamba
+    # inner norm (d 5120) as an extra figure
+    for wd, step, count in ((d, "train", 2 * layers + 1),
+                            (5120, "mamba2 train", 0)):
+        x, dy = rnd((rows, wd), dtype), rnd((rows, wd), dtype)
+        w = (1 + 0.1 * rnd((wd,), torch.float32)).to(dtype)
+        xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = F.rms_norm(xr, (wd,), wr, 1e-6)
+        run(rmsnorm_bwd, f"{rows}x{wd}", dtype, step, count,
+            lambda x=x, w=w, dy=dy: rmsnorm_bwd(x, w, dy),
+            lambda x=x, w=w, dy=dy: ref.rmsnorm_bwd(x, w, dy),
+            lambda y=y, xr=xr, wr=wr, dy=dy: torch.autograd.grad(
+                y, (xr, wr), dy, retain_graph=True),
+            (3 * rows * wd + 2 * wd) * es, 10.0 * rows * wd)
+        del x, dy, xr, wr, y
+    # the widest row the backward takes, and the next one, which raises
+    for wd in (MAX_BWD_WIDTH, MAX_BWD_WIDTH + 1):
+        x, dy = rnd((8, wd), dtype), rnd((8, wd), dtype)
+        w = (1 + 0.1 * rnd((wd,), torch.float32)).to(dtype)
+        try:
+            got = rmsnorm_bwd(x, w, dy)
+        except ValueError:
+            if wd == MAX_BWD_WIDTH:
+                raise
+            print(f"[3 kernels] rmsnorm_bwd at width {wd} raises ValueError",
+                  flush=True)
+        else:
+            if wd > MAX_BWD_WIDTH:
+                raise SystemExit(f"chip_smoke: rmsnorm_bwd took width {wd}")
+            for g, r in zip(got, ref.rmsnorm_bwd(x, w, dy)):
+                err = (g.float() - r.float()).abs().max().item()
+                if not err <= (2 ** -7 if dtype == torch.bfloat16 else 1e-5) \
+                        * r.float().abs().max().item():
+                    raise SystemExit(f"chip_smoke: rmsnorm_bwd width {wd}: "
+                                     f"max_abs_err {err:.3g}")
+        del x, dy, w
+    # flash_attention_bwd: qwen2.5-3b's heads (16/2 of 128, causal), and as
+    # extra figures zamba2-2.7b's (32/32 of 80) and mixtral-8x7b's (32/8 of
+    # 128) under a window of 32
+    for hq, hkv, hd, window, step, count in (
+            (16, 2, 128, None, "train", layers),
+            (32, 32, 80, None, "zamba2 train", 0),
+            (32, 8, 128, 32, "mixtral train", 0)):
+        q = rnd((TRAIN_B, TRAIN_S, hq, hd), dtype)
+        k, v = (rnd((TRAIN_B, TRAIN_S, hkv, hd), dtype) for _ in range(2))
+        do = rnd((TRAIN_B, TRAIN_S, hq, hd), dtype)
+        out, lse = flash_attention(q, k, v, window=window)
+        pos = torch.arange(TRAIN_S, device="cuda")
+        mask = pos[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= pos[None, :] > pos[:, None] - window
+        pairs = int(mask.sum().item())
+        qt, kt, vt = (t.transpose(1, 2).clone().requires_grad_(True)
+                      for t in (q, k, v))
+        yt = (F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+              if window is None else
+              F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                             enable_gqa=True))
+        dot = do.transpose(1, 2)
+        win = f" win {window}" if window else ""
+        # q, out, do and dq at Hq heads, k, v, dk and dv at Hkv, lse f32
+        nbytes = (4 * hq + 4 * hkv) * TRAIN_B * TRAIN_S * hd * es \
+            + 4 * TRAIN_B * hq * TRAIN_S
+        run(flash_attention_bwd,
+            f"{TRAIN_B}x{TRAIN_S}x{hq}x{hd}, kv {hkv} heads, causal{win}",
+            dtype, step, count,
+            lambda q=q, k=k, v=v, o=out, l=lse, g=do, w=window:
+                flash_attention_bwd(q, k, v, o, l, g, window=w),
+            lambda q=q, k=k, v=v, o=out, l=lse, g=do, w=window:
+                ref.flash_attention_bwd(q, k, v, o, l, g, window=w),
+            lambda yt=yt, qt=qt, kt=kt, vt=vt, g=dot: torch.autograd.grad(
+                yt, (qt, kt, vt), g, retain_graph=True),
+            nbytes, 10.0 * TRAIN_B * hq * hd * pairs)
+        del q, k, v, do, out, lse, qt, kt, vt, yt
+    # gemm: (case, a, b, count per train step).  The forward's products run
+    # twice a step (remat); the backward's da = g @ W^T reads W^T by its
+    # strides (NT), db = x^T @ g reads x^T by its strides (the A operand
+    # M-contiguous); the tied head reads embed.T (NT) forward, embed (NN)
+    # for its da and writes its db of (d, vocab).
+    w_qo = rnd((d, d), dtype, d ** -0.5)
+    w_kv = rnd((d, 256), dtype, d ** -0.5)
+    w_gi = rnd((d, d_ff), dtype, d ** -0.5)
+    w_o = rnd((d_ff, d), dtype, d_ff ** -0.5)
+    embed = rnd((vocab, d), dtype, 0.02)
+    x, h = rnd((rows, d), dtype), rnd((rows, d_ff), dtype)
+    g_d, g_kv, g_ff = (rnd((rows, n), dtype) for n in (d, 256, d_ff))
+    g_v = rnd((rows, vocab), dtype, 1.0 / vocab)
+    gemms = [
+        ("wq,wo 512x2048 @ 2048x2048", x, w_qo, 4 * layers),
+        ("wk,wv 512x2048 @ 2048x256", x, w_kv, 4 * layers),
+        ("wg,wi 512x2048 @ 2048x11008", x, w_gi, 4 * layers),
+        ("wo 512x11008 @ 11008x2048", h, w_o, 2 * layers),
+        ("head 512x2048 @ embed.T (NT)", x, embed.T, 1),
+        ("da wq,wo 512x2048 @ W.T (NT)", g_d, w_qo.T, 2 * layers),
+        ("da wk,wv 512x256 @ W.T (NT)", g_kv, w_kv.T, 2 * layers),
+        ("da wg,wi 512x11008 @ W.T (NT)", g_ff, w_gi.T, 2 * layers),
+        ("da wo 512x2048 @ W.T (NT)", g_d, w_o.T, layers),
+        ("da head 512x151936 @ embed", g_v, embed, 1),
+        ("db wq,wo x.T 2048x512 @ 512x2048", x.T, g_d, 2 * layers),
+        ("db wk,wv x.T 2048x512 @ 512x256", x.T, g_kv, 2 * layers),
+        ("db wg,wi x.T 2048x512 @ 512x11008", x.T, g_ff, 2 * layers),
+        ("db wo h.T 11008x512 @ 512x2048", h.T, g_d, layers),
+        ("db head x.T 2048x512 @ 512x151936", x.T, g_v, 1),
+    ]
+    for case, a, b_, count in gemms:
+        m, kk = a.shape
+        n = b_.shape[1]
+        # f32: a summation-order difference grows as sqrt(K)
+        tol = (None if dtype == torch.bfloat16 or kk <= d_ff
+               else 1e-5 * math.sqrt(kk / d_ff))
+        run(gemm, case, dtype, "train", count,
+            lambda a=a, b_=b_: gemm(a, b_), lambda a=a, b_=b_: ref.gemm(a, b_),
+            lambda a=a, b_=b_: torch.matmul(a, b_),
+            (m * kk + kk * n + m * n) * es, 2.0 * m * n * kk, tol=tol,
+            clock=clock)
+    del gemms, w_qo, w_kv, w_gi, w_o, embed, x, h, g_d, g_kv, g_ff, g_v
 
 
 # ---------------------------------------------------------------------------
@@ -886,7 +1130,8 @@ def requests(n, lo, hi, vocab, seed):
 KERNELS = ("gemm", "rmsnorm", "bias_add_rows", "flash_decode",
            "flash_decode_paged", "flash_prefill_chunk",
            "flash_prefill_chunk_paged", "flash_decode_paged_quant",
-           "flash_prefill_chunk_paged_quant", "flash_attention", "ssd_scan")
+           "flash_prefill_chunk_paged_quant", "flash_attention", "ssd_scan",
+           "rmsnorm_bwd", "flash_attention_bwd")
 # the attention kernels of each (layout, pool): (decode step, prefill step)
 ATTN = {("contiguous", "f32"): ("flash_decode", "flash_prefill_chunk"),
         ("paged", "f32"): ("flash_decode_paged", "flash_prefill_chunk_paged"),
@@ -940,9 +1185,9 @@ def kernel_fns():
     from repro_torch.kernels.eltwise import bias_add_rows
     from repro_torch.kernels.gemm import gemm
     from repro_torch.kernels.mamba_scan import ssd_scan
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     fns = {"gemm": gemm, "rmsnorm": rmsnorm, "bias_add_rows": bias_add_rows,
-           "ssd_scan": ssd_scan}
+           "ssd_scan": ssd_scan, "rmsnorm_bwd": rmsnorm_bwd}
     fns.update({name: getattr(FA, name) for name in KERNELS
                 if name.startswith("flash_")})
     return fns
@@ -1574,6 +1819,380 @@ def phase_check(torch):
                 total[name] += launches[name]
             del params, model
             torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training through make_train_step and launch/train.py's loop
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 4
+# (a) bf16 at full depth, hopper vs reference: each grad leaf within 5% in
+# relative L2 (both round to bf16 at different places: the kernels keep
+# attention's p and the backward's sums in f32, the plain versions'
+# autograd rounds them to bf16), the loss within 1%
+BF16_GRAD_TOL, BF16_LOSS_TOL = 0.05, 0.01
+# (c) f32 at 2 layers: each grad leaf within 1e-4 of its largest value
+# (summation order), the loss within 1e-5; params, master and moments as
+# ``close_state`` says
+F32_GRAD_TOL, F32_LOSS_TOL = 1e-4, 1e-5
+
+
+def train_per_step(cfg):
+    """Kernel launches of one loss-and-grad (the optimizer update runs no
+    kernel): every layer's forward runs twice (in the step, and again when
+    the backward rematerializes it), each projection's backward is two
+    gemms (g @ W^T, x^T @ g), each norm's one rmsnorm_bwd and each
+    attention's one flash_attention_bwd; the bias add's and the SSD scan's
+    backward are plain PyTorch; the head and the final norm run once
+    forward and once backward.  Dense, moe and ssm: hybrid also
+    rematerializes its groups, which runs its Mamba layers three times."""
+    if cfg.family == "hybrid":
+        raise ValueError("train_per_step: dense, moe and ssm only")
+    steps, n_attn = per_step(cfg)
+    lg, ln = steps["gemm"] - 1, steps["rmsnorm"] - 1   # the layers' own
+    want = {name: 0 for name in KERNELS}
+    want.update(gemm=4 * lg + 3, rmsnorm=2 * ln + 1, rmsnorm_bwd=ln + 1,
+                bias_add_rows=2 * steps["bias_add_rows"],
+                ssd_scan=2 * steps["ssd_scan"], flash_attention=2 * n_attn,
+                flash_attention_bwd=n_attn)
+    return want
+
+
+@contextlib.contextmanager
+def counting(got):
+    """The launch counts set to 0 on entry and read into ``got`` on exit."""
+    fns = kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    try:
+        yield
+    finally:
+        got.update({name: fn.launches for name, fn in fns.items()})
+
+
+def leaf_names(tree, prefix=""):
+    """The names of ``tree_leaves(tree)``, in its order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}.{k}" if prefix
+                                    else k)]
+    if isinstance(tree, list):
+        return [n for i, t in enumerate(tree)
+                for n in leaf_names(t, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def train_setup(torch, cfg, opt=None, perturbed=True):
+    """Seeded params (perturbed as in phase 4) as autograd leaves, and the
+    optimizer state when ``opt`` is given: ``{"params", "opt"}``."""
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import init_opt_state, tree_leaves
+
+    params = build_model(cfg).init_params(SEED)
+    if perturbed:
+        perturb(torch, params, SEED + 1)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    state = {"params": params}
+    if opt is not None:
+        state["opt"] = init_opt_state(opt, params)
+    return state
+
+
+def train_stream(cfg):
+    from repro_torch.data.synthetic import TokenStream, TokenStreamSpec
+    return TokenStream(TokenStreamSpec(cfg.vocab_size, TRAIN_S + 1, TRAIN_B,
+                                       SEED))
+
+
+def train_bf16_grads(torch):
+    """(a) qwen2.5-3b at full width and depth in bf16: one loss and grads
+    on the hopper lowering (exact launch counts) against the reference
+    lowering from the same params, beside the reference's own gap to the
+    reference in f32 on the same (bf16-valued) weights.  Returns the
+    hopper run's launches."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.policy import use_backend
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import make_batch
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    cfg = get_arch("qwen2.5-3b")
+    t0 = time.perf_counter()
+    params = train_setup(torch, cfg)["params"]
+    batch = make_batch(train_stream(cfg), 0, torch.device("cuda"))
+    got = {}
+    with use_backend("hopper"), counting(got):
+        loss_h, g_h = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    want = train_per_step(cfg)
+    if got != want:
+        raise SystemExit(f"chip_smoke: train (a): launches {got}, expected "
+                         f"{want}")
+    with use_backend("reference"):
+        loss_r, g_r = loss_and_grads(cfg, params, batch)
+    p32 = tree_map(lambda p: p.detach().float().requires_grad_(True), params)
+    with use_backend("reference"):
+        loss_32, g_32 = loss_and_grads(
+            dataclasses.replace(cfg, dtype="float32"), p32, batch)
+    del p32
+    names = leaf_names(params)
+    gh, gr, g32 = (tree_leaves(t) for t in (g_h, g_r, g_32))
+    hop = [rel_l2(a, b) for a, b in zip(gh, gr)]
+    own = [rel_l2(a, b) for a, b in zip(gr, g32)]
+    hop32 = [rel_l2(a, b) for a, b in zip(gh, g32)]
+    lh, lr, l32 = (x.item() for x in (loss_h, loss_r, loss_32))
+    print(f"[7 train] (a) {cfg.name} bf16, {cfg.n_layers} layers, B "
+          f"{TRAIN_B} x S {TRAIN_S}, one loss and grads in "
+          f"{time.perf_counter() - t0:.1f} s: loss hopper {lh:.6f}, "
+          f"reference {lr:.6f} (gap {abs(lh - lr):.3g}), reference in f32 "
+          f"{l32:.6f} (its own bf16 gap {abs(lr - l32):.3g}); launches "
+          f"{got}", flush=True)
+    # one line per parameter: its relative L2 gap in every layer
+    groups = {}
+    for i, n in enumerate(names):
+        groups.setdefault(n.split("]")[-1].lstrip(".") if "[" in n else n,
+                          []).append(i)
+    for key, idx in groups.items():
+        print(f"[7 train] (a) grad {key:9s} rel L2 per layer, hopper vs "
+              "reference / reference bf16 vs f32: "
+              + " ".join(f"{hop[i]:.1e}/{own[i]:.1e}" for i in idx)
+              + f" | hopper vs f32: max {max(hop32[i] for i in idx):.2e}",
+              flush=True)
+    worst = max(range(len(hop)), key=lambda i: hop[i])
+    print(f"[7 train] (a) worst leaf {names[worst]}: hopper vs reference "
+          f"{hop[worst]:.3g} (tolerance {BF16_GRAD_TOL}), reference bf16 vs "
+          f"f32 {own[worst]:.3g}, hopper vs f32 {hop32[worst]:.3g}; over all "
+          f"leaves hopper vs f32 / reference vs f32 at most "
+          f"{max(a / max(b, 1e-30) for a, b in zip(hop32, own)):.3g}",
+          flush=True)
+    if not (all(np.isfinite(hop)) and max(hop) <= BF16_GRAD_TOL
+            and abs(lh - lr) <= BF16_LOSS_TOL * abs(lr)):
+        raise SystemExit("chip_smoke: train (a): bf16 grads or loss, hopper"
+                         " vs reference, beyond tolerance")
+    del params, g_h, g_r, g_32, gh, gr, g32
+    torch.cuda.empty_cache()
+    return got
+
+
+def train_loop_phase(torch):
+    """(b) ``launch/train.py``'s loop: ``TRAIN_STEPS`` AdamW steps of
+    qwen2.5-3b at full width and depth, bf16, on the hopper lowering, each
+    under ``set_sync_debug_mode("error")`` (the logged loss read aside)
+    with exact launch counts; then one more step under the profiler for
+    the device's busy share.  Returns the launches of the counted steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.policy import use_backend
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.train import make_batch, train_loop
+    from repro_torch.optim.optimizers import OptConfig
+
+    cfg = get_arch("qwen2.5-3b")
+    # launch/train.py's schedule: 10 warmup steps
+    opt = OptConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, opt, SEED)
+    torch.cuda.synchronize()
+    print(f"[7 train] (b) {cfg.name}: train state (bf16 params, f32 master, "
+          f"m, v) in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    stream, step_fn = train_stream(cfg), make_train_step(cfg, opt)
+    want, counts = train_per_step(cfg), []
+
+    def counted(st, batch):
+        got = {}
+        with use_backend("hopper"), counting(got):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step_fn(st, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                counts.append(got)
+
+    total = {name: 0 for name in KERNELS}
+    losses = []
+    for rec in train_loop(counted, state, stream, steps=TRAIN_STEPS,
+                          device=dev):
+        got = counts[-1]
+        print(f"[7 train] (b) step {rec['step']}: loss {rec['loss']:.6f}, "
+              f"{rec['ms']:.1f} ms/step, {rec['tokens_per_s']:.1f} tok/s, "
+              f"peak {rec['peak_bytes'] / 2 ** 30:.2f} GiB; launches {got}",
+              flush=True)
+        if got != want:
+            raise SystemExit(f"chip_smoke: train (b): step {rec['step']} "
+                             f"launches {got}, expected {want}")
+        losses.append(rec["loss"])
+        for name in KERNELS:
+            total[name] += got[name]
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"chip_smoke: train (b): losses {losses}")
+    batch = make_batch(stream, TRAIN_STEPS, dev)
+    torch.cuda.synchronize()
+    with use_backend("hopper"), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch)
+        rec = {"step": TRAIN_STEPS + 1, "loss": float(loss),
+               "ms": 1e3 * (time.perf_counter() - t0)}
+    events = sorted(prof.key_averages(),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in events) / 1e3   # ms
+    print(f"[7 train] (b) profiled step {rec['step']}: loss "
+          f"{rec['loss']:.6f}, {rec['ms']:.1f} ms wall under the profiler, "
+          f"device busy {busy:.1f} ms ({100 * busy / rec['ms']:.1f}%); top: "
+          + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms"
+                      f" x{e.count}" for e in events[:6]), flush=True)
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return total
+
+
+def close_state(torch, hop, ref, steps_taken, lr, unsettled):
+    """Params, master, m and v of two train states, leaf by leaf.  The
+    moments within rtol 2e-3 and 5e-5 of the leaf's largest value after
+    one step (this holds the gradients: m = 0.1 * clip * g), 1e-3 after
+    more.  Params and master within ``rtol=2e-3, atol=5e-5`` (the JAX
+    package's own tolerance for two accumulation orders,
+    ``tests/test_system.py``), with one exception, element by element:
+    Adam moves a weight by lr * m / sqrt(v), so where the two sides' first
+    moments differ by more than atol / lr (5%) of the reference's, which
+    happens where a gradient sits at the summation noise, the updates may
+    differ by up to two learning rates a step.  ``unsettled`` (leaf index
+    -> bool tensor, kept by the caller across steps) gains those elements;
+    every other element is held with no exception
+    (``tests/test_torch_train.py``).  Returns (failures, per leaf with an
+    element outside the tolerance: (tree, leaf index, elements outside,
+    of which unsettled, largest gap))."""
+    from repro_torch.optim.optimizers import tree_leaves
+
+    def leaves(state, key):
+        return tree_leaves(state["params"] if key == "params"
+                           else state["opt"][key])
+
+    for i, (a, b) in enumerate(zip(leaves(hop, "m"), leaves(ref, "m"))):
+        far = (a - b).abs() > (5e-5 / lr) * b.abs()
+        unsettled[i] = unsettled[i] | far if i in unsettled else far
+    fails, rows = [], []
+    for key in ("params", "master", "m", "v"):
+        for i, (a, b) in enumerate(zip(leaves(hop, key), leaves(ref, key))):
+            a, b = a.detach().float(), b.detach().float()
+            if key in ("params", "master"):
+                atol, may_miss = 5e-5, unsettled[i]
+            else:
+                atol = (5e-5 if steps_taken == 1 else 1e-3) * \
+                    b.abs().max().item()
+                may_miss = torch.zeros_like(b, dtype=torch.bool)
+            gap = (a - b).abs()
+            out = gap > atol + 2e-3 * b.abs()
+            n = int(out.sum().item())
+            if not n:
+                continue
+            excused = out & may_miss
+            n_ex = int(excused.sum().item())
+            big = gap[out].max().item()
+            rows.append((key, i, n, n_ex, big))
+            budget = 2 * lr * steps_taken
+            if n_ex < n or (n_ex and gap[excused].max().item() > budget):
+                fails.append((key, i, n, n_ex, big))
+    return fails, rows
+
+
+def train_f32(torch):
+    """(c) qwen2.5-3b and mamba2-2.7b (the SSD scan's backward bridge) in
+    f32 at full width and 2 layers: one loss and grads (exact launch
+    counts), then 2 ``make_train_step`` steps, hopper against reference
+    from the same train state.  Returns the hopper runs' launches."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.policy import use_backend
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.launch.train import make_batch
+    from repro_torch.optim.optimizers import OptConfig, tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    total = {name: 0 for name in KERNELS}
+    failed = []
+    for arch in ("qwen2.5-3b", "mamba2-2.7b"):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=2,
+                                  dtype="float32")
+        opt = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+        hop = train_setup(torch, cfg, opt)
+        ref = {"params": tree_map(
+                   lambda p: p.detach().clone().requires_grad_(True),
+                   hop["params"]),
+               "opt": tree_map(lambda t: t.clone(), hop["opt"])}
+        stream = train_stream(cfg)
+        batch = make_batch(stream, 0, dev)
+        got = {}
+        with use_backend("hopper"), counting(got):
+            lh, gh = loss_and_grads(cfg, hop["params"], batch)
+        want = train_per_step(cfg)
+        with use_backend("reference"):
+            lr_, gr = loss_and_grads(cfg, ref["params"], batch)
+        names = leaf_names(hop["params"])
+        gaps = [((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(tree_leaves(gh), tree_leaves(gr))]
+        worst = max(range(len(gaps)), key=lambda i: gaps[i])
+        lgap = abs(lh.item() - lr_.item()) / abs(lr_.item())
+        print(f"[7 train] (c) {cfg.name} f32, 2 layers: loss hopper "
+              f"{lh.item():.7f}, reference {lr_.item():.7f} (relative gap "
+              f"{lgap:.3g}); grads within {gaps[worst]:.3g} of each leaf's "
+              f"largest value (worst {names[worst]}; tolerance "
+              f"{F32_GRAD_TOL}); launches {got}", flush=True)
+        if got != want:
+            failed.append(f"{arch}: launches {got}, expected {want}")
+        if not (lgap <= F32_LOSS_TOL and gaps[worst] <= F32_GRAD_TOL):
+            failed.append(f"{arch}: loss or grads")
+        for key, n in got.items():
+            total[key] += n
+        del gh, gr
+        step_fn = make_train_step(cfg, opt)
+        unsettled = {}
+        for step in range(2):
+            batch = make_batch(stream, step, dev)
+            with use_backend("hopper"):
+                hop, l_h = step_fn(hop, batch)
+            with use_backend("reference"):
+                ref, l_r = step_fn(ref, batch)
+            lgap = abs(l_h.item() - l_r.item()) / abs(l_r.item())
+            fails, rows = close_state(torch, hop, ref, step + 1, opt.lr,
+                                      unsettled)
+            n_uns = sum(int(u.sum().item()) for u in unsettled.values())
+            n_all = sum(u.numel() for u in unsettled.values())
+            print(f"[7 train] (c) {cfg.name} f32, step {step + 1}: loss "
+                  f"hopper {l_h.item():.7f}, reference {l_r.item():.7f} "
+                  f"(relative gap {lgap:.3g}); leaves of params, master, m, "
+                  f"v with elements outside the tolerance (elements, of "
+                  f"which unsettled, largest gap): " + ("; ".join(
+                      f"{key} {names[i]} {n}/{b.numel()} ({n_ex}) "
+                      f"{big:.3g}" for key, i, n, n_ex, big in rows
+                      for b in [tree_leaves(hop["params"])[i]]) or "none")
+                  + f"; unsettled elements {n_uns} of {n_all}; failing: "
+                  f"{fails}", flush=True)
+            if lgap > F32_LOSS_TOL or fails:
+                failed.append(f"{arch}: step {step + 1}")
+        del hop, ref, unsettled
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: train (c): {failed}")
+    return total
+
+
+def phase_train(torch):
+    """Phase 7; returns the launches of its hopper runs."""
+    total = {name: 0 for name in KERNELS}
+    for part in (train_bf16_grads, train_loop_phase, train_f32):
+        for name, n in part(torch).items():
+            total[name] += n
     return total
 
 

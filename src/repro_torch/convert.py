@@ -11,6 +11,12 @@ lists of lists; ``shared_attn`` and ``shared_mlp`` are not stacked.
 numpy's bf16 is the ``ml_dtypes`` type, which torch cannot take directly,
 so bf16 leaves cross as 16-bit integers and are reinterpreted as
 ``torch.bfloat16`` bit for bit.
+
+``train_state_from_jax`` carries ``repro.launch.steps.init_train_state``'s
+tree across (params, which become autograd leaves, and the optimizer's
+``step`` and param-shaped f32 ``master``/``m``/``v`` or ``mom``), and
+``to_jax_layout`` goes the other way for comparisons: a port tree (params,
+grads, optimizer trees) as numpy in JAX's stacked layout.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policy import resolve_device
+from repro_torch.optim.optimizers import tree_leaves
 
 
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
@@ -70,3 +77,43 @@ def params_from_jax(tree: Dict[str, Any], *,
         out["groups"] = _unstack(tree["groups"], lambda g: _unstack(
             g, lambda t: _map(t, leaf)))
     return out
+
+
+def train_state_from_jax(tree: Dict[str, Any], *,
+                         device: str | torch.device = "cuda"
+                         ) -> Dict[str, Any]:
+    """``{"params", "opt"}`` of ``repro.launch.steps.init_train_state``
+    (numpy leaves) -> the port's train state (``launch.steps``): the
+    params as autograd leaves, ``opt["step"]`` an int32 scalar, the
+    param-shaped optimizer trees split per layer like the params."""
+    params = params_from_jax(tree["params"], device=device)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    opt = {k: (params_from_jax(v, device=device) if isinstance(v, dict)
+               else _to_tensor(np.asarray(v, np.int32),
+                               resolve_device(device)))
+           for k, v in tree["opt"].items()}
+    return {"params": params, "opt": opt}
+
+
+def to_jax_layout(tree) -> Any:
+    """A port tree of tensors -> numpy leaves in JAX's layout: the
+    per-layer lists under ``layers`` stacked on a leading axis, the groups
+    of ``groups`` on two.  bf16 leaves come out as float32 (exact)."""
+    def leaf(t):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return stack([conv(v) for v in t])
+        return leaf(t)
+
+    return conv(tree)

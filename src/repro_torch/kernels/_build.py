@@ -43,10 +43,13 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signature of every exported launcher: (argtypes, ...); restype is int
 _SIGNATURES = {
-    # a, b, c, M, N, K, lda, ldb, b_k_contiguous, dtype, vec_ok, stream
-    "repro_gemm": [_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _P],
+    # a, b, c, M, N, K, lda, a_m_contiguous, ldb, b_k_contiguous, dtype,
+    # vec_ok, stream
+    "repro_gemm": [_P, _P, _P, _I, _I, _I, _L, _I, _L, _I, _I, _I, _I, _P],
     # x, w, out, rows, D, ldx, eps, dtype, stream
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _F, _I, _P],
+    # x, w, dy, dx, dw_partial, rows, D, ldx, lddy, eps, dtype, stream
+    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _F, _I, _P],
     # m, v, out, M, N, ldm, dtype, stream
     "repro_bias_add_rows": [_P, _P, _P, _I, _I, _L, _I, _P],
     # q, k, v, out, pos0, width, block_table, ksc, vsc, B, Hkv, G, C, D,
@@ -62,6 +65,12 @@ _SIGNATURES = {
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                               _L, _L, _I, _I, _F, _I, _P],
+    # q, k, v, out, do, lse, dd, dq, dk, dv, B, Hkv, G, Sq, Sk, D, q_sb,
+    # q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+    # do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, l_sb,
+    # l_sh, causal, window, scale, dtype, stream
+    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 23
+                                 + [_I, _I, _F, _I, _P],
     # x, dt, A, B, C, h0, y, hf, B, S, H, P, N, chunk, x_sb, x_ss, x_sh,
     # dt_sb, dt_ss, dt_sh, b_sb, b_ss, c_sb, c_ss, y_sb, y_ss, y_sh, dtype,
     # stream
@@ -158,3 +167,25 @@ def check(rc: int, what: str) -> None:
     """Raise on a launcher's non-zero ``cudaGetLastError()``."""
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed (CUDA error {rc})")
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and one of the tensors requires grad: autograd must
+    record what is computed from them.  The ops layer then routes an op
+    through its autograd Function; a kernel launched on them directly
+    would cut the graph, since its output, written through ``ctypes``,
+    has no ``grad_fn`` (the Functions launch the kernels inside their
+    forward and backward, where grad mode is off)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def guard_grad(what: str, *tensors) -> None:
+    """Raise where ``needs_grad`` holds (every wrapper calls it before it
+    launches), rather than cut the graph without a word."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: called on a tensor that requires grad with grad mode "
+            "on; the kernel would cut the autograd graph — call it through "
+            "repro_torch.kernels.ops (whose autograd Function launches it "
+            "and its backward) or under torch.no_grad()")

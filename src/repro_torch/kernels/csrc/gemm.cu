@@ -1,20 +1,40 @@
-// GEMM for the decode path: C (M,N) = A (M,K) @ B (K,N), f32 accumulation,
-// output in the input dtype (bf16 or f32; f32 is plain IEEE FMA, never TF32).
+// GEMM: C (M,N) = A (M,K) @ B (K,N), f32 accumulation, output in the input
+// dtype (bf16 or f32; f32 is plain IEEE FMA, never TF32).
 //
 // Replaces src/repro/kernels/gemm.py:gemm_pallas (MXU-tiled, K innermost,
-// VMEM f32 accumulator).  What bounds it on Hopper: at decode, M is the batch
-// (1-8 rows), so every weight byte is used for M multiply-adds -- far below
-// the ~295 operations per byte where tensor cores become the limit.  The
-// kernel is bound by reading B once from device memory.  So it is built as a
-// streaming skinny GEMM, not a tiled one: each B element is loaded exactly
-// once, as part of a 16-byte vector, and multiplied into MR <= 8 row
-// accumulators held in registers; A is tiny and is re-read from shared
-// memory or L1.  M > 8 runs ceil(M/8) row groups (correct, re-reads B).
+// VMEM f32 accumulator), which serves every projection, the LM head and, in
+// training, both products of every backward (ops.py:71-75: g @ B^T and
+// A^T @ g).  Two kernels, picked by M:
 //
-// B comes in two layouts, read in place by its strides:
-//   NN  B(k,n) = b[k*ldb + n]  -- the projection weights (d_in, d_out)
-//   NT  B(k,n) = b[n*ldb + k]  -- the tied LM head, embed.T, a view of the
-//                                 (vocab, d) embedding: no per-step copy
+// * M <= skinny_max_m, 128 (decode: M is the batch; chunked prefill:
+//   M = B*C): a streaming skinny GEMM.  Every weight byte is used for M
+//   multiply-adds, far below the ~295 operations per byte where tensor
+//   cores become the limit, so the kernel is bound by reading B once from
+//   device memory: each B element is loaded exactly once, as part of a
+//   16-byte vector, and multiplied into MR <= 8 row accumulators held in
+//   registers; A is tiny and is re-read from shared memory or L1.  M > 8
+//   runs ceil(M/8) row groups (correct, re-reads B).
+// * larger M (the check's teacher-forced forward, M = B*S = 320;
+//   training, M = B*S = 512 tokens, or, for the weight gradient A^T @ g,
+//   M = the layer's input width, up to 11008): a shared-memory tiled
+//   GEMM, 64 x 64 output tiles, K in steps of 16, each of 256 threads
+//   holding a 4 x 4 block of outputs in registers.  Here the product is
+//   bound by operations, and the skinny kernel would read B ceil(M/8)
+//   times (64 times the 622 MB tied embedding per head product at
+//   M = 512).  Its grid is only N/64 x M/64 blocks, so at small M it
+//   loses to the skinny kernel except on the widest N (the head): hence
+//   the measured cutoff.  Scalar f32 FMAs from shared memory: tensor
+//   cores (mma.sync / wgmma) and TMA are later work.
+//
+// Operands are read in place by their strides, with a unit stride along
+// one axis each:
+//   A: K-contiguous, A(m,k) = a[m*lda + k] (activations), or
+//      M-contiguous, A(m,k) = a[k*lda + m] (the transposed activations of a
+//      weight gradient; the tiled kernel only)
+//   B: NN  B(k,n) = b[k*ldb + n]  -- the projection weights (d_in, d_out)
+//      NT  B(k,n) = b[n*ldb + k]  -- the tied LM head, embed.T, a view of
+//                                    the (vocab, d) embedding, and W^T in
+//                                    the input gradient g @ W^T
 // Ragged edges are masked in the loads; nothing is padded or copied.
 #include "common.cuh"
 
@@ -186,13 +206,104 @@ void launch(const T* a, const T* b, T* c, int M, int N, int K, long lda,
   }
 }
 
+// Tiled: 64 x 64 outputs per block of 256 threads, K in steps of kTK; A
+// and B tiles are staged in shared memory as f32, read along whichever
+// axis is contiguous in device memory.
+constexpr int kTM = 64, kTN = 64, kTK = 16;
+constexpr int kTPad = 4;  // keeps rows 16-byte aligned for float4 reads
+
+template <typename T, bool A_M, bool B_K>
+__global__ void __launch_bounds__(kThreads)
+gemm_tiled_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                  T* __restrict__ c, int M, int N, int K, long lda,
+                  long ldb) {
+  __shared__ __align__(16) float As[kTK][kTM + kTPad];
+  __shared__ __align__(16) float Bs[kTK][kTN + kTPad];
+  const int tid = threadIdx.x;
+  const int tx = tid % (kTN / 4), ty = tid / (kTN / 4);
+  const long m0 = (long)blockIdx.y * kTM, n0 = (long)blockIdx.x * kTN;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kTK) {
+#pragma unroll
+    for (int i = tid; i < kTM * kTK; i += kThreads) {
+      // consecutive threads walk the contiguous axis
+      const int mm = A_M ? i % kTM : i / kTK;
+      const int kk = A_M ? i / kTM : i % kTK;
+      const long m = m0 + mm;
+      const int k = k0 + kk;
+      float x = 0.f;
+      if (m < M && k < K)
+        x = to_f32(A_M ? a[(long)k * lda + m] : a[m * lda + k]);
+      As[kk][mm] = x;
+    }
+#pragma unroll
+    for (int i = tid; i < kTN * kTK; i += kThreads) {
+      const int nn = B_K ? i / kTK : i % kTN;
+      const int kk = B_K ? i % kTK : i / kTN;
+      const long n = n0 + nn;
+      const int k = k0 + kk;
+      float x = 0.f;
+      if (n < N && k < K)
+        x = to_f32(B_K ? b[n * ldb + k] : b[(long)k * ldb + n]);
+      Bs[kk][nn] = x;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kTK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long n = n0 + tx * 4 + j;
+      if (n < N) c[m * N + n] = from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T, bool A_M, bool B_K>
+void launch_tiled(const T* a, const T* b, T* c, int M, int N, int K,
+                  long lda, long ldb, cudaStream_t s) {
+  const dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM), block(kThreads);
+  gemm_tiled_kernel<T, A_M, B_K><<<grid, block, 0, s>>>(a, b, c, M, N, K,
+                                                        lda, ldb);
+}
+
+// skinny_max_m: the largest M the skinny kernel takes (kernels/gemm.py's
+// SKINNY_MAX_M, set from the two kernels' measured crossover); an A read
+// along M always takes the tiled kernel
 template <typename T>
 void launch_rows(const void* a, const void* b, void* c, int M, int N, int K,
-                 long lda, long ldb, bool nt, bool vec_ok, cudaStream_t s) {
+                 long lda, bool a_m, long ldb, bool nt, bool vec_ok,
+                 int skinny_max_m, cudaStream_t s) {
   const T* pa = static_cast<const T*>(a);
   const T* pb = static_cast<const T*>(b);
   T* pc = static_cast<T*>(c);
-  if (M <= 1) launch<T, 1>(pa, pb, pc, M, N, K, lda, ldb, nt, vec_ok, s);
+  if (M > skinny_max_m || a_m) {
+    if (a_m && nt) launch_tiled<T, true, true>(pa, pb, pc, M, N, K, lda, ldb, s);
+    else if (a_m) launch_tiled<T, true, false>(pa, pb, pc, M, N, K, lda, ldb, s);
+    else if (nt) launch_tiled<T, false, true>(pa, pb, pc, M, N, K, lda, ldb, s);
+    else launch_tiled<T, false, false>(pa, pb, pc, M, N, K, lda, ldb, s);
+  } else if (M <= 1) launch<T, 1>(pa, pb, pc, M, N, K, lda, ldb, nt, vec_ok, s);
   else if (M <= 2) launch<T, 2>(pa, pb, pc, M, N, K, lda, ldb, nt, vec_ok, s);
   else if (M <= 4) launch<T, 4>(pa, pb, pc, M, N, K, lda, ldb, nt, vec_ok, s);
   else launch<T, 8>(pa, pb, pc, M, N, K, lda, ldb, nt, vec_ok, s);
@@ -201,14 +312,16 @@ void launch_rows(const void* a, const void* b, void* c, int M, int N, int K,
 }  // namespace
 
 extern "C" int repro_gemm(const void* a, const void* b, void* c, int M, int N,
-                          int K, long long lda, long long ldb,
-                          int b_k_contiguous, int dtype, int vec_ok,
-                          void* stream) {
+                          int K, long long lda, int a_m_contiguous,
+                          long long ldb, int b_k_contiguous, int dtype,
+                          int vec_ok, int skinny_max_m, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    launch_rows<bf16>(a, b, c, M, N, K, lda, ldb, b_k_contiguous, vec_ok, s);
+    launch_rows<bf16>(a, b, c, M, N, K, lda, a_m_contiguous, ldb,
+                      b_k_contiguous, vec_ok, skinny_max_m, s);
   else if (dtype == kF32)
-    launch_rows<float>(a, b, c, M, N, K, lda, ldb, b_k_contiguous, vec_ok, s);
+    launch_rows<float>(a, b, c, M, N, K, lda, a_m_contiguous, ldb,
+                       b_k_contiguous, vec_ok, skinny_max_m, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

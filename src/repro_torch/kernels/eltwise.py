@@ -19,6 +19,7 @@ def bias_add_rows(m: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     version; CUDA tensors launch the kernel or raise."""
     if not m.is_cuda:
         return bias_add_rows_ref(m, vec)
+    _build.guard_grad("bias_add_rows", m, vec)
     if m.dim() != 2 or vec.shape != (m.shape[1],):
         raise ValueError(
             f"bias_add_rows: shapes {tuple(m.shape)} + {tuple(vec.shape)}"

@@ -5,8 +5,8 @@ model, or int8 with per-(page, head) scales), and for the full forward.
 Replaces ``repro/kernels/flash_attention.py``'s ``flash_decode_pallas``,
 ``flash_decode_paged_pallas``, ``flash_decode_paged_quant_pallas``,
 ``flash_prefill_chunk_pallas``, ``flash_prefill_chunk_paged_pallas``,
-``flash_prefill_chunk_paged_quant_pallas`` and ``flash_attention_pallas``.
-All seven launch one kernel template
+``flash_prefill_chunk_paged_quant_pallas``, ``flash_attention_pallas`` and
+``flash_attention_bwd_pallas``.  The first seven launch one kernel template
 (``csrc/flash_attention.cu``): one block per (row, kv head, tile of 8 query
 rows) walks the valid key range in tiles with an f32 online softmax, the
 GQA group folded into the block's rows.  The caches and pools are read in
@@ -24,6 +24,10 @@ tile).
 
 The kernel trusts the block table: every entry is -1 or a page of the
 pool (the pager never maps the sentinel page).
+
+The training backward (``csrc/flash_attention_bwd.cu``) recomputes p from
+the forward's lse in two passes, dq over query tiles and dk/dv over key
+tiles with the GQA group summed inside the block.
 """
 from __future__ import annotations
 
@@ -93,6 +97,7 @@ def _launch(name: str, q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, C, Hq, D) views; ``k``/``v`` the (B, Smax, Hkv, D) cache or the
     (P, page, Hkv, D) pool (with ``block_table``; an int8 pool also with
     its (P, Hkv) ``scales``)."""
+    _build.guard_grad(name, q4, k, v)
     _check(name, q4, k, v, scales, paged=block_table is not None)
     b, c, hq, d = q4.shape
     if block_table is None:
@@ -282,6 +287,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.mha_attention(q, k, v, causal=causal, window=window,
                                  scale=scale)
     name = "flash_attention"
+    _build.guard_grad(name, q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape[0] != q.shape[0]:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}")
     _check(name, q, k, v)
@@ -308,7 +314,72 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out, lse
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of ``flash_attention`` from its ``out`` and ``lse``
+    and the output gradient ``do`` (B,Sq,Hq,D) -> (dq (B,Sq,Hq,D), dk, dv
+    (B,Sk,Hkv,D)) in the dtype of q.  ``csrc/flash_attention_bwd.cu``: a dq
+    pass that also writes dd = rowsum(do * out), then a dk/dv pass that
+    sums the GQA group inside each block.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if not q.is_cuda:
+        return ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                       window=window, scale=scale)
+    name = "flash_attention_bwd"
+    _build.guard_grad(name, q, k, v, out, lse, do)
+    if q.dim() != 4 or k.dim() != 4 or k.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    _check(name, q, k, v)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"{name}: out {tuple(out.shape)}, do "
+                         f"{tuple(do.shape)} for q {tuple(q.shape)}")
+    if out.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"{name}: out {out.dtype}, do {do.dtype} for q "
+                        f"{q.dtype}")
+    if out.stride(3) != 1 or do.stride(3) != 1:
+        raise ValueError(f"{name}: out and do need unit stride on the head "
+                         "dim")
+    if (lse.shape != (b, hq, sq) or lse.dtype != torch.float32
+            or lse.stride(2) != 1):
+        raise ValueError(f"{name}: lse {tuple(lse.shape)} {lse.dtype} needs "
+                         f"({b}, {hq}, {sq}) float32 with unit stride in Sq")
+    if any(t.device != q.device for t in (out, lse, do)):
+        raise ValueError(f"{name}: operands on different devices")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dd = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    rc = _build.lib().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, hkv, hq // hkv, sq, sk, d,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+        do.stride(0), do.stride(1), do.stride(2),
+        dq.stride(0), dq.stride(1), dq.stride(2),
+        dk.stride(0), dk.stride(1), dk.stride(2),
+        lse.stride(0), lse.stride(1), int(causal),
+        -1 if window is None else int(window), float(scale),
+        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, name)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0
 flash_decode.launches = 0
 flash_decode_paged.launches = 0
 flash_decode_paged_quant.launches = 0

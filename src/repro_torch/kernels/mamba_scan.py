@@ -48,6 +48,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ref.ssd_scan(x, dt, A, B_, C, chunk=chunk,
                             initial_state=initial_state,
                             final_state=final_state)
+    _build.guard_grad("ssd_scan", x, dt, A, B_, C, initial_state)
     b, s, h, p = x.shape
     if B_.dim() != 4 or B_.shape[2] != 1:
         raise ValueError(f"ssd_scan: B_ {tuple(B_.shape)}: the kernel takes "

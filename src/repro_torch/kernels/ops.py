@@ -1,4 +1,5 @@
-"""Portable ops — the backend-switched operator set the model calls.
+"""Portable ops — the backend-switched, differentiable operator set the
+model calls.
 
 Every op is registered once in ``repro_torch.core.registry`` with its two
 lowerings — the plain PyTorch version (``kernels/ref.py``) and the Hopper
@@ -7,8 +8,23 @@ kernel wrapper — and exposed as a plain function; the policy
 tensor's device which one runs.  Registered so far: the ops of the
 contiguous and paged (and int8 paged) decode paths, of chunked prefill,
 of the Mamba-2 blocks and of the full forward; the rest of
-``repro.kernels.ops`` comes with later slices.  Forward only: training
-(and with it autograd) is a later slice.
+``repro.kernels.ops`` comes with later slices.
+
+Differentiation mirrors ``repro.kernels.ops``.  When grad mode is on and
+an input requires grad, the ops of the training forward go through
+autograd: the reference lowering is torch autograd of the plain version
+(``matmul`` through a Function whose backward is ``_matmul_r_bwd``'s: the
+cotangent cast to the operand's dtype, two f32-accumulated products); the
+hopper lowering is an ``autograd.Function`` per op whose forward launches
+the kernel and whose backward launches the backward kernels where the TPU
+port has them (``matmul``: two more gemms; ``rmsnorm``: ``rmsnorm_bwd``;
+``attention``: ``flash_attention_bwd`` from the saved out and lse) and is
+plain PyTorch where JAX's is jnp (``bias_add_rows``: ``(g, g.sum(0))``;
+``ssd_scan``: the vjp of the plain version, as JAX has no SSD backward
+kernel either).  A kernel wrapper called outside these Functions on a
+tensor that requires grad raises (``_build.guard_grad``) rather than cut
+the graph.  The serving ops (decode, chunked prefill) are not
+differentiable.
 """
 from __future__ import annotations
 
@@ -16,26 +32,133 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.policy import use_hopper
 from repro_torch.core.registry import dispatch, register_op
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
+from repro_torch.kernels._build import needs_grad
 from repro_torch.kernels.eltwise import bias_add_rows as bias_add_rows_hopper
 from repro_torch.kernels.gemm import gemm
 from repro_torch.kernels.mamba_scan import ssd_scan as ssd_scan_hopper
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_hopper
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+
+class MatmulFn(torch.autograd.Function):
+    """``fn(a, b)`` with the backward of ``repro/kernels/ops.py:71-99``:
+    the cotangent cast to ``a.dtype`` (a no-op on the hopper lowering, whose
+    output is in ``a.dtype``), then ``da = fn(g, b^T)`` and ``db = fn(a^T,
+    g)``, f32-accumulated and written in the operands' dtypes.  ``fn`` is
+    the lowering: ``gemm`` (both backward products are kernel launches,
+    the transposes read by their strides) or ``ref.gemm``."""
+
+    @staticmethod
+    def forward(ctx, a, b, fn):
+        ctx.save_for_backward(a, b)
+        ctx.fn = fn
+        return fn(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype).contiguous()
+        da = ctx.fn(g, b.T, out_dtype=a.dtype) if ctx.needs_input_grad[0] \
+            else None
+        db = ctx.fn(a.T, g, out_dtype=b.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return da, db, None
+
+
+class BiasAddRowsFn(torch.autograd.Function):
+    """The bias kernel forward; backward ``(g, g.sum(0))`` in plain torch,
+    as ``ops.py:123-124`` is jnp."""
+
+    @staticmethod
+    def forward(ctx, m, v):
+        return bias_add_rows_hopper(m, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g.sum(dim=0)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """The RMSNorm kernel forward and the ``rmsnorm_bwd`` kernel backward
+    (``ops.py:368-381``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm_hopper(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, g.contiguous(), ctx.eps)
+        return dx, dw, None
+
+
+class AttentionFn(torch.autograd.Function):
+    """The flash-attention forward, saving ``(q, k, v, out, lse)``, and the
+    ``flash_attention_bwd`` kernel backward (``ops.py:398-418``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = FA.flash_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.opts
+        dq, dk, dv = FA.flash_attention_bwd(
+            q, k, v, out, lse, do.contiguous(), causal=causal, window=window,
+            scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan kernel forward from a zero state; backward the vjp of
+    the plain version (``ops.py:682-688``: JAX has no SSD backward kernel
+    either)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C, chunk):
+        ctx.save_for_backward(x, dt, A, B_, C)
+        ctx.chunk = chunk
+        return ssd_scan_hopper(x, dt, A, B_, C, chunk=chunk)[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = ref.ssd_scan(*inputs, chunk=ctx.chunk)[0]
+        return (*torch.autograd.grad(y, inputs, dy), None)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M,K) @ (K,N), f32 accumulation, output in ``a.dtype``."""
-    return dispatch("matmul", a)(a, b)
+    """(M,K) @ (K,N), f32 accumulation, output in ``a.dtype``;
+    param-dtype cotangents."""
+    fn = dispatch("matmul", a)
+    if needs_grad(a, b):
+        return MatmulFn.apply(a, b, fn)
+    return fn(a, b)
 
 
 def bias_add_rows(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if needs_grad(m, v) and use_hopper(m):
+        return BiasAddRowsFn.apply(m, v)
     return dispatch("bias_add_rows", m)(m, v)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
+    if needs_grad(x, w) and use_hopper(x):
+        return RMSNormFn.apply(x, w, eps)
     return dispatch("rmsnorm", x)(x, w, eps)
 
 
@@ -116,8 +239,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               scale: Optional[float] = None) -> torch.Tensor:
     """GQA attention (B,Sq,Hq,D) x (B,Sk,Hkv,D) -> (B,Sq,Hq,D), query
-    ``i`` at position ``i`` (both lowerings also return the lse, which
-    only the training backward would read)."""
+    ``i`` at position ``i``.  Both lowerings also return the lse: the
+    hopper lowering's backward reads it (``AttentionFn``)."""
+    if needs_grad(q, k, v) and use_hopper(q):
+        return AttentionFn.apply(q, k, v, causal, window, scale)
     return dispatch("attention", q)(q, k, v, causal=causal, window=window,
                                     scale=scale)[0]
 
@@ -136,6 +261,9 @@ def ssd_scan(x, dt, A, B_, C, *, chunk: int = 64) -> torch.Tensor:
     """Mamba-2 SSD over a whole sequence from a zero state; B_/C
     (B,S,G,N).  Returns y (the serving scan, ``ssd_prefill_chunk``,
     carries the state)."""
+    if needs_grad(x, dt, A, B_, C) and use_hopper(x):
+        return SSDScanFn.apply(x, dt, A, B_, C,
+                               max(1, min(int(chunk), x.shape[1])))
     return _ssd("ssd_scan", x, dt, A, B_, C, chunk, None)[0]
 
 

@@ -38,9 +38,11 @@ def _gather_pages(pages: torch.Tensor, block_table: torch.Tensor,
     return out
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M,K) @ (K,N) with f32 accumulation, output in ``a.dtype``."""
-    return torch.matmul(a.float(), b.float()).to(a.dtype)
+def gemm(a: torch.Tensor, b: torch.Tensor, *,
+         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(M,K) @ (K,N) with f32 accumulation, output in ``out_dtype``
+    (default ``a.dtype``)."""
+    return torch.matmul(a.float(), b.float()).to(out_dtype or a.dtype)
 
 
 def bias_add_rows(m: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
@@ -55,6 +57,22 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RMSNorm backward of ``repro/kernels/rmsnorm.py:56-71``, all
+    statistics in f32: ``dxhat = dy * w``, ``dx = inv * (dxhat - xhat *
+    mean(dxhat * xhat))``, ``dw = sum(dy * xhat)`` over the rows.  Returns
+    (dx in ``x.dtype``, dw in ``w.dtype``)."""
+    d = x.shape[-1]
+    xf, dyf = x.float(), dy.float()
+    inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * inv
+    dxhat = dyf * w.float()
+    dx = inv * (dxhat - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    dw = (dyf * xhat).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -205,6 +223,47 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, hq, d), lse
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of ``mha_attention`` from the forward's ``out`` and
+    ``lse`` (``repro/kernels/flash_attention.py:184-368``): ``dd =
+    rowsum(do * out)`` in f32, ``p = exp(s - lse)`` under the forward's
+    mask, ``dp = do . v``, ``ds = p * (dp - dd)``; ``dq = ds . k * scale``,
+    ``dk = ds^T . q * scale`` and ``dv = p^T . do``, dk and dv summed over
+    the ``Hq / Hkv`` query heads of each KV head.  All products in f32.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, sq, hkv, g, d)
+    dof = do.float().reshape(b, sq, hkv, g, d)
+    kf, vf = k.float(), v.float()
+    dd = (dof * out.float().reshape(b, sq, hkv, g, d)).sum(-1)   # (b,q,h,g)
+    dd = dd.permute(0, 2, 3, 1)[..., None]                        # (b,h,g,q,1)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    l5 = lse.float().reshape(b, hkv, g, sq)[..., None]
+    p = torch.where(mask, torch.exp(s - l5), 0.0)                 # (b,h,g,q,k)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - dd)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B_: torch.Tensor, C: torch.Tensor, *, chunk: int = 64,
              initial_state: Optional[torch.Tensor] = None,
@@ -238,12 +297,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Bc = Bf.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
     Cc = Cf.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
     cum = torch.cumsum(dtc * A.float(), dim=2)            # (b,nc,L,h)
-    # exp(cum_t - cum_u) overflows for u > t: select, never multiply by 0
+    # exp(cum_t - cum_u) overflows for u > t: the exponent is masked to
+    # -inf before the exp (exp(-inf) = 0 exactly), so neither the values
+    # nor the backward (0 * exp(inf) would be NaN) see the overflow
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    decay = torch.where(tri[None, None, :, :, None],
-                        torch.exp(cum[:, :, :, None] - cum[:, :, None]),
-                        0.0)                                # (b,nc,t,u,h)
+    decay = torch.exp(torch.where(tri[None, None, :, :, None],
+                                  cum[:, :, :, None] - cum[:, :, None],
+                                  float("-inf")))           # (b,nc,t,u,h)
     cb = torch.einsum("bclhn,bcuhn->bcluh", Cc, Bc)
     att = cb * decay * dtc[:, :, None]
     y_intra = torch.einsum("bcluh,bcuhp->bclhp", att, xc)

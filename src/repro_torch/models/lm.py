@@ -3,7 +3,7 @@ families, contiguous or paged KV cache, the paged pool in the model's
 dtype, bf16 or int8 (the port's subset of ``repro.models.lm``).
 
 Public functions mirror the JAX module: ``init_params``, ``forward``,
-``init_decode_state``, ``decode_step``, ``prefill_chunk``,
+``train_loss``, ``init_decode_state``, ``decode_step``, ``prefill_chunk``,
 ``reset_decode_rows`` and ``lm_logits``.  Where JAX scans over stacked
 layer params, the port keeps lists of per-layer dicts and loops in
 Python: ``params["layers"]`` (dense, moe, ssm) or ``params["groups"]``,
@@ -24,9 +24,14 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.policy import resolve_device
+from repro_torch.core.policy import (
+    current_backend,
+    resolve_device,
+    use_backend,
+)
 from repro_torch.kernels import ops
 from repro_torch.models import components as C
 from repro_torch.serving import pager as PG
@@ -87,9 +92,15 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     return params
 
 
-def forward(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+            remat: bool = True) -> torch.Tensor:
     """Teacher-forced forward over tokens (B, S) from empty caches: the
-    final-normed hidden states (B, S, d) (``repro.models.lm.forward``)."""
+    final-normed hidden states (B, S, d) (``repro.models.lm.forward``).
+    With grad mode on and ``remat``, each layer (and, hybrid, each group
+    too) runs under ``torch.utils.checkpoint``, as JAX checkpoints them:
+    only the layer inputs are kept, and the backward runs each layer's
+    forward again.  Nothing here writes in place into a tensor autograd
+    saved (the caches of the serving functions are not touched)."""
     check_family(cfg)
     x = params["embed"][tokens].to(cfg.dtype_())
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -97,8 +108,27 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
         cfg, params, x,
         lambda p, x, _: C.attention_block(cfg, p, x, positions=positions,
                                           window=cfg.window),
-        lambda p, x, _: C.mamba_block(cfg, p, x))
+        lambda p, x, _: C.mamba_block(cfg, p, x),
+        remat=remat and torch.is_grad_enabled())
     return C.norm(cfg, params["ln_f"], x)
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Stable mean NLL in f32 over (..., V) logits
+    (``repro.models.lm._xent``)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = lf.gather(-1, targets[..., None].long())[..., 0]
+    return (lse - picked).mean()
+
+
+def train_loss(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+    """Next-token loss of ``batch["tokens"]`` (B, S+1): the forward over
+    the first S tokens, the head, and the f32 NLL of the last S."""
+    tokens = batch["tokens"]
+    h = forward(cfg, params, tokens[:, :-1])
+    return _xent(lm_logits(cfg, params, h), tokens[:, 1:])
 
 
 def lm_logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
@@ -255,22 +285,61 @@ def _ffn(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     return C.moe_block(cfg, p["moe"], x)
 
 
-def _trunk(cfg: ArchConfig, params, x: torch.Tensor, attn, mamba):
+def _remat(fn, on: bool):
+    """``fn`` under non-reentrant ``checkpoint`` when ``on``.  The
+    recomputation runs in the backward, which autograd runs on a thread of
+    its own for CUDA tensors, where the caller's thread-local
+    ``use_backend`` is not in force: so the backend in force at the call
+    is taken along and set again around the recomputation (else a
+    reference-backend forward would be recomputed through the kernels).
+    No RNG state is stashed: the forward draws no random numbers."""
+    if not on:
+        return fn
+
+    def run(*args):
+        backend = current_backend()
+
+        def body(*a):
+            with use_backend(backend):
+                return fn(*a)
+
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return run
+
+
+def _trunk(cfg: ArchConfig, params, x: torch.Tensor, attn, mamba, *,
+           remat: bool = False):
     """The layer stack of every family: ``attn(p, x, stack)`` and
     ``mamba(p, x, layer)`` are the caller's blocks (``stack`` indexes the
-    KV caches: the layer for dense and moe, the group for hybrid)."""
+    KV caches: the layer for dense and moe, the group for hybrid).
+    ``remat`` checkpoints every layer and every hybrid group, as
+    ``repro.models.lm.forward`` does (``lm.py:135-149``)."""
     if cfg.family == "ssm":
+        layer_fn = _remat(lambda x, p, layer: mamba(p["mamba"], x, layer),
+                          remat)
         for layer, p in enumerate(params["layers"]):
-            x = mamba(p["mamba"], x, layer)
+            x = layer_fn(x, p, layer)
     elif cfg.family in ("dense", "moe"):
+        layer_fn = _remat(
+            lambda x, p, layer: _ffn(cfg, p, attn(p["attn"], x, layer)),
+            remat)
         for layer, p in enumerate(params["layers"]):
-            x = _ffn(cfg, p, attn(p["attn"], x, layer))
+            x = layer_fn(x, p, layer)
     else:
-        for g, group in enumerate(params["groups"]):
+        layer_fn = _remat(lambda x, p, layer: mamba(p["mamba"], x, layer),
+                          remat)
+
+        def group_fn(x, group, g):
             for i, p in enumerate(group):
-                x = mamba(p["mamba"], x, g * cfg.attn_every + i)
+                x = layer_fn(x, p, g * cfg.attn_every + i)
             x = attn(params["shared_attn"], x, g)
-            x = C.mlp_block(cfg, params["shared_mlp"], x)
+            return C.mlp_block(cfg, params["shared_mlp"], x)
+
+        group_fn = _remat(group_fn, remat)
+        for g, group in enumerate(params["groups"]):
+            x = group_fn(x, group, g)
     return x
 
 

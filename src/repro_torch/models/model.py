@@ -36,6 +36,10 @@ class Model:
         forward; ``lm_logits`` maps them to logits."""
         return lm.forward(self.cfg, params, tokens)
 
+    def train_loss(self, params, batch):
+        """Mean next-token NLL of ``batch["tokens"]`` (B, S+1), f32."""
+        return lm.train_loss(self.cfg, params, batch)
+
     def decode_step(self, params, state, token, **kw):
         return lm.decode_step(self.cfg, params, state, token, **kw)
 

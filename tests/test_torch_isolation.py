@@ -56,6 +56,12 @@ def test_entry_points_default_to_cuda(no_card):
         params_from_jax({"embed": [[0.0]], "layers": {}})
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         serve.main(["--arch", "qwen2.5-3b-smoke"])
+    from repro_torch.launch import steps, train
+    from repro_torch.optim.optimizers import OptConfig
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        steps.init_train_state(cfg, OptConfig())
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        train.main(["--arch", "qwen2.5-3b-smoke"])
 
 
 def test_build_needs_no_toolchain_at_import():
@@ -65,6 +71,6 @@ def test_build_needs_no_toolchain_at_import():
 
     assert {p.name for p in _build.sources()} == {
         "gemm.cu", "rmsnorm.cu", "eltwise.cu", "flash_attention.cu",
-        "ssd_scan.cu"}
+        "flash_attention_bwd.cu", "ssd_scan.cu"}
     assert _build._LIB is None
     assert _build.library_path().parent == _build.BUILD_DIR
