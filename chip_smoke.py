@@ -9,9 +9,16 @@ failure (non-zero exit, no result line):
 
 1. device   — CUDA present, sm_90; prints nvidia-smi's name and power limit.
 2. build    — compiles every ``csrc/*.cu`` kernel with nvcc for sm_90a.
-3. kernels  — each of the thirteen kernels against its plain PyTorch
+3. kernels  — each of the eighteen kernels against its plain PyTorch
               version at the main paths' shapes (bf16 and f32; qwen2.5-3b's,
-              the recurrent archs' and mixtral-8x7b's, and the training
+              the recurrent archs' and mixtral-8x7b's, the attention
+              kernels also at glm4-9b's, deepseek-coder-33b's and
+              internlm2-20b's heads (32/2, 56/8, 48/8 of 128), LeNet's
+              (f32, batch 64: every im2col, gemm, bias add, maxpool and
+              relu call of a LeNet-MNIST and a LeNet-CIFAR-10 forward,
+              softmax_xent at 64 x 10, softmax at 64 x 10 and 256 x 1000,
+              maxpool on exact ties and with a pad of 1, each Caffe
+              kernel once in bf16), and the training
               step's: rmsnorm_bwd at 512 rows of 2048 and 5120,
               flash_attention_bwd at B 2 x S 256 with qwen2.5-3b's,
               zamba2-2.7b's and, windowed, mixtral-8x7b's heads, and the
@@ -81,6 +88,16 @@ failure (non-zero exit, no result line):
               mamba2-2.7b in f32 at 2 layers: loss and grads, then 2
               ``make_train_step`` steps, hopper against reference
               (``close_state`` states the tolerances).
+8. caffe    — the Caffe forward (the TEST phase): LeNet-MNIST and
+              LeNet-CIFAR-10 quick at the solvers' batch of 64 in f32,
+              seeded params with perturbed biases, data from the port's
+              image stream on the card, through ``Solver.make_eval_step``
+              under ``set_sync_debug_mode("error")`` with exact launch
+              counts, held against the reference backend; MNIST's deploy
+              form (a Softmax ``prob`` on ``ip2``) through ``Net.forward``
+              without labels; each net in the paper's three boundary modes
+              (equal losses, ms per forward: the forward half of its Table
+              2).
 
 The random 64- and 54-layer Mamba stacks are chaotic: the plain reference
 alone, in bf16 and in f32 on the same weights, disagrees on nearly every
@@ -102,7 +119,7 @@ first decision the two runs take differently and requires it to be a
 near tie, and each step from the same caches to agree
 (``synced_steps``).  Nothing is cut in width; depth is cut only in
 those checks, in phase 7's f32 comparisons (2 layers) and, for mixtral,
-to fit the card.
+to fit the card.  The LeNets run at full size (Caffe's own nets).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -182,11 +199,15 @@ def main() -> int:
     # ---------------------------------------------------------------- 7
     for name, n in phase_train(torch).items():
         launches[name] += n
+
+    # ---------------------------------------------------------------- 8
+    for name, n in phase_caffe(torch).items():
+        launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "
-                             "a serving, check or training path")
+                             "a serving, check, training or Caffe path")
 
     print(f"[done] {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -307,6 +328,16 @@ def phase_kernels(torch):
                 ("float32", "rmsnorm_bwd"): 1e-5,
                 ("bfloat16", "flash_attention_bwd"): 2 ** -7,
                 ("float32", "flash_attention_bwd"): 1e-5})
+    # the Caffe kernels: im2col copies, maxpool compares and selects, relu
+    # passes x through or multiplies once in f32 as the plain version does:
+    # all exact.  The softmax pair: both sides in f32 from the same inputs,
+    # another summation order over V terms (f32), rounded once (one bf16
+    # ulp)
+    TOL.update({(dt, n): 0.0 for dt in ("float32", "bfloat16")
+                for n in ("im2col", "maxpool", "relu")})
+    TOL.update({(dt, n): tol for dt, tol in (("float32", 1e-5),
+                                             ("bfloat16", 2 ** -7))
+                for n in ("softmax", "softmax_xent")})
     # the training shapes' products take 5 timed launches each (the
     # head's take 15-30 ms)
     slow = Timer(torch, reps=5, warm=1)
@@ -448,10 +479,16 @@ def phase_kernels(torch):
         # mixtral-8x7b's (32/8 of 128, 16 layers, served paged only; its
         # window of 4096 spans the cache like None).  (launches per step
         # on the contiguous slab, on the pool)
+        # glm4-9b's group of 16 (32/2 heads), deepseek-coder-33b's 7 (56/8)
+        # and internlm2-20b's 6 (48/8), head dim 128: dense archs the
+        # serving phases do not run (counts 0)
         for hq, hkv, hd, arch in ((16, 2, 128, ""), (32, 32, 80, "zamba2 "),
-                                  (32, 8, 128, "mixtral ")):
+                                  (32, 8, 128, "mixtral "),
+                                  (32, 2, 128, "glm4 "),
+                                  (56, 8, 128, "deepseek "),
+                                  (48, 8, 128, "internlm2 ")):
             n_slab, n_pool = {"": (36, 36), "zamba2 ": (9, 9),
-                              "mixtral ": (0, 16)}[arch]
+                              "mixtral ": (0, 16)}.get(arch, (0, 0))
             lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
             start = torch.tensor(start_l, dtype=torch.int32, device="cuda")
             width = torch.tensor(width_l, dtype=torch.int32, device="cuda")
@@ -788,6 +825,7 @@ def phase_kernels(torch):
         train_kernels(torch, F, rnd, run, slow, dtype, es)
         gemm_crossover(torch, rnd, check, slow, dtype, TOL)
         torch.cuda.empty_cache()
+    caffe_kernels(torch, F, rnd, run)
 
     # per-kernel totals over one bf16 step at B = 4: a decode step for the
     # decode-path kernels, a prefill step (C = 16) for the chunk kernels
@@ -826,11 +864,25 @@ def phase_kernels(torch):
         "flash_attention_bwd": (
             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "src/repro/kernels/flash_attention.py:267", "train"),
+        # the Caffe kernels: one f32 LeNet-MNIST forward at batch 64 (the
+        # deploy form's for softmax)
+        "im2col": ("src/repro_torch/kernels/csrc/im2col.cu",
+                   "src/repro/kernels/im2col.py:57", "mnist fwd"),
+        "maxpool": ("src/repro_torch/kernels/csrc/pooling.cu",
+                    "src/repro/kernels/pooling.py:55", "mnist fwd"),
+        "relu": ("src/repro_torch/kernels/csrc/eltwise.cu",
+                 "src/repro/kernels/eltwise.py:70", "mnist fwd"),
+        "softmax_xent": ("src/repro_torch/kernels/csrc/softmax_xent.cu",
+                         "src/repro/kernels/softmax_xent.py:78",
+                         "mnist fwd"),
+        "softmax": ("src/repro_torch/kernels/csrc/softmax_xent.cu",
+                    "src/repro/kernels/softmax_xent.py:35", "deploy fwd"),
     }
 
     def totals(name, step):
+        dt = "float32" if step in CAFFE_STEPS else "bfloat16"
         sel = [r for r in rows if r["name"] == name and r["step"] == step
-               and r["dtype"] == "bfloat16" and r["count"]]
+               and r["dtype"] == dt and r["count"]]
         tot = {key: sum(r[key] * r["count"] for r in sel)
                for key in ("ms", "plain_ms", "bound_ms")}
         tot["library_ms"] = (
@@ -855,8 +907,10 @@ def phase_kernels(torch):
         })
         lib = tot["library_ms"]
         at = {"forward": "B=2, 160 tokens",
-              "train": f"B={TRAIN_B}, S={TRAIN_S}"}.get(step, f"B={B}")
-        print(f"[3 kernels] {name}: one bf16 {step} step at {at}: "
+              "train": f"B={TRAIN_B}, S={TRAIN_S}"}.get(
+                  step, f"B={LENET_B}" if step in CAFFE_STEPS else f"B={B}")
+        dt = "f32" if step in CAFFE_STEPS else "bf16"
+        print(f"[3 kernels] {name}: one {dt} {step} step at {at}: "
               f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
               f"{tot['plain_ms']:.3f} ms, library "
               f"{lib if lib is None else round(lib, 3)} ms", flush=True)
@@ -874,6 +928,14 @@ def phase_kernels(torch):
                       f"ms, plain {tot['plain_ms']:.3f} ms, library "
                       f"{lib if lib is None else round(lib, 3)} ms",
                       flush=True)
+    for step in ("mnist fwd", "cifar fwd"):
+        for name in ("im2col", "gemm", "bias_add_rows", "maxpool", "relu",
+                     "softmax_xent"):
+            tot = totals(name, step)
+            print(f"[3 kernels] {name}: one f32 {step} at B={LENET_B}: "
+                  f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, "
+                  f"plain {tot['plain_ms']:.4f} ms, library "
+                  f"{tot['library_ms']:.4f} ms", flush=True)
     tot = totals("ssd_scan", "prefill")
     print(f"[3 kernels] ssd_scan: one bf16 mamba2 prefill step (C = {c}): "
           f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
@@ -1080,6 +1142,164 @@ def train_kernels(torch, F, rnd, run, clock, dtype, es):
     del gemms, w_qo, w_kv, w_gi, w_o, embed, x, h, g_d, g_kv, g_ff, g_v
 
 
+# the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
+# at it: one f32 TEST-phase forward of each net and of MNIST's deploy form
+LENET_B = 64
+CAFFE_STEPS = ("mnist fwd", "cifar fwd", "deploy fwd")
+
+
+def caffe_kernels(torch, F, rnd, run):
+    """Phase 3 at LeNet's shapes, f32, batch 64: every im2col, gemm, bias
+    add, maxpool and relu call of a LeNet-MNIST and a LeNet-CIFAR-10
+    forward, softmax_xent at (64, 10) and softmax at (64, 10) (the deploy
+    form's ``prob``) and (256, 1000); maxpool also on an input of exact
+    ties, unpadded and with a pad of 1, im2col also in the registered (N,
+    C*K*K, OH*OW) layout; then each new kernel once in bf16.  Yardsticks:
+    ``F.unfold``, ``torch.matmul``, ``m + v``, ``F.max_pool2d`` with
+    indices, ``F.leaky_relu``, ``torch.softmax`` and ``F.cross_entropy``
+    with ``torch.softmax`` for the pair.  ``count``: launches per forward
+    of the step."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.eltwise import bias_add_rows, relu
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.im2col import im2col
+    from repro_torch.kernels.pooling import maxpool
+    from repro_torch.kernels.softmax_xent import softmax, softmax_xent
+
+    f32, n = torch.float32, LENET_B
+    # the convolutions: (step, layer, C, H = W, F, k, pad), stride 1
+    for step, layer, c, h, f, k, pad in (
+            ("mnist fwd", "conv1", 1, 28, 20, 5, 0),
+            ("mnist fwd", "conv2", 20, 12, 50, 5, 0),
+            ("cifar fwd", "conv1", 3, 32, 32, 5, 2),
+            ("cifar fwd", "conv2", 32, 15, 32, 5, 2),
+            ("cifar fwd", "conv3", 32, 7, 64, 5, 2)):
+        x = rnd((n, c, h, h), f32)
+        r, o = c * k * k, (h + 2 * pad - k + 1) ** 2
+        nbytes = (n * c * h * h + n * r * o) * 4
+        run(im2col, f"{layer} {n}x{c}x{h}x{h} k{k} p{pad} -> {r}x{n * o}",
+            f32, step, 1,
+            lambda x=x, k=k, pad=pad: im2col(x, k, k, 1, pad,
+                                             batch_in_columns=True),
+            lambda x=x, k=k, pad=pad, r=r: ref.im2col(
+                x, k, k, 1, pad).transpose(0, 1).reshape(r, -1),
+            lambda x=x, k=k, pad=pad: F.unfold(x, k, padding=pad),
+            nbytes, 0.0)
+        run(im2col, f"{layer} {n}x{c}x{h}x{h} k{k} p{pad} -> {n}x{r}x{o}",
+            f32, step, 0, lambda x=x, k=k, pad=pad: im2col(x, k, k, 1, pad),
+            lambda x=x, k=k, pad=pad: ref.im2col(x, k, k, 1, pad),
+            lambda x=x, k=k, pad=pad: F.unfold(x, k, padding=pad),
+            nbytes, 0.0)
+        w = rnd((f, r), f32, r ** -0.5)
+        cols = ref.im2col(x, k, k, 1, pad).transpose(0, 1).reshape(r, -1)
+        run(gemm, f"{layer} {f}x{r} @ {r}x{n * o}", f32, step, 1,
+            lambda w=w, cols=cols: gemm(w, cols),
+            lambda w=w, cols=cols: ref.gemm(w, cols),
+            lambda w=w, cols=cols: torch.matmul(w, cols),
+            (f * r + r * n * o + f * n * o) * 4, 2.0 * f * r * n * o)
+        # the same product transposed, (N*OH*OW, R) x (R, F), both operands
+        # read by their strides: the tiled kernel (M > SKINNY_MAX_M) in
+        # place of the skinny one; not on the path (count 0), timed for
+        # the gemm's redesign
+        run(gemm, f"{layer} transposed {n * o}x{r} @ {r}x{f}", f32,
+            "conv^T", 0, lambda w=w, cols=cols: gemm(cols.T, w.T),
+            lambda w=w, cols=cols: ref.gemm(cols.T, w.T),
+            lambda w=w, cols=cols: torch.matmul(cols.T, w.T),
+            (f * r + r * n * o + f * n * o) * 4, 2.0 * f * r * n * o)
+    # the inner products: (step, layer, K, N), then their bias adds
+    for step, layer, k, out in (("mnist fwd", "ip1", 800, 500),
+                                ("mnist fwd", "ip2", 500, 10),
+                                ("cifar fwd", "ip1", 576, 64),
+                                ("cifar fwd", "ip2", 64, 10)):
+        x, w = rnd((n, k), f32), rnd((k, out), f32, k ** -0.5)
+        run(gemm, f"{layer} {n}x{k} @ {k}x{out}", f32, step, 1,
+            lambda x=x, w=w: gemm(x, w), lambda x=x, w=w: ref.gemm(x, w),
+            lambda x=x, w=w: torch.matmul(x, w),
+            (n * k + k * out + n * out) * 4, 2.0 * n * k * out)
+        m, v = rnd((n, out), f32), rnd((out,), f32, 0.1)
+        run(bias_add_rows, f"{layer} {n}x{out} + {out}", f32, step, 1,
+            lambda m=m, v=v: bias_add_rows(m, v),
+            lambda m=m, v=v: ref.bias_add_rows(m, v),
+            lambda m=m, v=v: m + v, (2 * n * out + out) * 4, 1.0 * n * out)
+    # the max pools: (step, case, input, k, stride, pad, count)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    ties = torch.randint(-1, 2, (n, 32, 32, 32), generator=g,
+                         device="cuda").float()
+    for step, case, x, k, st, pad, count in (
+            ("mnist fwd", "pool1", rnd((n, 20, 24, 24), f32), 2, 2, 0, 1),
+            ("mnist fwd", "pool2", rnd((n, 50, 8, 8), f32), 2, 2, 0, 1),
+            ("cifar fwd", "pool1", rnd((n, 32, 32, 32), f32), 3, 2, 0, 1),
+            ("cifar fwd", "pool1 ties", ties, 3, 2, 0, 0),
+            ("cifar fwd", "pool1 ties, pad 1", ties, 3, 2, 1, 0),
+            ("mnist fwd", "pool1 ties", ties[:, :20, :24, :24], 2, 2, 0,
+             0)):
+        x = x.contiguous()
+        oh = (x.shape[2] + 2 * pad - k) // st + 1
+        outs = x.shape[0] * x.shape[1] * oh * oh
+        run(maxpool, f"{case} {'x'.join(map(str, x.shape))} k{k} s{st} "
+            f"p{pad}", f32, step, count,
+            lambda x=x, k=k, st=st, pad=pad: maxpool(x, k, st, pad),
+            lambda x=x, k=k, st=st, pad=pad: ref.maxpool(x, k, st, pad),
+            lambda x=x, k=k, st=st, pad=pad: F.max_pool2d(
+                x, k, st, padding=pad, return_indices=True),
+            x.numel() * 4 + outs * 8, 1.0 * outs * k * k)
+    # the relus: (step, case, shape)
+    for step, case, shape in (("mnist fwd", "relu1", (n, 500)),
+                              ("cifar fwd", "relu1", (n, 32, 15, 15)),
+                              ("cifar fwd", "relu2", (n, 32, 15, 15)),
+                              ("cifar fwd", "relu3", (n, 64, 7, 7))):
+        x = rnd(shape, f32)
+        run(relu, f"{case} {'x'.join(map(str, shape))}", f32, step, 1,
+            lambda x=x: relu(x), lambda x=x: ref.relu(x),
+            lambda x=x: F.leaky_relu(x, 0.0), 2 * x.numel() * 4,
+            1.0 * x.numel())
+    # the loss (V = 10) of both nets and the deploy form's prob, then both
+    # at (256, 1000)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for step, b, v, count in (("mnist fwd", n, 10, 1),
+                              ("cifar fwd", n, 10, 1),
+                              ("deploy fwd", n, 10, 1),
+                              ("v 1000", 256, 1000, 0)):
+        x = 3 * rnd((b, v), f32)
+        y = torch.randint(0, v, (b,), generator=g, device="cuda")
+        if step != "deploy fwd":
+            run(softmax_xent, f"{b}x{v}", f32, step, count,
+                lambda x=x, y=y: softmax_xent(x, y),
+                lambda x=x, y=y: ref.softmax_xent(x, y),
+                lambda x=x, y=y: (F.cross_entropy(x, y),
+                                  torch.softmax(x, -1)),
+                8 * b * v + 8 * b + 4, 5.0 * b * v)
+        if step in ("deploy fwd", "v 1000"):
+            run(softmax, f"{b}x{v}", f32, step, count,
+                lambda x=x: softmax(x), lambda x=x: ref.softmax(x),
+                lambda x=x: torch.softmax(x, -1), 8 * b * v, 4.0 * b * v)
+    # each new kernel once in bf16 (LeNet runs f32), counts 0
+    bf = torch.bfloat16
+    x = rnd((n, 1, 28, 28), bf)
+    run(im2col, f"conv1 {n}x1x28x28 k5 -> 25x{n * 576}", bf, "bf16", 0,
+        lambda: im2col(x, 5, 5, 1, 0, batch_in_columns=True),
+        lambda: ref.im2col(x, 5, 5, 1, 0).transpose(0, 1).reshape(25, -1),
+        lambda: F.unfold(x, 5), (n * 784 + n * 25 * 576) * 2, 0.0)
+    x = rnd((n, 20, 24, 24), bf)
+    run(maxpool, f"pool1 {n}x20x24x24 k2 s2", bf, "bf16", 0,
+        lambda: maxpool(x, 2, 2), lambda: ref.maxpool(x, 2, 2),
+        lambda: F.max_pool2d(x, 2, 2, return_indices=True),
+        x.numel() * 2 + x.numel() // 4 * 6, 1.0 * x.numel())
+    x = rnd((n, 500), bf)
+    run(relu, f"relu1 {n}x500 slope 0.1", bf, "bf16", 0,
+        lambda: relu(x, 0.1), lambda: ref.relu(x, 0.1),
+        lambda: F.leaky_relu(x, 0.1), 2 * x.numel() * 2, 1.0 * x.numel())
+    x = 3 * rnd((n, 10), bf)
+    y = torch.randint(0, 10, (n,), generator=g, device="cuda")
+    run(softmax_xent, f"{n}x10", bf, "bf16", 0, lambda: softmax_xent(x, y),
+        lambda: ref.softmax_xent(x, y),
+        lambda: (F.cross_entropy(x, y), torch.softmax(x, -1)),
+        4 * n * 10 + 8 * n + 4, 5.0 * n * 10)
+    run(softmax, f"{n}x10", bf, "bf16", 0, lambda: softmax(x),
+        lambda: ref.softmax(x), lambda: torch.softmax(x, -1), 4 * n * 10,
+        4.0 * n * 10)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width serving through the port's engine
 # ---------------------------------------------------------------------------
@@ -1131,7 +1351,8 @@ KERNELS = ("gemm", "rmsnorm", "bias_add_rows", "flash_decode",
            "flash_decode_paged", "flash_prefill_chunk",
            "flash_prefill_chunk_paged", "flash_decode_paged_quant",
            "flash_prefill_chunk_paged_quant", "flash_attention", "ssd_scan",
-           "rmsnorm_bwd", "flash_attention_bwd")
+           "rmsnorm_bwd", "flash_attention_bwd", "im2col", "maxpool", "relu",
+           "softmax", "softmax_xent")
 # the attention kernels of each (layout, pool): (decode step, prefill step)
 ATTN = {("contiguous", "f32"): ("flash_decode", "flash_prefill_chunk"),
         ("paged", "f32"): ("flash_decode_paged", "flash_prefill_chunk_paged"),
@@ -1182,12 +1403,17 @@ def per_step(cfg):
 
 def kernel_fns():
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels.eltwise import bias_add_rows
+    from repro_torch.kernels.eltwise import bias_add_rows, relu
     from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.im2col import im2col
     from repro_torch.kernels.mamba_scan import ssd_scan
+    from repro_torch.kernels.pooling import maxpool
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.softmax_xent import softmax, softmax_xent
     fns = {"gemm": gemm, "rmsnorm": rmsnorm, "bias_add_rows": bias_add_rows,
-           "ssd_scan": ssd_scan, "rmsnorm_bwd": rmsnorm_bwd}
+           "ssd_scan": ssd_scan, "rmsnorm_bwd": rmsnorm_bwd,
+           "im2col": im2col, "maxpool": maxpool, "relu": relu,
+           "softmax": softmax, "softmax_xent": softmax_xent}
     fns.update({name: getattr(FA, name) for name in KERNELS
                 if name.startswith("flash_")})
     return fns
@@ -2195,6 +2421,258 @@ def phase_train(torch):
             total[name] += n
     return total
 
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the Caffe forward (Caffe's TEST phase) through the port's Solver
+# ---------------------------------------------------------------------------
+
+# kernel launches of one forward at batch 64: each convolution an im2col
+# and a gemm, each inner product a gemm and a bias add, each max pool and
+# relu one launch, the loss one softmax_xent (CIFAR's average pools and
+# the accuracy are plain torch, reference-only as in JAX); the deploy form
+# runs MNIST's layers without labels, so its loss and accuracy are skipped
+# and its prob is one softmax
+CAFFE_LAUNCHES = {
+    "lenet-mnist": dict(im2col=2, gemm=4, bias_add_rows=2, maxpool=2,
+                        relu=1, softmax_xent=1),
+    "lenet-cifar10": dict(im2col=3, gemm=5, bias_add_rows=2, maxpool=1,
+                          relu=3, softmax_xent=1),
+    "lenet-mnist-deploy": dict(im2col=2, gemm=4, bias_add_rows=2, maxpool=2,
+                               relu=1, softmax=1),
+}
+# forwards timed per net and boundary mode
+CAFFE_REPS = 20
+
+
+def caffe_counted(torch, fn, name, synced=True):
+    """``fn()`` on the hopper backend with the counts set to 0 just before
+    and read just after (under ``set_sync_debug_mode("error")`` unless the
+    boundary mode syncs by design); the counts must be one forward's."""
+    from repro_torch.core.policy import use_backend
+
+    got = {}
+    with use_backend("hopper"), counting(got):
+        if synced:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    want = {k: 0 for k in KERNELS}
+    want.update(CAFFE_LAUNCHES[name])
+    if got != want:
+        raise SystemExit(f"chip_smoke: {name}: launches {got}, expected "
+                         f"{want} for one forward")
+    return out, got
+
+
+def caffe_net(torch, mk_net, mk_solver, stream_fn):
+    """The net, its solver and the solver's initial params on the card
+    (seeded; biases perturbed with seeded noise, as the JAX init leaves
+    them 0), and batch 0 of the port's image stream on the card."""
+    from repro_torch.caffe import Net, Solver
+
+    net = Net(mk_net())
+    solver = Solver(net, mk_solver())
+    params = solver.init(torch.Generator().manual_seed(SEED))["params"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    for p in params.values():
+        if "b" in p:
+            p["b"] = 0.1 * torch.randn(p["b"].shape, generator=gen,
+                                       device="cuda")
+    data, label = stream_fn(solver.spec.batch_size, seed=SEED).batch(0)
+    return net, solver, params, data, label
+
+
+def caffe_profile(torch, fwd, name, reps=10):
+    """``reps`` forwards on the hopper backend under the profiler: the
+    device's busy share of the wall time and the kernels that take it
+    (L2 warm, as in a real run of forwards)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.policy import use_backend
+
+    with use_backend("hopper"), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fwd()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = sorted(prof.key_averages(),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in events) / 1e3   # ms
+    print(f"[8 caffe] {name}: {reps} forwards under the profiler: "
+          f"{wall / reps:.4f} ms wall a forward, device busy "
+          f"{busy / reps:.4f} ms ({100 * busy / wall:.1f}%); per forward: "
+          + "; ".join(f"{e.key[:48]} "
+                      f"{e.self_device_time_total / 1e3 / reps:.4f} ms "
+                      f"x{e.count // reps}" for e in events[:8]),
+          flush=True)
+
+
+def phase_caffe(torch):
+    """Phase 8: LeNet-MNIST and LeNet-CIFAR-10 quick at batch 64 in f32
+    through ``Solver.make_eval_step`` on the hopper backend, with exact
+    launch counts and no host sync inside a forward, held against the
+    reference backend (loss within 1e-5 relative, logits within 1e-4 of
+    their scale, accuracy equal unless a reference top-2 gap under 1e-4
+    explains it); MNIST's deploy form (a Softmax ``prob`` on ``ip2``)
+    through ``Net.forward`` without labels, prob within 1e-5; then each
+    net in the paper's three boundary modes, whose losses must agree
+    within 1e-6 relative, with ms per forward.  Returns the launches of
+    the counted hopper runs."""
+    from repro_torch.caffe import (LayerSpec, Net, lenet_cifar10,
+                                   lenet_cifar10_solver, lenet_mnist,
+                                   lenet_mnist_solver)
+    from repro_torch.core.policy import use_backend
+    from repro_torch.data.synthetic import cifar10_like, mnist_like
+    from repro_torch.kernels import ops
+
+    total = {name: 0 for name in KERNELS}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    nets = {}
+    for mk_net, mk_solver, stream_fn in (
+            (lenet_mnist, lenet_mnist_solver, mnist_like),
+            (lenet_cifar10, lenet_cifar10_solver, cifar10_like)):
+        net, solver, params, data, label = caffe_net(torch, mk_net,
+                                                     mk_solver, stream_fn)
+        name = net.spec.name
+        nets[name] = (mk_net, params, data, label)
+        eval_step = solver.make_eval_step()
+        m_h, got = caffe_counted(torch, lambda: eval_step(params, data,
+                                                          label), name)
+        add(got)
+        with use_backend("reference"):
+            m_r = eval_step(params, data, label)
+        logits = {}
+        for backend in ("hopper", "reference"):
+            with use_backend(backend), torch.no_grad():
+                logits[backend] = net.forward(params, data, label,
+                                              train=False)[0]["ip2"]
+        lh, lr = logits["hopper"], logits["reference"]
+        scale = lr.abs().max().item()
+        l_gap = (lh - lr).abs().max().item()
+        loss_h, loss_r = m_h["loss"].item(), m_r["loss"].item()
+        acc_h, acc_r = m_h["accuracy"].item(), m_r["accuracy"].item()
+        loss_gap = abs(loss_h - loss_r) / abs(loss_r)
+        print(f"[8 caffe] {name}: batch {data.shape[0]}, f32, "
+              f"{sum(p.numel() for q in params.values() for p in q.values())}"
+              f" params: loss hopper {loss_h:.7f}, reference {loss_r:.7f} "
+              f"(gap {loss_gap:.3g} relative); logits max gap {l_gap:.3g} of"
+              f" scale {scale:.3g}; accuracy {acc_h} vs {acc_r}; launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if not (np.isfinite(loss_h) and torch.isfinite(lh).all()
+                and lh.shape == (LENET_B, 10)):
+            raise SystemExit(f"chip_smoke: {name}: non-finite or malformed "
+                             "outputs")
+        if loss_gap > 1e-5 or l_gap > 1e-4 * scale:
+            raise SystemExit(f"chip_smoke: {name}: hopper and reference "
+                             "disagree beyond the tolerances")
+        if acc_h != acc_r:
+            top2 = lr.topk(2, dim=-1).values
+            split = (lh.argmax(-1) != lr.argmax(-1)).nonzero()[:, 0]
+            gaps = (top2[split, 0] - top2[split, 1]).tolist()
+            print(f"[8 caffe] {name}: argmax differs in rows "
+                  f"{split.tolist()}, reference top-2 gaps {gaps}",
+                  flush=True)
+            if not gaps or max(gaps) >= 1e-4:
+                raise SystemExit(f"chip_smoke: {name}: accuracy differs "
+                                 "without a near tie")
+
+    # the deploy form (Caffe's lenet.prototxt): a Softmax prob on ip2, run
+    # without labels
+    mk_net, params, data, _ = nets["lenet-mnist"]
+    spec = mk_net()
+    deploy = Net(dataclasses.replace(
+        spec, name="lenet-mnist-deploy", layers=spec.layers + (LayerSpec(
+            name="prob", type="Softmax", bottoms=("ip2",),
+            tops=("prob",)),)))
+
+    def deploy_prob():
+        with torch.no_grad():
+            return deploy.forward(params, data)[0]["prob"]
+
+    p_h, got = caffe_counted(torch, deploy_prob, "lenet-mnist-deploy")
+    add(got)
+    with use_backend("reference"):
+        p_r = deploy_prob()
+    gap = (p_h - p_r).abs().max().item()
+    rows = p_h.sum(-1)
+    print(f"[8 caffe] lenet-mnist-deploy: prob {tuple(p_h.shape)} max gap "
+          f"{gap:.3g}, row sums {rows.min().item():.7f}.."
+          f"{rows.max().item():.7f}; launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    if not (gap <= 1e-5 and torch.isfinite(p_h).all()):
+        raise SystemExit("chip_smoke: lenet-mnist-deploy: prob disagrees")
+
+    # no autograd through the Caffe kernels until their backward kernels
+    # come: under grad the hopper lowerings raise rather than cut the graph
+    x = data[:2].clone().requires_grad_(True)
+    logits = x.reshape(2, -1)[:, :10]
+    lab = torch.zeros(2, dtype=torch.int64, device="cuda")
+    for what, fn in (("relu", lambda: ops.relu(x)),
+                     ("im2col", lambda: ops.im2col(x, 5, 5)),
+                     ("maxpool", lambda: ops.maxpool(x, 2, 2)),
+                     ("softmax", lambda: ops.softmax(logits)),
+                     ("softmax_xent", lambda: ops.softmax_xent_loss(
+                         logits, lab))):
+        with use_backend("hopper"):
+            try:
+                fn()
+            except RuntimeError as e:
+                if "requires grad" not in str(e):
+                    raise
+            else:
+                raise SystemExit(f"chip_smoke: ops.{what} ran its kernel "
+                                 "under grad")
+    print("[8 caffe] under grad the five Caffe kernels' ops raise",
+          flush=True)
+
+    # the paper's §4.3 boundary modes: the forward half of its Table 2
+    for name, (mk_net, params, data, label) in nets.items():
+        losses, ms = {}, {}
+        for boundary in (None, "transfer", "transfer+transpose"):
+            net = Net(mk_net(), boundary=boundary)
+
+            def fwd():
+                with torch.no_grad():
+                    return net.metrics(params, data, label)["loss"]
+
+            loss, got = caffe_counted(torch, fwd, name,
+                                      synced=boundary is None)
+            add(got)
+            losses[boundary] = loss.item()
+            with use_backend("hopper"):
+                for _ in range(3):
+                    fwd()
+                times = []
+                for _ in range(CAFFE_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fwd()
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t0))
+            ms[boundary] = statistics.median(times)
+            if boundary is None:
+                caffe_profile(torch, fwd, name)
+        base = losses[None]
+        print(f"[8 caffe] {name}: ms per forward (median of {CAFFE_REPS}, "
+              f"host clock, batch {LENET_B}): "
+              + ", ".join(f"{b or 'fused'} {ms[b]:.4f} ms "
+                          f"({ms[b] / ms[None]:.2f}x, loss {losses[b]:.7f})"
+                          for b in ms), flush=True)
+        if any(abs(v - base) > 1e-6 * abs(base) for v in losses.values()):
+            raise SystemExit(f"chip_smoke: {name}: the boundary modes give "
+                             f"different losses {losses}")
+    return total
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -56,7 +56,7 @@ def main():
     dev = resolve_device(args.device)
     opt = OptConfig(lr=3e-4, warmup_steps=20, total_steps=args.steps,
                     weight_decay=0.01)
-    stream = TokenStream(TokenStreamSpec(cfg.vocab_size, args.seq + 1,
+    stream = TokenStream(TokenStreamSpec(cfg.vocab_size, args.seq,
                                          args.batch))
     step_fn = make_train_step(cfg, opt, microbatches=args.microbatches)
     state = init_train_state(cfg, opt, 0, device=dev)

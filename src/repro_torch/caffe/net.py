@@ -1,0 +1,115 @@
+"""Net — Caffe's network graph executor over named blobs
+(``repro.caffe.net``).
+
+``forward`` walks the layer list feeding named blobs (containers) through
+executors, skipping a layer whose bottom is missing (the loss layers of a
+net run without labels); ``forward_loss`` sums the loss tops; ``metrics``
+reads the loss and the accuracy.  Caffe's explicit ``backward_manual``
+comes with the Caffe training slice.
+
+The ``boundary`` hook reproduces the paper's §4.3 pathology: when set,
+every blob crossing into a layer pays (a) a real host round trip (``.cpu()``
+then back to the blob's device, which synchronizes with the card) and,
+with ``"transfer+transpose"``, (b) a row -> column major relayout first
+(``core.container.as_layout``), whose column-major result the kernels
+read by its strides — the "unnecessary transfers + transpose per
+crossing" the paper identifies as the dominant overhead of a partial
+port.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.caffe.layers import Layer, build_layer
+from repro_torch.caffe.spec import NetSpec
+from repro_torch.core.container import MajorOrder, as_layout
+from repro_torch.core.policy import resolve_device
+
+BOUNDARIES = (None, "transfer", "transfer+transpose")
+
+
+class Net:
+    def __init__(self, spec: NetSpec, boundary: Optional[str] = None):
+        """boundary: None | 'transfer' | 'transfer+transpose' (paper §4.3)."""
+        if boundary not in BOUNDARIES:
+            raise ValueError(f"boundary {boundary!r}; expected one of "
+                             f"{BOUNDARIES}")
+        self.spec = spec
+        self.layers: List[Layer] = [build_layer(ls) for ls in spec.layers]
+        self.boundary = boundary
+
+    # -- init ---------------------------------------------------------------
+    def init(self, generator: torch.Generator, batch_size: int,
+             device: str | torch.device = "cuda"):
+        """Params ``{layer: {"w", "b"}}`` on ``device`` (the card unless
+        the caller asks for the CPU), drawn from ``generator`` layer by
+        layer; records ``blob_shapes``."""
+        dev = resolve_device(device)
+        shapes: Dict[str, Tuple[int, ...]] = {
+            "data": (batch_size, *self.spec.input_shape),
+            "label": (batch_size,),
+        }
+        params: Dict[str, dict] = {}
+        for layer in self.layers:
+            bshapes = [shapes[b] for b in layer.spec.bottoms]
+            p, tshapes = layer.init(generator, bshapes, dev)
+            if p:
+                params[layer.name] = p
+            for t, ts in zip(layer.spec.tops, tshapes):
+                shapes[t] = ts
+        self.blob_shapes = shapes
+        return params
+
+    # -- the paper's partial-port boundary crossing ---------------------------
+    def _cross(self, x: torch.Tensor) -> torch.Tensor:
+        if self.boundary is None or x is None or x.dim() == 0:
+            return x
+        if "transpose" in self.boundary and x.dim() >= 2:
+            # row-major PHAST domain -> column-major OpenBLAS domain
+            x = as_layout(x, MajorOrder.ROW, MajorOrder.COLUMN)
+        # host round trip (device -> orchestrating CPU -> device)
+        return x.cpu().to(x.device)
+
+    # -- forward ------------------------------------------------------------
+    def forward(self, params, data, label=None, train: bool = True):
+        """Returns (blobs dict, caches dict)."""
+        blobs: Dict[str, torch.Tensor] = {"data": data}
+        if label is not None:
+            blobs["label"] = label
+        caches = {}
+        for layer in self.layers:
+            if any(b not in blobs for b in layer.spec.bottoms):
+                continue  # e.g. loss layers at inference without labels
+            bottoms = [self._cross(blobs[b]) for b in layer.spec.bottoms]
+            tops, cache = layer.forward(params.get(layer.name, {}), bottoms,
+                                        train)
+            caches[layer.name] = cache
+            for t, v in zip(layer.spec.tops, tops):
+                blobs[t] = v
+        return blobs, caches
+
+    def forward_loss(self, params, data, label) -> torch.Tensor:
+        """Scalar total loss (what the solver differentiates)."""
+        blobs, _ = self.forward(params, data, label, train=True)
+        loss = torch.zeros((), dtype=torch.float32, device=data.device)
+        for layer in self.layers:
+            if layer.spec.type == "SoftmaxWithLoss":
+                loss = loss + blobs[layer.spec.tops[0]]
+        return loss
+
+    def metrics(self, params, data, label) -> Dict[str, torch.Tensor]:
+        blobs, _ = self.forward(params, data, label, train=False)
+        out = {}
+        for layer in self.layers:
+            if layer.spec.type == "SoftmaxWithLoss":
+                out["loss"] = blobs[layer.spec.tops[0]]
+            if layer.spec.type == "Accuracy":
+                out["accuracy"] = blobs[layer.spec.tops[0]]
+        return out
+
+    def backward_manual(self, params, data, label):
+        raise NotImplementedError(
+            "Net.backward_manual: Caffe's explicit backward comes with the "
+            "Caffe training slice (slice 7)")

@@ -13,6 +13,9 @@ from repro_torch.configs.base import ArchConfig
 
 _ARCH_MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",

@@ -12,6 +12,10 @@ numpy's bf16 is the ``ml_dtypes`` type, which torch cannot take directly,
 so bf16 leaves cross as 16-bit integers and are reinterpreted as
 ``torch.bfloat16`` bit for bit.
 
+``caffe_params_from_jax`` takes a ``repro.caffe`` net's params tree,
+``{layer: {"w", "b"}}`` with numpy leaves, in the same layouts
+(convolution ``(F, C, K, K)``, inner product ``(K, out)``).
+
 ``train_state_from_jax`` carries ``repro.launch.steps.init_train_state``'s
 tree across (params, which become autograd leaves, and the optimizer's
 ``step`` and param-shaped f32 ``master``/``m``/``v`` or ``mom``), and
@@ -117,3 +121,13 @@ def to_jax_layout(tree) -> Any:
         return leaf(t)
 
     return conv(tree)
+
+
+def caffe_params_from_jax(tree: Dict[str, Dict[str, Any]], *,
+                          device: str | torch.device = "cuda"
+                          ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A ``repro.caffe.Net.init`` tree (numpy leaves) -> the port's Caffe
+    params on ``device`` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    return {layer: {k: _to_tensor(v, dev) for k, v in p.items()}
+            for layer, p in tree.items()}

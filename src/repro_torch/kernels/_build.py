@@ -52,6 +52,19 @@ _SIGNATURES = {
     "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _F, _I, _P],
     # m, v, out, M, N, ldm, dtype, stream
     "repro_bias_add_rows": [_P, _P, _P, _I, _I, _L, _I, _P],
+    # x, out, n, slope, dtype, stream
+    "repro_relu": [_P, _P, _L, _F, _I, _P],
+    # x, out, N, C, H, W, x strides (n, c, h, w), KH, KW, stride, pad, OH,
+    # OW, o_sn, o_sr, dtype, stream
+    "repro_im2col": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _I,
+                     _I, _I, _L, _L, _I, _P],
+    # x, out, argmax, N, C, H, W, x strides (n, c, h, w), k, stride, pad,
+    # OH, OW, dtype, stream
+    "repro_maxpool": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I,
+                      _I, _I, _I, _I, _P],
+    # x, labels (NULL: softmax), probs, nll, rows, V, row stride, column
+    # stride, dtype, stream
+    "repro_softmax_rows": [_P, _P, _P, _P, _I, _I, _L, _L, _I, _P],
     # q, k, v, out, pos0, width, block_table, ksc, vsc, B, Hkv, G, C, D,
     # n_keys, page, bt_sb, q_sb, q_sc, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
     # v_sh, o_sb, o_sc, o_sh, sc_sp, sc_sh, window, scale, dtype, kv_dtype,

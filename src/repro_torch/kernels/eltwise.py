@@ -1,9 +1,10 @@
-"""Bias over rows — Hopper kernel (the paper's ``matrixPlusVectorRows``).
+"""Elementwise Hopper kernels (``csrc/eltwise.cu``): bias over rows (the
+paper's ``matrixPlusVectorRows``) and Caffe's leaky ReLU.
 
-Replaces ``repro/kernels/eltwise.py:bias_add_rows_pallas``.  The kernel
-(``csrc/eltwise.cu``) is one grid-stride elementwise pass, f32 add,
-rounded to the storage dtype; bound by bytes.  The Caffe ReLU kernels of
-the same JAX module come with the Caffe slice.
+Replace ``repro/kernels/eltwise.py:bias_add_rows_pallas`` and
+``relu_pallas``.  Each kernel is one grid-stride elementwise pass in f32,
+rounded to the storage dtype; bound by bytes.  ReLU's backward
+(``relu_bwd_pallas``) comes with the Caffe training slice.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import DTYPES
 from repro_torch.kernels.ref import bias_add_rows as bias_add_rows_ref
+from repro_torch.kernels.ref import relu as relu_ref
 
 
 def bias_add_rows(m: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
@@ -42,3 +44,34 @@ def bias_add_rows(m: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
 
 
 bias_add_rows.launches = 0
+
+
+def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
+    """``where(x > 0, x, negative_slope * x)`` of any shape; the output
+    keeps ``x``'s strides.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    if not x.is_cuda:
+        return relu_ref(x, negative_slope)
+    _build.guard_grad("relu", x)
+    if x.dtype not in DTYPES:
+        raise TypeError(f"relu: dtype {x.dtype} not supported")
+    if x.is_contiguous():
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    else:
+        # a permuted dense layout (a column-major blob) keeps its strides
+        out = torch.empty_like(x)
+        if out.stride() != x.stride():
+            raise ValueError(f"relu: strides {x.stride()} are not a dense "
+                             f"layout of {tuple(x.shape)}")
+    if out.numel() == 0:
+        return out
+    rc = _build.lib().repro_relu(
+        x.data_ptr(), out.data_ptr(), x.numel(), float(negative_slope),
+        DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(rc, "relu")
+    relu.launches += 1
+    return out
+
+
+relu.launches = 0

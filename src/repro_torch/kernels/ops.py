@@ -7,8 +7,11 @@ kernel wrapper — and exposed as a plain function; the policy
 (``repro_torch.core.policy``) decides per call from the backend and the
 tensor's device which one runs.  Registered so far: the ops of the
 contiguous and paged (and int8 paged) decode paths, of chunked prefill,
-of the Mamba-2 blocks and of the full forward; the rest of
-``repro.kernels.ops`` comes with later slices.
+of the Mamba-2 blocks, of the full forward and of the Caffe layers'
+forwards (``relu``, ``im2col``, ``conv2d``, ``maxpool``, ``softmax``,
+``softmax_xent`` with both lowerings; ``avgpool`` and ``accuracy``
+reference-only, as in JAX); ``col2im``, ``conv2d_direct`` and
+``layernorm`` come with later slices.
 
 Differentiation mirrors ``repro.kernels.ops``.  When grad mode is on and
 an input requires grad, the ops of the training forward go through
@@ -24,7 +27,10 @@ plain PyTorch where JAX's is jnp (``bias_add_rows``: ``(g, g.sum(0))``;
 kernel either).  A kernel wrapper called outside these Functions on a
 tensor that requires grad raises (``_build.guard_grad``) rather than cut
 the graph.  The serving ops (decode, chunked prefill) are not
-differentiable.
+differentiable, and neither are the Caffe ops' hopper lowerings yet: their
+backward kernels come with the Caffe training slice, so under grad they
+raise through ``guard_grad`` (the reference lowerings are torch autograd
+of the plain versions).
 """
 from __future__ import annotations
 
@@ -36,10 +42,14 @@ from repro_torch.core.policy import use_hopper
 from repro_torch.core.registry import dispatch, register_op
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
+from repro_torch.kernels import softmax_xent as SX
 from repro_torch.kernels._build import needs_grad
 from repro_torch.kernels.eltwise import bias_add_rows as bias_add_rows_hopper
+from repro_torch.kernels.eltwise import relu as relu_hopper
 from repro_torch.kernels.gemm import gemm
+from repro_torch.kernels.im2col import im2col as im2col_hopper
 from repro_torch.kernels.mamba_scan import ssd_scan as ssd_scan_hopper
+from repro_torch.kernels.pooling import maxpool as maxpool_hopper
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_hopper
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd
 
@@ -284,6 +294,90 @@ def ssd_prefill_chunk(
     return _ssd("ssd_prefill_chunk", x, dt, A, B_, C, chunk, state, out)
 
 
+# ---------------------------------------------------------------------------
+# the Caffe blocks (``repro/kernels/ops.py:131-358``)
+# ---------------------------------------------------------------------------
+
+def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
+    return dispatch("relu", x)(x, negative_slope)
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+           pad: int = 0) -> torch.Tensor:
+    return dispatch("im2col", x)(x, kh, kw, stride, pad)
+
+
+def conv2d_hopper(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None, *, stride: int = 1,
+                  pad: int = 0) -> torch.Tensor:
+    """conv2d's hopper lowering, ``_conv2d_fwd_impl`` of
+    ``repro/kernels/ops.py:183-197``: the im2col kernel, written straight
+    into the (C*KH*KW, N*OH*OW) layout of one GEMM with the batch
+    flattened into its columns, then the gemm kernel ``(F, C*KH*KW) x
+    (C*KH*KW, N*OH*OW)``, then the bias added in plain torch (jnp in JAX)
+    while the (F, N, OH*OW) product is copied out to (N, F, OH*OW)."""
+    n, _, h, wd = x.shape
+    f, _, kh, kw = w.shape
+    oh = ref.conv_out_size(h, kh, stride, pad)
+    ow = ref.conv_out_size(wd, kw, stride, pad)
+    cols = im2col_hopper(x, kh, kw, stride, pad, batch_in_columns=True)
+    prod = gemm(w.reshape(f, -1), cols).view(f, n, oh * ow).transpose(0, 1)
+    y = torch.empty((n, f, oh * ow), dtype=x.dtype, device=x.device)
+    if b is None:
+        y.copy_(prod)
+    else:
+        torch.add(prod, b[None, :, None], out=y)
+    return y.view(n, f, oh, ow)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor] = None, *, stride: int = 1,
+           pad: int = 0) -> torch.Tensor:
+    """x (N,C,H,W), w (F,C,KH,KW), b (F,) -> (N,F,OH,OW)."""
+    return dispatch("conv2d", x)(x, w, b, stride=stride, pad=pad)
+
+
+def maxpool_with_argmax(x: torch.Tensor, k: int, stride: int,
+                        pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pool evaluation returning ``(out, argmax)`` (the Caffe Pooling
+    layer keeps the argmax for its backward); the argmax indexes the
+    padded plane."""
+    return dispatch("maxpool", x)(x, k, stride, pad)
+
+
+def maxpool(x: torch.Tensor, k: int, stride: int,
+            pad: int = 0) -> torch.Tensor:
+    return maxpool_with_argmax(x, k, stride, pad)[0]
+
+
+def avgpool(x: torch.Tensor, k: int, stride: int,
+            pad: int = 0) -> torch.Tensor:
+    """Reference-only, as in JAX."""
+    return ref.avgpool(x, k, stride, pad)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The kernel over the last axis; another axis takes the plain
+    version, as in JAX."""
+    if dim in (-1, x.dim() - 1):
+        return dispatch("softmax", x)(x)
+    return ref.softmax(x, dim)
+
+
+def softmax_xent_loss(logits: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+    """Mean NLL over the B rows (f32 scalar); labels int (B,).  A label
+    outside [0, V) contributes 0 on both lowerings (``ref.softmax_xent``
+    states the rule)."""
+    return dispatch("softmax_xent", logits)(logits, labels)[0]
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             top_k: int = 1) -> torch.Tensor:
+    """Reference-only, as in JAX."""
+    return ref.accuracy(logits, labels, top_k)
+
+
 register_op("matmul", reference=ref.gemm, hopper=gemm,
             doc="skinny streaming GEMM (NN / NT by strides)")
 register_op("bias_add_rows", reference=ref.bias_add_rows,
@@ -318,3 +412,19 @@ register_op("ssd_prefill_chunk", reference=ref.ssd_scan,
             hopper=ssd_scan_hopper,
             doc="chunked-SSD serving scan (C-token chunk vs carried state; "
                 "decode is the C=1 case)")
+register_op("relu", reference=ref.relu, hopper=relu_hopper,
+            doc="leaky-capable ReLU")
+register_op("im2col", reference=ref.im2col, hopper=im2col_hopper,
+            doc="merged penta-loop im2col")
+register_op("conv2d", reference=ref.conv2d, hopper=conv2d_hopper,
+            doc="im2col+GEMM convolution")
+register_op("maxpool", reference=ref.maxpool, hopper=maxpool_hopper,
+            doc="argmax-tracking maxpool")
+register_op("avgpool", reference=ref.avgpool,
+            doc="average pool (reference only)")
+register_op("softmax", reference=ref.softmax, hopper=SX.softmax,
+            doc="row softmax")
+register_op("softmax_xent", reference=ref.softmax_xent,
+            hopper=SX.softmax_xent, doc="fused softmax+NLL")
+register_op("accuracy", reference=ref.accuracy,
+            doc="top-k accuracy (reference only)")

@@ -1,0 +1,55 @@
+"""Max pooling with argmax — the Hopper kernel of Caffe's Pooling (MAX).
+
+Replaces ``repro/kernels/pooling.py:maxpool_pallas``.  The kernel
+(``csrc/pooling.cu``) computes one output per thread, visiting its window
+in row-major order with a strict ``>`` and treating a cell in the padding
+as a candidate of value ``finfo(dtype).min``, so the int32 argmax (the
+flat index into the padded plane) is JAX's bit for bit, ties and
+all-padding windows included; bound by bytes.  The backward
+(``maxpool_bwd_pallas``) comes with the Caffe training slice.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import DTYPES
+from repro_torch.kernels.ref import conv_out_size
+from repro_torch.kernels.ref import maxpool as maxpool_ref
+
+
+def maxpool(x: torch.Tensor, k: int, stride: int,
+            pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N,C,H,W) -> (out (N,C,OH,OW) in ``x.dtype``, argmax int32).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if not x.is_cuda:
+        return maxpool_ref(x, k, stride, pad)
+    _build.guard_grad("maxpool", x)
+    if x.dim() != 4:
+        raise ValueError(f"maxpool: x must be (N,C,H,W), got {tuple(x.shape)}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"maxpool: dtype {x.dtype} not supported")
+    n, c, h, w = x.shape
+    oh = conv_out_size(h, k, stride, pad)
+    ow = conv_out_size(w, k, stride, pad)
+    if min(k, stride) < 1 or pad < 0 or oh < 1 or ow < 1:
+        raise ValueError(f"maxpool: window {k}, stride {stride}, pad {pad} "
+                         f"does not fit a {h}x{w} plane")
+    out = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
+    arg = torch.empty((n, c, oh, ow), dtype=torch.int32, device=x.device)
+    if out.numel() == 0:
+        return out, arg
+    rc = _build.lib().repro_maxpool(
+        x.data_ptr(), out.data_ptr(), arg.data_ptr(), n, c, h, w,
+        *x.stride(), k, stride, pad, oh, ow, DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(rc, "maxpool")
+    maxpool.launches += 1
+    return out, arg
+
+
+maxpool.launches = 0

@@ -341,3 +341,128 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
            + (dt[:, :, None] * x)[..., None] * Bh[:, :, None, :])
     y = torch.einsum("bhpn,bhn->bhp", new, Ch)
     return y.to(x.dtype), new
+
+
+# ---------------------------------------------------------------------------
+# The Caffe blocks (``repro/kernels/ref.py:43-273``): NCHW tensors, output
+# sizes floored as JAX's (Caffe's own pooling rounds up)
+# ---------------------------------------------------------------------------
+
+def conv_out_size(size: int, k: int, stride: int, pad: int) -> int:
+    return (size + 2 * pad - k) // stride + 1
+
+
+def _windows(x: torch.Tensor, k_h: int, k_w: int, stride: int, pad: int,
+             value: float, window_first: bool) -> torch.Tensor:
+    """Every (k_h, k_w) window of ``x`` padded by ``value``: (N, C, KH, KW,
+    OH, OW), or (N, C, OH, OW, KH, KW) when ``window_first`` is False."""
+    n, c, h, w = x.shape
+    oh = conv_out_size(h, k_h, stride, pad)
+    ow = conv_out_size(w, k_w, stride, pad)
+    xp = F.pad(x, (pad, pad, pad, pad), value=value)
+    dev = x.device
+    rows = (torch.arange(k_h, device=dev)[:, None]
+            + stride * torch.arange(oh, device=dev)[None, :])   # (KH, OH)
+    cols = (torch.arange(k_w, device=dev)[:, None]
+            + stride * torch.arange(ow, device=dev)[None, :])   # (KW, OW)
+    if window_first:
+        return xp[:, :, rows[:, None, :, None], cols[None, :, None, :]]
+    return xp[:, :, rows.T[:, None, :, None], cols.T[None, :, None, :]]
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+           pad: int = 0) -> torch.Tensor:
+    """(N,C,H,W) -> (N, C*KH*KW, OH*OW): row ``c*KH*KW + i*KW + j``,
+    column ``oy*OW + ox`` holds ``x[c, oy*stride + i - pad, ox*stride + j -
+    pad]``, 0 outside the image."""
+    n, c = x.shape[:2]
+    patches = _windows(x, kh, kw, stride, pad, 0.0, True)
+    return patches.reshape(n, c * kh * kw, -1)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor] = None, *, stride: int = 1,
+           pad: int = 0) -> torch.Tensor:
+    """x (N,C,H,W), w (F,C,KH,KW), b (F,) -> (N,F,OH,OW): im2col, then one
+    f32-accumulated product per image, rounded to ``x.dtype``, then the
+    bias."""
+    n, _, h, wd = x.shape
+    f, _, kh, kw = w.shape
+    oh = conv_out_size(h, kh, stride, pad)
+    ow = conv_out_size(wd, kw, stride, pad)
+    cols = im2col(x, kh, kw, stride, pad)
+    out = torch.einsum("fk,nko->nfo", w.reshape(f, -1).float(),
+                       cols.float()).to(x.dtype)
+    if b is not None:
+        out = out + b[None, :, None]
+    return out.reshape(n, f, oh, ow)
+
+
+def maxpool(x: torch.Tensor, k: int, stride: int,
+            pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, argmax), both (N,C,OH,OW).  The plane is padded with
+    ``finfo(x.dtype).min``; the argmax is int32 ``row*WP + col`` in the
+    padded plane (WP = W + 2*pad), and the first maximum of a window in
+    row-major order wins."""
+    n, c, h, w = x.shape
+    win = _windows(x, k, k, stride, pad, torch.finfo(x.dtype).min, False)
+    oh, ow = win.shape[2], win.shape[3]
+    flat = win.reshape(n, c, oh, ow, k * k)
+    out, local = flat.amax(dim=-1), flat.argmax(dim=-1)
+    dev = x.device
+    row = stride * torch.arange(oh, device=dev)[:, None] + local // k
+    col = stride * torch.arange(ow, device=dev)[None, :] + local % k
+    return out, (row * (w + 2 * pad) + col).to(torch.int32)
+
+
+def avgpool(x: torch.Tensor, k: int, stride: int,
+            pad: int = 0) -> torch.Tensor:
+    """Mean over every k x k window of the zero-padded plane (padding
+    counted, as JAX's)."""
+    return _windows(x, k, k, stride, pad, 0.0, False).mean(dim=(-1, -2))
+
+
+def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
+    """Caffe's leaky-capable ReLU: ``where(x > 0, x, slope * x)``."""
+    return torch.where(x > 0, x, negative_slope * x)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Max-subtracted softmax in f32, ``e / sum(e)``, cast to ``x.dtype``
+    (``repro/kernels/softmax_xent.py:27-32``)."""
+    xf = x.float()
+    e = torch.exp(xf - xf.amax(dim=dim, keepdim=True))
+    return (e / e.sum(dim=dim, keepdim=True)).to(x.dtype)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B,V) logits, (B,) int labels -> (mean NLL f32, probs in the logits'
+    dtype), f32 inside: ``logp = (x - max) - lse``, ``probs = exp(logp)``
+    (``repro/kernels/softmax_xent.py:62-75``).  A label outside [0, V)
+    matches no class, so its row's NLL is 0, and the mean still divides
+    by B: the rule of JAX's Pallas kernel, whose one-hot never matches
+    such a label (JAX's oracle wraps -1 to the last class instead)."""
+    v = logits.shape[-1]
+    x = logits.float()
+    s = x - x.amax(dim=-1, keepdim=True)
+    logp = s - torch.log(torch.exp(s).sum(dim=-1, keepdim=True))
+    lab = labels.long()
+    valid = (lab >= 0) & (lab < v)
+    picked = logp.gather(1, lab.clamp(0, v - 1)[:, None])[:, 0]
+    nll = torch.where(valid, -picked, torch.zeros_like(picked))
+    return nll.mean(), torch.exp(logp).to(logits.dtype)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             top_k: int = 1) -> torch.Tensor:
+    """The share of rows whose label is among the ``top_k`` largest logits
+    (f32).  Ties rank the lower class first, as ``argmax`` and
+    ``jax.lax.top_k`` do."""
+    if top_k == 1:
+        hit = logits.argmax(dim=-1) == labels
+    else:
+        idx = torch.sort(logits, dim=-1, descending=True,
+                         stable=True).indices[:, :top_k]
+        hit = (idx == labels[:, None]).any(dim=-1)
+    return hit.float().mean()

@@ -7,13 +7,14 @@ Random params from ``--seed``, AdamW with warmup and cosine decay, the
 synthetic bigram token stream (``repro_torch.data.synthetic``); each step
 is ``make_train_step``'s loss and grads through the Hopper kernels (every
 layer rematerialized in the backward) and the in-place optimizer update.
-A batch is (``--batch``, ``--seq`` + 1) tokens, so the forward runs at
-``--seq`` tokens a row.  Prints the loss, ms per step, tokens per second
-and the peak device memory.  Runs on the card (``--device cuda``, the
-default) and raises when there is none; ``--device cpu`` runs the plain
-PyTorch versions (use a ``-smoke`` arch).  Checkpointing (``--ckpt-dir``,
-``--resume``, ``--fail-at``) comes with the distributed slice (ROADMAP
-Queue 1 item 17) and raises until then.
+A batch is (``--batch``, ``--seq``) tokens, so the forward runs at
+``--seq`` - 1 tokens a row, as ``repro.launch.train`` does.  Prints the
+loss, ms per step, tokens per second and the peak device memory.  Runs
+on the card (``--device cuda``, the default) and raises when there is
+none; ``--device cpu`` runs the plain PyTorch versions (use a ``-smoke``
+arch).  Checkpointing (``--ckpt-dir``, ``--resume``, ``--fail-at``)
+comes with the distributed slice (ROADMAP Queue 1 item 17) and raises
+until then.
 """
 from __future__ import annotations
 
@@ -81,12 +82,12 @@ def main(argv=None) -> int:
     cfg = get_arch(args.arch)
     dev = resolve_device(args.device)
     opt = OptConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps)
-    stream = TokenStream(TokenStreamSpec(cfg.vocab_size, args.seq + 1,
+    stream = TokenStream(TokenStreamSpec(cfg.vocab_size, args.seq,
                                          args.batch, args.seed))
     state = init_train_state(cfg, opt, args.seed, device=dev)
     step_fn = make_train_step(cfg, opt, microbatches=args.microbatches)
     print(f"{cfg.name} on {dev}: {args.steps} steps x {args.batch}x"
-          f"{args.seq} tokens, {args.microbatches} microbatch(es)",
+          f"{args.seq - 1} tokens, {args.microbatches} microbatch(es)",
           flush=True)
     for rec in train_loop(step_fn, state, stream, steps=args.steps,
                           device=dev):

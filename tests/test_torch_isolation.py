@@ -62,6 +62,22 @@ def test_entry_points_default_to_cuda(no_card):
         steps.init_train_state(cfg, OptConfig())
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         train.main(["--arch", "qwen2.5-3b-smoke"])
+    from repro_torch.caffe import Net, Solver, lenet_mnist, \
+        lenet_mnist_solver
+    from repro_torch.convert import caffe_params_from_jax
+    from repro_torch.data.synthetic import (ImageStream, ImageStreamSpec,
+                                            mnist_like)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        Net(lenet_mnist()).init(gen, 4)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        Solver(Net(lenet_mnist()), lenet_mnist_solver()).init(gen)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        ImageStream(ImageStreamSpec((1, 28, 28), 10, 4))
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        mnist_like(4)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        caffe_params_from_jax({"ip": {"w": [[0.0]]}})
 
 
 def test_build_needs_no_toolchain_at_import():
@@ -71,6 +87,7 @@ def test_build_needs_no_toolchain_at_import():
 
     assert {p.name for p in _build.sources()} == {
         "gemm.cu", "rmsnorm.cu", "eltwise.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "ssd_scan.cu"}
+        "flash_attention_bwd.cu", "ssd_scan.cu", "im2col.cu", "pooling.cu",
+        "softmax_xent.cu"}
     assert _build._LIB is None
     assert _build.library_path().parent == _build.BUILD_DIR

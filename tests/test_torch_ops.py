@@ -280,13 +280,21 @@ def test_policy_env_and_default(monkeypatch):
 
 def test_registry_covers_the_slice():
     cov = coverage()
-    assert set(cov) == {"matmul", "bias_add_rows", "rmsnorm",
-                        "attention_decode", "attention_decode_paged",
-                        "attention_prefill_chunk",
-                        "attention_prefill_chunk_paged",
-                        "attention_decode_paged_quant",
-                        "attention_prefill_chunk_paged_quant", "attention",
-                        "ssd_scan", "ssd_prefill_chunk"}
-    assert all(c == {"reference": True, "hopper": True} for c in cov.values())
+    hopper = {"matmul", "bias_add_rows", "rmsnorm", "attention_decode",
+              "attention_decode_paged", "attention_prefill_chunk",
+              "attention_prefill_chunk_paged",
+              "attention_decode_paged_quant",
+              "attention_prefill_chunk_paged_quant", "attention",
+              "ssd_scan", "ssd_prefill_chunk", "relu", "im2col", "conv2d",
+              "maxpool", "softmax", "softmax_xent"}
+    # reference-only, as in JAX's registry
+    reference_only = {"avgpool", "accuracy"}
+    assert set(cov) == hopper | reference_only
+    assert all(cov[n] == {"reference": True, "hopper": True} for n in hopper)
+    assert all(cov[n] == {"reference": True, "hopper": False}
+               for n in reference_only)
     # the port's op names are the JAX registry's: the gap is computed
-    assert set(list_ops()) <= set(jax_registry.list_ops())
+    # (col2im, conv2d_direct and layernorm are still to come)
+    jax_ops = jax_registry.list_ops()
+    assert set(list_ops()) <= set(jax_ops)
+    assert reference_only == {n for n in cov if jax_ops[n].reference_only}

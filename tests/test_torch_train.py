@@ -40,6 +40,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs.registry import get_arch as jax_get_arch  # noqa: E402
 from repro.data import synthetic as jax_data  # noqa: E402
 from repro.launch import steps as jax_steps  # noqa: E402
+from repro.launch import train as jax_train  # noqa: E402
 from repro.optim import optimizers as jax_opt  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import to_jax_layout, train_state_from_jax  # noqa: E402
@@ -271,6 +272,39 @@ def test_remat_recomputes_on_the_callers_backend(monkeypatch):
     assert set(seen) == {policy.Backend.REFERENCE}
 
 
+def test_train_cli_runs_seq_minus_one_tokens_as_jax(monkeypatch):
+    """Both CLIs build the stream at --seq tokens a row and train on
+    (inputs, targets) of --seq - 1: the port's batch has --seq tokens,
+    JAX's make_batch the same, from streams of the same spec."""
+    specs = []
+    real = synthetic.TokenStreamSpec
+
+    def spy(*args, **kw):
+        specs.append(real(*args, **kw))
+        return specs[-1]
+
+    monkeypatch.setattr(train, "TokenStreamSpec", spy)
+    batches = []
+    real_loop = train.train_loop
+
+    def loop(step_fn, state, stream, *, steps, device):
+        batches.append(train.make_batch(stream, 0, device)["tokens"])
+        return real_loop(step_fn, state, stream, steps=steps, device=device)
+
+    monkeypatch.setattr(train, "train_loop", loop)
+    with redirect_stdout(io.StringIO()):
+        train.main(["--arch", "qwen2.5-3b-smoke", "--steps", "1",
+                    "--batch", "2", "--seq", "12", "--device", "cpu"])
+    cfg = jax_get_arch("qwen2.5-3b-smoke")
+    jstream = jax_data.TokenStream(jax_data.TokenStreamSpec(
+        cfg.vocab_size, 12, 2))
+    jtokens = jax_train.make_batch(cfg, jstream, 0, 2, 12)["tokens"]
+    assert specs[0].seq_len == 12
+    assert tuple(batches[0].shape) == tuple(jtokens.shape) == (2, 12)
+    # train_loss runs the forward on tokens[:, :-1]: --seq - 1 of them
+    assert batches[0][:, :-1].shape[1] == 11
+
+
 def test_train_cli_on_the_cpu():
     out = io.StringIO()
     with redirect_stdout(out):
@@ -281,6 +315,9 @@ def test_train_cli_on_the_cpu():
     losses = [float(line.split("loss=")[1].split()[0]) for line in lines
               if line.startswith("step ")]
     assert len(losses) == 3 and all(np.isfinite(losses))
+    # --seq 16 builds 16-token rows, so the forward runs 15 tokens a row,
+    # as repro.launch.train's does
+    assert "3 steps x 2x15 tokens" in lines[0]
     assert lines[-1] == "done at step 3"
     for flag in (["--resume"], ["--fail-at", "2"], ["--ckpt-dir", "x"]):
         with pytest.raises(NotImplementedError, match="item 17"):
