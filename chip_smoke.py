@@ -9,7 +9,7 @@ failure (non-zero exit, no result line):
 
 1. device   — CUDA present, sm_90; prints nvidia-smi's name and power limit.
 2. build    — compiles every ``csrc/*.cu`` kernel with nvcc for sm_90a.
-3. kernels  — each of the eighteen kernels against its plain PyTorch
+3. kernels  — each of the twenty-two kernels against its plain PyTorch
               version at the main paths' shapes (bf16 and f32; qwen2.5-3b's,
               the recurrent archs' and mixtral-8x7b's, the attention
               kernels also at glm4-9b's, deepseek-coder-33b's and
@@ -18,7 +18,12 @@ failure (non-zero exit, no result line):
               relu call of a LeNet-MNIST and a LeNet-CIFAR-10 forward,
               softmax_xent at 64 x 10, softmax at 64 x 10 and 256 x 1000,
               maxpool on exact ties and with a pad of 1, each Caffe
-              kernel once in bf16), and the training
+              kernel once in bf16; the Caffe backward's: every col2im,
+              maxpool_bwd, relu_bwd and softmax_xent_bwd launch and every
+              backward gemm of both LeNets' train steps, col2im in both
+              column layouts and at pad 2, maxpool_bwd on ties with pads
+              0 and 1, relu_bwd on a column-major x, softmax_xent_bwd
+              with labels -1 and V), and the training
               step's: rmsnorm_bwd at 512 rows of 2048 and 5120,
               flash_attention_bwd at B 2 x S 256 with qwen2.5-3b's,
               zamba2-2.7b's and, windowed, mixtral-8x7b's heads, and the
@@ -27,7 +32,9 @@ failure (non-zero exit, no result line):
               timings of the kernel, the plain version and one library call
               as yardstick (none for the SSD scan; the backward of
               ``F.rms_norm`` and of ``F.scaled_dot_product_attention``
-              for the backward kernels); the int8 pools are
+              for the backward kernels; ``F.fold`` and the backward of
+              ``F.max_pool2d``, ``F.leaky_relu`` and ``F.cross_entropy``
+              for the Caffe backward kernels); the int8 pools are
               filled by the pager's quantized writes, and the paged kernels
               also read a bf16 pool under f32 queries; an all-unmapped
               paged row must come out as zeros, an SSD row with no real token
@@ -95,9 +102,23 @@ failure (non-zero exit, no result line):
               under ``set_sync_debug_mode("error")`` with exact launch
               counts, held against the reference backend; MNIST's deploy
               form (a Softmax ``prob`` on ``ip2``) through ``Net.forward``
-              without labels; each net in the paper's three boundary modes
-              (equal losses, ms per forward: the forward half of its Table
-              2).
+              without labels; under grad relu, conv2d, maxpool and
+              softmax_xent go through their autograd Functions, softmax
+              and im2col raise; each net in the paper's three boundary
+              modes (equal losses, ms per forward: the forward half of
+              its Table 2).
+9. caffe train — Caffe's TRAIN phase, both LeNets at batch 64 in f32 on
+              the hopper backend: (a) loss and grads against the
+              reference lowering, ``Net.backward_manual`` against
+              autograd; (b) 3 ``Solver.make_train_step`` steps under
+              ``set_sync_debug_mode("error")`` with exact launch counts,
+              the states held against the reference lowering's, and one
+              step in each crossing mode held against the fused one; (c)
+              ``Solver.solve`` on LeNet-MNIST for 300 iterations: the loss
+              halves and the test accuracy passes 0.8; (d) the paper's
+              Table 2, forward + backward (ms per iteration in the three
+              boundary modes, ms per train step, one profiled step's
+              device busy share).
 
 The random 64- and 54-layer Mamba stacks are chaotic: the plain reference
 alone, in bf16 and in f32 on the same weights, disagrees on nearly every
@@ -119,7 +140,8 @@ first decision the two runs take differently and requires it to be a
 near tie, and each step from the same caches to agree
 (``synced_steps``).  Nothing is cut in width; depth is cut only in
 those checks, in phase 7's f32 comparisons (2 layers) and, for mixtral,
-to fit the card.  The LeNets run at full size (Caffe's own nets).
+to fit the card.  The LeNets run at full size (Caffe's own nets) and
+the solvers' batch of 64.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -202,6 +224,10 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 8
     for name, n in phase_caffe(torch).items():
+        launches[name] += n
+
+    # ---------------------------------------------------------------- 9
+    for name, n in phase_caffe_train(torch).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -338,6 +364,19 @@ def phase_kernels(torch):
     TOL.update({(dt, n): tol for dt, tol in (("float32", 1e-5),
                                              ("bfloat16", 2 ** -7))
                 for n in ("softmax", "softmax_xent")})
+    # the Caffe backward kernels: maxpool_bwd copies the winner's dy and
+    # relu_bwd passes dy through or multiplies once in f32, as the plain
+    # versions do: exact.  col2im sums up to K*K taps in f32 (the plain
+    # scatter-add in another, atomic order); bf16 is held to the plain
+    # version computed in f32 and rounded once, as the kernel rounds: one
+    # bf16 ulp.  softmax_xent_bwd subtracts and scales in f32 and rounds
+    # once; the plain version rounds p - onehot to p's dtype first and
+    # divides by B (exact at B = 64): one bf16 ulp, f32 one rounding
+    TOL.update({(dt, n): 0.0 for dt in ("float32", "bfloat16")
+                for n in ("maxpool_bwd", "relu_bwd")})
+    TOL.update({("float32", "col2im"): 1e-5, ("bfloat16", "col2im"): 2 ** -7,
+                ("float32", "softmax_xent_bwd"): 1e-6,
+                ("bfloat16", "softmax_xent_bwd"): 2 ** -7})
     # the training shapes' products take 5 timed launches each (the
     # head's take 15-30 ms)
     slow = Timer(torch, reps=5, warm=1)
@@ -826,6 +865,7 @@ def phase_kernels(torch):
         gemm_crossover(torch, rnd, check, slow, dtype, TOL)
         torch.cuda.empty_cache()
     caffe_kernels(torch, F, rnd, run)
+    caffe_train_kernels(torch, F, rnd, run)
 
     # per-kernel totals over one bf16 step at B = 4: a decode step for the
     # decode-path kernels, a prefill step (C = 16) for the chunk kernels
@@ -877,6 +917,17 @@ def phase_kernels(torch):
                          "mnist fwd"),
         "softmax": ("src/repro_torch/kernels/csrc/softmax_xent.cu",
                     "src/repro/kernels/softmax_xent.py:35", "deploy fwd"),
+        # the Caffe backward kernels: one f32 LeNet-MNIST train step at
+        # batch 64
+        "col2im": ("src/repro_torch/kernels/csrc/im2col.cu",
+                   "src/repro/kernels/im2col.py:120", "mnist train"),
+        "maxpool_bwd": ("src/repro_torch/kernels/csrc/pooling.cu",
+                        "src/repro/kernels/pooling.py:123", "mnist train"),
+        "relu_bwd": ("src/repro_torch/kernels/csrc/eltwise.cu",
+                     "src/repro/kernels/eltwise.py:81", "mnist train"),
+        "softmax_xent_bwd": ("src/repro_torch/kernels/csrc/softmax_xent.cu",
+                             "src/repro/kernels/softmax_xent.py:120",
+                             "mnist train"),
     }
 
     def totals(name, step):
@@ -928,9 +979,18 @@ def phase_kernels(torch):
                       f"ms, plain {tot['plain_ms']:.3f} ms, library "
                       f"{lib if lib is None else round(lib, 3)} ms",
                       flush=True)
-    for step in ("mnist fwd", "cifar fwd"):
-        for name in ("im2col", "gemm", "bias_add_rows", "maxpool", "relu",
-                     "softmax_xent"):
+    for step, names in (
+            ("mnist fwd", ("im2col", "gemm", "bias_add_rows", "maxpool",
+                           "relu", "softmax_xent")),
+            ("cifar fwd", ("im2col", "gemm", "bias_add_rows", "maxpool",
+                           "relu", "softmax_xent")),
+            # the backward's own launches (its im2col again is the
+            # forward's row)
+            ("mnist train", ("gemm", "col2im", "maxpool_bwd", "relu_bwd",
+                             "softmax_xent_bwd")),
+            ("cifar train", ("gemm", "col2im", "relu_bwd",
+                             "softmax_xent_bwd"))):
+        for name in names:
             tot = totals(name, step)
             print(f"[3 kernels] {name}: one f32 {step} at B={LENET_B}: "
                   f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, "
@@ -1145,7 +1205,8 @@ def train_kernels(torch, F, rnd, run, clock, dtype, es):
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
 # at it: one f32 TEST-phase forward of each net and of MNIST's deploy form
 LENET_B = 64
-CAFFE_STEPS = ("mnist fwd", "cifar fwd", "deploy fwd")
+CAFFE_STEPS = ("mnist fwd", "cifar fwd", "deploy fwd", "mnist train",
+               "cifar train")
 
 
 def caffe_kernels(torch, F, rnd, run):
@@ -1300,6 +1361,166 @@ def caffe_kernels(torch, F, rnd, run):
         4.0 * n * 10)
 
 
+def caffe_train_kernels(torch, F, rnd, run):
+    """Phase 3 at the Caffe backward's shapes, f32, batch 64: every
+    col2im, maxpool_bwd, relu_bwd and softmax_xent_bwd launch and every
+    backward gemm of a LeNet-MNIST and a LeNet-CIFAR-10 train step
+    (``count``: launches per step beyond the forward's, whose im2col the
+    backward repeats), col2im on the backward product's strided view and
+    on contiguous (N, C*K*K, OH*OW) columns, maxpool_bwd on exact ties
+    with pads 0 and 1, softmax_xent_bwd with labels -1 and V; then each
+    new kernel once in bf16.  Yardsticks:
+    ``F.fold``, the backward of ``F.max_pool2d(return_indices=True)``
+    (``aten.max_pool2d_with_indices_backward``), of ``F.leaky_relu``
+    (``aten.leaky_relu_backward``) and of ``F.cross_entropy`` (autograd
+    through its graph), ``torch.matmul``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.eltwise import relu_bwd
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.im2col import col2im
+    from repro_torch.kernels.pooling import maxpool, maxpool_bwd
+    from repro_torch.kernels.softmax_xent import softmax_xent_bwd
+
+    f32, bf, n = torch.float32, torch.bfloat16, LENET_B
+    aten = torch.ops.aten
+
+    def col2im_case(step, case, c, h, k, pad, count, dtype=f32,
+                    strided=True):
+        r, oh = c * k * k, h + 2 * pad - k + 1
+        p = oh * oh
+        es = torch.tensor([], dtype=dtype).element_size()
+        cols3 = rnd((n, r, p), dtype)            # the (N, R, P) layout
+        # the convolution backward's (R, N*P) product, read as (N, R, P)
+        # through a transposed view
+        wide = cols3.transpose(0, 1).reshape(r, n * p)
+        cols = wide.view(r, n, p).transpose(0, 1) if strided else cols3
+        shape = (n, c, h, h)
+        # the (o, i) pairs of an axis with 0 <= o + i - pad < h: a tap in
+        # the padding is read neither by the function nor by the kernel
+        taps = sum(0 <= o + i - pad < h for o in range(oh) for i in range(k))
+        run(col2im, f"{case} {'x'.join(map(str, cols.shape))}"
+            f"{' strided' if strided else ''} -> {n}x{c}x{h}x{h} k{k} "
+            f"p{pad}", dtype, step, count,
+            lambda: col2im(cols, shape, k, k, 1, pad),
+            lambda: ref.col2im(cols3.float(), shape, k, k, 1, pad).to(dtype),
+            lambda: F.fold(cols3, (h, h), k, padding=pad),
+            (n * c * taps * taps + n * c * h * h) * es,
+            1.0 * n * c * taps * taps)
+
+    def maxpool_bwd_case(step, case, x, k, st, pad, count):
+        dtype = x.dtype
+        es = x.element_size()
+        out, arg = maxpool(x, k, st, pad)
+        dy = rnd(tuple(out.shape), dtype)
+        _, idx = F.max_pool2d(x, k, st, padding=pad, return_indices=True)
+        shape = tuple(x.shape)
+        run(maxpool_bwd, f"{case} {'x'.join(map(str, dy.shape))} -> "
+            f"{'x'.join(map(str, shape))} k{k} s{st} p{pad}", dtype, step,
+            count, lambda: maxpool_bwd(dy, arg, shape, k, st, pad),
+            lambda: ref.maxpool_bwd(dy, arg, shape, k, st, pad),
+            lambda: aten.max_pool2d_with_indices_backward(
+                dy, x, [k, k], [st, st], [pad, pad], [1, 1], False, idx),
+            dy.numel() * (es + 4) + x.numel() * es, 0.0)
+
+    def relu_bwd_case(step, case, shape, count, dtype=f32, slope=0.0,
+                      x_column_major=False):
+        x, dy = rnd(shape, dtype), rnd(shape, dtype)
+        if x_column_major:
+            # the transposed boundary mode's x meets a row-major dy
+            perm = tuple(reversed(range(len(shape))))
+            x = x.permute(perm).contiguous().permute(perm)
+        run(relu_bwd, f"{case} {'x'.join(map(str, shape))} slope {slope}",
+            dtype, step, count, lambda: relu_bwd(x, dy, slope),
+            lambda: ref.relu_bwd(x, dy, slope),
+            lambda: aten.leaky_relu_backward(dy, x, slope, False),
+            3 * x.numel() * x.element_size(), 1.0 * x.numel())
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def xent_bwd_case(step, case, count, dtype=f32, outside=False):
+        p = torch.softmax(3 * rnd((n, 10), f32), -1).to(dtype)
+        y = torch.randint(0, 10, (n,), generator=g, device="cuda")
+        if outside:
+            y[0], y[1] = -1, 10
+        lfn = None
+        if not outside:
+            leaf = (3 * rnd((n, 10), dtype)).requires_grad_(True)
+            loss = F.cross_entropy(leaf, y)
+            lfn = lambda: torch.autograd.grad(loss, leaf,  # noqa: E731
+                                              retain_graph=True)
+        es = p.element_size()
+        run(softmax_xent_bwd, f"{case} {n}x10", dtype, step, count,
+            lambda: softmax_xent_bwd(p, y),
+            lambda: ref.softmax_xent_bwd(p, y), lfn,
+            2 * n * 10 * es + 8 * n, 2.0 * n * 10)
+
+    def gemm_case(step, case, a, b, count):
+        m, kk = a.shape
+        nn = b.shape[1]
+        run(gemm, f"{case} {m}x{kk} @ {kk}x{nn}", f32, step, count,
+            lambda: gemm(a, b), lambda: ref.gemm(a, b),
+            lambda: torch.matmul(a, b),
+            (m * kk + kk * nn + m * nn) * 4, 2.0 * m * nn * kk)
+
+    # col2im: (step, case, C, H, k, pad) of each convolution whose input
+    # needs a gradient (conv1 reads the data)
+    for step, case, c, h, k, pad in (("mnist train", "conv2", 20, 12, 5, 0),
+                                     ("cifar train", "conv2", 32, 15, 5, 2),
+                                     ("cifar train", "conv3", 32, 7, 5, 2)):
+        col2im_case(step, case, c, h, k, pad, 1)
+    col2im_case("mnist train", "conv2", 20, 12, 5, 0, 0, strided=False)
+    # maxpool_bwd: MNIST's two 2/2 pools (CIFAR's 3/2 pool1 overlaps and
+    # takes the plain scatter), then ties with pads 0 and 1
+    ties = torch.randint(-1, 2, (n, 20, 24, 24), generator=g,
+                         device="cuda").float()
+    for case, x, pad, count in (("pool1", rnd((n, 20, 24, 24), f32), 0, 1),
+                                ("pool2", rnd((n, 50, 8, 8), f32), 0, 1),
+                                ("pool1 ties", ties, 0, 0),
+                                ("pool1 ties, pad 1", ties, 1, 0)):
+        maxpool_bwd_case("mnist train", case, x, 2, 2, pad, count)
+    # relu_bwd: (step, case, shape, count)
+    for step, case, shape, count in (
+            ("mnist train", "relu1", (n, 500), 1),
+            ("cifar train", "relu1,relu2", (n, 32, 15, 15), 2),
+            ("cifar train", "relu3", (n, 64, 7, 7), 1)):
+        relu_bwd_case(step, case, shape, count)
+    relu_bwd_case("cifar train", "relu3, x column-major", (n, 64, 7, 7), 0,
+                  x_column_major=True)
+    xent_bwd_case("mnist train", "loss", 1)
+    xent_bwd_case("cifar train", "loss", 1)
+    xent_bwd_case("mnist train", "labels -1 and V", 0, outside=True)
+    # the backward products: the convolutions' dw = dy_flat @ cols^T (M = F,
+    # K = N*OH*OW, B read along K) and dcols = w_mat^T @ dy_flat (A read
+    # along M), the inner products' da = g @ W^T (B along K) and db = x^T
+    # @ g (A along M); conv1 has no dcols
+    for step, case, f, c, o, k, dx in (
+            ("mnist train", "conv1", 20, 1, 24, 5, False),
+            ("mnist train", "conv2", 50, 20, 8, 5, True),
+            ("cifar train", "conv1", 32, 3, 32, 5, False),
+            ("cifar train", "conv2", 32, 32, 15, 5, True),
+            ("cifar train", "conv3", 64, 32, 7, 5, True)):
+        r, cols_n = c * k * k, n * o * o
+        dy_flat = rnd((f, cols_n), f32)
+        cols = rnd((r, cols_n), f32)
+        w = rnd((f, r), f32, r ** -0.5)
+        gemm_case(step, f"{case} dw", dy_flat, cols.T, 1)
+        if dx:
+            gemm_case(step, f"{case} dcols", w.T, dy_flat, 1)
+    for step, case, k, out in (("mnist train", "ip1", 800, 500),
+                               ("mnist train", "ip2", 500, 10),
+                               ("cifar train", "ip1", 576, 64),
+                               ("cifar train", "ip2", 64, 10)):
+        x, w, gr = rnd((n, k), f32), rnd((k, out), f32, k ** -0.5), \
+            rnd((n, out), f32)
+        gemm_case(step, f"{case} da", gr, w.T, 1)
+        gemm_case(step, f"{case} db", x.T, gr, 1)
+    # each new kernel once in bf16 (LeNet trains in f32), counts 0
+    col2im_case("bf16", "conv2", 20, 12, 5, 0, 0, dtype=bf)
+    maxpool_bwd_case("bf16", "pool1", rnd((n, 20, 24, 24), bf), 2, 2, 0, 0)
+    relu_bwd_case("bf16", "relu1", (n, 500), 0, dtype=bf, slope=0.1)
+    xent_bwd_case("bf16", "loss", 0, dtype=bf)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width serving through the port's engine
 # ---------------------------------------------------------------------------
@@ -1352,7 +1573,8 @@ KERNELS = ("gemm", "rmsnorm", "bias_add_rows", "flash_decode",
            "flash_prefill_chunk_paged", "flash_decode_paged_quant",
            "flash_prefill_chunk_paged_quant", "flash_attention", "ssd_scan",
            "rmsnorm_bwd", "flash_attention_bwd", "im2col", "maxpool", "relu",
-           "softmax", "softmax_xent")
+           "softmax", "softmax_xent", "col2im", "maxpool_bwd", "relu_bwd",
+           "softmax_xent_bwd")
 # the attention kernels of each (layout, pool): (decode step, prefill step)
 ATTN = {("contiguous", "f32"): ("flash_decode", "flash_prefill_chunk"),
         ("paged", "f32"): ("flash_decode_paged", "flash_prefill_chunk_paged"),
@@ -1403,17 +1625,20 @@ def per_step(cfg):
 
 def kernel_fns():
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels.eltwise import bias_add_rows, relu
+    from repro_torch.kernels.eltwise import bias_add_rows, relu, relu_bwd
     from repro_torch.kernels.gemm import gemm
-    from repro_torch.kernels.im2col import im2col
+    from repro_torch.kernels.im2col import col2im, im2col
     from repro_torch.kernels.mamba_scan import ssd_scan
-    from repro_torch.kernels.pooling import maxpool
+    from repro_torch.kernels.pooling import maxpool, maxpool_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
-    from repro_torch.kernels.softmax_xent import softmax, softmax_xent
+    from repro_torch.kernels.softmax_xent import (softmax, softmax_xent,
+                                                  softmax_xent_bwd)
     fns = {"gemm": gemm, "rmsnorm": rmsnorm, "bias_add_rows": bias_add_rows,
            "ssd_scan": ssd_scan, "rmsnorm_bwd": rmsnorm_bwd,
            "im2col": im2col, "maxpool": maxpool, "relu": relu,
-           "softmax": softmax, "softmax_xent": softmax_xent}
+           "softmax": softmax, "softmax_xent": softmax_xent,
+           "col2im": col2im, "maxpool_bwd": maxpool_bwd,
+           "relu_bwd": relu_bwd, "softmax_xent_bwd": softmax_xent_bwd}
     fns.update({name: getattr(FA, name) for name in KERNELS
                 if name.startswith("flash_")})
     return fns
@@ -2445,12 +2670,15 @@ CAFFE_LAUNCHES = {
 CAFFE_REPS = 20
 
 
-def caffe_counted(torch, fn, name, synced=True):
+def caffe_counted(torch, fn, name, synced=True, want=None):
     """``fn()`` on the hopper backend with the counts set to 0 just before
     and read just after (under ``set_sync_debug_mode("error")`` unless the
-    boundary mode syncs by design); the counts must be one forward's."""
+    boundary mode syncs by design); the counts must be ``want``, by
+    default one forward's of the net ``name``."""
     from repro_torch.core.policy import use_backend
 
+    if want is None:
+        want = dict(CAFFE_LAUNCHES[name])
     got = {}
     with use_backend("hopper"), counting(got):
         if synced:
@@ -2460,11 +2688,10 @@ def caffe_counted(torch, fn, name, synced=True):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    want = {k: 0 for k in KERNELS}
-    want.update(CAFFE_LAUNCHES[name])
+    want = {k: want.get(k, 0) for k in KERNELS}
     if got != want:
         raise SystemExit(f"chip_smoke: {name}: launches {got}, expected "
-                         f"{want} for one forward")
+                         f"{want}")
     return out, got
 
 
@@ -2486,10 +2713,11 @@ def caffe_net(torch, mk_net, mk_solver, stream_fn):
     return net, solver, params, data, label
 
 
-def caffe_profile(torch, fwd, name, reps=10):
-    """``reps`` forwards on the hopper backend under the profiler: the
-    device's busy share of the wall time and the kernels that take it
-    (L2 warm, as in a real run of forwards)."""
+def caffe_profile(torch, fwd, name, reps=10, tag="8 caffe",
+                  what="forward"):
+    """``reps`` calls of ``fwd`` (a forward, or a train step) on the hopper
+    backend under the profiler: the device's busy share of the wall time
+    and the kernels that take it (L2 warm, as in a real run)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.policy import use_backend
@@ -2505,9 +2733,9 @@ def caffe_profile(torch, fwd, name, reps=10):
     events = sorted(prof.key_averages(),
                     key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in events) / 1e3   # ms
-    print(f"[8 caffe] {name}: {reps} forwards under the profiler: "
-          f"{wall / reps:.4f} ms wall a forward, device busy "
-          f"{busy / reps:.4f} ms ({100 * busy / wall:.1f}%); per forward: "
+    print(f"[{tag}] {name}: {reps} {what}s under the profiler: "
+          f"{wall / reps:.4f} ms wall a {what}, device busy "
+          f"{busy / reps:.4f} ms ({100 * busy / wall:.1f}%); per {what}: "
           + "; ".join(f"{e.key[:48]} "
                       f"{e.self_device_time_total / 1e3 / reps:.4f} ms "
                       f"x{e.count // reps}" for e in events[:8]),
@@ -2613,18 +2841,26 @@ def phase_caffe(torch):
     if not (gap <= 1e-5 and torch.isfinite(p_h).all()):
         raise SystemExit("chip_smoke: lenet-mnist-deploy: prob disagrees")
 
-    # no autograd through the Caffe kernels until their backward kernels
-    # come: under grad the hopper lowerings raise rather than cut the graph
+    # under grad the four training ops run through their autograd
+    # Functions (whose backwards launch the backward kernels, phase 9);
+    # softmax and im2col, which JAX's Pallas port does not differentiate
+    # either, raise rather than cut the graph
     x = data[:2].clone().requires_grad_(True)
     logits = x.reshape(2, -1)[:, :10]
     lab = torch.zeros(2, dtype=torch.int64, device="cuda")
-    for what, fn in (("relu", lambda: ops.relu(x)),
-                     ("im2col", lambda: ops.im2col(x, 5, 5)),
-                     ("maxpool", lambda: ops.maxpool(x, 2, 2)),
-                     ("softmax", lambda: ops.softmax(logits)),
-                     ("softmax_xent", lambda: ops.softmax_xent_loss(
-                         logits, lab))):
-        with use_backend("hopper"):
+    w = torch.zeros((4, 1, 5, 5), device="cuda", requires_grad=True)
+    with use_backend("hopper"):
+        for what, fn, want in (
+                ("relu", lambda: ops.relu(x), ops.ReluFn),
+                ("conv2d", lambda: ops.conv2d(x, w), ops.Conv2dFn),
+                ("maxpool", lambda: ops.maxpool(x, 2, 2), ops.MaxPoolFn),
+                ("softmax_xent", lambda: ops.softmax_xent_loss(logits, lab),
+                 ops.XentFn)):
+            if type(fn().grad_fn).__name__ != f"{want.__name__}Backward":
+                raise SystemExit(f"chip_smoke: ops.{what} under grad did "
+                                 f"not go through {want.__name__}")
+        for what, fn in (("softmax", lambda: ops.softmax(logits)),
+                         ("im2col", lambda: ops.im2col(x, 5, 5))):
             try:
                 fn()
             except RuntimeError as e:
@@ -2633,8 +2869,8 @@ def phase_caffe(torch):
             else:
                 raise SystemExit(f"chip_smoke: ops.{what} ran its kernel "
                                  "under grad")
-    print("[8 caffe] under grad the five Caffe kernels' ops raise",
-          flush=True)
+    print("[8 caffe] under grad relu, conv2d, maxpool and softmax_xent run "
+          "through their Functions; softmax and im2col raise", flush=True)
 
     # the paper's §4.3 boundary modes: the forward half of its Table 2
     for name, (mk_net, params, data, label) in nets.items():
@@ -2673,6 +2909,299 @@ def phase_caffe(torch):
             raise SystemExit(f"chip_smoke: {name}: the boundary modes give "
                              f"different losses {losses}")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 9: Caffe's TRAIN phase through the port's Solver
+# ---------------------------------------------------------------------------
+
+# (a) hopper against the reference lowering in f32: the loss within 1e-5
+# relative, each grad leaf within 1e-6 of its largest value.  Both sides
+# are IEEE f32 and differ only in the order of their sums (the kernels'
+# against cuBLAS's; the plain scatters of CIFAR's overlapping max pool and
+# average pools add with atomics, in no fixed order): the largest such gap
+# of the sound runs on an H100 was 3.75e-7.  A control holds the reference
+# lowering with TF32 products against itself in f32 and must read above
+# the tolerance, so that a product rounded to TF32 (or coarser, bf16)
+# cannot pass.  The explicit backward against autograd within JAX's own
+# rtol 2e-3 / atol 3e-5 (tests/test_caffe.py:207).  (b) the states after
+# the steps, and one step in each crossing mode against the fused step:
+# each param and velocity leaf within 1e-6 of its largest value, as the
+# grads
+CAFFE_LOSS_TOL, CAFFE_GRAD_TOL = 1e-5, 1e-6
+MANUAL_RTOL, MANUAL_ATOL = 2e-3, 3e-5
+CAFFE_TRAIN_STEPS = 3
+# (c) LeNet-MNIST at batch 64 through Solver.solve
+CAFFE_SOLVE_ITERS, CAFFE_TEST_INTERVAL = 300, 100
+
+
+def caffe_train_launches(spec):
+    """Kernel launches of one train step (autograd of ``forward_loss``)
+    from the net's spec: each convolution runs im2col and a gemm forward,
+    im2col again and the dw gemm backward and, where its input needs a
+    gradient (every layer's but conv1's, which reads the data), the dcols
+    gemm and, at stride 1, col2im; each inner product a gemm and a bias
+    add forward and two gemms backward (one where its input is the data);
+    each max pool its kernel forward and, where the windows do not
+    overlap, maxpool_bwd (an overlapping pool's backward is the plain
+    scatter); each relu relu and relu_bwd; the loss softmax_xent and
+    softmax_xent_bwd.  Average pools, the accuracy, the biases' gradients
+    and the update are plain torch."""
+    want = {k: 0 for k in KERNELS}
+    for ls in spec.layers:
+        grad_in = ls.bottoms[0] != "data"
+        if ls.type == "Convolution":
+            want["im2col"] += 2
+            want["gemm"] += 2 + grad_in
+            want["col2im"] += int(grad_in and ls.stride == 1)
+        elif ls.type == "InnerProduct":
+            want["gemm"] += 2 + grad_in
+            want["bias_add_rows"] += int(ls.bias_term)
+        elif ls.type == "Pooling" and ls.pool == "max":
+            want["maxpool"] += 1
+            want["maxpool_bwd"] += int(ls.stride >= ls.kernel_size)
+        elif ls.type == "ReLU":
+            want["relu"] += 1
+            want["relu_bwd"] += 1
+        elif ls.type == "SoftmaxWithLoss":
+            want["softmax_xent"] += 1
+            want["softmax_xent_bwd"] += 1
+    return want
+
+
+def caffe_leaves(params):
+    """Autograd leaves sharing the params' storage, and their flat list."""
+    leaves = {n: {k: v.detach().requires_grad_(True) for k, v in p.items()}
+              for n, p in params.items()}
+    return leaves, [v for p in leaves.values() for v in p.values()]
+
+
+def caffe_fwbw(torch, net, params, data, label):
+    """The fused forward + backward: autograd of ``forward_loss``; returns
+    (loss, grads tree)."""
+    leaves, flat = caffe_leaves(params)
+    loss = net.forward_loss(leaves, data, label)
+    grads = iter(torch.autograd.grad(loss, flat))
+    return loss.detach(), {n: {k: next(grads) for k in p}
+                           for n, p in leaves.items()}
+
+
+def tree_gap(torch, got, want):
+    """The largest leaf gap relative to the leaf's largest value, and the
+    leaf."""
+    gaps = {f"{n}.{k}": ((got[n][k] - want[n][k]).abs().max()
+                         / want[n][k].abs().max().clamp_min(1e-30)).item()
+            for n in want for k in want[n]}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def manual_close(torch, got, want):
+    """``got`` within JAX's allclose tolerance of ``want``, leaf by leaf."""
+    return all(torch.allclose(got[n][k], want[n][k], rtol=MANUAL_RTOL,
+                              atol=MANUAL_ATOL)
+               for n in want for k in want[n])
+
+
+def caffe_timed(torch, fn, reps=CAFFE_REPS):
+    """Median host-clock ms of ``fn()`` on the hopper backend, each call
+    ended by a synchronize, after 3 warm-up calls."""
+    from repro_torch.core.policy import use_backend
+
+    with use_backend("hopper"):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase_caffe_train(torch):
+    """Phase 9: Caffe's TRAIN phase for LeNet-MNIST and LeNet-CIFAR-10
+    quick at batch 64 in f32 on the hopper backend, seeded params with
+    perturbed biases and the port's image stream on the card: (a) loss and
+    grads against the reference lowering from the same params, and
+    ``Net.backward_manual`` against autograd; (b) ``CAFFE_TRAIN_STEPS``
+    ``make_train_step`` steps, each under ``set_sync_debug_mode("error")``
+    with exact launch counts (``caffe_train_launches``), the states after
+    them against the reference lowering's; (c) ``Solver.solve`` on
+    LeNet-MNIST for ``CAFFE_SOLVE_ITERS`` iterations: the loss must halve
+    and the test accuracy pass 0.8 (``tests/test_caffe.py:211-221``); (d)
+    the paper's Table 2, forward + backward: ms per iteration in the three
+    boundary modes (fused: autograd of ``forward_loss``; the crossing
+    modes: ``forward_loss`` then ``backward_manual``, as
+    ``benchmarks/table2_fwbw.py:31-48``), whose grads must agree, ms per
+    train step and one profiled train step's busy share.  Returns the
+    launches of (b)'s hopper steps."""
+    from repro_torch.caffe import (Net, Solver, lenet_cifar10,
+                                   lenet_cifar10_solver, lenet_mnist,
+                                   lenet_mnist_solver)
+    from repro_torch.core.policy import use_backend
+    from repro_torch.data.synthetic import cifar10_like, mnist_like
+
+    total = {name: 0 for name in KERNELS}
+    for mk_net, mk_solver, stream_fn in (
+            (lenet_mnist, lenet_mnist_solver, mnist_like),
+            (lenet_cifar10, lenet_cifar10_solver, cifar10_like)):
+        net, solver, params, data, label = caffe_net(torch, mk_net,
+                                                     mk_solver, stream_fn)
+        name = net.spec.name
+        want = caffe_train_launches(net.spec)
+        # (a)
+        out = {}
+        for backend in ("hopper", "reference"):
+            with use_backend(backend):
+                out[backend] = caffe_fwbw(torch, net, params, data, label)
+        (loss_h, g_h), (loss_r, g_r) = out["hopper"], out["reference"]
+        loss_gap = abs(loss_h.item() - loss_r.item()) / abs(loss_r.item())
+        g_gap, g_worst = tree_gap(torch, g_h, g_r)
+        # the control: the same reference lowering with TF32 products
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with use_backend("reference"):
+                _, g_t = caffe_fwbw(torch, net, params, data, label)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        t_gap, t_worst = tree_gap(torch, g_t, g_r)
+        with use_backend("hopper"):
+            manual = net.backward_manual(params, data, label)
+        m_gap, m_worst = tree_gap(torch, manual, g_h)
+        print(f"[9 caffe train] (a) {name}: batch {LENET_B}, f32: loss "
+              f"hopper {loss_h.item():.7f}, reference {loss_r.item():.7f} "
+              f"(gap {loss_gap:.3g} relative); grads hopper vs reference "
+              f"within {g_gap:.3g} of each leaf's largest value (worst "
+              f"{g_worst}; tolerance {CAFFE_GRAD_TOL}); control: the "
+              f"reference lowering with TF32 products within {t_gap:.3g} "
+              f"(worst {t_worst}); backward_manual vs autograd within "
+              f"{m_gap:.3g} (worst {m_worst})", flush=True)
+        if not all(torch.isfinite(g).all() for p in g_h.values()
+                   for g in p.values()):
+            raise SystemExit(f"chip_smoke: {name}: non-finite grads")
+        if loss_gap > CAFFE_LOSS_TOL or g_gap > CAFFE_GRAD_TOL:
+            raise SystemExit(f"chip_smoke: {name}: hopper and reference "
+                             "grads disagree beyond the tolerances")
+        if t_gap <= CAFFE_GRAD_TOL:
+            raise SystemExit(f"chip_smoke: {name}: the grad tolerance does "
+                             "not tell TF32 products from f32 ones")
+        if not manual_close(torch, manual, g_h):
+            raise SystemExit(f"chip_smoke: {name}: backward_manual and "
+                             "autograd disagree beyond JAX's tolerance")
+
+        # (b)
+        def fresh():
+            return {"params": {n: {k: v.clone() for k, v in p.items()}
+                               for n, p in params.items()},
+                    "velocity": {n: {k: torch.zeros_like(v)
+                                     for k, v in p.items()}
+                                 for n, p in params.items()},
+                    "iter": torch.zeros((), dtype=torch.int32,
+                                        device="cuda")}
+
+        stream = stream_fn(LENET_B, seed=SEED)
+        batches = [stream.batch(i) for i in range(CAFFE_TRAIN_STEPS)]
+        step = solver.make_train_step()
+        st_h, st_r = fresh(), fresh()
+        for i, (d, lab) in enumerate(batches):
+            (st_h, l_h), got = caffe_counted(
+                torch, lambda: step(st_h, d, lab), name, want=want)
+            for k, v in got.items():
+                total[k] += v
+            with use_backend("reference"):
+                st_r, l_r = step(st_r, d, lab)
+            print(f"[9 caffe train] (b) {name} step {i + 1}: loss hopper "
+                  f"{l_h.item():.7f}, reference {l_r.item():.7f}; launches "
+                  f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        # one step in each crossing mode from the same state: the
+        # Functions' kernels read the column-major blobs by their strides,
+        # with the fused step's launches
+        d, lab = batches[0]
+        with use_backend("hopper"):
+            st1, _ = step(fresh(), d, lab)
+        for boundary in ("transfer", "transfer+transpose"):
+            bstep = Solver(Net(mk_net(), boundary=boundary),
+                           mk_solver()).make_train_step()
+            st0 = fresh()
+            (stb, _), got = caffe_counted(
+                torch, lambda: bstep(st0, d, lab), name, synced=False,
+                want=want)
+            gap, worst = tree_gap(torch, stb["params"], st1["params"])
+            print(f"[9 caffe train] (b) {name}, {boundary}: one step's "
+                  f"params within {gap:.3g} of the fused step's (worst "
+                  f"{worst})", flush=True)
+            if gap > CAFFE_GRAD_TOL:
+                raise SystemExit(f"chip_smoke: {name}: a {boundary} train "
+                                 "step differs from the fused one")
+        p_gap, p_worst = tree_gap(torch, st_h["params"], st_r["params"])
+        v_gap, v_worst = tree_gap(torch, st_h["velocity"], st_r["velocity"])
+        print(f"[9 caffe train] (b) {name}: after {CAFFE_TRAIN_STEPS} steps "
+              f"params within {p_gap:.3g} (worst {p_worst}), velocities "
+              f"within {v_gap:.3g} (worst {v_worst}) of the reference "
+              f"lowering's, relative to each leaf's largest value; iter "
+              f"{st_h['iter'].item()}", flush=True)
+        if max(p_gap, v_gap) > CAFFE_GRAD_TOL or \
+                st_h["iter"].item() != CAFFE_TRAIN_STEPS:
+            raise SystemExit(f"chip_smoke: {name}: train states disagree")
+
+        # (d) Table 2, forward + backward, and the train step
+        ms, grads = {}, {}
+        for boundary in (None, "transfer", "transfer+transpose"):
+            bnet = Net(mk_net(), boundary=boundary)
+            if boundary is None:
+                def fwbw(bnet=bnet):
+                    return caffe_fwbw(torch, bnet, params, data, label)[1]
+            else:
+                def fwbw(bnet=bnet):
+                    bnet.forward_loss(params, data, label)
+                    return bnet.backward_manual(params, data, label)
+            with use_backend("hopper"):
+                grads[boundary] = fwbw()
+            ms[boundary] = caffe_timed(torch, fwbw)
+        if not all(manual_close(torch, grads[b], grads[None])
+                   for b in ("transfer", "transfer+transpose")):
+            raise SystemExit(f"chip_smoke: {name}: the boundary modes give "
+                             "different grads")
+        st = fresh()
+        ms_step = caffe_timed(torch, lambda: step(st, data, label))
+        print(f"[9 caffe train] (d) {name}: ms per forward + backward "
+              f"(median of {CAFFE_REPS}, host clock, batch {LENET_B}): "
+              + ", ".join(f"{b or 'fused'} {ms[b]:.4f} ms "
+                          f"({ms[b] / ms[None]:.2f}x)" for b in ms)
+              + f"; ms per train step (fused, update included) "
+              f"{ms_step:.4f}", flush=True)
+        caffe_profile(torch, lambda: step(st, data, label), name,
+                      tag="9 caffe train", what="train step")
+
+    # (c)
+    solver = Solver(Net(lenet_mnist()), lenet_mnist_solver(
+        max_iter=CAFFE_SOLVE_ITERS, test_interval=CAFFE_TEST_INTERVAL))
+    stream = mnist_like(solver.spec.batch_size, seed=SEED)
+    t0 = time.perf_counter()
+    with use_backend("hopper"):
+        _, hist = solver.solve(
+            torch.Generator().manual_seed(SEED), iter(stream),
+            test_iter=lambda: stream.eval_iter(),
+            log=lambda m: print(f"[9 caffe train] (c) lenet-mnist {m}",
+                                flush=True))
+    secs = time.perf_counter() - t0
+    first, last = hist["loss"][0], hist["loss"][-1]
+    acc = hist["test_acc"][-1][1]
+    print(f"[9 caffe train] (c) lenet-mnist: Solver.solve, "
+          f"{CAFFE_SOLVE_ITERS} iterations at batch "
+          f"{solver.spec.batch_size} in {secs:.2f} s "
+          f"({1e3 * secs / CAFFE_SOLVE_ITERS:.3f} ms an iteration, the "
+          f"loss read back each one and the tests included): loss {first:.4f}"
+          f" -> {last:.4f}, test accuracy {acc:.4f}", flush=True)
+    if not (np.isfinite(hist["loss"]).all() and last < 0.5 * first
+            and acc > 0.8):
+        raise SystemExit("chip_smoke: lenet-mnist: Solver.solve did not "
+                         "train")
+    return total
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -9,9 +9,15 @@ Each layer implements Caffe's triple interface:
 
 ``forward`` is built from ``repro_torch.kernels.ops`` only, so the whole
 net is single-source across backends (the paper's core claim): on the
-card the hopper backend runs every layer through the Hopper kernels.
-``backward`` — Caffe's explicit backprop — comes with the Caffe training
-slice and raises until then.
+card the hopper backend runs every layer through the Hopper kernels, and
+the solver differentiates it with autograd through the ops' Functions.
+``backward`` is Caffe's explicit backprop, line for line JAX's
+(``repro/caffe/layers.py:88-248``): Convolution and InnerProduct through
+``ops.im2col``, ``ops.matmul`` and ``ops.col2im`` (kernels on the hopper
+backend), Pooling, ReLU and SoftmaxWithLoss through the plain oracles
+(``ref.maxpool_bwd``, ``ref.relu_bwd``, ``ref.softmax_xent_bwd``) as
+JAX's do.  It is the independent gradient oracle the tests hold autograd
+to, and the backward the paper's partial-port modes time.
 
 The fillers draw from an explicit ``torch.Generator`` on its own device,
 in layer order, and the params then move to ``device``: xavier is
@@ -31,10 +37,6 @@ from repro_torch.caffe.spec import LayerSpec
 from repro_torch.kernels import ops, ref
 
 Params = Dict[str, torch.Tensor]
-
-_BACKWARD = ("the explicit backward comes with the Caffe training slice "
-             "(slice 7); the forward runs on both backends")
-
 
 def _filler(gen: torch.Generator, shape, spec: LayerSpec, fan_in: int,
             device: torch.device) -> torch.Tensor:
@@ -68,7 +70,7 @@ class Layer:
         raise NotImplementedError
 
     def backward(self, params: Params, cache, top_diffs):
-        raise NotImplementedError(f"{type(self).__name__}: {_BACKWARD}")
+        raise NotImplementedError
 
 
 class Convolution(Layer):
@@ -99,6 +101,25 @@ class Convolution(Layer):
                        pad=s.pad)
         return [y], {"x": x}
 
+    def backward(self, params, cache, top_diffs):
+        (dy,) = top_diffs
+        s = self.spec
+        x, w = cache["x"], params["w"]
+        f, c, kh, kw = w.shape
+        n = x.shape[0]
+        oh, ow = dy.shape[2], dy.shape[3]
+        cols = ops.im2col(x, kh, kw, s.stride, s.pad)
+        dy_flat = dy.reshape(n, f, oh * ow).transpose(0, 1).reshape(f, -1)
+        cols_flat = cols.transpose(0, 1).reshape(c * kh * kw, -1)
+        dw = ops.matmul(dy_flat, cols_flat.T).reshape(w.shape)
+        dcols = ops.matmul(w.reshape(f, -1).T, dy_flat)
+        dcols = dcols.reshape(c * kh * kw, n, oh * ow).transpose(0, 1)
+        dx = ops.col2im(dcols, tuple(x.shape), kh, kw, s.stride, s.pad)
+        grads = {"w": dw}
+        if s.bias_term:
+            grads["b"] = dy.sum(dim=(0, 2, 3))
+        return [dx], grads
+
 
 class InnerProduct(Layer):
     """GEMM + matrixPlusVectorRows (the paper's Listing 1.2)."""
@@ -122,6 +143,17 @@ class InnerProduct(Layer):
             y = ops.bias_add_rows(y, params["b"])
         return [y], {"x": x}
 
+    def backward(self, params, cache, top_diffs):
+        (dy,) = top_diffs
+        x = cache["x"]
+        x2 = x.reshape(x.shape[0], -1)
+        dw = ops.matmul(x2.T, dy)
+        dx = ops.matmul(dy, params["w"].T).reshape(x.shape)
+        grads = {"w": dw}
+        if self.spec.bias_term:
+            grads["b"] = dy.sum(dim=0)
+        return [dx], grads
+
 
 class Pooling(Layer):
     def infer_shapes(self, bottom_shapes):
@@ -143,6 +175,20 @@ class Pooling(Layer):
         y = ops.avgpool(x, s.kernel_size, s.stride, s.pad)
         return [y], {"x_shape": tuple(x.shape)}
 
+    def backward(self, params, cache, top_diffs):
+        (dy,) = top_diffs
+        s = self.spec
+        k, st, pad = s.kernel_size, s.stride, s.pad
+        if s.pool == "max":
+            return [ref.maxpool_bwd(dy, cache["arg"], cache["x_shape"], k,
+                                    st, pad)], {}
+        # average pool: each window's gradient spread evenly over its
+        # k * k taps, then folded back
+        n, c = cache["x_shape"][:2]
+        dcols = (dy / (k * k)).reshape(n, c, 1, -1).expand(
+            n, c, k * k, dy.shape[2] * dy.shape[3]).reshape(n, c * k * k, -1)
+        return [ref.col2im(dcols, cache["x_shape"], k, k, st, pad)], {}
+
 
 class ReLU(Layer):
     """Caffe implements the leaky variant (paper §3, block list)."""
@@ -154,6 +200,10 @@ class ReLU(Layer):
         (x,) = bottoms
         return [ops.relu(x, self.spec.negative_slope)], {"x": x}
 
+    def backward(self, params, cache, top_diffs):
+        (dy,) = top_diffs
+        return [ref.relu_bwd(cache["x"], dy, self.spec.negative_slope)], {}
+
 
 class Softmax(Layer):
     def infer_shapes(self, bottom_shapes):
@@ -163,6 +213,11 @@ class Softmax(Layer):
         (x,) = bottoms
         p = ops.softmax(x)
         return [p], {"p": p}
+
+    def backward(self, params, cache, top_diffs):
+        (dy,) = top_diffs
+        p = cache["p"]
+        return [p * (dy - (dy * p).sum(dim=-1, keepdim=True))], {}
 
 
 class SoftmaxWithLoss(Layer):
@@ -177,6 +232,12 @@ class SoftmaxWithLoss(Layer):
         probs = ref.softmax(logits)
         return [loss], {"probs": probs, "labels": labels}
 
+    def backward(self, params, cache, top_diffs):
+        (dloss,) = top_diffs  # scalar
+        dlogits = (ref.softmax_xent_bwd(cache["probs"], cache["labels"])
+                   * self.spec.loss_weight * dloss)
+        return [dlogits, None], {}
+
 
 class Accuracy(Layer):
     """Not a real layer (paper: 'implicitly included'); metric only."""
@@ -187,6 +248,9 @@ class Accuracy(Layer):
     def forward(self, params, bottoms, train: bool):
         logits, labels = bottoms
         return [ops.accuracy(logits, labels, self.spec.top_k)], {}
+
+    def backward(self, params, cache, top_diffs):
+        return [None, None], {}
 
 
 LAYER_TYPES = {

@@ -3,9 +3,11 @@
 
 ``forward`` walks the layer list feeding named blobs (containers) through
 executors, skipping a layer whose bottom is missing (the loss layers of a
-net run without labels); ``forward_loss`` sums the loss tops; ``metrics``
-reads the loss and the accuracy.  Caffe's explicit ``backward_manual``
-comes with the Caffe training slice.
+net run without labels); ``forward_loss`` sums the loss tops (what the
+solver differentiates with autograd); ``metrics`` reads the loss and the
+accuracy; ``backward_manual`` is Caffe's explicit reverse pass over each
+layer's ``backward`` (the gradient oracle of the tests, and the backward
+the paper's partial-port modes time).
 
 The ``boundary`` hook reproduces the paper's §4.3 pathology: when set,
 every blob crossing into a layer pays (a) a real host round trip (``.cpu()``
@@ -109,7 +111,35 @@ class Net:
                 out["accuracy"] = blobs[layer.spec.tops[0]]
         return out
 
+    # -- Caffe-style explicit backward (gradient oracle for tests) -----------
+    @torch.no_grad()
     def backward_manual(self, params, data, label):
-        raise NotImplementedError(
-            "Net.backward_manual: Caffe's explicit backward comes with the "
-            "Caffe training slice (slice 7)")
+        """``{layer: {"w", "b"}}`` gradients of ``forward_loss`` by the
+        layers' own ``backward``, in reverse layer order
+        (``repro/caffe/net.py:101-129``): a loss layer seeds 1, a blob read
+        by several layers sums their diffs, and no diff flows into
+        ``data`` or ``label``.  Runs without autograd."""
+        blobs, caches = self.forward(params, data, label, train=True)
+        diffs: Dict[str, torch.Tensor] = {}
+        grads: Dict[str, dict] = {}
+        for layer in reversed(self.layers):
+            if layer.name not in caches or layer.spec.type == "Accuracy":
+                continue
+            if layer.spec.type == "SoftmaxWithLoss":
+                top_diffs = [torch.ones((), dtype=torch.float32,
+                                        device=data.device)]
+            else:
+                top_diffs = [diffs.get(t) for t in layer.spec.tops]
+                if all(d is None for d in top_diffs):
+                    continue
+                top_diffs = [torch.zeros_like(blobs[t]) if d is None else d
+                             for d, t in zip(top_diffs, layer.spec.tops)]
+            bdiffs, pgrads = layer.backward(params.get(layer.name, {}),
+                                            caches[layer.name], top_diffs)
+            if pgrads:
+                grads[layer.name] = pgrads
+            for b, d in zip(layer.spec.bottoms, bdiffs):
+                if d is None or b in ("data", "label"):
+                    continue
+                diffs[b] = diffs[b] + d if b in diffs else d
+        return grads

@@ -74,9 +74,12 @@ class SolverSpec:
     seed: int = 0
 
     def learning_rate(self, it):
-        """The rate at iteration ``it`` (a number or a tensor)."""
+        """The rate at iteration ``it`` (a number or a tensor); for a tensor
+        ``it``, an f32 tensor on its device, computed there."""
         if self.lr_policy == "fixed":
-            return torch.tensor(self.base_lr, dtype=torch.float32)
+            dev = it.device if isinstance(it, torch.Tensor) else None
+            return torch.full((), self.base_lr, dtype=torch.float32,
+                              device=dev)
         if self.lr_policy == "inv":
             return self.base_lr * (1.0 + self.gamma * it) ** (-self.power)
         if self.lr_policy == "step":

@@ -14,7 +14,9 @@ so bf16 leaves cross as 16-bit integers and are reinterpreted as
 
 ``caffe_params_from_jax`` takes a ``repro.caffe`` net's params tree,
 ``{layer: {"w", "b"}}`` with numpy leaves, in the same layouts
-(convolution ``(F, C, K, K)``, inner product ``(K, out)``).
+(convolution ``(F, C, K, K)``, inner product ``(K, out)``), and
+``caffe_state_from_jax`` a ``repro.caffe.Solver`` state (``init``'s or a
+train step's: params, velocity and the int32 iteration counter).
 
 ``train_state_from_jax`` carries ``repro.launch.steps.init_train_state``'s
 tree across (params, which become autograd leaves, and the optimizer's
@@ -131,3 +133,16 @@ def caffe_params_from_jax(tree: Dict[str, Dict[str, Any]], *,
     dev = resolve_device(device)
     return {layer: {k: _to_tensor(v, dev) for k, v in p.items()}
             for layer, p in tree.items()}
+
+
+def caffe_state_from_jax(state: Dict[str, Any], *,
+                         device: str | torch.device = "cuda"
+                         ) -> Dict[str, Any]:
+    """A ``repro.caffe.Solver`` state ``{"params", "velocity", "iter"}``
+    (numpy leaves) -> the port's ``Solver`` state on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    return {"params": caffe_params_from_jax(state["params"], device=device),
+            "velocity": caffe_params_from_jax(state["velocity"],
+                                              device=device),
+            "iter": _to_tensor(np.asarray(state["iter"], np.int32),
+                               resolve_device(device)).reshape(())}

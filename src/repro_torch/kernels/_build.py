@@ -54,6 +54,9 @@ _SIGNATURES = {
     "repro_bias_add_rows": [_P, _P, _P, _I, _I, _L, _I, _P],
     # x, out, n, slope, dtype, stream
     "repro_relu": [_P, _P, _L, _F, _I, _P],
+    # x, dy, dx, n, shape (d1, d2, d3), strides of x, dy and dx (4 each),
+    # slope, dtype, stream
+    "repro_relu_bwd": [_P, _P, _P] + [_L] * 16 + [_F, _I, _P],
     # x, out, N, C, H, W, x strides (n, c, h, w), KH, KW, stride, pad, OH,
     # OW, o_sn, o_sr, dtype, stream
     "repro_im2col": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _I,
@@ -62,9 +65,19 @@ _SIGNATURES = {
     # OH, OW, dtype, stream
     "repro_maxpool": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I,
                       _I, _I, _I, _I, _P],
+    # cols, out, N, C, H, W, KH, KW, pad, OH, OW, cols strides (n, r, p),
+    # dtype, stream
+    "repro_col2im": [_P, _P] + [_I] * 9 + [_L] * 3 + [_I, _P],
+    # dy, argmax, out, N, C, H, W, dy strides (n, c, h, w), argmax strides
+    # (n, c, h, w), stride, pad, OH, OW, dtype, stream
+    "repro_maxpool_bwd": [_P, _P, _P] + [_I] * 4 + [_L] * 8 + [_I] * 5
+                         + [_P],
     # x, labels (NULL: softmax), probs, nll, rows, V, row stride, column
     # stride, dtype, stream
     "repro_softmax_rows": [_P, _P, _P, _P, _I, _I, _L, _L, _I, _P],
+    # probs, labels, out, rows, V, row stride, column stride, 1/B, dtype,
+    # stream
+    "repro_softmax_xent_bwd": [_P, _P, _P, _I, _I, _L, _L, _F, _I, _P],
     # q, k, v, out, pos0, width, block_table, ksc, vsc, B, Hkv, G, C, D,
     # n_keys, page, bt_sb, q_sb, q_sc, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
     # v_sh, o_sb, o_sc, o_sh, sc_sp, sc_sh, window, scale, dtype, kv_dtype,

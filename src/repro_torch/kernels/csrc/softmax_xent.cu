@@ -16,6 +16,13 @@
 // every row is written by its own warp.  The logits are read by their row
 // and column strides (a column-major blob from the paper's boundary mode
 // is read in place); probs are contiguous.
+//
+// softmax_xent's backward (replaces softmax_xent_bwd_pallas): dlogits =
+// (p - [j == label]) * (1/B), in f32 and rounded once to p's dtype; a
+// label outside [0, V) matches no column, so its row is p / B, as the TPU
+// kernel's one-hot.  Bound by bytes (a read of p, a write of the same
+// size); the same geometry, one warp per row, lanes striding the row, p
+// read by its strides, the output contiguous (B, V).
 #include "common.cuh"
 
 namespace {
@@ -70,7 +77,43 @@ void launch(const void* x, const long long* labels, void* probs, float* nll,
         rows, V, sr, sc);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+xent_bwd_kernel(const T* __restrict__ p, const long long* __restrict__ labels,
+                T* __restrict__ out, int rows, int V, long sr, long sc,
+                float scale) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const T* pr = p + (long)row * sr;
+  T* o = out + (long)row * V;
+  const long long y = labels[row];
+  for (int v = lane; v < V; v += 32)
+    o[v] = from_f32<T>((to_f32(pr[v * sc]) - (v == y ? 1.f : 0.f)) * scale);
+}
+
 }  // namespace
+
+// probs (rows, V) by strides, labels int64, out contiguous; scale = 1/B
+extern "C" int repro_softmax_xent_bwd(const void* probs, const void* labels,
+                                      void* out, int rows, int V,
+                                      long long sr, long long sc,
+                                      float scale, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* y = static_cast<const long long*>(labels);
+  const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
+  if (dtype == kBF16)
+    xent_bwd_kernel<bf16><<<blocks, kThreads, 0, s>>>(
+        static_cast<const bf16*>(probs), y, static_cast<bf16*>(out), rows, V,
+        sr, sc, scale);
+  else if (dtype == kF32)
+    xent_bwd_kernel<float><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(probs), y, static_cast<float*>(out), rows,
+        V, sr, sc, scale);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
 
 // labels == nullptr: softmax (nll unused); else softmax_xent, labels int64
 extern "C" int repro_softmax_rows(const void* x, const void* labels,

@@ -1,10 +1,9 @@
 """Elementwise Hopper kernels (``csrc/eltwise.cu``): bias over rows (the
-paper's ``matrixPlusVectorRows``) and Caffe's leaky ReLU.
+paper's ``matrixPlusVectorRows``), Caffe's leaky ReLU and its backward.
 
-Replace ``repro/kernels/eltwise.py:bias_add_rows_pallas`` and
-``relu_pallas``.  Each kernel is one grid-stride elementwise pass in f32,
-rounded to the storage dtype; bound by bytes.  ReLU's backward
-(``relu_bwd_pallas``) comes with the Caffe training slice.
+Replace ``repro/kernels/eltwise.py:bias_add_rows_pallas``, ``relu_pallas``
+and ``relu_bwd_pallas``.  Each kernel is one grid-stride elementwise pass
+in f32, rounded to the storage dtype; bound by bytes.
 """
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import DTYPES
 from repro_torch.kernels.ref import bias_add_rows as bias_add_rows_ref
 from repro_torch.kernels.ref import relu as relu_ref
+from repro_torch.kernels.ref import relu_bwd as relu_bwd_ref
 
 
 def bias_add_rows(m: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
@@ -46,6 +46,18 @@ def bias_add_rows(m: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
 bias_add_rows.launches = 0
 
 
+def _dense_like(x: torch.Tensor, what: str) -> torch.Tensor:
+    """An empty tensor in ``x``'s layout: contiguous, or a permuted dense
+    layout (a column-major blob) kept as it is."""
+    if x.is_contiguous():
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    if out.stride() != x.stride():
+        raise ValueError(f"{what}: strides {x.stride()} are not a dense "
+                         f"layout of {tuple(x.shape)}")
+    return out
+
+
 def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
     """``where(x > 0, x, negative_slope * x)`` of any shape; the output
     keeps ``x``'s strides.  CPU tensors take the plain version; CUDA
@@ -55,14 +67,7 @@ def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
     _build.guard_grad("relu", x)
     if x.dtype not in DTYPES:
         raise TypeError(f"relu: dtype {x.dtype} not supported")
-    if x.is_contiguous():
-        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    else:
-        # a permuted dense layout (a column-major blob) keeps its strides
-        out = torch.empty_like(x)
-        if out.stride() != x.stride():
-            raise ValueError(f"relu: strides {x.stride()} are not a dense "
-                             f"layout of {tuple(x.shape)}")
+    out = _dense_like(x, "relu")
     if out.numel() == 0:
         return out
     rc = _build.lib().repro_relu(
@@ -75,3 +80,38 @@ def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
 
 
 relu.launches = 0
+
+
+def relu_bwd(x: torch.Tensor, dy: torch.Tensor,
+             negative_slope: float = 0.0) -> torch.Tensor:
+    """``where(x > 0, dy, negative_slope * dy)`` in ``x``'s dtype and
+    layout, any shape of up to 4 axes; x and dy are read by their own
+    strides.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if not x.is_cuda:
+        return relu_bwd_ref(x, dy, negative_slope)
+    _build.guard_grad("relu_bwd", x, dy)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"relu_bwd: x {tuple(x.shape)} {x.dtype} and dy "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"relu_bwd: dtype {x.dtype} not supported")
+    if x.dim() > 4:
+        raise ValueError(f"relu_bwd: at most 4 axes, got {x.dim()}")
+    out = _dense_like(x, "relu_bwd")
+    if out.numel() == 0:
+        return out
+    pad = 4 - x.dim()
+    shape = (1,) * pad + tuple(x.shape)
+    strides = [(0,) * pad + t.stride() for t in (x, dy, out)]
+    rc = _build.lib().repro_relu_bwd(
+        x.data_ptr(), dy.data_ptr(), out.data_ptr(), x.numel(), *shape[1:],
+        *strides[0], *strides[1], *strides[2], float(negative_slope),
+        DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(rc, "relu_bwd")
+    relu_bwd.launches += 1
+    return out
+
+
+relu_bwd.launches = 0

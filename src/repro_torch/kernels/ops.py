@@ -5,32 +5,39 @@ Every op is registered once in ``repro_torch.core.registry`` with its two
 lowerings — the plain PyTorch version (``kernels/ref.py``) and the Hopper
 kernel wrapper — and exposed as a plain function; the policy
 (``repro_torch.core.policy``) decides per call from the backend and the
-tensor's device which one runs.  Registered so far: the ops of the
-contiguous and paged (and int8 paged) decode paths, of chunked prefill,
-of the Mamba-2 blocks, of the full forward and of the Caffe layers'
-forwards (``relu``, ``im2col``, ``conv2d``, ``maxpool``, ``softmax``,
+tensor's device which one runs.  Registered: the ops of the contiguous
+and paged (and int8 paged) decode paths, of chunked prefill, of the
+Mamba-2 blocks, of the full forward and of the Caffe layers (``relu``,
+``im2col``, ``col2im``, ``conv2d``, ``maxpool``, ``softmax``,
 ``softmax_xent`` with both lowerings; ``avgpool`` and ``accuracy``
-reference-only, as in JAX); ``col2im``, ``conv2d_direct`` and
-``layernorm`` come with later slices.
+reference-only, as in JAX); ``conv2d_direct`` and ``layernorm`` come
+with later slices.
 
 Differentiation mirrors ``repro.kernels.ops``.  When grad mode is on and
-an input requires grad, the ops of the training forward go through
+an input requires grad, the ops of the training forwards go through
 autograd: the reference lowering is torch autograd of the plain version
 (``matmul`` through a Function whose backward is ``_matmul_r_bwd``'s: the
-cotangent cast to the operand's dtype, two f32-accumulated products); the
-hopper lowering is an ``autograd.Function`` per op whose forward launches
-the kernel and whose backward launches the backward kernels where the TPU
-port has them (``matmul``: two more gemms; ``rmsnorm``: ``rmsnorm_bwd``;
-``attention``: ``flash_attention_bwd`` from the saved out and lse) and is
-plain PyTorch where JAX's is jnp (``bias_add_rows``: ``(g, g.sum(0))``;
-``ssd_scan``: the vjp of the plain version, as JAX has no SSD backward
-kernel either).  A kernel wrapper called outside these Functions on a
-tensor that requires grad raises (``_build.guard_grad``) rather than cut
-the graph.  The serving ops (decode, chunked prefill) are not
-differentiable, and neither are the Caffe ops' hopper lowerings yet: their
-backward kernels come with the Caffe training slice, so under grad they
-raise through ``guard_grad`` (the reference lowerings are torch autograd
-of the plain versions).
+cotangent cast to the operand's dtype, two f32-accumulated products;
+``maxpool`` and ``softmax_xent`` through Functions whose backwards are
+``ref.maxpool_bwd`` and ``ref.softmax_xent_bwd``, as JAX's custom VJPs:
+all of a window's gradient to its stored argmax, and ``p / B`` for a row
+whose label is outside [0, V)); the hopper lowering is an
+``autograd.Function`` per op whose forward launches the kernel and whose
+backward launches the backward kernels where the TPU port has them
+(``matmul``: two more gemms; ``rmsnorm``: ``rmsnorm_bwd``; ``attention``:
+``flash_attention_bwd`` from the saved out and lse; ``relu``:
+``relu_bwd``; ``conv2d``: im2col again, two gemms and ``col2im``;
+``maxpool``: ``maxpool_bwd`` where the windows do not overlap;
+``softmax_xent``: ``softmax_xent_bwd``) and is plain PyTorch where JAX's
+is jnp (``bias_add_rows``: ``(g, g.sum(0))``; the convolution's bias
+gradient; ``col2im`` at a stride other than 1 and the overlapping
+maxpool's scatter; ``ssd_scan``: the vjp of the plain version, as JAX
+has no SSD backward kernel either).  A kernel wrapper called outside
+these Functions on a tensor that requires grad raises
+(``_build.guard_grad``) rather than cut the graph.  The serving ops
+(decode, chunked prefill) are not differentiable, nor is ``softmax``'s
+hopper lowering (JAX's ``softmax_pallas`` has no VJP either; the
+``Softmax`` layer appears only in the deploy form).
 """
 from __future__ import annotations
 
@@ -46,10 +53,13 @@ from repro_torch.kernels import softmax_xent as SX
 from repro_torch.kernels._build import needs_grad
 from repro_torch.kernels.eltwise import bias_add_rows as bias_add_rows_hopper
 from repro_torch.kernels.eltwise import relu as relu_hopper
+from repro_torch.kernels.eltwise import relu_bwd as relu_bwd_hopper
 from repro_torch.kernels.gemm import gemm
+from repro_torch.kernels.im2col import col2im as col2im_hopper
 from repro_torch.kernels.im2col import im2col as im2col_hopper
 from repro_torch.kernels.mamba_scan import ssd_scan as ssd_scan_hopper
 from repro_torch.kernels.pooling import maxpool as maxpool_hopper
+from repro_torch.kernels.pooling import maxpool_bwd as maxpool_bwd_hopper
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_hopper
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd
 
@@ -148,6 +158,113 @@ class SSDScanFn(torch.autograd.Function):
         with torch.enable_grad():
             y = ref.ssd_scan(*inputs, chunk=ctx.chunk)[0]
         return (*torch.autograd.grad(y, inputs, dy), None)
+
+
+class ReluFn(torch.autograd.Function):
+    """The relu kernel forward, saving x, and the ``relu_bwd`` kernel
+    backward (``repro/kernels/ops.py:139-151``)."""
+
+    @staticmethod
+    def forward(ctx, x, slope):
+        ctx.save_for_backward(x)
+        ctx.slope = slope
+        return relu_hopper(x, slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return relu_bwd_hopper(x, g, ctx.slope), None
+
+
+class Conv2dFn(torch.autograd.Function):
+    """``conv2d_hopper`` forward, saving ``(x, w)``, and the backward of
+    ``_conv2d_p_bwd`` (``repro/kernels/ops.py:203-222``): im2col again
+    (the kernel, batch in the columns), ``dw = gemm(dy_flat, cols^T)`` and
+    ``dcols = gemm(w_mat^T, dy_flat)`` (the transposes read by their
+    strides), ``dx = col2im(dcols)`` (the (C*KH*KW, N*OH*OW) product read
+    as (N, C*KH*KW, OH*OW) by its strides; the kernel at stride 1, the
+    plain scatter otherwise, as ``ops.py:172-175``) and ``db`` in plain
+    torch.
+    ``dy_flat``, the (F, N*OH*OW) cotangent with the batch in its columns,
+    is the one copy.  No ``dx`` is computed where x needs none (conv1
+    reads the data), no im2col where w needs none, no ``db`` without a
+    bias."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, pad):
+        ctx.save_for_backward(x, w)
+        ctx.opts = (stride, pad)
+        return conv2d_hopper(x, w, b, stride=stride, pad=pad)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        stride, pad = ctx.opts
+        n = x.shape[0]
+        f, c, kh, kw = w.shape
+        dy_flat = dy.transpose(0, 1).reshape(f, -1).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[1]:
+            cols = im2col_hopper(x, kh, kw, stride, pad,
+                                 batch_in_columns=True)
+            dw = gemm(dy_flat, cols.T).view(w.shape)
+        if ctx.needs_input_grad[0]:
+            # (C*KH*KW, N*P), read as (N, C*KH*KW, P) by its strides
+            dcols = gemm(w.reshape(f, -1).T, dy_flat).view(
+                c * kh * kw, n, -1).transpose(0, 1)
+            dx = (col2im_hopper if stride == 1 else ref.col2im)(
+                dcols, tuple(x.shape), kh, kw, stride, pad)
+        if ctx.needs_input_grad[2]:
+            db = dy.sum(dim=(0, 2, 3))
+        return dx, dw, db, None, None
+
+
+class MaxPoolFn(torch.autograd.Function):
+    """One pool evaluation returning ``(out, argmax)``, the argmax not
+    differentiable; the backward sends each window's gradient to its
+    stored argmax, as ``_maxpool_arg_p`` / ``_maxpool_arg_r``
+    (``repro/kernels/ops.py:239-282``).  ``hopper``: the maxpool kernel
+    forward and the ``maxpool_bwd`` kernel backward where stride >= k,
+    the plain scatter ``ref.maxpool_bwd`` for overlapping windows; else
+    the plain versions both ways."""
+
+    @staticmethod
+    def forward(ctx, x, k, stride, pad, hopper):
+        out, arg = (maxpool_hopper if hopper else ref.maxpool)(x, k, stride,
+                                                               pad)
+        ctx.mark_non_differentiable(arg)
+        ctx.save_for_backward(arg)
+        ctx.opts = (tuple(x.shape), k, stride, pad, hopper)
+        return out, arg
+
+    @staticmethod
+    def backward(ctx, g, _):
+        (arg,) = ctx.saved_tensors
+        x_shape, k, stride, pad, hopper = ctx.opts
+        bwd = maxpool_bwd_hopper if hopper and stride >= k \
+            else ref.maxpool_bwd
+        return bwd(g, arg, x_shape, k, stride, pad), None, None, None, None
+
+
+class XentFn(torch.autograd.Function):
+    """The mean NLL, saving ``(probs, labels)``; backward
+    ``softmax_xent_bwd(probs, labels) * g``, the ``* g`` outside the
+    kernel (``repro/kernels/ops.py:318-352``).  ``hopper``: the
+    softmax_xent and softmax_xent_bwd kernels; else the plain versions."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, hopper):
+        loss, probs = (SX.softmax_xent if hopper else ref.softmax_xent)(
+            logits, labels)
+        ctx.save_for_backward(probs, labels)
+        ctx.hopper = hopper
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        probs, labels = ctx.saved_tensors
+        bwd = SX.softmax_xent_bwd if ctx.hopper else ref.softmax_xent_bwd
+        return bwd(probs, labels) * g, None, None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -299,12 +416,24 @@ def ssd_prefill_chunk(
 # ---------------------------------------------------------------------------
 
 def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
+    if needs_grad(x) and use_hopper(x):
+        return ReluFn.apply(x, negative_slope)
     return dispatch("relu", x)(x, negative_slope)
 
 
 def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
            pad: int = 0) -> torch.Tensor:
     return dispatch("im2col", x)(x, kh, kw, stride, pad)
+
+
+def col2im(cols: torch.Tensor, x_shape, kh: int, kw: int, stride: int = 1,
+           pad: int = 0) -> torch.Tensor:
+    """The adjoint of ``im2col``, (N, C*KH*KW, OH*OW) -> ``x_shape``: the
+    kernel at stride 1, the plain scatter at any other stride (JAX's
+    ``col2im``, ``repro/kernels/ops.py:172-175``)."""
+    if stride == 1:
+        return dispatch("col2im", cols)(cols, x_shape, kh, kw, stride, pad)
+    return ref.col2im(cols, x_shape, kh, kw, stride, pad)
 
 
 def conv2d_hopper(x: torch.Tensor, w: torch.Tensor,
@@ -334,6 +463,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None, *, stride: int = 1,
            pad: int = 0) -> torch.Tensor:
     """x (N,C,H,W), w (F,C,KH,KW), b (F,) -> (N,F,OH,OW)."""
+    if needs_grad(x, w, b) and use_hopper(x):
+        return Conv2dFn.apply(x, w, b, stride, pad)
     return dispatch("conv2d", x)(x, w, b, stride=stride, pad=pad)
 
 
@@ -341,7 +472,10 @@ def maxpool_with_argmax(x: torch.Tensor, k: int, stride: int,
                         pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pool evaluation returning ``(out, argmax)`` (the Caffe Pooling
     layer keeps the argmax for its backward); the argmax indexes the
-    padded plane."""
+    padded plane.  Differentiable in ``out`` on both lowerings
+    (``MaxPoolFn``)."""
+    if needs_grad(x):
+        return MaxPoolFn.apply(x, k, stride, pad, use_hopper(x))
     return dispatch("maxpool", x)(x, k, stride, pad)
 
 
@@ -352,13 +486,17 @@ def maxpool(x: torch.Tensor, k: int, stride: int,
 
 def avgpool(x: torch.Tensor, k: int, stride: int,
             pad: int = 0) -> torch.Tensor:
-    """Reference-only, as in JAX."""
+    """Reference-only, as in JAX: under grad, torch autograd of the plain
+    version on either backend."""
     return ref.avgpool(x, k, stride, pad)
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """The kernel over the last axis; another axis takes the plain
-    version, as in JAX."""
+    version, as in JAX.  The hopper lowering is not differentiable (JAX's
+    ``softmax_pallas`` has no VJP): under grad its wrapper raises
+    (``guard_grad``); the reference lowering is torch autograd of the
+    plain version."""
     if dim in (-1, x.dim() - 1):
         return dispatch("softmax", x)(x)
     return ref.softmax(x, dim)
@@ -368,7 +506,9 @@ def softmax_xent_loss(logits: torch.Tensor,
                       labels: torch.Tensor) -> torch.Tensor:
     """Mean NLL over the B rows (f32 scalar); labels int (B,).  A label
     outside [0, V) contributes 0 on both lowerings (``ref.softmax_xent``
-    states the rule)."""
+    states the rule) and gets the gradient ``p / B`` (``XentFn``)."""
+    if needs_grad(logits):
+        return XentFn.apply(logits, labels, use_hopper(logits))
     return dispatch("softmax_xent", logits)(logits, labels)[0]
 
 
@@ -416,6 +556,8 @@ register_op("relu", reference=ref.relu, hopper=relu_hopper,
             doc="leaky-capable ReLU")
 register_op("im2col", reference=ref.im2col, hopper=im2col_hopper,
             doc="merged penta-loop im2col")
+register_op("col2im", reference=ref.col2im, hopper=col2im_hopper,
+            doc="im2col's adjoint (gather form, stride 1)")
 register_op("conv2d", reference=ref.conv2d, hopper=conv2d_hopper,
             doc="im2col+GEMM convolution")
 register_op("maxpool", reference=ref.maxpool, hopper=maxpool_hopper,

@@ -398,6 +398,46 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
     return out.reshape(n, f, oh, ow)
 
 
+def col2im(cols: torch.Tensor, x_shape: Tuple[int, int, int, int], kh: int,
+           kw: int, stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """The adjoint of ``im2col`` (``repro/kernels/ref.py:74-101``), any
+    stride: (N, C*KH*KW, OH*OW) scatter-added back into the zero-padded
+    (N, C, H+2*pad, W+2*pad) plane in ``cols.dtype``, then cropped to
+    ``x_shape``."""
+    n, c, h, w = x_shape
+    oh = conv_out_size(h, kh, stride, pad)
+    ow = conv_out_size(w, kw, stride, pad)
+    hp, wp = h + 2 * pad, w + 2 * pad
+    dev = cols.device
+    rows = (torch.arange(kh, device=dev)[:, None]
+            + stride * torch.arange(oh, device=dev)[None, :])   # (KH, OH)
+    cix = (torch.arange(kw, device=dev)[:, None]
+           + stride * torch.arange(ow, device=dev)[None, :])    # (KW, OW)
+    # the padded flat index of every (i, j, oy, ox) tap, in cols' row order
+    idx = rows[:, None, :, None] * wp + cix[None, :, None, :]
+    out = torch.zeros((n, c, hp * wp), dtype=cols.dtype, device=dev)
+    out.index_add_(2, idx.reshape(-1), cols.reshape(n, c, -1))
+    return out.view(n, c, hp, wp)[:, :, pad:pad + h, pad:pad + w].contiguous()
+
+
+def conv2d_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+               stride: int = 1, pad: int = 0, has_bias: bool = True):
+    """Gradients of ``conv2d`` with respect to (x, w, b), dy (N,F,OH,OW)
+    (``repro/kernels/ref.py:130-159``): f32-accumulated products rounded
+    to the operands' dtypes, ``dx`` by ``col2im``; ``db`` is None without
+    a bias."""
+    n, c = x.shape[:2]
+    f, _, kh, kw = w.shape
+    dy_mat = dy.reshape(n, f, -1).float()
+    cols = im2col(x, kh, kw, stride, pad)
+    dw = torch.einsum("nfo,nko->fk", dy_mat, cols.float()).to(w.dtype)
+    dcols = torch.einsum("fk,nfo->nko", w.reshape(f, -1).float(),
+                         dy_mat).to(x.dtype)
+    dx = col2im(dcols, tuple(x.shape), kh, kw, stride, pad)
+    db = dy.sum(dim=(0, 2, 3)) if has_bias else None
+    return dx, dw.reshape(w.shape), db
+
+
 def maxpool(x: torch.Tensor, k: int, stride: int,
             pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, argmax), both (N,C,OH,OW).  The plane is padded with
@@ -415,6 +455,22 @@ def maxpool(x: torch.Tensor, k: int, stride: int,
     return out, (row * (w + 2 * pad) + col).to(torch.int32)
 
 
+def maxpool_bwd(dy: torch.Tensor, argmax: torch.Tensor,
+                x_shape: Tuple[int, int, int, int], k: int, stride: int,
+                pad: int = 0) -> torch.Tensor:
+    """The backward of ``maxpool`` (``repro/kernels/ref.py:191-209``): each
+    window's ``dy`` scatter-added at its stored argmax into the zero (N, C,
+    H+2*pad, W+2*pad) plane in ``dy.dtype``, then cropped; a tie gives all
+    of ``dy`` to the first maximum, and overlapping windows add up."""
+    n, c, h, w = x_shape
+    hp, wp = h + 2 * pad, w + 2 * pad
+    flat = torch.zeros((n, c, hp * wp), dtype=dy.dtype, device=dy.device)
+    flat.scatter_add_(2, argmax.reshape(n, c, -1).long(),
+                      dy.reshape(n, c, -1))
+    return flat.view(n, c, hp, wp)[:, :, pad:pad + h,
+                                   pad:pad + w].contiguous()
+
+
 def avgpool(x: torch.Tensor, k: int, stride: int,
             pad: int = 0) -> torch.Tensor:
     """Mean over every k x k window of the zero-padded plane (padding
@@ -425,6 +481,12 @@ def avgpool(x: torch.Tensor, k: int, stride: int,
 def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
     """Caffe's leaky-capable ReLU: ``where(x > 0, x, slope * x)``."""
     return torch.where(x > 0, x, negative_slope * x)
+
+
+def relu_bwd(x: torch.Tensor, dy: torch.Tensor,
+             negative_slope: float = 0.0) -> torch.Tensor:
+    """``where(x > 0, dy, slope * dy)``: a NaN in ``x`` takes the slope."""
+    return torch.where(x > 0, dy, negative_slope * dy)
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -452,6 +514,17 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
     picked = logp.gather(1, lab.clamp(0, v - 1)[:, None])[:, 0]
     nll = torch.where(valid, -picked, torch.zeros_like(picked))
     return nll.mean(), torch.exp(logp).to(logits.dtype)
+
+
+def softmax_xent_bwd(probs: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``softmax_xent``'s mean NLL with respect to the
+    logits, ``(p - onehot) / B`` in ``probs.dtype``
+    (``repro/kernels/ref.py:263-266``).  A label outside [0, V) has no
+    one-hot (``jax.nn.one_hot``), so its row gets ``p / B``."""
+    b, v = probs.shape
+    onehot = labels.long()[:, None] == torch.arange(v, device=probs.device)
+    return (probs - onehot.to(probs.dtype)) / b
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor,

@@ -3,8 +3,9 @@ layer's forward at ``tests/test_caffe.py``'s shapes, ``Net.metrics`` of
 both LeNets and the deploy net's ``prob`` blob at batch 4 against JAX's
 reference backend (params from JAX's init through
 ``caffe_params_from_jax``, biases perturbed), the three boundary modes,
-the image streams, the spec dataclasses, the containers and the parts
-that wait for the training slice.
+the image streams, the spec dataclasses, the containers and the
+solver's state (the training parts are held to JAX in
+``test_torch_caffe_train.py`` and ``test_torch_caffe_grad.py``).
 
 Tolerances: layer outputs and logits within 1e-5 of their scale (f32
 products in another order); losses within 1e-5 relative; accuracy, the
@@ -281,13 +282,19 @@ def test_solver_state_and_what_waits_for_training():
         for k, v in p.items():
             assert state["velocity"][name][k].shape == v.shape
             assert not state["velocity"][name][k].any()
-    for fn in (solver.make_train_step, solver.solve):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            fn()
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        solver.net.backward_manual(state["params"], None, None)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        solver.net.layers[0].backward({}, {}, [])
+    # the training parts run (``test_torch_caffe_train.py`` holds them to
+    # JAX): the explicit backward gives a gradient per param, and a train
+    # step advances the counter in place and moves the params
+    data, label = synthetic.mnist_like(4, device="cpu").batch(0)
+    grads = solver.net.backward_manual(state["params"], data, label)
+    assert {n: {k: v.shape for k, v in p.items()} for n, p in grads.items()} \
+        == {n: {k: v.shape for k, v in p.items()}
+            for n, p in state["params"].items()}
+    w0 = state["params"]["ip2"]["w"].clone()
+    out, loss = solver.make_train_step()(state, data, label)
+    assert out is state and int(state["iter"]) == 1
+    assert torch.isfinite(loss) and not torch.equal(w0,
+                                                    state["params"]["ip2"]["w"])
 
 
 # -- data, specs, containers --------------------------------------------------

@@ -285,8 +285,8 @@ def test_registry_covers_the_slice():
               "attention_prefill_chunk_paged",
               "attention_decode_paged_quant",
               "attention_prefill_chunk_paged_quant", "attention",
-              "ssd_scan", "ssd_prefill_chunk", "relu", "im2col", "conv2d",
-              "maxpool", "softmax", "softmax_xent"}
+              "ssd_scan", "ssd_prefill_chunk", "relu", "im2col", "col2im",
+              "conv2d", "maxpool", "softmax", "softmax_xent"}
     # reference-only, as in JAX's registry
     reference_only = {"avgpool", "accuracy"}
     assert set(cov) == hopper | reference_only
@@ -294,7 +294,7 @@ def test_registry_covers_the_slice():
     assert all(cov[n] == {"reference": True, "hopper": False}
                for n in reference_only)
     # the port's op names are the JAX registry's: the gap is computed
-    # (col2im, conv2d_direct and layernorm are still to come)
+    # (conv2d_direct and layernorm are still to come)
     jax_ops = jax_registry.list_ops()
     assert set(list_ops()) <= set(jax_ops)
     assert reference_only == {n for n in cov if jax_ops[n].reference_only}
