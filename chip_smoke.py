@@ -9,7 +9,7 @@ failure (non-zero exit, no result line):
 
 1. device   — CUDA present, sm_90; prints nvidia-smi's name and power limit.
 2. build    — compiles every ``csrc/*.cu`` kernel with nvcc for sm_90a.
-3. kernels  — each of the twenty-two kernels against its plain PyTorch
+3. kernels  — each of the twenty-three kernels against its plain PyTorch
               version at the main paths' shapes (bf16 and f32; qwen2.5-3b's,
               the recurrent archs' and mixtral-8x7b's, the attention
               kernels also at glm4-9b's, deepseek-coder-33b's and
@@ -23,7 +23,9 @@ failure (non-zero exit, no result line):
               backward gemm of both LeNets' train steps, col2im in both
               column layouts and at pad 2, maxpool_bwd on ties with pads
               0 and 1, relu_bwd on a column-major x, softmax_xent_bwd
-              with labels -1 and V), and the training
+              with labels -1 and V; conv2d_direct at the five LeNet
+              convolutions, JAX's test cases, the autotuner's conv3x3
+              cell, in bf16 and on a channels-last x), and the training
               step's: rmsnorm_bwd at 512 rows of 2048 and 5120,
               flash_attention_bwd at B 2 x S 256 with qwen2.5-3b's,
               zamba2-2.7b's and, windowed, mixtral-8x7b's heads, and the
@@ -34,7 +36,8 @@ failure (non-zero exit, no result line):
               ``F.rms_norm`` and of ``F.scaled_dot_product_attention``
               for the backward kernels; ``F.fold`` and the backward of
               ``F.max_pool2d``, ``F.leaky_relu`` and ``F.cross_entropy``
-              for the Caffe backward kernels); the int8 pools are
+              for the Caffe backward kernels; ``F.conv2d`` and the port's
+              im2col + gemm form for conv2d_direct); the int8 pools are
               filled by the pager's quantized writes, and the paged kernels
               also read a bf16 pool under f32 queries; an all-unmapped
               paged row must come out as zeros, an SSD row with no real token
@@ -119,6 +122,13 @@ failure (non-zero exit, no result line):
               Table 2, forward + backward (ms per iteration in the three
               boundary modes, ms per train step, one profiled step's
               device busy share).
+10. direct  — the direct convolution: both LeNets' forward at batch 64
+              in f32 on the hopper backend, then ``ops.conv2d_direct`` on
+              each Convolution layer's bottom blob under
+              ``set_sync_debug_mode("error")``, one launch a layer (MNIST
+              2, CIFAR 3) and no other, held to the layer's top blob from
+              the net's im2col + gemm kernels and to the plain version;
+              ms per layer and per net against the im2col + gemm form.
 
 The random 64- and 54-layer Mamba stacks are chaotic: the plain reference
 alone, in bf16 and in f32 on the same weights, disagrees on nearly every
@@ -229,11 +239,16 @@ def main() -> int:
     # ---------------------------------------------------------------- 9
     for name, n in phase_caffe_train(torch).items():
         launches[name] += n
+
+    # --------------------------------------------------------------- 10
+    for name, n in phase_direct(torch).items():
+        launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "
-                             "a serving, check, training or Caffe path")
+                             "a serving, check, training, Caffe or direct "
+                             "convolution path")
 
     print(f"[done] {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -377,6 +392,11 @@ def phase_kernels(torch):
     TOL.update({("float32", "col2im"): 1e-5, ("bfloat16", "col2im"): 2 ** -7,
                 ("float32", "softmax_xent_bwd"): 1e-6,
                 ("bfloat16", "softmax_xent_bwd"): 2 ** -7})
+    # conv2d_direct: sums of up to C*KH*KW = 800 f32 products in another
+    # order (f32); both sides accumulate the same bf16 products in f32 and
+    # round once (one bf16 ulp)
+    TOL.update({("float32", "conv2d_direct"): 1e-5,
+                ("bfloat16", "conv2d_direct"): 2 ** -7})
     # the training shapes' products take 5 timed launches each (the
     # head's take 15-30 ms)
     slow = Timer(torch, reps=5, warm=1)
@@ -384,24 +404,28 @@ def phase_kernels(torch):
     rows = []          # one per (kernel, case)
 
     def run(kernel, case, dtype, step, count, kfn, pfn, lfn, nbytes, flops,
-            tol=None, clock=timer):
+            tol=None, clock=timer, im2col_gemm=None):
         """``count``: launches of this case in one bf16 ``step``
         ("decode" or "prefill") of the serving phase at B = 4, or one
-        ``train`` step of phase 7 (B = 2, S = 256)."""
+        ``train`` step of phase 7 (B = 2, S = 256).  ``im2col_gemm``: the
+        port's im2col + gemm form of a convolution, a second yardstick."""
         name = kernel.__name__
         dt = str(dtype).split(".")[1]
         err = check(f"{name} {case} {dtype}", kfn(), pfn(),
                     TOL[(dt, name)] if tol is None else tol)
         ms, p_ms = clock(kfn), clock(pfn)
         l_ms = clock(lfn) if lfn is not None else None
+        g_ms = clock(im2col_gemm) if im2col_gemm is not None else None
         b_ms, by = bound_ms(nbytes, flops, dt)
         rows.append(dict(name=name, case=case, dtype=dt, step=step,
                          count=count, err=err, ms=ms, plain_ms=p_ms,
-                         library_ms=l_ms, bound_ms=b_ms, bound_by=by))
+                         library_ms=l_ms, bound_ms=b_ms, bound_by=by,
+                         im2col_gemm_ms=g_ms))
         lib = f"{l_ms:.4f}" if l_ms is not None else "n/a"
+        gem = f"  im2col+gemm {g_ms:.4f} ms" if g_ms is not None else ""
         print(f"[3 kernels] {name:31s} {case:50s} {dt:8s} {step:7s} "
               f"x{count:<3d} {ms:.4f} ms  bound {b_ms:.4f} ms ({by})  plain "
-              f"{p_ms:.4f} ms  library {lib} ms  max_abs_err {err:.3g}",
+              f"{p_ms:.4f} ms  library {lib} ms{gem}  max_abs_err {err:.3g}",
               flush=True)
 
     hq, hkv, hd, smax, page, c = 16, 2, 128, 128, 16, 16
@@ -866,6 +890,7 @@ def phase_kernels(torch):
         torch.cuda.empty_cache()
     caffe_kernels(torch, F, rnd, run)
     caffe_train_kernels(torch, F, rnd, run)
+    direct_kernels(torch, F, rnd, run)
 
     # per-kernel totals over one bf16 step at B = 4: a decode step for the
     # decode-path kernels, a prefill step (C = 16) for the chunk kernels
@@ -928,6 +953,11 @@ def phase_kernels(torch):
         "softmax_xent_bwd": ("src/repro_torch/kernels/csrc/softmax_xent.cu",
                              "src/repro/kernels/softmax_xent.py:120",
                              "mnist train"),
+        # the direct convolution at LeNet-MNIST's two convolutions (phase
+        # 10), batch 64
+        "conv2d_direct": ("src/repro_torch/kernels/csrc/conv_direct.cu",
+                          "src/repro/kernels/conv_direct.py:53",
+                          "mnist direct"),
     }
 
     def totals(name, step):
@@ -941,6 +971,8 @@ def phase_kernels(torch):
             if all(r["library_ms"] is not None for r in sel) else None)
         tot["bytes_ms"] = sum(r["bound_ms"] * r["count"] for r in sel
                               if r["bound_by"] == "bytes")
+        tot["im2col_gemm_ms"] = sum((r["im2col_gemm_ms"] or 0.0) * r["count"]
+                                    for r in sel)
         return tot
 
     out = []
@@ -956,6 +988,8 @@ def phase_kernels(torch):
             else "operations",
             "library_ms": tot["library_ms"],
         })
+        if name == "conv2d_direct":
+            out[-1]["im2col_gemm_ms"] = tot["im2col_gemm_ms"]
         lib = tot["library_ms"]
         at = {"forward": "B=2, 160 tokens",
               "train": f"B={TRAIN_B}, S={TRAIN_S}"}.get(
@@ -996,6 +1030,14 @@ def phase_kernels(torch):
                   f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, "
                   f"plain {tot['plain_ms']:.4f} ms, library "
                   f"{tot['library_ms']:.4f} ms", flush=True)
+    for step in ("mnist direct", "cifar direct"):
+        tot = totals("conv2d_direct", step)
+        print(f"[3 kernels] conv2d_direct: the convolutions of one f32 "
+              f"{step.split()[0]} forward at B={LENET_B}: {tot['ms']:.4f} ms"
+              f" vs bound {tot['bound_ms']:.5f} ms, plain "
+              f"{tot['plain_ms']:.4f} ms, library (F.conv2d) "
+              f"{tot['library_ms']:.4f} ms, im2col+gemm "
+              f"{tot['im2col_gemm_ms']:.4f} ms", flush=True)
     tot = totals("ssd_scan", "prefill")
     print(f"[3 kernels] ssd_scan: one bf16 mamba2 prefill step (C = {c}): "
           f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
@@ -1206,7 +1248,7 @@ def train_kernels(torch, F, rnd, run, clock, dtype, es):
 # at it: one f32 TEST-phase forward of each net and of MNIST's deploy form
 LENET_B = 64
 CAFFE_STEPS = ("mnist fwd", "cifar fwd", "deploy fwd", "mnist train",
-               "cifar train")
+               "cifar train", "mnist direct", "cifar direct")
 
 
 def caffe_kernels(torch, F, rnd, run):
@@ -1521,6 +1563,65 @@ def caffe_train_kernels(torch, F, rnd, run):
     xent_bwd_case("bf16", "loss", 0, dtype=bf)
 
 
+# the five LeNet convolutions at batch 64, stride 1: (net, layer, C, H = W,
+# F, k, pad); the pools round their output size down (CIFAR's 3/2 pools:
+# 32 -> 15 -> 7)
+LENET_CONVS = (("mnist", "conv1", 1, 28, 20, 5, 0),
+               ("mnist", "conv2", 20, 12, 50, 5, 0),
+               ("cifar", "conv1", 3, 32, 32, 5, 2),
+               ("cifar", "conv2", 32, 15, 32, 5, 2),
+               ("cifar", "conv3", 32, 7, 64, 5, 2))
+
+
+def direct_kernels(torch, F, rnd, run):
+    """Phase 3 for conv2d_direct, held to ``ref.conv2d_direct``: JAX's
+    cases (``tests/test_kernels_conv_direct.py``: strides 1-3, pads 0-2,
+    2x2 windows, F = 160 with C = 3, and its case without bias), the
+    autotuner's ``conv3x3`` cell (``repro/tuning/autotune.py:123-136``),
+    the five LeNet convolutions at batch 64 in f32 (``count`` 1 in the
+    step of their net's forward convolutions, as phase 10 runs them), then
+    CIFAR conv2 in bf16 and MNIST conv2 on a channels-last x (a view read
+    by its strides).  Yardsticks: ``F.conv2d`` (cuDNN, TF32 off) and the
+    port's im2col + gemm form (``ops.conv2d_hopper``)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.conv_direct import conv2d_direct, cost
+
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [("jax cases", "jax", n, c, h, f, k, s, p, f32, True, False, 0)
+             for n, c, h, f, k, s, p in (
+                 (2, 3, 12, 4, 3, 1, 1), (1, 1, 28, 20, 5, 1, 0),
+                 (2, 4, 10, 8, 3, 2, 1), (1, 2, 8, 3, 2, 2, 0),
+                 (2, 3, 9, 5, 3, 3, 0), (1, 3, 16, 160, 5, 1, 2))]
+    cases += [("jax cases", "jax no bias", 2, 3, 8, 4, 3, 1, 1, f32, False,
+               False, 0),
+              ("tuning", "conv3x3", 2, 8, 16, 64, 3, 1, 1, f32, True, False,
+               0)]
+    cases += [(f"{net} direct", layer, LENET_B, c, h, f, k, 1, p, f32, True,
+               False, 1) for net, layer, c, h, f, k, p in LENET_CONVS]
+    cases += [("bf16", "cifar conv2", LENET_B, 32, 15, 32, 5, 1, 2, bf, True,
+               False, 0),
+              ("layout", "mnist conv2 channels-last", LENET_B, 20, 12, 50, 5,
+               1, 0, f32, True, True, 0)]
+    for step, what, n, c, h, f, k, st, p, dt, bias, cl, count in cases:
+        x = (rnd((n, h, h, c), dt).permute(0, 3, 1, 2) if cl
+             else rnd((n, c, h, h), dt))
+        w = rnd((f, c, k, k), dt, (c * k * k) ** -0.5)
+        b = rnd((f,), dt, 0.1) if bias else None
+        nbytes, flops, _ = cost(x.shape, w.shape, st, p, x.element_size(),
+                                bias)
+        run(conv2d_direct, f"{what} {n}x{c}x{h}x{h} -> {f} k{k} s{st} p{p}",
+            dt, step, count,
+            lambda x=x, w=w, b=b, st=st, p=p: conv2d_direct(
+                x, w, b, stride=st, pad=p),
+            lambda x=x, w=w, b=b, st=st, p=p: ref.conv2d_direct(
+                x, w, b, stride=st, pad=p),
+            lambda x=x, w=w, b=b, st=st, p=p: F.conv2d(
+                x, w, b, stride=st, padding=p),
+            nbytes, flops,
+            im2col_gemm=lambda x=x, w=w, b=b, st=st, p=p: ops.conv2d_hopper(
+                x, w, b, stride=st, pad=p))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width serving through the port's engine
 # ---------------------------------------------------------------------------
@@ -1574,7 +1675,7 @@ KERNELS = ("gemm", "rmsnorm", "bias_add_rows", "flash_decode",
            "flash_prefill_chunk_paged_quant", "flash_attention", "ssd_scan",
            "rmsnorm_bwd", "flash_attention_bwd", "im2col", "maxpool", "relu",
            "softmax", "softmax_xent", "col2im", "maxpool_bwd", "relu_bwd",
-           "softmax_xent_bwd")
+           "softmax_xent_bwd", "conv2d_direct")
 # the attention kernels of each (layout, pool): (decode step, prefill step)
 ATTN = {("contiguous", "f32"): ("flash_decode", "flash_prefill_chunk"),
         ("paged", "f32"): ("flash_decode_paged", "flash_prefill_chunk_paged"),
@@ -1625,6 +1726,7 @@ def per_step(cfg):
 
 def kernel_fns():
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.conv_direct import conv2d_direct
     from repro_torch.kernels.eltwise import bias_add_rows, relu, relu_bwd
     from repro_torch.kernels.gemm import gemm
     from repro_torch.kernels.im2col import col2im, im2col
@@ -1638,7 +1740,8 @@ def kernel_fns():
            "im2col": im2col, "maxpool": maxpool, "relu": relu,
            "softmax": softmax, "softmax_xent": softmax_xent,
            "col2im": col2im, "maxpool_bwd": maxpool_bwd,
-           "relu_bwd": relu_bwd, "softmax_xent_bwd": softmax_xent_bwd}
+           "relu_bwd": relu_bwd, "softmax_xent_bwd": softmax_xent_bwd,
+           "conv2d_direct": conv2d_direct}
     fns.update({name: getattr(FA, name) for name in KERNELS
                 if name.startswith("flash_")})
     return fns
@@ -3200,6 +3303,99 @@ def phase_caffe_train(torch):
             and acc > 0.8):
         raise SystemExit("chip_smoke: lenet-mnist: Solver.solve did not "
                          "train")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the direct convolution at the LeNets' convolutions
+# ---------------------------------------------------------------------------
+
+def phase_direct(torch):
+    """Phase 10: for LeNet-MNIST and LeNet-CIFAR-10 at batch 64 in f32 on
+    the hopper backend, the forward through ``Net.forward`` (phase 8's
+    params and batch), then ``ops.conv2d_direct`` on each Convolution
+    layer's bottom blob with its params, through ``dispatch``: one kernel
+    launch a layer and no other, no host sync.  Each output is held to the
+    layer's top blob (the net's own im2col + gemm kernels) and to
+    ``ref.conv2d_direct``, within 1e-5 of its scale (sums of up to 800 f32
+    products in another order).  Then ms per layer and per net for the
+    direct form against the layer's im2col + gemm + bias form
+    (``ops.conv2d``) on the same input: host clock, synchronized, median
+    of ``CAFFE_REPS``.  Returns the launches of the counted runs."""
+    from repro_torch.caffe import (lenet_cifar10, lenet_cifar10_solver,
+                                   lenet_mnist, lenet_mnist_solver)
+    from repro_torch.core.policy import use_backend
+    from repro_torch.data.synthetic import cifar10_like, mnist_like
+    from repro_torch.kernels import ops, ref
+
+    total = {name: 0 for name in KERNELS}
+    for mk_net, mk_solver, stream_fn in (
+            (lenet_mnist, lenet_mnist_solver, mnist_like),
+            (lenet_cifar10, lenet_cifar10_solver, cifar10_like)):
+        net, _, params, data, label = caffe_net(torch, mk_net, mk_solver,
+                                                stream_fn)
+        name = net.spec.name
+        with use_backend("hopper"), torch.no_grad():
+            blobs = net.forward(params, data, label, train=False)[0]
+        convs = [(s.name, blobs[s.bottoms[0]], params[s.name]["w"],
+                  params[s.name].get("b"), s.stride, s.pad, blobs[s.tops[0]])
+                 for s in (layer.spec for layer in net.layers)
+                 if s.type == "Convolution"]
+
+        def direct(c):
+            with torch.no_grad():
+                return ops.conv2d_direct(c[1], c[2], c[3], stride=c[4],
+                                         pad=c[5])
+
+        def im2col_gemm(c):
+            with torch.no_grad():
+                return ops.conv2d(c[1], c[2], c[3], stride=c[4], pad=c[5])
+
+        outs, got = caffe_counted(
+            torch, lambda: [direct(c) for c in convs], name,
+            want={"conv2d_direct": len(convs)})
+        for k, v in got.items():
+            total[k] += v
+        for c, y in zip(convs, outs):
+            layer, x, w, b, st, p, top = c
+            want = ref.conv2d_direct(x, w, b, stride=st, pad=p)
+            scale = top.abs().max().item()
+            gap = (y - top).abs().max().item()
+            gap_r = (y - want).abs().max().item()
+            t_d = caffe_timed(torch, lambda c=c: direct(c))
+            t_g = caffe_timed(torch, lambda c=c: im2col_gemm(c))
+            print(f"[10 direct] {name} {layer}: {tuple(x.shape)} -> "
+                  f"{tuple(y.shape)} k{w.shape[-1]} p{p}: max gap to the "
+                  f"net's im2col + gemm top {gap:.3g}, to ref.conv2d_direct "
+                  f"{gap_r:.3g}, of scale {scale:.3g}; ms (median of "
+                  f"{CAFFE_REPS}, host clock): direct {t_d:.4f}, im2col + "
+                  f"gemm + bias {t_g:.4f} ({t_g / t_d:.2f}x)", flush=True)
+            if not (y.shape == top.shape and torch.isfinite(y).all()
+                    and gap <= 1e-5 * scale
+                    and gap_r <= 1e-5 * want.abs().max().item()):
+                raise SystemExit(f"chip_smoke: {name} {layer}: "
+                                 "conv2d_direct disagrees or is malformed")
+        t_d = caffe_timed(torch, lambda: [direct(c) for c in convs])
+        t_g = caffe_timed(torch, lambda: [im2col_gemm(c) for c in convs])
+        print(f"[10 direct] {name}: the {len(convs)} convolutions of one "
+              f"forward at batch {LENET_B} (median of {CAFFE_REPS}, host "
+              f"clock): direct {t_d:.4f} ms, im2col + gemm + bias "
+              f"{t_g:.4f} ms ({t_g / t_d:.2f}x); launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+
+    # JAX's conv2d_direct_pallas has no VJP: under grad the hopper
+    # lowering raises rather than cut the graph
+    x = convs[0][1].detach().requires_grad_(True)
+    with use_backend("hopper"):
+        try:
+            ops.conv2d_direct(x, *convs[0][2:4], pad=convs[0][5])
+        except RuntimeError as e:
+            if "requires grad" not in str(e):
+                raise
+        else:
+            raise SystemExit("chip_smoke: ops.conv2d_direct ran its kernel "
+                             "under grad")
+    print("[10 direct] under grad ops.conv2d_direct raises", flush=True)
     return total
 
 

@@ -7,7 +7,11 @@ for tensor ``t``; ``coverage()`` reports, per op, which lowerings exist, so
 the port's progress against the JAX op surface is computed, not remembered.
 
 Kernels use fixed tile sizes for now; the JAX registry's tuning table has
-no counterpart yet.
+no counterpart yet.  The first knob the port's tuning layer (ROADMAP
+Queue 1 item 16) will take is ``conv2d_direct``'s filter tile (``kFT`` =
+32 in ``kernels/csrc/conv_direct.cu``), which JAX reads from
+``get_tuning("conv_direct", ..., ft=128)``; ``kernels/gemm.py:
+SKINNY_MAX_M``, set from a measured crossover, is another.
 """
 from __future__ import annotations
 

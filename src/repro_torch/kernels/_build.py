@@ -65,6 +65,9 @@ _SIGNATURES = {
     # OH, OW, dtype, stream
     "repro_maxpool": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I,
                       _I, _I, _I, _I, _P],
+    # x, w, bias (f32 or NULL), out, N, C, H, W, x strides (n, c, h, w), F,
+    # KH, KW, stride, pad, OH, OW, dtype, stream
+    "repro_conv2d_direct": [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I] * 8 + [_P],
     # cols, out, N, C, H, W, KH, KW, pad, OH, OW, cols strides (n, r, p),
     # dtype, stream
     "repro_col2im": [_P, _P] + [_I] * 9 + [_L] * 3 + [_I, _P],

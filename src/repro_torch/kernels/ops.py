@@ -9,9 +9,10 @@ tensor's device which one runs.  Registered: the ops of the contiguous
 and paged (and int8 paged) decode paths, of chunked prefill, of the
 Mamba-2 blocks, of the full forward and of the Caffe layers (``relu``,
 ``im2col``, ``col2im``, ``conv2d``, ``maxpool``, ``softmax``,
-``softmax_xent`` with both lowerings; ``avgpool`` and ``accuracy``
-reference-only, as in JAX); ``conv2d_direct`` and ``layernorm`` come
-with later slices.
+``softmax_xent`` with both lowerings), and ``conv2d_direct``, the direct
+convolution, with both lowerings (its reference lowering is
+``ref.conv2d``, as JAX registers it); ``avgpool``, ``accuracy`` and
+``layernorm`` are reference-only, as in JAX.  The set equals JAX's 23.
 
 Differentiation mirrors ``repro.kernels.ops``.  When grad mode is on and
 an input requires grad, the ops of the training forwards go through
@@ -35,9 +36,10 @@ maxpool's scatter; ``ssd_scan``: the vjp of the plain version, as JAX
 has no SSD backward kernel either).  A kernel wrapper called outside
 these Functions on a tensor that requires grad raises
 (``_build.guard_grad``) rather than cut the graph.  The serving ops
-(decode, chunked prefill) are not differentiable, nor is ``softmax``'s
-hopper lowering (JAX's ``softmax_pallas`` has no VJP either; the
-``Softmax`` layer appears only in the deploy form).
+(decode, chunked prefill) are not differentiable, nor are the hopper
+lowerings of ``softmax`` and ``conv2d_direct`` (JAX's ``softmax_pallas``
+and ``conv2d_direct_pallas`` have no VJP either; the ``Softmax`` layer
+appears only in the deploy form, and no layer calls ``conv2d_direct``).
 """
 from __future__ import annotations
 
@@ -51,6 +53,9 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
 from repro_torch.kernels import softmax_xent as SX
 from repro_torch.kernels._build import needs_grad
+from repro_torch.kernels.conv_direct import (
+    conv2d_direct as conv2d_direct_hopper,
+)
 from repro_torch.kernels.eltwise import bias_add_rows as bias_add_rows_hopper
 from repro_torch.kernels.eltwise import relu as relu_hopper
 from repro_torch.kernels.eltwise import relu_bwd as relu_bwd_hopper
@@ -282,6 +287,12 @@ def bias_add_rows(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return dispatch("bias_add_rows", m)(m, v)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Reference-only, as in JAX (``repro/kernels/ops.py:391-392``)."""
+    return ref.layernorm(x, w, b, eps)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     if needs_grad(x, w) and use_hopper(x):
@@ -468,6 +479,16 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
     return dispatch("conv2d", x)(x, w, b, stride=stride, pad=pad)
 
 
+def conv2d_direct(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None, *, stride: int = 1,
+                  pad: int = 0) -> torch.Tensor:
+    """The direct convolution, x (N,C,H,W), w (F,C,KH,KW), b (F,) ->
+    (N,F,OH,OW), by the policy: the kernel on the hopper lowering (no
+    backward: under grad it raises, as JAX's kernel has no VJP), else
+    ``ref.conv2d`` (torch autograd of the plain version)."""
+    return dispatch("conv2d_direct", x)(x, w, b, stride=stride, pad=pad)
+
+
 def maxpool_with_argmax(x: torch.Tensor, k: int, stride: int,
                         pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pool evaluation returning ``(out, argmax)`` (the Caffe Pooling
@@ -524,6 +545,8 @@ register_op("bias_add_rows", reference=ref.bias_add_rows,
             hopper=bias_add_rows_hopper, doc="matrixPlusVectorRows functor")
 register_op("rmsnorm", reference=ref.rmsnorm, hopper=rmsnorm_hopper,
             doc="row RMSNorm, f32 statistics")
+register_op("layernorm", reference=ref.layernorm,
+            doc="LayerNorm (reference only)")
 register_op("attention_decode", reference=ref.attention_decode,
             hopper=FA.flash_decode, doc="contiguous-cache decode attention")
 register_op("attention_decode_paged", reference=ref.attention_decode_paged,
@@ -560,6 +583,9 @@ register_op("col2im", reference=ref.col2im, hopper=col2im_hopper,
             doc="im2col's adjoint (gather form, stride 1)")
 register_op("conv2d", reference=ref.conv2d, hopper=conv2d_hopper,
             doc="im2col+GEMM convolution")
+register_op("conv2d_direct", reference=ref.conv2d,
+            hopper=conv2d_direct_hopper,
+            doc="fused direct conv (implicit GEMM; beyond-paper)")
 register_op("maxpool", reference=ref.maxpool, hopper=maxpool_hopper,
             doc="argmax-tracking maxpool")
 register_op("avgpool", reference=ref.avgpool,

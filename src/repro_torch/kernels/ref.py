@@ -75,6 +75,17 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Row LayerNorm (``repro/kernels/ref.py:444-452``): mean and variance
+    in f32, the normalised value cast to ``x.dtype``, then ``* w + b``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * w + b
+
+
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len,
                      *, window: Optional[int] = None,
@@ -396,6 +407,33 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         out = out + b[None, :, None]
     return out.reshape(n, f, oh, ow)
+
+
+def conv2d_direct(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None, *, stride: int = 1,
+                  pad: int = 0) -> torch.Tensor:
+    """The direct convolution's arithmetic (``repro/kernels/
+    conv_direct.py:28-46``): x (N,C,H,W), w (F,C,KH,KW), b (F,) ->
+    (N,F,OH,OW) as one (F, C) x (C, OH*OW) product per (kh, kw) shift of
+    the zero-padded input, accumulated in f32, the bias added in f32, and
+    one cast to ``x.dtype`` at the end.  ``conv2d`` casts the product
+    first and adds the bias in ``x.dtype``: the two agree in f32 and can
+    differ by one rounding in bf16."""
+    n, c, h, wd = x.shape
+    f, _, kh, kw = w.shape
+    oh = conv_out_size(h, kh, stride, pad)
+    ow = conv_out_size(wd, kw, stride, pad)
+    xp = F.pad(x.float(), (pad, pad, pad, pad))
+    wf = w.float()
+    acc = torch.zeros((n, f, oh * ow), dtype=torch.float32, device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            win = xp[:, :, i:i + (oh - 1) * stride + 1:stride,
+                     j:j + (ow - 1) * stride + 1:stride].reshape(n, c, -1)
+            acc = acc + torch.einsum("fc,ncp->nfp", wf[:, :, i, j], win)
+    if b is not None:
+        acc = acc + b.float()[None, :, None]
+    return acc.to(x.dtype).reshape(n, f, oh, ow)
 
 
 def col2im(cols: torch.Tensor, x_shape: Tuple[int, int, int, int], kh: int,

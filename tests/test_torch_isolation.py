@@ -88,6 +88,6 @@ def test_build_needs_no_toolchain_at_import():
     assert {p.name for p in _build.sources()} == {
         "gemm.cu", "rmsnorm.cu", "eltwise.cu", "flash_attention.cu",
         "flash_attention_bwd.cu", "ssd_scan.cu", "im2col.cu", "pooling.cu",
-        "softmax_xent.cu"}
+        "softmax_xent.cu", "conv_direct.cu"}
     assert _build._LIB is None
     assert _build.library_path().parent == _build.BUILD_DIR

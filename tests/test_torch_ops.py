@@ -286,15 +286,37 @@ def test_registry_covers_the_slice():
               "attention_decode_paged_quant",
               "attention_prefill_chunk_paged_quant", "attention",
               "ssd_scan", "ssd_prefill_chunk", "relu", "im2col", "col2im",
-              "conv2d", "maxpool", "softmax", "softmax_xent"}
+              "conv2d", "conv2d_direct", "maxpool", "softmax",
+              "softmax_xent"}
     # reference-only, as in JAX's registry
-    reference_only = {"avgpool", "accuracy"}
+    reference_only = {"avgpool", "accuracy", "layernorm"}
     assert set(cov) == hopper | reference_only
     assert all(cov[n] == {"reference": True, "hopper": True} for n in hopper)
     assert all(cov[n] == {"reference": True, "hopper": False}
                for n in reference_only)
-    # the port's op names are the JAX registry's: the gap is computed
-    # (conv2d_direct and layernorm are still to come)
+    # the port's op names are the JAX registry's, all 23 of them, with the
+    # same reference-only set
     jax_ops = jax_registry.list_ops()
-    assert set(list_ops()) <= set(jax_ops)
+    assert set(list_ops()) == set(jax_ops) and len(jax_ops) == 23
     assert reference_only == {n for n in cov if jax_ops[n].reference_only}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_matches_jax(dtype):
+    """The reference-only op against JAX's ``ref.layernorm``: f32
+    statistics, the normalised value cast to x's dtype, then ``* w + b``.
+    f32 within 1e-6 of the largest magnitude; bf16 within one bf16 ulp of
+    it (2**-7: the f32 statistics in another order may move a rounding)."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((6, 40)).astype(np.float32) * 3 + 1
+    w = (1 + 0.1 * rng.standard_normal(40)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(40)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    want = np.asarray(jax_ref.layernorm(
+        *(jnp.asarray(a, jdt) for a in (x, w, b))).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    got = ops.layernorm(*(torch.from_numpy(a).to(tdt) for a in (x, w, b)))
+    assert got.dtype == tdt
+    tol = 1e-6 if dtype == "float32" else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=tol * np.abs(want).max())
