@@ -28,9 +28,13 @@ failure (non-zero exit, no result line):
               cell, in bf16 and on a channels-last x), and the training
               step's: rmsnorm_bwd at 512 rows of 2048 and 5120,
               flash_attention_bwd at B 2 x S 256 with qwen2.5-3b's,
-              zamba2-2.7b's and, windowed, mixtral-8x7b's heads, and the
-              gemm in every layout of the forward and both backward
-              products, the tied head's included), with CUDA-event
+              zamba2-2.7b's and, windowed, mixtral-8x7b's heads and off
+              those shapes (S 200 at B 1, non-causal Sk > Sq at D 64, D 72
+              on the scalar route), and the gemm in every layout of the
+              forward and both backward products, the tied head's
+              included, and the tensor-core kernel's four layouts at
+              ragged aligned shapes with and without split K, and an
+              unaligned stride on the scalar route), with CUDA-event
               timings of the kernel, the plain version and one library call
               as yardstick (none for the SSD scan; the backward of
               ``F.rms_norm`` and of ``F.scaled_dot_product_attention``
@@ -44,10 +48,15 @@ failure (non-zero exit, no result line):
               must keep its carried state bit for bit, the SSD state written
               in place must equal a new one bit for bit, grouped B/C
               must raise in the ops layer, and rmsnorm_bwd must take its
-              widest row and raise on the next.  The gemm's two kernels are
-              also timed against each other at qwen2.5-3b's projection and
-              head shapes for M from 16 to 320: their crossover sets
-              ``kernels/gemm.py``'s ``SKINNY_MAX_M``.
+              widest row and raise on the next.  The gemm and the
+              attention backward have routes (``kernels/gemm.py:plan``,
+              ``kernels/flash_attention.py:bwd_plan``): each row prints the
+              route its wrapper took, and every bf16 training shape must
+              take the tensor-core kernels.  The gemm's skinny kernel is
+              also timed against its tiled route (tensor cores in bf16,
+              the scalar kernel in f32) at qwen2.5-3b's projection and
+              head shapes for M from 1 to 320: their crossover sets
+              ``kernels/gemm.py``'s ``SKINNY_MAX_M`` per dtype.
 4. serving  — full width, seeded random weights with perturbed biases,
               norm weights and Mamba decay/step/skip parameters, through
               the port's ServingEngine on the hopper backend: qwen2.5-3b
@@ -93,8 +102,10 @@ failure (non-zero exit, no result line):
               bf16-vs-f32 gap printed beside it; (b) 4 AdamW steps at B 2 x
               S 256 through ``launch/train.py``'s loop, each step under
               ``set_sync_debug_mode("error")`` with exact launch counts
-              (remat runs each layer's forward twice), then one step under
-              the profiler for the device's busy share; (c) qwen2.5-3b and
+              (remat runs each layer's forward twice) and every gemm and
+              attention backward on its tensor-core route, then one step
+              under the profiler for the device's busy share and one in
+              halves on the host clock; (c) qwen2.5-3b and
               mamba2-2.7b in f32 at 2 layers: loss and grads, then 2
               ``make_train_step`` steps, hopper against reference
               (``close_state`` states the tolerances).
@@ -153,8 +164,9 @@ those checks, in phase 7's f32 comparisons (2 layers) and, for mixtral,
 to fit the card.  The LeNets run at full size (Caffe's own nets) and
 the solvers' batch of 64.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (the
+gemm's and the attention backward's with ``routes``: the main paths'
+launches per route); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -245,6 +257,9 @@ def main() -> int:
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] in ROUTED:
+            # the main paths' launches per route
+            k["routes"] = MAIN_ROUTES[k["name"]]
         if not k["launches"]:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "
                              "a serving, check, training, Caffe or direct "
@@ -408,25 +423,34 @@ def phase_kernels(torch):
         """``count``: launches of this case in one bf16 ``step``
         ("decode" or "prefill") of the serving phase at B = 4, or one
         ``train`` step of phase 7 (B = 2, S = 256).  ``im2col_gemm``: the
-        port's im2col + gemm form of a convolution, a second yardstick."""
+        port's im2col + gemm form of a convolution, a second yardstick.
+        A routed kernel's row names the route its wrapper took."""
         name = kernel.__name__
         dt = str(dtype).split(".")[1]
-        err = check(f"{name} {case} {dtype}", kfn(), pfn(),
+        before = dict(getattr(kernel, "routes", {}))
+        got = kfn()
+        route = "+".join(r for r, n in getattr(kernel, "routes", {}).items()
+                         if n != before[r]) or "-"
+        err = check(f"{name} {case} {dtype}", got, pfn(),
                     TOL[(dt, name)] if tol is None else tol)
+        del got
         ms, p_ms = clock(kfn), clock(pfn)
         l_ms = clock(lfn) if lfn is not None else None
         g_ms = clock(im2col_gemm) if im2col_gemm is not None else None
         b_ms, by = bound_ms(nbytes, flops, dt)
         rows.append(dict(name=name, case=case, dtype=dt, step=step,
-                         count=count, err=err, ms=ms, plain_ms=p_ms,
+                         route=route, count=count, err=err, ms=ms,
+                         plain_ms=p_ms,
                          library_ms=l_ms, bound_ms=b_ms, bound_by=by,
                          im2col_gemm_ms=g_ms))
         lib = f"{l_ms:.4f}" if l_ms is not None else "n/a"
         gem = f"  im2col+gemm {g_ms:.4f} ms" if g_ms is not None else ""
         print(f"[3 kernels] {name:31s} {case:50s} {dt:8s} {step:7s} "
-              f"x{count:<3d} {ms:.4f} ms  bound {b_ms:.4f} ms ({by})  plain "
+              f"{route:9s} x{count:<3d} {ms:.4f} ms  bound {b_ms:.4f} ms "
+              f"({by})  plain "
               f"{p_ms:.4f} ms  library {lib} ms{gem}  max_abs_err {err:.3g}",
               flush=True)
+        return route
 
     hq, hkv, hd, smax, page, c = 16, 2, 128, 128, 16, 16
     lens_l = [96, 64, 40, 17]
@@ -978,6 +1002,12 @@ def phase_kernels(torch):
     out = []
     for name, (src, tpu, step) in sources.items():
         tot = totals(name, step)
+        if name in ROUTED:
+            # the file of the route the step's rows took
+            src = " + ".join(sorted({
+                ROUTE_SOURCES[(name, r["route"])] for r in rows
+                if r["name"] == name and r["step"] == step and r["count"]
+                and r["dtype"] == "bfloat16"}))
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": 0,
@@ -1056,29 +1086,31 @@ def phase_kernels(torch):
     return out
 
 
-CROSS_M = (16, 32, 64, 96, 128, 192, 256, 320)
+CROSS_M = (1, 2, 4, 8, 16, 32, 64, 96, 128, 192, 256, 320)
 
 
 def gemm_crossover(torch, rnd, check, clock, dtype, tol):
-    """The gemm's two kernels at qwen2.5-3b's projection and head shapes
-    over the M of ``CROSS_M`` (chunked prefill runs at B*C = 64, the
-    check's teacher-forced forward at CHECK_B*CHECK_LEN = 320), each held
-    against the plain version: the skinny kernel by raising
-    ``gemm.SKINNY_MAX_M`` to M, the tiled by setting it to 0.  Prints each
-    time and, for each M, the products of one qwen2.5-3b forward (36
-    layers and the head) with either kernel, whose crossover sets
-    ``SKINNY_MAX_M``."""
+    """The skinny kernel against the tiled route (the tensor-core kernel
+    in bf16, the scalar tiled one in f32) at qwen2.5-3b's projection and
+    head shapes over the M of ``CROSS_M`` (decode runs at the batch, B =
+    4, chunked prefill at B*C = 64, the check's teacher-forced forward at
+    CHECK_B*CHECK_LEN = 320), each held against the plain version: the
+    skinny kernel by raising ``gemm.SKINNY_MAX_M[dtype]`` to M, the tiled
+    route by setting it to 0.  Prints each time and, for each M, the
+    products of one qwen2.5-3b forward (36 layers and the head) on either
+    route, whose crossover sets ``SKINNY_MAX_M[dtype]``."""
     from repro_torch.kernels import gemm as gemm_mod
     from repro_torch.kernels import ref
 
     dt = str(dtype).split(".")[1]
+    tiled = "tc" if dtype == torch.bfloat16 else "tiled"
     d, d_ff, vocab, layers = 2048, 11008, 151936, 36
     weights = [("wq,wo", rnd((d, d), dtype, d ** -0.5), 2 * layers),
                ("wk,wv", rnd((d, 256), dtype, d ** -0.5), 2 * layers),
                ("wg,wi", rnd((d, d_ff), dtype, d ** -0.5), 2 * layers),
                ("wo", rnd((d_ff, d), dtype, d_ff ** -0.5), layers),
                ("head (NT)", rnd((vocab, d), dtype, 0.02).T, 1)]
-    saved, wins = gemm_mod.SKINNY_MAX_M, []
+    saved, wins = gemm_mod.SKINNY_MAX_M[dtype], []
     try:
         for m in CROSS_M:
             total = [0.0, 0.0]
@@ -1087,24 +1119,32 @@ def gemm_crossover(torch, rnd, check, clock, dtype, tol):
                 want = ref.gemm(x, w)
                 ms = []
                 for i, cut in enumerate((m, 0)):
-                    gemm_mod.SKINNY_MAX_M = cut
-                    check(f"gemm {('skinny', 'tiled')[i]} {name} M={m} {dt}",
+                    gemm_mod.SKINNY_MAX_M[dtype] = cut
+                    before = dict(gemm_mod.gemm.routes)
+                    check(f"gemm {('skinny', tiled)[i]} {name} M={m} {dt}",
                           gemm_mod.gemm(x, w), want, tol[(dt, "gemm")])
+                    route = [r for r, n in gemm_mod.gemm.routes.items()
+                             if n != before[r]]
+                    want_route("gemm", route[0], ("skinny",) if i == 0 else
+                               (tiled, "tc_splitk"))
                     ms.append(clock(lambda x=x, w=w: gemm_mod.gemm(x, w)))
                     total[i] += count * ms[-1]
                 print(f"[3 kernels] gemm crossover {dt} {name} "
                       f"{m}x{w.shape[0]} @ {w.shape[0]}x{w.shape[1]}: skinny "
-                      f"{ms[0]:.4f} ms, tiled {ms[1]:.4f} ms", flush=True)
+                      f"{ms[0]:.4f} ms, {route[0]} {ms[1]:.4f} ms",
+                      flush=True)
                 del x, want
             wins.append(m if total[0] <= total[1] else None)
             print(f"[3 kernels] gemm crossover {dt} M={m}: one qwen2.5-3b "
                   f"forward's products (36 layers and the head): skinny "
-                  f"{total[0]:.3f} ms, tiled {total[1]:.3f} ms", flush=True)
+                  f"{total[0]:.3f} ms, {tiled} {total[1]:.3f} ms", flush=True)
     finally:
-        gemm_mod.SKINNY_MAX_M = saved
+        gemm_mod.SKINNY_MAX_M[dtype] = saved
+    cuts = ", ".join(f"{str(k).split('.')[1]} {v}"
+                     for k, v in gemm_mod.SKINNY_MAX_M.items())
     print(f"[3 kernels] gemm crossover {dt}: the skinny kernel is faster at "
-          f"M in {[m for m in wins if m]} of {list(CROSS_M)}; SKINNY_MAX_M "
-          f"= {saved}", flush=True)
+          f"M in {[m for m in wins if m]} of {list(CROSS_M)}; SKINNY_MAX_M: "
+          f"{cuts}", flush=True)
     del weights
 
 
@@ -1189,7 +1229,8 @@ def train_kernels(torch, F, rnd, run, clock, dtype, es):
         # q, out, do and dq at Hq heads, k, v, dk and dv at Hkv, lse f32
         nbytes = (4 * hq + 4 * hkv) * TRAIN_B * TRAIN_S * hd * es \
             + 4 * TRAIN_B * hq * TRAIN_S
-        run(flash_attention_bwd,
+        route = run(
+            flash_attention_bwd,
             f"{TRAIN_B}x{TRAIN_S}x{hq}x{hd}, kv {hkv} heads, causal{win}",
             dtype, step, count,
             lambda q=q, k=k, v=v, o=out, l=lse, g=do, w=window:
@@ -1199,6 +1240,42 @@ def train_kernels(torch, F, rnd, run, clock, dtype, es):
             lambda yt=yt, qt=qt, kt=kt, vt=vt, g=dot: torch.autograd.grad(
                 yt, (qt, kt, vt), g, retain_graph=True),
             nbytes, 10.0 * TRAIN_B * hq * hd * pairs)
+        want_route("flash_attention_bwd", route,
+                   "tc" if dtype == torch.bfloat16 else "scalar")
+        del q, k, v, do, out, lse, qt, kt, vt, yt
+    # the backward off the training shapes: S = 200 (no multiple of the
+    # 64-row tile) at B = 1; non-causal with Sk > Sq at D = 64; D = 72 (no
+    # multiple of 16: the scalar kernels, in bf16 too)
+    for b_, sq, sk, hq, hkv, hd, causal in (
+            (1, 200, 200, 16, 2, 128, True), (2, 200, 264, 8, 2, 64, False),
+            (TRAIN_B, TRAIN_S, TRAIN_S, 16, 2, 72, True)):
+        q, do = (rnd((b_, sq, hq, hd), dtype) for _ in range(2))
+        k, v = (rnd((b_, sk, hkv, hd), dtype) for _ in range(2))
+        out, lse = flash_attention(q, k, v, causal=causal)
+        qpos = torch.arange(sq, device="cuda")[:, None]
+        mask = (torch.arange(sk, device="cuda")[None, :] <= qpos if causal
+                else torch.ones((sq, sk), dtype=torch.bool, device="cuda"))
+        pairs = int(mask.sum().item())
+        qt, kt, vt = (t.transpose(1, 2).clone().requires_grad_(True)
+                      for t in (q, k, v))
+        yt = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                            enable_gqa=True)
+        nbytes = (4 * hq * sq + 4 * hkv * sk) * b_ * hd * es \
+            + 4 * b_ * hq * sq
+        route = run(
+            flash_attention_bwd,
+            f"{b_}x{sq}x{hq}x{hd}, kv {hkv} heads x {sk} keys, "
+            + ("causal" if causal else "non-causal"), dtype, "shapes", 0,
+            lambda q=q, k=k, v=v, o=out, l=lse, g=do, c_=causal:
+                flash_attention_bwd(q, k, v, o, l, g, causal=c_),
+            lambda q=q, k=k, v=v, o=out, l=lse, g=do, c_=causal:
+                ref.flash_attention_bwd(q, k, v, o, l, g, causal=c_),
+            lambda yt=yt, qt=qt, kt=kt, vt=vt, g=do.transpose(1, 2):
+                torch.autograd.grad(yt, (qt, kt, vt), g, retain_graph=True),
+            nbytes, 10.0 * b_ * hq * hd * pairs)
+        want_route("flash_attention_bwd", route,
+                   "tc" if dtype == torch.bfloat16 and hd % 16 == 0
+                   else "scalar")
         del q, k, v, do, out, lse, qt, kt, vt, yt
     # gemm: (case, a, b, count per train step).  The forward's products run
     # twice a step (remat); the backward's da = g @ W^T reads W^T by its
@@ -1230,18 +1307,52 @@ def train_kernels(torch, F, rnd, run, clock, dtype, es):
         ("db wo h.T 11008x512 @ 512x2048", h.T, g_d, layers),
         ("db head x.T 2048x512 @ 512x151936", x.T, g_v, 1),
     ]
-    for case, a, b_, count in gemms:
+    # the tensor-core kernel's four layouts at shapes ragged against its
+    # 128 x 128 x 32 tile but aligned: A read along K at 520 x 2056 (40
+    # output tiles: K split in 7) and x.T read along M at 2056 x 520 (136
+    # tiles: K whole), each against B read along N and along K; then an A
+    # whose row stride (2060) is no multiple of 8, which takes the scalar
+    # tiled kernel
+    xa, bn, bk = (rnd((520, 2056), dtype), rnd((2056, 1000), dtype),
+                  rnd((1000, 2056), dtype).T)
+    xm, bn2, bk2 = (rnd((520, 2056), dtype).T, rnd((520, 1000), dtype),
+                    rnd((1000, 520), dtype).T)
+    split = "tc_splitk" if dtype == torch.bfloat16 else "tiled"
+    whole = "tc" if dtype == torch.bfloat16 else "tiled"
+    gemms += [
+        ("A(K) B(N) 520x2056 @ 2056x1000", xa, bn, 0, split),
+        ("A(K) B(K) 520x2056 @ 2056x1000 (NT)", xa, bk, 0, split),
+        ("A(M) B(N) x.T 2056x520 @ 520x1000", xm, bn2, 0, whole),
+        ("A(M) B(K) x.T 2056x520 @ 520x1000 (NT)", xm, bk2, 0, whole),
+        ("A(K) row stride 2060 520x2056 @ 2056x1000",
+         rnd((520, 2060), dtype)[:, :2056], bn, 0, "tiled")]
+    for row in gemms:
+        case, a, b_, count = row[:4]
         m, kk = a.shape
         n = b_.shape[1]
         # f32: a summation-order difference grows as sqrt(K)
         tol = (None if dtype == torch.bfloat16 or kk <= d_ff
                else 1e-5 * math.sqrt(kk / d_ff))
-        run(gemm, case, dtype, "train", count,
+        route = run(
+            gemm, case, dtype, "train" if count else "layouts", count,
             lambda a=a, b_=b_: gemm(a, b_), lambda a=a, b_=b_: ref.gemm(a, b_),
             lambda a=a, b_=b_: torch.matmul(a, b_),
             (m * kk + kk * n + m * n) * es, 2.0 * m * n * kk, tol=tol,
             clock=clock)
+        # every bf16 training product on the tensor cores, f32 on the
+        # scalar tiled kernel
+        want_route("gemm", route, row[4] if len(row) > 4 else
+                   ("tc", "tc_splitk") if dtype == torch.bfloat16
+                   else "tiled")
     del gemms, w_qo, w_kv, w_gi, w_o, embed, x, h, g_d, g_kv, g_ff, g_v
+    del xa, bn, bk, xm, bn2, bk2
+
+
+def want_route(name, route, want):
+    """Fail unless ``route`` is ``want`` (or one of them)."""
+    if route not in ((want,) if isinstance(want, str) else want):
+        raise SystemExit(f"chip_smoke: {name} took the {route} route, "
+                         f"expected {want}")
 
 
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -1747,6 +1858,41 @@ def kernel_fns():
     return fns
 
 
+# the kernels with several routes (``fn.routes``: launches per route,
+# beside ``fn.launches``), each route's source, and the launches per route
+# summed over every counted run of a main path (phases 4 and 6-10)
+ROUTED = ("gemm", "flash_attention_bwd")
+ROUTE_SOURCES = {
+    ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
+    ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
+    ("gemm", "tc"): "src/repro_torch/kernels/csrc/gemm_tc.cu",
+    ("gemm", "tc_splitk"): "src/repro_torch/kernels/csrc/gemm_tc.cu",
+    ("flash_attention_bwd", "tc"):
+        "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
+    ("flash_attention_bwd", "scalar"):
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+}
+MAIN_ROUTES = {}
+
+
+def zero_counts(fns):
+    """Every kernel's launch count, and each route's, set to 0."""
+    for fn in fns.values():
+        fn.launches = 0
+        for r in getattr(fn, "routes", {}):
+            fn.routes[r] = 0
+
+
+def read_counts(fns):
+    """The launches of each kernel since ``zero_counts``; the routed
+    kernels' launches per route are added to ``MAIN_ROUTES``."""
+    for name in ROUTED:
+        tot = MAIN_ROUTES.setdefault(name, dict.fromkeys(fns[name].routes, 0))
+        for r, n in fns[name].routes.items():
+            tot[r] += n
+    return {name: fn.launches for name, fn in fns.items()}
+
+
 def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
     """Serve ``reqs`` on the hopper backend with the launch counts set to
     0 just before and read just after; the prefill and decode loops may
@@ -1766,8 +1912,7 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
     tag = (f"[4 serving] {model.cfg.name}, {layout}{pool}, prefill chunk "
            f"{chunk}:")
     with use_backend("hopper"):
-        for fn in fns.values():
-            fn.launches = 0
+        zero_counts(fns)
         t0 = time.perf_counter()
         t_pre = t_dec = t_harvest = 0.0
         while eng.busy():
@@ -1787,7 +1932,7 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
             t_harvest += time.perf_counter() - t3
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in fns.items()}
+        launches = read_counts(fns)
     s = eng.stats()
     pre, dec = eng.prefill_steps, eng.steps
     print(f"{tag} {len(reqs)} requests (prompts "
@@ -2342,8 +2487,7 @@ def phase_check(torch):
             prompt = torch.as_tensor(np.random.default_rng(SEED + 5).integers(
                 0, cfg.vocab_size, (CHECK_B, CHECK_LEN)), device="cuda")
             with use_backend("hopper"):
-                for fn in fns.values():
-                    fn.launches = 0
+                zero_counts(fns)
                 t0 = time.perf_counter()
                 try:
                     err, scale = assert_decode_matches_teacher_forced(
@@ -2353,7 +2497,7 @@ def phase_check(torch):
                     raise SystemExit(f"chip_smoke: --check {cfg.name} "
                                      f"({cfg.dtype}): {e}")
                 secs = time.perf_counter() - t0
-                launches = {name: fn.launches for name, fn in fns.items()}
+                launches = read_counts(fns)
             steps, n_attn = per_step(cfg)
             want = {name: 0 for name in KERNELS}
             want.update({name: n * (CHECK_LEN + 1)
@@ -2383,8 +2527,9 @@ def phase_check(torch):
 TRAIN_STEPS = 4
 # (a) bf16 at full depth, hopper vs reference: each grad leaf within 5% in
 # relative L2 (both round to bf16 at different places: the kernels keep
-# attention's p and the backward's sums in f32, the plain versions'
-# autograd rounds them to bf16), the loss within 1%
+# the backward's sums in f32 and round attention's p and ds to bf16 only
+# as tensor-core operands, the plain versions' autograd rounds them to
+# bf16 throughout), the loss within 1%
 BF16_GRAD_TOL, BF16_LOSS_TOL = 0.05, 0.01
 # (c) f32 at 2 layers: each grad leaf within 1e-4 of its largest value
 # (summation order), the loss within 1e-5; params, master and moments as
@@ -2414,15 +2559,17 @@ def train_per_step(cfg):
 
 
 @contextlib.contextmanager
-def counting(got):
-    """The launch counts set to 0 on entry and read into ``got`` on exit."""
+def counting(got, routes=None):
+    """The launch counts set to 0 on entry and read into ``got`` on exit
+    (and, given ``routes``, each routed kernel's launches per route)."""
     fns = kernel_fns()
-    for fn in fns.values():
-        fn.launches = 0
+    zero_counts(fns)
     try:
         yield
     finally:
-        got.update({name: fn.launches for name, fn in fns.items()})
+        got.update(read_counts(fns))
+        if routes is not None:
+            routes.update({name: dict(fns[name].routes) for name in ROUTED})
 
 
 def leaf_names(tree, prefix=""):
@@ -2539,15 +2686,26 @@ def train_loop_phase(torch):
     """(b) ``launch/train.py``'s loop: ``TRAIN_STEPS`` AdamW steps of
     qwen2.5-3b at full width and depth, bf16, on the hopper lowering, each
     under ``set_sync_debug_mode("error")`` (the logged loss read aside)
-    with exact launch counts; then one more step under the profiler for
-    the device's busy share.  Returns the launches of the counted steps."""
+    with exact launch counts, every bf16 gemm and attention backward on
+    its tensor-core route; then one more step under the profiler for the
+    device's busy share, and one in its two halves (loss and grads, the
+    AdamW update) on the host clock.  Returns the launches of the counted
+    steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.policy import use_backend
-    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.steps import (
+        init_train_state,
+        loss_and_grads,
+        make_train_step,
+    )
     from repro_torch.launch.train import make_batch, train_loop
-    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.optim.optimizers import (
+        OptConfig,
+        apply_updates,
+        tree_leaves,
+    )
 
     cfg = get_arch("qwen2.5-3b")
     # launch/train.py's schedule: 10 warmup steps
@@ -2561,30 +2719,42 @@ def train_loop_phase(torch):
           f"m, v) in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     stream, step_fn = train_stream(cfg), make_train_step(cfg, opt)
-    want, counts = train_per_step(cfg), []
+    want, counts, routes = train_per_step(cfg), [], []
+    # every gemm of a bf16 step on the tensor-core kernel (M = 512 and the
+    # weight gradients' x.T), every attention backward on the tensor-core
+    # kernels
+    want_routes = {"gemm": want["gemm"],
+                   "flash_attention_bwd": want["flash_attention_bwd"]}
 
     def counted(st, batch):
-        got = {}
-        with use_backend("hopper"), counting(got):
+        got, rt = {}, {}
+        with use_backend("hopper"), counting(got, rt):
             torch.cuda.set_sync_debug_mode("error")
             try:
                 return step_fn(st, batch)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
                 counts.append(got)
+                routes.append(rt)
 
     total = {name: 0 for name in KERNELS}
     losses = []
     for rec in train_loop(counted, state, stream, steps=TRAIN_STEPS,
                           device=dev):
-        got = counts[-1]
+        got, rt = counts[-1], routes[-1]
         print(f"[7 train] (b) step {rec['step']}: loss {rec['loss']:.6f}, "
               f"{rec['ms']:.1f} ms/step, {rec['tokens_per_s']:.1f} tok/s, "
-              f"peak {rec['peak_bytes'] / 2 ** 30:.2f} GiB; launches {got}",
-              flush=True)
+              f"peak {rec['peak_bytes'] / 2 ** 30:.2f} GiB; launches {got}; "
+              f"routes {rt}", flush=True)
         if got != want:
             raise SystemExit(f"chip_smoke: train (b): step {rec['step']} "
                              f"launches {got}, expected {want}")
+        on_tc = {"gemm": rt["gemm"]["tc"] + rt["gemm"]["tc_splitk"],
+                 "flash_attention_bwd": rt["flash_attention_bwd"]["tc"]}
+        if on_tc != want_routes:
+            raise SystemExit(f"chip_smoke: train (b): step {rec['step']} "
+                             f"launches on the tensor-core routes {on_tc}, "
+                             f"expected {want_routes}")
         losses.append(rec["loss"])
         for name in KERNELS:
             total[name] += got[name]
@@ -2606,7 +2776,28 @@ def train_loop_phase(torch):
           f"device busy {busy:.1f} ms ({100 * busy / rec['ms']:.1f}%); top: "
           + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms"
                       f" x{e.count}" for e in events[:6]), flush=True)
-    del state, step_fn
+    # where the wall time goes when the device waits for the host: one more
+    # step in its two halves (the step's own loss_and_grads, then
+    # apply_updates), each on the host clock as enqueued and as drained
+    batch = make_batch(stream, TRAIN_STEPS + 1, dev)
+    torch.cuda.synchronize()
+    with use_backend("hopper"):
+        t0 = time.perf_counter()
+        _, grads = loss_and_grads(cfg, state["params"], batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        apply_updates(opt, grads, state["opt"], state["params"])
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    print(f"[7 train] (b) step {TRAIN_STEPS + 2} in halves, host clock: loss "
+          f"and grads enqueued in {1e3 * (t1 - t0):.1f} ms, done at "
+          f"{1e3 * (t2 - t0):.1f} ms; the AdamW update over "
+          f"{len(tree_leaves(grads))} leaves enqueued in "
+          f"{1e3 * (t3 - t2):.1f} ms, done at {1e3 * (t4 - t2):.1f} ms",
+          flush=True)
+    del state, step_fn, grads
     torch.cuda.empty_cache()
     return total
 
@@ -2686,10 +2877,15 @@ def train_f32(torch):
                "opt": tree_map(lambda t: t.clone(), hop["opt"])}
         stream = train_stream(cfg)
         batch = make_batch(stream, 0, dev)
-        got = {}
-        with use_backend("hopper"), counting(got):
+        got, rt = {}, {}
+        with use_backend("hopper"), counting(got, rt):
             lh, gh = loss_and_grads(cfg, hop["params"], batch)
         want = train_per_step(cfg)
+        # f32 keeps the IEEE kernels: no launch on a tensor-core route
+        if rt["gemm"]["tc"] + rt["gemm"]["tc_splitk"] \
+                + rt["flash_attention_bwd"]["tc"]:
+            failed.append(f"{arch}: f32 launches on a tensor-core route "
+                          f"{rt}")
         with use_backend("reference"):
             lr_, gr = loss_and_grads(cfg, ref["params"], batch)
         names = leaf_names(hop["params"])

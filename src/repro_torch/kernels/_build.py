@@ -44,8 +44,12 @@ _F = ctypes.c_float
 # C signature of every exported launcher: (argtypes, ...); restype is int
 _SIGNATURES = {
     # a, b, c, M, N, K, lda, a_m_contiguous, ldb, b_k_contiguous, dtype,
-    # vec_ok, stream
+    # vec_ok, skinny_max_m, stream
     "repro_gemm": [_P, _P, _P, _I, _I, _I, _L, _I, _L, _I, _I, _I, _I, _P],
+    # a, b, c, ws (f32 or NULL), M, N, K, lda, a_m_contiguous, ldb,
+    # b_k_contiguous, splits, slice_k, stream
+    "repro_gemm_tc": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _L, _I, _I, _I,
+                      _P],
     # x, w, out, rows, D, ldx, eps, dtype, stream
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _F, _I, _P],
     # x, w, dy, dx, dw_partial, rows, D, ldx, lddy, eps, dtype, stream
@@ -100,6 +104,10 @@ _SIGNATURES = {
     # l_sh, causal, window, scale, dtype, stream
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 23
                                  + [_I, _I, _F, _I, _P],
+    # as repro_flash_attention_bwd, with dk_part and dv_part (f32 (B, Sk,
+    # Hq, D) or NULL) after dv and no dtype (bf16)
+    "repro_flash_attention_bwd_tc": [_P] * 12 + [_I] * 6 + [_L] * 23
+                                    + [_I, _I, _F, _P],
     # x, dt, A, B, C, h0, y, hf, B, S, H, P, N, chunk, x_sb, x_ss, x_sh,
     # dt_sb, dt_ss, dt_sh, b_sb, b_ss, c_sb, c_ss, y_sb, y_ss, y_sh, dtype,
     # stream

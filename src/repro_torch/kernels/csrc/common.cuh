@@ -1,5 +1,7 @@
 // Shared helpers for the port's Hopper kernels: dtype codes, f32 <-> storage
-// conversions, 16-byte vector loads and warp reductions.
+// conversions, 16-byte vector loads, warp reductions, and the tensor-core
+// building blocks of the bf16 GEMM and attention backward (cp.async,
+// ldmatrix, mma.sync m16n8k16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,6 +77,88 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
+}
+
+
+// ---------------------------------------------------------------------------
+// Tensor-core building blocks (sm_80+ PTX, run on sm_90a).
+//
+// mma.sync m16n8k16 fragments, g = lane / 4, t = lane % 4:
+//   A (16 x 16, row): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//                     a3 (g+8, 2t+8..)
+//   B (16 x 8, col):  b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
+//   C (16 x 8, f32):  c0 c1 (g, 2t..2t+1), c2 c3 (g+8, 2t..2t+1)
+// ldmatrix.x4 hands lane l matrix i's row l / 4, elements 2(l % 4) and
+// 2(l % 4) + 1 in register i (lanes 8i..8i+7 give matrix i's row
+// addresses); .trans hands it column l / 4, rows 2(l % 4) and 2(l % 4) + 1.
+// So a tile stored with the fragment's row index along its rows (A rows
+// = m, B rows = n: "k-contiguous") is read without .trans, and a tile
+// stored with k along its rows (an M-contiguous A, an N-contiguous B) is
+// read with .trans.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy of `bytes` (0..16) valid bytes, the rest
+// zero-filled: bytes == 0 writes 16 zeros (the ragged edge of a tile)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one register of two bf16 (lo in the low half), rounded to
+// nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte offset of 16-byte chunk `c` of row `r` in a shared tile whose rows
+// are 8 or more chunks long (`row_bytes` = 128, 256, ...): the chunk index
+// is XORed with the row's low 3 bits, so the 8 rows one ldmatrix reads at
+// one logical chunk fall in 8 distinct bank groups.
+__device__ __forceinline__ uint32_t swz(int r, int c, int row_bytes) {
+  return r * row_bytes + ((c ^ (r & 7)) << 4);
+}
+// the same for rows of 4 chunks (64 bytes: 32 bf16): two rows share a
+// 128-byte bank line, so the XOR takes bits 1..2 of the row
+__device__ __forceinline__ uint32_t swz64(int r, int c) {
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
 }  // namespace repro

@@ -7,7 +7,10 @@
 // ds = p * (dp - dd) with dd = rowsum(do * out).
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention_bwd_pallas
-// (its _flash_dq_kernel and _flash_dkv_kernel).  Two passes, as there:
+// (its _flash_dq_kernel and _flash_dkv_kernel) in f32, and in bf16 where
+// flash_attention_bwd_tc.cu's tensor-core kernels do not apply (a head
+// dim that is no multiple of 16, strides the 16-byte copies cannot
+// follow; kernels/flash_attention.py:bwd_plan).  Two passes, as there:
 //
 //   * dq pass: a block owns one (row, kv head, tile of kRows query rows).
 //     As in the forward, row r of a (row, kv head) pair is query token
@@ -27,9 +30,9 @@
 // What bounds it on Hopper: at the training shapes (B 2, S 256, D 128) the
 // operations, about 10 flops per (query, key, dimension) triple in f32
 // against 3.35 TB/s for reading each input once; these are scalar FMAs
-// over shared-memory tiles, far from the tensor cores (mma.sync / wgmma
-// and TMA are later work).  The dk/dv grid is small: B * Hkv * Sk / 32
-// blocks (32 at qwen2.5-3b's 2 kv heads).
+// over shared-memory tiles: IEEE f32, as the reference computes.  The
+// dk/dv grid is small: B * Hkv * Sk / 32 blocks (32 at qwen2.5-3b's 2 kv
+// heads).
 #include "common.cuh"
 
 namespace {

@@ -4,11 +4,13 @@
 // Replaces src/repro/kernels/gemm.py:gemm_pallas (MXU-tiled, K innermost,
 // VMEM f32 accumulator), which serves every projection, the LM head and, in
 // training, both products of every backward (ops.py:71-75: g @ B^T and
-// A^T @ g).  Two kernels, picked by M:
+// A^T @ g).  Two kernels here, on the routes kernels/gemm.py:plan picks by
+// dtype, M and alignment (bf16 above the skinny cutoff, with operands
+// 16-byte copies can read, goes to gemm_tc.cu's tensor-core kernel):
 //
-// * M <= skinny_max_m, 128 (decode: M is the batch; chunked prefill:
-//   M = B*C): a streaming skinny GEMM.  Every weight byte is used for M
-//   multiply-adds, far below the ~295 operations per byte where tensor
+// * M <= SKINNY_MAX_M[dtype] (f32: 128; decode: M is the batch; chunked
+//   prefill: M = B*C): a streaming skinny GEMM.  Every weight byte is used
+//   for M multiply-adds, far below the ~295 operations per byte where tensor
 //   cores become the limit, so the kernel is bound by reading B once from
 //   device memory: each B element is loaded exactly once, as part of a
 //   16-byte vector, and multiplied into MR <= 8 row accumulators held in
@@ -23,8 +25,9 @@
 //   times (64 times the 622 MB tied embedding per head product at
 //   M = 512).  Its grid is only N/64 x M/64 blocks, so at small M it
 //   loses to the skinny kernel except on the widest N (the head): hence
-//   the measured cutoff.  Scalar f32 FMAs from shared memory: tensor
-//   cores (mma.sync / wgmma) and TMA are later work.
+//   the measured cutoff.  Scalar f32 FMAs from shared memory: it serves
+//   f32, whose IEEE products the tensor cores cannot compute, and bf16
+//   operands whose strides or bases the 16-byte copies cannot follow.
 //
 // Operands are read in place by their strides, with a unit stride along
 // one axis each:
@@ -288,9 +291,9 @@ void launch_tiled(const T* a, const T* b, T* c, int M, int N, int K,
                                                         lda, ldb);
 }
 
-// skinny_max_m: the largest M the skinny kernel takes (kernels/gemm.py's
-// SKINNY_MAX_M, set from the two kernels' measured crossover); an A read
-// along M always takes the tiled kernel
+// skinny_max_m: the largest M the skinny kernel takes; kernels/gemm.py
+// passes M on its skinny route and 0 on its tiled one.  An A read along M
+// always takes the tiled kernel.
 template <typename T>
 void launch_rows(const void* a, const void* b, void* c, int M, int N, int K,
                  long lda, bool a_m, long ldb, bool nt, bool vec_ok,

@@ -25,9 +25,15 @@ tile).
 The kernel trusts the block table: every entry is -1 or a page of the
 pool (the pager never maps the sentinel page).
 
-The training backward (``csrc/flash_attention_bwd.cu``) recomputes p from
-the forward's lse in two passes, dq over query tiles and dk/dv over key
-tiles with the GQA group summed inside the block.
+The training backward recomputes p from the forward's lse in two passes,
+dq over query tiles and dk/dv over key tiles.  ``bwd_plan`` picks its
+kernels from the dtype, head dim and strides: in bf16 at head dims that
+are multiples of 16 up to 128 the tensor-core kernels of
+``csrc/flash_attention_bwd_tc.cu`` (64-row tiles on mma.sync, the GQA
+group's dk/dv partials summed in order by a third kernel); in f32, or at
+any other bf16 shape, the scalar kernels of ``csrc/flash_attention_bwd.cu``
+(IEEE f32, the GQA group summed inside the block).  ``dq_key_tiles`` and
+``dkv_query_tiles`` are the tile walks of the tensor-core kernels.
 """
 from __future__ import annotations
 
@@ -40,6 +46,44 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels._build import DTYPES, INT8
 
 MAX_HEAD_DIM = 128
+
+# the tensor-core backward's tile: query rows of the dq kernel's block,
+# keys of the dk/dv kernel's (csrc/flash_attention_bwd_tc.cu kT)
+BWD_TILE = 64
+BWD_ROUTES = ("tc", "scalar")
+
+
+def bwd_plan(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The backward's route: "tc" (the tensor-core kernels) for bf16 with
+    a head dim that is a multiple of 16 up to 128 and operands the 16-byte
+    copies can follow (``aligned``: 16-byte aligned bases, unit stride on
+    D, every other stride a multiple of 8); "scalar" (IEEE f32 arithmetic)
+    for f32 and every other shape."""
+    if (dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= MAX_HEAD_DIM
+            and aligned):
+        return "tc"
+    return "scalar"
+
+
+def dq_key_tiles(q0: int, sq: int, sk: int, causal: bool,
+                 window: Optional[int], tile: int = BWD_TILE) -> range:
+    """The first keys of the key tiles that the query tile starting at
+    ``q0`` walks (query ``i`` at position ``i``): up to its last row under
+    a causal mask, from its first row's window on; pairs inside a tile
+    that the mask hides are masked there."""
+    hi = min(sk, q0 + tile, sq) if causal else sk
+    lo = max(0, q0 - window + 1) if window is not None else 0
+    return range((lo // tile) * tile, hi, tile)
+
+
+def dkv_query_tiles(k0: int, sq: int, sk: int, causal: bool,
+                    window: Optional[int], tile: int = BWD_TILE) -> range:
+    """The first query rows of the query tiles that the key tile starting
+    at ``k0`` walks: from its first key under a causal mask, up to the
+    last query whose window reaches its last key."""
+    lo = k0 if causal else 0
+    hi = min(sq, k0 + tile - 1 + window) if window is not None else sq
+    return range((lo // tile) * tile, hi, tile)
 
 Scales = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -322,10 +366,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward of ``flash_attention`` from its ``out`` and ``lse``
     and the output gradient ``do`` (B,Sq,Hq,D) -> (dq (B,Sq,Hq,D), dk, dv
-    (B,Sk,Hkv,D)) in the dtype of q.  ``csrc/flash_attention_bwd.cu``: a dq
-    pass that also writes dd = rowsum(do * out), then a dk/dv pass that
-    sums the GQA group inside each block.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    (B,Sk,Hkv,D)) in the dtype of q: a dq pass that also writes dd =
+    rowsum(do * out), then a dk/dv pass, on the kernels ``bwd_plan``
+    picks.  CPU tensors take the plain version; CUDA tensors launch the
+    kernels or raise."""
     if not q.is_cuda:
         return ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                        window=window, scale=scale)
@@ -358,28 +402,45 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq.zero_(), dk.zero_(), dv.zero_()
     dd = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    rc = _build.lib().repro_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, hkv, hq // hkv, sq, sk, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-        do.stride(0), do.stride(1), do.stride(2),
-        dq.stride(0), dq.stride(1), dq.stride(2),
-        dk.stride(0), dk.stride(1), dk.stride(2),
-        lse.stride(0), lse.stride(1), int(causal),
-        -1 if window is None else int(window), float(scale),
-        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    aligned = all(t.data_ptr() % 16 == 0
+                  and all(st % 8 == 0 for st in t.stride()[:3])
+                  for t in (q, k, v, out, do))
+    route = bwd_plan(q.dtype, d, aligned)
+    args = (b, hkv, hq // hkv, sq, sk, d,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            out.stride(0), out.stride(1), out.stride(2),
+            do.stride(0), do.stride(1), do.stride(2),
+            dq.stride(0), dq.stride(1), dq.stride(2),
+            dk.stride(0), dk.stride(1), dk.stride(2),
+            lse.stride(0), lse.stride(1), int(causal),
+            -1 if window is None else int(window), float(scale))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "tc":
+        # the GQA group's f32 dk/dv partials, one per q head
+        part = ((None, None) if hq == hkv else
+                tuple(torch.empty((b, sk, hq, d), dtype=torch.float32,
+                                  device=q.device) for _ in range(2)))
+        rc = _build.lib().repro_flash_attention_bwd_tc(
+            *ptrs, *(None if t is None else t.data_ptr() for t in part),
+            *args, stream)
+    else:
+        rc = _build.lib().repro_flash_attention_bwd(
+            *ptrs, *args, DTYPES[q.dtype], stream)
     _build.check(rc, name)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.routes[route] += 1
     return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+# launches per route, beside the total
+flash_attention_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)
 flash_decode.launches = 0
 flash_decode_paged.launches = 0
 flash_decode_paged_quant.launches = 0

@@ -86,8 +86,9 @@ def test_build_needs_no_toolchain_at_import():
     from repro_torch.kernels import _build
 
     assert {p.name for p in _build.sources()} == {
-        "gemm.cu", "rmsnorm.cu", "eltwise.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "ssd_scan.cu", "im2col.cu", "pooling.cu",
-        "softmax_xent.cu", "conv_direct.cu"}
+        "gemm.cu", "gemm_tc.cu", "rmsnorm.cu", "eltwise.cu",
+        "flash_attention.cu", "flash_attention_bwd.cu",
+        "flash_attention_bwd_tc.cu", "ssd_scan.cu", "im2col.cu",
+        "pooling.cu", "softmax_xent.cu", "conv_direct.cu"}
     assert _build._LIB is None
     assert _build.library_path().parent == _build.BUILD_DIR
