@@ -56,7 +56,15 @@ failure (non-zero exit, no result line):
               also timed against its tiled route (tensor cores in bf16,
               the scalar kernel in f32) at qwen2.5-3b's projection and
               head shapes for M from 1 to 320: their crossover sets
-              ``kernels/gemm.py``'s ``SKINNY_MAX_M`` per dtype.
+              ``kernels/gemm.py``'s ``SKINNY_MAX_M`` per dtype.  The
+              LeNet products on the f32 small-M route (``csrc/gemm_f32.cu``:
+              the forward convolutions and inner products, dw and da) are
+              also timed on the skinny kernel they left, forced as the
+              crossover forces a route; the small-M kernel is also held
+              at ragged M and N, the unaligned K = 25 and 75 rows, A read
+              along M, an unaligned B and a split whose last slice is
+              short, and timed at qwen2.5-3b's f32 decode and prefill
+              products against the skinny kernel that keeps them.
 4. serving  — full width, seeded random weights with perturbed biases,
               norm weights and Mamba decay/step/skip parameters, through
               the port's ServingEngine on the hopper backend: qwen2.5-3b
@@ -114,7 +122,9 @@ failure (non-zero exit, no result line):
               seeded params with perturbed biases, data from the port's
               image stream on the card, through ``Solver.make_eval_step``
               under ``set_sync_debug_mode("error")`` with exact launch
-              counts, held against the reference backend; MNIST's deploy
+              counts and every gemm on the route ``kernels/gemm.py:plan``
+              names for its product (``caffe_gemm_routes``), held against
+              the reference backend; MNIST's deploy
               form (a Softmax ``prob`` on ``ip2``) through ``Net.forward``
               without labels; under grad relu, conv2d, maxpool and
               softmax_xent go through their autograd Functions, softmax
@@ -125,7 +135,8 @@ failure (non-zero exit, no result line):
               the hopper backend: (a) loss and grads against the
               reference lowering, ``Net.backward_manual`` against
               autograd; (b) 3 ``Solver.make_train_step`` steps under
-              ``set_sync_debug_mode("error")`` with exact launch counts,
+              ``set_sync_debug_mode("error")`` with exact launch counts
+              and gemm routes,
               the states held against the reference lowering's, and one
               step in each crossing mode held against the fused one; (c)
               ``Solver.solve`` on LeNet-MNIST for 300 iterations: the loss
@@ -258,8 +269,12 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] in ROUTED:
-            # the main paths' launches per route
+            # the main paths' launches per route, and the files of the
+            # routes they took
             k["routes"] = MAIN_ROUTES[k["name"]]
+            k["source"] = " + ".join(sorted({
+                ROUTE_SOURCES[(k["name"], r)]
+                for r, n in k["routes"].items() if n}))
         if not k["launches"]:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "
                              "a serving, check, training, Caffe or direct "
@@ -419,11 +434,13 @@ def phase_kernels(torch):
     rows = []          # one per (kernel, case)
 
     def run(kernel, case, dtype, step, count, kfn, pfn, lfn, nbytes, flops,
-            tol=None, clock=timer, im2col_gemm=None):
+            tol=None, clock=timer, im2col_gemm=None, skinny=False):
         """``count``: launches of this case in one bf16 ``step``
         ("decode" or "prefill") of the serving phase at B = 4, or one
         ``train`` step of phase 7 (B = 2, S = 256).  ``im2col_gemm``: the
         port's im2col + gemm form of a convolution, a second yardstick.
+        ``skinny``: ``kfn`` is also timed with the f32 small-M route
+        turned off, on the skinny kernel it took before (``forced_skinny``).
         A routed kernel's row names the route its wrapper took."""
         name = kernel.__name__
         dt = str(dtype).split(".")[1]
@@ -437,19 +454,24 @@ def phase_kernels(torch):
         ms, p_ms = clock(kfn), clock(pfn)
         l_ms = clock(lfn) if lfn is not None else None
         g_ms = clock(im2col_gemm) if im2col_gemm is not None else None
+        s_ms = None
+        if skinny:
+            with forced_skinny():
+                s_ms = clock(kfn)
         b_ms, by = bound_ms(nbytes, flops, dt)
         rows.append(dict(name=name, case=case, dtype=dt, step=step,
                          route=route, count=count, err=err, ms=ms,
                          plain_ms=p_ms,
                          library_ms=l_ms, bound_ms=b_ms, bound_by=by,
-                         im2col_gemm_ms=g_ms))
+                         im2col_gemm_ms=g_ms, skinny_ms=s_ms))
         lib = f"{l_ms:.4f}" if l_ms is not None else "n/a"
         gem = f"  im2col+gemm {g_ms:.4f} ms" if g_ms is not None else ""
+        sk = f"  skinny {s_ms:.4f} ms" if s_ms is not None else ""
         print(f"[3 kernels] {name:31s} {case:50s} {dt:8s} {step:7s} "
               f"{route:9s} x{count:<3d} {ms:.4f} ms  bound {b_ms:.4f} ms "
               f"({by})  plain "
-              f"{p_ms:.4f} ms  library {lib} ms{gem}  max_abs_err {err:.3g}",
-              flush=True)
+              f"{p_ms:.4f} ms  library {lib} ms{gem}{sk}  max_abs_err "
+              f"{err:.3g}", flush=True)
         return route
 
     hq, hkv, hd, smax, page, c = 16, 2, 128, 128, 16, 16
@@ -914,6 +936,7 @@ def phase_kernels(torch):
         torch.cuda.empty_cache()
     caffe_kernels(torch, F, rnd, run)
     caffe_train_kernels(torch, F, rnd, run)
+    small_gemm_cases(torch, rnd, run, slow)
     direct_kernels(torch, F, rnd, run)
 
     # per-kernel totals over one bf16 step at B = 4: a decode step for the
@@ -997,17 +1020,16 @@ def phase_kernels(torch):
                               if r["bound_by"] == "bytes")
         tot["im2col_gemm_ms"] = sum((r["im2col_gemm_ms"] or 0.0) * r["count"]
                                     for r in sel)
+        # the rows timed on the skinny kernel too: the step on the routes
+        # before the f32 small-M kernel (the other rows' kernels unchanged)
+        tot["skinny_ms"] = sum(
+            (r["ms"] if r["skinny_ms"] is None else r["skinny_ms"])
+            * r["count"] for r in sel)
         return tot
 
     out = []
     for name, (src, tpu, step) in sources.items():
         tot = totals(name, step)
-        if name in ROUTED:
-            # the file of the route the step's rows took
-            src = " + ".join(sorted({
-                ROUTE_SOURCES[(name, r["route"])] for r in rows
-                if r["name"] == name and r["step"] == step and r["count"]
-                and r["dtype"] == "bfloat16"}))
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": 0,
@@ -1056,10 +1078,12 @@ def phase_kernels(torch):
                              "softmax_xent_bwd"))):
         for name in names:
             tot = totals(name, step)
+            was = (f", on the routes before the f32 small-M kernel "
+                   f"{tot['skinny_ms']:.4f} ms" if name == "gemm" else "")
             print(f"[3 kernels] {name}: one f32 {step} at B={LENET_B}: "
                   f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, "
                   f"plain {tot['plain_ms']:.4f} ms, library "
-                  f"{tot['library_ms']:.4f} ms", flush=True)
+                  f"{tot['library_ms']:.4f} ms{was}", flush=True)
     for step in ("mnist direct", "cifar direct"):
         tot = totals("conv2d_direct", step)
         print(f"[3 kernels] conv2d_direct: the convolutions of one f32 "
@@ -1348,6 +1372,25 @@ def train_kernels(torch, F, rnd, run, clock, dtype, es):
     del xa, bn, bk, xm, bn2, bk2
 
 
+@contextlib.contextmanager
+def forced_skinny():
+    """The f32 small-M route turned off (``gemm.SMALL_MAX_M`` = 0), as
+    ``gemm_crossover`` forces a route: the products it takes run on the
+    skinny kernel again (their route before it), and every launch inside
+    must take it."""
+    from repro_torch.kernels import gemm as gemm_mod
+
+    saved, before = gemm_mod.SMALL_MAX_M, dict(gemm_mod.gemm.routes)
+    gemm_mod.SMALL_MAX_M = 0
+    try:
+        yield
+    finally:
+        gemm_mod.SMALL_MAX_M = saved
+    taken = {r for r, n in gemm_mod.gemm.routes.items() if n != before[r]}
+    if taken != {"skinny"}:
+        raise SystemExit(f"chip_smoke: forced skinny gemm took {taken}")
+
+
 def want_route(name, route, want):
     """Fail unless ``route`` is ``want`` (or one of them)."""
     if route not in ((want,) if isinstance(want, str) else want):
@@ -1355,6 +1398,8 @@ def want_route(name, route, want):
                          f"expected {want}")
 
 
+# the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
+SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
 # at it: one f32 TEST-phase forward of each net and of MNIST's deploy form
 LENET_B = 64
@@ -1406,11 +1451,13 @@ def caffe_kernels(torch, F, rnd, run):
             nbytes, 0.0)
         w = rnd((f, r), f32, r ** -0.5)
         cols = ref.im2col(x, k, k, 1, pad).transpose(0, 1).reshape(r, -1)
-        run(gemm, f"{layer} {f}x{r} @ {r}x{n * o}", f32, step, 1,
+        want_route("gemm", run(
+            gemm, f"{layer} {f}x{r} @ {r}x{n * o}", f32, step, 1,
             lambda w=w, cols=cols: gemm(w, cols),
             lambda w=w, cols=cols: ref.gemm(w, cols),
             lambda w=w, cols=cols: torch.matmul(w, cols),
-            (f * r + r * n * o + f * n * o) * 4, 2.0 * f * r * n * o)
+            (f * r + r * n * o + f * n * o) * 4, 2.0 * f * r * n * o,
+            skinny=True), SMALL_ROUTES)
         # the same product transposed, (N*OH*OW, R) x (R, F), both operands
         # read by their strides: the tiled kernel (M > SKINNY_MAX_M) in
         # place of the skinny one; not on the path (count 0), timed for
@@ -1426,10 +1473,12 @@ def caffe_kernels(torch, F, rnd, run):
                                 ("cifar fwd", "ip1", 576, 64),
                                 ("cifar fwd", "ip2", 64, 10)):
         x, w = rnd((n, k), f32), rnd((k, out), f32, k ** -0.5)
-        run(gemm, f"{layer} {n}x{k} @ {k}x{out}", f32, step, 1,
+        want_route("gemm", run(
+            gemm, f"{layer} {n}x{k} @ {k}x{out}", f32, step, 1,
             lambda x=x, w=w: gemm(x, w), lambda x=x, w=w: ref.gemm(x, w),
             lambda x=x, w=w: torch.matmul(x, w),
-            (n * k + k * out + n * out) * 4, 2.0 * n * k * out)
+            (n * k + k * out + n * out) * 4, 2.0 * n * k * out,
+            skinny=True), SMALL_ROUTES)
         m, v = rnd((n, out), f32), rnd((out,), f32, 0.1)
         run(bias_add_rows, f"{layer} {n}x{out} + {out}", f32, step, 1,
             lambda m=m, v=v: bias_add_rows(m, v),
@@ -1607,13 +1656,17 @@ def caffe_train_kernels(torch, F, rnd, run):
             lambda: ref.softmax_xent_bwd(p, y), lfn,
             2 * n * 10 * es + 8 * n, 2.0 * n * 10)
 
-    def gemm_case(step, case, a, b, count):
+    def gemm_case(step, case, a, b, count, route):
+        """``route``: the one ``plan`` must pick; the f32 small-M route's
+        products with A read along K are timed on the skinny kernel too."""
         m, kk = a.shape
         nn = b.shape[1]
-        run(gemm, f"{case} {m}x{kk} @ {kk}x{nn}", f32, step, count,
+        want_route("gemm", run(
+            gemm, f"{case} {m}x{kk} @ {kk}x{nn}", f32, step, count,
             lambda: gemm(a, b), lambda: ref.gemm(a, b),
             lambda: torch.matmul(a, b),
-            (m * kk + kk * nn + m * nn) * 4, 2.0 * m * nn * kk)
+            (m * kk + kk * nn + m * nn) * 4, 2.0 * m * nn * kk,
+            skinny=route == SMALL_ROUTES and a.stride(1) == 1), route)
 
     # col2im: (step, case, C, H, k, pad) of each convolution whose input
     # needs a gradient (conv1 reads the data)
@@ -1656,22 +1709,118 @@ def caffe_train_kernels(torch, F, rnd, run):
         dy_flat = rnd((f, cols_n), f32)
         cols = rnd((r, cols_n), f32)
         w = rnd((f, r), f32, r ** -0.5)
-        gemm_case(step, f"{case} dw", dy_flat, cols.T, 1)
+        gemm_case(step, f"{case} dw", dy_flat, cols.T, 1, SMALL_ROUTES)
         if dx:
-            gemm_case(step, f"{case} dcols", w.T, dy_flat, 1)
+            gemm_case(step, f"{case} dcols", w.T, dy_flat, 1, "tiled")
     for step, case, k, out in (("mnist train", "ip1", 800, 500),
                                ("mnist train", "ip2", 500, 10),
                                ("cifar train", "ip1", 576, 64),
                                ("cifar train", "ip2", 64, 10)):
         x, w, gr = rnd((n, k), f32), rnd((k, out), f32, k ** -0.5), \
             rnd((n, out), f32)
-        gemm_case(step, f"{case} da", gr, w.T, 1)
-        gemm_case(step, f"{case} db", x.T, gr, 1)
+        gemm_case(step, f"{case} da", gr, w.T, 1, SMALL_ROUTES)
+        # db reads x.T along M: the small-M kernel at M = K <= 64
+        gemm_case(step, f"{case} db", x.T, gr, 1,
+                  SMALL_ROUTES if k <= 64 else "tiled")
     # each new kernel once in bf16 (LeNet trains in f32), counts 0
     col2im_case("bf16", "conv2", 20, 12, 5, 0, 0, dtype=bf)
     maxpool_bwd_case("bf16", "pool1", rnd((n, 20, 24, 24), bf), 2, 2, 0, 0)
     relu_bwd_case("bf16", "relu1", (n, 500), 0, dtype=bf, slope=0.1)
     xent_bwd_case("bf16", "loss", 0, dtype=bf)
+
+
+def small_gemm_cases(torch, rnd, run, clock):
+    """Phase 3 for the f32 small-M kernel off the LeNet shapes (count 0),
+    each held to the plain version and timed beside ``torch.matmul`` and,
+    with A read along K, the skinny kernel: ragged M and N in both B
+    layouts, the unaligned 100- and 300-byte rows of K = 25 and 75 (4-byte
+    copies) with an unaligned B, a B read along K whose row stride is odd,
+    A read along M (aligned, unaligned, split), and a split whose last
+    slice is 5 of K.  Then qwen2.5-3b's f32 decode (M = 4) and prefill (M =
+    64) products on the skinny kernel, which keeps them, against the
+    small-M kernel forced onto them (``SMALL_MAX_SPAN`` raised): where
+    ``SMALL_MAX_SPAN`` stands."""
+    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gemm import gemm
+
+    f32 = torch.float32
+    cases = [
+        ("ragged 37x300 @ 300x1000", rnd((37, 300), f32),
+         rnd((300, 1000), f32)),
+        ("ragged NT 45x5003 @ (1003x5003).T", rnd((45, 5003), f32),
+         rnd((1003, 5003), f32).T),
+        ("K=25 rows 20x25 @ 25x1001, ldb 1001", rnd((20, 25), f32),
+         rnd((25, 1001), f32)),
+        ("K=75 rows 32x75 @ 75x4003, ldb 4003", rnd((32, 75), f32),
+         rnd((75, 4003), f32)),
+        ("NT ldb 5003: 20x5003 (lda 5004) @ (25x5003).T",
+         rnd((20, 5004), f32)[:, :5003], rnd((25, 5003), f32).T),
+        ("A(M) x.T 40x300 @ 300x77", rnd((300, 40), f32).T,
+         rnd((300, 77), f32)),
+        ("A(M) lda 37 x.T 37x300 @ (77x300).T", rnd((300, 37), f32).T,
+         rnd((77, 300), f32).T),
+        ("A(M) x.T 64x3000 @ 3000x64", rnd((3000, 64), f32).T,
+         rnd((3000, 64), f32)),
+        ("short last slice 20x36869 @ (25x36869).T", rnd((20, 36869), f32),
+         rnd((25, 36869), f32).T)]
+    for case, a, b in cases:
+        m, k = a.shape
+        n = b.shape[1]
+        p = gemm_mod.plan(m, n, k, f32, a_m_contiguous=a.stride(1) != 1,
+                          b_k_contiguous=b.stride(1) != 1, tc_aligned=False)
+        last = k - (p.splits - 1) * p.slice_k
+        route = run(gemm, f"{case} ({p.splits} x {p.slice_k}, last {last})",
+                    f32, "f32 small", 0, lambda a=a, b=b: gemm(a, b),
+                    lambda a=a, b=b: ref.gemm(a, b),
+                    lambda a=a, b=b: torch.matmul(a, b),
+                    (m * k + k * n + m * n) * 4, 2.0 * m * n * k,
+                    skinny=a.stride(1) == 1)
+        want_route("gemm", route, p.route)
+        want_route("gemm", route, SMALL_ROUTES)
+        if case.startswith("short") and not 0 < last < p.slice_k:
+            raise SystemExit(f"chip_smoke: gemm {case}: no short last "
+                             "slice")
+    del cases
+    d, d_ff, vocab = 2048, 11008, 151936
+    for m in (4, 64):
+        total = [0.0, 0.0]
+        for name, k, n, nt, count in (("wq,wo", d, d, False, 72),
+                                      ("wk,wv", d, 256, False, 72),
+                                      ("wg,wi", d, d_ff, False, 72),
+                                      ("wo", d_ff, d, False, 36),
+                                      ("head (NT)", d, vocab, True, 1)):
+            x = rnd((m, k), f32)
+            w = (rnd((n, k), f32, 0.02).T if nt
+                 else rnd((k, n), f32, k ** -0.5))
+            ms = []
+            for span in (gemm_mod.SMALL_MAX_SPAN, 2 ** 31):
+                saved, gemm_mod.SMALL_MAX_SPAN = gemm_mod.SMALL_MAX_SPAN, span
+                try:
+                    before = dict(gemm_mod.gemm.routes)
+                    got = gemm(x, w)
+                    route = [r for r, c in gemm_mod.gemm.routes.items()
+                             if c != before[r]][0]
+                    want_route("gemm", route, "skinny" if len(ms) == 0
+                               else SMALL_ROUTES)
+                    want = ref.gemm(x, w)
+                    err = (got - want).abs().max().item()
+                    if not err <= 1e-5 * want.abs().max().item():
+                        raise SystemExit(f"chip_smoke: gemm {route} {name} "
+                                         f"M={m}: max_abs_err {err:.3g}")
+                    ms.append(clock(lambda x=x, w=w: gemm(x, w)))
+                finally:
+                    gemm_mod.SMALL_MAX_SPAN = saved
+                total[len(ms) - 1] += count * ms[-1]
+            print(f"[3 kernels] gemm f32 small-M vs skinny {name} "
+                  f"{m}x{k} @ {k}x{n}: skinny {ms[0]:.4f} ms, {route} "
+                  f"{ms[1]:.4f} ms", flush=True)
+            del x, w, got, want
+        print(f"[3 kernels] gemm f32 small-M vs skinny M={m}: one "
+              f"qwen2.5-3b forward's products (36 layers and the head): "
+              f"skinny {total[0]:.3f} ms, small-M {total[1]:.3f} ms "
+              f"(SMALL_MAX_SPAN {gemm_mod.SMALL_MAX_SPAN} keeps the skinny "
+              f"kernel)", flush=True)
 
 
 # the five LeNet convolutions at batch 64, stride 1: (net, layer, C, H = W,
@@ -1867,6 +2016,8 @@ ROUTE_SOURCES = {
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tc"): "src/repro_torch/kernels/csrc/gemm_tc.cu",
     ("gemm", "tc_splitk"): "src/repro_torch/kernels/csrc/gemm_tc.cu",
+    ("gemm", "f32_small"): "src/repro_torch/kernels/csrc/gemm_f32.cu",
+    ("gemm", "f32_splitk"): "src/repro_torch/kernels/csrc/gemm_f32.cu",
     ("flash_attention_bwd", "tc"):
         "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
     ("flash_attention_bwd", "scalar"):
@@ -2969,17 +3120,67 @@ CAFFE_LAUNCHES = {
 CAFFE_REPS = 20
 
 
-def caffe_counted(torch, fn, name, synced=True, want=None):
+def caffe_gemm_routes(spec, shapes, train, transpose=False):
+    """The gemm's launches per route in one forward (or, ``train``, one
+    autograd train step) of the net ``spec`` at blob ``shapes``: each
+    product's route from ``kernels/gemm.py:plan`` at its shape and operand
+    layout.  A convolution's forward w @ cols (both along their rows), dw =
+    dy_flat @ cols^T (B along K) and, where its input needs a gradient,
+    dcols = w^T @ dy_flat (A along M); an inner product's x @ W, db = x^T
+    @ g (A along M) and, where its input needs one, da = g @ W^T (B along
+    K).  With ``transpose`` (the ``transfer+transpose`` crossings) a 2-D
+    bottom arrives column-major: the inner product reads x along M and
+    x^T along K.  Every forward, dw and da product must take the f32
+    small-M kernel."""
+    import torch
+
+    from repro_torch.kernels.gemm import plan
+
+    routes = {}
+
+    def add(m, n, k, a_m, b_k, small):
+        route = plan(m, n, k, torch.float32, a_m_contiguous=a_m,
+                     b_k_contiguous=b_k, tc_aligned=True).route
+        if small:
+            want_route("gemm", route, SMALL_ROUTES)
+        routes[route] = routes.get(route, 0) + 1
+
+    for ls in spec.layers:
+        if ls.type not in ("Convolution", "InnerProduct"):
+            continue
+        bottom, top = shapes[ls.bottoms[0]], shapes[ls.tops[0]]
+        grad_in = ls.bottoms[0] != "data"
+        if ls.type == "Convolution":
+            r = bottom[1] * ls.kernel_size ** 2
+            cols = top[0] * top[2] * top[3]
+            add(ls.num_output, cols, r, False, False, True)
+            if train:
+                add(ls.num_output, r, cols, False, True, True)
+                if grad_in:
+                    add(r, cols, ls.num_output, True, False, False)
+        else:
+            n, k = bottom[0], math.prod(bottom[1:])
+            col = transpose and len(bottom) == 2
+            add(n, ls.num_output, k, col, False, True)
+            if train:
+                add(k, ls.num_output, n, not col, False, False)
+                if grad_in:
+                    add(n, k, ls.num_output, False, True, True)
+    return routes
+
+
+def caffe_counted(torch, fn, name, synced=True, want=None, routes=None):
     """``fn()`` on the hopper backend with the counts set to 0 just before
     and read just after (under ``set_sync_debug_mode("error")`` unless the
     boundary mode syncs by design); the counts must be ``want``, by
-    default one forward's of the net ``name``."""
+    default one forward's of the net ``name``, and the gemm's launches per
+    route ``routes`` (``caffe_gemm_routes``) where given."""
     from repro_torch.core.policy import use_backend
 
     if want is None:
         want = dict(CAFFE_LAUNCHES[name])
-    got = {}
-    with use_backend("hopper"), counting(got):
+    got, rt = {}, {}
+    with use_backend("hopper"), counting(got, rt):
         if synced:
             torch.cuda.set_sync_debug_mode("error")
         try:
@@ -2991,6 +3192,13 @@ def caffe_counted(torch, fn, name, synced=True, want=None):
     if got != want:
         raise SystemExit(f"chip_smoke: {name}: launches {got}, expected "
                          f"{want}")
+    took = {r: c for r, c in rt["gemm"].items() if c}
+    if routes is not None:
+        if took != routes:
+            raise SystemExit(f"chip_smoke: {name}: gemm launches per route "
+                             f"{took}, expected {routes}")
+        print(f"[caffe routes] {name}: gemm launches per route {took}, as "
+              "plan names them", flush=True)
     return out, got
 
 
@@ -3072,10 +3280,11 @@ def phase_caffe(torch):
         net, solver, params, data, label = caffe_net(torch, mk_net,
                                                      mk_solver, stream_fn)
         name = net.spec.name
-        nets[name] = (mk_net, params, data, label)
+        nets[name] = (mk_net, params, data, label, net.blob_shapes)
         eval_step = solver.make_eval_step()
-        m_h, got = caffe_counted(torch, lambda: eval_step(params, data,
-                                                          label), name)
+        m_h, got = caffe_counted(
+            torch, lambda: eval_step(params, data, label), name,
+            routes=caffe_gemm_routes(net.spec, net.blob_shapes, False))
         add(got)
         with use_backend("reference"):
             m_r = eval_step(params, data, label)
@@ -3116,7 +3325,7 @@ def phase_caffe(torch):
 
     # the deploy form (Caffe's lenet.prototxt): a Softmax prob on ip2, run
     # without labels
-    mk_net, params, data, _ = nets["lenet-mnist"]
+    mk_net, params, data, _, shapes = nets["lenet-mnist"]
     spec = mk_net()
     deploy = Net(dataclasses.replace(
         spec, name="lenet-mnist-deploy", layers=spec.layers + (LayerSpec(
@@ -3127,7 +3336,9 @@ def phase_caffe(torch):
         with torch.no_grad():
             return deploy.forward(params, data)[0]["prob"]
 
-    p_h, got = caffe_counted(torch, deploy_prob, "lenet-mnist-deploy")
+    p_h, got = caffe_counted(
+        torch, deploy_prob, "lenet-mnist-deploy",
+        routes=caffe_gemm_routes(deploy.spec, shapes, False))
     add(got)
     with use_backend("reference"):
         p_r = deploy_prob()
@@ -3172,7 +3383,7 @@ def phase_caffe(torch):
           "through their Functions; softmax and im2col raise", flush=True)
 
     # the paper's §4.3 boundary modes: the forward half of its Table 2
-    for name, (mk_net, params, data, label) in nets.items():
+    for name, (mk_net, params, data, label, shapes) in nets.items():
         losses, ms = {}, {}
         for boundary in (None, "transfer", "transfer+transpose"):
             net = Net(mk_net(), boundary=boundary)
@@ -3181,8 +3392,11 @@ def phase_caffe(torch):
                 with torch.no_grad():
                     return net.metrics(params, data, label)["loss"]
 
-            loss, got = caffe_counted(torch, fwd, name,
-                                      synced=boundary is None)
+            loss, got = caffe_counted(
+                torch, fwd, name, synced=boundary is None,
+                routes=caffe_gemm_routes(
+                    net.spec, shapes, False,
+                    transpose=boundary == "transfer+transpose"))
             add(got)
             losses[boundary] = loss.item()
             with use_backend("hopper"):
@@ -3407,7 +3621,8 @@ def phase_caffe_train(torch):
         st_h, st_r = fresh(), fresh()
         for i, (d, lab) in enumerate(batches):
             (st_h, l_h), got = caffe_counted(
-                torch, lambda: step(st_h, d, lab), name, want=want)
+                torch, lambda: step(st_h, d, lab), name, want=want,
+                routes=caffe_gemm_routes(net.spec, net.blob_shapes, True))
             for k, v in got.items():
                 total[k] += v
             with use_backend("reference"):
@@ -3427,7 +3642,9 @@ def phase_caffe_train(torch):
             st0 = fresh()
             (stb, _), got = caffe_counted(
                 torch, lambda: bstep(st0, d, lab), name, synced=False,
-                want=want)
+                want=want, routes=caffe_gemm_routes(
+                    net.spec, net.blob_shapes, True,
+                    transpose=boundary == "transfer+transpose"))
             gap, worst = tree_gap(torch, stb["params"], st1["params"])
             print(f"[9 caffe train] (b) {name}, {boundary}: one step's "
                   f"params within {gap:.3g} of the fused step's (worst "

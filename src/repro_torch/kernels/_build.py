@@ -50,6 +50,9 @@ _SIGNATURES = {
     # b_k_contiguous, splits, slice_k, stream
     "repro_gemm_tc": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _L, _I, _I, _I,
                       _P],
+    # a, b, c, ws (f32 or NULL), M, N, K, lda, a_m_contiguous, ldb,
+    # b_k_contiguous, a_vec, b_vec, tile_m, splits, slice_k, stream
+    "repro_gemm_f32": [_P] * 4 + [_I] * 3 + [_L, _I, _L] + [_I] * 6 + [_P],
     # x, w, out, rows, D, ldx, eps, dtype, stream
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _F, _I, _P],
     # x, w, dy, dx, dw_partial, rows, D, ldx, lddy, eps, dtype, stream

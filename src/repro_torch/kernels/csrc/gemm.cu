@@ -5,20 +5,27 @@
 // VMEM f32 accumulator), which serves every projection, the LM head and, in
 // training, both products of every backward (ops.py:71-75: g @ B^T and
 // A^T @ g).  Two kernels here, on the routes kernels/gemm.py:plan picks by
-// dtype, M and alignment (bf16 above the skinny cutoff, with operands
-// 16-byte copies can read, goes to gemm_tc.cu's tensor-core kernel):
+// dtype, shape, layout and alignment (bf16 with operands 16-byte copies
+// can read goes to gemm_tc.cu's tensor-core kernel; f32 at M <= 64 with A
+// read along M, or with the span the skinny kernel spreads over its lanes
+// at most 1024 -- K with B along N, N with B along K: the Caffe nets'
+// convolutions, weight gradients and inner products -- to gemm_f32.cu's
+// small-M kernel):
 //
 // * M <= SKINNY_MAX_M[dtype] (f32: 128; decode: M is the batch; chunked
-//   prefill: M = B*C): a streaming skinny GEMM.  Every weight byte is used
-//   for M multiply-adds, far below the ~295 operations per byte where tensor
-//   cores become the limit, so the kernel is bound by reading B once from
+//   prefill: M = B*C; the f32 decode and prefill products of the served
+//   archs, K >= 2048 over wide weights): a streaming skinny GEMM.  Every
+//   weight byte is used for M multiply-adds, far below the ~295 operations
+//   per byte where tensor cores become the limit, so the kernel is bound by
+//   reading B once from
 //   device memory: each B element is loaded exactly once, as part of a
 //   16-byte vector, and multiplied into MR <= 8 row accumulators held in
 //   registers; A is tiny and is re-read from shared memory or L1.  M > 8
 //   runs ceil(M/8) row groups (correct, re-reads B).
 // * larger M (the check's teacher-forced forward, M = B*S = 320;
 //   training, M = B*S = 512 tokens, or, for the weight gradient A^T @ g,
-//   M = the layer's input width, up to 11008): a shared-memory tiled
+//   M = the layer's input width, up to 11008; the Caffe nets' dcols and
+//   their inner products' x^T @ g): a shared-memory tiled
 //   GEMM, 64 x 64 output tiles, K in steps of 16, each of 256 threads
 //   holding a 4 x 4 block of outputs in registers.  Here the product is
 //   bound by operations, and the skinny kernel would read B ceil(M/8)
@@ -33,7 +40,7 @@
 // one axis each:
 //   A: K-contiguous, A(m,k) = a[m*lda + k] (activations), or
 //      M-contiguous, A(m,k) = a[k*lda + m] (the transposed activations of a
-//      weight gradient; the tiled kernel only)
+//      weight gradient; not the skinny kernel)
 //   B: NN  B(k,n) = b[k*ldb + n]  -- the projection weights (d_in, d_out)
 //      NT  B(k,n) = b[n*ldb + k]  -- the tied LM head, embed.T, a view of
 //                                    the (vocab, d) embedding, and W^T in

@@ -86,7 +86,7 @@ def test_build_needs_no_toolchain_at_import():
     from repro_torch.kernels import _build
 
     assert {p.name for p in _build.sources()} == {
-        "gemm.cu", "gemm_tc.cu", "rmsnorm.cu", "eltwise.cu",
+        "gemm.cu", "gemm_tc.cu", "gemm_f32.cu", "rmsnorm.cu", "eltwise.cu",
         "flash_attention.cu", "flash_attention_bwd.cu",
         "flash_attention_bwd_tc.cu", "ssd_scan.cu", "im2col.cu",
         "pooling.cu", "softmax_xent.cu", "conv_direct.cu"}

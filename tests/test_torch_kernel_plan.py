@@ -7,15 +7,19 @@ shape and alignment; ``split_k``: the K slices of the tensor-core kernel)
 and ``kernels/flash_attention.py`` (``bwd_plan``; ``dq_key_tiles`` and
 ``dkv_query_tiles``: the tile walks of the tensor-core backward).  Held
 here: the route and split of every product of a qwen2.5-3b training step
-and of both LeNets' forward and train step; slices that cover K exactly
-in whole K steps; walks that reach every visible (query, key) pair
-exactly once; and two emulations in plain PyTorch against JAX's oracles
-on the same numpy inputs — the split-K sum (f32 partials per slice,
-summed in slice order) against ``repro.kernels.ref.gemm`` within f32
-summation order, and the backward's tile walks (P and dS rounded to bf16
-before the second products, the GQA group's partials summed after) against
-JAX's Pallas backward in interpret mode within one bf16 ulp of the
-largest gradient, the card's tolerance for the kernel.
+and of both LeNets' forward and train step, and the skinny route of
+qwen2.5-3b's f32 decode and prefill products; slices that cover K exactly
+in whole K steps (the tensor-core kernel's, and the f32 small-M kernel's
+at every LeNet weight gradient); walks that reach every visible (query,
+key) pair exactly once; and emulations in plain PyTorch against JAX's
+oracles on the same numpy inputs — the split-K sum (f32 partials per
+slice, summed in slice order) against ``repro.kernels.ref.gemm`` within
+f32 summation order, at the tensor-core kernel's splits and at the f32
+small-M kernel's at every LeNet product, and the backward's tile walks (P
+and dS rounded to bf16 before the second products, the GQA group's
+partials summed after) against JAX's Pallas backward in interpret mode
+within one bf16 ulp of the largest gradient, the card's tolerance for the
+kernel.
 """
 import math
 
@@ -39,86 +43,164 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     dkv_query_tiles,
     dq_key_tiles,
 )
-from repro_torch.kernels.gemm import N_SMS, plan, split_k  # noqa: E402
+from repro_torch.kernels.gemm import (  # noqa: E402
+    N_SMS,
+    SMALL_MIN_SLICE_STEPS,
+    SMALL_TILE_K,
+    SMALL_TILE_N,
+    plan,
+    small_tile_m,
+    split_k,
+)
 
 BF16, F32 = torch.bfloat16, torch.float32
 D, D_FF, VOCAB, ROWS = 2048, 11008, 151936, 512
 
-# (product, M, N, K, A read along M, route, K slices): the 15 products of
-# a qwen2.5-3b train step at B 2 x S 256 (chip_smoke.py's phase 3 rows):
-# the forward's, each input gradient g @ W^T and each weight gradient
-# x^T @ g.  Fewer than 132 output tiles of 128 x 128 split K towards two
-# blocks an SM, in slices of at least 8 steps of 32.
+# (product, M, N, K, A read along M, B read along K, route, K slices): the
+# 15 products of a qwen2.5-3b train step at B 2 x S 256 (chip_smoke.py's
+# phase 3 rows): the forward's, each input gradient g @ W^T and each
+# weight gradient x^T @ g.  Fewer than 132 output tiles of 128 x 128 split
+# K towards two blocks an SM, in slices of at least 8 steps of 32.
 QWEN_TRAIN = [
-    ("wq,wo", ROWS, D, D, False, "tc_splitk", 4),
-    ("wk,wv", ROWS, 256, D, False, "tc_splitk", 8),
-    ("wg,wi", ROWS, D_FF, D, False, "tc", 1),
-    ("wo", ROWS, D, D_FF, False, "tc_splitk", 4),
-    ("head (NT)", ROWS, VOCAB, D, False, "tc", 1),
-    ("da wq,wo", ROWS, D, D, False, "tc_splitk", 4),
-    ("da wk,wv", ROWS, D, 256, False, "tc", 1),
-    ("da wg,wi", ROWS, D, D_FF, False, "tc_splitk", 4),
-    ("da wo", ROWS, D_FF, D, False, "tc", 1),
-    ("da head", ROWS, D, VOCAB, False, "tc_splitk", 4),
-    ("db wq,wo", D, D, ROWS, True, "tc", 1),
-    ("db wk,wv", D, 256, ROWS, True, "tc_splitk", 2),
-    ("db wg,wi", D, D_FF, ROWS, True, "tc", 1),
-    ("db wo", D_FF, D, ROWS, True, "tc", 1),
-    ("db head", D, VOCAB, ROWS, True, "tc", 1),
+    ("wq,wo", ROWS, D, D, False, False, "tc_splitk", 4),
+    ("wk,wv", ROWS, 256, D, False, False, "tc_splitk", 8),
+    ("wg,wi", ROWS, D_FF, D, False, False, "tc", 1),
+    ("wo", ROWS, D, D_FF, False, False, "tc_splitk", 4),
+    ("head (NT)", ROWS, VOCAB, D, False, True, "tc", 1),
+    ("da wq,wo", ROWS, D, D, False, True, "tc_splitk", 4),
+    ("da wk,wv", ROWS, D, 256, False, True, "tc", 1),
+    ("da wg,wi", ROWS, D, D_FF, False, True, "tc_splitk", 4),
+    ("da wo", ROWS, D_FF, D, False, True, "tc", 1),
+    ("da head", ROWS, D, VOCAB, False, False, "tc_splitk", 4),
+    ("db wq,wo", D, D, ROWS, True, False, "tc", 1),
+    ("db wk,wv", D, 256, ROWS, True, False, "tc_splitk", 2),
+    ("db wg,wi", D, D_FF, ROWS, True, False, "tc", 1),
+    ("db wo", D_FF, D, ROWS, True, False, "tc", 1),
+    ("db head", D, VOCAB, ROWS, True, False, "tc", 1),
 ]
 
 
-@pytest.mark.parametrize("name,m,n,k,a_m,route,splits", QWEN_TRAIN,
+@pytest.mark.parametrize("name,m,n,k,a_m,b_k,route,splits", QWEN_TRAIN,
                          ids=[p[0] for p in QWEN_TRAIN])
-def test_qwen_train_products_take_the_tensor_cores(name, m, n, k, a_m,
+def test_qwen_train_products_take_the_tensor_cores(name, m, n, k, a_m, b_k,
                                                    route, splits):
-    p = plan(m, n, k, BF16, a_m_contiguous=a_m, tc_aligned=True)
+    p = plan(m, n, k, BF16, a_m_contiguous=a_m, b_k_contiguous=b_k,
+             tc_aligned=True)
     assert (p.route, p.splits) == (route, splits)
     assert p.slice_k % 32 == 0 or p.splits == 1
     # the same product in f32 keeps the scalar tiled kernel (IEEE f32),
     # and so does a bf16 operand the 16-byte copies cannot follow
-    assert plan(m, n, k, F32, a_m_contiguous=a_m,
+    assert plan(m, n, k, F32, a_m_contiguous=a_m, b_k_contiguous=b_k,
                 tc_aligned=True).route == "tiled"
-    assert plan(m, n, k, BF16, a_m_contiguous=a_m,
+    assert plan(m, n, k, BF16, a_m_contiguous=a_m, b_k_contiguous=b_k,
                 tc_aligned=False).route == "tiled"
 
 
+# (product, K, N, B read along K): qwen2.5-3b's forward products, as f32
+# decode (M = 4) and chunked prefill (M = 64) run them (chip_smoke.py's
+# phase 5)
+QWEN_DECODE = [("wq,wo", D, D, False), ("wk,wv", D, 256, False),
+               ("wg,wi", D, D_FF, False), ("wo", D_FF, D, False),
+               ("head (NT)", D, VOCAB, True)]
+
+
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("name,k,n,b_k", QWEN_DECODE,
+                         ids=[p[0] for p in QWEN_DECODE])
+def test_qwen_f32_decode_products_stay_skinny(name, k, n, b_k, m):
+    # the f32 small-M kernel takes none of them: K (B along N) and N (B
+    # along K) are all above SMALL_MAX_SPAN
+    p = plan(m, n, k, F32, a_m_contiguous=False, b_k_contiguous=b_k,
+             tc_aligned=True)
+    assert (p.route, p.splits) == ("skinny", 1)
+
+
 def _lenet_products():
-    """(case, M, N, K, A read along M, route) of every gemm of both
-    LeNets' f32 forward and train step at batch 64 (chip_smoke.py's Caffe
-    rows): a convolution's forward w (F, C*K*K) @ cols, its dw = dy_flat @
-    cols^T and dcols = w^T @ dy_flat (A read along M); an inner product's
-    x @ W, da = g @ W^T and db = x^T @ g (A read along M)."""
+    """(case, M, N, K, A read along M, B read along K, route, K slices) of
+    every gemm of both LeNets' f32 forward and train step at batch 64
+    (chip_smoke.py's Caffe rows): a convolution's forward w (F, C*K*K) @
+    cols, its dw = dy_flat @ cols^T (B read along K) and dcols = w^T @
+    dy_flat (A read along M); an inner product's x @ W, da = g @ W^T (B
+    read along K) and db = x^T @ g (A read along M).  Every forward,
+    weight gradient dw and input gradient da takes the f32 small-M kernel
+    (M <= 64), split along K where its 32 or 64 x 64 tiles cannot fill the
+    card; dcols and db (M = C*K*K and the inner product's input width) the
+    scalar tiled kernel, but for CIFAR ip2's db (M = 64)."""
     n, out = 64, []
-    for net, layer, c, h, f, k, pad, dx in (
-            ("mnist", "conv1", 1, 28, 20, 5, 0, False),
-            ("mnist", "conv2", 20, 12, 50, 5, 0, True),
-            ("cifar", "conv1", 3, 32, 32, 5, 2, False),
-            ("cifar", "conv2", 32, 15, 32, 5, 2, True),
-            ("cifar", "conv3", 32, 7, 64, 5, 2, True)):
+    for net, layer, c, h, f, k, pad, dx, splits in (
+            ("mnist", "conv1", 1, 28, 20, 5, 0, False, (1, 256)),
+            ("mnist", "conv2", 20, 12, 50, 5, 0, True, (4, 32)),
+            ("cifar", "conv1", 3, 32, 32, 5, 2, False, (1, 128)),
+            ("cifar", "conv2", 32, 15, 32, 5, 2, True, (1, 20)),
+            ("cifar", "conv3", 32, 7, 64, 5, 2, True, (5, 20))):
         r, cols = c * k * k, n * (h + 2 * pad - k + 1) ** 2
-        out.append((f"{net} {layer}", f, cols, r, False, "skinny"))
-        out.append((f"{net} {layer} dw", f, r, cols, False, "skinny"))
+        fwd, dw = splits
+        out.append((f"{net} {layer}", f, cols, r, False, False,
+                    "f32_splitk" if fwd > 1 else "f32_small", fwd))
+        out.append((f"{net} {layer} dw", f, r, cols, False, True,
+                    "f32_splitk", dw))
         if dx:
-            out.append((f"{net} {layer} dcols", r, cols, f, True, "tiled"))
-    for net, layer, k, o in (("mnist", "ip1", 800, 500),
-                             ("mnist", "ip2", 500, 10),
-                             ("cifar", "ip1", 576, 64),
-                             ("cifar", "ip2", 64, 10)):
-        out.append((f"{net} {layer}", n, o, k, False, "skinny"))
-        out.append((f"{net} {layer} da", n, k, o, False, "skinny"))
-        out.append((f"{net} {layer} db", k, o, n, True, "tiled"))
+            out.append((f"{net} {layer} dcols", r, cols, f, True, False,
+                        "tiled", 1))
+    for net, layer, k, o, splits in (("mnist", "ip1", 800, 500, (10, 8)),
+                                     ("mnist", "ip2", 500, 10, (8, 1)),
+                                     ("cifar", "ip1", 576, 64, (9, 1)),
+                                     ("cifar", "ip2", 64, 10, (1, 1))):
+        fwd, da = splits
+        out.append((f"{net} {layer}", n, o, k, False, False,
+                    "f32_splitk" if fwd > 1 else "f32_small", fwd))
+        out.append((f"{net} {layer} da", n, k, o, False, True,
+                    "f32_splitk" if da > 1 else "f32_small", da))
+        out.append((f"{net} {layer} db", k, o, n, True, False,
+                    "f32_small" if k <= 64 else "tiled", 1))
     return out
 
 
 LENET = _lenet_products()
 
 
-@pytest.mark.parametrize("name,m,n,k,a_m,route", LENET,
+@pytest.mark.parametrize("name,m,n,k,a_m,b_k,route,splits", LENET,
                          ids=[p[0] for p in LENET])
-def test_lenet_products_keep_the_f32_kernels(name, m, n, k, a_m, route):
-    p = plan(m, n, k, F32, a_m_contiguous=a_m, tc_aligned=True)
-    assert (p.route, p.splits) == (route, 1)
+def test_lenet_products_take_the_f32_small_m_kernel(name, m, n, k, a_m, b_k,
+                                                    route, splits):
+    p = plan(m, n, k, F32, a_m_contiguous=a_m, b_k_contiguous=b_k,
+             tc_aligned=True)
+    assert (p.route, p.splits) == (route, splits)
+    if route.startswith("f32"):
+        assert p.tile_m == (32 if m <= 32 else 64)
+        assert p.slice_k % SMALL_TILE_K == 0 or p.splits == 1
+    # the skinny kernel, which took every one of them with A read along K
+    # before, takes them again only when the small-M kernel is turned off
+    # (chip_smoke.py times it so)
+    if not a_m:
+        saved = gemm_mod.SMALL_MAX_M
+        gemm_mod.SMALL_MAX_M = 0
+        try:
+            assert plan(m, n, k, F32, a_m_contiguous=a_m, b_k_contiguous=b_k,
+                        tc_aligned=True).route == (
+                "skinny" if m <= 128 else "tiled")
+        finally:
+            gemm_mod.SMALL_MAX_M = saved
+
+
+LENET_DW = [p for p in LENET if p[0].endswith(" dw")]
+
+
+@pytest.mark.parametrize("name,m,n,k", [p[:4] for p in LENET_DW],
+                         ids=[p[0] for p in LENET_DW])
+def test_small_split_k_slices_cover_k(name, m, n, k):
+    splits, slice_k = split_k(m, n, k, small_tile_m(m), SMALL_TILE_N,
+                              SMALL_TILE_K, SMALL_MIN_SLICE_STEPS)
+    tiles = math.ceil(m / small_tile_m(m)) * math.ceil(n / SMALL_TILE_N)
+    assert tiles < N_SMS and splits > 1
+    assert slice_k % SMALL_TILE_K == 0
+    assert slice_k >= SMALL_MIN_SLICE_STEPS * SMALL_TILE_K
+    bounds = [(z * slice_k, min(k, (z + 1) * slice_k)) for z in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(lo < hi for lo, hi in bounds)           # no empty slice
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    # no more blocks than about two an SM
+    assert tiles * splits <= 2 * N_SMS + tiles
 
 
 def test_skinny_cutoff_per_dtype():
@@ -129,11 +211,13 @@ def test_skinny_cutoff_per_dtype():
     for dtype, c in ((F32, 128), (BF16, cut)):
         if c:
             assert plan(c, 2048, 2048, dtype, a_m_contiguous=False,
+                        b_k_contiguous=False,
                         tc_aligned=True).route == "skinny"
             assert plan(c, 2048, 2048, dtype, a_m_contiguous=True,
+                        b_k_contiguous=False,
                         tc_aligned=True).route != "skinny"
         assert plan(c + 1, 2048, 2048, dtype, a_m_contiguous=False,
-                    tc_aligned=True).route != "skinny"
+                    b_k_contiguous=False, tc_aligned=True).route != "skinny"
 
 
 def _shapes():
@@ -201,6 +285,27 @@ def test_splitk_emulation_matches_jax(m, n, k):
                         np.float32)
     err = np.abs(got16.float().numpy() - want16).max()
     assert err <= 2 ** -7 * np.abs(want16).max()
+
+
+@pytest.mark.parametrize("name,m,n,k,a_m,b_k,route,splits", LENET,
+                         ids=[p[0] for p in LENET])
+def test_small_splitk_emulation_matches_jax(name, m, n, k, a_m, b_k, route,
+                                            splits):
+    """The f32 small-M kernel's arithmetic at each LeNet product (each K
+    slice's f32 product, then the slices summed in order 0..splits-1, as
+    splitk_reduce_f32 sums them) against JAX's gemm on the same inputs;
+    the products the tiled kernel takes are held at one slice."""
+    p = plan(m, n, k, F32, a_m_contiguous=a_m, b_k_contiguous=b_k,
+             tc_aligned=True)
+    rng = np.random.default_rng(m * 7 + n * 3 + k)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    got = _splitk_emulation(torch.from_numpy(a), torch.from_numpy(b),
+                            p.splits, p.slice_k)
+    want = np.asarray(jax_ref.gemm(jnp.asarray(a), jnp.asarray(b)))
+    # f32 summation order over K terms
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("dtype,d,aligned,route", [
