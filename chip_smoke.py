@@ -48,13 +48,24 @@ failure (non-zero exit, no result line):
               must keep its carried state bit for bit, the SSD state written
               in place must equal a new one bit for bit, grouped B/C
               must raise in the ops layer, and rmsnorm_bwd must take its
-              widest row and raise on the next.  The gemm and the
-              attention backward have routes (``kernels/gemm.py:plan``,
-              ``kernels/flash_attention.py:bwd_plan``): each row prints the
-              route its wrapper took, and every bf16 training shape must
-              take the tensor-core kernels.  The gemm's skinny kernel is
-              also timed against its tiled route (tensor cores in bf16,
-              the scalar kernel in f32) at qwen2.5-3b's projection and
+              widest row and raise on the next.  The gemm, the
+              attention backward, the attention forward and the int8
+              paged decode have routes (``kernels/gemm.py:plan``,
+              ``kernels/flash_attention.py:bwd_plan``, ``fwd_plan``,
+              ``decode_plan``): each row prints the route its wrapper
+              took, every bf16 training shape must take the tensor-core
+              kernels, the bf16 forward the tensor-core kernel and the
+              bf16 int8 decode the split kernel (f32 both on the
+              template).  The forward (at the --check shape and at the
+              training shape, B 2 x S 256, with qwen2.5-3b's, zamba2's
+              and, windowed, mixtral's heads) and the int8 decode (at
+              every arch's heads, a group of 32 included) are also timed
+              on the template they left (``forced_scalar``,
+              ``forced_template``), and the decode's split is swept over
+              block targets at the three served archs' heads.  The
+              gemm's skinny kernel is also timed against its tiled
+              route (tensor cores in bf16, the scalar kernel in f32) at
+              qwen2.5-3b's projection and
               head shapes for M from 1 to 320: their crossover sets
               ``kernels/gemm.py``'s ``SKINNY_MAX_M`` per dtype.  The
               LeNet products on the f32 small-M route (``csrc/gemm_f32.cu``:
@@ -93,7 +104,8 @@ failure (non-zero exit, no result line):
               1 and 16 only; mixtral: paged, its window refuses
               contiguous chunks) and, paged, for the bf16 and int8 pools
               (mixtral over the bf16 pool token by token: identical, or
-              split at a shown near tie, see below).
+              split at a shown near tie, see below); the hopper runs'
+              launches are counted, their int8 decodes on the template.
 6. check    — ``--check``'s helper (``serving/checks.py``) for each arch
               on the hopper backend: token-by-token decode of a 160-token
               prompt (which crosses mamba2's SSD chunk of 128 in the
@@ -102,7 +114,8 @@ failure (non-zero exit, no result line):
               mixtral with capacity_factor lifted to its expert count, as
               the forward and decode otherwise drop different tokens), and
               qwen2.5-3b in bf16 at full depth within 5% of the logits'
-              scale, with exact launch counts.
+              scale, with exact launch counts and the forward's route
+              (tc in bf16, scalar in f32).
 7. train    — (a) qwen2.5-3b at full width and depth in bf16: one loss
               and grads on the hopper lowering against the reference
               lowering from the same params (loss within 1%, each grad
@@ -111,7 +124,8 @@ failure (non-zero exit, no result line):
               S 256 through ``launch/train.py``'s loop, each step under
               ``set_sync_debug_mode("error")`` with exact launch counts
               (remat runs each layer's forward twice) and every gemm and
-              attention backward on its tensor-core route, then one step
+              attention forward and backward on its tensor-core route
+              (also in (a)), then one step
               under the profiler for the device's busy share and one in
               halves on the host clock; (c) qwen2.5-3b and
               mamba2-2.7b in f32 at 2 layers: loss and grads, then 2
@@ -176,8 +190,9 @@ to fit the card.  The LeNets run at full size (Caffe's own nets) and
 the solvers' batch of 64.
 
 The line before the last is a JSON object with one entry per kernel (the
-gemm's and the attention backward's with ``routes``: the main paths'
-launches per route); the last line is ``{"ok": true, "device": {...}}``.
+routed kernels' -- the gemm's, the attention backward's and forward's and
+the int8 decode's -- with ``routes``: the main paths' launches per route,
+phases 4-10); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -245,7 +260,8 @@ def main() -> int:
     launches = phase_serving(torch)
 
     # ---------------------------------------------------------------- 5
-    phase_f32(torch)
+    for name, n in phase_f32(torch).items():
+        launches[name] += n
 
     # ---------------------------------------------------------------- 6
     for name, n in phase_check(torch).items():
@@ -434,14 +450,15 @@ def phase_kernels(torch):
     rows = []          # one per (kernel, case)
 
     def run(kernel, case, dtype, step, count, kfn, pfn, lfn, nbytes, flops,
-            tol=None, clock=timer, im2col_gemm=None, skinny=False):
+            tol=None, clock=timer, im2col_gemm=None, forced=None):
         """``count``: launches of this case in one bf16 ``step``
         ("decode" or "prefill") of the serving phase at B = 4, or one
         ``train`` step of phase 7 (B = 2, S = 256).  ``im2col_gemm``: the
         port's im2col + gemm form of a convolution, a second yardstick.
-        ``skinny``: ``kfn`` is also timed with the f32 small-M route
-        turned off, on the skinny kernel it took before (``forced_skinny``).
-        A routed kernel's row names the route its wrapper took."""
+        ``forced``: a context that puts the kernel back on the route it
+        took before a redesign (``forced_skinny``, ``forced_scalar``,
+        ``forced_template``), under which ``kfn`` is timed too.  A routed
+        kernel's row names the route its wrapper took."""
         name = kernel.__name__
         dt = str(dtype).split(".")[1]
         before = dict(getattr(kernel, "routes", {}))
@@ -455,18 +472,19 @@ def phase_kernels(torch):
         l_ms = clock(lfn) if lfn is not None else None
         g_ms = clock(im2col_gemm) if im2col_gemm is not None else None
         s_ms = None
-        if skinny:
-            with forced_skinny():
+        if forced is not None:
+            with forced():
                 s_ms = clock(kfn)
         b_ms, by = bound_ms(nbytes, flops, dt)
         rows.append(dict(name=name, case=case, dtype=dt, step=step,
                          route=route, count=count, err=err, ms=ms,
                          plain_ms=p_ms,
                          library_ms=l_ms, bound_ms=b_ms, bound_by=by,
-                         im2col_gemm_ms=g_ms, skinny_ms=s_ms))
+                         im2col_gemm_ms=g_ms, forced_ms=s_ms))
         lib = f"{l_ms:.4f}" if l_ms is not None else "n/a"
         gem = f"  im2col+gemm {g_ms:.4f} ms" if g_ms is not None else ""
-        sk = f"  skinny {s_ms:.4f} ms" if s_ms is not None else ""
+        sk = (f"  {forced.__name__.split('_')[1]} {s_ms:.4f} ms"
+              if s_ms is not None else "")
         print(f"[3 kernels] {name:31s} {case:50s} {dt:8s} {step:7s} "
               f"{route:9s} x{count:<3d} {ms:.4f} ms  bound {b_ms:.4f} ms "
               f"({by})  plain "
@@ -590,12 +608,14 @@ def phase_kernels(torch):
         # on the contiguous slab, on the pool)
         # glm4-9b's group of 16 (32/2 heads), deepseek-coder-33b's 7 (56/8)
         # and internlm2-20b's 6 (48/8), head dim 128: dense archs the
-        # serving phases do not run (counts 0)
+        # serving phases do not run (counts 0); a group of 32 (32/1), which
+        # no arch has, takes the split decode's second block of 16 rows
         for hq, hkv, hd, arch in ((16, 2, 128, ""), (32, 32, 80, "zamba2 "),
                                   (32, 8, 128, "mixtral "),
                                   (32, 2, 128, "glm4 "),
                                   (56, 8, 128, "deepseek "),
-                                  (48, 8, 128, "internlm2 ")):
+                                  (48, 8, 128, "internlm2 "),
+                                  (32, 1, 128, "g32 ")):
             n_slab, n_pool = {"": (36, 36), "zamba2 ": (9, 9),
                               "mixtral ": (0, 16)}.get(arch, (0, 0))
             lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
@@ -725,7 +745,10 @@ def phase_kernels(torch):
                               for n, lo in zip(lens_l, lo_d))
                 qbytes = (2 * B * hq * hd * es + 2 * keys * hkv * hd
                           + 2 * pages_d * hkv * 4 + bt_bytes)
-                run(flash_decode_paged_quant,
+                # bf16 on the split kernel, timed beside the template it
+                # left; f32 stays on the template
+                want_route("flash_decode_paged_quant", run(
+                    flash_decode_paged_quant,
                     f"q 4x{hq}x{hd}, int8 pool {n_pages}+1x16x{hkv}x{hd}"
                     f"{win}", dtype, arch + "decode", count,
                     lambda w=window: flash_decode_paged_quant(
@@ -734,7 +757,16 @@ def phase_kernels(torch):
                         q, kq, vq, ksc, vsc, lens, bt, window=w),
                     lambda m_=dmask: F.scaled_dot_product_attention(
                         qs, kqg, vqg, attn_mask=m_, enable_gqa=True),
-                    qbytes, 4.0 * keys * hq * hd + 2.0 * keys * hkv * hd)
+                    qbytes, 4.0 * keys * hq * hd + 2.0 * keys * hkv * hd,
+                    forced=(forced_template if dtype == torch.bfloat16
+                            else None)),
+                    "split" if dtype == torch.bfloat16 else "template")
+                if dtype == torch.bfloat16 and count:
+                    decode_split_sweep(
+                        timer, f"{arch or 'qwen2.5-3b '}heads{win}",
+                        lambda w=window: flash_decode_paged_quant(
+                            q, kq, vq, ksc, vsc, lens, bt, window=w),
+                        B, hkv, maxb, page)
                 lo_c = [0 if window is None else max(0, s0 - window + 1)
                         for s0 in start_l]
                 ckeys = sum(s0 + w0 - lo
@@ -787,7 +819,9 @@ def phase_kernels(torch):
                     2 * B * c * hq * hd * es + 2 * ckeys * hkv * hd * 2
                     + bt_bytes, 4.0 * cmask.sum().item() * hq * hd)
                 del kb, vb, kbg, vbg
-            # a row whose pages are all unmapped (a released row) returns zeros
+            # a row whose pages are all unmapped (a released row) returns
+            # zeros (the int8 decode on the split kernel in bf16, on the
+            # template in f32)
             bt_u = bt.clone()
             bt_u[B - 1] = -1
             for name, fn in (
@@ -810,8 +844,10 @@ def phase_kernels(torch):
                         f"chip_smoke: {name}: an all-unmapped row is not "
                         "zeros, or it moved the other rows")
             print(f"[3 kernels] all-unmapped row: zeros from the four paged "
-                  f"kernels ({arch or 'qwen2.5-3b '}heads, {dtype})",
-                  flush=True)
+                  f"kernels ({arch or 'qwen2.5-3b '}heads, {dtype}; int8 "
+                  f"decode on the "
+                  f"{'split' if dtype == torch.bfloat16 else 'template'} "
+                  "route)", flush=True)
             del kc, vc, kp, vp, kg, vg, kq, vq, kqg, vqg
 
         # -- the SSD scan.  B and C are column slices of an in_proj output
@@ -917,7 +953,10 @@ def phase_kernels(torch):
                 + 4 * 2 * hq_ * s_f
             qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
             win = f" win {window}" if window else ""
-            run(flash_attention,
+            # bf16 on the tensor-core kernel, timed beside the template's
+            # forward mode it left; f32 stays on the template
+            want_route("flash_attention", run(
+                flash_attention,
                 f"2x{s_f}x{hq_}x{d_}, kv {hkv_} heads, causal{win}", dtype,
                 "forward", count,
                 lambda w=window, q_=qf, k_=kf, v_=vf: flash_attention(
@@ -930,7 +969,9 @@ def phase_kernels(torch):
                 (lambda q_=qt, k_=kt, v_=vt, m_=fmask:
                  F.scaled_dot_product_attention(q_, k_, v_, attn_mask=m_,
                                                 enable_gqa=True)),
-                fbytes, 4.0 * 2 * hq_ * d_ * pairs)
+                fbytes, 4.0 * 2 * hq_ * d_ * pairs,
+                forced=forced_scalar if dtype == torch.bfloat16 else None),
+                "tc" if dtype == torch.bfloat16 else "scalar")
         train_kernels(torch, F, rnd, run, slow, dtype, es)
         gemm_crossover(torch, rnd, check, slow, dtype, TOL)
         torch.cuda.empty_cache()
@@ -1020,10 +1061,10 @@ def phase_kernels(torch):
                               if r["bound_by"] == "bytes")
         tot["im2col_gemm_ms"] = sum((r["im2col_gemm_ms"] or 0.0) * r["count"]
                                     for r in sel)
-        # the rows timed on the skinny kernel too: the step on the routes
-        # before the f32 small-M kernel (the other rows' kernels unchanged)
-        tot["skinny_ms"] = sum(
-            (r["ms"] if r["skinny_ms"] is None else r["skinny_ms"])
+        # the rows timed on a forced route too: the step on the routes
+        # before a redesign (the other rows' kernels unchanged)
+        tot["forced_ms"] = sum(
+            (r["ms"] if r["forced_ms"] is None else r["forced_ms"])
             * r["count"] for r in sel)
         return tot
 
@@ -1050,7 +1091,10 @@ def phase_kernels(torch):
         print(f"[3 kernels] {name}: one {dt} {step} step at {at}: "
               f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
               f"{tot['plain_ms']:.3f} ms, library "
-              f"{lib if lib is None else round(lib, 3)} ms", flush=True)
+              f"{lib if lib is None else round(lib, 3)} ms"
+              + (f", on its route before this slice "
+                 f"{tot['forced_ms']:.3f} ms" if name in REDESIGNED else ""),
+              flush=True)
     for step in ("mamba2 decode", "zamba2 decode", "zamba2 prefill",
                  "mixtral decode", "mixtral prefill"):
         for name in ("gemm", "rmsnorm", "flash_decode", "flash_decode_paged",
@@ -1063,8 +1107,10 @@ def phase_kernels(torch):
                 print(f"[3 kernels] {name}: one bf16 {step} step at B={B}:"
                       f" {tot['ms']:.3f} ms vs bound {tot['bound_ms']:.4f} "
                       f"ms, plain {tot['plain_ms']:.3f} ms, library "
-                      f"{lib if lib is None else round(lib, 3)} ms",
-                      flush=True)
+                      f"{lib if lib is None else round(lib, 3)} ms"
+                      + (f", on its route before this slice "
+                         f"{tot['forced_ms']:.3f} ms" if name in REDESIGNED
+                         else ""), flush=True)
     for step, names in (
             ("mnist fwd", ("im2col", "gemm", "bias_add_rows", "maxpool",
                            "relu", "softmax_xent")),
@@ -1079,7 +1125,7 @@ def phase_kernels(torch):
         for name in names:
             tot = totals(name, step)
             was = (f", on the routes before the f32 small-M kernel "
-                   f"{tot['skinny_ms']:.4f} ms" if name == "gemm" else "")
+                   f"{tot['forced_ms']:.4f} ms" if name == "gemm" else "")
             print(f"[3 kernels] {name}: one f32 {step} at B={LENET_B}: "
                   f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, "
                   f"plain {tot['plain_ms']:.4f} ms, library "
@@ -1101,6 +1147,13 @@ def phase_kernels(torch):
           f"chunk's projections; the head runs at M={B}): {tot['ms']:.3f} ms"
           f" vs bound {tot['bound_ms']:.3f} ms, plain {tot['plain_ms']:.3f}"
           f" ms, library {tot['library_ms']:.3f} ms", flush=True)
+    tot = totals("flash_attention", "train")
+    print(f"[3 kernels] flash_attention: one bf16 train step (B={TRAIN_B}, "
+          f"S={TRAIN_S}: forward and rematerialized forward): "
+          f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, on "
+          f"its route before this slice {tot['forced_ms']:.3f} ms",
+          flush=True)
     tot = totals("gemm", "train")
     print(f"[3 kernels] gemm: one bf16 train step (B={TRAIN_B}, S={TRAIN_S}:"
           f" forward, rematerialized forward and both backward products): "
@@ -1225,6 +1278,45 @@ def train_kernels(torch, F, rnd, run, clock, dtype, es):
                     raise SystemExit(f"chip_smoke: rmsnorm_bwd width {wd}: "
                                      f"max_abs_err {err:.3g}")
         del x, dy, w
+    # flash_attention at the training shape: a step's forward and its
+    # rematerialized forward at qwen2.5-3b's heads, and as extra figures
+    # zamba2-2.7b's (32/32 of 80) and mixtral-8x7b's (32/8 of 128) under a
+    # window of 32; bf16 on the tensor-core kernel, timed beside the
+    # template's forward mode it left
+    for hq, hkv, hd, window, step, count in (
+            (16, 2, 128, None, "train", 2 * layers),
+            (32, 32, 80, None, "zamba2 train", 0),
+            (32, 8, 128, 32, "mixtral train", 0)):
+        q = rnd((TRAIN_B, TRAIN_S, hq, hd), dtype)
+        k, v = (rnd((TRAIN_B, TRAIN_S, hkv, hd), dtype) for _ in range(2))
+        pos = torch.arange(TRAIN_S, device="cuda")
+        mask = pos[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= pos[None, :] > pos[:, None] - window
+        pairs = int(mask.sum().item())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        win = f" win {window}" if window else ""
+        # q and out at Hq heads, k and v at Hkv, lse f32
+        nbytes = (2 * hq + 2 * hkv) * TRAIN_B * TRAIN_S * hd * es \
+            + 4 * TRAIN_B * hq * TRAIN_S
+        want_route("flash_attention", run(
+            flash_attention,
+            f"{TRAIN_B}x{TRAIN_S}x{hq}x{hd}, kv {hkv} heads, causal{win}",
+            dtype, step, count,
+            lambda q=q, k=k, v=v, w=window: flash_attention(q, k, v,
+                                                            window=w),
+            lambda q=q, k=k, v=v, w=window: ref.mha_attention(q, k, v,
+                                                              window=w),
+            (lambda q_=qt, k_=kt, v_=vt: F.scaled_dot_product_attention(
+                q_, k_, v_, is_causal=True, enable_gqa=True))
+            if window is None else
+            (lambda q_=qt, k_=kt, v_=vt, m_=mask:
+             F.scaled_dot_product_attention(q_, k_, v_, attn_mask=m_,
+                                            enable_gqa=True)),
+            nbytes, 4.0 * TRAIN_B * hq * hd * pairs,
+            forced=forced_scalar if dtype == torch.bfloat16 else None),
+            "tc" if dtype == torch.bfloat16 else "scalar")
+        del q, k, v, qt, kt, vt
     # flash_attention_bwd: qwen2.5-3b's heads (16/2 of 128, causal), and as
     # extra figures zamba2-2.7b's (32/32 of 80) and mixtral-8x7b's (32/8 of
     # 128) under a window of 32
@@ -1391,6 +1483,63 @@ def forced_skinny():
         raise SystemExit(f"chip_smoke: forced skinny gemm took {taken}")
 
 
+@contextlib.contextmanager
+def forced_plan(planner, kernel, route):
+    """``kernels/flash_attention.py``'s ``planner`` made to name ``route``
+    whatever the shape, as ``gemm_crossover`` forces a route: every launch
+    of ``kernel`` inside must take it."""
+    from repro_torch.kernels import flash_attention as FA
+
+    saved, fn = getattr(FA, planner), getattr(FA, kernel)
+    before = dict(fn.routes)
+    setattr(FA, planner, lambda *args: route)
+    try:
+        yield
+    finally:
+        setattr(FA, planner, saved)
+    taken = {r for r, n in fn.routes.items() if n != before[r]}
+    if taken != {route}:
+        raise SystemExit(f"chip_smoke: forced {route} {kernel} took "
+                         f"{taken}")
+
+
+def forced_scalar():
+    """The attention forward on the template's forward mode, its route
+    before the tensor-core kernel."""
+    return forced_plan("fwd_plan", "flash_attention", "scalar")
+
+
+def forced_template():
+    """The int8 paged decode on the template, its route before the split
+    kernel."""
+    return forced_plan("decode_plan", "flash_decode_paged_quant",
+                       "template")
+
+
+# the split decode's block targets swept in phase 3
+SPLIT_TARGETS = (8, 16, 32, 64, 128, 256, 512)
+
+
+def decode_split_sweep(clock, case, fn, b, hkv, max_blocks, page):
+    """The int8 decode on the split kernel at each of ``SPLIT_TARGETS``
+    in place of ``DECODE_BLOCKS`` (the splits ``decode_splits`` then
+    picks), one line a case; the planner's own target is marked."""
+    from repro_torch.kernels import flash_attention as FA
+
+    saved, cells = FA.DECODE_BLOCKS, []
+    try:
+        for target in SPLIT_TARGETS:
+            FA.DECODE_BLOCKS = target
+            n, pps = FA.decode_splits(b, hkv, max_blocks, page)
+            cells.append(f"{target}{'*' if target == saved else ''}: "
+                         f"{n} x {pps} {clock(fn):.4f}")
+    finally:
+        FA.DECODE_BLOCKS = saved
+    print(f"[3 kernels] flash_decode_paged_quant split sweep, {case}: "
+          f"target blocks: splits x pages a split, ms: " + "; ".join(cells),
+          flush=True)
+
+
 def want_route(name, route, want):
     """Fail unless ``route`` is ``want`` (or one of them)."""
     if route not in ((want,) if isinstance(want, str) else want):
@@ -1398,6 +1547,10 @@ def want_route(name, route, want):
                          f"expected {want}")
 
 
+# the kernels whose routes this slice redesigned: each phase-3 row of
+# theirs is also timed on the route it left (``forced_scalar``,
+# ``forced_template``)
+REDESIGNED = ("flash_attention", "flash_decode_paged_quant")
 # the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
 SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -1457,7 +1610,7 @@ def caffe_kernels(torch, F, rnd, run):
             lambda w=w, cols=cols: ref.gemm(w, cols),
             lambda w=w, cols=cols: torch.matmul(w, cols),
             (f * r + r * n * o + f * n * o) * 4, 2.0 * f * r * n * o,
-            skinny=True), SMALL_ROUTES)
+            forced=forced_skinny), SMALL_ROUTES)
         # the same product transposed, (N*OH*OW, R) x (R, F), both operands
         # read by their strides: the tiled kernel (M > SKINNY_MAX_M) in
         # place of the skinny one; not on the path (count 0), timed for
@@ -1478,7 +1631,7 @@ def caffe_kernels(torch, F, rnd, run):
             lambda x=x, w=w: gemm(x, w), lambda x=x, w=w: ref.gemm(x, w),
             lambda x=x, w=w: torch.matmul(x, w),
             (n * k + k * out + n * out) * 4, 2.0 * n * k * out,
-            skinny=True), SMALL_ROUTES)
+            forced=forced_skinny), SMALL_ROUTES)
         m, v = rnd((n, out), f32), rnd((out,), f32, 0.1)
         run(bias_add_rows, f"{layer} {n}x{out} + {out}", f32, step, 1,
             lambda m=m, v=v: bias_add_rows(m, v),
@@ -1666,7 +1819,8 @@ def caffe_train_kernels(torch, F, rnd, run):
             lambda: gemm(a, b), lambda: ref.gemm(a, b),
             lambda: torch.matmul(a, b),
             (m * kk + kk * nn + m * nn) * 4, 2.0 * m * nn * kk,
-            skinny=route == SMALL_ROUTES and a.stride(1) == 1), route)
+            forced=(forced_skinny if route == SMALL_ROUTES
+                    and a.stride(1) == 1 else None)), route)
 
     # col2im: (step, case, C, H, k, pad) of each convolution whose input
     # needs a gradient (conv1 reads the data)
@@ -1775,7 +1929,7 @@ def small_gemm_cases(torch, rnd, run, clock):
                     lambda a=a, b=b: ref.gemm(a, b),
                     lambda a=a, b=b: torch.matmul(a, b),
                     (m * k + k * n + m * n) * 4, 2.0 * m * n * k,
-                    skinny=a.stride(1) == 1)
+                    forced=forced_skinny if a.stride(1) == 1 else None)
         want_route("gemm", route, p.route)
         want_route("gemm", route, SMALL_ROUTES)
         if case.startswith("short") and not 0 < last < p.slice_k:
@@ -2009,8 +2163,9 @@ def kernel_fns():
 
 # the kernels with several routes (``fn.routes``: launches per route,
 # beside ``fn.launches``), each route's source, and the launches per route
-# summed over every counted run of a main path (phases 4 and 6-10)
-ROUTED = ("gemm", "flash_attention_bwd")
+# summed over every counted run of a main path (phases 4-10)
+ROUTED = ("gemm", "flash_attention_bwd", "flash_attention",
+          "flash_decode_paged_quant")
 ROUTE_SOURCES = {
     ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
@@ -2022,6 +2177,14 @@ ROUTE_SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
     ("flash_attention_bwd", "scalar"):
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    ("flash_attention", "tc"):
+        "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+    ("flash_attention", "scalar"):
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    ("flash_decode_paged_quant", "split"):
+        "src/repro_torch/kernels/csrc/flash_decode_split.cu",
+    ("flash_decode_paged_quant", "template"):
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 MAIN_ROUTES = {}
 
@@ -2104,6 +2267,17 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
               f"({s['kv_resident_bytes_peak'] / 2 ** 20:.1f} MiB of KV)",
               flush=True)
     print(f"{tag} launches {launches}", flush=True)
+    if kv_dtype == "int8":
+        # every bf16 decode launch over the int8 pool on the split kernel
+        rt = dict(fns["flash_decode_paged_quant"].routes)
+        n = launches["flash_decode_paged_quant"]
+        want_rt = ({"split": n, "template": 0}
+                   if model.cfg.dtype == "bfloat16"
+                   else {"split": 0, "template": n})
+        print(f"{tag} flash_decode_paged_quant routes {rt}", flush=True)
+        if rt != want_rt:
+            raise SystemExit(f"chip_smoke: {tag} flash_decode_paged_quant "
+                             f"routes {rt}, expected {want_rt}")
     steps, n_attn = per_step(model.cfg)
     want = {name: 0 for name in KERNELS}
     want.update({name: n * (pre + dec) for name, n in steps.items()})
@@ -2507,13 +2681,16 @@ def phase_f32(torch):
     Where both chunks ran, the two runs of each backend are compared too
     (printed): the chunk changes the summation order, over an int8 pool
     the requantization sequence, and for moe the capacity, which counts
-    the B*C tokens of a chunk step."""
+    the B*C tokens of a chunk step.  The hopper runs' launches are counted
+    (each run from 0) and returned; their int8 decodes, f32 queries, must
+    stay on the template."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.policy import use_backend
     from repro_torch.models.model import build_model
     from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
 
     failed = []
+    total = {name: 0 for name in KERNELS}
     for arch, layers, cases in F32_CASES:
         model = build_model(dataclasses.replace(
             get_arch(arch), n_layers=layers, dtype="float32"))
@@ -2533,11 +2710,27 @@ def phase_f32(torch):
                     config=EngineConfig(steps_per_sync=4,
                                         prefill_chunk=chunk))
                 for backend in ("hopper", "reference"):
+                    got, rt = {}, {}
                     with use_backend(backend), Decisions() as trace[backend]:
                         eng = ServingEngine(model, params, **engine_kw)
                         for toks in reqs:
                             eng.submit(toks, 16)
-                        streams[backend, chunk] = eng.run()
+                        if backend == "hopper":
+                            with counting(got, rt):
+                                streams[backend, chunk] = eng.run()
+                        else:
+                            streams[backend, chunk] = eng.run()
+                    for name, n in got.items():
+                        total[name] += n
+                    # f32 queries over the int8 pool stay on the template
+                    quant = rt.get("flash_decode_paged_quant", {})
+                    if quant.get("split"):
+                        failed.append((arch, layout, kv_dtype, chunk,
+                                       f"int8 decode routes {quant}"))
+                    if kv_dtype == "int8" and backend == "hopper":
+                        print(f"[5 f32] {arch}, int8 pool, prefill chunk "
+                              f"{chunk}: flash_decode_paged_quant routes "
+                              f"{quant}", flush=True)
                 got, want = streams["hopper", chunk], \
                     streams["reference", chunk]
                 diff = [(i, int(np.argmax(got[i] != want[i])))
@@ -2587,6 +2780,7 @@ def phase_f32(torch):
         torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"chip_smoke: f32 token streams differ: {failed}")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2649,7 +2843,16 @@ def phase_check(torch):
                                      f"({cfg.dtype}): {e}")
                 secs = time.perf_counter() - t0
                 launches = read_counts(fns)
+                fwd_routes = dict(fns["flash_attention"].routes)
             steps, n_attn = per_step(cfg)
+            # the teacher-forced forward's attention: bf16 on the
+            # tensor-core kernel, f32 on the template
+            want_fwd = {"tc": 0 if f32 else n_attn,
+                        "scalar": n_attn if f32 else 0}
+            if fwd_routes != want_fwd:
+                raise SystemExit(f"chip_smoke: --check {cfg.name}: "
+                                 f"flash_attention routes {fwd_routes}, "
+                                 f"expected {want_fwd}")
             want = {name: 0 for name in KERNELS}
             want.update({name: n * (CHECK_LEN + 1)
                          for name, n in steps.items()})
@@ -2660,7 +2863,8 @@ def phase_check(torch):
                   f" decode of {CHECK_B}x{CHECK_LEN} tokens vs teacher-forced"
                   f" forward: max |diff| {err:.4g} (max |logit| "
                   f"{scale:.4g}, allowed {tol}) in {secs:.1f} s; launches "
-                  f"{launches}", flush=True)
+                  f"{launches}; flash_attention routes {fwd_routes}",
+                  flush=True)
             if launches != want:
                 raise SystemExit(f"chip_smoke: --check {cfg.name}: launches "
                                  f"{launches}, expected {want}")
@@ -2779,14 +2983,20 @@ def train_bf16_grads(torch):
     t0 = time.perf_counter()
     params = train_setup(torch, cfg)["params"]
     batch = make_batch(train_stream(cfg), 0, torch.device("cuda"))
-    got = {}
-    with use_backend("hopper"), counting(got):
+    got, rt = {}, {}
+    with use_backend("hopper"), counting(got, rt):
         loss_h, g_h = loss_and_grads(cfg, params, batch)
     torch.cuda.synchronize()
     want = train_per_step(cfg)
     if got != want:
         raise SystemExit(f"chip_smoke: train (a): launches {got}, expected "
                          f"{want}")
+    # the forward and its rematerialization on the tensor-core kernel: the
+    # grads below are fed by its out and lse
+    if rt["flash_attention"]["tc"] != want["flash_attention"]:
+        raise SystemExit(f"chip_smoke: train (a): flash_attention routes "
+                         f"{rt['flash_attention']}, expected tc "
+                         f"{want['flash_attention']}")
     with use_backend("reference"):
         loss_r, g_r = loss_and_grads(cfg, params, batch)
     p32 = tree_map(lambda p: p.detach().float().requires_grad_(True), params)
@@ -2805,7 +3015,8 @@ def train_bf16_grads(torch):
           f"{time.perf_counter() - t0:.1f} s: loss hopper {lh:.6f}, "
           f"reference {lr:.6f} (gap {abs(lh - lr):.3g}), reference in f32 "
           f"{l32:.6f} (its own bf16 gap {abs(lr - l32):.3g}); launches "
-          f"{got}", flush=True)
+          f"{got}; flash_attention routes {rt['flash_attention']}",
+          flush=True)
     # one line per parameter: its relative L2 gap in every layer
     groups = {}
     for i, n in enumerate(names):
@@ -2872,10 +3083,11 @@ def train_loop_phase(torch):
     stream, step_fn = train_stream(cfg), make_train_step(cfg, opt)
     want, counts, routes = train_per_step(cfg), [], []
     # every gemm of a bf16 step on the tensor-core kernel (M = 512 and the
-    # weight gradients' x.T), every attention backward on the tensor-core
-    # kernels
+    # weight gradients' x.T), every attention forward and backward on the
+    # tensor-core kernels
     want_routes = {"gemm": want["gemm"],
-                   "flash_attention_bwd": want["flash_attention_bwd"]}
+                   "flash_attention_bwd": want["flash_attention_bwd"],
+                   "flash_attention": want["flash_attention"]}
 
     def counted(st, batch):
         got, rt = {}, {}
@@ -2901,7 +3113,8 @@ def train_loop_phase(torch):
             raise SystemExit(f"chip_smoke: train (b): step {rec['step']} "
                              f"launches {got}, expected {want}")
         on_tc = {"gemm": rt["gemm"]["tc"] + rt["gemm"]["tc_splitk"],
-                 "flash_attention_bwd": rt["flash_attention_bwd"]["tc"]}
+                 "flash_attention_bwd": rt["flash_attention_bwd"]["tc"],
+                 "flash_attention": rt["flash_attention"]["tc"]}
         if on_tc != want_routes:
             raise SystemExit(f"chip_smoke: train (b): step {rec['step']} "
                              f"launches on the tensor-core routes {on_tc}, "
@@ -3033,8 +3246,9 @@ def train_f32(torch):
             lh, gh = loss_and_grads(cfg, hop["params"], batch)
         want = train_per_step(cfg)
         # f32 keeps the IEEE kernels: no launch on a tensor-core route
-        if rt["gemm"]["tc"] + rt["gemm"]["tc_splitk"] \
-                + rt["flash_attention_bwd"]["tc"]:
+        if (rt["gemm"]["tc"] + rt["gemm"]["tc_splitk"]
+                + rt["flash_attention_bwd"]["tc"]
+                + rt["flash_attention"]["tc"]):
             failed.append(f"{arch}: f32 launches on a tensor-core route "
                           f"{rt}")
         with use_backend("reference"):

@@ -34,6 +34,22 @@ group's dk/dv partials summed in order by a third kernel); in f32, or at
 any other bf16 shape, the scalar kernels of ``csrc/flash_attention_bwd.cu``
 (IEEE f32, the GQA group summed inside the block).  ``dq_key_tiles`` and
 ``dkv_query_tiles`` are the tile walks of the tensor-core kernels.
+
+Two kernels also have redesigned routes beside the template, each picked
+by a pure-Python planner from dtype, head dim and alignment (never by
+trying a kernel).  The forward: ``fwd_plan`` sends bf16 at head dims that
+are multiples of 16 up to 128 to ``csrc/flash_attention_tc.cu`` (64 query
+rows a block on mma.sync, the key tiles of ``dq_key_tiles``, P rounded to
+bf16 before PV, as the backward does); f32 and every other shape keep the
+template's forward mode (IEEE f32).  The int8 paged decode:
+``decode_plan`` sends bf16 queries at those head dims, over a pool whose
+strides and base the 16-byte int8 copies can follow, to
+``csrc/flash_decode_split.cu``: the block table's entries split into
+``decode_splits`` runs of consecutive pages (fixed from shapes only, so
+no host sync), one block per (row, kv head, split) writing an f32 partial
+(m, l, acc), and a second kernel merging the partials in split order;
+f32 queries (phase 5's token identity) keep the template.  Both wrappers
+count their launches per route in ``routes`` beside ``launches``.
 """
 from __future__ import annotations
 
@@ -48,9 +64,23 @@ from repro_torch.kernels._build import DTYPES, INT8
 MAX_HEAD_DIM = 128
 
 # the tensor-core backward's tile: query rows of the dq kernel's block,
-# keys of the dk/dv kernel's (csrc/flash_attention_bwd_tc.cu kT)
+# keys of the dk/dv kernel's (csrc/flash_attention_bwd_tc.cu kT); the
+# tensor-core forward's blocks and key tiles are the dq kernel's
 BWD_TILE = 64
 BWD_ROUTES = ("tc", "scalar")
+FWD_ROUTES = ("tc", "scalar")
+DECODE_ROUTES = ("split", "template")
+# the blocks the split decode's splits aim for.  Swept on the H100
+# (chip_smoke.py phase 3): qwen2.5-3b's 8 (row, kv head) pairs run fastest
+# in 8 splits, mixtral-8x7b's 32 in 4 and zamba2-2.7b's 128 unsplit (a
+# second split costs the combine's launch more than it saves), which a
+# target just under the 132 SMs gives
+DECODE_BLOCKS = 128
+
+
+def _tc_shape(dtype: torch.dtype, d: int, aligned: bool) -> bool:
+    return (dtype == torch.bfloat16 and d % 16 == 0
+            and 16 <= d <= MAX_HEAD_DIM and aligned)
 
 
 def bwd_plan(dtype: torch.dtype, d: int, aligned: bool) -> str:
@@ -59,10 +89,48 @@ def bwd_plan(dtype: torch.dtype, d: int, aligned: bool) -> str:
     copies can follow (``aligned``: 16-byte aligned bases, unit stride on
     D, every other stride a multiple of 8); "scalar" (IEEE f32 arithmetic)
     for f32 and every other shape."""
-    if (dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= MAX_HEAD_DIM
-            and aligned):
-        return "tc"
-    return "scalar"
+    return "tc" if _tc_shape(dtype, d, aligned) else "scalar"
+
+
+def fwd_plan(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The forward's route, by ``bwd_plan``'s rule: "tc"
+    (``csrc/flash_attention_tc.cu``) for bf16 at a head dim that is a
+    multiple of 16 up to 128 with ``aligned`` operands; "scalar" (the
+    template's forward mode, IEEE f32) for f32 and every other shape."""
+    return "tc" if _tc_shape(dtype, d, aligned) else "scalar"
+
+
+def decode_plan(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The int8 paged decode's route: "split" (``csrc/flash_decode_split
+    .cu``) for bf16 queries at a head dim that is a multiple of 16 up to
+    128 over a pool the 16-byte int8 copies can follow (``aligned``:
+    16-byte aligned bases, page, slot and head strides multiples of 16
+    bytes); "template" for f32 queries (their token identity rests on the
+    template's summation order) and every other shape."""
+    return "split" if _tc_shape(dtype, d, aligned) else "template"
+
+
+def decode_splits(b: int, hkv: int, max_blocks: int,
+                  page: int) -> Tuple[int, int]:
+    """(n_split, pages_per_split) of the split decode, from shapes only
+    (never the lengths: no host sync): enough splits of the ``max_blocks``
+    block-table entries that the ``b * hkv * n_split`` blocks come near
+    ``DECODE_BLOCKS``, and no split empty.  Split ``i`` owns entries
+    ``[i * pps, min((i + 1) * pps, max_blocks))``; ``page`` does not move
+    the split (a split's pages are walked in 32-key tiles whatever their
+    size)."""
+    want = max(1, -(-DECODE_BLOCKS // max(b * hkv, 1)))
+    pps = max(1, -(-max_blocks // want))
+    return max(1, -(-max_blocks // pps)), pps
+
+
+def _aligned(*tensors: torch.Tensor, elems: int = 8) -> bool:
+    """16-byte aligned bases and the strides of all but the last dim
+    multiples of ``elems`` elements (16 bytes at 8 bf16, 16 int8): what
+    the tensor-core and split kernels' 16-byte copies follow."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st % elems == 0 for st in t.stride()[:-1])
+               for t in tensors)
 
 
 def dq_key_tiles(q0: int, sq: int, sk: int, causal: bool,
@@ -132,6 +200,17 @@ def _check(name: str, q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "of one layout on q's device")
 
 
+def _check_table(name: str, block_table: torch.Tensor, b: int,
+                 device: torch.device) -> None:
+    if (block_table.dtype != torch.int32 or block_table.dim() != 2
+            or block_table.shape[0] != b or block_table.stride(1) != 1
+            or block_table.device != device):
+        raise ValueError(
+            f"{name}: block table {tuple(block_table.shape)} "
+            f"{block_table.dtype} on {block_table.device} needs (B, "
+            "max_blocks) int32 with unit column stride on q's device")
+
+
 def _launch(name: str, q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out4: torch.Tensor, pos0: torch.Tensor,
             width: Optional[torch.Tensor],
@@ -147,13 +226,7 @@ def _launch(name: str, q4: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if block_table is None:
         n_keys, page, bt, bt_sb = k.shape[1], 1, None, 0
     else:
-        if (block_table.dtype != torch.int32 or block_table.dim() != 2
-                or block_table.shape[0] != b or block_table.stride(1) != 1
-                or block_table.device != q4.device):
-            raise ValueError(
-                f"{name}: block table {tuple(block_table.shape)} "
-                f"{block_table.dtype} on {block_table.device} needs (B, "
-                "max_blocks) int32 with unit column stride on q's device")
+        _check_table(name, block_table, b, q4.device)
         page = k.shape[1]
         n_keys = block_table.shape[1] * page
         bt, bt_sb = block_table.data_ptr(), block_table.stride(0)
@@ -191,6 +264,49 @@ def _decode(name, q, k, v, cache_len, block_table, window, scale,
     _launch(name, q.unsqueeze(1), k, v, out.unsqueeze(1),
             ref._rows(cache_len, q.shape[0], q.device).contiguous(), None,
             block_table, window, scale, scales)
+    return out
+
+
+def _decode_split(name, q, k, v, k_scale, v_scale, cache_len, block_table,
+                  window, scale):
+    """Check and launch ``repro_flash_decode_split`` (q (B, Hq, D) bf16
+    against the int8 pool through the block table): the splits of
+    ``decode_splits``, and their f32 partials in scratch when there are
+    several."""
+    _build.guard_grad(name, q, k, v)
+    if q.dim() != 3:
+        raise ValueError(f"{name}: q {tuple(q.shape)} is not (B, Hq, D)")
+    _check(name, q.unsqueeze(1), k, v, (k_scale, v_scale), paged=True)
+    b, hq, d = q.shape
+    _check_table(name, block_table, b, q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    hkv, page, max_blocks = k.shape[2], k.shape[1], block_table.shape[1]
+    n_split, pps = decode_splits(b, hkv, max_blocks, page)
+    part = (None, None, None)
+    if n_split > 1:
+        part = (torch.empty((b, hq, n_split), dtype=torch.float32,
+                            device=q.device),
+                torch.empty((b, hq, n_split), dtype=torch.float32,
+                            device=q.device),
+                torch.empty((b, hq, n_split, d), dtype=torch.float32,
+                            device=q.device))
+    lens = ref._rows(cache_len, b, q.device).contiguous()
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    rc = _build.lib().repro_flash_decode_split(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), lens.data_ptr(), block_table.data_ptr(),
+        out.data_ptr(), *(None if t is None else t.data_ptr() for t in part),
+        b, hkv, hq // hkv, d, page, max_blocks, pps, n_split,
+        block_table.stride(0), q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        k_scale.stride(0), k_scale.stride(1), out.stride(0), out.stride(1),
+        -1 if window is None else int(window), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, name)
     return out
 
 
@@ -249,15 +365,24 @@ def flash_decode_paged_quant(q: torch.Tensor, k_pages: torch.Tensor,
                              scale: Optional[float] = None) -> torch.Tensor:
     """q (B,Hq,D) against an int8 (P,page,Hkv,D) pool with f32 (P,Hkv)
     per-(page, head) scales, through the block table; output in
-    ``q.dtype``.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    ``q.dtype``, on the kernel ``decode_plan`` picks.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
     if not q.is_cuda:
         return ref.attention_decode_paged_quant(
             q, k_pages, v_pages, k_scale, v_scale, cache_len, block_table,
             window=window, scale=scale)
-    out = _decode("flash_decode_paged_quant", q, k_pages, v_pages,
-                  cache_len, block_table, window, scale, (k_scale, v_scale))
+    name = "flash_decode_paged_quant"
+    route = decode_plan(q.dtype, q.shape[-1],
+                        k_pages.dtype == torch.int8
+                        and _aligned(k_pages, v_pages, elems=16))
+    if route == "split":
+        out = _decode_split(name, q, k_pages, v_pages, k_scale, v_scale,
+                            cache_len, block_table, window, scale)
+    else:
+        out = _decode(name, q, k_pages, v_pages, cache_len, block_table,
+                      window, scale, (k_scale, v_scale))
     flash_decode_paged_quant.launches += 1
+    flash_decode_paged_quant.routes[route] += 1
     return out
 
 
@@ -324,9 +449,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B,Sq,Hq,D) against k/v (B,Sk,Hkv,D) -> (out (B,Sq,Hq,D) in
-    ``q.dtype``, lse (B,Hq,Sq) f32); query ``i`` sits at position ``i``.
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    ``q.dtype``, lse (B,Hq,Sq) f32); query ``i`` sits at position ``i``,
+    on the kernel ``fwd_plan`` picks.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
     if not q.is_cuda:
         return ref.mha_attention(q, k, v, causal=causal, window=window,
                                  scale=scale)
@@ -342,19 +467,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out, lse
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    rc = _build.lib().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, hkv, hq // hkv, sq, sk, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-        lse.stride(0), lse.stride(1), int(causal),
-        -1 if window is None else int(window), float(scale),
-        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    route = fwd_plan(q.dtype, d, _aligned(q, k, v))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, hkv, hq // hkv, sq, sk, d,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            out.stride(0), out.stride(1), out.stride(2),
+            lse.stride(0), lse.stride(1), int(causal),
+            -1 if window is None else int(window), float(scale))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "tc":
+        rc = _build.lib().repro_flash_attention_tc(*args, stream)
+    else:
+        rc = _build.lib().repro_flash_attention(*args, DTYPES[q.dtype],
+                                                stream)
     _build.check(rc, name)
     flash_attention.launches += 1
+    flash_attention.routes[route] += 1
     return out, lse
 
 
@@ -402,10 +532,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq.zero_(), dk.zero_(), dv.zero_()
     dd = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    aligned = all(t.data_ptr() % 16 == 0
-                  and all(st % 8 == 0 for st in t.stride()[:3])
-                  for t in (q, k, v, out, do))
-    route = bwd_plan(q.dtype, d, aligned)
+    route = bwd_plan(q.dtype, d, _aligned(q, k, v, out, do))
     args = (b, hkv, hq // hkv, sq, sk, d,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
@@ -440,10 +567,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
 # launches per route, beside the total
+flash_attention.routes = dict.fromkeys(FWD_ROUTES, 0)
 flash_attention_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)
 flash_decode.launches = 0
 flash_decode_paged.launches = 0
 flash_decode_paged_quant.launches = 0
+flash_decode_paged_quant.routes = dict.fromkeys(DECODE_ROUTES, 0)
 flash_prefill_chunk.launches = 0
 flash_prefill_chunk_paged.launches = 0
 flash_prefill_chunk_paged_quant.launches = 0
