@@ -49,20 +49,22 @@ failure (non-zero exit, no result line):
               in place must equal a new one bit for bit, grouped B/C
               must raise in the ops layer, and rmsnorm_bwd must take its
               widest row and raise on the next.  The gemm, the
-              attention backward, the attention forward and the int8
-              paged decode have routes (``kernels/gemm.py:plan``,
+              attention backward, the attention forward and the three
+              decodes (contiguous slab, bf16 pool, int8 pool) have
+              routes (``kernels/gemm.py:plan``,
               ``kernels/flash_attention.py:bwd_plan``, ``fwd_plan``,
               ``decode_plan``): each row prints the route its wrapper
               took, every bf16 training shape must take the tensor-core
-              kernels, the bf16 forward the tensor-core kernel and the
-              bf16 int8 decode the split kernel (f32 both on the
-              template).  The forward (at the --check shape and at the
-              training shape, B 2 x S 256, with qwen2.5-3b's, zamba2's
-              and, windowed, mixtral's heads) and the int8 decode (at
-              every arch's heads, a group of 32 included) are also timed
-              on the template they left (``forced_scalar``,
-              ``forced_template``), and the decode's split is swept over
-              block targets at the three served archs' heads.  The
+              kernels, the bf16 forward the tensor-core kernel and every
+              bf16 decode the split kernel (f32 both on the template, the
+              bf16 pool under f32 queries too).  The forward (at the
+              --check shape and at the training shape, B 2 x S 256, with
+              qwen2.5-3b's, zamba2's and, windowed, mixtral's heads) and
+              the three decodes (at every arch's heads, a group of 32
+              included) are also timed on the template they left
+              (``forced_scalar``, ``forced_template``), and each decode's
+              split is swept over block targets at the served archs'
+              heads.  The
               gemm's skinny kernel is also timed against its tiled
               route (tensor cores in bf16, the scalar kernel in f32) at
               qwen2.5-3b's projection and
@@ -92,10 +94,11 @@ failure (non-zero exit, no result line):
               The prefill and decode loops run under
               ``torch.cuda.set_sync_debug_mode("error")``; launch counts per
               prefill and decode step are exact (``per_step`` derives them
-              from the config); the first steps' logits are held against
-              the reference backend (qwen in bf16 at full depth, the Mamba
-              stacks in f32 at 12 layers, mixtral in f32 at 16 with its
-              bf16 numbers printed, see below).  Each model's weights are
+              from the config), every decode on the split kernel; the
+              first steps' logits are held against the reference backend
+              (qwen in bf16 at full depth, the Mamba stacks in f32 at 12
+              layers, mixtral in f32 at 16 with its bf16 numbers printed,
+              see below).  Each model's weights are
               freed before the next one loads.
 5. f32      — full width in f32 at reduced depth (qwen2.5-3b, mamba2-2.7b
               and mixtral-8x7b at 2 layers, zamba2-2.7b at 12 = 2 groups):
@@ -105,7 +108,7 @@ failure (non-zero exit, no result line):
               contiguous chunks) and, paged, for the bf16 and int8 pools
               (mixtral over the bf16 pool token by token: identical, or
               split at a shown near tie, see below); the hopper runs'
-              launches are counted, their int8 decodes on the template.
+              launches are counted, all their decodes on the template.
 6. check    — ``--check``'s helper (``serving/checks.py``) for each arch
               on the hopper backend: token-by-token decode of a 160-token
               prompt (which crosses mamba2's SSD chunk of 128 in the
@@ -114,8 +117,9 @@ failure (non-zero exit, no result line):
               mixtral with capacity_factor lifted to its expert count, as
               the forward and decode otherwise drop different tokens), and
               qwen2.5-3b in bf16 at full depth within 5% of the logits'
-              scale, with exact launch counts and the forward's route
-              (tc in bf16, scalar in f32).
+              scale, with exact launch counts and the forward's and the
+              decode's routes (tc and split in bf16, the template's in
+              f32).
 7. train    — (a) qwen2.5-3b at full width and depth in bf16: one loss
               and grads on the hopper lowering against the reference
               lowering from the same params (loss within 1%, each grad
@@ -191,7 +195,7 @@ the solvers' batch of 64.
 
 The line before the last is a JSON object with one entry per kernel (the
 routed kernels' -- the gemm's, the attention backward's and forward's and
-the int8 decode's -- with ``routes``: the main paths' launches per route,
+the three decodes' -- with ``routes``: the main paths' launches per route,
 phases 4-10); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -354,6 +358,7 @@ def phase_kernels(torch):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.eltwise import bias_add_rows
     from repro_torch.kernels.flash_attention import (
+        SPLIT_TILE,
         flash_attention,
         flash_decode,
         flash_decode_paged,
@@ -656,12 +661,16 @@ def phase_kernels(torch):
                 win = f" win {window}" if window else ""
                 count, pcount = ((n_slab, n_pool) if window is None
                                  else (0, 0))
-                # decode: every live key read once
+                # decode: every live key read once.  bf16 on the split
+                # kernel, timed beside the template it left; f32 stays on
+                # the template
                 keys = sum(n if window is None else min(n, window)
                            for n in lens_l)
                 dbytes = (2 * B * hq * hd + 2 * keys * hkv * hd) * es
                 dflops = 4.0 * keys * hq * hd
-                run(flash_decode,
+                bf = dtype == torch.bfloat16
+                want_route("flash_decode", run(
+                    flash_decode,
                     f"q 4x{hq}x{hd}, cache 4x128x{hkv}x{hd}{win}", dtype,
                     arch + "decode", count,
                     lambda w=window: flash_decode(q, kc, vc, lens, window=w),
@@ -669,8 +678,11 @@ def phase_kernels(torch):
                                                           window=w),
                     lambda m_=dmask: F.scaled_dot_product_attention(
                         qs, ks, vs, attn_mask=m_, enable_gqa=True),
-                    dbytes, dflops)
-                run(flash_decode_paged,
+                    dbytes, dflops,
+                    forced=forced_template("flash_decode") if bf else None),
+                    "split" if bf else "template")
+                want_route("flash_decode_paged", run(
+                    flash_decode_paged,
                     f"q 4x{hq}x{hd}, pool {n_pages}+1x16x{hkv}x{hd}{win}",
                     dtype, arch + "decode", pcount,
                     lambda w=window: flash_decode_paged(q, kp, vp, lens, bt,
@@ -679,7 +691,35 @@ def phase_kernels(torch):
                         q, kp, vp, lens, bt, window=w),
                     lambda m_=dmask: F.scaled_dot_product_attention(
                         qs, kg, vg, attn_mask=m_, enable_gqa=True),
-                    dbytes + bt_bytes, dflops)
+                    dbytes + bt_bytes, dflops,
+                    forced=(forced_template("flash_decode_paged") if bf
+                            else None)),
+                    "split" if bf else "template")
+                if bf and window is None and count:
+                    decode_split_sweep(
+                        timer, "flash_decode",
+                        f"{arch or 'qwen2.5-3b '}heads",
+                        lambda: flash_decode(q, kc, vc, lens),
+                        B, hkv, -(-smax // SPLIT_TILE), SPLIT_TILE)
+                if bf and window is None and pcount:
+                    decode_split_sweep(
+                        timer, "flash_decode_paged",
+                        f"{arch or 'qwen2.5-3b '}heads",
+                        lambda: flash_decode_paged(q, kp, vp, lens, bt),
+                        B, hkv, maxb, page)
+                if bf and window is None and not arch:
+                    host_enqueue_us(
+                        torch, "flash_decode", "qwen2.5-3b heads",
+                        lambda: flash_decode(q, kc, vc, lens),
+                        forced_template("flash_decode"),
+                        lambda m_=dmask: F.scaled_dot_product_attention(
+                            qs, ks, vs, attn_mask=m_, enable_gqa=True))
+                    host_enqueue_us(
+                        torch, "flash_decode_paged", "qwen2.5-3b heads",
+                        lambda: flash_decode_paged(q, kp, vp, lens, bt),
+                        forced_template("flash_decode_paged"),
+                        lambda m_=dmask: F.scaled_dot_product_attention(
+                            qs, kg, vg, attn_mask=m_, enable_gqa=True))
                 # chunk: the keys the tile union needs, once; every query row
                 # (padding rows alias the last real one) over its valid keys
                 ckeys = sum(s0 + w0 - (0 if window is None
@@ -758,15 +798,24 @@ def phase_kernels(torch):
                     lambda m_=dmask: F.scaled_dot_product_attention(
                         qs, kqg, vqg, attn_mask=m_, enable_gqa=True),
                     qbytes, 4.0 * keys * hq * hd + 2.0 * keys * hkv * hd,
-                    forced=(forced_template if dtype == torch.bfloat16
-                            else None)),
+                    forced=(forced_template("flash_decode_paged_quant")
+                            if dtype == torch.bfloat16 else None)),
                     "split" if dtype == torch.bfloat16 else "template")
                 if dtype == torch.bfloat16 and count:
                     decode_split_sweep(
-                        timer, f"{arch or 'qwen2.5-3b '}heads{win}",
+                        timer, "flash_decode_paged_quant",
+                        f"{arch or 'qwen2.5-3b '}heads{win}",
                         lambda w=window: flash_decode_paged_quant(
                             q, kq, vq, ksc, vsc, lens, bt, window=w),
                         B, hkv, maxb, page)
+                if dtype == torch.bfloat16 and window is None and not arch:
+                    host_enqueue_us(
+                        torch, "flash_decode_paged_quant", "qwen2.5-3b heads",
+                        lambda: flash_decode_paged_quant(
+                            q, kq, vq, ksc, vsc, lens, bt),
+                        forced_template("flash_decode_paged_quant"),
+                        lambda m_=dmask: F.scaled_dot_product_attention(
+                            qs, kqg, vqg, attn_mask=m_, enable_gqa=True))
                 lo_c = [0 if window is None else max(0, s0 - window + 1)
                         for s0 in start_l]
                 ckeys = sum(s0 + w0 - lo
@@ -797,7 +846,8 @@ def phase_kernels(torch):
                 cmask = (kpos[None, None, :]
                          <= qpos[:, :, None])[:, None, :, :]
                 keys = sum(lens_l)
-                run(flash_decode_paged,
+                want_route("flash_decode_paged", run(
+                    flash_decode_paged,
                     f"q 4x{hq}x{hd}, bf16 pool {n_pages}+1x16x{hkv}x{hd}",
                     dtype, arch + "decode", 0,
                     lambda: flash_decode_paged(q, kb, vb, lens, bt),
@@ -805,7 +855,7 @@ def phase_kernels(torch):
                     lambda m_=dmask: F.scaled_dot_product_attention(
                         qs, kbg, vbg, attn_mask=m_, enable_gqa=True),
                     2 * B * hq * hd * es + 2 * keys * hkv * hd * 2
-                    + bt_bytes, 4.0 * keys * hq * hd)
+                    + bt_bytes, 4.0 * keys * hq * hd), "template")
                 ckeys = sum(s0 + w0 for s0, w0 in zip(start_l, width_l))
                 run(flash_prefill_chunk_paged,
                     f"q 4x16x{hq}x{hd}, bf16 pool {n_pages}+1x16x{hkv}x{hd}",
@@ -820,8 +870,8 @@ def phase_kernels(torch):
                     + bt_bytes, 4.0 * cmask.sum().item() * hq * hd)
                 del kb, vb, kbg, vbg
             # a row whose pages are all unmapped (a released row) returns
-            # zeros (the int8 decode on the split kernel in bf16, on the
-            # template in f32)
+            # zeros (the two paged decodes on the split kernel in bf16, on
+            # the template in f32)
             bt_u = bt.clone()
             bt_u[B - 1] = -1
             for name, fn in (
@@ -844,8 +894,8 @@ def phase_kernels(torch):
                         f"chip_smoke: {name}: an all-unmapped row is not "
                         "zeros, or it moved the other rows")
             print(f"[3 kernels] all-unmapped row: zeros from the four paged "
-                  f"kernels ({arch or 'qwen2.5-3b '}heads, {dtype}; int8 "
-                  f"decode on the "
+                  f"kernels ({arch or 'qwen2.5-3b '}heads, {dtype}; the "
+                  f"decodes on the "
                   f"{'split' if dtype == torch.bfloat16 else 'template'} "
                   "route)", flush=True)
             del kc, vc, kp, vp, kg, vg, kq, vq, kqg, vqg
@@ -1509,21 +1559,24 @@ def forced_scalar():
     return forced_plan("fwd_plan", "flash_attention", "scalar")
 
 
-def forced_template():
-    """The int8 paged decode on the template, its route before the split
-    kernel."""
-    return forced_plan("decode_plan", "flash_decode_paged_quant",
-                       "template")
+def forced_template(kernel):
+    """For ``run``'s ``forced``: the decode ``kernel`` on the template, its
+    route before the split kernel."""
+    def forced_template():
+        return forced_plan("decode_plan", kernel, "template")
+    return forced_template
 
 
 # the split decode's block targets swept in phase 3
 SPLIT_TARGETS = (8, 16, 32, 64, 128, 256, 512)
 
 
-def decode_split_sweep(clock, case, fn, b, hkv, max_blocks, page):
-    """The int8 decode on the split kernel at each of ``SPLIT_TARGETS``
-    in place of ``DECODE_BLOCKS`` (the splits ``decode_splits`` then
-    picks), one line a case; the planner's own target is marked."""
+def decode_split_sweep(clock, name, case, fn, b, hkv, max_blocks, page):
+    """The decode ``name`` on the split kernel at each of
+    ``SPLIT_TARGETS`` in place of ``DECODE_BLOCKS`` (the splits
+    ``decode_splits`` then picks of ``max_blocks`` pages: block-table
+    entries, or the slab's 32-key tiles), one line a case; the planner's
+    own target is marked."""
     from repro_torch.kernels import flash_attention as FA
 
     saved, cells = FA.DECODE_BLOCKS, []
@@ -1535,9 +1588,37 @@ def decode_split_sweep(clock, case, fn, b, hkv, max_blocks, page):
                          f"{n} x {pps} {clock(fn):.4f}")
     finally:
         FA.DECODE_BLOCKS = saved
-    print(f"[3 kernels] flash_decode_paged_quant split sweep, {case}: "
+    print(f"[3 kernels] {name} split sweep, {case}: "
           f"target blocks: splits x pages a split, ms: " + "; ".join(cells),
           flush=True)
+
+
+def host_enqueue_us(torch, name, case, fn, forced, lib, calls=100,
+                    trials=21):
+    """Host microseconds to enqueue one call of the decode ``name``: on
+    the split route, on the template (``forced``) and SDPA (``lib``),
+    ``calls`` calls back to back on the host clock with the card drained
+    before each batch, the three interleaved ``trials`` times; the median
+    and the least of each are printed.  The serving paths are host-bound,
+    so this is what a route costs them a call."""
+    ways = (("split", fn, contextlib.nullcontext), ("template", fn, forced),
+            ("SDPA", lib, contextlib.nullcontext))
+    times = {way: [] for way, _, _ in ways}
+    for _ in range(trials):
+        for way, f, ctx in ways:
+            with ctx():
+                f()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    f()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+            times[way].append(1e6 * (t1 - t0) / calls)
+    print(f"[3 kernels] {name} host enqueue, {case}, us a call (median, "
+          f"least of {trials} x {calls}): " + "; ".join(
+              f"{way} {statistics.median(t):.2f}, {min(t):.2f}"
+              for way, t in times.items()), flush=True)
 
 
 def want_route(name, route, want):
@@ -1550,7 +1631,8 @@ def want_route(name, route, want):
 # the kernels whose routes this slice redesigned: each phase-3 row of
 # theirs is also timed on the route it left (``forced_scalar``,
 # ``forced_template``)
-REDESIGNED = ("flash_attention", "flash_decode_paged_quant")
+REDESIGNED = ("flash_attention", "flash_decode", "flash_decode_paged",
+              "flash_decode_paged_quant")
 # the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
 SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -2161,11 +2243,12 @@ def kernel_fns():
     return fns
 
 
+# the decodes on the split route in bf16, on the template in f32
+DECODES = ("flash_decode", "flash_decode_paged", "flash_decode_paged_quant")
 # the kernels with several routes (``fn.routes``: launches per route,
 # beside ``fn.launches``), each route's source, and the launches per route
 # summed over every counted run of a main path (phases 4-10)
-ROUTED = ("gemm", "flash_attention_bwd", "flash_attention",
-          "flash_decode_paged_quant")
+ROUTED = ("gemm", "flash_attention_bwd", "flash_attention") + DECODES
 ROUTE_SOURCES = {
     ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
@@ -2181,11 +2264,12 @@ ROUTE_SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
     ("flash_attention", "scalar"):
         "src/repro_torch/kernels/csrc/flash_attention.cu",
-    ("flash_decode_paged_quant", "split"):
-        "src/repro_torch/kernels/csrc/flash_decode_split.cu",
-    ("flash_decode_paged_quant", "template"):
-        "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+ROUTE_SOURCES.update({
+    (name, route): f"src/repro_torch/kernels/csrc/{src}"
+    for name in DECODES
+    for route, src in (("split", "flash_decode_split.cu"),
+                       ("template", "flash_attention.cu"))})
 MAIN_ROUTES = {}
 
 
@@ -2267,17 +2351,18 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
               f"({s['kv_resident_bytes_peak'] / 2 ** 20:.1f} MiB of KV)",
               flush=True)
     print(f"{tag} launches {launches}", flush=True)
-    if kv_dtype == "int8":
-        # every bf16 decode launch over the int8 pool on the split kernel
-        rt = dict(fns["flash_decode_paged_quant"].routes)
-        n = launches["flash_decode_paged_quant"]
+    # every bf16 decode launch (slab, bf16 pool, int8 pool) on the split
+    # kernel
+    for name in DECODES:
+        rt, n = dict(fns[name].routes), launches[name]
         want_rt = ({"split": n, "template": 0}
                    if model.cfg.dtype == "bfloat16"
                    else {"split": 0, "template": n})
-        print(f"{tag} flash_decode_paged_quant routes {rt}", flush=True)
+        if n:
+            print(f"{tag} {name} routes {rt}", flush=True)
         if rt != want_rt:
-            raise SystemExit(f"chip_smoke: {tag} flash_decode_paged_quant "
-                             f"routes {rt}, expected {want_rt}")
+            raise SystemExit(f"chip_smoke: {tag} {name} routes {rt}, "
+                             f"expected {want_rt}")
     steps, n_attn = per_step(model.cfg)
     want = {name: 0 for name in KERNELS}
     want.update({name: n * (pre + dec) for name, n in steps.items()})
@@ -2682,8 +2767,8 @@ def phase_f32(torch):
     (printed): the chunk changes the summation order, over an int8 pool
     the requantization sequence, and for moe the capacity, which counts
     the B*C tokens of a chunk step.  The hopper runs' launches are counted
-    (each run from 0) and returned; their int8 decodes, f32 queries, must
-    stay on the template."""
+    (each run from 0) and returned; their decodes, f32 queries over every
+    cache and pool, must stay on the template."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.policy import use_backend
     from repro_torch.models.model import build_model
@@ -2722,15 +2807,17 @@ def phase_f32(torch):
                             streams[backend, chunk] = eng.run()
                     for name, n in got.items():
                         total[name] += n
-                    # f32 queries over the int8 pool stay on the template
-                    quant = rt.get("flash_decode_paged_quant", {})
-                    if quant.get("split"):
-                        failed.append((arch, layout, kv_dtype, chunk,
-                                       f"int8 decode routes {quant}"))
-                    if kv_dtype == "int8" and backend == "hopper":
-                        print(f"[5 f32] {arch}, int8 pool, prefill chunk "
-                              f"{chunk}: flash_decode_paged_quant routes "
-                              f"{quant}", flush=True)
+                    # f32 queries, over any cache or pool, stay on the
+                    # template
+                    for name in DECODES:
+                        dec = rt.get(name, {})
+                        if dec.get("split"):
+                            failed.append((arch, layout, kv_dtype, chunk,
+                                           f"{name} routes {dec}"))
+                        if dec.get("template"):
+                            print(f"[5 f32] {arch}, {layout}{pool}, prefill "
+                                  f"chunk {chunk}: {name} routes {dec}",
+                                  flush=True)
                 got, want = streams["hopper", chunk], \
                     streams["reference", chunk]
                 diff = [(i, int(np.argmax(got[i] != want[i])))
@@ -2844,27 +2931,34 @@ def phase_check(torch):
                 secs = time.perf_counter() - t0
                 launches = read_counts(fns)
                 fwd_routes = dict(fns["flash_attention"].routes)
+                dec_routes = dict(fns["flash_decode"].routes)
             steps, n_attn = per_step(cfg)
             # the teacher-forced forward's attention: bf16 on the
-            # tensor-core kernel, f32 on the template
+            # tensor-core kernel, f32 on the template; the decode's: bf16
+            # on the split kernel, f32 on the template
             want_fwd = {"tc": 0 if f32 else n_attn,
                         "scalar": n_attn if f32 else 0}
-            if fwd_routes != want_fwd:
+            n_dec = n_attn * CHECK_LEN
+            want_dec = {"split": 0 if f32 else n_dec,
+                        "template": n_dec if f32 else 0}
+            if fwd_routes != want_fwd or dec_routes != want_dec:
                 raise SystemExit(f"chip_smoke: --check {cfg.name}: "
                                  f"flash_attention routes {fwd_routes}, "
-                                 f"expected {want_fwd}")
+                                 f"expected {want_fwd}; flash_decode "
+                                 f"routes {dec_routes}, expected "
+                                 f"{want_dec}")
             want = {name: 0 for name in KERNELS}
             want.update({name: n * (CHECK_LEN + 1)
                          for name, n in steps.items()})
             want["flash_attention"] = n_attn
-            want["flash_decode"] = n_attn * CHECK_LEN
+            want["flash_decode"] = n_dec
             tol = "2e-2" if f32 else f"5% of {scale:.4g}"
             print(f"[6 check] {cfg.name} {cfg.n_layers} layers {cfg.dtype}:"
                   f" decode of {CHECK_B}x{CHECK_LEN} tokens vs teacher-forced"
                   f" forward: max |diff| {err:.4g} (max |logit| "
                   f"{scale:.4g}, allowed {tol}) in {secs:.1f} s; launches "
-                  f"{launches}; flash_attention routes {fwd_routes}",
-                  flush=True)
+                  f"{launches}; flash_attention routes {fwd_routes}; "
+                  f"flash_decode routes {dec_routes}", flush=True)
             if launches != want:
                 raise SystemExit(f"chip_smoke: --check {cfg.name}: launches "
                                  f"{launches}, expected {want}")

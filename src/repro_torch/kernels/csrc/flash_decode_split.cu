@@ -1,37 +1,46 @@
-// Split-KV decode over the int8 paged pool (flash-decoding): one query token
-// per row, q (B, Hq, D) bf16 against an int8 (P, page, Hkv, D) pool through
-// a (B, max_blocks) int32 block table, with f32 (P, Hkv) per-(page, head)
-// scales; output (B, Hq, D) in q's dtype.
+// Split-KV decode (flash-decoding): one query token per row, q (B, Hq, D)
+// bf16 against K/V read from one of three stores, output (B, Hq, D) bf16:
 //
-// Replaces src/repro/kernels/flash_attention.py:
-// flash_decode_paged_quant_pallas (:654; kernel :618, pallas_call :712) for
-// bf16 queries at head dims that are multiples of 16 up to 128 with pool
-// strides and bases the 16-byte int8 copies can follow; f32 queries (phase
-// 5's token identity) and every other shape keep flash_attention.cu's
-// template.  Semantics as there: each page's scale multiplies the upcast
-// keys and values before any product (_decode_accum :404-406); keys at or
-// past cache_len, before the window, or in unmapped (-1) pages are masked;
-// a row with no valid key returns zeros.
+// * an int8 (P, page, Hkv, D) pool through a (B, max_blocks) int32 block
+//   table, with f32 (P, Hkv) per-(page, head) scales;
+// * a bf16 (P, page, Hkv, D) pool through the block table, no scales;
+// * the bf16 (B, Smax, Hkv, D) contiguous slab, no table.
+//
+// Replaces src/repro/kernels/flash_attention.py's
+// flash_decode_paged_quant_pallas (:654; kernel :618), flash_decode_pallas
+// (:459; kernel :428) and flash_decode_paged_pallas (:547; kernel :497) for
+// bf16 queries at head dims that are multiples of 16 up to 128 with K/V
+// strides and bases the 16-byte copies can follow (16 int8 or 8 bf16
+// elements); f32 queries (phase 5's token identity and JAX's f32 parity
+// rest on the template's summation order) and every other shape keep
+// flash_attention.cu's template.  Semantics as there (_decode_accum
+// :392-418): scores in f32, each int8 page's scale multiplying the upcast
+// keys and values before any product; keys at or past cache_len (or the
+// slab's end), before the window (s < cache_len - window), or in unmapped
+// (-1) pages are masked; a row with no valid key returns zeros.
 //
 // What bounds it on the H100: bytes, and far below a launch: at
 // qwen2.5-3b's serving shape (B 4, Hkv 2, G 8, rows of 17-96 keys in
-// chip_smoke.py) a call reads 111 KB of int8 K/V, 0.04 us at 3.35 TB/s.
-// The template ran it as 8 blocks on 132 SMs, each walking its row's
-// whole cache alone with 128 serial FMAs a score (0.070 ms a call): pure
-// in-block latency.  Here the cache is split across blocks so each
-// block's chain is a page or a few long:
+// chip_smoke.py) a call reads 111 KB of int8 K/V or 222 KB of bf16, 0.03-
+// 0.07 us at 3.35 TB/s.  The template ran it as 8 blocks on 132 SMs, each
+// walking its row's whole cache alone with 128 serial FMAs a score (0.065-
+// 0.070 ms a call): pure in-block latency.  Here the cache is split across
+// blocks so each block's chain is a tile or a few long:
 //
 // * grid (B, Hkv * ceil(G / 16), n_split): a block owns one row, one kv
-//   head, up to 16 of its G query rows, and the `pages_per_split`
-//   consecutive block-table entries of its split
+//   head, up to 16 of its G query rows, and a run of `pages_per_split`
+//   consecutive pages of its split: block-table entries of the pools, or
+//   32-key tiles of the slab [0, Smax), the last one ragged
 //   (kernels/flash_attention.py:decode_splits fixes both from shapes only,
-//   never cache_len: no host sync).  It resolves its pages from the table
-//   itself.
-// * keys in tiles of 32: one thread a key resolves its page, offset and
-//   scales; the tile's int8 K and V rows are read with 16-byte loads (D =
-//   128 is 8 chunks a key row, coalesced along the head), upcast and
-//   multiplied by the scale once per element into f32 shared tiles (masked
-//   keys zero).
+//   never cache_len: no host sync).  A paged split resolves its pages from
+//   the table itself; the slab's key s of row b sits at b * k_sb + s * k_ss
+//   + h * k_sh.
+// * keys in tiles of 32: one thread a key resolves its offset (and an int8
+//   page's scales); the tile's K and V rows are read with 16-byte loads,
+//   coalesced along the head (D = 128: 8 chunks a key row in int8, 16 in
+//   bf16; zamba2's D = 80: 5 and 10), widened to f32 (int8: times the
+//   scale) into f32 shared tiles, masked keys zero.  The storage is a
+//   template parameter (Store<T>); scores, softmax and PV are shared.
 // * scores: a quad of lanes per (query row, key) pair, each lane a quarter
 //   of D (dims strided by 4 over rows padded to D + 4 floats, so the 8
 //   pairs a warp reads fall in distinct banks), reduced by two shuffles,
@@ -63,37 +72,84 @@ constexpr int kDMax = 128;
 constexpr int kRows = 16;       // query rows a block
 constexpr int kKPad = kDMax + 4;
 constexpr int kSlots = kRows * kDMax / kThreads;  // (row, dim) slots a thread
-constexpr int kChunks = kT * kDMax / 16 / kThreads;  // 16-byte loads a thread
 constexpr float kNegInf = -1e30f;
+
+// K/V storage: the elements one 16-byte chunk holds, whether a page scale
+// multiplies them, and the chunk widened to f32 into dst (16-byte aligned
+// shared memory), masked chunks (all zero bits) giving zeros
+template <typename T> struct Store;
+
+template <> struct Store<int8_t> {
+  static constexpr int kElems = 16;
+  static constexpr bool kScaled = true;
+  static __device__ __forceinline__ void widen(const int4& r, float f,
+                                               float* dst) {
+    const int w[4] = {r.x, r.y, r.z, r.w};
+    float x[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      // byte e (little endian), sign-extended by the arithmetic shift
+      const int sh = 24 - 8 * (e & 3);
+      x[e] = (float)((w[e >> 2] << sh) >> 24) * f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      reinterpret_cast<float4*>(dst)[i] =
+          make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  }
+};
+
+template <> struct Store<bf16> {
+  static constexpr int kElems = 8;
+  static constexpr bool kScaled = false;
+  static __device__ __forceinline__ void widen(const int4& r, float,
+                                               float* dst) {
+    const uint32_t w[4] = {(uint32_t)r.x, (uint32_t)r.y, (uint32_t)r.z,
+                           (uint32_t)r.w};
+    float x[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // element 2i in the low half of word i (little endian); exact
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+    reinterpret_cast<float4*>(dst)[0] = make_float4(x[0], x[1], x[2], x[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(x[4], x[5], x[6], x[7]);
+  }
+};
 
 struct Args {
   const bf16* q;
-  const int8_t* k;
-  const int8_t* v;
-  const float* ksc;
+  const void* k;    // the pool (P, page, Hkv, D) or the slab (B, Smax, Hkv, D)
+  const void* v;
+  const float* ksc;  // (P, Hkv) page scales of an int8 pool, else nullptr
   const float* vsc;
   const int* len;  // (B,) valid length, the new token included
-  const int* bt;   // (B, max_blocks)
+  const int* bt;   // (B, max_blocks) of a pool, else nullptr
   bf16* out;
   float* part_m;   // (B, Hq, n_split) f32, or nullptr when n_split == 1
   float* part_l;
   float* part_acc;  // (B, Hq, n_split, D) f32
-  int Hq, G, D, n_rc, page, max_blocks, pps, n_split;
+  // n_keys: the keys the table spans (max_blocks * page) or Smax; page and
+  // max_blocks: the pool's, or 32 and ceil(Smax / 32) on the slab
+  int Hq, G, D, n_rc, n_keys, page, max_blocks, pps, n_split;
   int window;  // < 0: none
   long bt_sb;
   long q_sb, q_sh;
-  long k_sp, k_ss, k_sh;  // pool strides: page, slot, head
-  long v_sp, v_ss, v_sh;
+  long k_s0, k_ss, k_sh;  // page (pool) or row (slab), slot, head strides
+  long v_s0, v_ss, v_sh;
   long sc_sp, sc_sh;
   long o_sb, o_sh;
   float scale;
 };
 
-__global__ void __launch_bounds__(kThreads)
-split_kernel(Args a) {
+template <typename T, bool kPaged>
+__global__ void __launch_bounds__(kThreads) split_kernel(Args a) {
+  constexpr int kE = Store<T>::kElems;
+  constexpr int kChunks = kT * kDMax / kE / kThreads;  // 16-byte loads a thread
   __shared__ float qs[kRows][kDMax];
-  __shared__ float ks[kT][kKPad];
-  __shared__ float vs[kT][kDMax];
+  __shared__ __align__(16) float ks[kT][kKPad];
+  __shared__ __align__(16) float vs[kT][kDMax];
   __shared__ float sc[kRows][kT];
   __shared__ long koff[kT], voff[kT];  // element offsets; -1 = masked
   __shared__ float ksf[kT], vsf[kT];
@@ -106,17 +162,21 @@ split_kernel(Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int D = a.D;
 
-  // the split's first table entries, read before the length arrives (the
-  // first tile starts at the split's start unless a window cuts it)
+  // the split's keys: its run of table entries, or of the slab's tiles
   const int s_lo = sp * a.pps * a.page;
-  const int s_hi = min(s_lo + a.pps * a.page, a.max_blocks * a.page);
-  const int pg_first =
-      tid < kT && s_lo + tid < s_hi ? a.bt[b * a.bt_sb + (s_lo + tid) / a.page]
-                                    : -1;
+  const int s_hi = min(s_lo + a.pps * a.page, a.n_keys);
+  // a pool's first table entries, read before the length arrives (the
+  // first tile starts at the split's start unless a window cuts it)
+  int pg_first = -1;
+  if constexpr (kPaged)
+    if (tid < kT && s_lo + tid < s_hi)
+      pg_first = a.bt[b * a.bt_sb + (s_lo + tid) / a.page];
   // the split's keys, cut to the valid range
   const int len = a.len[b];
   const int lo = a.window >= 0 ? max(0, len - a.window) : 0;
   const int k_lo = max(s_lo, lo), k_hi = min(s_hi, len);
+  const T* kp = static_cast<const T*>(a.k);
+  const T* vp = static_cast<const T*>(a.v);
 
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
@@ -138,7 +198,7 @@ split_kernel(Args a) {
     sd[i] = tid + i * kThreads - sr[i] * D;
   }
 
-  const int nc = D >> 4;  // 16-byte chunks a key row
+  const int nc = D / kE;  // 16-byte chunks a key row
   const int dq = D >> 2;  // dims a lane of a quad sums
   for (int t0 = k_lo >= k_hi ? k_hi : s_lo + ((k_lo - s_lo) / kT) * kT;
        t0 < k_hi; t0 += kT) {
@@ -149,15 +209,22 @@ split_kernel(Args a) {
       long ko = -1, vo = -1;
       float kf = 0.f, vf = 0.f;
       if (s >= k_lo && s < k_hi) {
-        const int pg =
-            t0 == s_lo ? pg_first : a.bt[b * a.bt_sb + s / a.page];
-        if (pg >= 0) {
-          const long slot = s % a.page;
-          ko = (long)pg * a.k_sp + slot * a.k_ss + (long)h * a.k_sh;
-          vo = (long)pg * a.v_sp + slot * a.v_ss + (long)h * a.v_sh;
-          const long so = (long)pg * a.sc_sp + (long)h * a.sc_sh;
-          kf = a.ksc[so];
-          vf = a.vsc[so];
+        if constexpr (kPaged) {
+          const int pg =
+              t0 == s_lo ? pg_first : a.bt[b * a.bt_sb + s / a.page];
+          if (pg >= 0) {
+            const long slot = s % a.page;
+            ko = (long)pg * a.k_s0 + slot * a.k_ss + (long)h * a.k_sh;
+            vo = (long)pg * a.v_s0 + slot * a.v_ss + (long)h * a.v_sh;
+            if constexpr (Store<T>::kScaled) {
+              const long so = (long)pg * a.sc_sp + (long)h * a.sc_sh;
+              kf = a.ksc[so];
+              vf = a.vsc[so];
+            }
+          }
+        } else {
+          ko = (long)b * a.k_s0 + (long)s * a.k_ss + (long)h * a.k_sh;
+          vo = (long)b * a.v_s0 + (long)s * a.v_ss + (long)h * a.v_sh;
         }
       }
       koff[tid] = ko;
@@ -168,32 +235,24 @@ split_kernel(Args a) {
     }
     if (!__syncthreads_or(live)) continue;  // no live key in this tile
 
-    // int8 K and V rows: 16-byte loads issued together, then upcast and
-    // scaled into the f32 tiles (masked keys zero)
+    // K and V rows: 16-byte loads issued together, then widened (int8:
+    // times the page's scale) into the f32 tiles (masked keys zero)
     int4 kr[kChunks], vr[kChunks];
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int id = tid + c * kThreads, j = id / nc, ch = id - j * nc;
       kr[c] = vr[c] = make_int4(0, 0, 0, 0);
       if (j < kT && koff[j] >= 0) {
-        kr[c] = __ldg(reinterpret_cast<const int4*>(a.k + koff[j] + ch * 16));
-        vr[c] = __ldg(reinterpret_cast<const int4*>(a.v + voff[j] + ch * 16));
+        kr[c] = __ldg(reinterpret_cast<const int4*>(kp + koff[j] + ch * kE));
+        vr[c] = __ldg(reinterpret_cast<const int4*>(vp + voff[j] + ch * kE));
       }
     }
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int id = tid + c * kThreads, j = id / nc, ch = id - j * nc;
       if (j < kT) {
-        const int kw[4] = {kr[c].x, kr[c].y, kr[c].z, kr[c].w};
-        const int vw[4] = {vr[c].x, vr[c].y, vr[c].z, vr[c].w};
-        const float kf = ksf[j], vf = vsf[j];
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          // byte e (little endian), sign-extended by the arithmetic shift
-          const int sh = 24 - 8 * (e & 3);
-          ks[j][ch * 16 + e] = (float)((kw[e >> 2] << sh) >> 24) * kf;
-          vs[j][ch * 16 + e] = (float)((vw[e >> 2] << sh) >> 24) * vf;
-        }
+        Store<T>::widen(kr[c], ksf[j], &ks[j][ch * kE]);
+        Store<T>::widen(vr[c], vsf[j], &vs[j][ch * kE]);
       }
     }
     __syncthreads();
@@ -299,40 +358,57 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(Args a) {
       __float2bfloat16_rn(L == 0.f ? 0.f : O / L);
 }
 
+template <typename T, bool kPaged>
+int launch(const Args& a, int B, int Hkv, cudaStream_t s) {
+  split_kernel<T, kPaged>
+      <<<dim3(B, Hkv * a.n_rc, a.n_split), kThreads, 0, s>>>(a);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0 || a.n_split == 1) return rc;
+  combine_kernel<<<dim3(B, Hkv * a.G), kThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The caller (kernels/flash_attention.py) vouches for bf16 q and out with
-// unit stride on D, an int8 pool whose base and page, slot and head strides
-// are multiples of 16 bytes, D a multiple of 16 up to 128, f32 scale pools
-// of one layout, an int32 (B,) length and (B, max_blocks) table with unit
-// column stride, and, when n_split > 1, f32 scratch part_m, part_l (B, Hq,
-// n_split) and part_acc (B, Hq, n_split, D), contiguous.
+// unit stride on D, K/V of the storage kv_dtype whose base and page (or
+// row), slot and head strides are multiples of 16 bytes, D a multiple of
+// 16 up to 128, an int32 (B,) length, and, when n_split > 1, f32 scratch
+// part_m, part_l (B, Hq, n_split) and part_acc (B, Hq, n_split, D),
+// contiguous.  A pool comes with its (B, max_blocks) table (unit column
+// stride) and n_keys = max_blocks * page; an int8 pool also with f32
+// scale pools of one layout.  The slab comes with no table, n_keys = Smax,
+// page 32 and max_blocks = ceil(Smax / 32).  Instances: int8 pool, bf16
+// pool, bf16 slab; any other combination is refused.
 extern "C" int repro_flash_decode_split(
     const void* q, const void* k, const void* v, const void* ksc,
     const void* vsc, const void* len, const void* bt, void* out,
     void* part_m, void* part_l, void* part_acc, int B, int Hkv, int G, int D,
-    int page, int max_blocks, int pps, int n_split, long long bt_sb,
-    long long q_sb, long long q_sh, long long k_sp, long long k_ss,
-    long long k_sh, long long v_sp, long long v_ss, long long v_sh,
-    long long sc_sp, long long sc_sh, long long o_sb, long long o_sh,
-    int window, float scale, void* stream) {
+    int n_keys, int page, int max_blocks, int pps, int n_split,
+    long long bt_sb, long long q_sb, long long q_sh, long long k_s0,
+    long long k_ss, long long k_sh, long long v_s0, long long v_ss,
+    long long v_sh, long long sc_sp, long long sc_sh, long long o_sb,
+    long long o_sh, int window, float scale, int kv_dtype, void* stream) {
+  const bool paged = bt != nullptr, scaled = ksc != nullptr;
   if (D < 16 || D > kDMax || D % 16 || G < 1 || page < 1 || pps < 1 ||
-      n_split < 1 || (long)n_split * pps < max_blocks ||
+      n_split < 1 || n_keys < 0 || max_blocks < 0 ||
+      (long)n_split * pps < max_blocks ||
+      n_keys > (long)max_blocks * page || scaled != (vsc != nullptr) ||
       (n_split > 1 && (!part_m || !part_l || !part_acc)))
     return (int)cudaErrorInvalidValue;
   const int n_rc = (G + kRows - 1) / kRows;
-  Args a{static_cast<const bf16*>(q), static_cast<const int8_t*>(k),
-         static_cast<const int8_t*>(v), static_cast<const float*>(ksc),
+  Args a{static_cast<const bf16*>(q), k, v, static_cast<const float*>(ksc),
          static_cast<const float*>(vsc), static_cast<const int*>(len),
          static_cast<const int*>(bt), static_cast<bf16*>(out),
          static_cast<float*>(part_m), static_cast<float*>(part_l),
-         static_cast<float*>(part_acc), Hkv * G, G, D, n_rc, page,
-         max_blocks, pps, n_split, window, bt_sb, q_sb, q_sh, k_sp, k_ss,
-         k_sh, v_sp, v_ss, v_sh, sc_sp, sc_sh, o_sb, o_sh, scale};
+         static_cast<float*>(part_acc), Hkv * G, G, D, n_rc, n_keys, page,
+         max_blocks, pps, n_split, window, bt_sb, q_sb, q_sh, k_s0, k_ss,
+         k_sh, v_s0, v_ss, v_sh, sc_sp, sc_sh, o_sb, o_sh, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  split_kernel<<<dim3(B, Hkv * n_rc, n_split), kThreads, 0, s>>>(a);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0 || n_split == 1) return rc;
-  combine_kernel<<<dim3(B, Hkv * G), kThreads, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  if (kv_dtype == kInt8 && paged && scaled)
+    return launch<int8_t, true>(a, B, Hkv, s);
+  if (kv_dtype == kBF16 && !scaled)
+    return paged ? launch<bf16, true>(a, B, Hkv, s)
+                 : launch<bf16, false>(a, B, Hkv, s);
+  return (int)cudaErrorInvalidValue;
 }

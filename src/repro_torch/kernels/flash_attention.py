@@ -7,9 +7,10 @@ Replaces ``repro/kernels/flash_attention.py``'s ``flash_decode_pallas``,
 ``flash_prefill_chunk_pallas``, ``flash_prefill_chunk_paged_pallas``,
 ``flash_prefill_chunk_paged_quant_pallas``, ``flash_attention_pallas`` and
 ``flash_attention_bwd_pallas``.  The first seven launch one kernel template
-(``csrc/flash_attention.cu``): one block per (row, kv head, tile of 8 query
-rows) walks the valid key range in tiles with an f32 online softmax, the
-GQA group folded into the block's rows.  The caches and pools are read in
+(``csrc/flash_attention.cu``) wherever no redesigned route below takes
+them: one block per (row, kv head, tile of 8 query rows) walks the valid
+key range in tiles with an f32 online softmax, the GQA group folded into
+the block's rows.  The caches and pools are read in
 place by their strides (the TPU wrappers transposed them on every call);
 the paged kernels resolve each key's page from the block table inside the
 block.  Keys past a row's position, before its window or in unmapped
@@ -35,21 +36,23 @@ any other bf16 shape, the scalar kernels of ``csrc/flash_attention_bwd.cu``
 (IEEE f32, the GQA group summed inside the block).  ``dq_key_tiles`` and
 ``dkv_query_tiles`` are the tile walks of the tensor-core kernels.
 
-Two kernels also have redesigned routes beside the template, each picked
+Four kernels also have redesigned routes beside the template, each picked
 by a pure-Python planner from dtype, head dim and alignment (never by
 trying a kernel).  The forward: ``fwd_plan`` sends bf16 at head dims that
 are multiples of 16 up to 128 to ``csrc/flash_attention_tc.cu`` (64 query
 rows a block on mma.sync, the key tiles of ``dq_key_tiles``, P rounded to
 bf16 before PV, as the backward does); f32 and every other shape keep the
-template's forward mode (IEEE f32).  The int8 paged decode:
-``decode_plan`` sends bf16 queries at those head dims, over a pool whose
-strides and base the 16-byte int8 copies can follow, to
-``csrc/flash_decode_split.cu``: the block table's entries split into
-``decode_splits`` runs of consecutive pages (fixed from shapes only, so
-no host sync), one block per (row, kv head, split) writing an f32 partial
-(m, l, acc), and a second kernel merging the partials in split order;
-f32 queries (phase 5's token identity) keep the template.  Both wrappers
-count their launches per route in ``routes`` beside ``launches``.
+template's forward mode (IEEE f32).  The three decodes (the contiguous
+slab, the pool of the model's dtype, the int8 pool): ``decode_plan`` sends
+bf16 queries at those head dims, over bf16 or int8 K/V whose strides and
+bases the 16-byte copies can follow, to ``csrc/flash_decode_split.cu``:
+the keys split into ``decode_splits`` runs of block-table entries (or of
+32-key tiles of the slab), fixed from shapes only, so no host sync, one
+block per (row, kv head, split) writing an f32 partial (m, l, acc), and a
+second kernel merging the partials in split order; f32 queries (phase
+5's token identity and JAX's f32 parity rest on the template's order),
+the bf16 pool under them included, keep the template.  Each routed
+wrapper counts its launches per route in ``routes`` beside ``launches``.
 """
 from __future__ import annotations
 
@@ -76,6 +79,8 @@ DECODE_ROUTES = ("split", "template")
 # second split costs the combine's launch more than it saves), which a
 # target just under the 132 SMs gives
 DECODE_BLOCKS = 128
+# the split decode's key tile, and the page it cuts the contiguous slab into
+SPLIT_TILE = 32
 
 
 def _tc_shape(dtype: torch.dtype, d: int, aligned: bool) -> bool:
@@ -100,25 +105,30 @@ def fwd_plan(dtype: torch.dtype, d: int, aligned: bool) -> str:
     return "tc" if _tc_shape(dtype, d, aligned) else "scalar"
 
 
-def decode_plan(dtype: torch.dtype, d: int, aligned: bool) -> str:
-    """The int8 paged decode's route: "split" (``csrc/flash_decode_split
-    .cu``) for bf16 queries at a head dim that is a multiple of 16 up to
-    128 over a pool the 16-byte int8 copies can follow (``aligned``:
-    16-byte aligned bases, page, slot and head strides multiples of 16
-    bytes); "template" for f32 queries (their token identity rests on the
-    template's summation order) and every other shape."""
-    return "split" if _tc_shape(dtype, d, aligned) else "template"
+def decode_plan(dtype: torch.dtype, kv_dtype: torch.dtype, d: int,
+                aligned: bool) -> str:
+    """The decodes' route: "split" (``csrc/flash_decode_split.cu``) for
+    bf16 queries at a head dim that is a multiple of 16 up to 128 over
+    int8 or bf16 K/V the 16-byte copies can follow (``aligned``: 16-byte
+    aligned bases, the strides of all but the head dim multiples of 16
+    bytes: 16 int8, 8 bf16 elements); "template" for f32 queries (their
+    token identity rests on the template's summation order), over a bf16
+    pool too, and every other shape."""
+    return ("split" if kv_dtype in (torch.int8, torch.bfloat16)
+            and _tc_shape(dtype, d, aligned) else "template")
 
 
 def decode_splits(b: int, hkv: int, max_blocks: int,
                   page: int) -> Tuple[int, int]:
     """(n_split, pages_per_split) of the split decode, from shapes only
     (never the lengths: no host sync): enough splits of the ``max_blocks``
-    block-table entries that the ``b * hkv * n_split`` blocks come near
-    ``DECODE_BLOCKS``, and no split empty.  Split ``i`` owns entries
-    ``[i * pps, min((i + 1) * pps, max_blocks))``; ``page`` does not move
-    the split (a split's pages are walked in 32-key tiles whatever their
-    size)."""
+    pages that the ``b * hkv * n_split`` blocks come near
+    ``DECODE_BLOCKS``, and no split empty.  Split ``i`` owns pages
+    ``[i * pps, min((i + 1) * pps, max_blocks))``: block-table entries of
+    a pool, or on the contiguous slab the ``ceil(Smax / SPLIT_TILE)``
+    tiles of ``SPLIT_TILE`` keys (``page = SPLIT_TILE``, the last tile
+    ragged).  ``page`` does not move the split (a split's pages are walked
+    in 32-key tiles whatever their size)."""
     want = max(1, -(-DECODE_BLOCKS // max(b * hkv, 1)))
     pps = max(1, -(-max_blocks // want))
     return max(1, -(-max_blocks // pps)), pps
@@ -267,46 +277,84 @@ def _decode(name, q, k, v, cache_len, block_table, window, scale,
     return out
 
 
-def _decode_split(name, q, k, v, k_scale, v_scale, cache_len, block_table,
-                  window, scale):
-    """Check and launch ``repro_flash_decode_split`` (q (B, Hq, D) bf16
-    against the int8 pool through the block table): the splits of
-    ``decode_splits``, and their f32 partials in scratch when there are
-    several."""
+def _decode_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``decode_plan``'s route for q against these K/V (16-byte copies:
+    strides of ``16 // element size`` elements)."""
+    return decode_plan(q.dtype, k.dtype, q.shape[-1],
+                       _aligned(k, v, elems=16 // k.element_size()))
+
+
+def _decode_split(name, q, k, v, cache_len, block_table, window, scale,
+                  scales=None):
+    """Check and launch ``repro_flash_decode_split``: q (B, Hq, D) bf16
+    against the (B, Smax, Hkv, D) slab or, through the block table, the
+    (P, page, Hkv, D) pool (an int8 one with its (P, Hkv) ``scales``); the
+    splits of ``decode_splits``, and their f32 partials in scratch when
+    there are several."""
     _build.guard_grad(name, q, k, v)
     if q.dim() != 3:
         raise ValueError(f"{name}: q {tuple(q.shape)} is not (B, Hq, D)")
-    _check(name, q.unsqueeze(1), k, v, (k_scale, v_scale), paged=True)
+    paged = block_table is not None
+    _check(name, q.unsqueeze(1), k, v, scales, paged=paged)
     b, hq, d = q.shape
-    _check_table(name, block_table, b, q.device)
+    hkv = k.shape[2]
+    if paged:
+        _check_table(name, block_table, b, q.device)
+        page, max_blocks = k.shape[1], block_table.shape[1]
+        n_keys, bt = max_blocks * page, block_table.data_ptr()
+        bt_sb = block_table.stride(0)
+    else:
+        if k.shape[0] != b:
+            raise ValueError(f"{name}: cache {tuple(k.shape)} for q "
+                             f"{tuple(q.shape)}")
+        page, n_keys, bt, bt_sb = SPLIT_TILE, k.shape[1], None, 0
+        max_blocks = -(-n_keys // page)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    hkv, page, max_blocks = k.shape[2], k.shape[1], block_table.shape[1]
     n_split, pps = decode_splits(b, hkv, max_blocks, page)
     part = (None, None, None)
     if n_split > 1:
-        part = (torch.empty((b, hq, n_split), dtype=torch.float32,
-                            device=q.device),
-                torch.empty((b, hq, n_split), dtype=torch.float32,
-                            device=q.device),
-                torch.empty((b, hq, n_split, d), dtype=torch.float32,
-                            device=q.device))
+        # one f32 scratch allocation, held until the launch is enqueued
+        # (the wrapper's host time is on the serving step's path): acc
+        # (B, Hq, n_split, D), then m and l (B, Hq, n_split)
+        rows = b * hq * n_split
+        scratch = torch.empty(rows * (d + 2), dtype=torch.float32,
+                              device=q.device)
+        base = scratch.data_ptr()
+        part = (base + 4 * rows * d, base + 4 * rows * (d + 1), base)
+    if scales is None:
+        ksc = vsc = None
+        sc_sp = sc_sh = 0
+    else:
+        ksc, vsc = scales[0].data_ptr(), scales[1].data_ptr()
+        sc_sp, sc_sh = scales[0].stride()
     lens = ref._rows(cache_len, b, q.device).contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     rc = _build.lib().repro_flash_decode_split(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), lens.data_ptr(), block_table.data_ptr(),
-        out.data_ptr(), *(None if t is None else t.data_ptr() for t in part),
-        b, hkv, hq // hkv, d, page, max_blocks, pps, n_split,
-        block_table.stride(0), q.stride(0), q.stride(1),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        k_scale.stride(0), k_scale.stride(1), out.stride(0), out.stride(1),
-        -1 if window is None else int(window), float(scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ksc, vsc, lens.data_ptr(),
+        bt, out.data_ptr(), *part,
+        b, hkv, hq // hkv, d, n_keys, page, max_blocks, pps, n_split, bt_sb,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), sc_sp, sc_sh, out.stride(0),
+        out.stride(1), -1 if window is None else int(window), float(scale),
+        INT8 if scales is not None else DTYPES[k.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, name)
+    return out
+
+
+def _routed_decode(fn, q, k, v, cache_len, block_table, window, scale,
+                   scales=None):
+    """The decode of wrapper ``fn`` on the route ``decode_plan`` picks,
+    counted in ``fn.launches`` and ``fn.routes``."""
+    route = _decode_route(q, k, v)
+    launch = _decode_split if route == "split" else _decode
+    out = launch(fn.__name__, q, k, v, cache_len, block_table, window,
+                 scale, scales)
+    fn.launches += 1
+    fn.routes[route] += 1
     return out
 
 
@@ -326,16 +374,14 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cache_len, *,
                  window: Optional[int] = None,
                  scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,Hq,D) against a (B,Smax,Hkv,D) cache; ``cache_len`` () or (B,).
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    """q (B,Hq,D) against a (B,Smax,Hkv,D) cache; ``cache_len`` () or (B,);
+    on the kernel ``decode_plan`` picks.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     if not q.is_cuda:
         return ref.attention_decode(q, k_cache, v_cache, cache_len,
                                     window=window, scale=scale)
-    out = _decode("flash_decode", q, k_cache, v_cache, cache_len, None,
-                  window, scale)
-    flash_decode.launches += 1
-    return out
+    return _routed_decode(flash_decode, q, k_cache, v_cache, cache_len,
+                          None, window, scale)
 
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
@@ -344,17 +390,15 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        window: Optional[int] = None,
                        scale: Optional[float] = None) -> torch.Tensor:
     """q (B,Hq,D) against a (P,page,Hkv,D) pool (of q's dtype, or bf16
-    under f32 queries) through a (B,max_blocks) int32 block table.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    under f32 queries) through a (B,max_blocks) int32 block table, on the
+    kernel ``decode_plan`` picks.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
     if not q.is_cuda:
         return ref.attention_decode_paged(q, k_pages, v_pages, cache_len,
                                           block_table, window=window,
                                           scale=scale)
-    out = _decode("flash_decode_paged", q, k_pages, v_pages, cache_len,
-                  block_table, window, scale)
-    flash_decode_paged.launches += 1
-    return out
+    return _routed_decode(flash_decode_paged, q, k_pages, v_pages,
+                          cache_len, block_table, window, scale)
 
 
 def flash_decode_paged_quant(q: torch.Tensor, k_pages: torch.Tensor,
@@ -371,19 +415,9 @@ def flash_decode_paged_quant(q: torch.Tensor, k_pages: torch.Tensor,
         return ref.attention_decode_paged_quant(
             q, k_pages, v_pages, k_scale, v_scale, cache_len, block_table,
             window=window, scale=scale)
-    name = "flash_decode_paged_quant"
-    route = decode_plan(q.dtype, q.shape[-1],
-                        k_pages.dtype == torch.int8
-                        and _aligned(k_pages, v_pages, elems=16))
-    if route == "split":
-        out = _decode_split(name, q, k_pages, v_pages, k_scale, v_scale,
-                            cache_len, block_table, window, scale)
-    else:
-        out = _decode(name, q, k_pages, v_pages, cache_len, block_table,
-                      window, scale, (k_scale, v_scale))
-    flash_decode_paged_quant.launches += 1
-    flash_decode_paged_quant.routes[route] += 1
-    return out
+    return _routed_decode(flash_decode_paged_quant, q, k_pages, v_pages,
+                          cache_len, block_table, window, scale,
+                          (k_scale, v_scale))
 
 
 def flash_prefill_chunk(q: torch.Tensor, k_cache: torch.Tensor,
@@ -572,6 +606,8 @@ flash_attention_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)
 flash_decode.launches = 0
 flash_decode_paged.launches = 0
 flash_decode_paged_quant.launches = 0
+flash_decode.routes = dict.fromkeys(DECODE_ROUTES, 0)
+flash_decode_paged.routes = dict.fromkeys(DECODE_ROUTES, 0)
 flash_decode_paged_quant.routes = dict.fromkeys(DECODE_ROUTES, 0)
 flash_prefill_chunk.launches = 0
 flash_prefill_chunk_paged.launches = 0
