@@ -49,22 +49,28 @@ failure (non-zero exit, no result line):
               in place must equal a new one bit for bit, grouped B/C
               must raise in the ops layer, and rmsnorm_bwd must take its
               widest row and raise on the next.  The gemm, the
-              attention backward, the attention forward and the three
-              decodes (contiguous slab, bf16 pool, int8 pool) have
-              routes (``kernels/gemm.py:plan``,
+              attention backward, the attention forward, the three
+              decodes (contiguous slab, bf16 pool, int8 pool) and the
+              three chunked prefills have routes
+              (``kernels/gemm.py:plan``,
               ``kernels/flash_attention.py:bwd_plan``, ``fwd_plan``,
-              ``decode_plan``): each row prints the route its wrapper
-              took, every bf16 training shape must take the tensor-core
-              kernels, the bf16 forward the tensor-core kernel and every
-              bf16 decode the split kernel (f32 both on the template, the
-              bf16 pool under f32 queries too).  The forward (at the
-              --check shape and at the training shape, B 2 x S 256, with
-              qwen2.5-3b's, zamba2's and, windowed, mixtral's heads) and
-              the three decodes (at every arch's heads, a group of 32
-              included) are also timed on the template they left
-              (``forced_scalar``, ``forced_template``), and each decode's
-              split is swept over block targets at the served archs'
-              heads.  The
+              ``decode_plan``, ``chunk_plan``): each row prints the route
+              its wrapper took, every bf16 training shape must take the
+              tensor-core kernels, the bf16 forward the tensor-core
+              kernel, every bf16 decode the split kernel and every bf16
+              chunk over the slab or an int8 pool the tensor-core chunk
+              kernel (f32 all on the template, the bf16 pool under f32
+              queries too; the chunk over a bf16 pool stays on the
+              template).  The forward (at the --check shape and at the
+              training shape, B 2 x S 256, with qwen2.5-3b's, zamba2's
+              and, windowed, mixtral's heads), the three decodes and the
+              two redesigned chunks (at every arch's heads, a group of
+              32 included) are also timed on the template they left
+              (``forced_scalar``, ``forced_template``); each decode's
+              split is swept over block targets, and each redesigned
+              chunk's over block targets and warps a block, at the
+              served archs' heads, and each routed wrapper's host time a
+              call is set beside the template's and SDPA's.  The
               gemm's skinny kernel is also timed against its tiled
               route (tensor cores in bf16, the scalar kernel in f32) at
               qwen2.5-3b's projection and
@@ -94,7 +100,10 @@ failure (non-zero exit, no result line):
               The prefill and decode loops run under
               ``torch.cuda.set_sync_debug_mode("error")``; launch counts per
               prefill and decode step are exact (``per_step`` derives them
-              from the config), every decode on the split kernel; the
+              from the config), every bf16 decode on the split kernel,
+              every bf16 chunk over the slab or an int8 pool on the
+              tensor-core chunk kernel and over a bf16 pool on the
+              template; the
               first steps' logits are held against the reference backend
               (qwen in bf16 at full depth, the Mamba stacks in f32 at 12
               layers, mixtral in f32 at 16 with its bf16 numbers printed,
@@ -108,7 +117,8 @@ failure (non-zero exit, no result line):
               contiguous chunks) and, paged, for the bf16 and int8 pools
               (mixtral over the bf16 pool token by token: identical, or
               split at a shown near tie, see below); the hopper runs'
-              launches are counted, all their decodes on the template.
+              launches are counted, all their decodes and chunks on the
+              template.
 6. check    — ``--check``'s helper (``serving/checks.py``) for each arch
               on the hopper backend: token-by-token decode of a 160-token
               prompt (which crosses mamba2's SSD chunk of 128 in the
@@ -194,9 +204,10 @@ to fit the card.  The LeNets run at full size (Caffe's own nets) and
 the solvers' batch of 64.
 
 The line before the last is a JSON object with one entry per kernel (the
-routed kernels' -- the gemm's, the attention backward's and forward's and
-the three decodes' -- with ``routes``: the main paths' launches per route,
-phases 4-10); the last line is ``{"ok": true, "device": {...}}``.
+routed kernels' -- the gemm's, the attention backward's and forward's,
+the three decodes' and the three chunked prefills' -- with ``routes``:
+the main paths' launches per route, phases 4-10); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -728,7 +739,11 @@ def phase_kernels(torch):
                 nvalid = cmask.sum().item()
                 cbytes = (2 * B * c * hq * hd + 2 * ckeys * hkv * hd) * es
                 cflops = 4.0 * nvalid * hq * hd
-                run(flash_prefill_chunk,
+                # bf16 on the tensor-core chunk kernel, timed beside the
+                # template it left; f32 and the pool of q's dtype stay on
+                # the template
+                want_route("flash_prefill_chunk", run(
+                    flash_prefill_chunk,
                     f"q 4x16x{hq}x{hd}, cache 4x128x{hkv}x{hd}{win}",
                     dtype, arch + "prefill", count,
                     lambda w=window: flash_prefill_chunk(
@@ -737,8 +752,12 @@ def phase_kernels(torch):
                         qc, kc, vc, start, width, window=w),
                     lambda m_=cmask: F.scaled_dot_product_attention(
                         qcs, ks, vs, attn_mask=m_, enable_gqa=True),
-                    cbytes, cflops)
-                run(flash_prefill_chunk_paged,
+                    cbytes, cflops,
+                    forced=(forced_template("flash_prefill_chunk") if bf
+                            else None)),
+                    "tc" if bf else "template")
+                want_route("flash_prefill_chunk_paged", run(
+                    flash_prefill_chunk_paged,
                     f"q 4x16x{hq}x{hd}, pool {n_pages}+1x16x{hkv}x{hd}{win}",
                     dtype, arch + "prefill", pcount,
                     lambda w=window: flash_prefill_chunk_paged(
@@ -747,7 +766,23 @@ def phase_kernels(torch):
                         qc, kp, vp, start, width, bt, window=w),
                     lambda m_=cmask: F.scaled_dot_product_attention(
                         qcs, kg, vg, attn_mask=m_, enable_gqa=True),
-                    cbytes + bt_bytes, cflops)
+                    cbytes + bt_bytes, cflops), "template")
+                if bf and window is None and count:
+                    chunk_sweep(
+                        timer, "flash_prefill_chunk",
+                        f"{arch or 'qwen2.5-3b '}heads",
+                        lambda: flash_prefill_chunk(qc, kc, vc, start,
+                                                    width),
+                        B, hkv, hq // hkv, c, smax)
+                if bf and window is None and not arch:
+                    host_enqueue_us(
+                        torch, "flash_prefill_chunk", "qwen2.5-3b heads",
+                        lambda: flash_prefill_chunk(qc, kc, vc, start,
+                                                    width),
+                        forced_template("flash_prefill_chunk"),
+                        lambda m_=cmask: F.scaled_dot_product_attention(
+                            qcs, ks, vs, attn_mask=m_, enable_gqa=True),
+                        route="tc")
             # -- the int8 pool: the cache's keys and values written position
             # by position through the pager's quantized write (scales reset
             # at each page's slot 0, max-merged, slots requantized), read
@@ -825,7 +860,9 @@ def phase_kernels(torch):
                 nvalid = cmask.sum().item()
                 qcbytes = (2 * B * c * hq * hd * es + 2 * ckeys * hkv * hd
                            + 2 * pages_c * hkv * 4 + bt_bytes)
-                run(flash_prefill_chunk_paged_quant,
+                bf = dtype == torch.bfloat16
+                want_route("flash_prefill_chunk_paged_quant", run(
+                    flash_prefill_chunk_paged_quant,
                     f"q 4x16x{hq}x{hd}, int8 pool {n_pages}+1x16x{hkv}x{hd}"
                     f"{win}", dtype, arch + "prefill", count,
                     lambda w=window: flash_prefill_chunk_paged_quant(
@@ -835,7 +872,27 @@ def phase_kernels(torch):
                     lambda m_=cmask: F.scaled_dot_product_attention(
                         qcs, kqg, vqg, attn_mask=m_, enable_gqa=True),
                     qcbytes,
-                    4.0 * nvalid * hq * hd + 2.0 * ckeys * hkv * hd)
+                    4.0 * nvalid * hq * hd + 2.0 * ckeys * hkv * hd,
+                    forced=(forced_template("flash_prefill_chunk_paged_quant")
+                            if bf else None)),
+                    "tc" if bf else "template")
+                if bf and window is None and count:
+                    chunk_sweep(
+                        timer, "flash_prefill_chunk_paged_quant",
+                        f"{arch or 'qwen2.5-3b '}heads",
+                        lambda: flash_prefill_chunk_paged_quant(
+                            qc, kq, vq, ksc, vsc, start, width, bt),
+                        B, hkv, hq // hkv, c, maxb * page)
+                if bf and window is None and not arch:
+                    host_enqueue_us(
+                        torch, "flash_prefill_chunk_paged_quant",
+                        "qwen2.5-3b heads",
+                        lambda: flash_prefill_chunk_paged_quant(
+                            qc, kq, vq, ksc, vsc, start, width, bt),
+                        forced_template("flash_prefill_chunk_paged_quant"),
+                        lambda m_=cmask: F.scaled_dot_product_attention(
+                            qcs, kqg, vqg, attn_mask=m_, enable_gqa=True),
+                        route="tc")
             if dtype == torch.float32:
                 # a bf16 pool under f32 queries (kv_dtype="bf16" of an f32
                 # model): both sides read the pool upcast to f32
@@ -857,7 +914,8 @@ def phase_kernels(torch):
                     2 * B * hq * hd * es + 2 * keys * hkv * hd * 2
                     + bt_bytes, 4.0 * keys * hq * hd), "template")
                 ckeys = sum(s0 + w0 for s0, w0 in zip(start_l, width_l))
-                run(flash_prefill_chunk_paged,
+                want_route("flash_prefill_chunk_paged", run(
+                    flash_prefill_chunk_paged,
                     f"q 4x16x{hq}x{hd}, bf16 pool {n_pages}+1x16x{hkv}x{hd}",
                     dtype, arch + "prefill", 0,
                     lambda: flash_prefill_chunk_paged(qc, kb, vb, start,
@@ -867,11 +925,13 @@ def phase_kernels(torch):
                     lambda m_=cmask: F.scaled_dot_product_attention(
                         qcs, kbg, vbg, attn_mask=m_, enable_gqa=True),
                     2 * B * c * hq * hd * es + 2 * ckeys * hkv * hd * 2
-                    + bt_bytes, 4.0 * cmask.sum().item() * hq * hd)
+                    + bt_bytes, 4.0 * cmask.sum().item() * hq * hd),
+                    "template")
                 del kb, vb, kbg, vbg
             # a row whose pages are all unmapped (a released row) returns
-            # zeros (the two paged decodes on the split kernel in bf16, on
-            # the template in f32)
+            # zeros (the two paged decodes on the split kernel in bf16, the
+            # int8 chunk on the tensor-core chunk kernel; all four on the
+            # template in f32)
             bt_u = bt.clone()
             bt_u[B - 1] = -1
             for name, fn in (
@@ -897,8 +957,61 @@ def phase_kernels(torch):
                   f"kernels ({arch or 'qwen2.5-3b '}heads, {dtype}; the "
                   f"decodes on the "
                   f"{'split' if dtype == torch.bfloat16 else 'template'} "
+                  "route, the int8 chunk on the "
+                  f"{'tc' if dtype == torch.bfloat16 else 'template'} "
                   "route)", flush=True)
             del kc, vc, kp, vp, kg, vg, kq, vq, kqg, vqg
+        if dtype == torch.bfloat16:
+            # off the served shapes, on the tensor-core chunk kernel: a
+            # 24-token chunk (a second, ragged 16-row item a q head), head
+            # dim 64, a group of 3, over the slab and an int8 pool of
+            # random codes and scales (pages of 16, shuffled)
+            c2, hq2, hkv2, d2, smax2 = 24, 6, 2, 64, 96
+            s2_l, w2_l = [40, 0, 70, 17], [24, 5, 24, 13]
+            s2 = torch.tensor(s2_l, dtype=torch.int32, device="cuda")
+            w2 = torch.tensor(w2_l, dtype=torch.int32, device="cuda")
+            q2 = rnd((B, c2, hq2, d2), dtype)
+            k2, v2 = (rnd((B, smax2, hkv2, d2), dtype) for _ in range(2))
+            maxb2 = smax2 // page
+            ids2 = torch.randperm(B * maxb2, generator=gen,
+                                  device="cuda").int()
+            bt2 = torch.full((B, maxb2), -1, dtype=torch.int32,
+                             device="cuda")
+            for i, (s0, w0) in enumerate(zip(s2_l, w2_l)):
+                nb = -(-(s0 + w0) // page)
+                bt2[i, :nb] = ids2[i * maxb2: i * maxb2 + nb]
+            kq2, vq2 = (torch.randint(-127, 128, (B * maxb2 + 1, page, hkv2,
+                                                  d2), generator=gen,
+                                      device="cuda", dtype=torch.int8)
+                        for _ in range(2))
+            ksc2, vsc2 = (0.01 + 0.05 * torch.rand(
+                (B * maxb2 + 1, hkv2), generator=gen, device="cuda")
+                for _ in range(2))
+            keys2 = sum(s0 + w0 for s0, w0 in zip(s2_l, w2_l))
+            pairs2 = sum(s0 + min(i, w0 - 1) + 1 for s0, w0 in zip(s2_l, w2_l)
+                         for i in range(c2))
+            qo_bytes = 2 * B * c2 * hq2 * d2 * es
+            want_route("flash_prefill_chunk", run(
+                flash_prefill_chunk,
+                f"q 4x{c2}x{hq2}x{d2}, cache 4x{smax2}x{hkv2}x{d2}", dtype,
+                "prefill", 0,
+                lambda: flash_prefill_chunk(q2, k2, v2, s2, w2),
+                lambda: ref.attention_prefill_chunk(q2, k2, v2, s2, w2),
+                None, qo_bytes + 2 * keys2 * hkv2 * d2 * es,
+                4.0 * pairs2 * hq2 * d2), "tc")
+            want_route("flash_prefill_chunk_paged_quant", run(
+                flash_prefill_chunk_paged_quant,
+                f"q 4x{c2}x{hq2}x{d2}, int8 pool {B * maxb2}+1x16x{hkv2}x"
+                f"{d2}", dtype, "prefill", 0,
+                lambda: flash_prefill_chunk_paged_quant(
+                    q2, kq2, vq2, ksc2, vsc2, s2, w2, bt2),
+                lambda: ref.attention_prefill_chunk_paged_quant(
+                    q2, kq2, vq2, ksc2, vsc2, s2, w2, bt2),
+                None, qo_bytes + 2 * keys2 * hkv2 * d2
+                + 2 * int((bt2 >= 0).sum().item()) * hkv2 * 4
+                + B * maxb2 * 4,
+                4.0 * pairs2 * hq2 * d2 + 2.0 * keys2 * hkv2 * d2), "tc")
+            del q2, k2, v2, kq2, vq2
 
         # -- the SSD scan.  B and C are column slices of an in_proj output
         # (row width 2 d_inner + 2 N + H), read in place as the model
@@ -1046,7 +1159,7 @@ def phase_kernels(torch):
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:547", "decode"),
         "flash_prefill_chunk": (
-            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro_torch/kernels/csrc/flash_chunk_tc.cu",
             "src/repro/kernels/flash_attention.py:809", "prefill"),
         "flash_prefill_chunk_paged": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1055,7 +1168,7 @@ def phase_kernels(torch):
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:654", "decode"),
         "flash_prefill_chunk_paged_quant": (
-            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro_torch/kernels/csrc/flash_chunk_tc.cu",
             "src/repro/kernels/flash_attention.py:1019", "prefill"),
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1560,10 +1673,13 @@ def forced_scalar():
 
 
 def forced_template(kernel):
-    """For ``run``'s ``forced``: the decode ``kernel`` on the template, its
-    route before the split kernel."""
+    """For ``run``'s ``forced``: the decode or chunked prefill ``kernel``
+    on the template, its route before the split or tensor-core chunk
+    kernel."""
+    planner = "chunk_plan" if "prefill_chunk" in kernel else "decode_plan"
+
     def forced_template():
-        return forced_plan("decode_plan", kernel, "template")
+        return forced_plan(planner, kernel, "template")
     return forced_template
 
 
@@ -1593,15 +1709,44 @@ def decode_split_sweep(clock, name, case, fn, b, hkv, max_blocks, page):
           flush=True)
 
 
-def host_enqueue_us(torch, name, case, fn, forced, lib, calls=100,
-                    trials=21):
-    """Host microseconds to enqueue one call of the decode ``name``: on
-    the split route, on the template (``forced``) and SDPA (``lib``),
-    ``calls`` calls back to back on the host clock with the card drained
-    before each batch, the three interleaved ``trials`` times; the median
-    and the least of each are printed.  The serving paths are host-bound,
-    so this is what a route costs them a call."""
-    ways = (("split", fn, contextlib.nullcontext), ("template", fn, forced),
+# the tensor-core chunk kernel's warps a block swept in phase 3
+CHUNK_WARPS_SWEPT = (1, 2, 4, 8)
+
+
+def chunk_sweep(clock, name, case, fn, b, hkv, g, c, n_keys):
+    """The chunk ``name`` on the tensor-core kernel at each of
+    ``CHUNK_WARPS_SWEPT`` warps a block (``chunk_rows``' cap; 1 is a
+    block a q head, K/V from L2) and each of ``SPLIT_TARGETS`` in place
+    of ``CHUNK_BLOCKS`` (the splits ``chunk_splits`` then picks), one line
+    a case; the planner's own pair is marked."""
+    from repro_torch.kernels import flash_attention as FA
+
+    saved, cells = (FA.CHUNK_WARPS, FA.CHUNK_BLOCKS), []
+    try:
+        for warps in CHUNK_WARPS_SWEPT:
+            for target in SPLIT_TARGETS:
+                FA.CHUNK_WARPS, FA.CHUNK_BLOCKS = warps, target
+                w, n_rb = FA.chunk_rows(g, c)
+                n, tps = FA.chunk_splits(b, hkv, n_rb, n_keys)
+                mark = "*" if (warps, target) == saved else ""
+                cells.append(f"{warps}w {target}{mark}: {w}w x {n_rb} x "
+                             f"{n} x {tps} {clock(fn):.4f}")
+    finally:
+        FA.CHUNK_WARPS, FA.CHUNK_BLOCKS = saved
+    print(f"[3 kernels] {name} chunk sweep, {case}: warps a block cap, "
+          f"target blocks: warps x row blocks x splits x tiles a split, "
+          f"ms: " + "; ".join(cells), flush=True)
+
+
+def host_enqueue_us(torch, name, case, fn, forced, lib, route="split",
+                    calls=100, trials=21):
+    """Host microseconds to enqueue one call of the decode or chunk
+    ``name``: on its ``route``, on the template (``forced``) and SDPA
+    (``lib``), ``calls`` calls back to back on the host clock with the
+    card drained before each batch, the three interleaved ``trials``
+    times; the median and the least of each are printed.  The serving
+    paths are host-bound, so this is what a route costs them a call."""
+    ways = ((route, fn, contextlib.nullcontext), ("template", fn, forced),
             ("SDPA", lib, contextlib.nullcontext))
     times = {way: [] for way, _, _ in ways}
     for _ in range(trials):
@@ -1632,7 +1777,8 @@ def want_route(name, route, want):
 # theirs is also timed on the route it left (``forced_scalar``,
 # ``forced_template``)
 REDESIGNED = ("flash_attention", "flash_decode", "flash_decode_paged",
-              "flash_decode_paged_quant")
+              "flash_decode_paged_quant", "flash_prefill_chunk",
+              "flash_prefill_chunk_paged_quant")
 # the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
 SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -2248,7 +2394,12 @@ DECODES = ("flash_decode", "flash_decode_paged", "flash_decode_paged_quant")
 # the kernels with several routes (``fn.routes``: launches per route,
 # beside ``fn.launches``), each route's source, and the launches per route
 # summed over every counted run of a main path (phases 4-10)
-ROUTED = ("gemm", "flash_attention_bwd", "flash_attention") + DECODES
+# the chunked prefills: bf16 over the slab or an int8 pool on the
+# tensor-core chunk kernel, over a bf16 pool and in f32 on the template
+CHUNKS = ("flash_prefill_chunk", "flash_prefill_chunk_paged",
+          "flash_prefill_chunk_paged_quant")
+ROUTED = ("gemm", "flash_attention_bwd", "flash_attention") + DECODES \
+    + CHUNKS
 ROUTE_SOURCES = {
     ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
@@ -2269,6 +2420,11 @@ ROUTE_SOURCES.update({
     (name, route): f"src/repro_torch/kernels/csrc/{src}"
     for name in DECODES
     for route, src in (("split", "flash_decode_split.cu"),
+                       ("template", "flash_attention.cu"))})
+ROUTE_SOURCES.update({
+    (name, route): f"src/repro_torch/kernels/csrc/{src}"
+    for name in CHUNKS
+    for route, src in (("tc", "flash_chunk_tc.cu"),
                        ("template", "flash_attention.cu"))})
 MAIN_ROUTES = {}
 
@@ -2358,6 +2514,18 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
         want_rt = ({"split": n, "template": 0}
                    if model.cfg.dtype == "bfloat16"
                    else {"split": 0, "template": n})
+        if n:
+            print(f"{tag} {name} routes {rt}", flush=True)
+        if rt != want_rt:
+            raise SystemExit(f"chip_smoke: {tag} {name} routes {rt}, "
+                             f"expected {want_rt}")
+    # every bf16 chunk over the slab or an int8 pool on the tensor-core
+    # chunk kernel, over a bf16 pool on the template
+    for name in CHUNKS:
+        rt, n = dict(fns[name].routes), launches[name]
+        tc = (model.cfg.dtype == "bfloat16"
+              and name != "flash_prefill_chunk_paged")
+        want_rt = {"tc": n if tc else 0, "template": 0 if tc else n}
         if n:
             print(f"{tag} {name} routes {rt}", flush=True)
         if rt != want_rt:
@@ -2809,9 +2977,9 @@ def phase_f32(torch):
                         total[name] += n
                     # f32 queries, over any cache or pool, stay on the
                     # template
-                    for name in DECODES:
+                    for name in DECODES + CHUNKS:
                         dec = rt.get(name, {})
-                        if dec.get("split"):
+                        if dec.get("split") or dec.get("tc"):
                             failed.append((arch, layout, kv_dtype, chunk,
                                            f"{name} routes {dec}"))
                         if dec.get("template"):

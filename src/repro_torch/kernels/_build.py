@@ -111,6 +111,13 @@ _SIGNATURES = {
     # kv_dtype, stream
     "repro_flash_decode_split": [_P] * 11 + [_I] * 9 + [_L] * 13
                                 + [_I, _F, _I, _P],
+    # q, k, v, ksc, vsc (f32 or NULL), start, width, block_table (or
+    # NULL), out, part_m, part_l, part_acc (f32 or NULL), B, Hkv, G, C, D,
+    # n_keys, page, warps, tiles_per_split, n_split, bt_sb, q_sb, q_sc,
+    # q_sh, k_s0, k_ss, k_sh, v_s0, v_ss, v_sh, sc_sp, sc_sh, o_sb, o_sc,
+    # o_sh, window, scale, kv_dtype, stream
+    "repro_flash_chunk_tc": [_P] * 12 + [_I] * 10 + [_L] * 15
+                            + [_I, _F, _I, _P],
     # q, k, v, out, do, lse, dd, dq, dk, dv, B, Hkv, G, Sq, Sk, D, q_sb,
     # q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
     # do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, l_sb,

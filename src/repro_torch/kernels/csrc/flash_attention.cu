@@ -58,9 +58,12 @@
 // each from an int8 pool, plus a 4-byte scale per key and page).  The
 // scores and the PV product are scalar FMAs over shared-memory tiles; the
 // grid is only B * Hkv * ceil(G * C / 8) blocks (8 at decode, B = 4).
-// Tensor cores (mma.sync / wgmma), split-K and TMA are later work; the
-// forward, which reads every key once per tile of 8 query rows, is the
-// first to want them.
+// So the routes that matter left it: the bf16 forward for tensor cores
+// (flash_attention_tc.cu), the bf16 decodes for split keys
+// (flash_decode_split.cu), and the bf16 chunked prefills over the slab and
+// an int8 pool for both (flash_chunk_tc.cu).  What stays here is f32 (its
+// token identity and JAX's f32 parity rest on this summation order), the
+// chunk over a bf16 pool, and every shape those kernels do not take.
 #include "common.cuh"
 
 namespace {

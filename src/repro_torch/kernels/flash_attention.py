@@ -36,7 +36,7 @@ any other bf16 shape, the scalar kernels of ``csrc/flash_attention_bwd.cu``
 (IEEE f32, the GQA group summed inside the block).  ``dq_key_tiles`` and
 ``dkv_query_tiles`` are the tile walks of the tensor-core kernels.
 
-Four kernels also have redesigned routes beside the template, each picked
+Six kernels also have redesigned routes beside the template, each picked
 by a pure-Python planner from dtype, head dim and alignment (never by
 trying a kernel).  The forward: ``fwd_plan`` sends bf16 at head dims that
 are multiples of 16 up to 128 to ``csrc/flash_attention_tc.cu`` (64 query
@@ -51,7 +51,16 @@ the keys split into ``decode_splits`` runs of block-table entries (or of
 block per (row, kv head, split) writing an f32 partial (m, l, acc), and a
 second kernel merging the partials in split order; f32 queries (phase
 5's token identity and JAX's f32 parity rest on the template's order),
-the bf16 pool under them included, keep the template.  Each routed
+the bf16 pool under them included, keep the template.  Two of the three
+chunked prefills (the contiguous slab, the int8 pool): ``chunk_plan``
+sends bf16 queries at those head dims and alignments to
+``csrc/flash_chunk_tc.cu``: a warp a q head's 16 chunk tokens on
+mma.sync, ``chunk_rows`` such items of one (row, kv head) a block
+sharing its 32-key K/V tiles, an int8 tile widened to bf16 exactly with
+the page scales on S's and P's columns in f32, P rounded to bf16 before
+PV, and the key tiles split into ``chunk_splits`` runs (shapes only)
+merged in split order as the decodes' partials are; f32 queries and the
+bf16 pool (next on the same kernel) keep the template.  Each routed
 wrapper counts its launches per route in ``routes`` beside ``launches``.
 """
 from __future__ import annotations
@@ -81,6 +90,18 @@ DECODE_ROUTES = ("split", "template")
 DECODE_BLOCKS = 128
 # the split decode's key tile, and the page it cuts the contiguous slab into
 SPLIT_TILE = 32
+CHUNK_ROUTES = ("tc", "template")
+# the tensor-core chunk kernel (csrc/flash_chunk_tc.cu): keys a tile,
+# query rows an item (a q head's 16 chunk tokens), the items a block folds
+# at most, and the blocks its splits aim for.  Swept on the H100
+# (chip_smoke.py phase 3, "chunk sweep"): qwen2.5-3b's and mixtral-8x7b's
+# groups run fastest with a split a 32-key tile, zamba2-2.7b's 128 blocks
+# unsplit; a cap of 4 items is within 4% of the best cap at each (the
+# source's note gives the times)
+CHUNK_TILE = 32
+CHUNK_ROWS = 16
+CHUNK_WARPS = 4
+CHUNK_BLOCKS = 128
 
 
 def _tc_shape(dtype: torch.dtype, d: int, aligned: bool) -> bool:
@@ -132,6 +153,44 @@ def decode_splits(b: int, hkv: int, max_blocks: int,
     want = max(1, -(-DECODE_BLOCKS // max(b * hkv, 1)))
     pps = max(1, -(-max_blocks // want))
     return max(1, -(-max_blocks // pps)), pps
+
+
+def chunk_plan(dtype: torch.dtype, kv_dtype: torch.dtype, d: int,
+               aligned: bool, paged: bool) -> str:
+    """The chunked prefills' route: "tc" (``csrc/flash_chunk_tc.cu``) for
+    bf16 queries at a head dim that is a multiple of 16 up to 128 over the
+    bf16 slab or an int8 pool whose bases and strides the 16-byte copies
+    can follow (``aligned``: q's and the K/V's, as ``decode_plan``);
+    "template" for f32 queries (their token identity rests on the
+    template's summation order), the bf16 pool under any queries, and
+    every other shape."""
+    store = kv_dtype == (torch.int8 if paged else torch.bfloat16)
+    return "tc" if store and _tc_shape(dtype, d, aligned) else "template"
+
+
+def chunk_rows(g: int, c: int) -> Tuple[int, int]:
+    """(warps, row blocks) of the tensor-core chunk kernel for a GQA group
+    of ``g`` and a chunk of ``c`` tokens: its ``g * ceil(c / 16)`` items
+    (a q head's 16 tokens each) of a (row, kv head) in blocks of up to
+    ``CHUNK_WARPS``, never more warps than items."""
+    items = g * -(-c // CHUNK_ROWS)
+    warps = max(1, min(CHUNK_WARPS, items))
+    return warps, -(-items // warps)
+
+
+def chunk_splits(b: int, hkv: int, row_blocks: int,
+                 n_keys: int) -> Tuple[int, int]:
+    """(n_split, tiles_per_split) of the tensor-core chunk kernel, from
+    shapes only (never ``start``/``width``: no host sync): the
+    ``ceil(n_keys / CHUNK_TILE)`` key tiles (``n_keys``: the slab's Smax,
+    or a pool's ``max_blocks * page``) cut into enough runs that the
+    ``b * hkv * row_blocks * n_split`` blocks come near ``CHUNK_BLOCKS``,
+    and no run empty.  Split ``i`` owns tiles ``[i * tps, min((i + 1) *
+    tps, n_tiles))``."""
+    n_tiles = -(-n_keys // CHUNK_TILE)
+    want = max(1, -(-CHUNK_BLOCKS // max(b * hkv * row_blocks, 1)))
+    tps = max(1, -(-n_tiles // want))
+    return max(1, -(-n_tiles // tps)), tps
 
 
 def _aligned(*tensors: torch.Tensor, elems: int = 8) -> bool:
@@ -370,6 +429,90 @@ def _chunk(name, q, k, v, start, width, block_table, window, scale,
     return out
 
 
+def _chunk_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 paged: bool) -> str:
+    """``chunk_plan``'s route for q against these K/V (16-byte copies of
+    q and of the K/V: strides of ``16 // element size`` elements)."""
+    return chunk_plan(q.dtype, k.dtype, q.shape[-1],
+                      _aligned(q, elems=16 // q.element_size())
+                      and _aligned(k, v, elems=16 // k.element_size()),
+                      paged)
+
+
+def _chunk_tc(name, q, k, v, start, width, block_table, window, scale,
+              scales=None):
+    """Check and launch ``repro_flash_chunk_tc``: q (B, C, Hq, D) bf16
+    against the (B, Smax, Hkv, D) slab or, through the block table, the
+    (P, page, Hkv, D) int8 pool with its (P, Hkv) ``scales``; the rows of
+    ``chunk_rows``, the splits of ``chunk_splits``, and their f32 partials
+    in scratch when there are several."""
+    _build.guard_grad(name, q, k, v)
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q {tuple(q.shape)} is not (B, C, Hq, D)")
+    paged = block_table is not None
+    _check(name, q, k, v, scales, paged=paged)
+    b, c, hq, d = q.shape
+    hkv = k.shape[2]
+    if paged:
+        _check_table(name, block_table, b, q.device)
+        page, n_keys = k.shape[1], block_table.shape[1] * k.shape[1]
+        bt, bt_sb = block_table.data_ptr(), block_table.stride(0)
+    else:
+        if k.shape[0] != b:
+            raise ValueError(f"{name}: cache {tuple(k.shape)} for q "
+                             f"{tuple(q.shape)}")
+        page, n_keys, bt, bt_sb = 1, k.shape[1], None, 0
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    warps, n_rb = chunk_rows(hq // hkv, c)
+    n_split, tps = chunk_splits(b, hkv, n_rb, n_keys)
+    part = (None, None, None)
+    if n_split > 1:
+        # one f32 scratch allocation, held until the launch is enqueued:
+        # acc (B, C, Hq, n_split, D), then m and l (B, C, Hq, n_split)
+        rows = b * c * hq * n_split
+        scratch = torch.empty(rows * (d + 2), dtype=torch.float32,
+                              device=q.device)
+        base = scratch.data_ptr()
+        part = (base + 4 * rows * d, base + 4 * rows * (d + 1), base)
+    if scales is None:
+        ksc = vsc = None
+        sc_sp = sc_sh = 0
+    else:
+        ksc, vsc = scales[0].data_ptr(), scales[1].data_ptr()
+        sc_sp, sc_sh = scales[0].stride()
+    starts = ref._rows(start, b, q.device).contiguous()
+    widths = ref._rows(width, b, q.device).contiguous()
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    rc = _build.lib().repro_flash_chunk_tc(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ksc, vsc,
+        starts.data_ptr(), widths.data_ptr(), bt, out.data_ptr(), *part,
+        b, hkv, hq // hkv, c, d, n_keys, page, warps, tps, n_split, bt_sb,
+        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+        k.stride(2), v.stride(0), v.stride(1), v.stride(2), sc_sp, sc_sh,
+        out.stride(0), out.stride(1), out.stride(2),
+        -1 if window is None else int(window), float(scale),
+        INT8 if scales is not None else DTYPES[k.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, name)
+    return out
+
+
+def _routed_chunk(fn, q, k, v, start, width, block_table, window, scale,
+                  scales=None):
+    """The chunked prefill of wrapper ``fn`` on the route ``chunk_plan``
+    picks, counted in ``fn.launches`` and ``fn.routes``."""
+    route = _chunk_route(q, k, v, block_table is not None)
+    launch = _chunk_tc if route == "tc" else _chunk
+    out = launch(fn.__name__, q, k, v, start, width, block_table, window,
+                 scale, scales)
+    fn.launches += 1
+    fn.routes[route] += 1
+    return out
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cache_len, *,
                  window: Optional[int] = None,
@@ -425,15 +568,14 @@ def flash_prefill_chunk(q: torch.Tensor, k_cache: torch.Tensor,
                         window: Optional[int] = None,
                         scale: Optional[float] = None) -> torch.Tensor:
     """q (B,C,Hq,D) against a (B,Smax,Hkv,D) cache holding the chunk's
-    K/V; ``start``/``width`` () or (B,).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    K/V; ``start``/``width`` () or (B,); on the kernel ``chunk_plan``
+    picks.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
     if not q.is_cuda:
         return ref.attention_prefill_chunk(q, k_cache, v_cache, start,
                                            width, window=window, scale=scale)
-    out = _chunk("flash_prefill_chunk", q, k_cache, v_cache, start, width,
-                 None, window, scale)
-    flash_prefill_chunk.launches += 1
-    return out
+    return _routed_chunk(flash_prefill_chunk, q, k_cache, v_cache, start,
+                         width, None, window, scale)
 
 
 def flash_prefill_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
@@ -442,17 +584,16 @@ def flash_prefill_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
                               window: Optional[int] = None,
                               scale: Optional[float] = None) -> torch.Tensor:
     """q (B,C,Hq,D) against a (P,page,Hkv,D) pool through the block table;
-    every block covering ``start .. start+width-1`` must be mapped.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    every block covering ``start .. start+width-1`` must be mapped; on
+    the kernel ``chunk_plan`` picks (the template: a bf16 pool is not
+    routed to the tensor-core kernel yet).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     if not q.is_cuda:
         return ref.attention_prefill_chunk_paged(
             q, k_pages, v_pages, start, width, block_table, window=window,
             scale=scale)
-    out = _chunk("flash_prefill_chunk_paged", q, k_pages, v_pages, start,
-                 width, block_table, window, scale)
-    flash_prefill_chunk_paged.launches += 1
-    return out
+    return _routed_chunk(flash_prefill_chunk_paged, q, k_pages, v_pages,
+                         start, width, block_table, window, scale)
 
 
 def flash_prefill_chunk_paged_quant(q: torch.Tensor, k_pages: torch.Tensor,
@@ -465,17 +606,16 @@ def flash_prefill_chunk_paged_quant(q: torch.Tensor, k_pages: torch.Tensor,
                                     ) -> torch.Tensor:
     """q (B,C,Hq,D) against an int8 pool with its f32 (P,Hkv) scales
     through the block table; every block covering ``start ..
-    start+width-1`` must be mapped.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    start+width-1`` must be mapped; on the kernel ``chunk_plan`` picks.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if not q.is_cuda:
         return ref.attention_prefill_chunk_paged_quant(
             q, k_pages, v_pages, k_scale, v_scale, start, width,
             block_table, window=window, scale=scale)
-    out = _chunk("flash_prefill_chunk_paged_quant", q, k_pages, v_pages,
-                 start, width, block_table, window, scale,
-                 (k_scale, v_scale))
-    flash_prefill_chunk_paged_quant.launches += 1
-    return out
+    return _routed_chunk(flash_prefill_chunk_paged_quant, q, k_pages,
+                         v_pages, start, width, block_table, window, scale,
+                         (k_scale, v_scale))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -612,3 +752,6 @@ flash_decode_paged_quant.routes = dict.fromkeys(DECODE_ROUTES, 0)
 flash_prefill_chunk.launches = 0
 flash_prefill_chunk_paged.launches = 0
 flash_prefill_chunk_paged_quant.launches = 0
+flash_prefill_chunk.routes = dict.fromkeys(CHUNK_ROUTES, 0)
+flash_prefill_chunk_paged.routes = dict.fromkeys(CHUNK_ROUTES, 0)
+flash_prefill_chunk_paged_quant.routes = dict.fromkeys(CHUNK_ROUTES, 0)

@@ -89,7 +89,7 @@ def test_build_needs_no_toolchain_at_import():
         "gemm.cu", "gemm_tc.cu", "gemm_f32.cu", "rmsnorm.cu", "eltwise.cu",
         "flash_attention.cu", "flash_attention_bwd.cu",
         "flash_attention_bwd_tc.cu", "flash_attention_tc.cu",
-        "flash_decode_split.cu", "ssd_scan.cu", "im2col.cu",
-        "pooling.cu", "softmax_xent.cu", "conv_direct.cu"}
+        "flash_decode_split.cu", "flash_chunk_tc.cu", "ssd_scan.cu",
+        "im2col.cu", "pooling.cu", "softmax_xent.cu", "conv_direct.cu"}
     assert _build._LIB is None
     assert _build.library_path().parent == _build.BUILD_DIR
