@@ -26,7 +26,9 @@ failure (non-zero exit, no result line):
               with labels -1 and V; conv2d_direct at the five LeNet
               convolutions, JAX's test cases, the autotuner's conv3x3
               cell, in bf16 and on a channels-last x), and the training
-              step's: rmsnorm_bwd at 512 rows of 2048 and 5120,
+              step's: rmsnorm_bwd at 512 rows of 2048 and 5120 (dw the
+              same bits on every call, two kernels a call, its plans
+              swept),
               flash_attention_bwd at B 2 x S 256 with qwen2.5-3b's,
               zamba2-2.7b's and, windowed, mixtral-8x7b's heads and off
               those shapes (S 200 at B 1, non-causal Sk > Sq at D 64, D 72
@@ -47,30 +49,32 @@ failure (non-zero exit, no result line):
               paged row must come out as zeros, an SSD row with no real token
               must keep its carried state bit for bit, the SSD state written
               in place must equal a new one bit for bit, grouped B/C
-              must raise in the ops layer, and rmsnorm_bwd must take its
-              widest row and raise on the next.  The gemm, the
-              attention backward, the attention forward, the three
-              decodes (contiguous slab, bf16 pool, int8 pool) and the
-              three chunked prefills have routes
+              must raise in the ops layer, and rmsnorm_bwd must take the
+              widest row of each of its routes and raise on the next.
+              The gemm, the attention backward, the attention forward,
+              the three decodes (contiguous slab, bf16 pool, int8 pool),
+              the three chunked prefills and rmsnorm_bwd have routes
               (``kernels/gemm.py:plan``,
               ``kernels/flash_attention.py:bwd_plan``, ``fwd_plan``,
-              ``decode_plan``, ``chunk_plan``): each row prints the route
+              ``decode_plan``, ``chunk_plan``,
+              ``kernels/rmsnorm.py:bwd_plan``): each row prints the route
               its wrapper took, every bf16 training shape must take the
               tensor-core kernels, the bf16 forward the tensor-core
-              kernel, every bf16 decode the split kernel and every bf16
-              chunk over the slab or an int8 pool the tensor-core chunk
-              kernel (f32 all on the template, the bf16 pool under f32
-              queries too; the chunk over a bf16 pool stays on the
-              template).  The forward (at the --check shape and at the
-              training shape, B 2 x S 256, with qwen2.5-3b's, zamba2's
-              and, windowed, mixtral's heads), the three decodes and the
-              two redesigned chunks (at every arch's heads, a group of
-              32 included) are also timed on the template they left
-              (``forced_scalar``, ``forced_template``); each decode's
-              split is swept over block targets, and each redesigned
-              chunk's over block targets and warps a block, at the
-              served archs' heads, and each routed wrapper's host time a
-              call is set beside the template's and SDPA's.  The
+              kernel, every bf16 decode the split kernel, every bf16
+              chunk the tensor-core chunk kernel (f32 all on the
+              template, the bf16 pool under f32 queries too) and the
+              training step's rmsnorm_bwd the vector kernel.  The
+              forward (at the --check shape and at the training shape,
+              B 2 x S 256, with qwen2.5-3b's, zamba2's and, windowed,
+              mixtral's heads), the three decodes and the three chunks
+              (at every arch's heads, a group of 32 included) are also
+              timed on the template they left (``forced_scalar``,
+              ``forced_template``), rmsnorm_bwd on the scalar kernel it
+              left (``forced_scalar_bwd``); each decode's split is swept over
+              block targets, and each chunk's over block targets and
+              warps a block, at the served archs' heads, and each routed
+              wrapper's host time a call is set beside the template's and
+              SDPA's.  The
               gemm's skinny kernel is also timed against its tiled
               route (tensor cores in bf16, the scalar kernel in f32) at
               qwen2.5-3b's projection and
@@ -101,9 +105,8 @@ failure (non-zero exit, no result line):
               ``torch.cuda.set_sync_debug_mode("error")``; launch counts per
               prefill and decode step are exact (``per_step`` derives them
               from the config), every bf16 decode on the split kernel,
-              every bf16 chunk over the slab or an int8 pool on the
-              tensor-core chunk kernel and over a bf16 pool on the
-              template; the
+              every bf16 chunk (the slab, a bf16 or an int8 pool) on the
+              tensor-core chunk kernel; the
               first steps' logits are held against the reference backend
               (qwen in bf16 at full depth, the Mamba stacks in f32 at 12
               layers, mixtral in f32 at 16 with its bf16 numbers printed,
@@ -139,7 +142,8 @@ failure (non-zero exit, no result line):
               ``set_sync_debug_mode("error")`` with exact launch counts
               (remat runs each layer's forward twice) and every gemm and
               attention forward and backward on its tensor-core route
-              (also in (a)), then one step
+              (also in (a)) and every rmsnorm_bwd on the vector kernel,
+              then one step
               under the profiler for the device's busy share and one in
               halves on the host clock; (c) qwen2.5-3b and
               mamba2-2.7b in f32 at 2 layers: loss and grads, then 2
@@ -205,7 +209,8 @@ the solvers' batch of 64.
 
 The line before the last is a JSON object with one entry per kernel (the
 routed kernels' -- the gemm's, the attention backward's and forward's,
-the three decodes' and the three chunked prefills' -- with ``routes``:
+the three decodes', the three chunked prefills' and rmsnorm_bwd's -- with
+``routes``:
 the main paths' launches per route, phases 4-10); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -766,7 +771,10 @@ def phase_kernels(torch):
                         qc, kp, vp, start, width, bt, window=w),
                     lambda m_=cmask: F.scaled_dot_product_attention(
                         qcs, kg, vg, attn_mask=m_, enable_gqa=True),
-                    cbytes + bt_bytes, cflops), "template")
+                    cbytes + bt_bytes, cflops,
+                    forced=(forced_template("flash_prefill_chunk_paged")
+                            if bf else None)),
+                    "tc" if bf else "template")
                 if bf and window is None and count:
                     chunk_sweep(
                         timer, "flash_prefill_chunk",
@@ -774,6 +782,13 @@ def phase_kernels(torch):
                         lambda: flash_prefill_chunk(qc, kc, vc, start,
                                                     width),
                         B, hkv, hq // hkv, c, smax)
+                if bf and window is None and pcount:
+                    chunk_sweep(
+                        timer, "flash_prefill_chunk_paged",
+                        f"{arch or 'qwen2.5-3b '}heads",
+                        lambda: flash_prefill_chunk_paged(qc, kp, vp, start,
+                                                          width, bt),
+                        B, hkv, hq // hkv, c, maxb * page)
                 if bf and window is None and not arch:
                     host_enqueue_us(
                         torch, "flash_prefill_chunk", "qwen2.5-3b heads",
@@ -782,6 +797,15 @@ def phase_kernels(torch):
                         forced_template("flash_prefill_chunk"),
                         lambda m_=cmask: F.scaled_dot_product_attention(
                             qcs, ks, vs, attn_mask=m_, enable_gqa=True),
+                        route="tc")
+                    host_enqueue_us(
+                        torch, "flash_prefill_chunk_paged",
+                        "qwen2.5-3b heads",
+                        lambda: flash_prefill_chunk_paged(qc, kp, vp, start,
+                                                          width, bt),
+                        forced_template("flash_prefill_chunk_paged"),
+                        lambda m_=cmask: F.scaled_dot_product_attention(
+                            qcs, kg, vg, attn_mask=m_, enable_gqa=True),
                         route="tc")
             # -- the int8 pool: the cache's keys and values written position
             # by position through the pager's quantized write (scales reset
@@ -930,8 +954,8 @@ def phase_kernels(torch):
                 del kb, vb, kbg, vbg
             # a row whose pages are all unmapped (a released row) returns
             # zeros (the two paged decodes on the split kernel in bf16, the
-            # int8 chunk on the tensor-core chunk kernel; all four on the
-            # template in f32)
+            # two paged chunks on the tensor-core chunk kernel; all four on
+            # the template in f32)
             bt_u = bt.clone()
             bt_u[B - 1] = -1
             for name, fn in (
@@ -957,7 +981,7 @@ def phase_kernels(torch):
                   f"kernels ({arch or 'qwen2.5-3b '}heads, {dtype}; the "
                   f"decodes on the "
                   f"{'split' if dtype == torch.bfloat16 else 'template'} "
-                  "route, the int8 chunk on the "
+                  "route, the chunks on the "
                   f"{'tc' if dtype == torch.bfloat16 else 'template'} "
                   "route)", flush=True)
             del kc, vc, kp, vp, kg, vg, kq, vq, kqg, vqg
@@ -1162,7 +1186,7 @@ def phase_kernels(torch):
             "src/repro_torch/kernels/csrc/flash_chunk_tc.cu",
             "src/repro/kernels/flash_attention.py:809", "prefill"),
         "flash_prefill_chunk_paged": (
-            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro_torch/kernels/csrc/flash_chunk_tc.cu",
             "src/repro/kernels/flash_attention.py:909", "prefill"),
         "flash_decode_paged_quant": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1402,45 +1426,91 @@ def train_kernels(torch, F, rnd, run, clock, dtype, es):
         flash_attention_bwd,
     )
     from repro_torch.kernels.gemm import gemm
-    from repro_torch.kernels.rmsnorm import MAX_BWD_WIDTH, rmsnorm_bwd
+    from repro_torch.kernels.rmsnorm import (
+        MAX_BWD_WIDTH,
+        SCALAR_MAX_WIDTH,
+        rmsnorm_bwd,
+    )
 
     rows, d, d_ff, vocab, layers = TRAIN_B * TRAIN_S, 2048, 11008, 151936, 36
     # rmsnorm_bwd: the layer norms and the final norm (d 2048); the Mamba
-    # inner norm (d 5120) as an extra figure
+    # inner norm (d 5120) as an extra figure.  On the vector kernel, timed
+    # beside the scalar kernel forced (``forced_scalar_bwd``); dw must be the
+    # same bits on every call, and a call must run two kernels (the
+    # vector kernel and the dw sum)
     for wd, step, count in ((d, "train", 2 * layers + 1),
                             (5120, "mamba2 train", 0)):
         x, dy = rnd((rows, wd), dtype), rnd((rows, wd), dtype)
         w = (1 + 0.1 * rnd((wd,), torch.float32)).to(dtype)
         xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
         y = F.rms_norm(xr, (wd,), wr, 1e-6)
-        run(rmsnorm_bwd, f"{rows}x{wd}", dtype, step, count,
+        want_route("rmsnorm_bwd", run(
+            rmsnorm_bwd, f"{rows}x{wd}", dtype, step, count,
             lambda x=x, w=w, dy=dy: rmsnorm_bwd(x, w, dy),
             lambda x=x, w=w, dy=dy: ref.rmsnorm_bwd(x, w, dy),
             lambda y=y, xr=xr, wr=wr, dy=dy: torch.autograd.grad(
                 y, (xr, wr), dy, retain_graph=True),
-            (3 * rows * wd + 2 * wd) * es, 10.0 * rows * wd)
-        del x, dy, xr, wr, y
-    # the widest row the backward takes, and the next one, which raises
-    for wd in (MAX_BWD_WIDTH, MAX_BWD_WIDTH + 1):
-        x, dy = rnd((8, wd), dtype), rnd((8, wd), dtype)
+            (3 * rows * wd + 2 * wd) * es, 10.0 * rows * wd,
+            forced=forced_scalar_bwd), "vec")
+        dws = [rmsnorm_bwd(x, w, dy)[1] for _ in range(5)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(dws[0], t) for t in dws[1:]):
+            raise SystemExit(f"chip_smoke: rmsnorm_bwd {rows}x{wd} {dtype}: "
+                             "dw differs between calls")
+        names = kernels_of_call(torch, lambda x=x, w=w, dy=dy: rmsnorm_bwd(
+            x, w, dy))
+        # at most two launches a call: only the vector kernel and the dw
+        # sum, each at most once (the profiler may drop a few records)
+        if any(not k.startswith(("rmsnorm_bwd_vec_kernel", "dw_sum_kernel"))
+               or n > 1 for k, (n, _) in names.items()):
+            raise SystemExit(f"chip_smoke: rmsnorm_bwd {rows}x{wd}: one call "
+                             f"ran {names}, expected the vector kernel and "
+                             "the dw sum")
+        print(f"[3 kernels] rmsnorm_bwd {rows}x{wd} {dtype}: dw the same "
+              f"bits in 5 calls; one call's kernels (launches, device us, "
+              f"L2 warm) {names or 'not measured (no device activity)'}",
+              flush=True)
+        if dtype == torch.bfloat16:
+            rmsnorm_bwd_sweep(clock, f"{rows}x{wd}",
+                              lambda x=x, w=w, dy=dy: rmsnorm_bwd(x, w, dy),
+                              dtype, rows, wd)
+        del x, dy, xr, wr, y, dws
+    # the widest rows each route takes, and the next width, which raises:
+    # the vector kernel at MAX_BWD_WIDTH (one group's f32 dw row fills the
+    # block's shared memory; the next width is not whole vectors, so it
+    # goes to the scalar route, which raises past SCALAR_MAX_WIDTH), and
+    # the scalar kernel at SCALAR_MAX_WIDTH on rows of an odd stride
+    for wd, pad, want in ((MAX_BWD_WIDTH, 0, "vec"),
+                          (MAX_BWD_WIDTH + 1, 0, None),
+                          (SCALAR_MAX_WIDTH, 1, "scalar"),
+                          (SCALAR_MAX_WIDTH + 1, 1, None)):
+        xw, gw = rnd((8, wd + pad), dtype), rnd((8, wd + pad), dtype)
+        x, dy = xw[:, :wd], gw[:, :wd]
         w = (1 + 0.1 * rnd((wd,), torch.float32)).to(dtype)
+        before = dict(rmsnorm_bwd.routes)
         try:
             got = rmsnorm_bwd(x, w, dy)
         except ValueError:
-            if wd == MAX_BWD_WIDTH:
+            if want is not None:
                 raise
-            print(f"[3 kernels] rmsnorm_bwd at width {wd} raises ValueError",
-                  flush=True)
+            print(f"[3 kernels] rmsnorm_bwd at width {wd} (row stride "
+                  f"{wd + pad}) raises ValueError", flush=True)
         else:
-            if wd > MAX_BWD_WIDTH:
+            if want is None:
                 raise SystemExit(f"chip_smoke: rmsnorm_bwd took width {wd}")
+            route = [r for r, n in rmsnorm_bwd.routes.items()
+                     if n != before[r]]
+            want_route("rmsnorm_bwd", route[0], want)
             for g, r in zip(got, ref.rmsnorm_bwd(x, w, dy)):
                 err = (g.float() - r.float()).abs().max().item()
                 if not err <= (2 ** -7 if dtype == torch.bfloat16 else 1e-5) \
                         * r.float().abs().max().item():
                     raise SystemExit(f"chip_smoke: rmsnorm_bwd width {wd}: "
                                      f"max_abs_err {err:.3g}")
-        del x, dy, w
+            print(f"[3 kernels] rmsnorm_bwd at width {wd} (row stride "
+                  f"{wd + pad}) on {route[0]}, held to the plain version",
+                  flush=True)
+        del xw, gw, x, dy, w
     # flash_attention at the training shape: a step's forward and its
     # rematerialized forward at qwen2.5-3b's heads, and as extra figures
     # zamba2-2.7b's (32/32 of 80) and mixtral-8x7b's (32/8 of 128) under a
@@ -1683,6 +1753,74 @@ def forced_template(kernel):
     return forced_template
 
 
+@contextlib.contextmanager
+def forced_scalar_bwd():
+    """The RMSNorm backward on its scalar kernel (route "scalar"), its route
+    before the vector kernel: ``bwd_plan`` made to name it whatever the
+    shape; every launch inside must take it."""
+    from repro_torch.kernels import rmsnorm as RN
+
+    saved, before = RN.bwd_plan, dict(RN.rmsnorm_bwd.routes)
+    RN.bwd_plan = lambda *args: "scalar"
+    try:
+        yield
+    finally:
+        RN.bwd_plan = saved
+    taken = {r for r, n in RN.rmsnorm_bwd.routes.items() if n != before[r]}
+    if taken != {"scalar"}:
+        raise SystemExit(f"chip_smoke: forced scalar rmsnorm_bwd took "
+                         f"{taken}")
+
+
+def kernels_of_call(torch, fn, calls=10):
+    """The device kernels one call of ``fn`` runs, name (up to its
+    argument list) -> (launches a call, device us a call), from the
+    profiler's CUDA activity over ``calls`` calls, L2 warm (empty if it
+    records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void "):
+            (e.count / calls, round(e.self_device_time_total / calls, 2))
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+# the vector RMSNorm backward's warps a row cap, warps a block and block
+# targets swept in phase 3
+BWD_SWEPT = ((1, 2, 4, 8), (2, 4, 8), (128, 256, 512))
+
+
+def rmsnorm_bwd_sweep(clock, case, fn, dtype, rows, d):
+    """The RMSNorm backward ``fn`` on the vector kernel at each distinct
+    plan (group, warps, rows a block, blocks) that ``bwd_rows`` gives for
+    each ``BWD_GROUP``, ``BWD_WARPS`` and ``BWD_BLOCKS`` of ``BWD_SWEPT``,
+    fastest first, on one line; the planner's own plan is marked."""
+    from repro_torch.kernels import rmsnorm as RN
+
+    saved = (RN.BWD_GROUP, RN.BWD_WARPS, RN.BWD_BLOCKS)
+    mine, cells = RN.bwd_rows(dtype, rows, d), {}
+    try:
+        for RN.BWD_GROUP in BWD_SWEPT[0]:
+            for RN.BWD_WARPS in BWD_SWEPT[1]:
+                for RN.BWD_BLOCKS in BWD_SWEPT[2]:
+                    plan = RN.bwd_rows(dtype, rows, d)
+                    if plan not in cells:
+                        cells[plan] = clock(fn)
+    finally:
+        RN.BWD_GROUP, RN.BWD_WARPS, RN.BWD_BLOCKS = saved
+    print(f"[3 kernels] rmsnorm_bwd sweep, {case} {dtype}: group x warps x "
+          f"rows a block x blocks, ms: " + "; ".join(
+              f"{p}{'*' if p == mine else ''} {t:.4f}"
+              for p, t in sorted(cells.items(), key=lambda c: c[1])),
+          flush=True)
+
+
 # the split decode's block targets swept in phase 3
 SPLIT_TARGETS = (8, 16, 32, 64, 128, 256, 512)
 
@@ -1773,12 +1911,13 @@ def want_route(name, route, want):
                          f"expected {want}")
 
 
-# the kernels whose routes this slice redesigned: each phase-3 row of
-# theirs is also timed on the route it left (``forced_scalar``,
-# ``forced_template``)
+# the kernels whose routes were redesigned: each phase-3 row of theirs is
+# also timed on the route it left (``forced_scalar``, ``forced_template``,
+# ``forced_scalar_bwd``)
 REDESIGNED = ("flash_attention", "flash_decode", "flash_decode_paged",
               "flash_decode_paged_quant", "flash_prefill_chunk",
-              "flash_prefill_chunk_paged_quant")
+              "flash_prefill_chunk_paged", "flash_prefill_chunk_paged_quant",
+              "rmsnorm_bwd")
 # the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
 SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -2394,12 +2533,12 @@ DECODES = ("flash_decode", "flash_decode_paged", "flash_decode_paged_quant")
 # the kernels with several routes (``fn.routes``: launches per route,
 # beside ``fn.launches``), each route's source, and the launches per route
 # summed over every counted run of a main path (phases 4-10)
-# the chunked prefills: bf16 over the slab or an int8 pool on the
-# tensor-core chunk kernel, over a bf16 pool and in f32 on the template
+# the chunked prefills: bf16 on the tensor-core chunk kernel, f32 on the
+# template
 CHUNKS = ("flash_prefill_chunk", "flash_prefill_chunk_paged",
           "flash_prefill_chunk_paged_quant")
 ROUTED = ("gemm", "flash_attention_bwd", "flash_attention") + DECODES \
-    + CHUNKS
+    + CHUNKS + ("rmsnorm_bwd",)
 ROUTE_SOURCES = {
     ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
@@ -2415,6 +2554,8 @@ ROUTE_SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
     ("flash_attention", "scalar"):
         "src/repro_torch/kernels/csrc/flash_attention.cu",
+    ("rmsnorm_bwd", "vec"): "src/repro_torch/kernels/csrc/rmsnorm.cu",
+    ("rmsnorm_bwd", "scalar"): "src/repro_torch/kernels/csrc/rmsnorm.cu",
 }
 ROUTE_SOURCES.update({
     (name, route): f"src/repro_torch/kernels/csrc/{src}"
@@ -2519,12 +2660,11 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
         if rt != want_rt:
             raise SystemExit(f"chip_smoke: {tag} {name} routes {rt}, "
                              f"expected {want_rt}")
-    # every bf16 chunk over the slab or an int8 pool on the tensor-core
-    # chunk kernel, over a bf16 pool on the template
+    # every bf16 chunk (the slab, a bf16 or an int8 pool) on the
+    # tensor-core chunk kernel
     for name in CHUNKS:
         rt, n = dict(fns[name].routes), launches[name]
-        tc = (model.cfg.dtype == "bfloat16"
-              and name != "flash_prefill_chunk_paged")
+        tc = model.cfg.dtype == "bfloat16"
         want_rt = {"tc": n if tc else 0, "template": 0 if tc else n}
         if n:
             print(f"{tag} {name} routes {rt}", flush=True)
@@ -3346,10 +3486,11 @@ def train_loop_phase(torch):
     want, counts, routes = train_per_step(cfg), [], []
     # every gemm of a bf16 step on the tensor-core kernel (M = 512 and the
     # weight gradients' x.T), every attention forward and backward on the
-    # tensor-core kernels
+    # tensor-core kernels, every RMSNorm backward on the vector kernel
     want_routes = {"gemm": want["gemm"],
                    "flash_attention_bwd": want["flash_attention_bwd"],
-                   "flash_attention": want["flash_attention"]}
+                   "flash_attention": want["flash_attention"],
+                   "rmsnorm_bwd": want["rmsnorm_bwd"]}
 
     def counted(st, batch):
         got, rt = {}, {}
@@ -3376,11 +3517,12 @@ def train_loop_phase(torch):
                              f"launches {got}, expected {want}")
         on_tc = {"gemm": rt["gemm"]["tc"] + rt["gemm"]["tc_splitk"],
                  "flash_attention_bwd": rt["flash_attention_bwd"]["tc"],
-                 "flash_attention": rt["flash_attention"]["tc"]}
+                 "flash_attention": rt["flash_attention"]["tc"],
+                 "rmsnorm_bwd": rt["rmsnorm_bwd"]["vec"]}
         if on_tc != want_routes:
             raise SystemExit(f"chip_smoke: train (b): step {rec['step']} "
-                             f"launches on the tensor-core routes {on_tc}, "
-                             f"expected {want_routes}")
+                             f"launches on the tensor-core and vector "
+                             f"routes {on_tc}, expected {want_routes}")
         losses.append(rec["loss"])
         for name in KERNELS:
             total[name] += got[name]

@@ -55,8 +55,13 @@ _SIGNATURES = {
     "repro_gemm_f32": [_P] * 4 + [_I] * 3 + [_L, _I, _L] + [_I] * 6 + [_P],
     # x, w, out, rows, D, ldx, eps, dtype, stream
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _F, _I, _P],
-    # x, w, dy, dx, dw_partial, rows, D, ldx, lddy, eps, dtype, stream
-    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _F, _I, _P],
+    # x, w, dy, dx, dw_partial (f32), dw, rows, D, ldx, lddy, eps, dtype,
+    # stream
+    "repro_rmsnorm_bwd": [_P] * 6 + [_I, _I, _L, _L, _F, _I, _P],
+    # as repro_rmsnorm_bwd, with group, warps and rows_per_block before
+    # dtype
+    "repro_rmsnorm_bwd_vec": [_P] * 6 + [_I, _I, _L, _L, _F] + [_I] * 4
+                             + [_P],
     # m, v, out, M, N, ldm, dtype, stream
     "repro_bias_add_rows": [_P, _P, _P, _I, _I, _L, _I, _P],
     # x, out, n, slope, dtype, stream
@@ -218,6 +223,15 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIB = handle
     return _LIB
+
+
+def aligned16(*tensors: torch.Tensor, elems: int = 8) -> bool:
+    """16-byte aligned bases and the strides of all but the last dim
+    multiples of ``elems`` elements (16 bytes at 8 bf16, 4 f32, 16 int8):
+    what the kernels' 16-byte copies follow."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st % elems == 0 for st in t.stride()[:-1])
+               for t in tensors)
 
 
 def check(rc: int, what: str) -> None:

@@ -1,28 +1,32 @@
 // Chunked-prefill attention on Hopper's tensor cores: C query tokens per
-// row, q (B, C, Hq, D) bf16, against K/V read from one of two stores,
+// row, q (B, C, Hq, D) bf16, against K/V read from one of three stores,
 // output (B, C, Hq, D) bf16:
 //
 // * the bf16 (B, Smax, Hkv, D) contiguous slab, no table;
-// * an int8 (P, page, Hkv, D) pool through a (B, max_blocks) int32 block
-//   table, with f32 (P, Hkv) per-(page, head) scales.
+// * a bf16 (P, page, Hkv, D) pool through a (B, max_blocks) int32 block
+//   table;
+// * an int8 (P, page, Hkv, D) pool through the table, with f32 (P, Hkv)
+//   per-(page, head) scales.
 //
-// (A bf16 pool through the table is one more instance of the same
-// template, Store<bf16> with kPaged; it still runs on the template.)
+// The three are instances of one template: the storage (Store<bf16>,
+// Store<int8_t>) and the addressing (kPaged) are template parameters.
 //
 // Replaces src/repro/kernels/flash_attention.py's flash_prefill_chunk_pallas
-// (:809; kernel _flash_prefill_chunk_kernel :777) and
+// (:809; kernel _flash_prefill_chunk_kernel :777),
+// flash_prefill_chunk_paged_pallas (:909; kernel
+// _flash_prefill_chunk_paged_kernel :877) and
 // flash_prefill_chunk_paged_quant_pallas (:1019; kernel
 // _flash_prefill_chunk_paged_quant_kernel :984) for bf16 queries at head
 // dims that are multiples of 16 up to 128 with q and K/V strides and bases
 // the 16-byte copies can follow; f32 queries (phase 5's token identity and
-// JAX's f32 parity rest on the template's order), the bf16 pool and every
-// other shape keep flash_attention.cu's template.  Semantics as there
-// (_prefill_chunk_accum :754, _prefill_chunk_mask :744): chunk token i of
-// row b sits at qpos = start[b] + min(i, width[b] - 1), so padding tokens
-// alias the last real one and stay finite; key s is valid when s <= qpos,
-// and, under a window, s > qpos - window; keys in unmapped (-1) pages or
-// past the slab are masked; a row with no valid key returns zeros; the
-// softmax and its sums stay f32.
+// JAX's f32 parity rest on the template's order), over a bf16 pool too,
+// and every other shape keep flash_attention.cu's template.  Semantics as
+// there (_prefill_chunk_accum :754, _prefill_chunk_mask :744): chunk token
+// i of row b sits at qpos = start[b] + min(i, width[b] - 1), so padding
+// tokens alias the last real one and stay finite; key s is valid when
+// s <= qpos, and, under a window, s > qpos - window; keys in unmapped (-1)
+// pages or past the slab or the table are masked; a row with no valid key
+// returns zeros; the softmax and its sums stay f32.
 //
 // What bounds it on the H100: bytes, far below a launch.  At qwen2.5-3b's
 // prefill shape (B 4, C 16, 16/2 heads of 128, rows of 17-96 keys in
@@ -45,13 +49,15 @@
 //   2 and 4, 0.0172 at 8, the whole group) and a cap of 4 is as fast as
 //   any at mixtral's G 4 int8 (0.0198 ms), where 1 or 2 warps a block
 //   need more blocks than a split target of 128 allows: 4 keeps both.
-// * keys in tiles of 32 (two 16-key pages), the block walking only the
+// * keys in tiles of 32 (two 16-key pages, or eight of 4: a tile may span
+//   several pages, each key resolving its own), the block walking only the
 //   tiles between its lowest row's window start and its highest row's
 //   qpos, in rounds double-buffered by 16-byte cp.async into swizzled
 //   shared tiles (common.cuh swz), read by ldmatrix (.trans for V).  A
 //   pool's keys resolve their pages from the table inside the block (each
 //   copying thread reads its key's entry; lane j of warp 0 also records
-//   key j's validity and, int8, its page's two scales); the slab's key s
+//   key j's validity -- mapped and below max_blocks * page -- and, int8,
+//   its page's two scales, which stay 1 for bf16); the slab's key s
 //   of row b sits at b * k_sb + s * k_ss + h * k_sh.  The storage is a
 //   template parameter (Store<T>), the addressing another (kPaged), as in
 //   flash_decode_split.cu.
@@ -504,15 +510,16 @@ int launch(const Args& a, int B, int Hkv, cudaStream_t s) {
 // The caller (kernels/flash_attention.py) vouches for bf16 q and out with
 // unit stride on D, q's base 16-byte aligned and its strides multiples of
 // 8, K/V of the storage kv_dtype whose base and row (or page), slot and
-// head strides are multiples of 16 bytes, D a multiple of 16 up to 128,
-// int32 (B,) start and width, and, when n_split > 1, f32 scratch part_m,
-// part_l (B, C, Hq, n_split) and part_acc (B, C, Hq, n_split, D),
-// contiguous.  A pool comes with its (B, max_blocks) table (unit column
-// stride) and n_keys = max_blocks * page; an int8 pool also with f32
-// scale pools of one layout.  The slab comes with no table and n_keys =
-// Smax.  warps: 16-row items a block (1..8); the splits cover the
-// ceil(n_keys / 32) tiles.  Instances: bf16 slab, int8 pool; any other
-// combination is refused.
+// head strides are multiples of 16 bytes (8 bf16, 16 int8 elements), D a
+// multiple of 16 up to 128, int32 (B,) start and width, and, when
+// n_split > 1, f32 scratch part_m, part_l (B, C, Hq, n_split) and
+// part_acc (B, C, Hq, n_split, D), contiguous.  A pool comes with its
+// (B, max_blocks) table (unit column stride) and n_keys = max_blocks *
+// page; an int8 pool also with f32 scale pools of one layout, a bf16 pool
+// with none.  The slab comes with no table and n_keys = Smax.  warps:
+// 16-row items a block (1..8); the splits cover the ceil(n_keys / 32)
+// tiles.  Instances: the bf16 slab, the bf16 pool, the int8 pool; any
+// other combination is refused.
 extern "C" int repro_flash_chunk_tc(
     const void* q, const void* k, const void* v, const void* ksc,
     const void* vsc, const void* start, const void* width, const void* bt,
@@ -547,6 +554,8 @@ extern "C" int repro_flash_chunk_tc(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == kInt8 && paged && scaled)
     return launch<int8_t, true>(a, B, Hkv, s);
+  if (kv_dtype == kBF16 && paged && !scaled)
+    return launch<bf16, true>(a, B, Hkv, s);
   if (kv_dtype == kBF16 && !paged && !scaled)
     return launch<bf16, false>(a, B, Hkv, s);
   return (int)cudaErrorInvalidValue;

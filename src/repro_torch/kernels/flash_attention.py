@@ -36,7 +36,7 @@ any other bf16 shape, the scalar kernels of ``csrc/flash_attention_bwd.cu``
 (IEEE f32, the GQA group summed inside the block).  ``dq_key_tiles`` and
 ``dkv_query_tiles`` are the tile walks of the tensor-core kernels.
 
-Six kernels also have redesigned routes beside the template, each picked
+Seven kernels also have redesigned routes beside the template, each picked
 by a pure-Python planner from dtype, head dim and alignment (never by
 trying a kernel).  The forward: ``fwd_plan`` sends bf16 at head dims that
 are multiples of 16 up to 128 to ``csrc/flash_attention_tc.cu`` (64 query
@@ -51,17 +51,19 @@ the keys split into ``decode_splits`` runs of block-table entries (or of
 block per (row, kv head, split) writing an f32 partial (m, l, acc), and a
 second kernel merging the partials in split order; f32 queries (phase
 5's token identity and JAX's f32 parity rest on the template's order),
-the bf16 pool under them included, keep the template.  Two of the three
-chunked prefills (the contiguous slab, the int8 pool): ``chunk_plan``
-sends bf16 queries at those head dims and alignments to
-``csrc/flash_chunk_tc.cu``: a warp a q head's 16 chunk tokens on
-mma.sync, ``chunk_rows`` such items of one (row, kv head) a block
-sharing its 32-key K/V tiles, an int8 tile widened to bf16 exactly with
-the page scales on S's and P's columns in f32, P rounded to bf16 before
-PV, and the key tiles split into ``chunk_splits`` runs (shapes only)
-merged in split order as the decodes' partials are; f32 queries and the
-bf16 pool (next on the same kernel) keep the template.  Each routed
-wrapper counts its launches per route in ``routes`` beside ``launches``.
+the bf16 pool under them included, keep the template.  The three chunked
+prefills (the contiguous slab, the bf16 pool, the int8 pool):
+``chunk_plan`` sends bf16 queries at those head dims and alignments to
+``csrc/flash_chunk_tc.cu``, templated over storage and addressing as the
+split decode is: a warp a q head's 16 chunk tokens on mma.sync,
+``chunk_rows`` such items of one (row, kv head) a block sharing its
+32-key K/V tiles (a pool's keys resolving their pages one by one), an
+int8 tile widened to bf16 exactly with the page scales on S's and P's
+columns in f32, P rounded to bf16 before PV, and the key tiles split
+into ``chunk_splits`` runs (shapes only) merged in split order as the
+decodes' partials are; f32 queries, over a bf16 pool too, keep the
+template.  Each routed wrapper counts its launches per route in
+``routes`` beside ``launches``.
 """
 from __future__ import annotations
 
@@ -159,12 +161,13 @@ def chunk_plan(dtype: torch.dtype, kv_dtype: torch.dtype, d: int,
                aligned: bool, paged: bool) -> str:
     """The chunked prefills' route: "tc" (``csrc/flash_chunk_tc.cu``) for
     bf16 queries at a head dim that is a multiple of 16 up to 128 over the
-    bf16 slab or an int8 pool whose bases and strides the 16-byte copies
-    can follow (``aligned``: q's and the K/V's, as ``decode_plan``);
-    "template" for f32 queries (their token identity rests on the
-    template's summation order), the bf16 pool under any queries, and
+    bf16 slab, or a bf16 or int8 pool, whose bases and strides the 16-byte
+    copies can follow (``aligned``: q's and the K/V's, as
+    ``decode_plan``); "template" for f32 queries (their token identity
+    rests on the template's summation order), over a bf16 pool too, and
     every other shape."""
-    store = kv_dtype == (torch.int8 if paged else torch.bfloat16)
+    store = kv_dtype in ((torch.bfloat16, torch.int8) if paged
+                         else (torch.bfloat16,))
     return "tc" if store and _tc_shape(dtype, d, aligned) else "template"
 
 
@@ -191,15 +194,6 @@ def chunk_splits(b: int, hkv: int, row_blocks: int,
     want = max(1, -(-CHUNK_BLOCKS // max(b * hkv * row_blocks, 1)))
     tps = max(1, -(-n_tiles // want))
     return max(1, -(-n_tiles // tps)), tps
-
-
-def _aligned(*tensors: torch.Tensor, elems: int = 8) -> bool:
-    """16-byte aligned bases and the strides of all but the last dim
-    multiples of ``elems`` elements (16 bytes at 8 bf16, 16 int8): what
-    the tensor-core and split kernels' 16-byte copies follow."""
-    return all(t.data_ptr() % 16 == 0
-               and all(st % elems == 0 for st in t.stride()[:-1])
-               for t in tensors)
 
 
 def dq_key_tiles(q0: int, sq: int, sk: int, causal: bool,
@@ -339,8 +333,8 @@ def _decode(name, q, k, v, cache_len, block_table, window, scale,
 def _decode_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``decode_plan``'s route for q against these K/V (16-byte copies:
     strides of ``16 // element size`` elements)."""
-    return decode_plan(q.dtype, k.dtype, q.shape[-1],
-                       _aligned(k, v, elems=16 // k.element_size()))
+    return decode_plan(q.dtype, k.dtype, q.shape[-1], _build.aligned16(
+        k, v, elems=16 // k.element_size()))
 
 
 def _decode_split(name, q, k, v, cache_len, block_table, window, scale,
@@ -433,19 +427,19 @@ def _chunk_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  paged: bool) -> str:
     """``chunk_plan``'s route for q against these K/V (16-byte copies of
     q and of the K/V: strides of ``16 // element size`` elements)."""
-    return chunk_plan(q.dtype, k.dtype, q.shape[-1],
-                      _aligned(q, elems=16 // q.element_size())
-                      and _aligned(k, v, elems=16 // k.element_size()),
-                      paged)
+    aligned = (_build.aligned16(q, elems=16 // q.element_size())
+               and _build.aligned16(k, v, elems=16 // k.element_size()))
+    return chunk_plan(q.dtype, k.dtype, q.shape[-1], aligned, paged)
 
 
 def _chunk_tc(name, q, k, v, start, width, block_table, window, scale,
               scales=None):
     """Check and launch ``repro_flash_chunk_tc``: q (B, C, Hq, D) bf16
     against the (B, Smax, Hkv, D) slab or, through the block table, the
-    (P, page, Hkv, D) int8 pool with its (P, Hkv) ``scales``; the rows of
-    ``chunk_rows``, the splits of ``chunk_splits``, and their f32 partials
-    in scratch when there are several."""
+    (P, page, Hkv, D) bf16 pool or int8 pool with its (P, Hkv)
+    ``scales``; the rows of ``chunk_rows``, the splits of
+    ``chunk_splits``, and their f32 partials in scratch when there are
+    several."""
     _build.guard_grad(name, q, k, v)
     if q.dim() != 4:
         raise ValueError(f"{name}: q {tuple(q.shape)} is not (B, C, Hq, D)")
@@ -585,9 +579,8 @@ def flash_prefill_chunk_paged(q: torch.Tensor, k_pages: torch.Tensor,
                               scale: Optional[float] = None) -> torch.Tensor:
     """q (B,C,Hq,D) against a (P,page,Hkv,D) pool through the block table;
     every block covering ``start .. start+width-1`` must be mapped; on
-    the kernel ``chunk_plan`` picks (the template: a bf16 pool is not
-    routed to the tensor-core kernel yet).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    the kernel ``chunk_plan`` picks.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
     if not q.is_cuda:
         return ref.attention_prefill_chunk_paged(
             q, k_pages, v_pages, start, width, block_table, window=window,
@@ -641,7 +634,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out, lse
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    route = fwd_plan(q.dtype, d, _aligned(q, k, v))
+    route = fwd_plan(q.dtype, d, _build.aligned16(q, k, v))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, hkv, hq // hkv, sq, sk, d,
             q.stride(0), q.stride(1), q.stride(2),
@@ -706,7 +699,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq.zero_(), dk.zero_(), dv.zero_()
     dd = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    route = bwd_plan(q.dtype, d, _aligned(q, k, v, out, do))
+    route = bwd_plan(q.dtype, d, _build.aligned16(q, k, v, out, do))
     args = (b, hkv, hq // hkv, sq, sk, d,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),

@@ -4,10 +4,29 @@ Replaces ``repro/kernels/rmsnorm.py:rmsnorm_pallas`` and
 ``rmsnorm_bwd_pallas``.  The forward kernel (``csrc/rmsnorm.cu``) takes
 one block per row: f32 sum of squares by warp shuffles, ``x * rsqrt(mean
 + eps)`` cast to the storage dtype, then the weight multiply — the order of
-``rmsnorm.py:25``.  The backward takes 4 rows per block and writes dx and
-one f32 dw partial per block, summed here with ``.sum(0)`` as JAX sums its
-partials outside the kernel (``rmsnorm.py:108``).  Both bound by bytes:
-one read and one write of each row.
+``rmsnorm.py:25``.  Both bound by bytes: one read and one write of each
+row.
+
+The backward has two routes, picked by ``bwd_plan`` from dtype, width and
+alignment (never by trying a kernel) and counted in
+``rmsnorm_bwd.routes`` beside ``launches``:
+
+* "vec": rows whose width and strides are multiples of 16 bytes, up to
+  ``MAX_BWD_WIDTH``.  A group of warps owns a row (``bwd_rows``: the
+  fewest warps whose registers hold it, at most ``BWD_GROUP``), loads x,
+  dy and w once in 16-byte vectors, keeps them in registers through both
+  row sums and the dx write, and adds dy * xhat into its own f32 row of
+  shared memory; a block (``BWD_WARPS`` warps, its rows contiguous) then
+  writes its groups' rows summed in group order as one f32 partial.
+* "scalar": the first port's kernel, a block of 4 rows walked one after
+  another, for every other width and alignment up to
+  ``SCALAR_MAX_WIDTH``.
+
+Both end in the same hand-written second kernel, which sums the f32
+partials in a fixed order (``SUM_SLICES`` slices of rows in row order,
+then the slices in order) and writes dw in w's dtype: two launches a
+call, no torch reduction, the same bits on every call (JAX sums its
+partials outside the kernel, ``rmsnorm.py:108``).
 """
 from __future__ import annotations
 
@@ -20,10 +39,29 @@ from repro_torch.kernels._build import DTYPES
 from repro_torch.kernels.ref import rmsnorm as rmsnorm_ref
 from repro_torch.kernels.ref import rmsnorm_bwd as rmsnorm_bwd_ref
 
-BWD_ROWS = 4               # rows per block of the backward (csrc: kBwdRows)
-# its f32 dw row and the 8-float reduction scratch share 48 KB of smem:
+BWD_ROUTES = ("vec", "scalar")
+# the "vec" kernel (csrc/rmsnorm.cu): 16-byte vectors of each of x, dy and
+# w a lane holds (kVecs), the warps a block (at most 8: kMaxBwdWarps) and
+# a row (1, 2, 4 or 8: BWD_GROUP caps it), and the blocks its row
+# partition aims for.  Swept on the H100 (chip_smoke.py phase 3,
+# "rmsnorm_bwd sweep"): 8 warps a block and a target of 256 blocks put
+# the planner's plan first at 512 rows of 2048 and of 5120.
+BWD_VECS = 4
+BWD_WARPS = 8
+BWD_GROUP = 8
+BWD_BLOCKS = 256
+# shared memory the "vec" block may take for its groups' f32 dw rows
+# (kMaxBwdSmem: 227 KB less 1 KB), so one group's row bounds the width (a
+# multiple of 32 vectors of either dtype: no padding at the limit)
+BWD_SMEM = 227 * 1024 - 1024
+MAX_BWD_WIDTH = BWD_SMEM // 4
+# the "scalar" kernel: rows a block (kBwdRows), and the widest row its f32
+# dw row and 8-float reduction scratch fit in 48 KB of shared memory:
 # (48 * 1024 - 8 * 4) / 4
-MAX_BWD_WIDTH = 12280
+SCALAR_ROWS = 4
+SCALAR_MAX_WIDTH = 12280
+# warps of the dw sum's block (kSumSlices): each adds a slice of the rows
+SUM_SLICES = 8
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
@@ -54,11 +92,55 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     return out.reshape(x.shape)
 
 
+def _elems(dtype: torch.dtype) -> int:
+    """Elements of ``dtype`` in 16 bytes."""
+    return 16 // torch.tensor([], dtype=dtype).element_size()
+
+
+def bwd_plan(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The backward's route: "vec" for rows of ``d`` that are whole
+    16-byte vectors (``d`` a multiple of 8 bf16 or 4 f32, at most
+    ``MAX_BWD_WIDTH``) with ``aligned`` operands (16-byte aligned bases,
+    row strides multiples of 16 bytes); "scalar" for every other row."""
+    return ("vec" if aligned and d % _elems(dtype) == 0
+            and d <= MAX_BWD_WIDTH else "scalar")
+
+
+def bwd_rows(dtype: torch.dtype, rows: int,
+             d: int) -> Tuple[int, int, int, int]:
+    """(group, warps, rows a block, blocks) of the "vec" kernel for
+    ``rows`` rows of ``d``: ``group`` warps a row, the fewest (a power of
+    two up to ``BWD_GROUP``) whose ``BWD_VECS`` vectors a lane hold the
+    row, wider rows walked in chunks; ``warps // group`` groups a block,
+    ``BWD_WARPS`` warps (at least one group) as far as their f32 dw rows
+    (``dw_row``) fit ``BWD_SMEM``; each block ``rows_per_block``
+    contiguous rows, at least one a group, so the blocks come near
+    ``BWD_BLOCKS``.  Block
+    ``i`` owns rows ``[i * rpb, min((i + 1) * rpb, rows))``; its group
+    ``k`` walks rows ``i * rpb + k``, ``+ groups``, ..."""
+    per_warp = 32 * BWD_VECS * _elems(dtype)
+    group = 1
+    while group < BWD_GROUP and group * per_warp < d:
+        group *= 2
+    fit = BWD_SMEM // (4 * dw_row(dtype, d))
+    groups = max(1, min(BWD_WARPS // group, fit))
+    rpb = max(groups, -(-rows // BWD_BLOCKS))
+    return group, groups * group, rpb, -(-rows // rpb)
+
+
+def dw_row(dtype: torch.dtype, d: int) -> int:
+    """Floats of a lane-major f32 dw row of ``d`` columns in the "vec"
+    kernel (``csrc/rmsnorm.cu:padded_row``): whole runs of 32 16-byte
+    vectors."""
+    run = 32 * _elems(dtype)
+    return -(-d // run) * run
+
+
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                 eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx in ``x.dtype``, dw in ``w.dtype``) of RMSNorm over the last
-    axis.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    axis, on the route ``bwd_plan`` picks.  CPU tensors take the plain
+    version; CUDA tensors launch the kernels or raise."""
     if not x.is_cuda:
         return rmsnorm_bwd_ref(x, w, dy, eps)
     _build.guard_grad("rmsnorm_bwd", x, w, dy)
@@ -70,26 +152,47 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
             or w.device != x.device or dy.device != x.device):
         raise ValueError(f"rmsnorm_bwd: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, dy {tuple(dy.shape)}")
-    if d > MAX_BWD_WIDTH:
-        raise ValueError(f"rmsnorm_bwd: width {d} > {MAX_BWD_WIDTH}")
     x2, dy2 = x.reshape(-1, d), dy.reshape(-1, d)
+    e = _elems(x.dtype)
+    route = bwd_plan(x.dtype, d, _build.aligned16(x2, dy2, w, elems=e))
+    limit = MAX_BWD_WIDTH if route == "vec" else SCALAR_MAX_WIDTH
+    if d > limit:
+        raise ValueError(f"rmsnorm_bwd: width {d} > {limit}"
+                         + ("" if route == "vec" else
+                            f" (rows that are not whole 16-byte vectors, or "
+                            f"unaligned; aligned rows of a multiple of {e} "
+                            f"take up to {MAX_BWD_WIDTH})"))
     if x2.stride(1) != 1 or dy2.stride(1) != 1:
         raise ValueError("rmsnorm_bwd: rows need unit stride")
     rows = x2.shape[0]
     dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     if dx.numel() == 0:
         return dx.reshape(x.shape), torch.zeros_like(w)
-    dwp = torch.empty((-(-rows // BWD_ROWS), d), dtype=torch.float32,
-                      device=x.device)
-    rc = _build.lib().repro_rmsnorm_bwd(
-        x2.data_ptr(), w.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
-        dwp.data_ptr(), rows, d, x2.stride(0), dy2.stride(0), float(eps),
-        DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    dw = torch.empty_like(w)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "vec":
+        group, warps, rpb, nb = bwd_rows(x.dtype, rows, d)
+        dwp = torch.empty((nb, dw_row(x.dtype, d)), dtype=torch.float32,
+                          device=x.device)
+        rc = _build.lib().repro_rmsnorm_bwd_vec(
+            x2.data_ptr(), w.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
+            dwp.data_ptr(), dw.data_ptr(), rows, d, x2.stride(0),
+            dy2.stride(0), float(eps), group, warps, rpb, DTYPES[x.dtype],
+            stream)
+    else:
+        dwp = torch.empty((-(-rows // SCALAR_ROWS), d), dtype=torch.float32,
+                          device=x.device)
+        rc = _build.lib().repro_rmsnorm_bwd(
+            x2.data_ptr(), w.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
+            dwp.data_ptr(), dw.data_ptr(), rows, d, x2.stride(0),
+            dy2.stride(0), float(eps), DTYPES[x.dtype], stream)
     _build.check(rc, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1
-    return dx.reshape(x.shape), dwp.sum(dim=0).to(w.dtype)
+    rmsnorm_bwd.routes[route] += 1
+    return dx.reshape(x.shape), dw
 
 
 rmsnorm.launches = 0
 rmsnorm_bwd.launches = 0
+# launches per route, beside the total
+rmsnorm_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)

@@ -40,11 +40,11 @@ from repro.kernels.flash_attention import (  # noqa: E402
     flash_decode_paged_pallas,
     flash_decode_paged_quant_pallas,
 )
+from repro_torch.kernels._build import aligned16 as _aligned  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BWD_TILE,
     DECODE_BLOCKS,
     SPLIT_TILE,
-    _aligned,
     _decode_route,
     decode_plan,
     decode_splits,

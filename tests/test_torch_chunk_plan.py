@@ -3,9 +3,10 @@ the tensor-core chunk kernel computes, against the JAX package.
 
 ``kernels/flash_attention.py`` picks the route in pure Python, and the
 card's kernels follow it: ``chunk_plan`` (bf16 queries at head dims that
-are multiples of 16 up to 128 over the bf16 slab or an int8 pool the
-16-byte copies can follow -> ``csrc/flash_chunk_tc.cu``; f32 queries, the
-bf16 pool and every other shape -> the template), ``chunk_rows`` (the
+are multiples of 16 up to 128 over the bf16 slab, a bf16 pool or an int8
+pool the 16-byte copies can follow -> ``csrc/flash_chunk_tc.cu``; f32
+queries, over a bf16 pool too, and every other shape -> the template),
+``chunk_rows`` (the
 16-row items a block folds) and ``chunk_splits`` (runs of 32-key tiles,
 from shapes only).  Held here: the routes; rows and splits that cover
 every item and every key tile once and in order; the C signature of every
@@ -13,8 +14,9 @@ launcher against its ctypes one; and an emulation in plain PyTorch of the
 kernel's arithmetic (the block's tile walk, the splits and their ordered
 combine, int8 widened exactly with the key scales on S's columns and the
 value scales on P's columns in f32, P rounded to bf16 before PV) against
-``flash_prefill_chunk_pallas`` and ``flash_prefill_chunk_paged_quant_pallas``
-in interpret mode on the same numpy inputs, within one bf16 ulp of the
+``flash_prefill_chunk_pallas``, ``flash_prefill_chunk_paged_pallas`` and
+``flash_prefill_chunk_paged_quant_pallas`` in interpret mode on the same
+numpy inputs, within one bf16 ulp of the
 largest output: the forward's emulation tolerance, since P rounded to
 bf16 moves each term by at most half an ulp and the rest is f32 order.
 """
@@ -31,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import clear_tuning  # noqa: E402
 from repro.kernels.flash_attention import (  # noqa: E402
     flash_prefill_chunk_pallas,
+    flash_prefill_chunk_paged_pallas,
     flash_prefill_chunk_paged_quant_pallas,
 )
 from repro_torch.kernels import _build  # noqa: E402
@@ -48,13 +51,15 @@ BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
 NEG = -1e30
 
 
-# (query dtype, K/V dtype, D, aligned, paged, route): the slab in bf16 and
-# the int8 pool on tc; the bf16 pool, f32 queries and every shape off the
-# rule on the template
+# (query dtype, K/V dtype, D, aligned, paged, route): the slab, the bf16
+# pool and the int8 pool in bf16 on tc; f32 queries (over a bf16 pool
+# too), int8 without a table and every shape off the rule on the template
 @pytest.mark.parametrize("dtype,kv,d,aligned,paged,route", [
     (BF16, BF16, 128, True, False, "tc"), (BF16, BF16, 80, True, False, "tc"),
     (BF16, I8, 128, True, True, "tc"), (BF16, I8, 64, True, True, "tc"),
-    (BF16, BF16, 128, True, True, "template"),
+    (BF16, BF16, 128, True, True, "tc"), (BF16, BF16, 80, True, True, "tc"),
+    (BF16, BF16, 128, False, True, "template"),
+    (BF16, BF16, 72, True, True, "template"),
     (BF16, I8, 128, True, False, "template"),
     (F32, F32, 128, True, False, "template"),
     (F32, I8, 128, True, True, "template"),
@@ -68,14 +73,17 @@ def test_chunk_plan(dtype, kv, d, aligned, paged, route):
 
 
 def test_chunk_route_of_slabs_and_pools():
-    """What the wrappers hand the planner: q and a bf16 slab need strides
-    of 8 elements, an int8 pool of 16."""
+    """What the wrappers hand the planner: q and a bf16 slab or pool need
+    strides of 8 elements, an int8 pool of 16."""
     q = torch.zeros((4, 16, 16, 80), dtype=BF16)
     slab = torch.zeros((4, 128, 2, 80), dtype=BF16)
     pool = torch.zeros((9, 16, 2, 80), dtype=I8)
     assert _chunk_route(q, slab, slab, False) == "tc"
     assert _chunk_route(q, pool, pool, True) == "tc"
-    assert _chunk_route(q, slab, slab, True) == "template"   # bf16 pool
+    assert _chunk_route(q, slab, slab, True) == "tc"   # a bf16 pool
+    odd_pool = torch.zeros((9, 16, 2, 84), dtype=BF16)[..., :80]
+    assert _chunk_route(q, odd_pool, odd_pool, True) == "template"
+    assert _chunk_route(q.float(), slab, slab, True) == "template"
     odd = torch.zeros((4, 16, 16, 84), dtype=BF16)[..., :80]
     assert _chunk_route(odd, slab, slab, False) == "template"   # q's 84
     assert _chunk_route(q.float(), pool, pool, True) == "template"
@@ -309,18 +317,12 @@ POOL_CASES = [(4, 2, 64, 4, 12, None, None), (2, 2, 80, 16, 4, 9, None),
               (8, 2, 64, 4, 16, 6, (4, (2, 1)))]
 
 
-@pytest.mark.parametrize("hq,hkv,d,page,max_blocks,window,forced",
-                         POOL_CASES)
-def test_chunk_emulation_of_the_int8_pool_matches_jax(hq, hkv, d, page,
-                                                      max_blocks, window,
-                                                      forced):
-    clear_tuning()
-    b, c = 4, 16
+def _pool_rows(rng, b, c, page, max_blocks):
+    """(start, width, block table, pages) of ``b`` rows over a shuffled
+    pool: a chunk crossing a page, a width-1 row, a partial chunk at the
+    table's end whose row has its first page unmapped (released), and a
+    row whose pages are all unmapped (zeros)."""
     n_keys = max_blocks * page
-    rng = np.random.default_rng(hq * 5 + d + page + max_blocks)
-    # a chunk crossing a page, a width-1 row, a partial chunk at the
-    # table's end whose row has its first page unmapped (released), and a
-    # row whose pages are all unmapped (zeros)
     start = np.array([page - 3, 2 * page + 1, n_keys - c, 0], np.int32)
     width = np.array([c, 1, c // 2 + 3, 5], np.int32)
     n_pages = b * max_blocks
@@ -330,6 +332,19 @@ def test_chunk_emulation_of_the_int8_pool_matches_jax(hq, hkv, d, page,
         nb = -(-int(start[i] + width[i]) // page)
         bt[i, :nb] = ids[i * max_blocks: i * max_blocks + nb]
     bt[2, 0] = -1
+    return start, width, bt, n_pages
+
+
+@pytest.mark.parametrize("hq,hkv,d,page,max_blocks,window,forced",
+                         POOL_CASES)
+def test_chunk_emulation_of_the_int8_pool_matches_jax(hq, hkv, d, page,
+                                                      max_blocks, window,
+                                                      forced):
+    clear_tuning()
+    b, c = 4, 16
+    n_keys = max_blocks * page
+    rng = np.random.default_rng(hq * 5 + d + page + max_blocks)
+    start, width, bt, n_pages = _pool_rows(rng, b, c, page, max_blocks)
     kq, vq = (rng.integers(-127, 128, (n_pages, page, hkv, d)).astype(np.int8)
               for _ in range(2))
     ksc, vsc = (rng.uniform(0.01, 0.1, (n_pages, hkv)).astype(np.float32)
@@ -342,6 +357,32 @@ def test_chunk_emulation_of_the_int8_pool_matches_jax(hq, hkv, d, page,
         scales=(torch.from_numpy(ksc), torch.from_numpy(vsc)))
     want = np.asarray(flash_prefill_chunk_paged_quant_pallas(
         *(jnp.asarray(x) for x in (q, kq, vq, ksc, vsc, start, width, bt)),
+        window=window, interpret=True))
+    assert not got[-1].any() and not want[-1].any()   # all unmapped: zeros
+    _assert_within_one_ulp(got, want)
+
+
+@pytest.mark.parametrize("hq,hkv,d,page,max_blocks,window,forced",
+                         POOL_CASES)
+def test_chunk_emulation_of_the_bf16_pool_matches_jax(hq, hkv, d, page,
+                                                      max_blocks, window,
+                                                      forced):
+    """The kernel's bf16-pool instance: the same walk with no scales (the
+    key and value scales 1), pages of 4 and 8 spanning one 32-key tile,
+    against ``flash_prefill_chunk_paged_pallas``."""
+    clear_tuning()
+    b, c = 4, 16
+    n_keys = max_blocks * page
+    rng = np.random.default_rng(hq * 3 + d + page + max_blocks)
+    start, width, bt, n_pages = _pool_rows(rng, b, c, page, max_blocks)
+    kp, vp = (_bf16_valued(rng, (n_pages, page, hkv, d)) for _ in range(2))
+    q = _bf16_valued(rng, (b, c, hq, d))
+    warps, n_split, tps = _plan(b, hkv, hq // hkv, c, n_keys, forced)
+    got = _chunk_tc_emulation(
+        *(torch.from_numpy(x) for x in (q, kp, vp, start, width, bt)),
+        window, 1.0 / math.sqrt(d), warps, n_split, tps)
+    want = np.asarray(flash_prefill_chunk_paged_pallas(
+        *(jnp.asarray(x) for x in (q, kp, vp, start, width, bt)),
         window=window, interpret=True))
     assert not got[-1].any() and not want[-1].any()   # all unmapped: zeros
     _assert_within_one_ulp(got, want)
