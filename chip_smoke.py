@@ -53,17 +53,30 @@ failure (non-zero exit, no result line):
               widest row of each of its routes and raise on the next.
               The gemm, the attention backward, the attention forward,
               the three decodes (contiguous slab, bf16 pool, int8 pool),
-              the three chunked prefills and rmsnorm_bwd have routes
+              the three chunked prefills, rmsnorm_bwd, conv2d_direct and
+              relu_bwd have routes
               (``kernels/gemm.py:plan``,
               ``kernels/flash_attention.py:bwd_plan``, ``fwd_plan``,
               ``decode_plan``, ``chunk_plan``,
-              ``kernels/rmsnorm.py:bwd_plan``): each row prints the route
-              its wrapper took, every bf16 training shape must take the
-              tensor-core kernels, the bf16 forward the tensor-core
+              ``kernels/rmsnorm.py:bwd_plan``,
+              ``kernels/conv_direct.py:plan``,
+              ``kernels/eltwise.py:relu_bwd_plan``): each row prints the
+              route its wrapper took, every bf16 training shape must take
+              the tensor-core kernels, the bf16 forward the tensor-core
               kernel, every bf16 decode the split kernel, every bf16
               chunk the tensor-core chunk kernel (f32 all on the
-              template, the bf16 pool under f32 queries too) and the
-              training step's rmsnorm_bwd the vector kernel.  The
+              template, the bf16 pool under f32 queries too), the
+              training step's rmsnorm_bwd the vector kernel, every 3 x 3
+              and 5 x 5 stride-1 convolution the register-tiled kernel
+              ("reg"; JAX's 2 x 2 and strided cases "scalar") and every
+              relu_bwd whose x and dy share a layout the vector kernel
+              ("vec"; a column-major x with a row-major dy "strided").
+              conv2d_direct's rows are also timed on the scalar kernel
+              (``forced_scalar_conv``) and swept over ``tiles``' caps at
+              the LeNet shapes (``grep "conv sweep"``), relu_bwd's on the
+              strided kernel (``forced_strided``) and swept over
+              ``relu_bwd_grid``'s block caps (``grep "relu_bwd
+              sweep"``).  The
               forward (at the --check shape and at the training shape,
               B 2 x S 256, with qwen2.5-3b's, zamba2's and, windowed,
               mixtral's heads), the three decodes and the three chunks
@@ -172,7 +185,10 @@ failure (non-zero exit, no result line):
               the states held against the reference lowering's, and one
               step in each crossing mode held against the fused one; (c)
               ``Solver.solve`` on LeNet-MNIST for 300 iterations: the loss
-              halves and the test accuracy passes 0.8; (d) the paper's
+              halves and the test accuracy passes 0.8; in (b) every
+              relu_bwd takes "vec" in the fused and ``transfer`` steps and
+              "strided" in ``transfer+transpose`` (a column-major x, a
+              row-major dy: ``caffe_relu_bwd_routes``); (d) the paper's
               Table 2, forward + backward (ms per iteration in the three
               boundary modes, ms per train step, one profiled step's
               device busy share).
@@ -180,7 +196,8 @@ failure (non-zero exit, no result line):
               in f32 on the hopper backend, then ``ops.conv2d_direct`` on
               each Convolution layer's bottom blob under
               ``set_sync_debug_mode("error")``, one launch a layer (MNIST
-              2, CIFAR 3) and no other, held to the layer's top blob from
+              2, CIFAR 3), each on the "reg" kernel, and no other, held to
+              the layer's top blob from
               the net's im2col + gemm kernels and to the plain version;
               ms per layer and per net against the im2col + gemm form.
 
@@ -209,8 +226,8 @@ the solvers' batch of 64.
 
 The line before the last is a JSON object with one entry per kernel (the
 routed kernels' -- the gemm's, the attention backward's and forward's,
-the three decodes', the three chunked prefills' and rmsnorm_bwd's -- with
-``routes``:
+the three decodes', the three chunked prefills', rmsnorm_bwd's,
+conv2d_direct's and relu_bwd's -- with ``routes``:
 the main paths' launches per route, phases 4-10); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1163,9 +1180,9 @@ def phase_kernels(torch):
         gemm_crossover(torch, rnd, check, slow, dtype, TOL)
         torch.cuda.empty_cache()
     caffe_kernels(torch, F, rnd, run)
-    caffe_train_kernels(torch, F, rnd, run)
+    caffe_train_kernels(torch, F, rnd, run, timer)
     small_gemm_cases(torch, rnd, run, slow)
-    direct_kernels(torch, F, rnd, run)
+    direct_kernels(torch, F, rnd, run, timer)
 
     # per-kernel totals over one bf16 step at B = 4: a decode step for the
     # decode-path kernels, a prefill step (C = 16) for the chunk kernels
@@ -1311,8 +1328,10 @@ def phase_kernels(torch):
                              "softmax_xent_bwd"))):
         for name in names:
             tot = totals(name, step)
-            was = (f", on the routes before the f32 small-M kernel "
-                   f"{tot['forced_ms']:.4f} ms" if name == "gemm" else "")
+            was = {"gemm": f", on the routes before the f32 small-M "
+                           f"kernel {tot['forced_ms']:.4f} ms",
+                   "relu_bwd": f", on the strided kernel forced "
+                               f"{tot['forced_ms']:.4f} ms"}.get(name, "")
             print(f"[3 kernels] {name}: one f32 {step} at B={LENET_B}: "
                   f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, "
                   f"plain {tot['plain_ms']:.4f} ms, library "
@@ -1324,7 +1343,8 @@ def phase_kernels(torch):
               f" vs bound {tot['bound_ms']:.5f} ms, plain "
               f"{tot['plain_ms']:.4f} ms, library (F.conv2d) "
               f"{tot['library_ms']:.4f} ms, im2col+gemm "
-              f"{tot['im2col_gemm_ms']:.4f} ms", flush=True)
+              f"{tot['im2col_gemm_ms']:.4f} ms, on the scalar kernel forced "
+              f"{tot['forced_ms']:.4f} ms", flush=True)
     tot = totals("ssd_scan", "prefill")
     print(f"[3 kernels] ssd_scan: one bf16 mamba2 prefill step (C = {c}): "
           f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
@@ -1717,23 +1737,29 @@ def forced_skinny():
 
 
 @contextlib.contextmanager
-def forced_plan(planner, kernel, route):
-    """``kernels/flash_attention.py``'s ``planner`` made to name ``route``
-    whatever the shape, as ``gemm_crossover`` forces a route: every launch
-    of ``kernel`` inside must take it."""
-    from repro_torch.kernels import flash_attention as FA
-
-    saved, fn = getattr(FA, planner), getattr(FA, kernel)
+def forced_route(module, planner, kernel, route):
+    """``module``'s ``planner`` made to name ``route`` whatever the shape,
+    as ``gemm_crossover`` forces a route: every launch of the wrapper
+    ``kernel`` (of ``module``) inside must take it."""
+    saved, fn = getattr(module, planner), getattr(module, kernel)
     before = dict(fn.routes)
-    setattr(FA, planner, lambda *args: route)
+    setattr(module, planner, lambda *args: route)
     try:
         yield
     finally:
-        setattr(FA, planner, saved)
+        setattr(module, planner, saved)
     taken = {r for r, n in fn.routes.items() if n != before[r]}
     if taken != {route}:
         raise SystemExit(f"chip_smoke: forced {route} {kernel} took "
                          f"{taken}")
+
+
+def forced_plan(planner, kernel, route):
+    """``kernels/flash_attention.py``'s ``planner`` made to name
+    ``route`` for the wrapper ``kernel`` (``forced_route``)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    return forced_route(FA, planner, kernel, route)
 
 
 def forced_scalar():
@@ -1753,23 +1779,29 @@ def forced_template(kernel):
     return forced_template
 
 
-@contextlib.contextmanager
 def forced_scalar_bwd():
     """The RMSNorm backward on its scalar kernel (route "scalar"), its route
-    before the vector kernel: ``bwd_plan`` made to name it whatever the
-    shape; every launch inside must take it."""
+    before the vector kernel: ``bwd_plan`` made to name it."""
     from repro_torch.kernels import rmsnorm as RN
 
-    saved, before = RN.bwd_plan, dict(RN.rmsnorm_bwd.routes)
-    RN.bwd_plan = lambda *args: "scalar"
-    try:
-        yield
-    finally:
-        RN.bwd_plan = saved
-    taken = {r for r, n in RN.rmsnorm_bwd.routes.items() if n != before[r]}
-    if taken != {"scalar"}:
-        raise SystemExit(f"chip_smoke: forced scalar rmsnorm_bwd took "
-                         f"{taken}")
+    return forced_route(RN, "bwd_plan", "rmsnorm_bwd", "scalar")
+
+
+def forced_scalar_conv():
+    """The direct convolution on the first port's kernel (route
+    "scalar"), its route before the register-tiled kernel: ``plan`` made
+    to name it."""
+    from repro_torch.kernels import conv_direct as CD
+
+    return forced_route(CD, "plan", "conv2d_direct", "scalar")
+
+
+def forced_strided():
+    """The ReLU backward on the strided kernel (route "strided"), its
+    route before the vector kernel: ``relu_bwd_plan`` made to name it."""
+    from repro_torch.kernels import eltwise as EW
+
+    return forced_route(EW, "relu_bwd_plan", "relu_bwd", "strided")
 
 
 def kernels_of_call(torch, fn, calls=10):
@@ -1818,6 +1850,79 @@ def rmsnorm_bwd_sweep(clock, case, fn, dtype, rows, d):
           f"rows a block x blocks, ms: " + "; ".join(
               f"{p}{'*' if p == mine else ''} {t:.4f}"
               for p, t in sorted(cells.items(), key=lambda c: c[1])),
+          flush=True)
+
+
+# the reg convolution's caps swept in phase 3: strips a block, filter
+# groups a block, channel groups, channels a group a stage, block target
+CONV_SWEPT = ((16, 32, 64, 128), (1, 2, 4), (1, 2, 4, 8), (1, 2, 4),
+              (132, 264))
+
+
+def conv_tile_sweep(clock, case, fn, x, w, stride, pad, top=6):
+    """The direct convolution ``fn`` on the reg kernel at each distinct
+    ``Tiles`` that ``tiles`` gives over ``CONV_SWEPT`` (``REG_MAX_STRIPS``,
+    ``REG_MAX_FG``, ``REG_MAX_GROUPS``, ``REG_CHUNK``, ``REG_BLOCKS``),
+    each held to the planner's own output; the fastest ``top`` and the
+    planner's pick with its rank, on one line."""
+    import itertools
+
+    from repro_torch.kernels import conv_direct as CD
+
+    names = ("REG_MAX_STRIPS", "REG_MAX_FG", "REG_MAX_GROUPS", "REG_CHUNK",
+             "REG_BLOCKS")
+    saved = [getattr(CD, k) for k in names]
+    mine = CD.tiles(x.dtype, x.shape, w.shape, stride, pad)
+    want, cells = fn(), {}
+    scale = want.float().abs().max().item()
+    try:
+        for combo in itertools.product(*CONV_SWEPT):
+            for k, v in zip(names, combo):
+                setattr(CD, k, v)
+            t = CD.tiles(x.dtype, x.shape, w.shape, stride, pad)
+            if t in cells:
+                continue
+            err = (fn().float() - want.float()).abs().max().item()
+            if not err <= 1e-5 * scale:
+                raise SystemExit(f"chip_smoke: conv2d_direct {case} at "
+                                 f"{tuple(t)}: max_abs_err {err:.3g}")
+            cells[t] = clock(fn)
+    finally:
+        for k, v in zip(names, saved):
+            setattr(CD, k, v)
+    ranked = sorted(cells.items(), key=lambda c: c[1])
+    rank = [t for t, _ in ranked].index(mine) + 1
+    print(f"[3 kernels] conv2d_direct conv sweep, {case}: (filters, rows, "
+          f"cols, chunk, groups, threads), ms: planner {tuple(mine)} "
+          f"{cells[mine]:.4f} (rank {rank} of {len(ranked)}); fastest "
+          + "; ".join(f"{tuple(t)} {ms:.4f}" for t, ms in ranked[:top]),
+          flush=True)
+
+
+# the vec ReLU backward's block caps swept in phase 3 (its vectors a
+# thread are fixed at compile time: csrc/eltwise.cu:kVecs)
+RELU_SWEPT = (132, 264, 528, 1056)
+
+
+def relu_bwd_sweep(clock, case, fn, dtype, n):
+    """The ReLU backward ``fn`` on the vec kernel at each distinct block
+    count that ``relu_bwd_grid`` gives for ``n`` elements over
+    ``RELU_SWEPT`` (``RELU_BWD_BLOCKS``), fastest first, the planner's
+    pick marked."""
+    from repro_torch.kernels import eltwise as EW
+
+    saved = EW.RELU_BWD_BLOCKS
+    mine, cells = EW.relu_bwd_grid(dtype, n), {}
+    try:
+        for EW.RELU_BWD_BLOCKS in RELU_SWEPT:
+            grid = EW.relu_bwd_grid(dtype, n)
+            if grid not in cells:
+                cells[grid] = clock(fn)
+    finally:
+        EW.RELU_BWD_BLOCKS = saved
+    print(f"[3 kernels] relu_bwd sweep, {case} {dtype}: blocks, ms: "
+          + "; ".join(f"{g}{'*' if g == mine else ''} {t:.4f}"
+                      for g, t in sorted(cells.items(), key=lambda c: c[1])),
           flush=True)
 
 
@@ -1913,11 +2018,11 @@ def want_route(name, route, want):
 
 # the kernels whose routes were redesigned: each phase-3 row of theirs is
 # also timed on the route it left (``forced_scalar``, ``forced_template``,
-# ``forced_scalar_bwd``)
+# ``forced_scalar_bwd``, ``forced_scalar_conv``, ``forced_strided``)
 REDESIGNED = ("flash_attention", "flash_decode", "flash_decode_paged",
               "flash_decode_paged_quant", "flash_prefill_chunk",
               "flash_prefill_chunk_paged", "flash_prefill_chunk_paged_quant",
-              "rmsnorm_bwd")
+              "rmsnorm_bwd", "conv2d_direct", "relu_bwd")
 # the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
 SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -2083,7 +2188,7 @@ def caffe_kernels(torch, F, rnd, run):
         4.0 * n * 10)
 
 
-def caffe_train_kernels(torch, F, rnd, run):
+def caffe_train_kernels(torch, F, rnd, run, clock):
     """Phase 3 at the Caffe backward's shapes, f32, batch 64: every
     col2im, maxpool_bwd, relu_bwd and softmax_xent_bwd launch and every
     backward gemm of a LeNet-MNIST and a LeNet-CIFAR-10 train step
@@ -2091,7 +2196,9 @@ def caffe_train_kernels(torch, F, rnd, run):
     backward repeats), col2im on the backward product's strided view and
     on contiguous (N, C*K*K, OH*OW) columns, maxpool_bwd on exact ties
     with pads 0 and 1, softmax_xent_bwd with labels -1 and V; then each
-    new kernel once in bf16.  Yardsticks:
+    new kernel once in bf16.  relu_bwd's rows are timed beside the strided
+    kernel forced, and its vec kernel swept over ``relu_bwd_grid``'s
+    block caps (``relu_bwd_sweep``).  Yardsticks:
     ``F.fold``, the backward of ``F.max_pool2d(return_indices=True)``
     (``aten.max_pool2d_with_indices_backward``), of ``F.leaky_relu``
     (``aten.leaky_relu_backward``) and of ``F.cross_entropy`` (autograd
@@ -2146,16 +2253,23 @@ def caffe_train_kernels(torch, F, rnd, run):
 
     def relu_bwd_case(step, case, shape, count, dtype=f32, slope=0.0,
                       x_column_major=False):
+        """On the vec kernel where x and dy share a layout, the strided
+        one for a column-major x with a row-major dy; timed beside the
+        strided kernel forced (``forced_strided``)."""
         x, dy = rnd(shape, dtype), rnd(shape, dtype)
         if x_column_major:
             # the transposed boundary mode's x meets a row-major dy
             perm = tuple(reversed(range(len(shape))))
             x = x.permute(perm).contiguous().permute(perm)
-        run(relu_bwd, f"{case} {'x'.join(map(str, shape))} slope {slope}",
+        want_route("relu_bwd", run(
+            relu_bwd, f"{case} {'x'.join(map(str, shape))} slope {slope}",
             dtype, step, count, lambda: relu_bwd(x, dy, slope),
             lambda: ref.relu_bwd(x, dy, slope),
             lambda: aten.leaky_relu_backward(dy, x, slope, False),
-            3 * x.numel() * x.element_size(), 1.0 * x.numel())
+            3 * x.numel() * x.element_size(), 1.0 * x.numel(),
+            forced=forced_strided),
+            "strided" if x_column_major else "vec")
+        return x, dy
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
 
@@ -2210,7 +2324,9 @@ def caffe_train_kernels(torch, F, rnd, run):
             ("mnist train", "relu1", (n, 500), 1),
             ("cifar train", "relu1,relu2", (n, 32, 15, 15), 2),
             ("cifar train", "relu3", (n, 64, 7, 7), 1)):
-        relu_bwd_case(step, case, shape, count)
+        x, dy = relu_bwd_case(step, case, shape, count)
+        relu_bwd_sweep(clock, f"{step} {case}", lambda x=x, dy=dy:
+                       relu_bwd(x, dy), f32, x.numel())
     relu_bwd_case("cifar train", "relu3, x column-major", (n, 64, 7, 7), 0,
                   x_column_major=True)
     xent_bwd_case("mnist train", "loss", 1)
@@ -2354,18 +2470,23 @@ LENET_CONVS = (("mnist", "conv1", 1, 28, 20, 5, 0),
                ("cifar", "conv3", 32, 7, 64, 5, 2))
 
 
-def direct_kernels(torch, F, rnd, run):
+def direct_kernels(torch, F, rnd, run, clock):
     """Phase 3 for conv2d_direct, held to ``ref.conv2d_direct``: JAX's
     cases (``tests/test_kernels_conv_direct.py``: strides 1-3, pads 0-2,
     2x2 windows, F = 160 with C = 3, and its case without bias), the
     autotuner's ``conv3x3`` cell (``repro/tuning/autotune.py:123-136``),
-    the five LeNet convolutions at batch 64 in f32 (``count`` 1 in the
+    rows wider than a reg tile (OW 48 and 36, whose last column tile
+    overhangs the row; f32 and bf16), the five LeNet convolutions at batch 64 in f32 (``count`` 1 in the
     step of their net's forward convolutions, as phase 10 runs them), then
     CIFAR conv2 in bf16 and MNIST conv2 on a channels-last x (a view read
     by its strides).  Yardsticks: ``F.conv2d`` (cuDNN, TF32 off) and the
-    port's im2col + gemm form (``ops.conv2d_hopper``)."""
+    port's im2col + gemm form (``ops.conv2d_hopper``).  Each row takes the
+    route ``plan`` names ("reg" for 3 x 3 and 5 x 5 windows at stride 1,
+    else "scalar") and is timed beside the scalar kernel forced
+    (``forced_scalar_conv``); the LeNet rows' reg kernel is swept over
+    ``tiles``' caps (``conv_tile_sweep``)."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.conv_direct import conv2d_direct, cost
+    from repro_torch.kernels.conv_direct import conv2d_direct, cost, plan
 
     f32, bf = torch.float32, torch.bfloat16
     cases = [("jax cases", "jax", n, c, h, f, k, s, p, f32, True, False, 0)
@@ -2377,6 +2498,13 @@ def direct_kernels(torch, F, rnd, run):
                False, 0),
               ("tuning", "conv3x3", 2, 8, 16, 64, 3, 1, 1, f32, True, False,
                0)]
+    # rows wider than a reg tile's 32 columns and no multiple of them: the
+    # last column tile's strips overhang the row (f32 stores whole strips)
+    cases += [("wide rows", what, 8, c, h, f, k, 1, p, dt, True, False, 0)
+              for what, c, h, f, k, p, dt in (
+                  ("3x3 ow 48", 8, 48, 16, 3, 1, f32),
+                  ("5x5 ow 36", 4, 36, 8, 5, 2, f32),
+                  ("3x3 ow 48 bf16", 8, 48, 16, 3, 1, bf))]
     cases += [(f"{net} direct", layer, LENET_B, c, h, f, k, 1, p, f32, True,
                False, 1) for net, layer, c, h, f, k, p in LENET_CONVS]
     cases += [("bf16", "cifar conv2", LENET_B, 32, 15, 32, 5, 1, 2, bf, True,
@@ -2390,17 +2518,23 @@ def direct_kernels(torch, F, rnd, run):
         b = rnd((f,), dt, 0.1) if bias else None
         nbytes, flops, _ = cost(x.shape, w.shape, st, p, x.element_size(),
                                 bias)
-        run(conv2d_direct, f"{what} {n}x{c}x{h}x{h} -> {f} k{k} s{st} p{p}",
-            dt, step, count,
-            lambda x=x, w=w, b=b, st=st, p=p: conv2d_direct(
-                x, w, b, stride=st, pad=p),
+
+        def fn(x=x, w=w, b=b, st=st, p=p):
+            return conv2d_direct(x, w, b, stride=st, pad=p)
+
+        want_route("conv2d_direct", run(
+            conv2d_direct, f"{what} {n}x{c}x{h}x{h} -> {f} k{k} s{st} p{p}",
+            dt, step, count, fn,
             lambda x=x, w=w, b=b, st=st, p=p: ref.conv2d_direct(
                 x, w, b, stride=st, pad=p),
             lambda x=x, w=w, b=b, st=st, p=p: F.conv2d(
                 x, w, b, stride=st, padding=p),
             nbytes, flops,
             im2col_gemm=lambda x=x, w=w, b=b, st=st, p=p: ops.conv2d_hopper(
-                x, w, b, stride=st, pad=p))
+                x, w, b, stride=st, pad=p), forced=forced_scalar_conv),
+            plan(dt, x.shape, w.shape, st, p))
+        if count:
+            conv_tile_sweep(clock, f"{step} {what}", fn, x, w, st, p)
 
 
 # ---------------------------------------------------------------------------
@@ -2538,7 +2672,7 @@ DECODES = ("flash_decode", "flash_decode_paged", "flash_decode_paged_quant")
 CHUNKS = ("flash_prefill_chunk", "flash_prefill_chunk_paged",
           "flash_prefill_chunk_paged_quant")
 ROUTED = ("gemm", "flash_attention_bwd", "flash_attention") + DECODES \
-    + CHUNKS + ("rmsnorm_bwd",)
+    + CHUNKS + ("rmsnorm_bwd", "conv2d_direct", "relu_bwd")
 ROUTE_SOURCES = {
     ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
@@ -2556,6 +2690,11 @@ ROUTE_SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention.cu",
     ("rmsnorm_bwd", "vec"): "src/repro_torch/kernels/csrc/rmsnorm.cu",
     ("rmsnorm_bwd", "scalar"): "src/repro_torch/kernels/csrc/rmsnorm.cu",
+    ("conv2d_direct", "reg"): "src/repro_torch/kernels/csrc/conv_direct.cu",
+    ("conv2d_direct", "scalar"):
+        "src/repro_torch/kernels/csrc/conv_direct.cu",
+    ("relu_bwd", "vec"): "src/repro_torch/kernels/csrc/eltwise.cu",
+    ("relu_bwd", "strided"): "src/repro_torch/kernels/csrc/eltwise.cu",
 }
 ROUTE_SOURCES.update({
     (name, route): f"src/repro_torch/kernels/csrc/{src}"
@@ -3787,12 +3926,15 @@ def caffe_gemm_routes(spec, shapes, train, transpose=False):
     return routes
 
 
-def caffe_counted(torch, fn, name, synced=True, want=None, routes=None):
+def caffe_counted(torch, fn, name, synced=True, want=None, routes=None,
+                  kernel_routes=None):
     """``fn()`` on the hopper backend with the counts set to 0 just before
     and read just after (under ``set_sync_debug_mode("error")`` unless the
     boundary mode syncs by design); the counts must be ``want``, by
-    default one forward's of the net ``name``, and the gemm's launches per
-    route ``routes`` (``caffe_gemm_routes``) where given."""
+    default one forward's of the net ``name``, the gemm's launches per
+    route ``routes`` (``caffe_gemm_routes``) where given, and each kernel
+    of ``kernel_routes`` (name -> {route: launches}) its launches per
+    route."""
     from repro_torch.core.policy import use_backend
 
     if want is None:
@@ -3817,6 +3959,13 @@ def caffe_counted(torch, fn, name, synced=True, want=None, routes=None):
                              f"{took}, expected {routes}")
         print(f"[caffe routes] {name}: gemm launches per route {took}, as "
               "plan names them", flush=True)
+    for kernel, expect in (kernel_routes or {}).items():
+        took = {r: c for r, c in rt[kernel].items() if c}
+        if took != expect:
+            raise SystemExit(f"chip_smoke: {name}: {kernel} launches per "
+                             f"route {took}, expected {expect}")
+        print(f"[caffe routes] {name}: {kernel} launches per route {took}",
+              flush=True)
     return out, got
 
 
@@ -4100,6 +4249,19 @@ def caffe_train_launches(spec):
     return want
 
 
+def caffe_relu_bwd_routes(spec, boundary):
+    """``relu_bwd``'s launches per route in one train step of the net
+    ``spec`` (one a ReLU layer) in the boundary mode: "vec" where x and dy
+    share a layout (the fused step; ``transfer``, whose crossings copy
+    without a relayout), "strided" in ``transfer+transpose``, where the
+    ReLU's x arrives column-major from its crossing and its dy comes back
+    row-major from the next layer's (every LeNet ReLU: each feeds a layer
+    whose bottom is crossed)."""
+    n = sum(ls.type == "ReLU" for ls in spec.layers)
+    route = "strided" if boundary == "transfer+transpose" else "vec"
+    return {"relu_bwd": {route: n}}
+
+
 def caffe_leaves(params):
     """Autograd leaves sharing the params' storage, and their flat list."""
     leaves = {n: {k: v.detach().requires_grad_(True) for k, v in p.items()}
@@ -4168,7 +4330,7 @@ def phase_caffe_train(torch):
     modes: ``forward_loss`` then ``backward_manual``, as
     ``benchmarks/table2_fwbw.py:31-48``), whose grads must agree, ms per
     train step and one profiled train step's busy share.  Returns the
-    launches of (b)'s hopper steps."""
+    launches of (b)'s hopper steps, the crossing modes' included."""
     from repro_torch.caffe import (Net, Solver, lenet_cifar10,
                                    lenet_cifar10_solver, lenet_mnist,
                                    lenet_mnist_solver)
@@ -4240,7 +4402,8 @@ def phase_caffe_train(torch):
         for i, (d, lab) in enumerate(batches):
             (st_h, l_h), got = caffe_counted(
                 torch, lambda: step(st_h, d, lab), name, want=want,
-                routes=caffe_gemm_routes(net.spec, net.blob_shapes, True))
+                routes=caffe_gemm_routes(net.spec, net.blob_shapes, True),
+                kernel_routes=caffe_relu_bwd_routes(net.spec, None))
             for k, v in got.items():
                 total[k] += v
             with use_backend("reference"):
@@ -4262,7 +4425,10 @@ def phase_caffe_train(torch):
                 torch, lambda: bstep(st0, d, lab), name, synced=False,
                 want=want, routes=caffe_gemm_routes(
                     net.spec, net.blob_shapes, True,
-                    transpose=boundary == "transfer+transpose"))
+                    transpose=boundary == "transfer+transpose"),
+                kernel_routes=caffe_relu_bwd_routes(net.spec, boundary))
+            for k, v in got.items():
+                total[k] += v
             gap, worst = tree_gap(torch, stb["params"], st1["params"])
             print(f"[9 caffe train] (b) {name}, {boundary}: one step's "
                   f"params within {gap:.3g} of the fused step's (worst "
@@ -4384,7 +4550,8 @@ def phase_direct(torch):
 
         outs, got = caffe_counted(
             torch, lambda: [direct(c) for c in convs], name,
-            want={"conv2d_direct": len(convs)})
+            want={"conv2d_direct": len(convs)},
+            kernel_routes={"conv2d_direct": {"reg": len(convs)}})
         for k, v in got.items():
             total[k] += v
         for c, y in zip(convs, outs):

@@ -69,6 +69,8 @@ _SIGNATURES = {
     # x, dy, dx, n, shape (d1, d2, d3), strides of x, dy and dx (4 each),
     # slope, dtype, stream
     "repro_relu_bwd": [_P, _P, _P] + [_L] * 16 + [_F, _I, _P],
+    # x, dy, dx, n, slope, vecs, blocks, dtype, stream
+    "repro_relu_bwd_vec": [_P, _P, _P, _L, _F, _I, _I, _P],
     # x, out, N, C, H, W, x strides (n, c, h, w), KH, KW, stride, pad, OH,
     # OW, o_sn, o_sr, dtype, stream
     "repro_im2col": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _I,
@@ -80,6 +82,10 @@ _SIGNATURES = {
     # x, w, bias (f32 or NULL), out, N, C, H, W, x strides (n, c, h, w), F,
     # KH, KW, stride, pad, OH, OW, dtype, stream
     "repro_conv2d_direct": [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I] * 8 + [_P],
+    # as repro_conv2d_direct, with the tile (fb, toh, tow, cc, ks) and the
+    # block's threads before dtype
+    "repro_conv2d_direct_reg": [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I] * 14
+                               + [_P],
     # cols, out, N, C, H, W, KH, KW, pad, OH, OW, cols strides (n, r, p),
     # dtype, stream
     "repro_col2im": [_P, _P] + [_I] * 9 + [_L] * 3 + [_I, _P],

@@ -7,19 +7,32 @@
 //   m[i, :] + v, added in f32 and rounded to the storage dtype.  Replaces
 //   bias_add_rows_pallas ((bm, bn) VMEM tiles).
 // * Caffe's leaky-capable ReLU: out = x > 0 ? x : slope * x, the product
-//   in f32 rounded to the storage dtype (x itself is passed through).
+//   in f32 rounded to the storage dtype (x itself is passed through).  In
+//   both ReLU kernels the slope is first rounded to the storage dtype, as
+//   JAX's weakly typed slope * x rounds it (a bf16 product of two bf16
+//   values is exact in f32, so one rounding follows).
 //   Replaces relu_pallas (tiles of the flattened tensor).  It walks the
 //   storage in memory order, so any dense layout (a column-major blob of
 //   the paper's boundary mode too) is read in place and the output keeps
 //   the input's strides.
 // * ReLU's backward: dx = x > 0 ? dy : slope * dy (a NaN in x takes the
 //   slope, as x > 0 is false), the product in f32 rounded to the storage
-//   dtype.  Replaces relu_bwd_pallas.  x, dy and dx may each have their
-//   own layout (in the paper's transposed boundary mode a column-major x
-//   meets the row-major gradient of the next layer's crossing), so the
-//   kernel walks the logical index, fastest along the last axis, and
-//   addresses each of the three by its own strides (up to 4 axes); dx
-//   keeps x's layout.
+//   dtype.  Replaces relu_bwd_pallas.  Two routes, picked by
+//   kernels/eltwise.py:relu_bwd_plan; dx keeps x's layout in both.
+//   - "vec" (repro_relu_bwd_vec): x and dy share one dense layout (every
+//     call of the fused train step; a column-major blob whose dy is
+//     column-major too) and 16-byte aligned bases.  The kernel walks
+//     storage in memory order, as relu does: each thread issues kVecs = 2
+//     16-byte loads of x and of dy (4 f32 or 8 bf16 each) before it uses
+//     any (the count a sweep of 1, 2, 4 and 8 settled on: PERF.md), the
+//     block's threads on neighbouring vectors, 32-bit indices where n
+//     allows; the grid (kernels/eltwise.py:relu_bwd_grid) comes from n
+//     alone, and one thread of block 0 a leftover element takes the tail.
+//   - "strided" (repro_relu_bwd): mixed layouts (in the paper's transposed
+//     boundary mode a column-major x meets the row-major gradient of the
+//     next layer's crossing).  The kernel walks the logical index, fastest
+//     along the last axis, and addresses each of the three by its own
+//     strides (up to 4 axes).
 #include "common.cuh"
 
 namespace {
@@ -27,6 +40,9 @@ using namespace repro;
 
 constexpr int kThreads = 256;
 constexpr long kMaxBlocks = 4096;
+// the vec ReLU backward's 16-byte vectors of x and of dy a thread loads
+// before it uses any (kernels/eltwise.py:RELU_BWD_VECS)
+constexpr int kVecs = 2;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -40,10 +56,17 @@ bias_add_rows_kernel(const T* __restrict__ m, const T* __restrict__ v,
   }
 }
 
+// the slope as the storage dtype holds it
+template <typename T>
+__device__ __forceinline__ float storage_slope(float slope) {
+  return to_f32(from_f32<T>(slope));
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 relu_kernel(const T* __restrict__ x, T* __restrict__ out, long n,
             float slope) {
+  slope = storage_slope<T>(slope);
   for (long i = (long)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += (long)gridDim.x * kThreads) {
     const T v = x[i];
@@ -66,6 +89,7 @@ __global__ void __launch_bounds__(kThreads)
 relu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                 T* __restrict__ dx, long n, Shape4 d, Strides4 xs,
                 Strides4 ys, Strides4 os, float slope) {
+  slope = storage_slope<T>(slope);
   for (long i = (long)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += (long)gridDim.x * kThreads) {
     const long i3 = i % d.d3;
@@ -79,6 +103,100 @@ relu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
         to_f32(x[offset4(i0, i1, i2, i3, xs)]) > 0.f
             ? g : from_f32<T>(slope * to_f32(g));
   }
+}
+
+// dx of one 32-bit word of x and of dy: one f32, or two bf16 (element 2i
+// in the low half of word i, little endian)
+template <typename T>
+__device__ __forceinline__ uint32_t relu_bwd_word(uint32_t xw, uint32_t gw,
+                                                  float slope);
+template <>
+__device__ __forceinline__ uint32_t relu_bwd_word<float>(uint32_t xw,
+                                                         uint32_t gw,
+                                                         float slope) {
+  return __uint_as_float(xw) > 0.f
+             ? gw : __float_as_uint(slope * __uint_as_float(gw));
+}
+template <>
+__device__ __forceinline__ uint32_t relu_bwd_word<bf16>(uint32_t xw,
+                                                        uint32_t gw,
+                                                        float slope) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int h = 0; h < 32; h += 16) {
+    const uint32_t g = (gw >> h) & 0xffffu;
+    const uint32_t r =
+        __uint_as_float(((xw >> h) & 0xffffu) << 16) > 0.f
+            ? g
+            : __bfloat16_as_ushort(
+                  __float2bfloat16_rn(slope * __uint_as_float(g << 16)));
+    out |= r << h;
+  }
+  return out;
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 relu_bwd16(const uint4& a, const uint4& g,
+                                            float slope) {
+  return make_uint4(relu_bwd_word<T>(a.x, g.x, slope),
+                    relu_bwd_word<T>(a.y, g.y, slope),
+                    relu_bwd_word<T>(a.z, g.z, slope),
+                    relu_bwd_word<T>(a.w, g.w, slope));
+}
+
+// I: the index type (int where n allows); a thread's kVecs vectors lie
+// kThreads vectors apart
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads)
+relu_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                    T* __restrict__ dx, I n, float slope) {
+  slope = storage_slope<T>(slope);
+  constexpr int E = 16 / sizeof(T);
+  const I nv = n / E;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const uint4* gv = reinterpret_cast<const uint4*>(dy);
+  uint4* ov = reinterpret_cast<uint4*>(dx);
+  const I span = (I)gridDim.x * (kThreads * kVecs);
+  for (I v0 = (I)blockIdx.x * (kThreads * kVecs) + threadIdx.x; v0 < nv;
+       v0 += span) {
+    uint4 a[kVecs], g[kVecs];
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      const I v = v0 + u * kThreads;
+      if (v < nv) {
+        a[u] = __ldg(xv + v);
+        g[u] = __ldg(gv + v);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      const I v = v0 + u * kThreads;
+      if (v < nv) ov[v] = relu_bwd16<T>(a[u], g[u], slope);
+    }
+  }
+  const I i = nv * E + threadIdx.x;
+  if (blockIdx.x == 0 && i < n) {
+    const T gi = dy[i];
+    dx[i] = to_f32(x[i]) > 0.f ? gi : from_f32<T>(slope * to_f32(gi));
+  }
+}
+
+template <typename T>
+cudaError_t launch_relu_bwd_vec(const void* x, const void* dy, void* dx,
+                                long n, float slope, int blocks,
+                                cudaStream_t s) {
+  const T* xp = static_cast<const T*>(x);
+  const T* gp = static_cast<const T*>(dy);
+  T* op = static_cast<T*>(dx);
+  const dim3 grid((unsigned)blocks), block(kThreads);
+  // int indices while n and a grid's span of vectors past it fit
+  if (n + (long)blocks * kThreads * kVecs * (16 / sizeof(T)) < 0x7fffffffL)
+    relu_bwd_vec_kernel<T, int><<<grid, block, 0, s>>>(xp, gp, op, (int)n,
+                                                        slope);
+  else
+    relu_bwd_vec_kernel<T, long><<<grid, block, 0, s>>>(xp, gp, op, n,
+                                                         slope);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -110,6 +228,20 @@ extern "C" int repro_relu_bwd(const void* x, const void* dy, void* dx,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// route "vec": x, dy and dx of one dense layout, 16-byte aligned bases,
+// walked in memory order; blocks from kernels/eltwise.py:relu_bwd_grid
+extern "C" int repro_relu_bwd_vec(const void* x, const void* dy, void* dx,
+                                  long long n, float slope, int blocks,
+                                  int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks < 1 || blocks > 65535) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return (int)launch_relu_bwd_vec<bf16>(x, dy, dx, n, slope, blocks, s);
+  if (dtype == kF32)
+    return (int)launch_relu_bwd_vec<float>(x, dy, dx, n, slope, blocks, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int repro_relu(const void* x, void* out, long long n,

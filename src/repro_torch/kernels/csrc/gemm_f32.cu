@@ -68,13 +68,6 @@ constexpr int kThreads = 256;
 constexpr int kBN = 64, kBK = 16, kStages = 3;
 constexpr int kKPitch = kBK + 4;  // floats a K-contiguous tile row takes
 
-// 4-byte global -> shared copy, `bytes` 0 or 4 (0 writes a zero)
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes));
-}
-
 // One operand's ROWS x kBK tile into shared memory `s`: rows (M or N) from
 // row0, valid below row_lim; K from k0, valid below k_end.  K_CONTIG:
 // element (row, k) at p[row*ld + k], stored at s[r*kKPitch + kk]; else at

@@ -3,9 +3,21 @@ paper's ``matrixPlusVectorRows``), Caffe's leaky ReLU and its backward.
 
 Replace ``repro/kernels/eltwise.py:bias_add_rows_pallas``, ``relu_pallas``
 and ``relu_bwd_pallas``.  Each kernel is one grid-stride elementwise pass
-in f32, rounded to the storage dtype; bound by bytes.
+in f32, rounded to the storage dtype; bound by bytes.  The ReLU's slope
+is rounded to the storage dtype before its product, as JAX's weakly typed
+``slope * x`` rounds it.
+
+The ReLU backward has two routes, picked by ``relu_bwd_plan`` from dtype,
+shape, strides and alignment (never by trying a kernel) and counted in
+``relu_bwd.routes`` beside ``launches``: "vec" when x and dy share one
+dense layout with 16-byte aligned bases (storage walked in memory order,
+``RELU_BWD_VECS`` 16-byte vectors a thread in flight, ``relu_bwd_grid``'s
+blocks), "strided" for mixed layouts (each operand addressed by its own
+strides, up to 4 axes).
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -82,11 +94,53 @@ def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
 relu.launches = 0
 
 
+RELU_BWD_ROUTES = ("vec", "strided")
+# the "vec" kernel: 16-byte vectors of x and of dy a thread loads before it
+# uses any (csrc/eltwise.cu:kVecs, fixed at compile time), the threads of
+# a block (kThreads), and the most blocks: one wave of 8 blocks on each of
+# the H100's 132 SMs
+RELU_BWD_VECS = 2
+RELU_BWD_THREADS = 256
+RELU_BWD_BLOCKS = 8 * 132
+
+
+def _dense(shape: Sequence[int], strides: Sequence[int]) -> bool:
+    """The strides lay ``shape`` out in one dense block of storage, in
+    some order of the axes (axes of extent 1 play no part)."""
+    expect = 1
+    for st, size in sorted((s, d) for d, s in zip(shape, strides) if d != 1):
+        if st != expect:
+            return False
+        expect *= size
+    return True
+
+
+def relu_bwd_plan(dtype: torch.dtype, shape: Sequence[int],
+                  x_strides: Sequence[int], dy_strides: Sequence[int],
+                  aligned: bool) -> str:
+    """The backward's route: "vec" where x and dy have identical strides
+    over one dense layout (row-major, or a column-major blob whose dy is
+    column-major too) and ``aligned`` (16-byte aligned bases of x, dy and
+    dx); "strided" for every other pair."""
+    return ("vec" if aligned and tuple(x_strides) == tuple(dy_strides)
+            and _dense(shape, x_strides) else "strided")
+
+
+def relu_bwd_grid(dtype: torch.dtype, n: int) -> int:
+    """Blocks of the "vec" kernel for ``n`` elements: enough for each
+    thread to take its ``RELU_BWD_VECS`` vectors once, at most
+    ``RELU_BWD_BLOCKS`` (then the threads loop)."""
+    per_vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    per_block = RELU_BWD_THREADS * RELU_BWD_VECS * per_vec
+    return max(1, min(-(-n // per_block), RELU_BWD_BLOCKS))
+
+
 def relu_bwd(x: torch.Tensor, dy: torch.Tensor,
              negative_slope: float = 0.0) -> torch.Tensor:
     """``where(x > 0, dy, negative_slope * dy)`` in ``x``'s dtype and
-    layout, any shape of up to 4 axes; x and dy are read by their own
-    strides.  CPU tensors take the plain version; CUDA tensors launch the
+    layout, any shape (up to 4 axes where x and dy differ in layout); x
+    and dy are read by their own strides, on the route ``relu_bwd_plan``
+    picks.  CPU tensors take the plain version; CUDA tensors launch the
     kernel or raise."""
     if not x.is_cuda:
         return relu_bwd_ref(x, dy, negative_slope)
@@ -96,22 +150,34 @@ def relu_bwd(x: torch.Tensor, dy: torch.Tensor,
                          f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
     if x.dtype not in DTYPES:
         raise TypeError(f"relu_bwd: dtype {x.dtype} not supported")
-    if x.dim() > 4:
-        raise ValueError(f"relu_bwd: at most 4 axes, got {x.dim()}")
     out = _dense_like(x, "relu_bwd")
     if out.numel() == 0:
         return out
-    pad = 4 - x.dim()
-    shape = (1,) * pad + tuple(x.shape)
-    strides = [(0,) * pad + t.stride() for t in (x, dy, out)]
-    rc = _build.lib().repro_relu_bwd(
-        x.data_ptr(), dy.data_ptr(), out.data_ptr(), x.numel(), *shape[1:],
-        *strides[0], *strides[1], *strides[2], float(negative_slope),
-        DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    route = relu_bwd_plan(x.dtype, x.shape, x.stride(), dy.stride(),
+                          _build.aligned16(x, dy, out, elems=1))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "vec":
+        rc = _build.lib().repro_relu_bwd_vec(
+            x.data_ptr(), dy.data_ptr(), out.data_ptr(), x.numel(),
+            float(negative_slope), relu_bwd_grid(x.dtype, x.numel()),
+            DTYPES[x.dtype], stream)
+    else:
+        if x.dim() > 4:
+            raise ValueError(f"relu_bwd: at most 4 axes where x and dy "
+                             f"differ in layout, got {x.dim()}")
+        pad = 4 - x.dim()
+        shape = (1,) * pad + tuple(x.shape)
+        strides = [(0,) * pad + t.stride() for t in (x, dy, out)]
+        rc = _build.lib().repro_relu_bwd(
+            x.data_ptr(), dy.data_ptr(), out.data_ptr(), x.numel(),
+            *shape[1:], *strides[0], *strides[1], *strides[2],
+            float(negative_slope), DTYPES[x.dtype], stream)
     _build.check(rc, "relu_bwd")
     relu_bwd.launches += 1
+    relu_bwd.routes[route] += 1
     return out
 
 
 relu_bwd.launches = 0
+# launches per route, beside the total
+relu_bwd.routes = dict.fromkeys(RELU_BWD_ROUTES, 0)

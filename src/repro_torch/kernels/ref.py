@@ -516,15 +516,24 @@ def avgpool(x: torch.Tensor, k: int, stride: int,
     return _windows(x, k, k, stride, pad, 0.0, False).mean(dim=(-1, -2))
 
 
+def _slope(negative_slope: float, t: torch.Tensor) -> torch.Tensor:
+    """The slope in ``t``'s dtype: JAX's weakly typed ``slope * t`` rounds
+    it so before the product (in bf16 at a slope bf16 cannot hold, the
+    product differs)."""
+    return torch.tensor(negative_slope, dtype=t.dtype)
+
+
 def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
-    """Caffe's leaky-capable ReLU: ``where(x > 0, x, slope * x)``."""
-    return torch.where(x > 0, x, negative_slope * x)
+    """Caffe's leaky-capable ReLU: ``where(x > 0, x, slope * x)``, the
+    slope in ``x``'s dtype."""
+    return torch.where(x > 0, x, _slope(negative_slope, x) * x)
 
 
 def relu_bwd(x: torch.Tensor, dy: torch.Tensor,
              negative_slope: float = 0.0) -> torch.Tensor:
-    """``where(x > 0, dy, slope * dy)``: a NaN in ``x`` takes the slope."""
-    return torch.where(x > 0, dy, negative_slope * dy)
+    """``where(x > 0, dy, slope * dy)``, the slope in ``dy``'s dtype: a
+    NaN in ``x`` takes the slope."""
+    return torch.where(x > 0, dy, _slope(negative_slope, dy) * dy)
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
