@@ -53,14 +53,15 @@ failure (non-zero exit, no result line):
               widest row of each of its routes and raise on the next.
               The gemm, the attention backward, the attention forward,
               the three decodes (contiguous slab, bf16 pool, int8 pool),
-              the three chunked prefills, rmsnorm_bwd, conv2d_direct and
-              relu_bwd have routes
+              the three chunked prefills, rmsnorm_bwd, conv2d_direct,
+              relu_bwd, maxpool and relu have routes
               (``kernels/gemm.py:plan``,
               ``kernels/flash_attention.py:bwd_plan``, ``fwd_plan``,
               ``decode_plan``, ``chunk_plan``,
               ``kernels/rmsnorm.py:bwd_plan``,
               ``kernels/conv_direct.py:plan``,
-              ``kernels/eltwise.py:relu_bwd_plan``): each row prints the
+              ``kernels/eltwise.py:relu_bwd_plan``, ``relu_plan``,
+              ``kernels/pooling.py:maxpool_plan``): each row prints the
               route its wrapper took, every bf16 training shape must take
               the tensor-core kernels, the bf16 forward the tensor-core
               kernel, every bf16 decode the split kernel, every bf16
@@ -70,13 +71,21 @@ failure (non-zero exit, no result line):
               and 5 x 5 stride-1 convolution the register-tiled kernel
               ("reg"; JAX's 2 x 2 and strided cases "scalar") and every
               relu_bwd whose x and dy share a layout the vector kernel
-              ("vec"; a column-major x with a row-major dy "strided").
+              ("vec"; a column-major x with a row-major dy "strided"),
+              every LeNet maxpool (ties, pad 1 and bf16 too) the
+              staged-band kernel ("plane"; a column-major x "strided")
+              and every relu the vector kernel ("vec", a column-major x
+              too; a view offset by one element "scalar").
               conv2d_direct's rows are also timed on the scalar kernel
               (``forced_scalar_conv``) and swept over ``tiles``' caps at
               the LeNet shapes (``grep "conv sweep"``), relu_bwd's on the
               strided kernel (``forced_strided``) and swept over
-              ``relu_bwd_grid``'s block caps (``grep "relu_bwd
-              sweep"``).  The
+              ``relu_vec_grid``'s block caps (``grep "relu_bwd
+              sweep"``), maxpool's on the strided kernel
+              (``forced_strided_pool``) and swept over ``maxpool_band``'s
+              caps (``grep "pool sweep"``), relu's on the scalar kernel
+              (``forced_scalar_relu``) and swept over ``relu_vec_grid``'s
+              block caps (``grep "relu sweep"``).  The
               forward (at the --check shape and at the training shape,
               B 2 x S 256, with qwen2.5-3b's, zamba2's and, windowed,
               mixtral's heads), the three decodes and the three chunks
@@ -168,7 +177,10 @@ failure (non-zero exit, no result line):
               image stream on the card, through ``Solver.make_eval_step``
               under ``set_sync_debug_mode("error")`` with exact launch
               counts and every gemm on the route ``kernels/gemm.py:plan``
-              names for its product (``caffe_gemm_routes``), held against
+              names for its product (``caffe_gemm_routes``), every
+              maxpool on "plane" and every relu on "vec"
+              (``caffe_fwd_routes``; in ``transfer+transpose`` maxpool on
+              "strided"), held against
               the reference backend; MNIST's deploy
               form (a Softmax ``prob`` on ``ip2``) through ``Net.forward``
               without labels; under grad relu, conv2d, maxpool and
@@ -188,7 +200,9 @@ failure (non-zero exit, no result line):
               halves and the test accuracy passes 0.8; in (b) every
               relu_bwd takes "vec" in the fused and ``transfer`` steps and
               "strided" in ``transfer+transpose`` (a column-major x, a
-              row-major dy: ``caffe_relu_bwd_routes``); (d) the paper's
+              row-major dy: ``caffe_relu_bwd_routes``), every maxpool
+              "plane" and every relu "vec" ("strided" and "vec" in
+              ``transfer+transpose``: ``caffe_fwd_routes``); (d) the paper's
               Table 2, forward + backward (ms per iteration in the three
               boundary modes, ms per train step, one profiled step's
               device busy share).
@@ -227,7 +241,7 @@ the solvers' batch of 64.
 The line before the last is a JSON object with one entry per kernel (the
 routed kernels' -- the gemm's, the attention backward's and forward's,
 the three decodes', the three chunked prefills', rmsnorm_bwd's,
-conv2d_direct's and relu_bwd's -- with ``routes``:
+conv2d_direct's, relu_bwd's, maxpool's and relu's -- with ``routes``:
 the main paths' launches per route, phases 4-10); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1179,7 +1193,7 @@ def phase_kernels(torch):
         train_kernels(torch, F, rnd, run, slow, dtype, es)
         gemm_crossover(torch, rnd, check, slow, dtype, TOL)
         torch.cuda.empty_cache()
-    caffe_kernels(torch, F, rnd, run)
+    caffe_kernels(torch, F, rnd, run, timer)
     caffe_train_kernels(torch, F, rnd, run, timer)
     small_gemm_cases(torch, rnd, run, slow)
     direct_kernels(torch, F, rnd, run, timer)
@@ -1331,7 +1345,11 @@ def phase_kernels(torch):
             was = {"gemm": f", on the routes before the f32 small-M "
                            f"kernel {tot['forced_ms']:.4f} ms",
                    "relu_bwd": f", on the strided kernel forced "
-                               f"{tot['forced_ms']:.4f} ms"}.get(name, "")
+                               f"{tot['forced_ms']:.4f} ms",
+                   "maxpool": f", on the strided kernel forced "
+                              f"{tot['forced_ms']:.4f} ms",
+                   "relu": f", on the scalar kernel forced "
+                           f"{tot['forced_ms']:.4f} ms"}.get(name, "")
             print(f"[3 kernels] {name}: one f32 {step} at B={LENET_B}: "
                   f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, "
                   f"plain {tot['plain_ms']:.4f} ms, library "
@@ -1804,6 +1822,23 @@ def forced_strided():
     return forced_route(EW, "relu_bwd_plan", "relu_bwd", "strided")
 
 
+def forced_strided_pool():
+    """The max pool on the first port's kernel (route "strided"), its
+    route before the staged-band kernel: ``maxpool_plan`` made to name
+    it."""
+    from repro_torch.kernels import pooling as PO
+
+    return forced_route(PO, "maxpool_plan", "maxpool", "strided")
+
+
+def forced_scalar_relu():
+    """The ReLU on the first port's kernel (route "scalar"), its route
+    before the vector kernel: ``relu_plan`` made to name it."""
+    from repro_torch.kernels import eltwise as EW
+
+    return forced_route(EW, "relu_plan", "relu", "scalar")
+
+
 def kernels_of_call(torch, fn, calls=10):
     """The device kernels one call of ``fn`` runs, name (up to its
     argument list) -> (launches a call, device us a call), from the
@@ -1899,31 +1934,79 @@ def conv_tile_sweep(clock, case, fn, x, w, stride, pad, top=6):
           flush=True)
 
 
-# the vec ReLU backward's block caps swept in phase 3 (its vectors a
+# the vec ReLU kernels' block caps swept in phase 3 (their vectors a
 # thread are fixed at compile time: csrc/eltwise.cu:kVecs)
-RELU_SWEPT = (132, 264, 528, 1056)
+RELU_SWEPT = (33, 66, 132, 264, 528, 1056)
 
 
-def relu_bwd_sweep(clock, case, fn, dtype, n):
-    """The ReLU backward ``fn`` on the vec kernel at each distinct block
-    count that ``relu_bwd_grid`` gives for ``n`` elements over
-    ``RELU_SWEPT`` (``RELU_BWD_BLOCKS``), fastest first, the planner's
-    pick marked."""
+def vec_grid_sweep(clock, kernel, case, fn, dtype, n):
+    """The ReLU (``kernel`` "relu") or its backward ("relu_bwd") ``fn`` on
+    its vec kernel at each distinct block count that ``relu_vec_grid``
+    gives for ``n`` elements over ``RELU_SWEPT`` (``RELU_BLOCKS``),
+    fastest first, the planner's pick marked, with
+    its rank."""
     from repro_torch.kernels import eltwise as EW
 
-    saved = EW.RELU_BWD_BLOCKS
-    mine, cells = EW.relu_bwd_grid(dtype, n), {}
+    saved = EW.RELU_BLOCKS
+    mine, cells = EW.relu_vec_grid(dtype, n), {}
     try:
-        for EW.RELU_BWD_BLOCKS in RELU_SWEPT:
-            grid = EW.relu_bwd_grid(dtype, n)
+        for EW.RELU_BLOCKS in RELU_SWEPT:
+            grid = EW.relu_vec_grid(dtype, n)
             if grid not in cells:
                 cells[grid] = clock(fn)
     finally:
-        EW.RELU_BWD_BLOCKS = saved
-    print(f"[3 kernels] relu_bwd sweep, {case} {dtype}: blocks, ms: "
+        EW.RELU_BLOCKS = saved
+    ranked = sorted(cells.items(), key=lambda c: c[1])
+    rank = [g for g, _ in ranked].index(mine) + 1
+    print(f"[3 kernels] {kernel} sweep, {case} {dtype}: blocks, ms "
+          f"(planner rank {rank} of {len(ranked)}): "
           + "; ".join(f"{g}{'*' if g == mine else ''} {t:.4f}"
-                      for g, t in sorted(cells.items(), key=lambda c: c[1])),
-          flush=True)
+                      for g, t in ranked), flush=True)
+
+
+# the plane max pool's caps swept in phase 3: outputs a block, block
+# target, waves before planes are packed (kernels/pooling.py:
+# POOL_OUTPUTS, POOL_BLOCKS, POOL_WAVES; 64 waves: never packed)
+POOL_SWEPT = ((64, 128, 256, 512, 1024), (132, 264, 528, 1056), (1, 64))
+
+
+def pool_band_sweep(clock, case, fn, x, k, stride, pad):
+    """The max pool ``fn`` on the plane kernel at each distinct ``Band``
+    that ``maxpool_band`` gives over ``POOL_SWEPT``, each held bit for bit
+    (values and argmax) to the planner's own output; fastest first, the
+    planner's pick marked, with its rank."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import pooling as PO
+
+    aligned = _build.aligned16(x, elems=16 // x.element_size())
+
+    def band():
+        return PO.maxpool_band(x.dtype, x.shape, k, stride, pad, aligned)
+
+    saved = (PO.POOL_OUTPUTS, PO.POOL_BLOCKS, PO.POOL_WAVES)
+    mine, want, cells = band(), fn(), {}
+    try:
+        for PO.POOL_OUTPUTS, PO.POOL_BLOCKS, PO.POOL_WAVES in \
+                itertools.product(*POOL_SWEPT):
+            b = band()
+            if b in cells:
+                continue
+            if not all(torch.equal(g, w) for g, w in zip(fn(), want)):
+                raise SystemExit(f"chip_smoke: maxpool {case} at {b}: "
+                                 "differs from the planner's band")
+            cells[b] = clock(fn)
+    finally:
+        PO.POOL_OUTPUTS, PO.POOL_BLOCKS, PO.POOL_WAVES = saved
+    ranked = sorted(cells.items(), key=lambda c: c[1])
+    rank = [b for b, _ in ranked].index(mine) + 1
+    print(f"[3 kernels] maxpool pool sweep, {case}: (rows, planes, threads)"
+          f", ms (planner rank {rank} of {len(ranked)}): " + "; ".join(
+              f"{tuple(b)[:3]}{'*' if b == mine else ''} {t:.4f}"
+              for b, t in ranked), flush=True)
 
 
 # the split decode's block targets swept in phase 3
@@ -2018,11 +2101,12 @@ def want_route(name, route, want):
 
 # the kernels whose routes were redesigned: each phase-3 row of theirs is
 # also timed on the route it left (``forced_scalar``, ``forced_template``,
-# ``forced_scalar_bwd``, ``forced_scalar_conv``, ``forced_strided``)
+# ``forced_scalar_bwd``, ``forced_scalar_conv``, ``forced_strided``,
+# ``forced_strided_pool``, ``forced_scalar_relu``)
 REDESIGNED = ("flash_attention", "flash_decode", "flash_decode_paged",
               "flash_decode_paged_quant", "flash_prefill_chunk",
               "flash_prefill_chunk_paged", "flash_prefill_chunk_paged_quant",
-              "rmsnorm_bwd", "conv2d_direct", "relu_bwd")
+              "rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool", "relu")
 # the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
 SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -2032,7 +2116,7 @@ CAFFE_STEPS = ("mnist fwd", "cifar fwd", "deploy fwd", "mnist train",
                "cifar train", "mnist direct", "cifar direct")
 
 
-def caffe_kernels(torch, F, rnd, run):
+def caffe_kernels(torch, F, rnd, run, clock):
     """Phase 3 at LeNet's shapes, f32, batch 64: every im2col, gemm, bias
     add, maxpool and relu call of a LeNet-MNIST and a LeNet-CIFAR-10
     forward, softmax_xent at (64, 10) and softmax at (64, 10) (the deploy
@@ -2042,7 +2126,14 @@ def caffe_kernels(torch, F, rnd, run):
     ``F.unfold``, ``torch.matmul``, ``m + v``, ``F.max_pool2d`` with
     indices, ``F.leaky_relu``, ``torch.softmax`` and ``F.cross_entropy``
     with ``torch.softmax`` for the pair.  ``count``: launches per forward
-    of the step."""
+    of the step.  maxpool's rows take "plane" (its bf16 row too) and are
+    timed beside the strided kernel forced, a column-major CIFAR pool1
+    (the transposed crossing's blob) takes "strided", as does a one-row
+    band past the shared memory, one just under it "plane"; relu's take
+    "vec" (a column-major CIFAR relu1 too) beside the scalar kernel
+    forced, a view offset by one element "scalar"; both swept at the
+    LeNet shapes (``pool_band_sweep``, ``vec_grid_sweep``)."""
+    from repro_torch.core.container import MajorOrder, as_layout
     from repro_torch.kernels import ref
     from repro_torch.kernels.eltwise import bias_add_rows, relu
     from repro_torch.kernels.gemm import gemm
@@ -2051,6 +2142,35 @@ def caffe_kernels(torch, F, rnd, run):
     from repro_torch.kernels.softmax_xent import softmax, softmax_xent
 
     f32, n = torch.float32, LENET_B
+
+    def maxpool_case(step, case, x, k, st, pad, count, route="plane"):
+        """On ``route``, exact in values and argmax, timed beside the
+        strided kernel forced.  Its bytes: the input that some window
+        covers (the floor of the output size leaves the last rows and
+        columns out), the outputs and the argmaxes."""
+        nc, (h, w) = x.shape[0] * x.shape[1], x.shape[2:]
+        oh, ow = (h + 2 * pad - k) // st + 1, (w + 2 * pad - k) // st + 1
+        read = nc * min(h, (oh - 1) * st + k - pad) \
+            * min(w, (ow - 1) * st + k - pad)
+        outs, es = nc * oh * ow, x.element_size()
+        want_route("maxpool", run(
+            maxpool, f"{case} {'x'.join(map(str, x.shape))} k{k} s{st} "
+            f"p{pad}", x.dtype, step, count,
+            lambda: maxpool(x, k, st, pad), lambda: ref.maxpool(x, k, st, pad),
+            lambda: F.max_pool2d(x, k, st, padding=pad, return_indices=True),
+            read * es + outs * (es + 4), 1.0 * outs * k * k,
+            forced=forced_strided_pool), route)
+
+    def relu_case(step, case, x, count, route="vec", slope=0.0):
+        """On ``route``, exact, timed beside the scalar kernel forced."""
+        want_route("relu", run(
+            relu, f"{case} {'x'.join(map(str, x.shape))} slope {slope}",
+            x.dtype, step, count, lambda: relu(x, slope),
+            lambda: ref.relu(x, slope), lambda: F.leaky_relu(x, slope),
+            2 * x.numel() * x.element_size(), 1.0 * x.numel(),
+            forced=forced_scalar_relu), route)
+        return x
+
     # the convolutions: (step, layer, C, H = W, F, k, pad), stride 1
     for step, layer, c, h, f, k, pad in (
             ("mnist fwd", "conv1", 1, 28, 20, 5, 0),
@@ -2122,25 +2242,37 @@ def caffe_kernels(torch, F, rnd, run):
             ("mnist fwd", "pool1 ties", ties[:, :20, :24, :24], 2, 2, 0,
              0)):
         x = x.contiguous()
-        oh = (x.shape[2] + 2 * pad - k) // st + 1
-        outs = x.shape[0] * x.shape[1] * oh * oh
-        run(maxpool, f"{case} {'x'.join(map(str, x.shape))} k{k} s{st} "
-            f"p{pad}", f32, step, count,
-            lambda x=x, k=k, st=st, pad=pad: maxpool(x, k, st, pad),
-            lambda x=x, k=k, st=st, pad=pad: ref.maxpool(x, k, st, pad),
-            lambda x=x, k=k, st=st, pad=pad: F.max_pool2d(
-                x, k, st, padding=pad, return_indices=True),
-            x.numel() * 4 + outs * 8, 1.0 * outs * k * k)
+        maxpool_case(step, case, x, k, st, pad, count)
+        if count:
+            pool_band_sweep(clock, f"{step} {case}",
+                            lambda x=x, k=k, st=st, pad=pad:
+                            maxpool(x, k, st, pad), x, k, st, pad)
+    # the transposed boundary mode's crossing: a column-major blob
+    x = rnd((n, 32, 32, 32), f32)
+    maxpool_case("cifar fwd", "pool1, x column-major",
+                 as_layout(x, MajorOrder.ROW, MajorOrder.COLUMN), 3, 2, 0, 0,
+                 "strided")
+    # one-row bands at the shared memory's edge: 47,088 bytes fit beside
+    # the block's staged plane bases (kernels/pooling.py:POOL_SMEM), 48,000
+    # do not and take the strided kernel
+    for w, route in ((3924, "plane"), (4000, "strided")):
+        maxpool_case("cifar fwd", "one-row band at the budget",
+                     rnd((1, 1, 8, w), f32), 3, 1, 0, 0, route)
     # the relus: (step, case, shape)
     for step, case, shape in (("mnist fwd", "relu1", (n, 500)),
                               ("cifar fwd", "relu1", (n, 32, 15, 15)),
                               ("cifar fwd", "relu2", (n, 32, 15, 15)),
                               ("cifar fwd", "relu3", (n, 64, 7, 7))):
-        x = rnd(shape, f32)
-        run(relu, f"{case} {'x'.join(map(str, shape))}", f32, step, 1,
-            lambda x=x: relu(x), lambda x=x: ref.relu(x),
-            lambda x=x: F.leaky_relu(x, 0.0), 2 * x.numel() * 4,
-            1.0 * x.numel())
+        x = relu_case(step, case, rnd(shape, f32), 1)
+        if case != "relu2":
+            vec_grid_sweep(clock, "relu", f"{step} {case}",
+                           lambda x=x: relu(x), f32, x.numel())
+    x = rnd((n, 32, 15, 15), f32)
+    relu_case("cifar fwd", "relu1, x column-major",
+              as_layout(x, MajorOrder.ROW, MajorOrder.COLUMN), 0)
+    buf = rnd((n * 500 + 1,), f32)
+    relu_case("mnist fwd", "relu1, x offset by one element",
+              buf[1:].view(n, 500), 0, "scalar")
     # the loss (V = 10) of both nets and the deploy form's prob, then both
     # at (256, 1000)
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -2168,15 +2300,8 @@ def caffe_kernels(torch, F, rnd, run):
         lambda: im2col(x, 5, 5, 1, 0, batch_in_columns=True),
         lambda: ref.im2col(x, 5, 5, 1, 0).transpose(0, 1).reshape(25, -1),
         lambda: F.unfold(x, 5), (n * 784 + n * 25 * 576) * 2, 0.0)
-    x = rnd((n, 20, 24, 24), bf)
-    run(maxpool, f"pool1 {n}x20x24x24 k2 s2", bf, "bf16", 0,
-        lambda: maxpool(x, 2, 2), lambda: ref.maxpool(x, 2, 2),
-        lambda: F.max_pool2d(x, 2, 2, return_indices=True),
-        x.numel() * 2 + x.numel() // 4 * 6, 1.0 * x.numel())
-    x = rnd((n, 500), bf)
-    run(relu, f"relu1 {n}x500 slope 0.1", bf, "bf16", 0,
-        lambda: relu(x, 0.1), lambda: ref.relu(x, 0.1),
-        lambda: F.leaky_relu(x, 0.1), 2 * x.numel() * 2, 1.0 * x.numel())
+    maxpool_case("bf16", "pool1", rnd((n, 20, 24, 24), bf), 2, 2, 0, 0)
+    relu_case("bf16", "relu1", rnd((n, 500), bf), 0, slope=0.1)
     x = 3 * rnd((n, 10), bf)
     y = torch.randint(0, 10, (n,), generator=g, device="cuda")
     run(softmax_xent, f"{n}x10", bf, "bf16", 0, lambda: softmax_xent(x, y),
@@ -2197,8 +2322,8 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
     on contiguous (N, C*K*K, OH*OW) columns, maxpool_bwd on exact ties
     with pads 0 and 1, softmax_xent_bwd with labels -1 and V; then each
     new kernel once in bf16.  relu_bwd's rows are timed beside the strided
-    kernel forced, and its vec kernel swept over ``relu_bwd_grid``'s
-    block caps (``relu_bwd_sweep``).  Yardsticks:
+    kernel forced, and its vec kernel swept over ``relu_vec_grid``'s
+    block caps (``vec_grid_sweep``).  Yardsticks:
     ``F.fold``, the backward of ``F.max_pool2d(return_indices=True)``
     (``aten.max_pool2d_with_indices_backward``), of ``F.leaky_relu``
     (``aten.leaky_relu_backward``) and of ``F.cross_entropy`` (autograd
@@ -2325,8 +2450,8 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
             ("cifar train", "relu1,relu2", (n, 32, 15, 15), 2),
             ("cifar train", "relu3", (n, 64, 7, 7), 1)):
         x, dy = relu_bwd_case(step, case, shape, count)
-        relu_bwd_sweep(clock, f"{step} {case}", lambda x=x, dy=dy:
-                       relu_bwd(x, dy), f32, x.numel())
+        vec_grid_sweep(clock, "relu_bwd", f"{step} {case}",
+                       lambda x=x, dy=dy: relu_bwd(x, dy), f32, x.numel())
     relu_bwd_case("cifar train", "relu3, x column-major", (n, 64, 7, 7), 0,
                   x_column_major=True)
     xent_bwd_case("mnist train", "loss", 1)
@@ -2672,7 +2797,8 @@ DECODES = ("flash_decode", "flash_decode_paged", "flash_decode_paged_quant")
 CHUNKS = ("flash_prefill_chunk", "flash_prefill_chunk_paged",
           "flash_prefill_chunk_paged_quant")
 ROUTED = ("gemm", "flash_attention_bwd", "flash_attention") + DECODES \
-    + CHUNKS + ("rmsnorm_bwd", "conv2d_direct", "relu_bwd")
+    + CHUNKS + ("rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool",
+                "relu")
 ROUTE_SOURCES = {
     ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
@@ -2695,6 +2821,10 @@ ROUTE_SOURCES = {
         "src/repro_torch/kernels/csrc/conv_direct.cu",
     ("relu_bwd", "vec"): "src/repro_torch/kernels/csrc/eltwise.cu",
     ("relu_bwd", "strided"): "src/repro_torch/kernels/csrc/eltwise.cu",
+    ("maxpool", "plane"): "src/repro_torch/kernels/csrc/pooling.cu",
+    ("maxpool", "strided"): "src/repro_torch/kernels/csrc/pooling.cu",
+    ("relu", "vec"): "src/repro_torch/kernels/csrc/eltwise.cu",
+    ("relu", "scalar"): "src/repro_torch/kernels/csrc/eltwise.cu",
 }
 ROUTE_SOURCES.update({
     (name, route): f"src/repro_torch/kernels/csrc/{src}"
@@ -4051,7 +4181,8 @@ def phase_caffe(torch):
         eval_step = solver.make_eval_step()
         m_h, got = caffe_counted(
             torch, lambda: eval_step(params, data, label), name,
-            routes=caffe_gemm_routes(net.spec, net.blob_shapes, False))
+            routes=caffe_gemm_routes(net.spec, net.blob_shapes, False),
+            kernel_routes=caffe_fwd_routes(net.spec, None))
         add(got)
         with use_backend("reference"):
             m_r = eval_step(params, data, label)
@@ -4105,7 +4236,8 @@ def phase_caffe(torch):
 
     p_h, got = caffe_counted(
         torch, deploy_prob, "lenet-mnist-deploy",
-        routes=caffe_gemm_routes(deploy.spec, shapes, False))
+        routes=caffe_gemm_routes(deploy.spec, shapes, False),
+        kernel_routes=caffe_fwd_routes(deploy.spec, None))
     add(got)
     with use_backend("reference"):
         p_r = deploy_prob()
@@ -4163,7 +4295,8 @@ def phase_caffe(torch):
                 torch, fwd, name, synced=boundary is None,
                 routes=caffe_gemm_routes(
                     net.spec, shapes, False,
-                    transpose=boundary == "transfer+transpose"))
+                    transpose=boundary == "transfer+transpose"),
+                kernel_routes=caffe_fwd_routes(net.spec, boundary))
             add(got)
             losses[boundary] = loss.item()
             with use_backend("hopper"):
@@ -4247,6 +4380,32 @@ def caffe_train_launches(spec):
             want["softmax_xent"] += 1
             want["softmax_xent_bwd"] += 1
     return want
+
+
+def caffe_maxpool_routes(spec, boundary):
+    """``maxpool``'s launches per route in one forward or train step of
+    the net ``spec`` (one a max Pooling layer) in the boundary mode:
+    "plane" where its bottom arrives row-major (the fused net;
+    ``transfer``, whose crossings copy without a relayout), "strided" in
+    ``transfer+transpose``, whose crossing hands every layer a
+    column-major bottom."""
+    n = sum(ls.type == "Pooling" and ls.pool == "max" for ls in spec.layers)
+    route = "strided" if boundary == "transfer+transpose" else "plane"
+    return {"maxpool": {route: n}}
+
+
+def caffe_relu_routes(spec, boundary):
+    """``relu``'s launches per route in one forward or train step of the
+    net ``spec`` (one a ReLU layer): "vec" in every boundary mode (the
+    transposed crossing's column-major blob is dense too)."""
+    return {"relu": {"vec": sum(ls.type == "ReLU" for ls in spec.layers)}}
+
+
+def caffe_fwd_routes(spec, boundary):
+    """The forward's routed Caffe kernels, ``caffe_maxpool_routes`` and
+    ``caffe_relu_routes``, for ``caffe_counted``'s ``kernel_routes``."""
+    return {**caffe_maxpool_routes(spec, boundary),
+            **caffe_relu_routes(spec, boundary)}
 
 
 def caffe_relu_bwd_routes(spec, boundary):
@@ -4403,7 +4562,8 @@ def phase_caffe_train(torch):
             (st_h, l_h), got = caffe_counted(
                 torch, lambda: step(st_h, d, lab), name, want=want,
                 routes=caffe_gemm_routes(net.spec, net.blob_shapes, True),
-                kernel_routes=caffe_relu_bwd_routes(net.spec, None))
+                kernel_routes={**caffe_relu_bwd_routes(net.spec, None),
+                               **caffe_fwd_routes(net.spec, None)})
             for k, v in got.items():
                 total[k] += v
             with use_backend("reference"):
@@ -4426,7 +4586,8 @@ def phase_caffe_train(torch):
                 want=want, routes=caffe_gemm_routes(
                     net.spec, net.blob_shapes, True,
                     transpose=boundary == "transfer+transpose"),
-                kernel_routes=caffe_relu_bwd_routes(net.spec, boundary))
+                kernel_routes={**caffe_relu_bwd_routes(net.spec, boundary),
+                               **caffe_fwd_routes(net.spec, boundary)})
             for k, v in got.items():
                 total[k] += v
             gap, worst = tree_gap(torch, stb["params"], st1["params"])

@@ -66,10 +66,12 @@ _SIGNATURES = {
     "repro_bias_add_rows": [_P, _P, _P, _I, _I, _L, _I, _P],
     # x, out, n, slope, dtype, stream
     "repro_relu": [_P, _P, _L, _F, _I, _P],
+    # x, out, n, slope, blocks, dtype, stream
+    "repro_relu_vec": [_P, _P, _L, _F, _I, _I, _P],
     # x, dy, dx, n, shape (d1, d2, d3), strides of x, dy and dx (4 each),
     # slope, dtype, stream
     "repro_relu_bwd": [_P, _P, _P] + [_L] * 16 + [_F, _I, _P],
-    # x, dy, dx, n, slope, vecs, blocks, dtype, stream
+    # x, dy, dx, n, slope, blocks, dtype, stream
     "repro_relu_bwd_vec": [_P, _P, _P, _L, _F, _I, _I, _P],
     # x, out, N, C, H, W, x strides (n, c, h, w), KH, KW, stride, pad, OH,
     # OW, o_sn, o_sr, dtype, stream
@@ -79,6 +81,10 @@ _SIGNATURES = {
     # OH, OW, dtype, stream
     "repro_maxpool": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I,
                       _I, _I, _I, _I, _P],
+    # x, out, argmax, N, C, H, W, x strides (n, c, h; w is 1), k, stride,
+    # pad, OH, OW, rows, planes, threads, vec, dtype, stream
+    "repro_maxpool_plane": [_P] * 3 + [_I] * 4 + [_L] * 3 + [_I] * 10
+                           + [_P],
     # x, w, bias (f32 or NULL), out, N, C, H, W, x strides (n, c, h, w), F,
     # KH, KW, stride, pad, OH, OW, dtype, stream
     "repro_conv2d_direct": [_P] * 4 + [_I] * 4 + [_L] * 4 + [_I] * 8 + [_P],

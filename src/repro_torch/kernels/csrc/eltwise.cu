@@ -1,20 +1,32 @@
 // Elementwise kernels of src/repro/kernels/eltwise.py.  What bounds them
 // on Hopper: bytes -- one read of each input, one write of the output, one
-// operation per element.  Each is a grid-stride loop with one thread per
-// element; neighbouring threads touch neighbouring addresses.
+// operation per element.  The first port's kernels are grid-stride loops
+// with one thread per element, neighbouring threads on neighbouring
+// addresses; the ReLU's and its backward's "vec" routes take 16-byte
+// vectors.
 //
 // * Bias over rows (the paper's matrixPlusVectorRows functor): out[i, :] =
 //   m[i, :] + v, added in f32 and rounded to the storage dtype.  Replaces
 //   bias_add_rows_pallas ((bm, bn) VMEM tiles).
 // * Caffe's leaky-capable ReLU: out = x > 0 ? x : slope * x, the product
-//   in f32 rounded to the storage dtype (x itself is passed through).  In
-//   both ReLU kernels the slope is first rounded to the storage dtype, as
-//   JAX's weakly typed slope * x rounds it (a bf16 product of two bf16
-//   values is exact in f32, so one rounding follows).
-//   Replaces relu_pallas (tiles of the flattened tensor).  It walks the
-//   storage in memory order, so any dense layout (a column-major blob of
-//   the paper's boundary mode too) is read in place and the output keeps
-//   the input's strides.
+//   in f32 rounded to the storage dtype (x itself is passed through; a NaN
+//   in x takes the slope).  In both ReLU kernels the slope is first
+//   rounded to the storage dtype, as JAX's weakly typed slope * x rounds
+//   it (a bf16 product of two bf16 values is exact in f32, so one rounding
+//   follows).  Replaces relu_pallas (tiles of the flattened tensor).  Both
+//   routes walk the storage in memory order, so any dense layout (a
+//   column-major blob of the paper's boundary mode too) is read in place
+//   and the output keeps the input's strides.  Two routes, picked by
+//   kernels/eltwise.py:relu_plan:
+//   - "vec" (repro_relu_vec): 16-byte aligned bases of x and out (every
+//     LeNet ReLU, in every boundary mode).  The backward's vector walk
+//     below with x in place of dy (one operand read): kVecs 16-byte loads
+//     a thread before it uses any, 32-bit indices where n allows, the grid
+//     from n alone (kernels/eltwise.py:relu_vec_grid), one
+//     thread of block 0 a leftover element.  The first port's kernel moved
+//     4 bytes a load, one load in flight a thread, with a 64-bit index.
+//   - "scalar" (repro_relu): a misaligned base (a view offset by one
+//     element).  The first port's kernel.
 // * ReLU's backward: dx = x > 0 ? dy : slope * dy (a NaN in x takes the
 //   slope, as x > 0 is false), the product in f32 rounded to the storage
 //   dtype.  Replaces relu_bwd_pallas.  Two routes, picked by
@@ -26,7 +38,7 @@
 //     16-byte loads of x and of dy (4 f32 or 8 bf16 each) before it uses
 //     any (the count a sweep of 1, 2, 4 and 8 settled on: PERF.md), the
 //     block's threads on neighbouring vectors, 32-bit indices where n
-//     allows; the grid (kernels/eltwise.py:relu_bwd_grid) comes from n
+//     allows; the grid (kernels/eltwise.py:relu_vec_grid) comes from n
 //     alone, and one thread of block 0 a leftover element takes the tail.
 //   - "strided" (repro_relu_bwd): mixed layouts (in the paper's transposed
 //     boundary mode a column-major x meets the row-major gradient of the
@@ -40,8 +52,8 @@ using namespace repro;
 
 constexpr int kThreads = 256;
 constexpr long kMaxBlocks = 4096;
-// the vec ReLU backward's 16-byte vectors of x and of dy a thread loads
-// before it uses any (kernels/eltwise.py:RELU_BWD_VECS)
+// the vec ReLU kernels' 16-byte vectors of each operand a thread loads
+// before it uses any (kernels/eltwise.py:RELU_VECS)
 constexpr int kVecs = 2;
 
 template <typename T>
@@ -105,22 +117,23 @@ relu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// dx of one 32-bit word of x and of dy: one f32, or two bf16 (element 2i
-// in the low half of word i, little endian)
+// one 32-bit word of g where x > 0, else slope * g rounded to the storage
+// dtype: the backward's dx (g = dy) or the forward's out (g = x); one f32,
+// or two bf16 (element 2i in the low half of word i, little endian)
 template <typename T>
-__device__ __forceinline__ uint32_t relu_bwd_word(uint32_t xw, uint32_t gw,
-                                                  float slope);
+__device__ __forceinline__ uint32_t relu_word(uint32_t xw, uint32_t gw,
+                                              float slope);
 template <>
-__device__ __forceinline__ uint32_t relu_bwd_word<float>(uint32_t xw,
-                                                         uint32_t gw,
-                                                         float slope) {
+__device__ __forceinline__ uint32_t relu_word<float>(uint32_t xw,
+                                                     uint32_t gw,
+                                                     float slope) {
   return __uint_as_float(xw) > 0.f
              ? gw : __float_as_uint(slope * __uint_as_float(gw));
 }
 template <>
-__device__ __forceinline__ uint32_t relu_bwd_word<bf16>(uint32_t xw,
-                                                        uint32_t gw,
-                                                        float slope) {
+__device__ __forceinline__ uint32_t relu_word<bf16>(uint32_t xw,
+                                                    uint32_t gw,
+                                                    float slope) {
   uint32_t out = 0;
 #pragma unroll
   for (int h = 0; h < 32; h += 16) {
@@ -136,26 +149,27 @@ __device__ __forceinline__ uint32_t relu_bwd_word<bf16>(uint32_t xw,
 }
 
 template <typename T>
-__device__ __forceinline__ uint4 relu_bwd16(const uint4& a, const uint4& g,
-                                            float slope) {
-  return make_uint4(relu_bwd_word<T>(a.x, g.x, slope),
-                    relu_bwd_word<T>(a.y, g.y, slope),
-                    relu_bwd_word<T>(a.z, g.z, slope),
-                    relu_bwd_word<T>(a.w, g.w, slope));
+__device__ __forceinline__ uint4 relu16(const uint4& a, const uint4& g,
+                                        float slope) {
+  return make_uint4(relu_word<T>(a.x, g.x, slope),
+                    relu_word<T>(a.y, g.y, slope),
+                    relu_word<T>(a.z, g.z, slope),
+                    relu_word<T>(a.w, g.w, slope));
 }
 
-// I: the index type (int where n allows); a thread's kVecs vectors lie
-// kThreads vectors apart
-template <typename T, typename I>
+// the "vec" walk of both ReLU kernels.  I: the index type (int where n
+// allows); a thread's kVecs vectors lie kThreads vectors apart.  kFwd: the
+// forward, whose g is x itself (dy is not read); else the backward.
+template <typename T, typename I, bool kFwd>
 __global__ void __launch_bounds__(kThreads)
-relu_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                    T* __restrict__ dx, I n, float slope) {
+relu_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                T* __restrict__ out, I n, float slope) {
   slope = storage_slope<T>(slope);
   constexpr int E = 16 / sizeof(T);
   const I nv = n / E;
   const uint4* xv = reinterpret_cast<const uint4*>(x);
   const uint4* gv = reinterpret_cast<const uint4*>(dy);
-  uint4* ov = reinterpret_cast<uint4*>(dx);
+  uint4* ov = reinterpret_cast<uint4*>(out);
   const I span = (I)gridDim.x * (kThreads * kVecs);
   for (I v0 = (I)blockIdx.x * (kThreads * kVecs) + threadIdx.x; v0 < nv;
        v0 += span) {
@@ -165,37 +179,36 @@ relu_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       const I v = v0 + u * kThreads;
       if (v < nv) {
         a[u] = __ldg(xv + v);
-        g[u] = __ldg(gv + v);
+        if (!kFwd) g[u] = __ldg(gv + v);
       }
     }
 #pragma unroll
     for (int u = 0; u < kVecs; ++u) {
       const I v = v0 + u * kThreads;
-      if (v < nv) ov[v] = relu_bwd16<T>(a[u], g[u], slope);
+      if (v < nv) ov[v] = relu16<T>(a[u], kFwd ? a[u] : g[u], slope);
     }
   }
   const I i = nv * E + threadIdx.x;
   if (blockIdx.x == 0 && i < n) {
-    const T gi = dy[i];
-    dx[i] = to_f32(x[i]) > 0.f ? gi : from_f32<T>(slope * to_f32(gi));
+    const T gi = kFwd ? x[i] : dy[i];
+    out[i] = to_f32(x[i]) > 0.f ? gi : from_f32<T>(slope * to_f32(gi));
   }
 }
 
-template <typename T>
-cudaError_t launch_relu_bwd_vec(const void* x, const void* dy, void* dx,
-                                long n, float slope, int blocks,
-                                cudaStream_t s) {
+template <typename T, bool kFwd>
+cudaError_t launch_relu_vec(const void* x, const void* dy, void* out, long n,
+                            float slope, int blocks, cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(dy);
-  T* op = static_cast<T*>(dx);
+  T* op = static_cast<T*>(out);
   const dim3 grid((unsigned)blocks), block(kThreads);
   // int indices while n and a grid's span of vectors past it fit
   if (n + (long)blocks * kThreads * kVecs * (16 / sizeof(T)) < 0x7fffffffL)
-    relu_bwd_vec_kernel<T, int><<<grid, block, 0, s>>>(xp, gp, op, (int)n,
-                                                        slope);
-  else
-    relu_bwd_vec_kernel<T, long><<<grid, block, 0, s>>>(xp, gp, op, n,
+    relu_vec_kernel<T, int, kFwd><<<grid, block, 0, s>>>(xp, gp, op, (int)n,
                                                          slope);
+  else
+    relu_vec_kernel<T, long, kFwd><<<grid, block, 0, s>>>(xp, gp, op, n,
+                                                          slope);
   return cudaGetLastError();
 }
 
@@ -231,16 +244,32 @@ extern "C" int repro_relu_bwd(const void* x, const void* dy, void* dx,
 }
 
 // route "vec": x, dy and dx of one dense layout, 16-byte aligned bases,
-// walked in memory order; blocks from kernels/eltwise.py:relu_bwd_grid
+// walked in memory order; blocks from kernels/eltwise.py:relu_vec_grid
 extern "C" int repro_relu_bwd_vec(const void* x, const void* dy, void* dx,
                                   long long n, float slope, int blocks,
                                   int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (blocks < 1 || blocks > 65535) return (int)cudaErrorInvalidValue;
   if (dtype == kBF16)
-    return (int)launch_relu_bwd_vec<bf16>(x, dy, dx, n, slope, blocks, s);
+    return (int)launch_relu_vec<bf16, false>(x, dy, dx, n, slope, blocks, s);
   if (dtype == kF32)
-    return (int)launch_relu_bwd_vec<float>(x, dy, dx, n, slope, blocks, s);
+    return (int)launch_relu_vec<float, false>(x, dy, dx, n, slope, blocks,
+                                              s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// route "vec" of the forward: x and out of one dense layout, 16-byte
+// aligned bases, walked in memory order; blocks from
+// kernels/eltwise.py:relu_vec_grid
+extern "C" int repro_relu_vec(const void* x, void* out, long long n,
+                              float slope, int blocks, int dtype,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks < 1 || blocks > 65535) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return (int)launch_relu_vec<bf16, true>(x, x, out, n, slope, blocks, s);
+  if (dtype == kF32)
+    return (int)launch_relu_vec<float, true>(x, x, out, n, slope, blocks, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,19 +3,47 @@
 // row*WP + col of that value in the padded plane (WP = W + 2*pad).
 //
 // Replaces src/repro/kernels/pooling.py:maxpool_pallas, which pads the
-// image with finfo(dtype).min in device memory, then, per (batch, channel
-// block) grid cell, unrolls the window over strided VMEM slices, keeping
-// the running best and its index with a strict '>' (the first maximum in
-// row-major window order wins).  What bounds it on Hopper: bytes -- a read
-// of the image and a write of the outputs, k*k compares per output.  One
-// thread per output element in a grid-stride loop (neighbouring threads
-// write neighbouring outputs); it visits its window in the same row-major
-// order with the same strict '>', and an out-of-plane cell is a candidate
-// of value finfo(dtype).min at its padded index, so ties and windows that
-// lie wholly in the padding give JAX's argmax bit for bit without a padded
-// copy.  Values are compared in f32 (exact for both storage types) and
-// the winner is stored back unchanged.  The image is read by its four
-// strides; the outputs are contiguous (N, C, OH, OW).
+// image with finfo(dtype).min in device memory, stages each padded plane
+// whole in VMEM, then, per (batch, channel block) grid cell, unrolls the
+// window over strided VMEM slices, keeping the running best and its index
+// with a strict '>' (the first maximum in row-major window order wins).
+// What bounds it on Hopper: bytes -- a read of the image and a write of
+// the outputs and argmaxes, k*k compares per output.  Both routes visit a
+// window in the same row-major order with the same strict '>', treat an
+// out-of-plane cell as a candidate of value finfo(dtype).min at its padded
+// index (so ties and windows that lie wholly in the padding give JAX's
+// argmax bit for bit without a padded copy), compare in f32 (exact for
+// both storage types) and store the winner back unchanged; the outputs are
+// contiguous (N, C, OH, OW).  Two routes, picked by
+// kernels/pooling.py:maxpool_plan from the layout:
+//
+// * "plane" (repro_maxpool_plane): x's rows have unit stride (every
+//   row-major input, contiguous or not: every call of the fused forward
+//   and of the transfer boundary mode).  The Hopper form of the TPU
+//   kernel's staged plane: a block stages in shared memory, as f32 in
+//   padded coordinates, the band of input rows that its output rows'
+//   windows touch, of `planes` whole planes where one plane is too small
+//   to fill the block (MNIST pool2: 3,200 planes of 8 x 8), or of `rows`
+//   output rows of one plane (kernels/pooling.py:maxpool_band fixes both
+//   from the shape, the shared memory within the static 48 KB, the grid
+//   at >= 132 blocks where the shape allows).  Each input byte the
+//   windows need is read from device memory once (rows past
+//   (OH-1)*stride + k - pad, which the floor of conv_out_size leaves out,
+//   are never read), with coalesced loads: 16-byte vectors where the
+//   planner vouched for the base, the strides and the row length, else
+//   one element a thread, neighbouring threads on neighbouring columns.
+//   The padding is written into the band as it is read.  Threads then
+//   take outputs from shared memory, neighbouring threads on neighbouring
+//   (contiguous) outputs.  All index arithmetic is 32-bit: a block's
+//   planes and band come from blockIdx, each plane's 64-bit base offset
+//   is computed once a block; no 64-bit division or remainder anywhere
+//   (the old kernel's three of each per output were emulated in software,
+//   dozens of instructions each).  The window is a template parameter for
+//   k = 2 and 3 (the LeNet pools), a runtime loop for any other.
+// * "strided" (repro_maxpool): every other layout (the column-major blob
+//   of the transposed boundary mode).  The first port's kernel: one
+//   thread per output in a grid-stride loop, its window's k*k cells read
+//   by the image's four strides.
 //
 // The backward, for windows that do not overlap (stride >= k): pixel
 // (y, x) of the unpadded plane lies at (y+pad, x+pad) of the padded one,
@@ -101,6 +129,154 @@ void launch(const void* x, void* out, int* arg, int N, int C, int H, int W,
       sc, sh, sw, k, stride, pad, OH, OW);
 }
 
+// the "plane" kernel's most threads a block and planes a block
+// (kernels/pooling.py:POOL_THREADS, POOL_MAX_PLANES), and the most bytes
+// of its staged band (POOL_SMEM): the static limit of 48 KB a block, no
+// opt-in, less the block's staged plane bases, which share it
+constexpr int kPlaneThreads = 256;
+constexpr int kMaxPlanes = 256;
+constexpr int kPlaneSmem = 48 * 1024 - kMaxPlanes * (int)sizeof(long long);
+
+// K: the window (0: k at run time).  A block takes `planes` planes (then
+// all OH output rows) or `rows` output rows of one plane; `bands` =
+// ceil(OH / rows).  The band in shared memory: the block's planes, each
+// its rin staged rows of wpu = (OW-1)*stride + k padded columns, f32.
+template <typename T, int K>
+__global__ void __launch_bounds__(kPlaneThreads)
+maxpool_plane_kernel(const T* __restrict__ x, T* __restrict__ out,
+                     int* __restrict__ arg, int P, int C, int H, int W,
+                     long long sn, long long sc, long long sh, int k_arg,
+                     int stride, int pad, int OH, int OW, int rows,
+                     int planes, int bands, bool vec) {
+  extern __shared__ float band[];
+  __shared__ long long base[kMaxPlanes];
+  const int k = K ? K : k_arg;  // a constant where K is: the loops unroll
+  const int g = blockIdx.x / bands;
+  const int oy0 = (blockIdx.x - g * bands) * rows;
+  const int p0 = g * planes;
+  const int pa = min(planes, P - p0);
+  const int ra = min(rows, OH - oy0);
+  const int rin = (ra - 1) * stride + k;
+  const int wpu = (OW - 1) * stride + k;
+  const int y0 = oy0 * stride - pad;  // the image row of staged row 0
+  const float neg = lowest<T>();
+  for (int q = threadIdx.x; q < pa; q += blockDim.x) {
+    const int p = p0 + q, n = p / C;
+    base[q] = n * sn + (p - n * C) * sc;
+  }
+  __syncthreads();
+  // a staged row's units: the image's row in 16-byte vectors (or single
+  // elements), then its left and right padding cells that a window reads
+  constexpr int E = 16 / sizeof(T);
+  const int e = vec ? E : 1;
+  const int nv = W / e;
+  const int lp = min(pad, wpu);
+  const int units = nv + lp + max(0, wpu - pad - W);
+  const int total = pa * rin * units;
+  for (int t = threadIdx.x; t < total; t += blockDim.x) {
+    const int s = t / units, u = t - s * units;  // s = q * rin + staged row
+    const int q = s / rin;
+    const int y = y0 + s - q * rin;
+    const bool in = y >= 0 && y < H;
+    float* dst = band + s * wpu;
+    if (u < nv) {
+      const int c0 = pad + u * e;
+      if (vec) {
+        float v[E];
+        if (in) {
+          load16(x + base[q] + y * sh + u * E, v);
+        } else {
+#pragma unroll
+          for (int j = 0; j < E; ++j) v[j] = neg;
+        }
+#pragma unroll
+        for (int j = 0; j < E; ++j)
+          if (c0 + j < wpu) dst[c0 + j] = v[j];
+      } else if (c0 < wpu) {
+        dst[c0] = in ? to_f32(x[base[q] + y * sh + u]) : neg;
+      }
+    } else {
+      const int pu = u - nv;
+      dst[pu < lp ? pu : pad + W + pu - lp] = neg;
+    }
+  }
+  __syncthreads();
+  // outputs: the block's are contiguous, (p0, oy0, 0) onwards
+  const int per_plane = ra * OW;
+  const int cnt = pa * per_plane;
+  const int WP = W + 2 * pad;
+  const long long o0 = ((long long)p0 * OH + oy0) * OW;
+  for (int o = threadIdx.x; o < cnt; o += blockDim.x) {
+    const int q = o / per_plane, r = o - q * per_plane;
+    const int oy = r / OW, ox = r - oy * OW;
+    const float* win = band + (q * rin + oy * stride) * wpu + ox * stride;
+    float best = win[0];
+    int bi = 0, bj = 0;
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+#pragma unroll
+      for (int j = 0; j < k; ++j) {
+        const float v = win[i * wpu + j];
+        if (v > best) {
+          best = v;
+          bi = i;
+          bj = j;
+        }
+      }
+    }
+    out[o0 + o] = from_f32<T>(best);
+    arg[o0 + o] = ((oy0 + oy) * stride + bi) * WP + ox * stride + bj;
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_plane_k(const void* x, void* out, int* arg, int P, int C,
+                           int H, int W, long long sn, long long sc,
+                           long long sh, int k, int stride, int pad, int OH,
+                           int OW, int rows, int planes, int bands,
+                           int blocks, int threads, int smem, bool vec,
+                           cudaStream_t s) {
+  maxpool_plane_kernel<T, K><<<blocks, threads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), arg, P, C, H, W, sn,
+      sc, sh, k, stride, pad, OH, OW, rows, planes, bands, vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_plane(const void* x, void* out, int* arg, int P, int C,
+                         int H, int W, long long sn, long long sc,
+                         long long sh, int k, int stride, int pad, int OH,
+                         int OW, int rows, int planes, int threads, int vec,
+                         cudaStream_t s) {
+  const long long bands = (OH + rows - 1) / rows;
+  const long long blocks = (P + (long long)planes - 1) / planes * bands;
+  const long long smem =
+      4LL * planes * ((rows - 1) * stride + k) * ((OW - 1) * stride + k);
+  // what the kernel assumes: a block's outputs contiguous (several planes
+  // only with whole planes), its planes' bases staged, the band in the
+  // static limit, aligned vectors of whole rows
+  if (rows < 1 || rows > OH || planes < 1 || planes > kMaxPlanes ||
+      (planes > 1 && rows != OH) || threads < 32 || threads % 32 ||
+      threads > kPlaneThreads || smem > kPlaneSmem ||
+      blocks > 0x7fffffffLL || (vec && W % (16 / (int)sizeof(T))) ||
+      (vec && reinterpret_cast<uintptr_t>(x) % 16))
+    return cudaErrorInvalidValue;
+  const bool v = vec != 0;
+  if (k == 2)
+    return launch_plane_k<T, 2>(x, out, arg, P, C, H, W, sn, sc, sh, k,
+                                stride, pad, OH, OW, rows, planes,
+                                (int)bands, (int)blocks, threads, (int)smem,
+                                v, s);
+  if (k == 3)
+    return launch_plane_k<T, 3>(x, out, arg, P, C, H, W, sn, sc, sh, k,
+                                stride, pad, OH, OW, rows, planes,
+                                (int)bands, (int)blocks, threads, (int)smem,
+                                v, s);
+  return launch_plane_k<T, 0>(x, out, arg, P, C, H, W, sn, sc, sh, k, stride,
+                              pad, OH, OW, rows, planes, (int)bands,
+                              (int)blocks, threads, (int)smem, v, s);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 maxpool_bwd_kernel(const T* __restrict__ dy, const int* __restrict__ arg,
@@ -182,4 +358,29 @@ extern "C" int repro_maxpool(const void* x, void* out, void* arg, int N,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// route "plane": x's rows of unit stride (sw = 1), read by the strides of
+// its other three axes; out and argmax contiguous (N, C, OH, OW); a
+// block's output rows, planes and threads and the 16-byte loads from
+// kernels/pooling.py:maxpool_band
+extern "C" int repro_maxpool_plane(const void* x, void* out, void* arg,
+                                   int N, int C, int H, int W, long long sn,
+                                   long long sc, long long sh, int k,
+                                   int stride, int pad, int OH, int OW,
+                                   int rows, int planes, int threads,
+                                   int vec, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* a = static_cast<int*>(arg);
+  const long long P = (long long)N * C;
+  if (P > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return (int)launch_plane<bf16>(x, out, a, (int)P, C, H, W, sn, sc, sh, k,
+                                   stride, pad, OH, OW, rows, planes,
+                                   threads, vec, s);
+  if (dtype == kF32)
+    return (int)launch_plane<float>(x, out, a, (int)P, C, H, W, sn, sc, sh,
+                                    k, stride, pad, OH, OW, rows, planes,
+                                    threads, vec, s);
+  return (int)cudaErrorInvalidValue;
 }

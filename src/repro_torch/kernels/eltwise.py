@@ -2,18 +2,21 @@
 paper's ``matrixPlusVectorRows``), Caffe's leaky ReLU and its backward.
 
 Replace ``repro/kernels/eltwise.py:bias_add_rows_pallas``, ``relu_pallas``
-and ``relu_bwd_pallas``.  Each kernel is one grid-stride elementwise pass
-in f32, rounded to the storage dtype; bound by bytes.  The ReLU's slope
-is rounded to the storage dtype before its product, as JAX's weakly typed
+and ``relu_bwd_pallas``.  Each kernel is one elementwise pass in f32,
+rounded to the storage dtype; bound by bytes.  The ReLU's slope is
+rounded to the storage dtype before its product, as JAX's weakly typed
 ``slope * x`` rounds it.
 
-The ReLU backward has two routes, picked by ``relu_bwd_plan`` from dtype,
-shape, strides and alignment (never by trying a kernel) and counted in
-``relu_bwd.routes`` beside ``launches``: "vec" when x and dy share one
-dense layout with 16-byte aligned bases (storage walked in memory order,
-``RELU_BWD_VECS`` 16-byte vectors a thread in flight, ``relu_bwd_grid``'s
-blocks), "strided" for mixed layouts (each operand addressed by its own
-strides, up to 4 axes).
+The ReLU and its backward have two routes each, picked by ``relu_plan``
+and ``relu_bwd_plan`` from dtype, shape, strides and alignment (never by
+trying a kernel) and counted in ``relu.routes`` and ``relu_bwd.routes``
+beside ``launches``.  "vec" for one dense layout with 16-byte aligned
+bases (x alone for the forward, x and dy sharing it for the backward):
+storage walked in memory order, ``RELU_VECS`` 16-byte vectors of each
+operand a thread in flight, ``relu_vec_grid``'s blocks.  Else the first
+port's kernels: the forward's "scalar" (one element a thread, for a
+misaligned base), the backward's "strided" (each operand addressed by its
+own strides, up to 4 axes, for mixed layouts).
 """
 from __future__ import annotations
 
@@ -70,38 +73,15 @@ def _dense_like(x: torch.Tensor, what: str) -> torch.Tensor:
     return out
 
 
-def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
-    """``where(x > 0, x, negative_slope * x)`` of any shape; the output
-    keeps ``x``'s strides.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if not x.is_cuda:
-        return relu_ref(x, negative_slope)
-    _build.guard_grad("relu", x)
-    if x.dtype not in DTYPES:
-        raise TypeError(f"relu: dtype {x.dtype} not supported")
-    out = _dense_like(x, "relu")
-    if out.numel() == 0:
-        return out
-    rc = _build.lib().repro_relu(
-        x.data_ptr(), out.data_ptr(), x.numel(), float(negative_slope),
-        DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(rc, "relu")
-    relu.launches += 1
-    return out
-
-
-relu.launches = 0
-
-
+RELU_ROUTES = ("vec", "scalar")
 RELU_BWD_ROUTES = ("vec", "strided")
-# the "vec" kernel: 16-byte vectors of x and of dy a thread loads before it
-# uses any (csrc/eltwise.cu:kVecs, fixed at compile time), the threads of
-# a block (kThreads), and the most blocks: one wave of 8 blocks on each of
-# the H100's 132 SMs
-RELU_BWD_VECS = 2
-RELU_BWD_THREADS = 256
-RELU_BWD_BLOCKS = 8 * 132
+# both "vec" kernels (one walk, csrc/eltwise.cu:relu_vec_kernel): 16-byte
+# vectors of each operand a thread loads before it uses any (kVecs, fixed
+# at compile time), the threads of a block (kThreads), and the most
+# blocks: one wave of 8 blocks on each of the H100's 132 SMs
+RELU_VECS = 2
+RELU_THREADS = 256
+RELU_BLOCKS = 8 * 132
 
 
 def _dense(shape: Sequence[int], strides: Sequence[int]) -> bool:
@@ -115,6 +95,50 @@ def _dense(shape: Sequence[int], strides: Sequence[int]) -> bool:
     return True
 
 
+def relu_plan(dtype: torch.dtype, shape: Sequence[int],
+              strides: Sequence[int], aligned: bool) -> str:
+    """The forward's route: "vec" where x is one dense layout (row-major,
+    or the column-major blob of the transposed boundary mode) and
+    ``aligned`` (16-byte aligned bases of x and out); "scalar" for every
+    other (a view offset by one element)."""
+    return "vec" if aligned and _dense(shape, strides) else "scalar"
+
+
+def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
+    """``where(x > 0, x, negative_slope * x)`` of any dense layout, on the
+    route ``relu_plan`` picks; the output keeps ``x``'s strides.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if not x.is_cuda:
+        return relu_ref(x, negative_slope)
+    _build.guard_grad("relu", x)
+    if x.dtype not in DTYPES:
+        raise TypeError(f"relu: dtype {x.dtype} not supported")
+    out = _dense_like(x, "relu")
+    if out.numel() == 0:
+        return out
+    route = relu_plan(x.dtype, x.shape, x.stride(),
+                      _build.aligned16(x, out, elems=1))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "vec":
+        rc = _build.lib().repro_relu_vec(
+            x.data_ptr(), out.data_ptr(), x.numel(), float(negative_slope),
+            relu_vec_grid(x.dtype, x.numel()), DTYPES[x.dtype], stream)
+    else:
+        rc = _build.lib().repro_relu(
+            x.data_ptr(), out.data_ptr(), x.numel(), float(negative_slope),
+            DTYPES[x.dtype], stream)
+    _build.check(rc, "relu")
+    relu.launches += 1
+    relu.routes[route] += 1
+    return out
+
+
+relu.launches = 0
+# launches per route, beside the total
+relu.routes = dict.fromkeys(RELU_ROUTES, 0)
+
+
 def relu_bwd_plan(dtype: torch.dtype, shape: Sequence[int],
                   x_strides: Sequence[int], dy_strides: Sequence[int],
                   aligned: bool) -> str:
@@ -126,13 +150,13 @@ def relu_bwd_plan(dtype: torch.dtype, shape: Sequence[int],
             and _dense(shape, x_strides) else "strided")
 
 
-def relu_bwd_grid(dtype: torch.dtype, n: int) -> int:
-    """Blocks of the "vec" kernel for ``n`` elements: enough for each
-    thread to take its ``RELU_BWD_VECS`` vectors once, at most
-    ``RELU_BWD_BLOCKS`` (then the threads loop)."""
+def relu_vec_grid(dtype: torch.dtype, n: int) -> int:
+    """Blocks of either ReLU "vec" kernel for ``n`` elements: enough for
+    each thread to take its ``RELU_VECS`` vectors once, at most
+    ``RELU_BLOCKS`` (then the threads loop)."""
     per_vec = 16 // torch.tensor([], dtype=dtype).element_size()
-    per_block = RELU_BWD_THREADS * RELU_BWD_VECS * per_vec
-    return max(1, min(-(-n // per_block), RELU_BWD_BLOCKS))
+    per_block = RELU_THREADS * RELU_VECS * per_vec
+    return max(1, min(-(-n // per_block), RELU_BLOCKS))
 
 
 def relu_bwd(x: torch.Tensor, dy: torch.Tensor,
@@ -159,7 +183,7 @@ def relu_bwd(x: torch.Tensor, dy: torch.Tensor,
     if route == "vec":
         rc = _build.lib().repro_relu_bwd_vec(
             x.data_ptr(), dy.data_ptr(), out.data_ptr(), x.numel(),
-            float(negative_slope), relu_bwd_grid(x.dtype, x.numel()),
+            float(negative_slope), relu_vec_grid(x.dtype, x.numel()),
             DTYPES[x.dtype], stream)
     else:
         if x.dim() > 4:

@@ -2,20 +2,31 @@
 Caffe's Pooling (MAX).
 
 Replaces ``repro/kernels/pooling.py:maxpool_pallas`` and
-``maxpool_bwd_pallas``.  The kernel
-(``csrc/pooling.cu``) computes one output per thread, visiting its window
-in row-major order with a strict ``>`` and treating a cell in the padding
-as a candidate of value ``finfo(dtype).min``, so the int32 argmax (the
-flat index into the padded plane) is JAX's bit for bit, ties and
-all-padding windows included; bound by bytes.  The backward, for
-windows that do not overlap (stride >= k, as JAX's kernel), gathers: one
-thread per input pixel takes its window's ``dy`` if the stored argmax is
-its own padded index (no atomics); overlapping pools take the plain
-scatter in the ops layer.
+``maxpool_bwd_pallas``.  The forward (``csrc/pooling.cu``) visits each
+window in row-major order with a strict ``>`` and treats a cell in the
+padding as a candidate of value ``finfo(dtype).min``, so the int32 argmax
+(the flat index into the padded plane) is JAX's bit for bit, ties and
+all-padding windows included; bound by bytes.  Two routes, picked by
+``maxpool_plan`` from the layout (never by trying a kernel) and counted
+in ``maxpool.routes`` beside ``launches``:
+
+* "plane": x's rows have unit stride (every row-major input, contiguous
+  or not).  A block stages the band of input rows its outputs' windows
+  touch in shared memory, padded as it is read (whole small planes
+  packed several to a block, or ``rows`` output rows of a large one:
+  ``maxpool_band``), then takes its outputs from there.
+* "strided": every other layout (the column-major blob of the transposed
+  boundary mode): the first port's kernel, one thread per output reading
+  its window by the image's four strides.
+
+The backward, for windows that do not overlap (stride >= k, as JAX's
+kernel), gathers: one thread per input pixel takes its window's ``dy`` if
+the stored argmax is its own padded index (no atomics); overlapping pools
+take the plain scatter in the ops layer.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -25,12 +36,122 @@ from repro_torch.kernels.ref import conv_out_size
 from repro_torch.kernels.ref import maxpool as maxpool_ref
 from repro_torch.kernels.ref import maxpool_bwd as maxpool_bwd_ref
 
+ROUTES = ("plane", "strided")
+# the "plane" kernel (csrc/pooling.cu:maxpool_plane_kernel): a block's most
+# threads (kPlaneThreads) and planes (kMaxPlanes), the most bytes of its
+# staged band (kPlaneSmem: the static 48 KB a block, no opt-in, less the
+# 8-byte bases of its most planes, which share that limit); the outputs a
+# block aims at, the blocks the grid must reach where the shape allows
+# (one an SM), and the waves of resident blocks it may take before planes
+# are packed closer.  Swept on the H100 (chip_smoke.py phase 3, "pool
+# sweep"): CIFAR pool1's 2,048 one-plane blocks took two waves and 0.0131
+# ms, 1,024 two-plane blocks one wave and 0.0124.
+POOL_THREADS = 256
+POOL_MAX_PLANES = 256
+POOL_SMEM = 48 * 1024 - 8 * POOL_MAX_PLANES
+POOL_OUTPUTS = 256
+POOL_BLOCKS = 132
+POOL_WAVES = 1
+# an H100 SM: blocks, threads and bytes of shared memory it holds at once
+# (the plane kernel's 2 KB of static bases and 1 KB the system keeps per
+# block included)
+SMS, SM_BLOCKS, SM_THREADS, SM_SMEM = 132, 32, 2048, 228 * 1024
+
+
+class Band(NamedTuple):
+    """A "plane" block: ``rows`` output rows (all OH where ``planes`` >
+    1) of ``planes`` planes, ``threads``, and 16-byte loads (``vec``)."""
+    rows: int
+    planes: int
+    threads: int
+    vec: bool
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def band_smem(planes: int, rows: int, k: int, stride: int, ow: int) -> int:
+    """Bytes of a "plane" block's staged band: f32 cells of ``planes``
+    planes' ``(rows-1)*stride + k`` rows of ``(OW-1)*stride + k`` padded
+    columns."""
+    return 4 * planes * ((rows - 1) * stride + k) * ((ow - 1) * stride + k)
+
+
+def maxpool_plan(dtype: torch.dtype, shape: Sequence[int],
+                 strides: Sequence[int], k: int, stride: int,
+                 pad: int) -> str:
+    """The forward's route: "plane" where x's rows have unit stride (or
+    are one element wide) and one output row's band fits ``POOL_SMEM``;
+    "strided" for every other layout (a column-major blob)."""
+    n, c, _, w = shape
+    ow = conv_out_size(w, k, stride, pad)
+    unit = strides[3] == 1 or w == 1
+    fits = band_smem(1, 1, k, stride, ow) <= POOL_SMEM
+    return "plane" if unit and fits and n * c < 2 ** 31 else "strided"
+
+
+def maxpool_band(dtype: torch.dtype, shape: Sequence[int], k: int,
+                 stride: int, pad: int, aligned: bool) -> Band:
+    """The "plane" block for these shapes.  A plane of fewer than
+    ``POOL_OUTPUTS`` outputs: as many whole planes as make them (at most
+    ``POOL_MAX_PLANES``); a larger one: the output rows that make them.
+    Then, while the grid has fewer than ``POOL_BLOCKS`` blocks, halve the
+    planes, then the rows; while the band passes ``POOL_SMEM``, the same;
+    the rows are then split evenly.  Whole planes are then packed two,
+    three, ... to a block while the grid takes more than ``POOL_WAVES``
+    waves of the blocks an SM holds at once (a second wave waits for the
+    first's loads: ``SM_BLOCKS``, ``SM_THREADS``, ``SM_SMEM``).  Threads:
+    the block's outputs rounded up to a warp, at most ``POOL_THREADS``
+    (then they loop).  16-byte loads where ``aligned`` (x's base and its
+    strides but the last, as ``_build.aligned16`` checks) and the rows
+    are whole vectors."""
+    n, c, h, w = shape
+    oh = conv_out_size(h, k, stride, pad)
+    ow = conv_out_size(w, k, stride, pad)
+    if oh * ow < POOL_OUTPUTS:
+        planes, rows = min(POOL_OUTPUTS // (oh * ow), POOL_MAX_PLANES), oh
+    else:
+        planes, rows = 1, max(1, POOL_OUTPUTS // ow)
+
+    def blocks(planes):
+        return _cdiv(n * c, planes) * _cdiv(oh, rows)
+
+    def threads(planes):
+        return min(POOL_THREADS, _cdiv(planes * rows * ow, 32) * 32)
+
+    def wave(planes):
+        smem = band_smem(planes, rows, k, stride, ow) + 3 * 1024
+        return SMS * min(SM_BLOCKS, SM_THREADS // threads(planes),
+                         SM_SMEM // smem)
+
+    while blocks(planes) < POOL_BLOCKS and planes > 1:
+        planes = _cdiv(planes, 2)
+    while blocks(planes) < POOL_BLOCKS and rows > 1:
+        rows = _cdiv(rows, 2)
+    while (band_smem(planes, rows, k, stride, ow) > POOL_SMEM
+           and planes * rows > 1):
+        if planes > 1:
+            planes = _cdiv(planes, 2)
+        else:
+            rows = _cdiv(rows, 2)
+    rows = _cdiv(oh, _cdiv(oh, rows))
+    if rows == oh:
+        more = planes + 1
+        while (blocks(planes) > POOL_WAVES * wave(planes)
+               and more <= POOL_MAX_PLANES and blocks(more) >= POOL_BLOCKS
+               and band_smem(more, rows, k, stride, ow) <= POOL_SMEM):
+            planes, more = more, more + 1
+    per_vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    return Band(rows, planes, threads(planes),
+                aligned and w % per_vec == 0)
+
 
 def maxpool(x: torch.Tensor, k: int, stride: int,
             pad: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N,C,H,W) -> (out (N,C,OH,OW) in ``x.dtype``, argmax int32).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    """(N,C,H,W) -> (out (N,C,OH,OW) in ``x.dtype``, argmax int32), x read
+    by its strides on the route ``maxpool_plan`` picks.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
     if not x.is_cuda:
         return maxpool_ref(x, k, stride, pad)
     _build.guard_grad("maxpool", x)
@@ -48,17 +169,28 @@ def maxpool(x: torch.Tensor, k: int, stride: int,
     arg = torch.empty((n, c, oh, ow), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out, arg
-    rc = _build.lib().repro_maxpool(
-        x.data_ptr(), out.data_ptr(), arg.data_ptr(), n, c, h, w,
-        *x.stride(), k, stride, pad, oh, ow, DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    route = maxpool_plan(x.dtype, x.shape, x.stride(), k, stride, pad)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "plane":
+        b = maxpool_band(x.dtype, x.shape, k, stride, pad,
+                         _build.aligned16(x, elems=16 // x.element_size()))
+        rc = _build.lib().repro_maxpool_plane(
+            x.data_ptr(), out.data_ptr(), arg.data_ptr(), n, c, h, w,
+            *x.stride()[:3], k, stride, pad, oh, ow, b.rows, b.planes,
+            b.threads, int(b.vec), DTYPES[x.dtype], stream)
+    else:
+        rc = _build.lib().repro_maxpool(
+            x.data_ptr(), out.data_ptr(), arg.data_ptr(), n, c, h, w,
+            *x.stride(), k, stride, pad, oh, ow, DTYPES[x.dtype], stream)
     _build.check(rc, "maxpool")
     maxpool.launches += 1
+    maxpool.routes[route] += 1
     return out, arg
 
 
 maxpool.launches = 0
+# launches per route, beside the total
+maxpool.routes = dict.fromkeys(ROUTES, 0)
 
 
 def maxpool_bwd(dy: torch.Tensor, argmax: torch.Tensor, x_shape, k: int,

@@ -1,13 +1,13 @@
-"""The ReLU backward's routes on the CPU, and a plain emulation of what its
-vector kernel computes, against the JAX package.
+"""The ReLU's and its backward's routes on the CPU, and a plain emulation
+of what their vector kernels compute, against the JAX package.
 
 ``kernels/eltwise.py`` picks the route in pure Python, and the card's
 kernels follow it: ``relu_bwd_plan`` (x and dy with identical strides over
 one dense layout and 16-byte aligned bases -> the "vec" kernel of
 ``csrc/eltwise.cu``; mixed layouts or an unaligned operand -> the
-"strided" kernel) and ``relu_bwd_grid`` (the vec kernel's blocks, from
+"strided" kernel) and ``relu_vec_grid`` (the vec kernel's blocks, from
 the element count; its vectors a thread are the kernel's compile-time
-``kVecs``, ``RELU_BWD_VECS``).  Held here: the routes as the
+``kVecs``, ``RELU_VECS``).  Held here: the routes as the
 wrapper hands them to the planner (row-major, both column-major, the
 transposed boundary mode's column-major x and row-major dy, an operand
 offset by one element); a walk of the vec kernel's blocks, threads and
@@ -18,7 +18,14 @@ dy where x > 0, else the slope rounded to the storage dtype times dy in
 f32, rounded to the storage dtype, a NaN in x taking the slope), exact
 against the plain version and against ``relu_bwd_pallas`` in interpret
 mode on the same numpy inputs, odd lengths and a slope that bf16 cannot
-hold included.
+hold included.  The forward likewise: ``relu_plan`` (x of a dense layout
+with 16-byte aligned bases of x and out -> the forward's "vec" kernel,
+the backward's walk with x in place of dy; a view offset by one element
+-> the "scalar" kernel), whose blocks are ``relu_vec_grid``'s too; its
+routes (row-major, column-major, offset by one element), both launchers'
+signatures, and the emulation exact against ``ref.relu`` and
+``relu_pallas`` in interpret mode, odd lengths, NaNs and a slope bf16
+cannot hold included.
 """
 import re
 
@@ -30,7 +37,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import clear_tuning  # noqa: E402
-from repro.kernels.eltwise import relu_bwd_pallas  # noqa: E402
+from repro.kernels.eltwise import relu_bwd_pallas, relu_pallas  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import eltwise as EW  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -86,12 +93,12 @@ def test_plan_needs_one_dense_layout():
 
 
 def _walk(dtype, n):
-    """The vec kernel's visits: for each 16-byte vector, how many threads
+    """The vec kernels' visits: for each 16-byte vector, how many threads
     store it, and for each tail element, how many store it
-    (``csrc/eltwise.cu:relu_bwd_vec_kernel``)."""
-    vecs, blocks = EW.RELU_BWD_VECS, EW.relu_bwd_grid(dtype, n)
+    (``csrc/eltwise.cu:relu_vec_kernel``)."""
+    vecs, blocks = EW.RELU_VECS, EW.relu_vec_grid(dtype, n)
     e = 16 // torch.tensor([], dtype=dtype).element_size()
-    nv, thr = n // e, EW.RELU_BWD_THREADS
+    nv, thr = n // e, EW.RELU_THREADS
     seen = np.zeros(nv, np.int64)
     span = blocks * thr * vecs
     for b in range(blocks):
@@ -111,21 +118,22 @@ def test_grid_reaches_every_vector_once(dtype, n):
     seen, tail, vecs, blocks = _walk(dtype, n)
     assert (seen == 1).all() and (tail == 1).all()
     assert len(tail) < 16 // torch.tensor([], dtype=dtype).element_size()
-    assert 1 <= blocks <= EW.RELU_BWD_BLOCKS
-    assert EW.RELU_BWD_BLOCKS == 8 * 132
+    assert 1 <= blocks <= EW.RELU_BLOCKS
+    assert EW.RELU_BLOCKS == 8 * 132
     # the kernel's vectors a thread and threads a block, as the walk has
     src = (_build.CSRC / "eltwise.cu").read_text()
     assert int(re.search(r"constexpr int kVecs = (\d+);", src).group(1)) \
         == vecs
     assert int(re.search(r"constexpr int kThreads = (\d+);", src).group(1)) \
-        == EW.RELU_BWD_THREADS
+        == EW.RELU_THREADS
 
 
 _CTYPES = {"void*": _build._P, "int": _build._I, "long long": _build._L,
            "float": _build._F}
 
 
-@pytest.mark.parametrize("name", ["repro_relu_bwd", "repro_relu_bwd_vec"])
+@pytest.mark.parametrize("name", ["repro_relu_bwd", "repro_relu_bwd_vec",
+                                  "repro_relu", "repro_relu_vec"])
 def test_launchers_match_their_ctypes_signatures(name):
     src = (_build.CSRC / "eltwise.cu").read_text()
     params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
@@ -141,7 +149,8 @@ def _vec_emulation(x, dy, slope):
     """The vec kernel over x and dy's storage in memory order: the walk of
     ``_walk`` on whole vectors, then the tail, each element dy where x > 0
     and else the slope (rounded to the storage dtype) times dy in f32,
-    rounded to the storage dtype."""
+    rounded to the storage dtype.  The forward's kernel is this walk with
+    x as dy."""
     n, dtype = x.numel(), x.dtype
     flat_x, flat_g = x.reshape(-1), dy.reshape(-1)
     out = torch.empty_like(flat_x)
@@ -151,9 +160,9 @@ def _vec_emulation(x, dy, slope):
         xv, gv = flat_x[idx].float(), flat_g[idx]
         out[idx] = torch.where(xv > 0, gv, (s * gv.float()).to(dtype))
 
-    vecs, blocks = EW.RELU_BWD_VECS, EW.relu_bwd_grid(dtype, n)
+    vecs, blocks = EW.RELU_VECS, EW.relu_vec_grid(dtype, n)
     e = 16 // x.element_size()
-    nv, thr = n // e, EW.RELU_BWD_THREADS
+    nv, thr = n // e, EW.RELU_THREADS
     for b in range(blocks):
         for v0 in range(b * thr * vecs, nv, blocks * thr * vecs):
             for u in range(vecs):
@@ -224,3 +233,68 @@ def test_plain_versions_exact_against_pallas_in_bf16(fn):
         assert got.dtype == BF16
         np.testing.assert_array_equal(
             got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+# ---------------------------------------------------------------------------
+# the forward
+
+
+def _fwd_route(x):
+    """The route the forward's wrapper picks for x (out in x's layout)."""
+    out = torch.empty_like(x)
+    return EW.relu_plan(x.dtype, x.shape, x.stride(),
+                        _build.aligned16(x, out, elems=1))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("shape", [(2, 500), (2, 32, 15, 15), (2, 64, 7, 7),
+                                   (3, 5, 7), (2, 1, 3, 1, 5)])
+def test_fwd_plan(dtype, shape):
+    x = torch.zeros(shape, dtype=dtype)
+    assert _fwd_route(x) == "vec"                  # row-major
+    assert _fwd_route(_col(x)) == "vec"            # the crossing's blob
+    n = x.numel()
+    buf = torch.zeros(n + 1, dtype=dtype)
+    assert _fwd_route(buf[1:].view(shape)) == "scalar"
+    assert _fwd_route(buf[:n].view(shape)) == "vec"
+
+
+def test_fwd_plan_needs_a_dense_aligned_layout():
+    assert EW.relu_plan(F32, (8, 6), (6, 1), True) == "vec"
+    assert EW.relu_plan(F32, (8, 6), (1, 8), True) == "vec"
+    assert EW.relu_plan(F32, (8, 6), (6, 1), False) == "scalar"
+    assert EW.relu_plan(F32, (8, 6), (12, 1), True) == "scalar"
+    assert EW.relu_plan(F32, (8, 1, 6), (6, 99, 1), True) == "vec"
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("slope", [0.0, 0.1])
+@pytest.mark.parametrize("shape", [(2, 500), (2, 32, 15, 15), (3, 5, 7),
+                                   (1, 13)])
+def test_fwd_vec_emulation_exact_against_pallas(dtype, slope, shape):
+    """Exact against the plain version and against JAX's Pallas kernel,
+    NaNs and zeros included, in bf16 at 0.1 too (rounded to bf16 before
+    the product, as JAX's weakly typed ``slope * x``)."""
+    clear_tuning()
+    rng = np.random.default_rng(sum(shape) + 7)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x.reshape(-1)[::17] = np.nan
+    x.reshape(-1)[::13] = 0.0
+    jdt = jnp.bfloat16 if dtype == BF16 else jnp.float32
+    xj = jnp.asarray(x).astype(jdt)
+    want = np.asarray(relu_pallas(xj, slope, interpret=True)
+                      .astype(jnp.float32))
+    xt = torch.tensor(np.asarray(xj.astype(jnp.float32))).to(dtype)
+    assert _fwd_route(xt) == "vec"
+    got = _vec_emulation(xt, xt, slope)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  ref.relu(xt, slope).float().numpy())
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    # a column-major x: one dense layout, walked in its memory order
+    rev = tuple(reversed(range(xt.dim())))
+    xc = _col(xt)
+    assert _fwd_route(xc) == "vec"
+    flat = _vec_emulation(xc.permute(rev), xc.permute(rev), slope)
+    np.testing.assert_array_equal(flat.permute(rev).float().numpy(),
+                                  got.float().numpy())
