@@ -54,14 +54,16 @@ failure (non-zero exit, no result line):
               The gemm, the attention backward, the attention forward,
               the three decodes (contiguous slab, bf16 pool, int8 pool),
               the three chunked prefills, rmsnorm_bwd, conv2d_direct,
-              relu_bwd, maxpool and relu have routes
+              relu_bwd, maxpool, relu, ssd_scan and softmax have routes
               (``kernels/gemm.py:plan``,
               ``kernels/flash_attention.py:bwd_plan``, ``fwd_plan``,
               ``decode_plan``, ``chunk_plan``,
               ``kernels/rmsnorm.py:bwd_plan``,
               ``kernels/conv_direct.py:plan``,
               ``kernels/eltwise.py:relu_bwd_plan``, ``relu_plan``,
-              ``kernels/pooling.py:maxpool_plan``): each row prints the
+              ``kernels/pooling.py:maxpool_plan``,
+              ``kernels/mamba_scan.py:ssd_plan``,
+              ``kernels/softmax_xent.py:softmax_plan``): each row prints the
               route its wrapper took, every bf16 training shape must take
               the tensor-core kernels, the bf16 forward the tensor-core
               kernel, every bf16 decode the split kernel, every bf16
@@ -75,7 +77,14 @@ failure (non-zero exit, no result line):
               every LeNet maxpool (ties, pad 1 and bf16 too) the
               staged-band kernel ("plane"; a column-major x "strided")
               and every relu the vector kernel ("vec", a column-major x
-              too; a view offset by one element "scalar").
+              too; a view offset by one element "scalar"), every SSD
+              decode the register-streaming kernel ("step") and every
+              chunk and forward the head-split chunk kernel ("split"; B/C
+              row strides off the 16-byte vectors "block"; a row with dt =
+              0 keeps its state bit for bit on all three, the in-place
+              state equals a new one on "step" and "split"), every softmax
+              of unit-stride rows the register-row kernel ("rows"; a
+              column-major x "strided"; a row of -inf NaN on both).
               conv2d_direct's rows are also timed on the scalar kernel
               (``forced_scalar_conv``) and swept over ``tiles``' caps at
               the LeNet shapes (``grep "conv sweep"``), relu_bwd's on the
@@ -85,7 +94,12 @@ failure (non-zero exit, no result line):
               (``forced_strided_pool``) and swept over ``maxpool_band``'s
               caps (``grep "pool sweep"``), relu's on the scalar kernel
               (``forced_scalar_relu``) and swept over ``relu_vec_grid``'s
-              block caps (``grep "relu sweep"``).  The
+              block caps (``grep "relu sweep"``), ssd_scan's on the block
+              kernel (``forced_block_ssd``) and swept over ``ssd_step``'s
+              and ``ssd_split``'s knobs and lane layouts (``grep "ssd_scan
+              step sweep"``, ``"split sweep"``), softmax's on the strided
+              kernel (``forced_strided_softmax``) and swept over
+              ``softmax_rows``' knobs (``grep "softmax rows sweep"``).  The
               forward (at the --check shape and at the training shape,
               B 2 x S 256, with qwen2.5-3b's, zamba2's and, windowed,
               mixtral's heads), the three decodes and the three chunks
@@ -128,7 +142,9 @@ failure (non-zero exit, no result line):
               prefill and decode step are exact (``per_step`` derives them
               from the config), every bf16 decode on the split kernel,
               every bf16 chunk (the slab, a bf16 or an int8 pool) on the
-              tensor-core chunk kernel; the
+              tensor-core chunk kernel, every SSD decode on "step" and
+              chunk on "split" (so too in phases 5-7: the --check and
+              training forwards on "split"); the
               first steps' logits are held against the reference backend
               (qwen in bf16 at full depth, the Mamba stacks in f32 at 12
               layers, mixtral in f32 at 16 with its bf16 numbers printed,
@@ -183,7 +199,9 @@ failure (non-zero exit, no result line):
               "strided"), held against
               the reference backend; MNIST's deploy
               form (a Softmax ``prob`` on ``ip2``) through ``Net.forward``
-              without labels; under grad relu, conv2d, maxpool and
+              without labels in the three boundary modes, its softmax on
+              "rows" (in ``transfer+transpose`` on "strided"); under grad
+              relu, conv2d, maxpool and
               softmax_xent go through their autograd Functions, softmax
               and im2col raise; each net in the paper's three boundary
               modes (equal losses, ms per forward: the forward half of
@@ -241,7 +259,8 @@ the solvers' batch of 64.
 The line before the last is a JSON object with one entry per kernel (the
 routed kernels' -- the gemm's, the attention backward's and forward's,
 the three decodes', the three chunked prefills', rmsnorm_bwd's,
-conv2d_direct's, relu_bwd's, maxpool's and relu's -- with ``routes``:
+conv2d_direct's, relu_bwd's, maxpool's, relu's, ssd_scan's and
+softmax's -- with ``routes``:
 the main paths' launches per route, phases 4-10); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1070,35 +1089,35 @@ def phase_kernels(torch):
 
         # -- the SSD scan.  B and C are column slices of an in_proj output
         # (row width 2 d_inner + 2 N + H), read in place as the model
-        # passes them.  (arch, N, B, S, carried state, step, count):
-        # mamba2's decode step and C = 16 prefill step run it 64 times;
-        # the forward case is two chunks of 128.
-        ssd_cases = [("mamba2", 128, B, 1, True, "decode", 64),
-                     ("mamba2", 128, B, c, True, "prefill", 64),
-                     ("zamba2", 64, B, 1, True, "decode", 0),
-                     ("zamba2", 64, B, c, True, "prefill", 0),
-                     ("mamba2", 128, 2, 256, False, "forward", 0)]
+        # passes them.  (arch, N, B, S, carried state, step, count, route):
+        # mamba2's decode step and C = 16 prefill step run it 64 times,
+        # zamba2's 54, on "step" and "split"; the forward case is two
+        # chunks of 128 on "split".  Each row is timed beside the first
+        # port's kernel forced ("block").
+        ssd_cases = [("mamba2", 128, B, 1, True, "decode", 64, "step"),
+                     ("mamba2", 128, B, c, True, "prefill", 64, "split"),
+                     ("zamba2", 64, B, 1, True, "zamba2 decode", 54, "step"),
+                     ("zamba2", 64, B, c, True, "zamba2 prefill", 54,
+                      "split"),
+                     ("mamba2", 128, 2, 256, False, "forward", 0, "split")]
         h_ssm, p_ssm, d_in = 80, 64, 5120
-        for arch, n, bb, ss, carried, step, count in ssd_cases:
-            zx = rnd((bb, ss, 2 * d_in + 2 * n + h_ssm), dtype)
+
+        def ssd_inputs(n, bb, ss, carried, width=None):
+            """x, dt, a, B and C (column slices of an in_proj output of
+            ``width``, by default the model's) and the carried state."""
+            zx = rnd((bb, ss, width or 2 * d_in + 2 * n + h_ssm), dtype)
             bm = zx[..., 2 * d_in: 2 * d_in + n].reshape(bb, ss, 1, n)
-            cm = zx[..., 2 * d_in + n: 2 * d_in + 2 * n].reshape(bb, ss, 1, n)
+            cm = zx[..., 2 * d_in + n: 2 * d_in + 2 * n].reshape(bb, ss, 1,
+                                                                 n)
             xs = rnd((bb, ss, h_ssm, p_ssm), dtype)
             dts = F.softplus(rnd((bb, ss, h_ssm), torch.float32))
             a_ = -torch.exp(0.5 * rnd((h_ssm,), torch.float32))
             h0 = rnd((bb, h_ssm, p_ssm, n), torch.float32) if carried \
                 else None
+            return xs, dts, a_, bm, cm, h0
+
+        def ssd_cost(n, bb, ss, carried):
             chunk = min(128, ss)
-            cases = [(f"{arch} {bb}x{ss}x{h_ssm}x{p_ssm} N {n} chunk "
-                      f"{chunk}{' state' if carried else ''}", dts, count)]
-            if carried and ss > 1:
-                # dt == 0 at two positions and in the whole last row
-                dz = dts.clone()
-                dz[:, 3] = 0
-                dz[:, 9] = 0
-                dz[bb - 1] = 0
-                cases.append((cases[0][0] + ", dt = 0 gaps, empty row", dz,
-                              0))
             nl = sum(min(chunk, ss - t) * (min(chunk, ss - t) + 1) // 2
                      for t in range(0, ss, chunk))
             sbytes = ((2 * bb * ss * h_ssm * p_ssm + 2 * bb * ss * n) * es
@@ -1106,40 +1125,98 @@ def phase_kernels(torch):
                       + 4 * bb * h_ssm * p_ssm * n * (2 if carried else 1))
             sflops = 2.0 * bb * h_ssm * (nl * (n + p_ssm)
                                          + 2 * ss * p_ssm * n)
+            return sbytes, sflops
+
+        for arch, n, bb, ss, carried, step, count, want in ssd_cases:
+            xs, dts, a_, bm, cm, h0 = ssd_inputs(n, bb, ss, carried)
+            chunk = min(128, ss)
+            cases = [(f"{arch} {bb}x{ss}x{h_ssm}x{p_ssm} N {n} chunk "
+                      f"{chunk}{' state' if carried else ''}", dts, count)]
+            if carried:
+                # dt == 0 in the whole last row (and, in a chunk, at two
+                # positions)
+                dz = dts.clone()
+                if ss > 1:
+                    dz[:, 3] = 0
+                    dz[:, 9] = 0
+                dz[bb - 1] = 0
+                cases.append((cases[0][0] + (", dt = 0 gaps, empty row"
+                                             if ss > 1 else ", empty row"),
+                              dz, 0))
+            sbytes, sflops = ssd_cost(n, bb, ss, carried)
             for case, d_, cnt in cases:
-                run(ssd_scan, case, dtype, step, cnt,
+                want_route("ssd_scan", run(
+                    ssd_scan, case, dtype, step, cnt,
                     lambda d_=d_, h0=h0: ssd_scan(xs, d_, a_, bm, cm,
                                                   chunk=128,
                                                   initial_state=h0),
                     lambda d_=d_, h0=h0: ref.ssd_scan(xs, d_, a_, bm, cm,
                                                       chunk=chunk,
                                                       initial_state=h0),
-                    None, sbytes, sflops)
+                    None, sbytes, sflops, forced=forced_block_ssd), want)
                 if d_ is not dts:
-                    _, fin = ssd_scan(xs, d_, a_, bm, cm, chunk=128,
-                                      initial_state=h0)
-                    torch.cuda.synchronize()
-                    if not torch.equal(fin[bb - 1], h0[bb - 1]):
-                        raise SystemExit("chip_smoke: ssd_scan: a row with "
-                                         "no real token changed its state")
-            del zx, xs, h0
+                    for how, ctx in ((want, contextlib.nullcontext),
+                                     ("block", forced_block_ssd)):
+                        with ctx():
+                            _, fin = ssd_scan(xs, d_, a_, bm, cm, chunk=128,
+                                              initial_state=h0)
+                        torch.cuda.synchronize()
+                        if not torch.equal(fin[bb - 1], h0[bb - 1]):
+                            raise SystemExit(
+                                f"chip_smoke: ssd_scan {how}: a row with "
+                                "no real token changed its state")
+            if dtype == torch.bfloat16 and step != "forward":
+                fn = (lambda: ssd_scan(xs, dts, a_, bm, cm, chunk=128,
+                                       initial_state=h0))
+                plain = ref.ssd_scan(xs, dts, a_, bm, cm, chunk=chunk,
+                                     initial_state=h0)
+                (ssd_step_sweep if ss == 1 else ssd_split_sweep)(
+                    clock=timer, check=check, case=cases[0][0], fn=fn,
+                    want=plain, tol=TOL[("bfloat16", "ssd_scan")], n=n,
+                    shape=tuple(xs.shape), chunk=chunk)
+            elif dtype == torch.bfloat16:
+                ssd_split_sweep(
+                    clock=timer, check=check, case=cases[0][0],
+                    fn=lambda: ssd_scan(xs, dts, a_, bm, cm, chunk=128),
+                    want=ref.ssd_scan(xs, dts, a_, bm, cm, chunk=chunk),
+                    tol=TOL[("bfloat16", "ssd_scan")], n=n,
+                    shape=tuple(xs.shape), chunk=chunk)
+            del xs, h0
         print(f"[3 kernels] ssd_scan: a row with dt = 0 throughout kept its "
-              f"carried state bit for bit ({dtype})", flush=True)
+              f"carried state bit for bit on step, split and block "
+              f"({dtype})", flush=True)
+        # B and C slices whose row stride breaks the 16-byte vectors (an
+        # in_proj row 2 elements wider) take the first port's kernel
+        for ss in (1, c):
+            xs, dts, a_, bm, cm, h0 = ssd_inputs(
+                128, B, ss, True, width=2 * d_in + 2 * 128 + h_ssm + 2)
+            sbytes, sflops = ssd_cost(128, B, ss, True)
+            want_route("ssd_scan", run(
+                ssd_scan, f"mamba2 {B}x{ss} N 128 state, B/C row stride "
+                f"{bm.stride(1)} (off the vectors)", dtype, "off path", 0,
+                lambda: ssd_scan(xs, dts, a_, bm, cm, chunk=128,
+                                 initial_state=h0),
+                lambda: ref.ssd_scan(xs, dts, a_, bm, cm, chunk=ss,
+                                     initial_state=h0),
+                None, sbytes, sflops), "block")
         # the serving path has the kernel write the new state over the
-        # carried one; grouped B/C (no configuration has them) raise in
-        # the ops layer instead of taking the plain version
-        xs = rnd((B, c, h_ssm, p_ssm), dtype)
-        bm, cm = rnd((B, c, 1, 128), dtype), rnd((B, c, 1, 128), dtype)
-        dts = F.softplus(rnd((B, c, h_ssm), torch.float32))
-        h0 = rnd((B, h_ssm, p_ssm, 128), torch.float32)
-        y0, fin = ssd_scan(xs, dts, a_, bm, cm, chunk=128, initial_state=h0)
-        y1, fin1 = ssd_scan(xs, dts, a_, bm, cm, chunk=128, initial_state=h0,
-                            final_state=h0)
-        torch.cuda.synchronize()
-        if not (fin1 is h0 and torch.equal(fin1, fin)
-                and torch.equal(y1, y0)):
-            raise SystemExit("chip_smoke: ssd_scan: writing the state in "
-                             "place differs from writing a new one")
+        # carried one: on "step" (decode) and "split" (a chunk) it equals
+        # writing a new tensor; grouped B/C (no configuration has them)
+        # raise in the ops layer instead of taking the plain version
+        for ss, want in ((1, "step"), (c, "split")):
+            xs, dts, a_, bm, cm, h0 = ssd_inputs(128, B, ss, True)
+            before = dict(ssd_scan.routes)
+            y0, fin = ssd_scan(xs, dts, a_, bm, cm, chunk=128,
+                               initial_state=h0)
+            y1, fin1 = ssd_scan(xs, dts, a_, bm, cm, chunk=128,
+                                initial_state=h0, final_state=h0)
+            torch.cuda.synchronize()
+            took = {r for r, k in ssd_scan.routes.items() if k != before[r]}
+            if took != {want} or not (fin1 is h0 and torch.equal(fin1, fin)
+                                      and torch.equal(y1, y0)):
+                raise SystemExit(f"chip_smoke: ssd_scan on {took}: writing "
+                                 "the state in place differs from writing "
+                                 "a new one")
         try:
             ops.ssd_scan(xs, dts, a_, torch.cat([bm, bm], 2),
                          torch.cat([cm, cm], 2), chunk=16)
@@ -1150,7 +1227,8 @@ def phase_kernels(torch):
                              "the card")
         del xs, h0, fin, fin1
         print(f"[3 kernels] ssd_scan: the in-place state equals a new one "
-              f"bit for bit; grouped B/C raise ({dtype})", flush=True)
+              f"bit for bit on step and split; grouped B/C raise ({dtype})",
+              flush=True)
 
         # -- the forward attention at the --check phase's shape, B = 2 and
         # 160 tokens: qwen2.5-3b (16/2 heads of 128) and zamba2-2.7b's
@@ -1363,10 +1441,14 @@ def phase_kernels(torch):
               f"{tot['library_ms']:.4f} ms, im2col+gemm "
               f"{tot['im2col_gemm_ms']:.4f} ms, on the scalar kernel forced "
               f"{tot['forced_ms']:.4f} ms", flush=True)
-    tot = totals("ssd_scan", "prefill")
-    print(f"[3 kernels] ssd_scan: one bf16 mamba2 prefill step (C = {c}): "
-          f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
-          f"{tot['plain_ms']:.3f} ms", flush=True)
+    for step, what in (("prefill", f"mamba2 prefill step (C = {c})"),
+                       ("zamba2 decode", "zamba2 decode step"),
+                       ("zamba2 prefill", f"zamba2 prefill step (C = {c})")):
+        tot = totals("ssd_scan", step)
+        print(f"[3 kernels] ssd_scan: one bf16 {what} at B={B}: "
+              f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
+              f"{tot['plain_ms']:.3f} ms, on the block kernel forced "
+              f"{tot['forced_ms']:.3f} ms", flush=True)
     tot = totals("gemm", "prefill")
     print(f"[3 kernels] gemm: one bf16 prefill step at M={B * c} (the "
           f"chunk's projections; the head runs at M={B}): {tot['ms']:.3f} ms"
@@ -1839,6 +1921,23 @@ def forced_scalar_relu():
     return forced_route(EW, "relu_plan", "relu", "scalar")
 
 
+def forced_block_ssd():
+    """The SSD scan on the first port's kernel (route "block"), its route
+    before the step and split kernels: ``ssd_plan`` made to name it."""
+    from repro_torch.kernels import mamba_scan as MS
+
+    return forced_route(MS, "ssd_plan", "ssd_scan", "block")
+
+
+def forced_strided_softmax():
+    """The row softmax on the first port's kernel (route "strided"), its
+    route before the register-row kernel: ``softmax_plan`` made to name
+    it."""
+    from repro_torch.kernels import softmax_xent as SXm
+
+    return forced_route(SXm, "softmax_plan", "softmax", "strided")
+
+
 def kernels_of_call(torch, fn, calls=10):
     """The device kernels one call of ``fn`` runs, name (up to its
     argument list) -> (launches a call, device us a call), from the
@@ -2009,6 +2108,121 @@ def pool_band_sweep(clock, case, fn, x, k, stride, pad):
               for b, t in ranked), flush=True)
 
 
+# the SSD scan's knobs swept in phase 3 (kernels/mamba_scan.py), each over
+# every (lanes, vectors) pair of the state width: the step kernel's rows a
+# lane group holds and warps a block (STEP_ROWS, STEP_WARPS); the split
+# kernel's rows-per-chunk floor and waves (SPLIT_ROWS, SPLIT_WAVES)
+STEP_SWEPT = ((1, 2, 4), (1, 2, 4, 8, 16))
+SPLIT_SWEPT = ((0.125, 0.25, 0.5, 1.0, 2.0), (1, 4))
+
+
+def ssd_sweep(route, clock, check, case, fn, want, tol, n, shape, chunk):
+    """``fn`` (an ``ssd_scan`` call on ``route``, "step" or "split") at
+    each distinct grid its planner gives over ``STEP_SWEPT`` or
+    ``SPLIT_SWEPT`` and every lane pair of N: y within ``tol`` of the
+    plain ``want``, the state the planner's own bit for bit (neither
+    kernel's update sums across lanes or rows); fastest first, the
+    planner's pick marked, with its rank."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels import mamba_scan as MS
+
+    lanes_of = MS.STEP_LANES if route == "step" else MS.SPLIT_LANES
+    names = (("STEP_ROWS", "STEP_WARPS") if route == "step"
+             else ("SPLIT_ROWS", "SPLIT_WAVES"))
+
+    def grid():
+        return (MS.ssd_step(shape, n) if route == "step"
+                else MS.ssd_split(shape, n, chunk))
+
+    saved = (lanes_of[n],) + tuple(getattr(MS, k) for k in names)
+    mine, base, cells = grid(), fn(), {}
+    try:
+        for lanes in [lv for lv in MS.LANES if 4 * lv[0] * lv[1] == n]:
+            for knobs in itertools.product(
+                    *(STEP_SWEPT if route == "step" else SPLIT_SWEPT)):
+                lanes_of[n] = lanes
+                for k, v in zip(names, knobs):
+                    setattr(MS, k, v)
+                g = grid()
+                if g in cells:
+                    continue
+                got = fn()
+                check(f"ssd_scan {case} at {g}", got[0], want[0], tol)
+                if not torch.equal(got[1], base[1]):
+                    raise SystemExit(f"chip_smoke: ssd_scan {case} at {g}: "
+                                     "the state differs from the planner's")
+                cells[g] = clock(fn)
+    finally:
+        lanes_of[n] = saved[0]
+        for k, v in zip(names, saved[1:]):
+            setattr(MS, k, v)
+    ranked = sorted(cells.items(), key=lambda c: c[1])
+    rank = [g for g, _ in ranked].index(mine) + 1
+    fields = ("lanes", "vecs", "rows", "warps" if route == "step"
+              else "slices")
+    print(f"[3 kernels] ssd_scan {route} sweep, {case}: ({', '.join(fields)}"
+          f"), ms (planner rank {rank} of {len(ranked)}): " + "; ".join(
+              f"{tuple(getattr(g, f) for f in fields)}"
+              f"{'*' if g == mine else ''} {t:.4f}" for g, t in ranked),
+          flush=True)
+
+
+def ssd_step_sweep(**kw):
+    ssd_sweep("step", **kw)
+
+
+def ssd_split_sweep(**kw):
+    ssd_sweep("split", **kw)
+
+
+# the register-row softmax's knobs swept in phase 3 (kernels/
+# softmax_xent.py): items a lane aims at, threads a block aims at
+SOFTMAX_SWEPT = ((1, 2, 4, 8), (32, 64, 128, 256, 512))
+
+
+def softmax_rows_sweep(clock, case, x, tol):
+    """``softmax(x)`` on the rows kernel at each distinct ``Rows`` that
+    ``softmax_rows`` gives over ``SOFTMAX_SWEPT``, each within ``tol`` of
+    the plain version; fastest first, the planner's pick marked, with its
+    rank."""
+    import itertools
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import softmax_xent as SXm
+
+    aligned = x.data_ptr() % 16 == 0
+
+    def grid():
+        return SXm.softmax_rows(x.dtype, x.shape, x.stride(), aligned)
+
+    want = ref.softmax(x).float()
+    saved = (SXm.SOFTMAX_ITEMS, SXm.SOFTMAX_THREADS)
+    mine, cells = grid(), {}
+    try:
+        for SXm.SOFTMAX_ITEMS, SXm.SOFTMAX_THREADS in \
+                itertools.product(*SOFTMAX_SWEPT):
+            g = grid()
+            if g in cells:
+                continue
+            err = (SXm.softmax(x).float() - want).abs().max().item()
+            if not err <= tol * want.abs().max().item():
+                raise SystemExit(f"chip_smoke: softmax {case} at {g}: "
+                                 f"max_abs_err {err:.3g}")
+            cells[g] = clock(lambda: SXm.softmax(x))
+    finally:
+        SXm.SOFTMAX_ITEMS, SXm.SOFTMAX_THREADS = saved
+    ranked = sorted(cells.items(), key=lambda c: c[1])
+    rank = [g for g, _ in ranked].index(mine) + 1
+    print(f"[3 kernels] softmax rows sweep, {case}: (threads a row, rows a "
+          f"block, items a lane), ms (planner rank {rank} of "
+          f"{len(ranked)}): " + "; ".join(
+              f"{tuple(g)[:3]}{'*' if g == mine else ''} {t:.4f}"
+              for g, t in ranked), flush=True)
+
+
 # the split decode's block targets swept in phase 3
 SPLIT_TARGETS = (8, 16, 32, 64, 128, 256, 512)
 
@@ -2102,11 +2316,13 @@ def want_route(name, route, want):
 # the kernels whose routes were redesigned: each phase-3 row of theirs is
 # also timed on the route it left (``forced_scalar``, ``forced_template``,
 # ``forced_scalar_bwd``, ``forced_scalar_conv``, ``forced_strided``,
-# ``forced_strided_pool``, ``forced_scalar_relu``)
+# ``forced_strided_pool``, ``forced_scalar_relu``, ``forced_block_ssd``,
+# ``forced_strided_softmax``)
 REDESIGNED = ("flash_attention", "flash_decode", "flash_decode_paged",
               "flash_decode_paged_quant", "flash_prefill_chunk",
               "flash_prefill_chunk_paged", "flash_prefill_chunk_paged_quant",
-              "rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool", "relu")
+              "rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool", "relu",
+              "ssd_scan", "softmax")
 # the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
 SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -2290,9 +2506,35 @@ def caffe_kernels(torch, F, rnd, run, clock):
                                   torch.softmax(x, -1)),
                 8 * b * v + 8 * b + 4, 5.0 * b * v)
         if step in ("deploy fwd", "v 1000"):
-            run(softmax, f"{b}x{v}", f32, step, count,
+            want_route("softmax", run(
+                softmax, f"{b}x{v}", f32, step, count,
                 lambda x=x: softmax(x), lambda x=x: ref.softmax(x),
-                lambda x=x: torch.softmax(x, -1), 8 * b * v, 4.0 * b * v)
+                lambda x=x: torch.softmax(x, -1), 8 * b * v, 4.0 * b * v,
+                forced=forced_strided_softmax), "rows")
+            softmax_rows_sweep(clock, f"{b}x{v} f32", x, 1e-5)
+    # the transposed crossing's column-major blob takes "strided"; a row of
+    # -inf gives NaN on both routes, as the plain version does
+    xc = (3 * rnd((10, n), f32)).T
+    want_route("softmax", run(
+        softmax, f"{n}x10 column-major", f32, "off path", 0,
+        lambda: softmax(xc), lambda: ref.softmax(xc),
+        lambda: torch.softmax(xc, -1), 8 * n * 10, 4.0 * n * 10), "strided")
+    xi = 3 * rnd((n, 10), f32)
+    xi[1] = float("-inf")
+    want = ref.softmax(xi)
+    for how, ctx in (("rows", contextlib.nullcontext),
+                     ("strided", forced_strided_softmax)):
+        with ctx():
+            got = softmax(xi)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        if not (torch.equal(torch.isnan(got), nan) and nan[1].all()
+                and (got[~nan] - want[~nan]).abs().max().item() <= 1e-5):
+            raise SystemExit(f"chip_smoke: softmax on {how}: a row of -inf "
+                             "is not NaN as in the plain version, or the "
+                             "other rows disagree")
+    print("[3 kernels] softmax: a row of -inf gives NaN on rows and strided, "
+          "as the plain version", flush=True)
     # each new kernel once in bf16 (LeNet runs f32), counts 0
     bf = torch.bfloat16
     x = rnd((n, 1, 28, 28), bf)
@@ -2308,9 +2550,18 @@ def caffe_kernels(torch, F, rnd, run, clock):
         lambda: ref.softmax_xent(x, y),
         lambda: (F.cross_entropy(x, y), torch.softmax(x, -1)),
         4 * n * 10 + 8 * n + 4, 5.0 * n * 10)
-    run(softmax, f"{n}x10", bf, "bf16", 0, lambda: softmax(x),
+    want_route("softmax", run(
+        softmax, f"{n}x10", bf, "bf16", 0, lambda: softmax(x),
         lambda: ref.softmax(x), lambda: torch.softmax(x, -1), 4 * n * 10,
-        4.0 * n * 10)
+        4.0 * n * 10, forced=forced_strided_softmax), "rows")
+    softmax_rows_sweep(clock, f"{n}x10 bf16", x, 2 ** -7)
+    x = 3 * rnd((256, 1000), bf)
+    want_route("softmax", run(
+        softmax, "256x1000", bf, "bf16", 0, lambda: softmax(x),
+        lambda: ref.softmax(x), lambda: torch.softmax(x, -1),
+        4 * 256 * 1000, 4.0 * 256 * 1000, forced=forced_strided_softmax),
+        "rows")
+    softmax_rows_sweep(clock, "256x1000 bf16", x, 2 ** -7)
 
 
 def caffe_train_kernels(torch, F, rnd, run, clock):
@@ -2798,7 +3049,7 @@ CHUNKS = ("flash_prefill_chunk", "flash_prefill_chunk_paged",
           "flash_prefill_chunk_paged_quant")
 ROUTED = ("gemm", "flash_attention_bwd", "flash_attention") + DECODES \
     + CHUNKS + ("rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool",
-                "relu")
+                "relu", "ssd_scan", "softmax")
 ROUTE_SOURCES = {
     ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
@@ -2825,6 +3076,11 @@ ROUTE_SOURCES = {
     ("maxpool", "strided"): "src/repro_torch/kernels/csrc/pooling.cu",
     ("relu", "vec"): "src/repro_torch/kernels/csrc/eltwise.cu",
     ("relu", "scalar"): "src/repro_torch/kernels/csrc/eltwise.cu",
+    ("ssd_scan", "step"): "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    ("ssd_scan", "split"): "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    ("ssd_scan", "block"): "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    ("softmax", "rows"): "src/repro_torch/kernels/csrc/softmax_xent.cu",
+    ("softmax", "strided"): "src/repro_torch/kernels/csrc/softmax_xent.cu",
 }
 ROUTE_SOURCES.update({
     (name, route): f"src/repro_torch/kernels/csrc/{src}"
@@ -2855,6 +3111,16 @@ def read_counts(fns):
         for r, n in fns[name].routes.items():
             tot[r] += n
     return {name: fn.launches for name, fn in fns.items()}
+
+
+def ssd_routes(cfg, steps, chunked, forwards=0):
+    """``ssd_scan``'s launches per route over ``steps`` single-token steps
+    (decode: "step"), ``chunked`` chunk steps and ``forwards`` whole-
+    sequence forwards ("split"), one a Mamba layer each; none on
+    "block"."""
+    n = per_step(cfg)[0]["ssd_scan"]
+    return {"step": n * steps, "split": n * (chunked + forwards),
+            "block": 0}
 
 
 def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
@@ -2941,6 +3207,14 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
             raise SystemExit(f"chip_smoke: {tag} {name} routes {rt}, "
                              f"expected {want_rt}")
     steps, n_attn = per_step(model.cfg)
+    # every decode scan on "step", every chunk's on "split"
+    rt, want_rt = dict(fns["ssd_scan"].routes), ssd_routes(model.cfg, dec,
+                                                           pre)
+    if launches["ssd_scan"]:
+        print(f"{tag} ssd_scan routes {rt}", flush=True)
+    if rt != want_rt:
+        raise SystemExit(f"chip_smoke: {tag} ssd_scan routes {rt}, "
+                         f"expected {want_rt}")
     want = {name: 0 for name in KERNELS}
     want.update({name: n * (pre + dec) for name, n in steps.items()})
     k_dec, k_pre = ATTN[layout, kv_dtype]
@@ -3380,6 +3654,13 @@ def phase_f32(torch):
                         if backend == "hopper":
                             with counting(got, rt):
                                 streams[backend, chunk] = eng.run()
+                            want_rt = ssd_routes(cfg, eng.steps,
+                                                 eng.prefill_steps)
+                            if rt["ssd_scan"] != want_rt:
+                                failed.append((arch, layout, kv_dtype, chunk,
+                                               f"ssd_scan routes "
+                                               f"{rt['ssd_scan']}, expected "
+                                               f"{want_rt}"))
                         else:
                             streams[backend, chunk] = eng.run()
                     for name, n in got.items():
@@ -3509,6 +3790,7 @@ def phase_check(torch):
                 launches = read_counts(fns)
                 fwd_routes = dict(fns["flash_attention"].routes)
                 dec_routes = dict(fns["flash_decode"].routes)
+                ssd_rt = dict(fns["ssd_scan"].routes)
             steps, n_attn = per_step(cfg)
             # the teacher-forced forward's attention: bf16 on the
             # tensor-core kernel, f32 on the template; the decode's: bf16
@@ -3518,12 +3800,17 @@ def phase_check(torch):
             n_dec = n_attn * CHECK_LEN
             want_dec = {"split": 0 if f32 else n_dec,
                         "template": n_dec if f32 else 0}
-            if fwd_routes != want_fwd or dec_routes != want_dec:
+            # the teacher-forced forward's scans on "split", the decode's
+            # on "step"
+            want_ssd = ssd_routes(cfg, CHECK_LEN, 0, forwards=1)
+            if fwd_routes != want_fwd or dec_routes != want_dec \
+                    or ssd_rt != want_ssd:
                 raise SystemExit(f"chip_smoke: --check {cfg.name}: "
                                  f"flash_attention routes {fwd_routes}, "
                                  f"expected {want_fwd}; flash_decode "
                                  f"routes {dec_routes}, expected "
-                                 f"{want_dec}")
+                                 f"{want_dec}; ssd_scan routes {ssd_rt}, "
+                                 f"expected {want_ssd}")
             want = {name: 0 for name in KERNELS}
             want.update({name: n * (CHECK_LEN + 1)
                          for name, n in steps.items()})
@@ -3535,7 +3822,9 @@ def phase_check(torch):
                   f" forward: max |diff| {err:.4g} (max |logit| "
                   f"{scale:.4g}, allowed {tol}) in {secs:.1f} s; launches "
                   f"{launches}; flash_attention routes {fwd_routes}; "
-                  f"flash_decode routes {dec_routes}", flush=True)
+                  f"flash_decode routes {dec_routes}"
+                  + (f"; ssd_scan routes {ssd_rt}" if launches["ssd_scan"]
+                     else ""), flush=True)
             if launches != want:
                 raise SystemExit(f"chip_smoke: --check {cfg.name}: launches "
                                  f"{launches}, expected {want}")
@@ -3918,6 +4207,12 @@ def train_f32(torch):
         with use_backend("hopper"), counting(got, rt):
             lh, gh = loss_and_grads(cfg, hop["params"], batch)
         want = train_per_step(cfg)
+        # the forward and its rematerialization scan whole sequences: on
+        # "split"
+        want_ssd = ssd_routes(cfg, 0, 0, forwards=2)
+        if rt["ssd_scan"] != want_ssd:
+            failed.append(f"{arch}: ssd_scan routes {rt['ssd_scan']}, "
+                          f"expected {want_ssd}")
         # f32 keeps the IEEE kernels: no launch on a tensor-core route
         if (rt["gemm"]["tc"] + rt["gemm"]["tc_splitk"]
                 + rt["flash_attention_bwd"]["tc"]
@@ -4153,7 +4448,8 @@ def phase_caffe(torch):
     reference backend (loss within 1e-5 relative, logits within 1e-4 of
     their scale, accuracy equal unless a reference top-2 gap under 1e-4
     explains it); MNIST's deploy form (a Softmax ``prob`` on ``ip2``)
-    through ``Net.forward`` without labels, prob within 1e-5; then each
+    through ``Net.forward`` without labels in the three boundary modes,
+    prob within 1e-5 of the fused reference's; then each
     net in the paper's three boundary modes, whose losses must agree
     within 1e-6 relative, with ms per forward.  Returns the launches of
     the counted hopper runs."""
@@ -4230,25 +4526,34 @@ def phase_caffe(torch):
             name="prob", type="Softmax", bottoms=("ip2",),
             tops=("prob",)),)))
 
-    def deploy_prob():
+    def deploy_prob(net):
         with torch.no_grad():
-            return deploy.forward(params, data)[0]["prob"]
+            return net.forward(params, data)[0]["prob"]
 
-    p_h, got = caffe_counted(
-        torch, deploy_prob, "lenet-mnist-deploy",
-        routes=caffe_gemm_routes(deploy.spec, shapes, False),
-        kernel_routes=caffe_fwd_routes(deploy.spec, None))
-    add(got)
     with use_backend("reference"):
-        p_r = deploy_prob()
-    gap = (p_h - p_r).abs().max().item()
-    rows = p_h.sum(-1)
-    print(f"[8 caffe] lenet-mnist-deploy: prob {tuple(p_h.shape)} max gap "
-          f"{gap:.3g}, row sums {rows.min().item():.7f}.."
-          f"{rows.max().item():.7f}; launches "
-          f"{ {k: v for k, v in got.items() if v} }", flush=True)
-    if not (gap <= 1e-5 and torch.isfinite(p_h).all()):
-        raise SystemExit("chip_smoke: lenet-mnist-deploy: prob disagrees")
+        p_r = deploy_prob(deploy)
+    # in each boundary mode: the prob's softmax on "rows" where its bottom
+    # arrives row-major, on "strided" from the transposed crossing
+    for boundary in (None, "transfer", "transfer+transpose"):
+        net = deploy if boundary is None else Net(deploy.spec,
+                                                  boundary=boundary)
+        p_h, got = caffe_counted(
+            torch, lambda: deploy_prob(net), "lenet-mnist-deploy",
+            synced=boundary is None,
+            routes=caffe_gemm_routes(
+                deploy.spec, shapes, False,
+                transpose=boundary == "transfer+transpose"),
+            kernel_routes=caffe_fwd_routes(deploy.spec, boundary))
+        add(got)
+        gap = (p_h - p_r).abs().max().item()
+        rows = p_h.sum(-1)
+        print(f"[8 caffe] lenet-mnist-deploy ({boundary or 'fused'}): prob "
+              f"{tuple(p_h.shape)} max gap {gap:.3g}, row sums "
+              f"{rows.min().item():.7f}..{rows.max().item():.7f}; launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        if not (gap <= 1e-5 and torch.isfinite(p_h).all()):
+            raise SystemExit(f"chip_smoke: lenet-mnist-deploy "
+                             f"({boundary}): prob disagrees")
 
     # under grad the four training ops run through their autograd
     # Functions (whose backwards launch the backward kernels, phase 9);
@@ -4401,11 +4706,25 @@ def caffe_relu_routes(spec, boundary):
     return {"relu": {"vec": sum(ls.type == "ReLU" for ls in spec.layers)}}
 
 
+def caffe_softmax_routes(spec, boundary):
+    """``softmax``'s launches per route in one forward of the net ``spec``
+    (one a Softmax layer: the deploy form's ``prob``): "rows" where its
+    bottom arrives row-major (the fused net; ``transfer``), "strided" in
+    ``transfer+transpose``, whose crossing hands it a column-major blob
+    (``tests/test_torch_softmax_plan.py`` walks the crossings on the
+    CPU)."""
+    n = sum(ls.type == "Softmax" for ls in spec.layers)
+    route = "strided" if boundary == "transfer+transpose" else "rows"
+    return {"softmax": {route: n} if n else {}}
+
+
 def caffe_fwd_routes(spec, boundary):
-    """The forward's routed Caffe kernels, ``caffe_maxpool_routes`` and
-    ``caffe_relu_routes``, for ``caffe_counted``'s ``kernel_routes``."""
+    """The forward's routed Caffe kernels, ``caffe_maxpool_routes``,
+    ``caffe_relu_routes`` and ``caffe_softmax_routes``, for
+    ``caffe_counted``'s ``kernel_routes``."""
     return {**caffe_maxpool_routes(spec, boundary),
-            **caffe_relu_routes(spec, boundary)}
+            **caffe_relu_routes(spec, boundary),
+            **caffe_softmax_routes(spec, boundary)}
 
 
 def caffe_relu_bwd_routes(spec, boundary):

@@ -102,6 +102,9 @@ _SIGNATURES = {
     # x, labels (NULL: softmax), probs, nll, rows, V, row stride, column
     # stride, dtype, stream
     "repro_softmax_rows": [_P, _P, _P, _P, _I, _I, _L, _L, _I, _P],
+    # x, probs, rows, V, row stride, threads a row, rows a block, items a
+    # lane, vec, dtype, stream
+    "repro_softmax_reg": [_P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _P],
     # probs, labels, out, rows, V, row stride, column stride, 1/B, dtype,
     # stream
     "repro_softmax_xent_bwd": [_P, _P, _P, _I, _I, _L, _L, _F, _I, _P],
@@ -151,6 +154,12 @@ _SIGNATURES = {
     "repro_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                        _L, _I, _P],
+    # x, dt, A, B, C, h0, y, hf, B, H, P, N, x_sb, x_sh, dt_sb, dt_sh,
+    # b_sb, c_sb, y_sb, y_sh, lanes, vecs, rows held, warps, dtype, stream
+    "repro_ssd_scan_step": [_P] * 8 + [_I] * 4 + [_L] * 8 + [_I] * 5 + [_P],
+    # as repro_ssd_scan, with lanes, vecs and rows a block before dtype
+    "repro_ssd_scan_split": [_P] * 8 + [_I] * 6 + [_L] * 13 + [_I] * 4
+                            + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -15,7 +15,21 @@
 // shuffles in f32, and the label's element is read directly.  No atomics;
 // every row is written by its own warp.  The logits are read by their row
 // and column strides (a column-major blob from the paper's boundary mode
-// is read in place); probs are contiguous.
+// is read in place); probs are contiguous.  softmax takes this kernel as
+// its route "strided" (rows of non-unit stride, a base off 16 bytes);
+// softmax_xent always.
+//
+// softmax's route "rows" (repro_softmax_reg; kernels/softmax_xent.py:
+// softmax_plan, softmax_rows): rows of unit stride.  Each row is read
+// once, into registers: TPR threads serve a row (a power of two; under 32
+// a sub-warp, so that a warp serves several narrow rows; above, whole
+// warps whose max and sum meet in shared memory), each holding up to
+// kPer items -- 16-byte vectors where the base, the row stride and V are
+// whole vectors, else single elements (V = 10: 40 or 20 bytes a row).
+// The max and the sum are shuffle trees over the row's lanes, exp is
+// computed once per element and kept, and p = e / sum(e) (a division, as
+// JAX's) is stored from the registers.  A row of -inf gives NaN, as the
+// plain version (exp(-inf - -inf)).
 //
 // softmax_xent's backward (replaces softmax_xent_bwd_pallas): dlogits =
 // (p - [j == label]) * (1/B), in f32 and rounded once to p's dtype; a
@@ -92,6 +106,115 @@ xent_bwd_kernel(const T* __restrict__ p, const long long* __restrict__ labels,
     o[v] = from_f32<T>((to_f32(pr[v * sc]) - (v == y ? 1.f : 0.f)) * scale);
 }
 
+// ---------------------------------------------------------------------------
+// softmax, route "rows"
+// ---------------------------------------------------------------------------
+
+constexpr int kRowsMaxThreads = 512;
+
+__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(bf16* p, const float (&v)[8]) {
+  uint4 u;
+  u.x = pack_bf16(v[0], v[1]);
+  u.y = pack_bf16(v[2], v[3]);
+  u.z = pack_bf16(v[4], v[5]);
+  u.w = pack_bf16(v[6], v[7]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// x reduced over the tpr threads of each row: xor shuffles within a warp
+// (groups of tpr lanes, or the whole warp), then, where a row spans
+// warps, their values in shared memory taken in warp order
+template <bool kMax>
+__device__ __forceinline__ float row_reduce(float x, int tpr, float* red) {
+  const int span = tpr < 32 ? tpr : 32;
+  for (int o = span / 2; o > 0; o >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = kMax ? fmaxf(x, y) : x + y;
+  }
+  if (tpr <= 32) return x;
+  const int warp = threadIdx.x / 32, wpr = tpr / 32;
+  if (threadIdx.x % 32 == 0) red[warp] = x;
+  __syncthreads();
+  const float* mine = red + (warp / wpr) * wpr;
+  x = mine[0];
+  for (int i = 1; i < wpr; ++i) x = kMax ? fmaxf(x, mine[i]) : x + mine[i];
+  __syncthreads();  // red is free again
+  return x;
+}
+
+template <typename T, bool kVec, int kPer>
+__global__ void __launch_bounds__(kRowsMaxThreads)
+softmax_reg_kernel(const T* __restrict__ x, T* __restrict__ probs, int rows,
+                   int V, long sr, int tpr, int rpb) {
+  constexpr int E = kVec ? Vec<T>::N : 1;  // elements an item
+  __shared__ float red[kRowsMaxThreads / 32];
+  const int j = threadIdx.x % tpr;
+  const int row = blockIdx.x * rpb + threadIdx.x / tpr;
+  const bool live = row < rows;
+  const int items = V / E;
+  const T* xr = x + (long)(live ? row : 0) * sr;
+  T* pr = probs + (long)(live ? row : 0) * V;
+  float v[kPer][E];
+  float m = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = j + i * tpr;
+    if (live && idx < items) {
+      if constexpr (kVec)
+        load16(xr + (long)idx * E, v[i]);
+      else
+        v[i][0] = to_f32(xr[idx]);
+#pragma unroll
+      for (int e = 0; e < E; ++e) m = fmaxf(m, v[i][e]);
+    }
+  }
+  m = row_reduce<true>(m, tpr, red);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    if (live && j + i * tpr < items) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        v[i][e] = expf(v[i][e] - m);
+        s += v[i][e];
+      }
+    }
+  }
+  s = row_reduce<false>(s, tpr, red);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = j + i * tpr;
+    if (live && idx < items) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[i][e] = v[i][e] / s;
+      if constexpr (kVec)
+        store16(pr + (long)idx * E, v[i]);
+      else
+        pr[idx] = from_f32<T>(v[i][0]);
+    }
+  }
+}
+
+template <typename T, bool kVec>
+int reg_launch(const void* x, void* probs, int rows, int V, long sr, int tpr,
+               int rpb, int per, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((rows + rpb - 1) / rpb);
+  const T* xi = static_cast<const T*>(x);
+  T* po = static_cast<T*>(probs);
+#define X(P_)                                                              \
+  if (per == P_) {                                                         \
+    softmax_reg_kernel<T, kVec, P_>                                        \
+        <<<blocks, tpr * rpb, 0, s>>>(xi, po, rows, V, sr, tpr, rpb);      \
+    return (int)cudaGetLastError();                                        \
+  }
+  X(1) X(2) X(4) X(8)
+#undef X
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // probs (rows, V) by strides, labels int64, out contiguous; scale = 1/B
@@ -130,4 +253,32 @@ extern "C" int repro_softmax_rows(const void* x, const void* labels,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// softmax's route "rows": x (rows, V) of unit stride and row stride sr,
+// probs contiguous; tpr threads a row (a power of two, whole warps above
+// 32), rpb rows a block (whole warps: the shuffles take every lane), per
+// items a lane (1, 2, 4 or 8), vec: 16-byte items (x's base, sr and V
+// whole vectors), else single elements
+extern "C" int repro_softmax_reg(const void* x, void* probs, int rows, int V,
+                                 long long sr, int tpr, int rpb, int per,
+                                 int vec, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = vec ? (dtype == kBF16 ? 8 : 4) : 1;
+  if (rows < 1 || V < 1 || tpr < 1 || (tpr & (tpr - 1)) != 0 || rpb < 1 ||
+      tpr * rpb > kRowsMaxThreads || (tpr * rpb) % 32 != 0 ||
+      (long long)per * tpr * e < V ||
+      (vec && (reinterpret_cast<uintptr_t>(x) % 16 != 0 || sr % e != 0 ||
+               V % e != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return vec ? reg_launch<bf16, true>(x, probs, rows, V, sr, tpr, rpb, per, s)
+               : reg_launch<bf16, false>(x, probs, rows, V, sr, tpr, rpb, per,
+                                         s);
+  if (dtype == kF32)
+    return vec ? reg_launch<float, true>(x, probs, rows, V, sr, tpr, rpb, per,
+                                         s)
+               : reg_launch<float, false>(x, probs, rows, V, sr, tpr, rpb,
+                                          per, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,10 +12,22 @@ matches such a label; JAX's oracle wraps -1 to the last class instead),
 and the mean still divides by B.  The backward kernel writes ``(p -
 onehot) / B`` from the saved probs, one warp per row as well; such a
 row's one-hot is empty, so it gets ``p / B``.
+
+softmax has two routes, picked by ``softmax_plan`` from the layout and
+alignment (never by trying a kernel) and counted in ``softmax.routes``
+beside ``launches``:
+
+* "rows": rows of unit stride on a 16-byte aligned base.  Each row is
+  read once into registers by a sub-warp, a warp or several warps
+  (``softmax_rows``), as 16-byte vectors where the row stride and V are
+  whole vectors, else element by element; exp once per element, max and
+  sum by shuffle trees, ``e / sum(e)`` stored from the registers.
+* "strided": the kernel above (rows of any stride, the transposed
+  crossing's column-major blob; a base off 16 bytes).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -48,18 +60,112 @@ def _rows(name: str, x: torch.Tensor, labels=None):
     return probs, nll
 
 
+ROUTES = ("rows", "strided")
+# the "rows" kernel (csrc/softmax_xent.cu:softmax_reg_kernel): the items a
+# lane it is instantiated for (kPer) and a block's most threads
+# (kRowsMaxThreads); the items (16-byte vectors, or elements) a lane aims
+# at, the threads a block aims at, and the blocks the grid must reach
+# where the rows allow (one an SM).  Swept on the H100 (chip_smoke.py
+# phase 3, "softmax rows sweep"): one item a lane is first or tied at 64 x
+# 10 and 256 x 1000 in f32 and bf16 (bf16 256 x 1000: 0.0070 ms against
+# 0.0077 at two)
+ROWS_PER = (1, 2, 4, 8)
+ROWS_MAX_THREADS = 512
+SOFTMAX_ITEMS = 1
+SOFTMAX_THREADS = 128
+SOFTMAX_BLOCKS = 132
+
+
+class Rows(NamedTuple):
+    """A "rows" launch: ``tpr`` threads a row, ``rows`` a block, ``per``
+    items a lane, 16-byte items (``vec``) or single elements, the block's
+    ``threads`` and the grid's ``blocks``."""
+    tpr: int
+    rows: int
+    per: int
+    vec: bool
+    threads: int
+    blocks: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _items(dtype: torch.dtype, shape: Sequence[int],
+           strides: Sequence[int], aligned: bool) -> Tuple[int, bool]:
+    """A row's items and whether they are 16-byte vectors: the base on 16
+    bytes (``aligned``), the row stride (where there are several rows) and
+    V whole vectors."""
+    rows, v = shape
+    ve = 16 // dtype.itemsize
+    vec = aligned and v % ve == 0 and (rows == 1 or strides[0] % ve == 0)
+    return (v // ve if vec else v), vec
+
+
+def softmax_plan(dtype: torch.dtype, shape: Sequence[int],
+                 strides: Sequence[int], aligned: bool) -> str:
+    """The route of a (rows, V) matrix: "rows" where its rows have unit
+    stride (or one element), its base is on 16 bytes (``aligned``) and a
+    row's items fit ``ROWS_PER[-1]`` a lane of ``ROWS_MAX_THREADS``;
+    "strided" for every other layout (a column-major blob) and base."""
+    rows, v = shape
+    unit = strides[1] == 1 or v == 1
+    items, _ = _items(dtype, shape, strides, aligned)
+    fits = items <= ROWS_PER[-1] * ROWS_MAX_THREADS
+    return "rows" if unit and aligned and fits and rows < 2 ** 31 \
+        else "strided"
+
+
+def softmax_rows(dtype: torch.dtype, shape: Sequence[int],
+                 strides: Sequence[int], aligned: bool) -> Rows:
+    """The "rows" grid: the threads a row are the power of two that gives
+    a lane at most ``SOFTMAX_ITEMS`` items (at most
+    ``ROWS_MAX_THREADS``; whole warps past 32), a lane's items the least
+    of ``ROWS_PER`` that holds the rest; a block takes ``SOFTMAX_THREADS``
+    threads' worth of rows (at least a warp's), halved while the grid has
+    fewer than ``SOFTMAX_BLOCKS`` blocks (down to a warp)."""
+    rows, _ = shape
+    items, vec = _items(dtype, shape, strides, aligned)
+    tpr = 1
+    while tpr < ROWS_MAX_THREADS and tpr * SOFTMAX_ITEMS < items:
+        tpr *= 2
+    per = next(p for p in ROWS_PER if p * tpr >= items)
+    least = max(1, 32 // tpr)
+    rpb = max(least, SOFTMAX_THREADS // tpr)
+    while _cdiv(rows, rpb) < SOFTMAX_BLOCKS and rpb > least:
+        rpb //= 2
+    return Rows(tpr, rpb, per, vec, tpr * rpb, _cdiv(rows, rpb))
+
+
 def softmax(x: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis, any leading rank, f32 inside, in
-    ``x.dtype``.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    ``x.dtype``, on the route ``softmax_plan`` picks.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
     if not x.is_cuda:
         return softmax_ref(x)
     _build.guard_grad("softmax", x)
     if x.dim() == 0:
         raise ValueError("softmax: needs at least one axis")
     x2 = x if x.dim() == 2 else x.reshape(-1, x.shape[-1])
-    probs, _ = _rows("softmax", x2)
+    if x2.dtype not in DTYPES:
+        raise TypeError(f"softmax: dtype {x2.dtype} not supported")
+    aligned = x2.data_ptr() % 16 == 0
+    route = softmax_plan(x2.dtype, x2.shape, x2.stride(), aligned)
+    if route == "rows":
+        rows, v = x2.shape
+        probs = torch.empty((rows, v), dtype=x2.dtype, device=x2.device)
+        if probs.numel():
+            g = softmax_rows(x2.dtype, x2.shape, x2.stride(), aligned)
+            rc = _build.lib().repro_softmax_reg(
+                x2.data_ptr(), probs.data_ptr(), rows, v, x2.stride(0),
+                g.tpr, g.rows, g.per, int(g.vec), DTYPES[x2.dtype],
+                torch.cuda.current_stream(x2.device).cuda_stream)
+            _build.check(rc, "softmax")
+    else:
+        probs, _ = _rows("softmax", x2)
     softmax.launches += 1
+    softmax.routes[route] += 1
     return probs.reshape(x.shape)
 
 
@@ -116,5 +222,7 @@ def softmax_xent_bwd(probs: torch.Tensor,
 
 
 softmax.launches = 0
+# launches per route, beside the total
+softmax.routes = dict.fromkeys(ROUTES, 0)
 softmax_xent.launches = 0
 softmax_xent_bwd.launches = 0
