@@ -51,16 +51,25 @@ failure (non-zero exit, no result line):
               in place must equal a new one bit for bit, grouped B/C
               must raise in the ops layer, and rmsnorm_bwd must take the
               widest row of each of its routes and raise on the next.
+              rmsnorm runs at qwen2.5-3b's decode (4 rows), prefill (64)
+              and train (512) rows and the recurrent archs' and
+              mixtral's, bias_add_rows at qwen's 4, 64 and 512 rows of
+              2048 and 256, both also at a misaligned view, a width of
+              no whole vectors, rmsnorm at the widest row "vec" takes
+              and the next, the bias at a row stride past N and at the
+              vocabulary's width.
               The gemm, the attention backward, the attention forward,
               the three decodes (contiguous slab, bf16 pool, int8 pool),
               the three chunked prefills, rmsnorm_bwd, conv2d_direct,
-              relu_bwd, maxpool, relu, ssd_scan and softmax have routes
+              relu_bwd, maxpool, relu, ssd_scan, softmax, rmsnorm and
+              bias_add_rows have routes
               (``kernels/gemm.py:plan``,
               ``kernels/flash_attention.py:bwd_plan``, ``fwd_plan``,
               ``decode_plan``, ``chunk_plan``,
-              ``kernels/rmsnorm.py:bwd_plan``,
+              ``kernels/rmsnorm.py:bwd_plan``, ``fwd_plan``,
               ``kernels/conv_direct.py:plan``,
               ``kernels/eltwise.py:relu_bwd_plan``, ``relu_plan``,
+              ``bias_plan``,
               ``kernels/pooling.py:maxpool_plan``,
               ``kernels/mamba_scan.py:ssd_plan``,
               ``kernels/softmax_xent.py:softmax_plan``): each row prints the
@@ -84,7 +93,10 @@ failure (non-zero exit, no result line):
               0 keeps its state bit for bit on all three, the in-place
               state equals a new one on "step" and "split"), every softmax
               of unit-stride rows the register-row kernel ("rows"; a
-              column-major x "strided"; a row of -inf NaN on both).
+              column-major x "strided"; a row of -inf NaN on both),
+              every rmsnorm and bias of whole aligned 16-byte rows the
+              vector kernels ("vec"; LeNet's N = 10 bias and the edges
+              "scalar").
               conv2d_direct's rows are also timed on the scalar kernel
               (``forced_scalar_conv``) and swept over ``tiles``' caps at
               the LeNet shapes (``grep "conv sweep"``), relu_bwd's on the
@@ -99,7 +111,11 @@ failure (non-zero exit, no result line):
               and ``ssd_split``'s knobs and lane layouts (``grep "ssd_scan
               step sweep"``, ``"split sweep"``), softmax's on the strided
               kernel (``forced_strided_softmax``) and swept over
-              ``softmax_rows``' knobs (``grep "softmax rows sweep"``).  The
+              ``softmax_rows``' knobs (``grep "softmax rows sweep"``),
+              rmsnorm's and bias_add_rows' on the scalar kernels
+              (``forced_scalar_norm``, ``forced_scalar_bias``) and swept
+              over ``fwd_rows``' and ``bias_grid``'s caps (``grep
+              "rmsnorm sweep"``, ``grep "bias sweep"``).  The
               forward (at the --check shape and at the training shape,
               B 2 x S 256, with qwen2.5-3b's, zamba2's and, windowed,
               mixtral's heads), the three decodes and the three chunks
@@ -144,7 +160,8 @@ failure (non-zero exit, no result line):
               every bf16 chunk (the slab, a bf16 or an int8 pool) on the
               tensor-core chunk kernel, every SSD decode on "step" and
               chunk on "split" (so too in phases 5-7: the --check and
-              training forwards on "split"); the
+              training forwards on "split"), every rmsnorm and bias on
+              "vec" (so too in phases 5-7: ``read_counts``); the
               first steps' logits are held against the reference backend
               (qwen in bf16 at full depth, the Mamba stacks in f32 at 12
               layers, mixtral in f32 at 16 with its bf16 numbers printed,
@@ -194,7 +211,8 @@ failure (non-zero exit, no result line):
               under ``set_sync_debug_mode("error")`` with exact launch
               counts and every gemm on the route ``kernels/gemm.py:plan``
               names for its product (``caffe_gemm_routes``), every
-              maxpool on "plane" and every relu on "vec"
+              maxpool on "plane", every relu on "vec" and every bias on
+              "vec" but N = 10's on "scalar"
               (``caffe_fwd_routes``; in ``transfer+transpose`` maxpool on
               "strided"), held against
               the reference backend; MNIST's deploy
@@ -259,8 +277,8 @@ the solvers' batch of 64.
 The line before the last is a JSON object with one entry per kernel (the
 routed kernels' -- the gemm's, the attention backward's and forward's,
 the three decodes', the three chunked prefills', rmsnorm_bwd's,
-conv2d_direct's, relu_bwd's, maxpool's, relu's, ssd_scan's and
-softmax's -- with ``routes``:
+conv2d_direct's, relu_bwd's, maxpool's, relu's, ssd_scan's,
+softmax's, rmsnorm's and bias_add_rows' -- with ``routes``:
 the main paths' launches per route, phases 4-10); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -422,7 +440,6 @@ def phase_kernels(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.eltwise import bias_add_rows
     from repro_torch.kernels.flash_attention import (
         SPLIT_TILE,
         flash_attention,
@@ -436,7 +453,6 @@ def phase_kernels(torch):
     from repro_torch.serving import pager as PG
     from repro_torch.kernels.gemm import gemm
     from repro_torch.kernels.mamba_scan import ssd_scan
-    from repro_torch.kernels.rmsnorm import rmsnorm
 
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -641,34 +657,7 @@ def phase_kernels(torch):
                 lambda x=x, w=w: torch.matmul(x, w),
                 (m * k + k * n + m * n) * es, 2.0 * m * n * k)
         del gemms, w_qo, w_kv, w_gi, w_o, w_mq, w_mkv, w_mh
-        wn = (1 + 0.1 * rnd((cfg_d,), torch.float32)).to(dtype)
-        run(rmsnorm, "4x2048", dtype, "decode", 73,
-            lambda: rmsnorm(a, wn), lambda: ref.rmsnorm(a, wn),
-            lambda: F.rms_norm(a, (cfg_d,), wn, 1e-6),
-            (2 * B * cfg_d + cfg_d) * es, 4.0 * B * cfg_d)
-        # mixtral: an attention norm and the moe ln per layer, the final
-        # norm at M = 4 (in a prefill step too)
-        for wd, m_, step, count in ((2560, B, "mamba2 decode", 65),
-                                    (5120, B, "mamba2 decode", 64),
-                                    (2560, B, "zamba2 decode", 73),
-                                    (5120, B, "zamba2 decode", 54),
-                                    (4096, B, "mixtral decode", 33),
-                                    (4096, B * c, "mixtral prefill", 32),
-                                    (4096, B, "mixtral prefill", 1)):
-            xr = rnd((m_, wd), dtype)
-            wr = (1 + 0.1 * rnd((wd,), torch.float32)).to(dtype)
-            run(rmsnorm, f"{m_}x{wd}", dtype, step, count,
-                lambda xr=xr, wr=wr: rmsnorm(xr, wr),
-                lambda xr=xr, wr=wr: ref.rmsnorm(xr, wr),
-                lambda xr=xr, wr=wr, wd=wd: F.rms_norm(xr, (wd,), wr, 1e-6),
-                (2 * m_ * wd + wd) * es, 4.0 * m_ * wd)
-        for n, count in ((2048, 36), (256, 72)):
-            mm, v = rnd((B, n), dtype), rnd((n,), dtype, 0.1)
-            run(bias_add_rows, f"4x{n} + {n}", dtype, "decode", count,
-                lambda mm=mm, v=v: bias_add_rows(mm, v),
-                lambda mm=mm, v=v: ref.bias_add_rows(mm, v),
-                lambda mm=mm, v=v: mm + v,
-                (2 * B * n + n) * es, 1.0 * B * n)
+        norm_bias_kernels(torch, F, rnd, run, timer, dtype, es)
 
         # -- attention: the contiguous cache and a shuffled page pool that
         # holds the same keys (every block below a row's length mapped), at
@@ -1407,6 +1396,19 @@ def phase_kernels(torch):
                       + (f", on its route before this slice "
                          f"{tot['forced_ms']:.3f} ms" if name in REDESIGNED
                          else ""), flush=True)
+    # the norms and biases of the steps past decode: 64 rows a prefill
+    # step, 512 a train step
+    for step in ("prefill", "train", "mamba2 prefill", "zamba2 prefill"):
+        for name in ("rmsnorm", "bias_add_rows"):
+            tot = totals(name, step)
+            if tot["ms"]:
+                at = (f"B={TRAIN_B}, S={TRAIN_S}" if step == "train"
+                      else f"B={B}, C={c}")
+                print(f"[3 kernels] {name}: one bf16 {step} step at {at}: "
+                      f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.4f} "
+                      f"ms, plain {tot['plain_ms']:.4f} ms, library "
+                      f"{tot['library_ms']:.4f} ms, on the scalar kernel "
+                      f"forced {tot['forced_ms']:.4f} ms", flush=True)
     for step, names in (
             ("mnist fwd", ("im2col", "gemm", "bias_add_rows", "maxpool",
                            "relu", "softmax_xent")),
@@ -1427,7 +1429,10 @@ def phase_kernels(torch):
                    "maxpool": f", on the strided kernel forced "
                               f"{tot['forced_ms']:.4f} ms",
                    "relu": f", on the scalar kernel forced "
-                           f"{tot['forced_ms']:.4f} ms"}.get(name, "")
+                           f"{tot['forced_ms']:.4f} ms",
+                   "bias_add_rows": f", on the scalar kernel forced "
+                                    f"{tot['forced_ms']:.4f} ms"}.get(name,
+                                                                      "")
             print(f"[3 kernels] {name}: one f32 {step} at B={LENET_B}: "
                   f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, "
                   f"plain {tot['plain_ms']:.4f} ms, library "
@@ -1530,6 +1535,135 @@ def gemm_crossover(torch, rnd, check, clock, dtype, tol):
           f"M in {[m for m in wins if m]} of {list(CROSS_M)}; SKINNY_MAX_M: "
           f"{cuts}", flush=True)
     del weights
+
+
+def norm_bias_kernels(torch, F, rnd, run, clock, dtype, es):
+    """Phase 3's RMSNorm forward and bias over rows at the LM paths'
+    shapes: a decode step (B = 4 rows), a prefill step (B * C = 64 rows;
+    its final norm runs on the B last tokens) and a train step (B 2 x S
+    256 = 512 rows) of qwen2.5-3b, and mamba2's, zamba2's and mixtral's
+    norms, each against its plain version, beside ``F.rms_norm`` and
+    ``m + v``, on route "vec" and timed beside the first kernel forced
+    (``forced_scalar_norm``, ``forced_scalar_bias``); then the edges (a
+    misaligned view, a width of no whole vectors, the widest row "vec"
+    takes and the next), each on the route its planner names and held to
+    the plain version; and (bf16) the planners' sweeps."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.eltwise import bias_add_rows
+    from repro_torch.kernels.rmsnorm import FWD_MAX_VECS, rmsnorm
+
+    c, rows_t = CHUNK, TRAIN_B * TRAIN_S
+    # (width, rows, step, launches a step): qwen2.5-3b's norms (an
+    # attention and an MLP norm a layer, the final norm on the last
+    # tokens), mamba2's (ln 2560 and ln_inner 5120 a layer), zamba2's (54
+    # Mamba layers, 9 shared blocks), mixtral's (an attention norm and the
+    # moe ln a layer)
+    norms = [(2048, B, "decode", 73), (2048, B * c, "prefill", 72),
+             (2048, B, "prefill", 1), (2048, rows_t, "train", 145),
+             (2560, B, "mamba2 decode", 65), (5120, B, "mamba2 decode", 64),
+             (2560, B * c, "mamba2 prefill", 64),
+             (5120, B * c, "mamba2 prefill", 64),
+             (2560, B, "mamba2 prefill", 1),
+             (2560, B, "zamba2 decode", 73), (5120, B, "zamba2 decode", 54),
+             (2560, B * c, "zamba2 prefill", 72),
+             (5120, B * c, "zamba2 prefill", 54),
+             (2560, B, "zamba2 prefill", 1),
+             (4096, B, "mixtral decode", 33),
+             (4096, B * c, "mixtral prefill", 32),
+             (4096, B, "mixtral prefill", 1)]
+    for wd, m_, step, count in norms:
+        xr = rnd((m_, wd), dtype)
+        wr = (1 + 0.1 * rnd((wd,), torch.float32)).to(dtype)
+        want_route("rmsnorm", run(
+            rmsnorm, f"{m_}x{wd}", dtype, step, count,
+            lambda xr=xr, wr=wr: rmsnorm(xr, wr),
+            lambda xr=xr, wr=wr: ref.rmsnorm(xr, wr),
+            lambda xr=xr, wr=wr, wd=wd: F.rms_norm(xr, (wd,), wr, 1e-6),
+            (2 * m_ * wd + wd) * es, 4.0 * m_ * wd,
+            forced=forced_scalar_norm), "vec")
+        if dtype == torch.bfloat16 and (m_, wd, step) in (
+                (B, 2048, "decode"), (B, 5120, "mamba2 decode"),
+                (B * c, 2048, "prefill"), (rows_t, 2048, "train")):
+            norm_sweep(clock, f"{m_}x{wd}",
+                       lambda xr=xr, wr=wr: rmsnorm(xr, wr), dtype, m_, wd)
+    # qwen2.5-3b's q bias (2048) and k, v biases (256) a layer, at each
+    # step's rows (a train step's forward and its rematerialized forward)
+    for n, m_, step, count in ((2048, B, "decode", 36), (256, B, "decode", 72),
+                               (2048, B * c, "prefill", 36),
+                               (256, B * c, "prefill", 72),
+                               (2048, rows_t, "train", 72),
+                               (256, rows_t, "train", 144)):
+        mm, v = rnd((m_, n), dtype), rnd((n,), dtype, 0.1)
+        want_route("bias_add_rows", run(
+            bias_add_rows, f"{m_}x{n} + {n}", dtype, step, count,
+            lambda mm=mm, v=v: bias_add_rows(mm, v),
+            lambda mm=mm, v=v: ref.bias_add_rows(mm, v),
+            lambda mm=mm, v=v: mm + v,
+            (2 * m_ * n + n) * es, 1.0 * m_ * n,
+            forced=forced_scalar_bias), "vec")
+        if dtype == torch.bfloat16:
+            bias_sweep(clock, f"{m_}x{n}", lambda mm=mm, v=v: bias_add_rows(
+                mm, v), dtype, m_, n)
+    # the edges: (what, x, w) on the route fwd_plan names; a view offset
+    # by one element, a width of no whole vectors, the widest row of whole
+    # vectors "vec" takes, the next one of whole vectors
+    e = 16 // es
+    wide = FWD_MAX_VECS * e
+    buf = rnd((B * 2048 + 1,), dtype)
+    edges = [("offset by one element", buf[1:].view(B, 2048), "scalar"),
+             ("width 2050", rnd((B, 2050), dtype), "scalar"),
+             (f"widest vec row {wide}", rnd((B, wide), dtype), "vec"),
+             (f"width {wide + e}", rnd((B, wide + e), dtype), "scalar"),
+             ("row stride 2048 + 16", rnd((B, 2064), dtype)[:, :2048],
+              "vec")]
+    for what, x, want in edges:
+        w = (1 + 0.1 * rnd((x.shape[1],), torch.float32)).to(dtype)
+        got, route = routed(rmsnorm, lambda x=x, w=w: rmsnorm(x, w))
+        want_route("rmsnorm", route, want)
+        err = close_to(torch, f"rmsnorm {what} {dtype}", got,
+                       ref.rmsnorm(x, w), 2 ** -7 if es == 2 else 1e-6)
+        print(f"[3 kernels] rmsnorm edge, {what} ({tuple(x.shape)}, row "
+              f"stride {x.stride(0)}) {dtype}: on {route}, max_abs_err "
+              f"{err:.3g}", flush=True)
+    # the bias: a view offset by one element, an N of no whole vectors, a
+    # row stride past N, and the widest row of the serving path (the
+    # vocabulary, 151936: the grid's blocks across columns)
+    buf = rnd((B * 2048 + 1,), dtype)
+    edges = [("offset by one element", buf[1:].view(B, 2048), "scalar"),
+             ("N 2050", rnd((B, 2050), dtype), "scalar"),
+             ("row stride 2048 + 16", rnd((B, 2064), dtype)[:, :2048],
+              "vec"),
+             ("N 151936", rnd((B, 151936), dtype), "vec")]
+    for what, m, want in edges:
+        v = rnd((m.shape[1],), dtype, 0.1)
+        got, route = routed(bias_add_rows, lambda m=m, v=v: bias_add_rows(
+            m, v))
+        want_route("bias_add_rows", route, want)
+        err = close_to(torch, f"bias_add_rows {what} {dtype}", got,
+                       ref.bias_add_rows(m, v), 0.0)
+        print(f"[3 kernels] bias_add_rows edge, {what} ({tuple(m.shape)}, "
+              f"row stride {m.stride(0)}) {dtype}: on {route}, max_abs_err "
+              f"{err:.3g}", flush=True)
+
+
+def routed(kernel, fn):
+    """``fn()`` (one call of the wrapper ``kernel``) and the route it
+    took."""
+    before = dict(kernel.routes)
+    got = fn()
+    return got, "+".join(r for r, n in kernel.routes.items()
+                         if n != before[r]) or "-"
+
+
+def close_to(torch, name, got, want, tol_rel):
+    """max |got - want|, failing unless it is at most ``tol_rel`` x max
+    |want| (0: equal)."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not (np.isfinite(err) and err <= tol_rel
+            * want.float().abs().max().item()):
+        raise SystemExit(f"chip_smoke: {name}: max_abs_err {err:.3g}")
+    return err
 
 
 def train_kernels(torch, F, rnd, run, clock, dtype, es):
@@ -1887,6 +2021,22 @@ def forced_scalar_bwd():
     return forced_route(RN, "bwd_plan", "rmsnorm_bwd", "scalar")
 
 
+def forced_scalar_norm():
+    """The RMSNorm forward on the first port's kernel (route "scalar"),
+    its route before the vector kernel: ``fwd_plan`` made to name it."""
+    from repro_torch.kernels import rmsnorm as RN
+
+    return forced_route(RN, "fwd_plan", "rmsnorm", "scalar")
+
+
+def forced_scalar_bias():
+    """The bias over rows on the first port's kernel (route "scalar"),
+    its route before the vector kernel: ``bias_plan`` made to name it."""
+    from repro_torch.kernels import eltwise as EW
+
+    return forced_route(EW, "bias_plan", "bias_add_rows", "scalar")
+
+
 def forced_scalar_conv():
     """The direct convolution on the first port's kernel (route
     "scalar"), its route before the register-tiled kernel: ``plan`` made
@@ -1984,6 +2134,63 @@ def rmsnorm_bwd_sweep(clock, case, fn, dtype, rows, d):
           f"rows a block x blocks, ms: " + "; ".join(
               f"{p}{'*' if p == mine else ''} {t:.4f}"
               for p, t in sorted(cells.items(), key=lambda c: c[1])),
+          flush=True)
+
+
+# the forward RMSNorm's warps a row cap, warps a block and warp targets,
+# and the vec bias's rows a thread, threads a block and block targets,
+# swept in phase 3
+NORM_SWEPT = ((1, 2, 4, 8), (2, 4, 8), (128, 512, 1024, 2048, 4096, 8192))
+BIAS_SWEPT = ((1, 2, 4, 8), (32, 64, 128, 256), (66, 132, 264, 528))
+
+
+def norm_sweep(clock, case, fn, dtype, rows, d):
+    """The RMSNorm forward ``fn`` on the vector kernel at each distinct
+    plan (group, warps, blocks) that ``fwd_rows`` gives for each
+    ``FWD_GROUP``, ``FWD_WARPS`` and ``FWD_TARGET`` of ``NORM_SWEPT``,
+    fastest first, on one line; the planner's own plan is marked."""
+    from repro_torch.kernels import rmsnorm as RN
+
+    saved = (RN.FWD_GROUP, RN.FWD_WARPS, RN.FWD_TARGET)
+    mine, cells = RN.fwd_rows(dtype, rows, d), {}
+    try:
+        for RN.FWD_GROUP in NORM_SWEPT[0]:
+            for RN.FWD_WARPS in NORM_SWEPT[1]:
+                for RN.FWD_TARGET in NORM_SWEPT[2]:
+                    plan = RN.fwd_rows(dtype, rows, d)
+                    if plan not in cells:
+                        cells[plan] = clock(fn)
+    finally:
+        RN.FWD_GROUP, RN.FWD_WARPS, RN.FWD_TARGET = saved
+    print(f"[3 kernels] rmsnorm sweep, {case} {dtype}: group x warps x "
+          f"blocks, ms: " + "; ".join(
+              f"{p}{'*' if p == mine else ''} {t:.4f}"
+              for p, t in sorted(cells.items(), key=lambda c: c[1])),
+          flush=True)
+
+
+def bias_sweep(clock, case, fn, dtype, m, n):
+    """The bias ``fn`` on the vector kernel at each distinct grid (rows a
+    thread, bx, by, gx, gy) that ``bias_grid`` gives for each
+    ``BIAS_ROWS``, ``BIAS_THREADS`` and ``BIAS_BLOCKS`` of ``BIAS_SWEPT``,
+    fastest first, on one line; the planner's own grid is marked."""
+    from repro_torch.kernels import eltwise as EW
+
+    saved = (EW.BIAS_ROWS, EW.BIAS_THREADS, EW.BIAS_BLOCKS)
+    mine, cells = EW.bias_grid(dtype, m, n), {}
+    try:
+        for EW.BIAS_ROWS in BIAS_SWEPT[0]:
+            for EW.BIAS_THREADS in BIAS_SWEPT[1]:
+                for EW.BIAS_BLOCKS in BIAS_SWEPT[2]:
+                    grid = EW.bias_grid(dtype, m, n)
+                    if grid not in cells:
+                        cells[grid] = clock(fn)
+    finally:
+        EW.BIAS_ROWS, EW.BIAS_THREADS, EW.BIAS_BLOCKS = saved
+    print(f"[3 kernels] bias sweep, {case} {dtype}: rows a thread x bx x by"
+          f" x gx x gy, ms: " + "; ".join(
+              f"{g}{'*' if g == mine else ''} {t:.4f}"
+              for g, t in sorted(cells.items(), key=lambda c: c[1])),
           flush=True)
 
 
@@ -2317,12 +2524,13 @@ def want_route(name, route, want):
 # also timed on the route it left (``forced_scalar``, ``forced_template``,
 # ``forced_scalar_bwd``, ``forced_scalar_conv``, ``forced_strided``,
 # ``forced_strided_pool``, ``forced_scalar_relu``, ``forced_block_ssd``,
-# ``forced_strided_softmax``)
+# ``forced_strided_softmax``, ``forced_scalar_norm``,
+# ``forced_scalar_bias``)
 REDESIGNED = ("flash_attention", "flash_decode", "flash_decode_paged",
               "flash_decode_paged_quant", "flash_prefill_chunk",
               "flash_prefill_chunk_paged", "flash_prefill_chunk_paged_quant",
               "rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool", "relu",
-              "ssd_scan", "softmax")
+              "ssd_scan", "softmax", "rmsnorm", "bias_add_rows")
 # the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
 SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -2440,11 +2648,14 @@ def caffe_kernels(torch, F, rnd, run, clock):
             lambda x=x, w=w: torch.matmul(x, w),
             (n * k + k * out + n * out) * 4, 2.0 * n * k * out,
             forced=forced_skinny), SMALL_ROUTES)
+        # the bias: "vec" at 500 and 64, "scalar" at N = 10 (40-byte rows)
         m, v = rnd((n, out), f32), rnd((out,), f32, 0.1)
-        run(bias_add_rows, f"{layer} {n}x{out} + {out}", f32, step, 1,
+        want_route("bias_add_rows", run(
+            bias_add_rows, f"{layer} {n}x{out} + {out}", f32, step, 1,
             lambda m=m, v=v: bias_add_rows(m, v),
             lambda m=m, v=v: ref.bias_add_rows(m, v),
-            lambda m=m, v=v: m + v, (2 * n * out + out) * 4, 1.0 * n * out)
+            lambda m=m, v=v: m + v, (2 * n * out + out) * 4, 1.0 * n * out,
+            forced=forced_scalar_bias), "vec" if out % 4 == 0 else "scalar")
     # the max pools: (step, case, input, k, stride, pad, count)
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     ties = torch.randint(-1, 2, (n, 32, 32, 32), generator=g,
@@ -3049,7 +3260,7 @@ CHUNKS = ("flash_prefill_chunk", "flash_prefill_chunk_paged",
           "flash_prefill_chunk_paged_quant")
 ROUTED = ("gemm", "flash_attention_bwd", "flash_attention") + DECODES \
     + CHUNKS + ("rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool",
-                "relu", "ssd_scan", "softmax")
+                "relu", "ssd_scan", "softmax", "rmsnorm", "bias_add_rows")
 ROUTE_SOURCES = {
     ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
@@ -3081,6 +3292,10 @@ ROUTE_SOURCES = {
     ("ssd_scan", "block"): "src/repro_torch/kernels/csrc/ssd_scan.cu",
     ("softmax", "rows"): "src/repro_torch/kernels/csrc/softmax_xent.cu",
     ("softmax", "strided"): "src/repro_torch/kernels/csrc/softmax_xent.cu",
+    ("rmsnorm", "vec"): "src/repro_torch/kernels/csrc/rmsnorm.cu",
+    ("rmsnorm", "scalar"): "src/repro_torch/kernels/csrc/rmsnorm.cu",
+    ("bias_add_rows", "vec"): "src/repro_torch/kernels/csrc/eltwise.cu",
+    ("bias_add_rows", "scalar"): "src/repro_torch/kernels/csrc/eltwise.cu",
 }
 ROUTE_SOURCES.update({
     (name, route): f"src/repro_torch/kernels/csrc/{src}"
@@ -3103,9 +3318,15 @@ def zero_counts(fns):
             fn.routes[r] = 0
 
 
-def read_counts(fns):
+def read_counts(fns, lm=True):
     """The launches of each kernel since ``zero_counts``; the routed
-    kernels' launches per route are added to ``MAIN_ROUTES``."""
+    kernels' launches per route are added to ``MAIN_ROUTES``.  On an LM
+    path (``lm``) every RMSNorm and bias launch must have taken "vec"
+    (the Caffe paths' bias routes are held by ``caffe_counted``)."""
+    if lm:
+        for name in ("rmsnorm", "bias_add_rows"):
+            want_route(name, "+".join(r for r, n in fns[name].routes.items()
+                                      if n) or "vec", "vec")
     for name in ROUTED:
         tot = MAIN_ROUTES.setdefault(name, dict.fromkeys(fns[name].routes, 0))
         for r, n in fns[name].routes.items():
@@ -3182,7 +3403,9 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
               f"{int(s['kv_pages'])} "
               f"({s['kv_resident_bytes_peak'] / 2 ** 20:.1f} MiB of KV)",
               flush=True)
-    print(f"{tag} launches {launches}", flush=True)
+    print(f"{tag} launches {launches}; rmsnorm routes "
+          f"{fns['rmsnorm'].routes}, bias_add_rows routes "
+          f"{fns['bias_add_rows'].routes}", flush=True)
     # every bf16 decode launch (slab, bf16 pool, int8 pool) on the split
     # kernel
     for name in DECODES:
@@ -3874,15 +4097,16 @@ def train_per_step(cfg):
 
 
 @contextlib.contextmanager
-def counting(got, routes=None):
+def counting(got, routes=None, lm=True):
     """The launch counts set to 0 on entry and read into ``got`` on exit
-    (and, given ``routes``, each routed kernel's launches per route)."""
+    (and, given ``routes``, each routed kernel's launches per route);
+    ``lm``: as ``read_counts``."""
     fns = kernel_fns()
     zero_counts(fns)
     try:
         yield
     finally:
-        got.update(read_counts(fns))
+        got.update(read_counts(fns, lm))
         if routes is not None:
             routes.update({name: dict(fns[name].routes) for name in ROUTED})
 
@@ -4044,11 +4268,14 @@ def train_loop_phase(torch):
     want, counts, routes = train_per_step(cfg), [], []
     # every gemm of a bf16 step on the tensor-core kernel (M = 512 and the
     # weight gradients' x.T), every attention forward and backward on the
-    # tensor-core kernels, every RMSNorm backward on the vector kernel
+    # tensor-core kernels, every RMSNorm forward and backward and every
+    # bias on the vector kernels
     want_routes = {"gemm": want["gemm"],
                    "flash_attention_bwd": want["flash_attention_bwd"],
                    "flash_attention": want["flash_attention"],
-                   "rmsnorm_bwd": want["rmsnorm_bwd"]}
+                   "rmsnorm_bwd": want["rmsnorm_bwd"],
+                   "rmsnorm": want["rmsnorm"],
+                   "bias_add_rows": want["bias_add_rows"]}
 
     def counted(st, batch):
         got, rt = {}, {}
@@ -4076,7 +4303,9 @@ def train_loop_phase(torch):
         on_tc = {"gemm": rt["gemm"]["tc"] + rt["gemm"]["tc_splitk"],
                  "flash_attention_bwd": rt["flash_attention_bwd"]["tc"],
                  "flash_attention": rt["flash_attention"]["tc"],
-                 "rmsnorm_bwd": rt["rmsnorm_bwd"]["vec"]}
+                 "rmsnorm_bwd": rt["rmsnorm_bwd"]["vec"],
+                 "rmsnorm": rt["rmsnorm"]["vec"],
+                 "bias_add_rows": rt["bias_add_rows"]["vec"]}
         if on_tc != want_routes:
             raise SystemExit(f"chip_smoke: train (b): step {rec['step']} "
                              f"launches on the tensor-core and vector "
@@ -4365,7 +4594,7 @@ def caffe_counted(torch, fn, name, synced=True, want=None, routes=None,
     if want is None:
         want = dict(CAFFE_LAUNCHES[name])
     got, rt = {}, {}
-    with use_backend("hopper"), counting(got, rt):
+    with use_backend("hopper"), counting(got, rt, lm=False):
         if synced:
             torch.cuda.set_sync_debug_mode("error")
         try:
@@ -4718,13 +4947,28 @@ def caffe_softmax_routes(spec, boundary):
     return {"softmax": {route: n} if n else {}}
 
 
+def caffe_bias_routes(spec, boundary):
+    """``bias_add_rows``'s launches per route in one forward or train step
+    of the net ``spec`` (one an InnerProduct layer with a bias): "vec"
+    where its f32 N is whole 16-byte vectors (LeNet's 500 and 64),
+    "scalar" else (N = 10); in every boundary mode, as the bias adds to
+    the product's fresh row-major top."""
+    took = {}
+    for ls in spec.layers:
+        if ls.type == "InnerProduct" and ls.bias_term:
+            route = "vec" if ls.num_output % 4 == 0 else "scalar"
+            took[route] = took.get(route, 0) + 1
+    return {"bias_add_rows": took}
+
+
 def caffe_fwd_routes(spec, boundary):
     """The forward's routed Caffe kernels, ``caffe_maxpool_routes``,
-    ``caffe_relu_routes`` and ``caffe_softmax_routes``, for
-    ``caffe_counted``'s ``kernel_routes``."""
+    ``caffe_relu_routes``, ``caffe_softmax_routes`` and
+    ``caffe_bias_routes``, for ``caffe_counted``'s ``kernel_routes``."""
     return {**caffe_maxpool_routes(spec, boundary),
             **caffe_relu_routes(spec, boundary),
-            **caffe_softmax_routes(spec, boundary)}
+            **caffe_softmax_routes(spec, boundary),
+            **caffe_bias_routes(spec, boundary)}
 
 
 def caffe_relu_bwd_routes(spec, boundary):

@@ -55,6 +55,8 @@ _SIGNATURES = {
     "repro_gemm_f32": [_P] * 4 + [_I] * 3 + [_L, _I, _L] + [_I] * 6 + [_P],
     # x, w, out, rows, D, ldx, eps, dtype, stream
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _L, _F, _I, _P],
+    # x, w, out, rows, D, ldx, eps, group, warps, blocks, dtype, stream
+    "repro_rmsnorm_vec": [_P, _P, _P, _I, _I, _L, _F, _I, _I, _I, _I, _P],
     # x, w, dy, dx, dw_partial (f32), dw, rows, D, ldx, lddy, eps, dtype,
     # stream
     "repro_rmsnorm_bwd": [_P] * 6 + [_I, _I, _L, _L, _F, _I, _P],
@@ -64,6 +66,9 @@ _SIGNATURES = {
                              + [_P],
     # m, v, out, M, N, ldm, dtype, stream
     "repro_bias_add_rows": [_P, _P, _P, _I, _I, _L, _I, _P],
+    # m, v, out, M, N, ldm, rows a thread, threads across vectors (bx) and
+    # rows (by), blocks across vectors (gx) and rows (gy), dtype, stream
+    "repro_bias_add_rows_vec": [_P, _P, _P, _I, _I, _L] + [_I] * 6 + [_P],
     # x, out, n, slope, dtype, stream
     "repro_relu": [_P, _P, _L, _F, _I, _P],
     # x, out, n, slope, blocks, dtype, stream

@@ -7,7 +7,22 @@
 //
 // * Bias over rows (the paper's matrixPlusVectorRows functor): out[i, :] =
 //   m[i, :] + v, added in f32 and rounded to the storage dtype.  Replaces
-//   bias_add_rows_pallas ((bm, bn) VMEM tiles).
+//   bias_add_rows_pallas ((bm, bn) VMEM tiles).  Two routes, picked by
+//   kernels/eltwise.py:bias_plan:
+//   - "vec" (repro_bias_add_rows_vec): N whole 16-byte vectors, 16-byte
+//     aligned bases of m, v and out and a row stride ldm of whole vectors
+//     (qwen's 2048- and 256-wide q, k and v biases, LeNet's 500 and 64).
+//     A 2-D grid of row tiles and column vectors: a thread loads its
+//     16-byte bias vector once, then issues the 16-byte loads of its rows
+//     of m (1, 2, 4 or kBiasRows, fixed at compile time: no loop) before
+//     its first store; 32-bit indices where the sizes allow, no
+//     division.  kernels/eltwise.py:bias_grid shapes
+//     the block and grid from M and N alone.  The first port's kernel
+//     moved 2 or 4 bytes a load with a 64-bit division and remainder per
+//     element and re-read the bias for every element.
+//   - "scalar" (repro_bias_add_rows): every other N or alignment (LeNet's
+//     N = 10 in f32, 40-byte rows; a view offset by one element).  The
+//     first port's grid-stride loop, one element a thread.
 // * Caffe's leaky-capable ReLU: out = x > 0 ? x : slope * x, the product
 //   in f32 rounded to the storage dtype (x itself is passed through; a NaN
 //   in x takes the slope).  In both ReLU kernels the slope is first
@@ -66,6 +81,98 @@ bias_add_rows_kernel(const T* __restrict__ m, const T* __restrict__ v,
     const long r = i / N, col = i % N;
     out[i] = from_f32<T>(to_f32(m[r * ldm + col]) + to_f32(v[col]));
   }
+}
+
+// the "vec" bias's rows of m a thread at most (1, 2, 4 or 8:
+// kernels/eltwise.py:bias_grid picks)
+constexpr int kBiasRows = 8;
+
+// a + b, 16 bytes of T each, added in f32 and rounded to T (bf16: element
+// 2i in the low half of word i, little endian)
+template <typename T>
+__device__ __forceinline__ uint4 add16(const uint4& a, const uint4& b);
+template <>
+__device__ __forceinline__ uint4 add16<float>(const uint4& a,
+                                              const uint4& b) {
+  return make_uint4(
+      __float_as_uint(__uint_as_float(a.x) + __uint_as_float(b.x)),
+      __float_as_uint(__uint_as_float(a.y) + __uint_as_float(b.y)),
+      __float_as_uint(__uint_as_float(a.z) + __uint_as_float(b.z)),
+      __float_as_uint(__uint_as_float(a.w) + __uint_as_float(b.w)));
+}
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  return pack_bf16(__uint_as_float(a << 16) + __uint_as_float(b << 16),
+                   __uint_as_float(a & 0xffff0000u) +
+                       __uint_as_float(b & 0xffff0000u));
+}
+template <>
+__device__ __forceinline__ uint4 add16<bf16>(const uint4& a, const uint4& b) {
+  return make_uint4(add_bf16x2(a.x, b.x), add_bf16x2(a.y, b.y),
+                    add_bf16x2(a.z, b.z), add_bf16x2(a.w, b.w));
+}
+
+// The "vec" bias.  m (M rows of ldv vectors), out (M, nvec) contiguous,
+// both as 16-byte vectors.  Thread (tx, ty) of block (k, i) owns column
+// vector j = i * blockDim.x + tx and rows t * R .. t * R + R - 1 of row
+// tile t = k * blockDim.y + ty (row tiles on gridDim.x, which has room
+// for any M; column blocks on gridDim.y).  R, the rows a thread, is fixed
+// at compile time (1, 2, 4 or 8) and there is no loop: a lane's code is
+// its R loads, then its R stores.  I: the index type (int where the sizes
+// allow).
+template <typename T, typename I, int R>
+__global__ void __launch_bounds__(kThreads)
+bias_add_rows_vec_kernel(const uint4* __restrict__ m,
+                         const uint4* __restrict__ v, uint4* __restrict__ out,
+                         int M, int nvec, I ldv) {
+  const int j = blockIdx.y * blockDim.x + threadIdx.x;
+  const int r0 = (blockIdx.x * blockDim.y + threadIdx.y) * R;
+  if (j >= nvec || r0 >= M) return;
+  const uint4 b = __ldg(v + j);
+  uint4 a[R];
+#pragma unroll
+  for (int u = 0; u < R; ++u)
+    if (r0 + u < M) a[u] = __ldg(m + (I)(r0 + u) * ldv + j);
+#pragma unroll
+  for (int u = 0; u < R; ++u)
+    if (r0 + u < M) out[(I)(r0 + u) * nvec + j] = add16<T>(a[u], b);
+}
+
+template <typename T, typename I>
+cudaError_t launch_bias_vec(const uint4* m, const uint4* v, uint4* out,
+                            int M, int nvec, I ldv, int rpt, dim3 grid,
+                            dim3 block, cudaStream_t s) {
+  if (rpt == 1)
+    bias_add_rows_vec_kernel<T, I, 1><<<grid, block, 0, s>>>(m, v, out, M,
+                                                             nvec, ldv);
+  else if (rpt == 2)
+    bias_add_rows_vec_kernel<T, I, 2><<<grid, block, 0, s>>>(m, v, out, M,
+                                                             nvec, ldv);
+  else if (rpt == 4)
+    bias_add_rows_vec_kernel<T, I, 4><<<grid, block, 0, s>>>(m, v, out, M,
+                                                             nvec, ldv);
+  else
+    bias_add_rows_vec_kernel<T, I, kBiasRows><<<grid, block, 0, s>>>(
+        m, v, out, M, nvec, ldv);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bias_vec(const void* m, const void* v, void* out, int M,
+                            int N, long ldm, int rpt, int bx, int by, int gx,
+                            int gy, cudaStream_t s) {
+  constexpr int E = 16 / sizeof(T);
+  const int nvec = N / E;
+  const long ldv = ldm / E;
+  const uint4* mp = static_cast<const uint4*>(m);
+  const uint4* vp = static_cast<const uint4*>(v);
+  uint4* op = static_cast<uint4*>(out);
+  const dim3 grid((unsigned)gy, (unsigned)gx), block(bx, by);
+  // int indices while every vector of m and out lies below 2^31
+  if ((long)M * (ldv > nvec ? ldv : nvec) < 0x7fffffffL)
+    return launch_bias_vec<T, int>(mp, vp, op, M, nvec, (int)ldv, rpt, grid,
+                                   block, s);
+  return launch_bias_vec<T, long>(mp, vp, op, M, nvec, ldv, rpt, grid, block,
+                                  s);
 }
 
 // the slope as the storage dtype holds it
@@ -288,6 +395,31 @@ extern "C" int repro_relu(const void* x, void* out, long long n,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// route "vec": N and ldm whole 16-byte vectors, 16-byte aligned bases of
+// m, v and out, out (M, N) contiguous; rpt rows a thread (1, 2, 4 or
+// kBiasRows), a block of bx x by threads (bx * by <= 256), gx blocks
+// across the N / E vectors and gy across the row tiles, covering them
+// (kernels/eltwise.py:bias_grid)
+extern "C" int repro_bias_add_rows_vec(const void* m, const void* v,
+                                       void* out, int M, int N,
+                                       long long ldm, int rpt, int bx,
+                                       int by, int gx, int gy, int dtype,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int E = dtype == kBF16 ? 8 : 4;
+  if ((dtype != kBF16 && dtype != kF32) || M < 1 || N < E || N % E ||
+      ldm % E || ldm < 0 ||
+      (rpt != 1 && rpt != 2 && rpt != 4 && rpt != kBiasRows) || bx < 1 ||
+      by < 1 || bx * by > kThreads || gx < 1 || gx > 65535 || gy < 1 ||
+      (long)gx * bx < N / E || (long)gy * by * rpt < M)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return (int)launch_bias_vec<bf16>(m, v, out, M, N, ldm, rpt, bx, by, gx,
+                                      gy, s);
+  return (int)launch_bias_vec<float>(m, v, out, M, N, ldm, rpt, bx, by, gx,
+                                     gy, s);
 }
 
 extern "C" int repro_bias_add_rows(const void* m, const void* v, void* out,

@@ -7,8 +7,31 @@
 // rmsnorm_bwd_pallas (:74; kernel :56-71: one VMEM pass per row block, one
 // f32 dw partial per block, summed outside the kernel).  What bounds both
 // on Hopper: bytes -- each row is read (the backward reads x and dy) and
-// written once, with a handful of flops per element.  The forward takes
-// one block per row.
+// written once, with a handful of flops per element.
+//
+// The forward has two routes (kernels/rmsnorm.py:fwd_plan picks one from
+// dtype, width and alignment):
+//
+// * "vec" (rmsnorm_vec_kernel), rows whose width and strides are
+//   multiples of 16 bytes, up to 32 * 8 * kFwdVecs vectors.  At the
+//   serving widths a call is latency-bound: 4 rows of 2048 bf16 move 36 KB
+//   (0.00001 ms at 3.35 TB/s).  The scalar kernel took one 256-thread
+//   block a row whatever the width, read x twice in 2-byte loads and
+//   first read w after two block barriers, so a cold call waited for two
+//   dependent trips to memory.  Here a group of `group` warps (1, 2, 4 or
+//   8) owns a row; each lane issues all its 16-byte loads of x and w
+//   (up to kFwdVecs of each, a count fixed at compile time: 1, 2, 4 or 8)
+//   before the first sum, so a call takes one trip; x stays in registers; the f32 sum of squares goes by warp
+//   shuffles, then across the group's warps through shared memory and a
+//   named barrier of the group alone; the output leaves in 16-byte
+//   stores.  kernels/rmsnorm.py:fwd_rows spreads a few rows over more
+//   warps (a shorter chain of loads a lane) and packs many rows a block.
+// * "scalar" (rmsnorm_kernel, the first port's): one block a row, for
+//   every other width and alignment.
+//
+// Both compute inv = 1 / sqrtf(mean(x^2) + eps) in f32, x * inv rounded to
+// the storage dtype, times w, rounded once; only the order of the sum of
+// squares differs.
 //
 // The backward has two routes (kernels/rmsnorm.py:bwd_plan picks one from
 // dtype, width and alignment), and both end in the same second kernel,
@@ -177,6 +200,108 @@ __device__ __forceinline__ uint4 ld16(const T* p) {
 // group of warps
 __device__ __forceinline__ void group_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The forward's "vec" route
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdVecs = 8;      // 16-byte vectors of x (and of w) a lane
+constexpr int kMaxFwdWarps = 8;  // warps a block
+
+// v rounded to the storage dtype and widened back
+template <typename T>
+__device__ __forceinline__ float rounded(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// out (rows, D) in T, contiguous.  Block: `warps` warps in warps / group
+// groups; group k owns row blockIdx.x * groups + k.  Lane gl of a group
+// holds vectors gl, gl + 32 * group, ... (V of them, the last ones past
+// the row left out) of x and of w in registers, loaded before the first
+// sum.  V is a compile-time count (1, 2, 4 or 8), so a lane's code is no
+// longer than its row needs.
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxFwdWarps * 32)
+rmsnorm_vec_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   T* __restrict__ out, int rows, int D, long ldx, float eps,
+                   int group) {
+  constexpr int E = Vec<T>::N;  // elements a 16-byte vector
+  __shared__ float red[kMaxFwdWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = (blockDim.x >> 5) / group;
+  const int grp = warp / group;
+  const int r = blockIdx.x * groups + grp;
+  if (r >= rows) return;  // the whole group: its barrier is its own
+  const int gl = (warp - grp * group) * 32 + lane;  // lane within the group
+  const int gthreads = group * 32;
+  const int nvec = D / E;
+  const T* xr = x + (long)r * ldx;
+  uint4 xv[V], wv[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int j = v * gthreads + gl;
+    if (j < nvec) {
+      xv[v] = ld16(xr + j * E);
+      wv[v] = ld16(w + j * E);
+    }
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    if (v * gthreads + gl < nvec) {
+      float xf[E];
+      unpack(xv[v], xf);
+#pragma unroll
+      for (int e = 0; e < E; ++e) ss += xf[e] * xf[e];
+    }
+  }
+  ss = warp_sum(ss);
+  if (group > 1) {
+    // the group's warps' sums, added in warp order by every warp
+    if (lane == 0) red[warp] = ss;
+    group_sync(1 + grp, gthreads);
+    ss = 0.f;
+    for (int i = 0; i < group; ++i) ss += red[grp * group + i];
+  }
+  const float inv = 1.0f / sqrtf(ss / (float)D + eps);
+  T* orow = out + (long)r * D;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int j = v * gthreads + gl;
+    if (j < nvec) {
+      float xf[E], wf[E], o[E];
+      unpack(xv[v], xf);
+      unpack(wv[v], wf);
+#pragma unroll
+      for (int e = 0; e < E; ++e) o[e] = rounded<T>(xf[e] * inv) * wf[e];
+      *reinterpret_cast<uint4*>(orow + j * E) = pack(o);
+    }
+  }
+}
+
+template <typename T>
+int fwd_vec(const void* x, const void* w, void* out, int rows, int D,
+            long ldx, float eps, int group, int warps, int blocks,
+            cudaStream_t s) {
+  const int per_lane = (D / Vec<T>::N + 32 * group - 1) / (32 * group);
+  const dim3 grid(blocks), block(warps * 32);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* op = static_cast<T*>(out);
+  if (per_lane <= 1)
+    rmsnorm_vec_kernel<T, 1><<<grid, block, 0, s>>>(xp, wp, op, rows, D, ldx,
+                                                     eps, group);
+  else if (per_lane <= 2)
+    rmsnorm_vec_kernel<T, 2><<<grid, block, 0, s>>>(xp, wp, op, rows, D, ldx,
+                                                     eps, group);
+  else if (per_lane <= 4)
+    rmsnorm_vec_kernel<T, 4><<<grid, block, 0, s>>>(xp, wp, op, rows, D, ldx,
+                                                     eps, group);
+  else
+    rmsnorm_vec_kernel<T, kFwdVecs><<<grid, block, 0, s>>>(
+        xp, wp, op, rows, D, ldx, eps, group);
+  return (int)cudaGetLastError();
 }
 
 // The f32 dw rows (a group's in shared memory, a block's partial in dwp)
@@ -426,6 +551,31 @@ extern "C" int repro_rmsnorm(const void* x, const void* w, void* out, int rows,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The forward's "vec" route.  The caller (kernels/rmsnorm.py) vouches for
+// 16-byte aligned x, w and out, D and the row stride ldx multiples of 16
+// bytes, out (rows, D) contiguous.  group: warps a row (1, 2, 4 or 8),
+// the row at most 32 * group * kFwdVecs vectors; warps: a block's (a
+// multiple of group, at most 8); blocks: ceil(rows / (warps / group)).
+extern "C" int repro_rmsnorm_vec(const void* x, const void* w, void* out,
+                                 int rows, int D, long long ldx, float eps,
+                                 int group, int warps, int blocks, int dtype,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int E = dtype == kBF16 ? 8 : 4;
+  if ((dtype != kBF16 && dtype != kF32) || rows < 1 || D < E || D % E ||
+      ldx % E || (group != 1 && group != 2 && group != 4 && group != 8) ||
+      warps < group || warps > kMaxFwdWarps || warps % group ||
+      D / E > 32 * group * kFwdVecs ||
+      (long)blocks * (warps / group) < rows ||
+      (long)(blocks - 1) * (warps / group) >= rows)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return fwd_vec<bf16>(x, w, out, rows, D, ldx, eps, group, warps, blocks,
+                         s);
+  return fwd_vec<float>(x, w, out, rows, D, ldx, eps, group, warps, blocks,
+                        s);
 }
 
 // The "scalar" route: dwp is f32 (ceil(rows / kBwdRows), D) scratch, dw

@@ -7,6 +7,14 @@ rounded to the storage dtype; bound by bytes.  The ReLU's slope is
 rounded to the storage dtype before its product, as JAX's weakly typed
 ``slope * x`` rounds it.
 
+The bias over rows has two routes, picked by ``bias_plan`` from dtype,
+width and alignment and counted in ``bias_add_rows.routes``: "vec" where
+N and m's row stride are whole 16-byte vectors on aligned bases (a 2-D
+grid of row tiles and column vectors, ``bias_grid``: each thread loads
+its bias vector once and up to ``BIAS_ROWS`` rows' vectors of m before its
+first store); else the first port's kernel, "scalar" (one element a
+thread).
+
 The ReLU and its backward have two routes each, picked by ``relu_plan``
 and ``relu_bwd_plan`` from dtype, shape, strides and alignment (never by
 trying a kernel) and counted in ``relu.routes`` and ``relu_bwd.routes``
@@ -20,7 +28,7 @@ own strides, up to 4 axes, for mixed layouts).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -48,17 +56,81 @@ def bias_add_rows(m: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     out = torch.empty(m.shape, dtype=m.dtype, device=m.device)
     if out.numel() == 0:
         return out
-    rc = _build.lib().repro_bias_add_rows(
-        m.data_ptr(), vec.data_ptr(), out.data_ptr(), m.shape[0], m.shape[1],
-        m.stride(0), DTYPES[m.dtype],
-        torch.cuda.current_stream(m.device).cuda_stream,
-    )
+    rows, n = m.shape
+    route = bias_plan(m.dtype, n, _build.aligned16(
+        m, vec, out, elems=_elems(m.dtype)))
+    stream = torch.cuda.current_stream(m.device).cuda_stream
+    if route == "vec":
+        rc = _build.lib().repro_bias_add_rows_vec(
+            m.data_ptr(), vec.data_ptr(), out.data_ptr(), rows, n,
+            m.stride(0), *bias_grid(m.dtype, rows, n), DTYPES[m.dtype],
+            stream)
+    else:
+        rc = _build.lib().repro_bias_add_rows(
+            m.data_ptr(), vec.data_ptr(), out.data_ptr(), rows, n,
+            m.stride(0), DTYPES[m.dtype], stream)
     _build.check(rc, "bias_add_rows")
     bias_add_rows.launches += 1
+    bias_add_rows.routes[route] += 1
     return out
 
 
+BIAS_ROUTES = ("vec", "scalar")
+# the "vec" bias (csrc/eltwise.cu:bias_add_rows_vec_kernel): rows of m a
+# thread (1, 2, 4 or 8: kBiasRows, each count its own instance), the
+# threads a block (at most kThreads), and the blocks below which a thread
+# takes fewer rows, then a block fewer row tiles
+BIAS_ROWS = 4
+BIAS_THREADS = 256
+BIAS_BLOCKS = 132
+
+
+def _elems(dtype: torch.dtype) -> int:
+    """Elements of ``dtype`` in 16 bytes."""
+    return 16 // torch.tensor([], dtype=dtype).element_size()
+
+
+def bias_plan(dtype: torch.dtype, n: int, aligned: bool) -> str:
+    """The bias's route: "vec" where N is whole 16-byte vectors (a
+    multiple of 8 bf16 or 4 f32) and ``aligned`` (16-byte aligned bases of
+    m, v and out, m's row stride a multiple of 16 bytes); "scalar" for
+    every other (LeNet's N = 10 in f32, a view offset by one element)."""
+    return "vec" if aligned and n % _elems(dtype) == 0 else "scalar"
+
+
+def bias_grid(dtype: torch.dtype, m: int,
+              n: int) -> Tuple[int, int, int, int, int]:
+    """(rows a thread, bx, by, gx, gy) of the "vec" bias for (m, n): a
+    block of ``bx`` threads across column vectors (the power of two that
+    covers them, at most ``BIAS_THREADS``) by ``by`` across row tiles
+    (the rest of ``BIAS_THREADS``); ``gx`` blocks cover the vectors,
+    ``gy`` the row tiles of ``rows`` rows a thread.  While the grid has
+    fewer than ``BIAS_BLOCKS`` blocks, first ``rows`` (from
+    ``BIAS_ROWS``), then ``by`` is halved: few rows spread over more
+    blocks.  Thread (tx, ty) of the block at (column block i, row block k)
+    owns column vector ``i * bx + tx`` and rows ``(k * by + ty) * rows``
+    .. ``+ rows - 1``."""
+    nvec = n // _elems(dtype)
+    bx = 1
+    while bx < nvec and bx < BIAS_THREADS:
+        bx *= 2
+    by = BIAS_THREADS // bx
+    gx = -(-nvec // bx)
+    rpt = BIAS_ROWS
+
+    def blocks():
+        return gx * -(-m // (by * rpt))
+
+    while rpt > 1 and blocks() < BIAS_BLOCKS:
+        rpt //= 2
+    while by > 1 and blocks() < BIAS_BLOCKS:
+        by //= 2
+    return rpt, bx, by, gx, -(-m // (by * rpt))
+
+
 bias_add_rows.launches = 0
+# launches per route, beside the total
+bias_add_rows.routes = dict.fromkeys(BIAS_ROUTES, 0)
 
 
 def _dense_like(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -154,8 +226,7 @@ def relu_vec_grid(dtype: torch.dtype, n: int) -> int:
     """Blocks of either ReLU "vec" kernel for ``n`` elements: enough for
     each thread to take its ``RELU_VECS`` vectors once, at most
     ``RELU_BLOCKS`` (then the threads loop)."""
-    per_vec = 16 // torch.tensor([], dtype=dtype).element_size()
-    per_block = RELU_THREADS * RELU_VECS * per_vec
+    per_block = RELU_THREADS * RELU_VECS * _elems(dtype)
     return max(1, min(-(-n // per_block), RELU_BLOCKS))
 
 

@@ -1,11 +1,24 @@
 """RMSNorm and its backward — Hopper kernels.
 
 Replaces ``repro/kernels/rmsnorm.py:rmsnorm_pallas`` and
-``rmsnorm_bwd_pallas``.  The forward kernel (``csrc/rmsnorm.cu``) takes
-one block per row: f32 sum of squares by warp shuffles, ``x * rsqrt(mean
-+ eps)`` cast to the storage dtype, then the weight multiply — the order of
-``rmsnorm.py:25``.  Both bound by bytes: one read and one write of each
-row.
+``rmsnorm_bwd_pallas``.  The forward (``csrc/rmsnorm.cu``): f32 sum of
+squares, ``x * (1 / sqrt(mean + eps))`` cast to the storage dtype, then
+the weight multiply — the order of ``rmsnorm.py:25``.  Both bound by
+bytes: one read and one write of each row.
+
+The forward has two routes, picked by ``fwd_plan`` from dtype, width and
+alignment (never by trying a kernel) and counted in ``rmsnorm.routes``
+beside ``launches``:
+
+* "vec": rows whose width and strides are multiples of 16 bytes, up to
+  ``FWD_MAX_VECS`` vectors.  A group of warps owns a row (``fwd_rows``:
+  enough warps that a lane holds at most ``FWD_VECS`` vectors, more while
+  the call's warps stay within ``FWD_TARGET``, up to ``FWD_GROUP``), every
+  lane loads its 16-byte vectors of x and w before the first sum, keeps x
+  in registers, sums by shuffles and a barrier of the group alone, and
+  stores 16 bytes at a time; ``FWD_WARPS`` warps a block, one row a group.
+* "scalar": the first port's kernel, one block a row, for every other
+  width and alignment.
 
 The backward has two routes, picked by ``bwd_plan`` from dtype, width and
 alignment (never by trying a kernel) and counted in
@@ -39,6 +52,21 @@ from repro_torch.kernels._build import DTYPES
 from repro_torch.kernels.ref import rmsnorm as rmsnorm_ref
 from repro_torch.kernels.ref import rmsnorm_bwd as rmsnorm_bwd_ref
 
+FWD_ROUTES = ("vec", "scalar")
+# the forward's "vec" kernel (csrc/rmsnorm.cu): 16-byte vectors of x (and
+# of w) a lane holds at most (kFwdVecs, fixed at compile time), the warps
+# a row may be spread over (1, 2, 4 or 8), the warps a block (at most 8:
+# kMaxFwdWarps), and the warps a call aims for when it spreads rows.
+# Swept on the H100 (chip_smoke.py phase 3, "rmsnorm sweep"): rows spread
+# to one vector a lane were first or within 4% at 4, 64 and 512 rows of
+# 2048 bf16 (512 rows on one warp each took 0.0086 ms, on 8 warps 0.0077)
+FWD_VECS = 8
+FWD_GROUP = 8
+FWD_WARPS = 8
+FWD_TARGET = 4096
+# the widest row of whole vectors the "vec" kernel holds in registers
+# (bf16 16384, f32 8192); wider rows take "scalar"
+FWD_MAX_VECS = 32 * 8 * FWD_VECS
 BWD_ROUTES = ("vec", "scalar")
 # the "vec" kernel (csrc/rmsnorm.cu): 16-byte vectors of each of x, dy and
 # w a lane holds (kVecs), the warps a block (at most 8: kMaxBwdWarps) and
@@ -79,22 +107,65 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     x2 = x.reshape(-1, d)
     if x2.stride(1) != 1:
         raise ValueError("rmsnorm: rows need unit stride")
-    out = torch.empty((x2.shape[0], d), dtype=x.dtype, device=x.device)
+    rows = x2.shape[0]
+    out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out.reshape(x.shape)
-    rc = _build.lib().repro_rmsnorm(
-        x2.data_ptr(), w.data_ptr(), out.data_ptr(), x2.shape[0], d,
-        x2.stride(0), float(eps), DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    route = fwd_plan(x.dtype, d, _build.aligned16(
+        x2, w, out, elems=_elems(x.dtype)))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "vec":
+        group, warps, blocks = fwd_rows(x.dtype, rows, d)
+        rc = _build.lib().repro_rmsnorm_vec(
+            x2.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d,
+            x2.stride(0), float(eps), group, warps, blocks, DTYPES[x.dtype],
+            stream)
+    else:
+        rc = _build.lib().repro_rmsnorm(
+            x2.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d,
+            x2.stride(0), float(eps), DTYPES[x.dtype], stream)
     _build.check(rc, "rmsnorm")
     rmsnorm.launches += 1
+    rmsnorm.routes[route] += 1
     return out.reshape(x.shape)
 
 
 def _elems(dtype: torch.dtype) -> int:
     """Elements of ``dtype`` in 16 bytes."""
     return 16 // torch.tensor([], dtype=dtype).element_size()
+
+
+def fwd_plan(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The forward's route: "vec" for rows of ``d`` that are whole
+    16-byte vectors (``d`` a multiple of 8 bf16 or 4 f32, at most
+    ``FWD_MAX_VECS`` of them) with ``aligned`` operands (16-byte aligned
+    bases of x, w and out, x's row stride a multiple of 16 bytes);
+    "scalar" for every other row."""
+    e = _elems(dtype)
+    return ("vec" if aligned and d % e == 0 and d // e <= FWD_MAX_VECS
+            else "scalar")
+
+
+def fwd_rows(dtype: torch.dtype, rows: int, d: int) -> Tuple[int, int, int]:
+    """(group, warps, blocks) of the forward's "vec" kernel for ``rows``
+    rows of ``d`` (a width ``fwd_plan`` sends there): ``group`` warps a
+    row, the fewest (a power of two) whose lanes hold the row in
+    ``FWD_VECS`` vectors each, doubled up to ``FWD_GROUP`` while every
+    lane keeps a vector and the call's warps (``rows * group``) stay
+    within ``FWD_TARGET`` (a few rows spread over more warps: a shorter
+    chain of loads a lane); ``warps // group`` groups a block,
+    ``FWD_WARPS`` warps (at least one group) or fewer where there are
+    fewer rows, one row a group.  Block ``i``'s group ``k`` owns row
+    ``i * groups + k``."""
+    nvec = d // _elems(dtype)
+    group = 1
+    while 32 * group * FWD_VECS < nvec:
+        group *= 2
+    while (group < FWD_GROUP and 32 * group < nvec
+           and 2 * group * rows <= FWD_TARGET):
+        group *= 2
+    groups = max(1, min(FWD_WARPS // group, rows))
+    return group, groups * group, -(-rows // groups)
 
 
 def bwd_plan(dtype: torch.dtype, d: int, aligned: bool) -> str:
@@ -195,4 +266,5 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
 rmsnorm.launches = 0
 rmsnorm_bwd.launches = 0
 # launches per route, beside the total
+rmsnorm.routes = dict.fromkeys(FWD_ROUTES, 0)
 rmsnorm_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)
