@@ -1431,8 +1431,11 @@ def phase_kernels(torch):
                    "relu": f", on the scalar kernel forced "
                            f"{tot['forced_ms']:.4f} ms",
                    "bias_add_rows": f", on the scalar kernel forced "
-                                    f"{tot['forced_ms']:.4f} ms"}.get(name,
-                                                                      "")
+                                    f"{tot['forced_ms']:.4f} ms",
+                   "im2col": f", on the flat kernel forced "
+                             f"{tot['forced_ms']:.4f} ms",
+                   "col2im": f", on the flat kernel forced "
+                             f"{tot['forced_ms']:.4f} ms"}.get(name, "")
             print(f"[3 kernels] {name}: one f32 {step} at B={LENET_B}: "
                   f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, "
                   f"plain {tot['plain_ms']:.4f} ms, library "
@@ -2088,6 +2091,104 @@ def forced_strided_softmax():
     return forced_route(SXm, "softmax_plan", "softmax", "strided")
 
 
+def forced_flat_im2col():
+    """im2col on the first port's kernel (route "flat"), its route before
+    the staged-band kernel: ``im2col_plan`` made to name it."""
+    from repro_torch.kernels import im2col as IC
+
+    return forced_route(IC, "im2col_plan", "im2col", "flat")
+
+
+def forced_flat_col2im():
+    """col2im on the first port's kernel (route "flat"), its route before
+    the tile kernel: ``col2im_plan`` made to name it."""
+    from repro_torch.kernels import im2col as IC
+
+    return forced_route(IC, "col2im_plan", "col2im", "flat")
+
+
+def bitwise(torch, t):
+    """``t``'s bytes, to compare two results bit for bit (``torch.equal``
+    on floats holds -0 equal to +0)."""
+    return t.contiguous().view(torch.uint8)
+
+
+def equal_forced(torch, what, fn, forced):
+    """``fn()`` on its planner's route bit for bit equal to ``fn()`` on
+    the old route (``forced``): the redesigned im2col and col2im keep
+    the first kernels' values (a copy; the same f32 sums in the same
+    order)."""
+    got = fn()
+    with forced():
+        old = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(bitwise(torch, got), bitwise(torch, old)):
+        raise SystemExit(f"chip_smoke: {what}: differs from the old route "
+                         "forced")
+
+
+def timer_floor(torch, clock, case, numel):
+    """What the phase-3 timer gives a plain f32 pass over ``numel``
+    elements: a write (``fill_``) and a read (``sum``), each after the
+    timer's L2 flush, beside the bytes' bound: the floor against which an
+    im2col (a write of its columns) or a col2im (a read of them) is
+    read."""
+    buf = torch.empty(numel, device="cuda")
+    w_ms, r_ms = clock(lambda: buf.fill_(1.0)), clock(lambda: buf.sum())
+    print(f"[3 kernels] timer floor, {case}: {numel} f32: write (fill_) "
+          f"{w_ms:.4f} ms, read (sum) {r_ms:.4f} ms, bytes' bound "
+          f"{bound_ms(4.0 * numel, 0.0, 'float32')[0]:.4f} ms", flush=True)
+
+
+# the band im2col's and the tile col2im's caps swept in phase 3: items a
+# block, block target (kernels/im2col.py: BAND_ITEMS, BAND_BLOCKS;
+# TILE_ITEMS, TILE_BLOCKS); the larger targets split even the small
+# planes' rows across blocks
+BAND_SWEPT = ((32, 64, 128, 256, 512), (132, 528, 2112, 8448))
+TILE_SWEPT = ((64, 128, 256, 512, 1024), (132, 528, 2112, 8448))
+
+
+def im2col_sweep(clock, kernel, case, fn, plan):
+    """``fn`` (an ``im2col`` call on "band", ``kernel`` "im2col", or a
+    ``col2im`` call on "tile", "col2im") at each distinct block that
+    ``plan()`` gives over ``BAND_SWEPT`` or ``TILE_SWEPT``, each held bit
+    for bit to the planner's own output; fastest first, the planner's
+    pick marked, with its rank."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels import im2col as IC
+
+    names, swept = {"im2col": (("BAND_ITEMS", "BAND_BLOCKS"), BAND_SWEPT),
+                    "col2im": (("TILE_ITEMS", "TILE_BLOCKS"),
+                               TILE_SWEPT)}[kernel]
+    saved = tuple(getattr(IC, k) for k in names)
+    mine, want, cells = plan(), bitwise(torch, fn()), {}
+    try:
+        for values in itertools.product(*swept):
+            for k, v in zip(names, values):
+                setattr(IC, k, v)
+            b = plan()
+            if b in cells:
+                continue
+            if not torch.equal(bitwise(torch, fn()), want):
+                raise SystemExit(f"chip_smoke: {kernel} {case} at {b}: "
+                                 "differs from the planner's block")
+            cells[b] = clock(fn)
+    finally:
+        for k, v in zip(names, saved):
+            setattr(IC, k, v)
+    ranked = sorted(cells.items(), key=lambda c: c[1])
+    rank = [b for b, _ in ranked].index(mine) + 1
+    print(f"[3 kernels] {kernel} {'band' if kernel == 'im2col' else 'tile'}"
+          f" sweep, {case}: (rows, threads), ms (planner rank "
+          f"{rank} of {len(ranked)}, {ranked[rank - 1][1] / ranked[0][1]:.3f}"
+          f"x the fastest): " + "; ".join(
+              f"{tuple(b)[:2]}{'*' if b == mine else ''} {t:.4f}"
+              for b, t in ranked), flush=True)
+
+
 def kernels_of_call(torch, fn, calls=10):
     """The device kernels one call of ``fn`` runs, name (up to its
     argument list) -> (launches a call, device us a call), from the
@@ -2525,12 +2626,13 @@ def want_route(name, route, want):
 # ``forced_scalar_bwd``, ``forced_scalar_conv``, ``forced_strided``,
 # ``forced_strided_pool``, ``forced_scalar_relu``, ``forced_block_ssd``,
 # ``forced_strided_softmax``, ``forced_scalar_norm``,
-# ``forced_scalar_bias``)
+# ``forced_scalar_bias``, ``forced_flat_im2col``, ``forced_flat_col2im``)
 REDESIGNED = ("flash_attention", "flash_decode", "flash_decode_paged",
               "flash_decode_paged_quant", "flash_prefill_chunk",
               "flash_prefill_chunk_paged", "flash_prefill_chunk_paged_quant",
               "rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool", "relu",
-              "ssd_scan", "softmax", "rmsnorm", "bias_add_rows")
+              "ssd_scan", "softmax", "rmsnorm", "bias_add_rows", "im2col",
+              "col2im")
 # the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
 SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -2556,11 +2658,16 @@ def caffe_kernels(torch, F, rnd, run, clock):
     band past the shared memory, one just under it "plane"; relu's take
     "vec" (a column-major CIFAR relu1 too) beside the scalar kernel
     forced, a view offset by one element "scalar"; both swept at the
-    LeNet shapes (``pool_band_sweep``, ``vec_grid_sweep``)."""
+    LeNet shapes (``pool_band_sweep``, ``vec_grid_sweep``).  im2col's
+    rows take "band" (bf16, a 3 x 3 window and a column-major x too), a
+    stride of 2 "flat"; each "band" row is bit for bit the flat kernel's
+    forced and timed beside it, and swept at the five convolutions
+    (``im2col_sweep``)."""
     from repro_torch.core.container import MajorOrder, as_layout
     from repro_torch.kernels import ref
     from repro_torch.kernels.eltwise import bias_add_rows, relu
     from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels import im2col as IM
     from repro_torch.kernels.im2col import im2col
     from repro_torch.kernels.pooling import maxpool
     from repro_torch.kernels.softmax_xent import softmax, softmax_xent
@@ -2585,6 +2692,33 @@ def caffe_kernels(torch, F, rnd, run, clock):
             read * es + outs * (es + 4), 1.0 * outs * k * k,
             forced=forced_strided_pool), route)
 
+    def im2col_case(step, case, x, k, st, pad, count, bic, route="band"):
+        """On ``route``, exact against the plain version, and on "band"
+        bit for bit equal to the flat kernel forced and timed beside it.
+        Its bytes: one read of x, one write of the columns."""
+        n_, c_, h_, w_ = x.shape
+        oh, ow = (h_ + 2 * pad - k) // st + 1, (w_ + 2 * pad - k) // st + 1
+        r, o = c_ * k * k, oh * ow
+        shape = f"{r}x{n_ * o}" if bic else f"{n_}x{r}x{o}"
+
+        def kfn():
+            return im2col(x, k, k, st, pad, batch_in_columns=bic)
+
+        def pfn():
+            cols = ref.im2col(x, k, k, st, pad)
+            return cols.transpose(0, 1).reshape(r, -1) if bic else cols
+
+        forced = forced_flat_im2col if route == "band" else None
+        want_route("im2col", run(
+            im2col, f"{case} {'x'.join(map(str, x.shape))} k{k} s{st} "
+            f"p{pad} -> {shape}", x.dtype, step, count, kfn, pfn,
+            lambda: F.unfold(x, k, padding=pad, stride=st),
+            (x.numel() + n_ * r * o) * x.element_size(), 0.0,
+            forced=forced), route)
+        if forced is not None:
+            equal_forced(torch, f"im2col {case}", kfn, forced)
+        return kfn
+
     def relu_case(step, case, x, count, route="vec", slope=0.0):
         """On ``route``, exact, timed beside the scalar kernel forced."""
         want_route("relu", run(
@@ -2604,20 +2738,15 @@ def caffe_kernels(torch, F, rnd, run, clock):
             ("cifar fwd", "conv3", 32, 7, 64, 5, 2)):
         x = rnd((n, c, h, h), f32)
         r, o = c * k * k, (h + 2 * pad - k + 1) ** 2
-        nbytes = (n * c * h * h + n * r * o) * 4
-        run(im2col, f"{layer} {n}x{c}x{h}x{h} k{k} p{pad} -> {r}x{n * o}",
-            f32, step, 1,
-            lambda x=x, k=k, pad=pad: im2col(x, k, k, 1, pad,
-                                             batch_in_columns=True),
-            lambda x=x, k=k, pad=pad, r=r: ref.im2col(
-                x, k, k, 1, pad).transpose(0, 1).reshape(r, -1),
-            lambda x=x, k=k, pad=pad: F.unfold(x, k, padding=pad),
-            nbytes, 0.0)
-        run(im2col, f"{layer} {n}x{c}x{h}x{h} k{k} p{pad} -> {n}x{r}x{o}",
-            f32, step, 0, lambda x=x, k=k, pad=pad: im2col(x, k, k, 1, pad),
-            lambda x=x, k=k, pad=pad: ref.im2col(x, k, k, 1, pad),
-            lambda x=x, k=k, pad=pad: F.unfold(x, k, padding=pad),
-            nbytes, 0.0)
+        # the GEMM's layout (on the path), then the registered (N, R, P)
+        # one (odd P at CIFAR conv2 and conv3: rows off the 16-byte grid)
+        fn = im2col_case(step, layer, x, k, 1, pad, 1, True)
+        im2col_case(step, layer, x, k, 1, pad, 0, False)
+        timer_floor(torch, clock, f"im2col {step} {layer}", n * r * o)
+        im2col_sweep(clock, "im2col", f"{step} {layer}", fn,
+                     lambda x=x, k=k, pad=pad, o_sr=n * (
+                         h + 2 * pad - k + 1) ** 2: IM.im2col_band(
+                             f32, x.shape, k, k, 1, pad, o_sr, True))
         w = rnd((f, r), f32, r ** -0.5)
         cols = ref.im2col(x, k, k, 1, pad).transpose(0, 1).reshape(r, -1)
         want_route("gemm", run(
@@ -2748,11 +2877,19 @@ def caffe_kernels(torch, F, rnd, run, clock):
           "as the plain version", flush=True)
     # each new kernel once in bf16 (LeNet runs f32), counts 0
     bf = torch.bfloat16
-    x = rnd((n, 1, 28, 28), bf)
-    run(im2col, f"conv1 {n}x1x28x28 k5 -> 25x{n * 576}", bf, "bf16", 0,
-        lambda: im2col(x, 5, 5, 1, 0, batch_in_columns=True),
-        lambda: ref.im2col(x, 5, 5, 1, 0).transpose(0, 1).reshape(25, -1),
-        lambda: F.unfold(x, 5), (n * 784 + n * 25 * 576) * 2, 0.0)
+    im2col_case("bf16", "conv1", rnd((n, 1, 28, 28), bf), 5, 1, 0, 0, True)
+    im2col_case("bf16", "conv2", rnd((n, 32, 15, 15), bf), 5, 1, 2, 0,
+                True)
+    # off the LeNet path (counts 0): a 3 x 3 window, a stride-2 window
+    # (the flat kernel), and the transposed crossing's column-major x
+    # (staged by its strides)
+    im2col_case("off-path", "3x3", rnd((8, 16, 30, 30), f32), 3, 1, 1, 0,
+                True)
+    im2col_case("off-path", "stride 2", rnd((8, 16, 30, 30), f32), 3, 2, 1,
+                0, True, route="flat")
+    im2col_case("off-path", "conv2 x column-major", as_layout(
+        rnd((n, 32, 15, 15), f32), MajorOrder.ROW, MajorOrder.COLUMN), 5, 1,
+        2, 0, True)
     maxpool_case("bf16", "pool1", rnd((n, 20, 24, 24), bf), 2, 2, 0, 0)
     relu_case("bf16", "relu1", rnd((n, 500), bf), 0, slope=0.1)
     x = 3 * rnd((n, 10), bf)
@@ -2785,13 +2922,17 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
     with pads 0 and 1, softmax_xent_bwd with labels -1 and V; then each
     new kernel once in bf16.  relu_bwd's rows are timed beside the strided
     kernel forced, and its vec kernel swept over ``relu_vec_grid``'s
-    block caps (``vec_grid_sweep``).  Yardsticks:
+    block caps (``vec_grid_sweep``); col2im's take "tile" (the registered
+    layout at an odd P, bf16 and a 3 x 3 window too), each bit for bit the
+    flat kernel's forced and timed beside it, swept at its three LeNet
+    shapes (``im2col_sweep``).  Yardsticks:
     ``F.fold``, the backward of ``F.max_pool2d(return_indices=True)``
     (``aten.max_pool2d_with_indices_backward``), of ``F.leaky_relu``
     (``aten.leaky_relu_backward``) and of ``F.cross_entropy`` (autograd
     through its graph), ``torch.matmul``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.eltwise import relu_bwd
+    from repro_torch.kernels import im2col as IM
     from repro_torch.kernels.gemm import gemm
     from repro_torch.kernels.im2col import col2im
     from repro_torch.kernels.pooling import maxpool, maxpool_bwd
@@ -2814,14 +2955,20 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
         # the (o, i) pairs of an axis with 0 <= o + i - pad < h: a tap in
         # the padding is read neither by the function nor by the kernel
         taps = sum(0 <= o + i - pad < h for o in range(oh) for i in range(k))
-        run(col2im, f"{case} {'x'.join(map(str, cols.shape))}"
+
+        def kfn():
+            return col2im(cols, shape, k, k, 1, pad)
+
+        want_route("col2im", run(
+            col2im, f"{case} {'x'.join(map(str, cols.shape))}"
             f"{' strided' if strided else ''} -> {n}x{c}x{h}x{h} k{k} "
-            f"p{pad}", dtype, step, count,
-            lambda: col2im(cols, shape, k, k, 1, pad),
+            f"p{pad}", dtype, step, count, kfn,
             lambda: ref.col2im(cols3.float(), shape, k, k, 1, pad).to(dtype),
             lambda: F.fold(cols3, (h, h), k, padding=pad),
             (n * c * taps * taps + n * c * h * h) * es,
-            1.0 * n * c * taps * taps)
+            1.0 * n * c * taps * taps, forced=forced_flat_col2im), "tile")
+        equal_forced(torch, f"col2im {case}", kfn, forced_flat_col2im)
+        return kfn
 
     def maxpool_bwd_case(step, case, x, k, st, pad, count):
         dtype = x.dtype
@@ -2895,8 +3042,16 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
     for step, case, c, h, k, pad in (("mnist train", "conv2", 20, 12, 5, 0),
                                      ("cifar train", "conv2", 32, 15, 5, 2),
                                      ("cifar train", "conv3", 32, 7, 5, 2)):
-        col2im_case(step, case, c, h, k, pad, 1)
+        fn = col2im_case(step, case, c, h, k, pad, 1)
+        timer_floor(torch, clock, f"col2im {step} {case}",
+                    n * c * k * k * (h + 2 * pad - k + 1) ** 2)
+        im2col_sweep(clock, "col2im", f"{step} {case}", fn,
+                     lambda c=c, h=h: IM.col2im_tile((n, c, h, h)))
     col2im_case("mnist train", "conv2", 20, 12, 5, 0, 0, strided=False)
+    # the registered (N, C*K*K, OH*OW) layout at CIFAR conv2's odd P, and
+    # a 3 x 3 window off the LeNet path (counts 0)
+    col2im_case("cifar train", "conv2", 32, 15, 5, 2, 0, strided=False)
+    col2im_case("off-path", "3x3", 16, 30, 3, 1, 0)
     # maxpool_bwd: MNIST's two 2/2 pools (CIFAR's 3/2 pool1 overlaps and
     # takes the plain scatter), then ties with pads 0 and 1
     ties = torch.randint(-1, 2, (n, 20, 24, 24), generator=g,
@@ -3260,7 +3415,8 @@ CHUNKS = ("flash_prefill_chunk", "flash_prefill_chunk_paged",
           "flash_prefill_chunk_paged_quant")
 ROUTED = ("gemm", "flash_attention_bwd", "flash_attention") + DECODES \
     + CHUNKS + ("rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool",
-                "relu", "ssd_scan", "softmax", "rmsnorm", "bias_add_rows")
+                "relu", "ssd_scan", "softmax", "rmsnorm", "bias_add_rows",
+                "im2col", "col2im")
 ROUTE_SOURCES = {
     ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
@@ -3296,6 +3452,10 @@ ROUTE_SOURCES = {
     ("rmsnorm", "scalar"): "src/repro_torch/kernels/csrc/rmsnorm.cu",
     ("bias_add_rows", "vec"): "src/repro_torch/kernels/csrc/eltwise.cu",
     ("bias_add_rows", "scalar"): "src/repro_torch/kernels/csrc/eltwise.cu",
+    ("im2col", "band"): "src/repro_torch/kernels/csrc/im2col.cu",
+    ("im2col", "flat"): "src/repro_torch/kernels/csrc/im2col.cu",
+    ("col2im", "tile"): "src/repro_torch/kernels/csrc/im2col.cu",
+    ("col2im", "flat"): "src/repro_torch/kernels/csrc/im2col.cu",
 }
 ROUTE_SOURCES.update({
     (name, route): f"src/repro_torch/kernels/csrc/{src}"
@@ -4961,14 +5121,38 @@ def caffe_bias_routes(spec, boundary):
     return {"bias_add_rows": took}
 
 
+def caffe_conv_routes(spec, boundary, train=False):
+    """``im2col``'s and, in a train step (``train``), ``col2im``'s
+    launches per route in one forward or train step of the net ``spec``:
+    "band" for the im2col of a 3 x 3 or 5 x 5 window at stride 1 (every
+    LeNet convolution), once a forward and again in the backward, in every
+    boundary mode (the transposed crossing's column-major bottom is staged
+    by its strides), "flat" for other windows; "tile" for the col2im of
+    each such convolution whose input needs a gradient (its columns are
+    the dcols product, row-major in every mode)."""
+    im, col = {}, {}
+    for ls in spec.layers:
+        if ls.type != "Convolution":
+            continue
+        band = ls.kernel_size in (3, 5) and ls.stride == 1
+        route = "band" if band else "flat"
+        im[route] = im.get(route, 0) + (2 if train else 1)
+        if train and ls.bottoms[0] != "data" and ls.stride == 1:
+            route = "tile" if band else "flat"
+            col[route] = col.get(route, 0) + 1
+    return {"im2col": im, **({"col2im": col} if train else {})}
+
+
 def caffe_fwd_routes(spec, boundary):
     """The forward's routed Caffe kernels, ``caffe_maxpool_routes``,
-    ``caffe_relu_routes``, ``caffe_softmax_routes`` and
-    ``caffe_bias_routes``, for ``caffe_counted``'s ``kernel_routes``."""
+    ``caffe_relu_routes``, ``caffe_softmax_routes``,
+    ``caffe_bias_routes`` and ``caffe_conv_routes``, for
+    ``caffe_counted``'s ``kernel_routes``."""
     return {**caffe_maxpool_routes(spec, boundary),
             **caffe_relu_routes(spec, boundary),
             **caffe_softmax_routes(spec, boundary),
-            **caffe_bias_routes(spec, boundary)}
+            **caffe_bias_routes(spec, boundary),
+            **caffe_conv_routes(spec, boundary)}
 
 
 def caffe_relu_bwd_routes(spec, boundary):
@@ -5126,7 +5310,8 @@ def phase_caffe_train(torch):
                 torch, lambda: step(st_h, d, lab), name, want=want,
                 routes=caffe_gemm_routes(net.spec, net.blob_shapes, True),
                 kernel_routes={**caffe_relu_bwd_routes(net.spec, None),
-                               **caffe_fwd_routes(net.spec, None)})
+                               **caffe_fwd_routes(net.spec, None),
+                               **caffe_conv_routes(net.spec, None, True)})
             for k, v in got.items():
                 total[k] += v
             with use_backend("reference"):
@@ -5150,7 +5335,9 @@ def phase_caffe_train(torch):
                     net.spec, net.blob_shapes, True,
                     transpose=boundary == "transfer+transpose"),
                 kernel_routes={**caffe_relu_bwd_routes(net.spec, boundary),
-                               **caffe_fwd_routes(net.spec, boundary)})
+                               **caffe_fwd_routes(net.spec, boundary),
+                               **caffe_conv_routes(net.spec, boundary,
+                                                   True)})
             for k, v in got.items():
                 total[k] += v
             gap, worst = tree_gap(torch, stb["params"], st1["params"])
@@ -5242,12 +5429,14 @@ def phase_direct(torch):
     products in another order).  Then ms per layer and per net for the
     direct form against the layer's im2col + gemm + bias form
     (``ops.conv2d``) on the same input: host clock, synchronized, median
-    of ``CAFFE_REPS``.  Returns the launches of the counted runs."""
+    of ``CAFFE_REPS``; every im2col of the im2col + gemm form on "band".
+    Returns the launches of the counted runs."""
     from repro_torch.caffe import (lenet_cifar10, lenet_cifar10_solver,
                                    lenet_mnist, lenet_mnist_solver)
     from repro_torch.core.policy import use_backend
     from repro_torch.data.synthetic import cifar10_like, mnist_like
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.im2col import im2col as im2col_k
 
     total = {name: 0 for name in KERNELS}
     for mk_net, mk_solver, stream_fn in (
@@ -5298,11 +5487,16 @@ def phase_direct(torch):
                 raise SystemExit(f"chip_smoke: {name} {layer}: "
                                  "conv2d_direct disagrees or is malformed")
         t_d = caffe_timed(torch, lambda: [direct(c) for c in convs])
+        before = dict(im2col_k.routes)
         t_g = caffe_timed(torch, lambda: [im2col_gemm(c) for c in convs])
+        took = {r for r, v in im2col_k.routes.items() if v != before[r]}
+        if took != {"band"}:
+            raise SystemExit(f"chip_smoke: {name}: the im2col + gemm form "
+                             f"took im2col routes {took}, not band")
         print(f"[10 direct] {name}: the {len(convs)} convolutions of one "
               f"forward at batch {LENET_B} (median of {CAFFE_REPS}, host "
               f"clock): direct {t_d:.4f} ms, im2col + gemm + bias "
-              f"{t_g:.4f} ms ({t_g / t_d:.2f}x); launches "
+              f"{t_g:.4f} ms ({t_g / t_d:.2f}x; im2col on band); launches "
               f"{ {k: v for k, v in got.items() if v} }", flush=True)
 
     # JAX's conv2d_direct_pallas has no VJP: under grad the hopper

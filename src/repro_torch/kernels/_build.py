@@ -82,6 +82,10 @@ _SIGNATURES = {
     # OW, o_sn, o_sr, dtype, stream
     "repro_im2col": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _I,
                      _I, _I, _L, _L, _I, _P],
+    # x, out, N, C, H, W, x strides (n, c, h, w), KH, KW, stride, pad, OH,
+    # OW, o_sn, o_sr, rows, threads, vec, dtype, stream: every offset
+    # under 2**31
+    "repro_im2col_band": [_P, _P] + [_I] * 20 + [_P],
     # x, out, argmax, N, C, H, W, x strides (n, c, h, w), k, stride, pad,
     # OH, OW, dtype, stream
     "repro_maxpool": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I,
@@ -100,6 +104,9 @@ _SIGNATURES = {
     # cols, out, N, C, H, W, KH, KW, pad, OH, OW, cols strides (n, r, p),
     # dtype, stream
     "repro_col2im": [_P, _P] + [_I] * 9 + [_L] * 3 + [_I, _P],
+    # cols, out, N, C, H, W, KH, KW, pad, OH, OW, cols strides (n, r, p),
+    # rows, threads, dtype, stream: every offset under 2**31
+    "repro_col2im_tile": [_P, _P] + [_I] * 15 + [_P],
     # dy, argmax, out, N, C, H, W, dy strides (n, c, h, w), argmax strides
     # (n, c, h, w), stride, pad, OH, OW, dtype, stream
     "repro_maxpool_bwd": [_P, _P, _P] + [_I] * 4 + [_L] * 8 + [_I] * 5
