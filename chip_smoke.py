@@ -61,8 +61,9 @@ failure (non-zero exit, no result line):
               The gemm, the attention backward, the attention forward,
               the three decodes (contiguous slab, bf16 pool, int8 pool),
               the three chunked prefills, rmsnorm_bwd, conv2d_direct,
-              relu_bwd, maxpool, relu, ssd_scan, softmax, rmsnorm and
-              bias_add_rows have routes
+              relu_bwd, maxpool, relu, ssd_scan, softmax, rmsnorm,
+              bias_add_rows, im2col, col2im, softmax_xent and
+              maxpool_bwd have routes
               (``kernels/gemm.py:plan``,
               ``kernels/flash_attention.py:bwd_plan``, ``fwd_plan``,
               ``decode_plan``, ``chunk_plan``,
@@ -72,7 +73,10 @@ failure (non-zero exit, no result line):
               ``bias_plan``,
               ``kernels/pooling.py:maxpool_plan``,
               ``kernels/mamba_scan.py:ssd_plan``,
-              ``kernels/softmax_xent.py:softmax_plan``): each row prints the
+              ``kernels/softmax_xent.py:softmax_plan``,
+              ``softmax_xent_plan``, ``kernels/im2col.py:im2col_plan``,
+              ``col2im_plan``, ``kernels/pooling.py:maxpool_bwd_plan``):
+              each row prints the
               route its wrapper took, every bf16 training shape must take
               the tensor-core kernels, the bf16 forward the tensor-core
               kernel, every bf16 decode the split kernel, every bf16
@@ -96,7 +100,15 @@ failure (non-zero exit, no result line):
               column-major x "strided"; a row of -inf NaN on both),
               every rmsnorm and bias of whole aligned 16-byte rows the
               vector kernels ("vec"; LeNet's N = 10 bias and the edges
-              "scalar").
+              "scalar"), every softmax_xent of unit-stride rows the
+              register-row kernel with the mean fused in ("rows": LeNet's
+              64 x 10 loss one launch, 256 x 1000 two, as the profiler
+              shows; a column-major x "strided"; labels -1 and V and a
+              row of -inf on both), every maxpool_bwd of row-major dy
+              and argmax at stride 2 or 3 the window-owner kernel
+              ("window": MNIST's pools, ties, pad 1, a 3/3 and a 2/3
+              pool, a row of no whole vectors, bf16; a column-major dy
+              and a stride of 4 "pixel").
               conv2d_direct's rows are also timed on the scalar kernel
               (``forced_scalar_conv``) and swept over ``tiles``' caps at
               the LeNet shapes (``grep "conv sweep"``), relu_bwd's on the
@@ -115,7 +127,15 @@ failure (non-zero exit, no result line):
               rmsnorm's and bias_add_rows' on the scalar kernels
               (``forced_scalar_norm``, ``forced_scalar_bias``) and swept
               over ``fwd_rows``' and ``bias_grid``'s caps (``grep
-              "rmsnorm sweep"``, ``grep "bias sweep"``).  The
+              "rmsnorm sweep"``, ``grep "bias sweep"``), softmax_xent's
+              on the strided kernel and torch's mean
+              (``forced_strided_xent``) and swept over
+              ``softmax_xent_rows``' knobs (``grep "softmax_xent rows
+              sweep"``), maxpool_bwd's on the pixel kernel
+              (``forced_pixel_pool_bwd``, bit for bit) and swept over
+              ``maxpool_bwd_band``'s caps (``grep "maxpool_bwd window
+              sweep"``), both beside the timer's plain write and read of
+              their bytes (``grep "timer floor"``).  The
               forward (at the --check shape and at the training shape,
               B 2 x S 256, with qwen2.5-3b's, zamba2's and, windowed,
               mixtral's heads), the three decodes and the three chunks
@@ -212,9 +232,9 @@ failure (non-zero exit, no result line):
               counts and every gemm on the route ``kernels/gemm.py:plan``
               names for its product (``caffe_gemm_routes``), every
               maxpool on "plane", every relu on "vec" and every bias on
-              "vec" but N = 10's on "scalar"
-              (``caffe_fwd_routes``; in ``transfer+transpose`` maxpool on
-              "strided"), held against
+              "vec" but N = 10's on "scalar", every softmax_xent on
+              "rows" (``caffe_fwd_routes``; in ``transfer+transpose``
+              maxpool and softmax_xent on "strided"), held against
               the reference backend; MNIST's deploy
               form (a Softmax ``prob`` on ``ip2``) through ``Net.forward``
               without labels in the three boundary modes, its softmax on
@@ -238,7 +258,10 @@ failure (non-zero exit, no result line):
               "strided" in ``transfer+transpose`` (a column-major x, a
               row-major dy: ``caffe_relu_bwd_routes``), every maxpool
               "plane" and every relu "vec" ("strided" and "vec" in
-              ``transfer+transpose``: ``caffe_fwd_routes``); (d) the paper's
+              ``transfer+transpose``: ``caffe_fwd_routes``), every
+              softmax_xent "rows" ("strided" in ``transfer+transpose``)
+              and every MNIST maxpool_bwd "window" in all three modes
+              (``caffe_pool_bwd_routes``); (d) the paper's
               Table 2, forward + backward (ms per iteration in the three
               boundary modes, ms per train step, one profiled step's
               device busy share).
@@ -278,7 +301,8 @@ The line before the last is a JSON object with one entry per kernel (the
 routed kernels' -- the gemm's, the attention backward's and forward's,
 the three decodes', the three chunked prefills', rmsnorm_bwd's,
 conv2d_direct's, relu_bwd's, maxpool's, relu's, ssd_scan's,
-softmax's, rmsnorm's and bias_add_rows' -- with ``routes``:
+softmax's, rmsnorm's, bias_add_rows', im2col's, col2im's, softmax_xent's
+and maxpool_bwd's -- with ``routes``:
 the main paths' launches per route, phases 4-10); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1435,7 +1459,12 @@ def phase_kernels(torch):
                    "im2col": f", on the flat kernel forced "
                              f"{tot['forced_ms']:.4f} ms",
                    "col2im": f", on the flat kernel forced "
-                             f"{tot['forced_ms']:.4f} ms"}.get(name, "")
+                             f"{tot['forced_ms']:.4f} ms",
+                   "softmax_xent": f", on the strided kernel and torch's "
+                                   f"mean forced {tot['forced_ms']:.4f} ms",
+                   "maxpool_bwd": f", on the pixel kernel forced "
+                                  f"{tot['forced_ms']:.4f} ms"}.get(name,
+                                                                    "")
             print(f"[3 kernels] {name}: one f32 {step} at B={LENET_B}: "
                   f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, "
                   f"plain {tot['plain_ms']:.4f} ms, library "
@@ -2091,6 +2120,24 @@ def forced_strided_softmax():
     return forced_route(SXm, "softmax_plan", "softmax", "strided")
 
 
+def forced_strided_xent():
+    """softmax_xent on the first port's kernel and torch's mean (route
+    "strided"), its route before the register-row kernel:
+    ``softmax_xent_plan`` made to name it."""
+    from repro_torch.kernels import softmax_xent as SXm
+
+    return forced_route(SXm, "softmax_xent_plan", "softmax_xent", "strided")
+
+
+def forced_pixel_pool_bwd():
+    """The max-pool backward on the first port's kernel (route "pixel"),
+    its route before the window-owner kernel: ``maxpool_bwd_plan`` made to
+    name it."""
+    from repro_torch.kernels import pooling as PO
+
+    return forced_route(PO, "maxpool_bwd_plan", "maxpool_bwd", "pixel")
+
+
 def forced_flat_im2col():
     """im2col on the first port's kernel (route "flat"), its route before
     the staged-band kernel: ``im2col_plan`` made to name it."""
@@ -2115,9 +2162,9 @@ def bitwise(torch, t):
 
 def equal_forced(torch, what, fn, forced):
     """``fn()`` on its planner's route bit for bit equal to ``fn()`` on
-    the old route (``forced``): the redesigned im2col and col2im keep
-    the first kernels' values (a copy; the same f32 sums in the same
-    order)."""
+    the old route (``forced``): the redesigned im2col, col2im and
+    maxpool_bwd keep the first kernels' values (a copy; the same f32 sums
+    in the same order; dy copied as bits)."""
     got = fn()
     with forced():
         old = fn()
@@ -2131,8 +2178,8 @@ def timer_floor(torch, clock, case, numel):
     """What the phase-3 timer gives a plain f32 pass over ``numel``
     elements: a write (``fill_``) and a read (``sum``), each after the
     timer's L2 flush, beside the bytes' bound: the floor against which an
-    im2col (a write of its columns) or a col2im (a read of them) is
-    read."""
+    im2col (a write of its columns), a col2im (a read of them), a
+    softmax_xent or a maxpool_bwd (their bytes in and out) is read."""
     buf = torch.empty(numel, device="cuda")
     w_ms, r_ms = clock(lambda: buf.fill_(1.0)), clock(lambda: buf.sum())
     print(f"[3 kernels] timer floor, {case}: {numel} f32: write (fill_) "
@@ -2531,6 +2578,103 @@ def softmax_rows_sweep(clock, case, x, tol):
               for g, t in ranked), flush=True)
 
 
+# the fused softmax + cross-entropy's knobs swept in phase 3 (kernels/
+# softmax_xent.py): softmax's grid knobs it starts from (items a lane
+# aims at, threads a block aims at) and the most items a lane may take to
+# fit the batch in one block
+XENT_SWEPT = ((1, 2, 4, 8), (64, 128, 256, 512), (1, 2, 4, 8))
+
+
+def xent_rows_sweep(clock, case, x, y, tol):
+    """``softmax_xent(x, y)`` on the rows kernel at each distinct ``Rows``
+    that ``softmax_xent_rows`` gives over ``XENT_SWEPT``, probs and loss
+    each within ``tol`` of the plain version; fastest first, the
+    planner's pick marked, with its rank."""
+    import itertools
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import softmax_xent as SXm
+
+    aligned = x.data_ptr() % 16 == 0
+
+    def grid():
+        return SXm.softmax_xent_rows(x.dtype, x.shape, x.stride(), aligned)
+
+    w_loss, w_probs = ref.softmax_xent(x, y)
+    w_probs = w_probs.float()
+    names = ("SOFTMAX_ITEMS", "SOFTMAX_THREADS", "XENT_PACK")
+    saved = tuple(getattr(SXm, k) for k in names)
+    mine, cells = grid(), {}
+    try:
+        for values in itertools.product(*XENT_SWEPT):
+            for k, v in zip(names, values):
+                setattr(SXm, k, v)
+            g = grid()
+            if g in cells:
+                continue
+            loss, probs = SXm.softmax_xent(x, y)
+            err = (probs.float() - w_probs).abs().max().item()
+            l_err = abs(loss.item() - w_loss.item())
+            if not (err <= tol * w_probs.abs().max().item()
+                    and l_err <= tol * abs(w_loss.item())):
+                raise SystemExit(f"chip_smoke: softmax_xent {case} at {g}: "
+                                 f"max_abs_err {err:.3g}, loss {l_err:.3g}")
+            cells[g] = clock(lambda: SXm.softmax_xent(x, y))
+    finally:
+        for k, v in zip(names, saved):
+            setattr(SXm, k, v)
+    ranked = sorted(cells.items(), key=lambda c: c[1])
+    rank = [g for g, _ in ranked].index(mine) + 1
+    print(f"[3 kernels] softmax_xent rows sweep, {case}: (threads a row, rows"
+          f" a block, items a lane, blocks), ms (planner rank {rank} of "
+          f"{len(ranked)}): " + "; ".join(
+              f"{(g.tpr, g.rows, g.per, g.blocks)}"
+              f"{'*' if g == mine else ''} {t:.4f}" for g, t in ranked),
+          flush=True)
+
+
+# the window-owner pool backward's caps swept in phase 3 (kernels/
+# pooling.py): units a block aims at, blocks the grid aims at
+POOL_BWD_SWEPT = ((32, 64, 128, 256, 512), (132, 264, 528, 1056))
+
+
+def pool_bwd_sweep(clock, case, fn, dtype, shape, stride, pad):
+    """The max-pool backward ``fn`` on the window kernel at each distinct
+    ``BwdBand`` that ``maxpool_bwd_band`` gives over ``POOL_BWD_SWEPT``,
+    each bit for bit the planner's own output; fastest first, the
+    planner's pick marked, with its rank."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels import pooling as PO
+
+    def band():
+        return PO.maxpool_bwd_band(dtype, shape, stride, pad)
+
+    saved = (PO.BWD_UNITS, PO.BWD_BLOCKS)
+    mine, want, cells = band(), bitwise(torch, fn()), {}
+    try:
+        for PO.BWD_UNITS, PO.BWD_BLOCKS in itertools.product(
+                *POOL_BWD_SWEPT):
+            b = band()
+            if b in cells:
+                continue
+            if not torch.equal(bitwise(torch, fn()), want):
+                raise SystemExit(f"chip_smoke: maxpool_bwd {case} at {b}: "
+                                 "differs from the planner's block")
+            cells[b] = clock(fn)
+    finally:
+        PO.BWD_UNITS, PO.BWD_BLOCKS = saved
+    ranked = sorted(cells.items(), key=lambda c: c[1])
+    rank = [b for b, _ in ranked].index(mine) + 1
+    print(f"[3 kernels] maxpool_bwd window sweep, {case}: (cols, groups, "
+          f"planes, blocks), ms (planner rank {rank} of {len(ranked)}): "
+          + "; ".join(f"{(b.cols, b.groups, b.planes, b.blocks)}"
+                      f"{'*' if b == mine else ''} {t:.4f}"
+                      for b, t in ranked), flush=True)
+
+
 # the split decode's block targets swept in phase 3
 SPLIT_TARGETS = (8, 16, 32, 64, 128, 256, 512)
 
@@ -2626,13 +2770,14 @@ def want_route(name, route, want):
 # ``forced_scalar_bwd``, ``forced_scalar_conv``, ``forced_strided``,
 # ``forced_strided_pool``, ``forced_scalar_relu``, ``forced_block_ssd``,
 # ``forced_strided_softmax``, ``forced_scalar_norm``,
-# ``forced_scalar_bias``, ``forced_flat_im2col``, ``forced_flat_col2im``)
+# ``forced_scalar_bias``, ``forced_flat_im2col``, ``forced_flat_col2im``,
+# ``forced_strided_xent``, ``forced_pixel_pool_bwd``)
 REDESIGNED = ("flash_attention", "flash_decode", "flash_decode_paged",
               "flash_decode_paged_quant", "flash_prefill_chunk",
               "flash_prefill_chunk_paged", "flash_prefill_chunk_paged_quant",
               "rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool", "relu",
               "ssd_scan", "softmax", "rmsnorm", "bias_add_rows", "im2col",
-              "col2im")
+              "col2im", "softmax_xent", "maxpool_bwd")
 # the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
 SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -2662,7 +2807,13 @@ def caffe_kernels(torch, F, rnd, run, clock):
     rows take "band" (bf16, a 3 x 3 window and a column-major x too), a
     stride of 2 "flat"; each "band" row is bit for bit the flat kernel's
     forced and timed beside it, and swept at the five convolutions
-    (``im2col_sweep``)."""
+    (``im2col_sweep``).  softmax_xent's rows take "rows" (bf16 too; the
+    transposed crossing's column-major logits "strided"), are timed beside
+    the strided kernel and torch's mean forced, beside the timer's pass
+    over their bytes, and swept (``xent_rows_sweep``); the 64 x 10 loss
+    must run one kernel a call, 256 x 1000 two (``kernels_of_call``);
+    labels -1 and V inside and past the one-block cap, and a row of
+    -inf, are held on both routes."""
     from repro_torch.core.container import MajorOrder, as_layout
     from repro_torch.kernels import ref
     from repro_torch.kernels.eltwise import bias_add_rows, relu
@@ -2718,6 +2869,24 @@ def caffe_kernels(torch, F, rnd, run, clock):
         if forced is not None:
             equal_forced(torch, f"im2col {case}", kfn, forced)
         return kfn
+
+    def xent_case(step, case, x, y, count, route="rows"):
+        """On ``route``, probs and loss within ``TOL`` of the plain
+        version, on "rows" timed beside the strided kernel and torch's
+        mean forced.  Its bytes: one read of the logits and the int64
+        labels, one write of the probs and the f32 loss.  No library
+        yardstick where a label lies outside [0, V) (``F.cross_entropy``
+        asserts on it)."""
+        b, v = x.shape
+        nbytes = 2 * x.element_size() * b * v + 8 * b + 4
+        inside = bool(((y >= 0) & (y < v)).all())
+        want_route("softmax_xent", run(
+            softmax_xent, case, x.dtype, step, count,
+            lambda: softmax_xent(x, y), lambda: ref.softmax_xent(x, y),
+            (lambda: (F.cross_entropy(x, y), torch.softmax(x, -1)))
+            if inside else None, nbytes, 5.0 * b * v,
+            forced=forced_strided_xent if route == "rows" else None), route)
+        return nbytes
 
     def relu_case(step, case, x, count, route="vec", slope=0.0):
         """On ``route``, exact, timed beside the scalar kernel forced."""
@@ -2839,12 +3008,26 @@ def caffe_kernels(torch, F, rnd, run, clock):
         x = 3 * rnd((b, v), f32)
         y = torch.randint(0, v, (b,), generator=g, device="cuda")
         if step != "deploy fwd":
-            run(softmax_xent, f"{b}x{v}", f32, step, count,
-                lambda x=x, y=y: softmax_xent(x, y),
-                lambda x=x, y=y: ref.softmax_xent(x, y),
-                lambda x=x, y=y: (F.cross_entropy(x, y),
-                                  torch.softmax(x, -1)),
-                8 * b * v + 8 * b + 4, 5.0 * b * v)
+            nbytes = xent_case(step, f"{b}x{v}", x, y, count)
+        if step in ("mnist fwd", "v 1000"):
+            # LeNet's loss is one launch (the whole batch in one block,
+            # the mean fused); 256 x 1000 two, the rows then the ordered
+            # sum of the blocks' partials: those kernels, each at most
+            # once a call (the profiler may drop a few records)
+            names = kernels_of_call(torch, lambda x=x, y=y: softmax_xent(
+                x, y))
+            want = {"softmax_reg_kernel"} if b == n else \
+                {"softmax_reg_kernel", "xent_mean_kernel"}
+            if {k.split("<")[0] for k in names} != want or any(
+                    cnt > 1 for cnt, _ in names.values()):
+                raise SystemExit(f"chip_smoke: softmax_xent {b}x{v}: one "
+                                 f"call ran {names}, expected {want} once "
+                                 "each")
+            print(f"[3 kernels] softmax_xent {b}x{v} f32: one call's kernels"
+                  f" (launches, device us, L2 warm) {names}", flush=True)
+            timer_floor(torch, clock, f"softmax_xent {step} {b}x{v}",
+                        nbytes // 4)
+            xent_rows_sweep(clock, f"{b}x{v} f32", x, y, 1e-5)
         if step in ("deploy fwd", "v 1000"):
             want_route("softmax", run(
                 softmax, f"{b}x{v}", f32, step, count,
@@ -2875,6 +3058,35 @@ def caffe_kernels(torch, F, rnd, run, clock):
                              "other rows disagree")
     print("[3 kernels] softmax: a row of -inf gives NaN on rows and strided, "
           "as the plain version", flush=True)
+    # the loss off the path (counts 0): the transposed crossing's
+    # column-major logits take "strided"; labels -1 and V give their rows
+    # an NLL of 0 and the mean still divides by B, past the one-block cap
+    # too (65 rows: the blocks' partials, then their ordered sum); a row
+    # of -inf gives NaN probs and a NaN loss on both routes
+    y = torch.randint(0, 10, (n,), generator=g, device="cuda")
+    xent_case("off path", f"{n}x10 column-major", xc, y, 0, "strided")
+    for rows in (n, n + 1):
+        xo = 3 * rnd((rows, 10), f32)
+        yo = torch.randint(0, 10, (rows,), generator=g, device="cuda")
+        yo[0], yo[1] = -1, 10
+        xent_case("off path", f"{rows}x10 labels -1 and V", xo, yo, 0)
+    yi = torch.randint(0, 10, (n,), generator=g, device="cuda")
+    want_l, want_p = ref.softmax_xent(xi, yi)
+    for how, ctx in (("rows", contextlib.nullcontext),
+                     ("strided", forced_strided_xent)):
+        with ctx():
+            got_l, got_p = softmax_xent(xi, yi)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want_p)
+        if not (torch.isnan(got_l).item() and torch.isnan(want_l).item()
+                and torch.equal(torch.isnan(got_p), nan) and nan[1].all()
+                and (got_p[~nan] - want_p[~nan]).abs().max().item()
+                <= 1e-5):
+            raise SystemExit(f"chip_smoke: softmax_xent on {how}: a row of "
+                             "-inf does not give NaN as in the plain "
+                             "version, or the other rows disagree")
+    print("[3 kernels] softmax_xent: a row of -inf gives NaN probs and a NaN"
+          " loss on rows and strided, as the plain version", flush=True)
     # each new kernel once in bf16 (LeNet runs f32), counts 0
     bf = torch.bfloat16
     im2col_case("bf16", "conv1", rnd((n, 1, 28, 28), bf), 5, 1, 0, 0, True)
@@ -2894,16 +3106,15 @@ def caffe_kernels(torch, F, rnd, run, clock):
     relu_case("bf16", "relu1", rnd((n, 500), bf), 0, slope=0.1)
     x = 3 * rnd((n, 10), bf)
     y = torch.randint(0, 10, (n,), generator=g, device="cuda")
-    run(softmax_xent, f"{n}x10", bf, "bf16", 0, lambda: softmax_xent(x, y),
-        lambda: ref.softmax_xent(x, y),
-        lambda: (F.cross_entropy(x, y), torch.softmax(x, -1)),
-        4 * n * 10 + 8 * n + 4, 5.0 * n * 10)
+    xent_case("bf16", f"{n}x10", x, y, 0)
     want_route("softmax", run(
         softmax, f"{n}x10", bf, "bf16", 0, lambda: softmax(x),
         lambda: ref.softmax(x), lambda: torch.softmax(x, -1), 4 * n * 10,
         4.0 * n * 10, forced=forced_strided_softmax), "rows")
     softmax_rows_sweep(clock, f"{n}x10 bf16", x, 2 ** -7)
     x = 3 * rnd((256, 1000), bf)
+    xent_case("bf16", "256x1000", x, torch.randint(
+        0, 1000, (256,), generator=g, device="cuda"), 0)
     want_route("softmax", run(
         softmax, "256x1000", bf, "bf16", 0, lambda: softmax(x),
         lambda: ref.softmax(x), lambda: torch.softmax(x, -1),
@@ -2925,11 +3136,17 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
     block caps (``vec_grid_sweep``); col2im's take "tile" (the registered
     layout at an odd P, bf16 and a 3 x 3 window too), each bit for bit the
     flat kernel's forced and timed beside it, swept at its three LeNet
-    shapes (``im2col_sweep``).  Yardsticks:
+    shapes (``im2col_sweep``); maxpool_bwd's take "window" (ties, pad 1,
+    a 3/3 pool, a 2/3 pool at pad 1, a row of no whole vectors, bf16),
+    each bit for bit the pixel kernel's forced and timed beside it, swept
+    at MNIST's two pools (``pool_bwd_sweep``) beside the timer's pass
+    over their bytes; a column-major dy and a stride of 4 take "pixel".
+    Yardsticks:
     ``F.fold``, the backward of ``F.max_pool2d(return_indices=True)``
     (``aten.max_pool2d_with_indices_backward``), of ``F.leaky_relu``
     (``aten.leaky_relu_backward``) and of ``F.cross_entropy`` (autograd
     through its graph), ``torch.matmul``."""
+    from repro_torch.core.container import MajorOrder, as_layout
     from repro_torch.kernels import ref
     from repro_torch.kernels.eltwise import relu_bwd
     from repro_torch.kernels import im2col as IM
@@ -2970,20 +3187,36 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
         equal_forced(torch, f"col2im {case}", kfn, forced_flat_col2im)
         return kfn
 
-    def maxpool_bwd_case(step, case, x, k, st, pad, count):
+    def maxpool_bwd_case(step, case, x, k, st, pad, count, route="window",
+                         dy_column_major=False):
+        """On ``route``, exact against the plain version, and on "window"
+        bit for bit equal to the pixel kernel forced and timed beside it.
+        Its bytes: one read of dy and the argmax, one write of the
+        image.  Returns the call and its bytes."""
         dtype = x.dtype
         es = x.element_size()
         out, arg = maxpool(x, k, st, pad)
         dy = rnd(tuple(out.shape), dtype)
+        if dy_column_major:
+            dy = as_layout(dy, MajorOrder.ROW, MajorOrder.COLUMN)
         _, idx = F.max_pool2d(x, k, st, padding=pad, return_indices=True)
         shape = tuple(x.shape)
-        run(maxpool_bwd, f"{case} {'x'.join(map(str, dy.shape))} -> "
+
+        def kfn():
+            return maxpool_bwd(dy, arg, shape, k, st, pad)
+
+        forced = forced_pixel_pool_bwd if route == "window" else None
+        nbytes = dy.numel() * (es + 4) + x.numel() * es
+        want_route("maxpool_bwd", run(
+            maxpool_bwd, f"{case} {'x'.join(map(str, dy.shape))} -> "
             f"{'x'.join(map(str, shape))} k{k} s{st} p{pad}", dtype, step,
-            count, lambda: maxpool_bwd(dy, arg, shape, k, st, pad),
-            lambda: ref.maxpool_bwd(dy, arg, shape, k, st, pad),
+            count, kfn, lambda: ref.maxpool_bwd(dy, arg, shape, k, st, pad),
             lambda: aten.max_pool2d_with_indices_backward(
                 dy, x, [k, k], [st, st], [pad, pad], [1, 1], False, idx),
-            dy.numel() * (es + 4) + x.numel() * es, 0.0)
+            nbytes, 0.0, forced=forced), route)
+        if forced is not None:
+            equal_forced(torch, f"maxpool_bwd {case}", kfn, forced)
+        return kfn, nbytes
 
     def relu_bwd_case(step, case, shape, count, dtype=f32, slope=0.0,
                       x_column_major=False):
@@ -3060,7 +3293,28 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
                                 ("pool2", rnd((n, 50, 8, 8), f32), 0, 1),
                                 ("pool1 ties", ties, 0, 0),
                                 ("pool1 ties, pad 1", ties, 1, 0)):
-        maxpool_bwd_case("mnist train", case, x, 2, 2, pad, count)
+        fn, nbytes = maxpool_bwd_case("mnist train", case, x, 2, 2, pad,
+                                      count)
+        if count:
+            timer_floor(torch, clock, f"maxpool_bwd mnist train {case}",
+                        nbytes // 4)
+            pool_bwd_sweep(clock, f"mnist train {case}", fn, f32,
+                           tuple(x.shape), 2, 0)
+    # off the LeNet path (counts 0): a 3/3 pool of CIFAR's pool1 input, a
+    # 2/3 pool with a gap between windows at pad 1 and odd H and W, a row
+    # of no whole vectors (stored element by element), all on "window";
+    # a column-major dy and a stride of 4 on "pixel"
+    maxpool_bwd_case("off-path", "k3 s3", rnd((n, 32, 32, 32), f32), 3, 3,
+                     0, 0)
+    maxpool_bwd_case("off-path", "k2 s3 p1", rnd((n, 20, 23, 23), f32), 2,
+                     3, 1, 0)
+    maxpool_bwd_case("off-path", "W 25", rnd((n, 20, 24, 25), f32), 2, 2,
+                     0, 0)
+    maxpool_bwd_case("off-path", "dy column-major", rnd((n, 20, 24, 24),
+                                                        f32), 2, 2, 0, 0,
+                     route="pixel", dy_column_major=True)
+    maxpool_bwd_case("off-path", "k4 s4", rnd((n, 20, 24, 24), f32), 4, 4,
+                     0, 0, route="pixel")
     # relu_bwd: (step, case, shape, count)
     for step, case, shape, count in (
             ("mnist train", "relu1", (n, 500), 1),
@@ -3104,6 +3358,7 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
     # each new kernel once in bf16 (LeNet trains in f32), counts 0
     col2im_case("bf16", "conv2", 20, 12, 5, 0, 0, dtype=bf)
     maxpool_bwd_case("bf16", "pool1", rnd((n, 20, 24, 24), bf), 2, 2, 0, 0)
+    maxpool_bwd_case("bf16", "pool2", rnd((n, 50, 8, 8), bf), 2, 2, 0, 0)
     relu_bwd_case("bf16", "relu1", (n, 500), 0, dtype=bf, slope=0.1)
     xent_bwd_case("bf16", "loss", 0, dtype=bf)
 
@@ -3416,7 +3671,7 @@ CHUNKS = ("flash_prefill_chunk", "flash_prefill_chunk_paged",
 ROUTED = ("gemm", "flash_attention_bwd", "flash_attention") + DECODES \
     + CHUNKS + ("rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool",
                 "relu", "ssd_scan", "softmax", "rmsnorm", "bias_add_rows",
-                "im2col", "col2im")
+                "im2col", "col2im", "softmax_xent", "maxpool_bwd")
 ROUTE_SOURCES = {
     ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
@@ -3456,6 +3711,12 @@ ROUTE_SOURCES = {
     ("im2col", "flat"): "src/repro_torch/kernels/csrc/im2col.cu",
     ("col2im", "tile"): "src/repro_torch/kernels/csrc/im2col.cu",
     ("col2im", "flat"): "src/repro_torch/kernels/csrc/im2col.cu",
+    ("softmax_xent", "rows"):
+        "src/repro_torch/kernels/csrc/softmax_xent.cu",
+    ("softmax_xent", "strided"):
+        "src/repro_torch/kernels/csrc/softmax_xent.cu",
+    ("maxpool_bwd", "window"): "src/repro_torch/kernels/csrc/pooling.cu",
+    ("maxpool_bwd", "pixel"): "src/repro_torch/kernels/csrc/pooling.cu",
 }
 ROUTE_SOURCES.update({
     (name, route): f"src/repro_torch/kernels/csrc/{src}"
@@ -4932,7 +5193,8 @@ def phase_caffe(torch):
             routes=caffe_gemm_routes(
                 deploy.spec, shapes, False,
                 transpose=boundary == "transfer+transpose"),
-            kernel_routes=caffe_fwd_routes(deploy.spec, boundary))
+            kernel_routes=caffe_fwd_routes(deploy.spec, boundary,
+                                           labels=False))
         add(got)
         gap = (p_h - p_r).abs().max().item()
         rows = p_h.sum(-1)
@@ -5107,6 +5369,39 @@ def caffe_softmax_routes(spec, boundary):
     return {"softmax": {route: n} if n else {}}
 
 
+def caffe_xent_routes(spec, boundary, labels=True):
+    """``softmax_xent``'s launches per route in one forward or train step
+    of the net ``spec`` (one a SoftmaxWithLoss layer; none without
+    ``labels``, as the deploy form runs): "rows" where its logits arrive
+    row-major (the fused net; ``transfer``), "strided" in
+    ``transfer+transpose``, whose crossing hands it a column-major blob
+    (``tests/test_torch_xent_plan.py`` walks the crossings on the
+    CPU)."""
+    n = labels * sum(ls.type == "SoftmaxWithLoss" for ls in spec.layers)
+    route = "strided" if boundary == "transfer+transpose" else "rows"
+    return {"softmax_xent": {route: n} if n else {}}
+
+
+def caffe_pool_bwd_routes(spec, boundary):
+    """``maxpool_bwd``'s launches per route in one train step of the net
+    ``spec``: "window" for each max pool whose windows do not overlap at
+    a stride the kernel is instantiated for (MNIST's two 2/2 pools), in
+    every boundary mode: dy comes back row-major from the next layer's
+    backward and the argmax is the forward kernel's contiguous output
+    (``tests/test_torch_pool_bwd_plan.py`` walks the crossings on the
+    CPU); "pixel" for other non-overlapping strides; none for an
+    overlapping pool (CIFAR's 3/2: the plain scatter)."""
+    from repro_torch.kernels.pooling import BWD_STRIDES
+
+    took = {}
+    for ls in spec.layers:
+        if ls.type == "Pooling" and ls.pool == "max" \
+                and ls.stride >= ls.kernel_size:
+            route = "window" if ls.stride in BWD_STRIDES else "pixel"
+            took[route] = took.get(route, 0) + 1
+    return {"maxpool_bwd": took}
+
+
 def caffe_bias_routes(spec, boundary):
     """``bias_add_rows``'s launches per route in one forward or train step
     of the net ``spec`` (one an InnerProduct layer with a bias): "vec"
@@ -5143,14 +5438,16 @@ def caffe_conv_routes(spec, boundary, train=False):
     return {"im2col": im, **({"col2im": col} if train else {})}
 
 
-def caffe_fwd_routes(spec, boundary):
+def caffe_fwd_routes(spec, boundary, labels=True):
     """The forward's routed Caffe kernels, ``caffe_maxpool_routes``,
     ``caffe_relu_routes``, ``caffe_softmax_routes``,
+    ``caffe_xent_routes`` (the loss, where the forward has ``labels``),
     ``caffe_bias_routes`` and ``caffe_conv_routes``, for
     ``caffe_counted``'s ``kernel_routes``."""
     return {**caffe_maxpool_routes(spec, boundary),
             **caffe_relu_routes(spec, boundary),
             **caffe_softmax_routes(spec, boundary),
+            **caffe_xent_routes(spec, boundary, labels),
             **caffe_bias_routes(spec, boundary),
             **caffe_conv_routes(spec, boundary)}
 
@@ -5310,6 +5607,7 @@ def phase_caffe_train(torch):
                 torch, lambda: step(st_h, d, lab), name, want=want,
                 routes=caffe_gemm_routes(net.spec, net.blob_shapes, True),
                 kernel_routes={**caffe_relu_bwd_routes(net.spec, None),
+                               **caffe_pool_bwd_routes(net.spec, None),
                                **caffe_fwd_routes(net.spec, None),
                                **caffe_conv_routes(net.spec, None, True)})
             for k, v in got.items():
@@ -5335,6 +5633,7 @@ def phase_caffe_train(torch):
                     net.spec, net.blob_shapes, True,
                     transpose=boundary == "transfer+transpose"),
                 kernel_routes={**caffe_relu_bwd_routes(net.spec, boundary),
+                               **caffe_pool_bwd_routes(net.spec, boundary),
                                **caffe_fwd_routes(net.spec, boundary),
                                **caffe_conv_routes(net.spec, boundary,
                                                    True)})

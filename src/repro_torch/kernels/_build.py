@@ -111,12 +111,21 @@ _SIGNATURES = {
     # (n, c, h, w), stride, pad, OH, OW, dtype, stream
     "repro_maxpool_bwd": [_P, _P, _P] + [_I] * 4 + [_L] * 8 + [_I] * 5
                          + [_P],
+    # dy, argmax, out, N, C, H, W, dy strides (n, c, h; w is 1), argmax
+    # strides (n, c, h; w is 1), stride, pad, OH, OW, the block's cols,
+    # groups and planes, vec, dtype, stream
+    "repro_maxpool_bwd_window": [_P] * 3 + [_I] * 4 + [_L] * 6 + [_I] * 9
+                                + [_P],
     # x, labels (NULL: softmax), probs, nll, rows, V, row stride, column
     # stride, dtype, stream
     "repro_softmax_rows": [_P, _P, _P, _P, _I, _I, _L, _L, _I, _P],
     # x, probs, rows, V, row stride, threads a row, rows a block, items a
     # lane, vec, dtype, stream
     "repro_softmax_reg": [_P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _P],
+    # x, labels (int64), probs, partials (f32 or NULL), loss (f32 scalar),
+    # rows, V, row stride, threads a row, rows a block, items a lane, vec,
+    # dtype, stream
+    "repro_softmax_xent_reg": [_P] * 5 + [_I, _I, _L] + [_I] * 5 + [_P],
     # probs, labels, out, rows, V, row stride, column stride, 1/B, dtype,
     # stream
     "repro_softmax_xent_bwd": [_P, _P, _P, _I, _I, _L, _L, _F, _I, _P],

@@ -59,7 +59,33 @@
 // a write of the image.  dy and the argmax are read by their strides; the
 // output is contiguous (N, C, H, W).  Overlapping windows (stride < k)
 // would add several windows into one pixel: the wrapper refuses them and
-// the ops layer takes the plain scatter, as JAX does.
+// the ops layer takes the plain scatter, as JAX does.  Two routes, picked
+// by kernels/pooling.py:maxpool_bwd_plan from the layouts and the stride:
+//
+// * "window" (repro_maxpool_bwd_window): dy's and the argmax's rows of
+//   unit stride, stride 2 or 3 (a template parameter; the window k does
+//   not enter the backward, whose argmax already names the winner, so any
+//   k <= stride).  The first kernel's time went to index arithmetic, not
+//   bytes: three 64-bit div/mod pairs and a runtime division by the
+//   stride per pixel, the window's argmax and dy loaded again by every
+//   pixel of it, one element stored at a time.  Here a thread owns one
+//   16-byte vector of output columns (4 f32, 8 bf16) across the `stride`
+//   image rows of one window row: it loads the argmax and dy of the (at
+//   most NW) windows its columns fall in once, then writes `stride`
+//   16-byte vectors, each element dy where its padded index equals one of
+//   those argmaxes (windows do not overlap, so at most one does), else
+//   0.  The block is three-dimensional, (vectors, window rows, planes):
+//   several small planes a block, or a band of a large plane's window
+//   rows (kernels/pooling.py:maxpool_bwd_band), so a thread's unit comes
+//   from its thread and block indices with no division but the plane's
+//   (n, c).  Window rows past OH and columns past the last window (stride
+//   > k, or H + 2 pad - k not a multiple of the stride) get 0 from their
+//   owner, with no load; rows that are not whole vectors (W not a
+//   multiple of 4 f32 / 8 bf16, so that the rows' starts are off 16
+//   bytes) are stored element by element.  dy is copied as bits, so the
+//   route is bit for bit the first kernel's.
+// * "pixel" (repro_maxpool_bwd): every other layout and stride: the first
+//   port's kernel above.
 #include "common.cuh"
 
 namespace {
@@ -318,7 +344,188 @@ void launch_bwd(const void* dy, const int* arg, void* out, int N, int C,
       d_sc, d_sh, d_sw, a_sn, a_sc, a_sh, a_sw, stride, pad, OH, OW);
 }
 
+
+// the "window" kernel's most threads a block and planes a block (the
+// block's z extent; kernels/pooling.py:BWD_THREADS, BWD_MAX_PLANES)
+constexpr int kBwdThreads = 512;
+constexpr int kBwdMaxPlanes = 64;
+
+// a 16-byte store of a vector's bits
+__device__ __forceinline__ void store_bits(uint32_t* p,
+                                           const uint32_t (&v)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_bits(uint16_t* p,
+                                           const uint16_t (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(
+      v[0] | (uint32_t)v[1] << 16, v[2] | (uint32_t)v[3] << 16,
+      v[4] | (uint32_t)v[5] << 16, v[6] | (uint32_t)v[7] << 16);
+}
+
+// Bits: the storage type's bits (uint32_t f32, uint16_t bf16); S: the
+// stride.  Thread (tx, ty, tz) of block (bx, by): plane p = bx * planes +
+// tz (and on in steps of blockDim.z), window row g = g0 + by * groups + ty
+// (on in steps of blockDim.y, within the band's `groups`), columns [v E,
+// v E + E) for v = tx (on in steps of blockDim.x).  g0 = pad / S is the
+// first window row that holds an image row.
+template <typename Bits, int S, bool kVec>
+__global__ void __launch_bounds__(kBwdThreads)
+maxpool_bwd_window_kernel(const Bits* __restrict__ dy,
+                          const int* __restrict__ arg, Bits* __restrict__ out,
+                          int P, int C, int H, int W, long long d_sn,
+                          long long d_sc, long long d_sh, long long a_sn,
+                          long long a_sc, long long a_sh, int pad, int OH,
+                          int OW, int groups, int planes) {
+  constexpr int E = 16 / sizeof(Bits);
+  constexpr int NW = (E + S - 2) / S + 1;  // windows E columns can touch
+  const int g0 = pad / S;
+  const int G = (H - 1 + pad) / S - g0 + 1;
+  const int nv = (W + E - 1) / E;
+  const int WP = W + 2 * pad;
+  const int gb = blockIdx.y * groups;
+  const int ga = min(groups, G - gb);
+  const int p0 = blockIdx.x * planes;
+  const int pa = min(planes, P - p0);
+  for (int q = threadIdx.z; q < pa; q += blockDim.z) {
+    const int p = p0 + q, n = p / C, c = p - n * C;
+    const int* ap = arg + n * a_sn + c * a_sc;
+    const Bits* dp = dy + n * d_sn + c * d_sc;
+    Bits* op = out + (long long)p * H * W;
+    for (int gi = threadIdx.y; gi < ga; gi += blockDim.y) {
+      const int g = g0 + gb + gi;
+      for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+        const int x0 = v * E;
+        const int ox0 = (x0 + pad) / S;
+        int a[NW];
+        Bits d[NW];
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          a[w] = -1;  // matches no padded index
+          d[w] = 0;
+        }
+        if (g < OH) {
+          const int* ar = ap + g * a_sh;
+          const Bits* dr = dp + g * d_sh;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            const int ox = ox0 + w;
+            if (ox < OW && ox * S - pad < x0 + E) {
+              a[w] = ar[ox];
+              d[w] = dr[ox];
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+          const int y = g * S - pad + i;
+          if (y < 0 || y >= H) continue;
+          const int at = (y + pad) * WP + pad + x0;  // column x0's index
+          Bits o[E];
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            o[e] = 0;
+#pragma unroll
+            for (int w = 0; w < NW; ++w)
+              if (a[w] == at + e) o[e] = d[w];
+          }
+          Bits* orow = op + (long long)y * W + x0;
+          if constexpr (kVec) {
+            store_bits(orow, o);
+          } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              if (x0 + e < W) orow[e] = o[e];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename Bits, int S>
+cudaError_t launch_bwd_window_s(const void* dy, const int* arg, void* out,
+                                int P, int C, int H, int W, long long d_sn,
+                                long long d_sc, long long d_sh,
+                                long long a_sn, long long a_sc,
+                                long long a_sh, int pad, int OH, int OW,
+                                int cols, int groups, int planes, bool vec,
+                                dim3 grid, cudaStream_t s) {
+  const dim3 block(cols, groups, planes);
+  const Bits* d = static_cast<const Bits*>(dy);
+  Bits* o = static_cast<Bits*>(out);
+  if (vec)
+    maxpool_bwd_window_kernel<Bits, S, true><<<grid, block, 0, s>>>(
+        d, arg, o, P, C, H, W, d_sn, d_sc, d_sh, a_sn, a_sc, a_sh, pad, OH,
+        OW, groups, planes);
+  else
+    maxpool_bwd_window_kernel<Bits, S, false><<<grid, block, 0, s>>>(
+        d, arg, o, P, C, H, W, d_sn, d_sc, d_sh, a_sn, a_sc, a_sh, pad, OH,
+        OW, groups, planes);
+  return cudaGetLastError();
+}
+
+template <typename Bits>
+cudaError_t launch_bwd_window(const void* dy, const int* arg, void* out,
+                              int P, int C, int H, int W, long long d_sn,
+                              long long d_sc, long long d_sh, long long a_sn,
+                              long long a_sc, long long a_sh, int stride,
+                              int pad, int OH, int OW, int cols, int groups,
+                              int planes, int vec, cudaStream_t s) {
+  constexpr int E = 16 / sizeof(Bits);
+  if (stride < 1 || pad < 0 || H < 1 || W < 1 || P < 1)
+    return cudaErrorInvalidValue;
+  const long long G = (H - 1LL + pad) / stride - pad / stride + 1;
+  const long long nv = (W + E - 1LL) / E;
+  const long long bands = (G + groups - 1) / groups;
+  const long long pgroups = (P + (long long)planes - 1) / planes;
+  // what the kernel assumes: a block within the limits, every extent
+  // reached, 32-bit padded indices, aligned whole-vector rows for 16-byte
+  // stores
+  if (cols < 1 || cols > nv || groups < 1 || groups > G || planes < 1 ||
+      planes > kBwdMaxPlanes ||
+      (long long)cols * groups * planes > kBwdThreads || bands > 65535 ||
+      pgroups > 0x7fffffffLL ||
+      (H + 2LL * pad) * (W + 2LL * pad) > 0x7fffffffLL ||
+      (vec && (W % E || reinterpret_cast<uintptr_t>(out) % 16)))
+    return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)pgroups, (unsigned)bands);
+  const bool v = vec != 0;
+  if (stride == 2)
+    return launch_bwd_window_s<Bits, 2>(dy, arg, out, P, C, H, W, d_sn, d_sc,
+                                        d_sh, a_sn, a_sc, a_sh, pad, OH, OW,
+                                        cols, groups, planes, v, grid, s);
+  if (stride == 3)
+    return launch_bwd_window_s<Bits, 3>(dy, arg, out, P, C, H, W, d_sn, d_sc,
+                                        d_sh, a_sn, a_sc, a_sh, pad, OH, OW,
+                                        cols, groups, planes, v, grid, s);
+  return cudaErrorInvalidValue;  // a stride it is not instantiated for
+}
+
 }  // namespace
+
+// route "window": dy and argmax (N, C, OH, OW) with rows of unit stride,
+// read by the strides of their other three axes; out contiguous (N, C, H,
+// W); stride 2 or 3 (>= k); the block's extents (vectors, window rows,
+// planes) and the 16-byte stores from kernels/pooling.py:maxpool_bwd_band
+extern "C" int repro_maxpool_bwd_window(
+    const void* dy, const void* arg, void* out, int N, int C, int H, int W,
+    long long d_sn, long long d_sc, long long d_sh, long long a_sn,
+    long long a_sc, long long a_sh, int stride, int pad, int OH, int OW,
+    int cols, int groups, int planes, int vec, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* a = static_cast<const int*>(arg);
+  const long long P = (long long)N * C;
+  if (P > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return (int)launch_bwd_window<uint16_t>(
+        dy, a, out, (int)P, C, H, W, d_sn, d_sc, d_sh, a_sn, a_sc, a_sh,
+        stride, pad, OH, OW, cols, groups, planes, vec, s);
+  if (dtype == kF32)
+    return (int)launch_bwd_window<uint32_t>(
+        dy, a, out, (int)P, C, H, W, d_sn, d_sc, d_sh, a_sn, a_sc, a_sh,
+        stride, pad, OH, OW, cols, groups, planes, vec, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // dy and argmax (N, C, OH, OW) by strides, out contiguous (N, C, H, W);
 // stride >= k (non-overlapping windows)

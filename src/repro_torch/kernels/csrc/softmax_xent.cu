@@ -15,9 +15,10 @@
 // shuffles in f32, and the label's element is read directly.  No atomics;
 // every row is written by its own warp.  The logits are read by their row
 // and column strides (a column-major blob from the paper's boundary mode
-// is read in place); probs are contiguous.  softmax takes this kernel as
-// its route "strided" (rows of non-unit stride, a base off 16 bytes);
-// softmax_xent always.
+// is read in place); probs are contiguous.  softmax and softmax_xent take
+// this kernel as their route "strided" (rows of non-unit stride, a base off
+// 16 bytes), softmax_xent then takes the mean with a second kernel
+// (torch's .mean() in the wrapper).
 //
 // softmax's route "rows" (repro_softmax_reg; kernels/softmax_xent.py:
 // softmax_plan, softmax_rows): rows of unit stride.  Each row is read
@@ -30,6 +31,23 @@
 // computed once per element and kept, and p = e / sum(e) (a division, as
 // JAX's) is stored from the registers.  A row of -inf gives NaN, as the
 // plain version (exp(-inf - -inf)).
+//
+// softmax_xent's route "rows" (repro_softmax_xent_reg; kernels/
+// softmax_xent.py:softmax_xent_plan, softmax_xent_rows): the same kernel,
+// a template flag apart.  It keeps s = x - max in the registers, takes lse
+// = log(sum(exp(s))) by the same shuffle tree, computes logp = s - lse once
+// per element and stores exp(logp); the lane that holds the label's
+// element writes the row's -logp to shared memory (lane 0 writes 0 for a
+// label outside [0, V)).  The mean is fused, in a fixed order and with no
+// atomics: warp 0 sums the block's rows (lane l rows l, l + 32, ... in
+// order, then the xor tree).  Where the planner fits the whole batch in one
+// block (LeNet's 64 x 10: 8 lanes a row, 2 elements a lane, 512 threads)
+// that block divides by B and writes the f32 loss: one launch, no (B,) NLL
+// tensor.  Past one block each block writes its partial and a one-block
+// second kernel (xent_mean_kernel) sums them in block order and divides by
+// B: two launches.  At LeNet's sizes the loss is launch latency, so the
+// one-block grid is the point: the first kernel plus torch's mean took two
+// launches (0.0096 ms at 64 x 10 on the H100, chip_smoke.py phase 3).
 //
 // softmax_xent's backward (replaces softmax_xent_bwd_pallas): dlogits =
 // (p - [j == label]) * (1/B), in f32 and rounded once to p's dtype; a
@@ -145,18 +163,35 @@ __device__ __forceinline__ float row_reduce(float x, int tpr, float* red) {
   return x;
 }
 
-template <typename T, bool kVec, int kPer>
+// the fused mean's second pass (softmax_xent's route "rows" where the
+// batch spans several blocks): its threads
+constexpr int kXentSumThreads = 256;
+
+// kXent: softmax_xent, else softmax.  softmax stores e / sum(e); softmax_xent
+// keeps s = x - max, stores exp(s - lse) and takes each row's NLL from the
+// lane that holds its label's element (0 where the label is outside [0, V):
+// lane 0 of the row writes it), into nll_s; then warp 0 sums the block's
+// rows in a fixed order (lane l rows l, l + 32, ... in row order, then the
+// xor tree) and writes loss = sum / rows where the grid is one block, else
+// its partial part[blockIdx.x] for xent_mean_kernel.
+template <typename T, bool kVec, int kPer, bool kXent>
 __global__ void __launch_bounds__(kRowsMaxThreads)
-softmax_reg_kernel(const T* __restrict__ x, T* __restrict__ probs, int rows,
-                   int V, long sr, int tpr, int rpb) {
+softmax_reg_kernel(const T* __restrict__ x,
+                   const long long* __restrict__ labels,
+                   T* __restrict__ probs, float* __restrict__ part,
+                   float* __restrict__ loss, int rows, int V, long sr,
+                   int tpr, int rpb) {
   constexpr int E = kVec ? Vec<T>::N : 1;  // elements an item
   __shared__ float red[kRowsMaxThreads / 32];
+  __shared__ float nll_s[kXent ? kRowsMaxThreads : 1];
   const int j = threadIdx.x % tpr;
   const int row = blockIdx.x * rpb + threadIdx.x / tpr;
   const bool live = row < rows;
   const int items = V / E;
   const T* xr = x + (long)(live ? row : 0) * sr;
   T* pr = probs + (long)(live ? row : 0) * V;
+  long long y = -1;
+  if (kXent && live) y = labels[row];
   float v[kPer][E];
   float m = __int_as_float(0xff800000);  // -inf
 #pragma unroll
@@ -178,40 +213,132 @@ softmax_reg_kernel(const T* __restrict__ x, T* __restrict__ probs, int rows,
     if (live && j + i * tpr < items) {
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        v[i][e] = expf(v[i][e] - m);
-        s += v[i][e];
+        if constexpr (kXent) {
+          v[i][e] = v[i][e] - m;
+          s += expf(v[i][e]);
+        } else {
+          v[i][e] = expf(v[i][e] - m);
+          s += v[i][e];
+        }
       }
     }
   }
   s = row_reduce<false>(s, tpr, red);
+  const float lse = kXent ? logf(s) : 0.f;
+  float mine = 0.f;
+  bool found = false;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int idx = j + i * tpr;
     if (live && idx < items) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) v[i][e] = v[i][e] / s;
+      for (int e = 0; e < E; ++e) {
+        if constexpr (kXent) {
+          const float logp = v[i][e] - lse;
+          if (idx * E + e == y) {
+            mine = -logp;
+            found = true;
+          }
+          v[i][e] = expf(logp);
+        } else {
+          v[i][e] = v[i][e] / s;
+        }
+      }
       if constexpr (kVec)
         store16(pr + (long)idx * E, v[i]);
       else
         pr[idx] = from_f32<T>(v[i][0]);
     }
   }
+  if constexpr (kXent) {
+    // one writer a row: the label's lane, or lane 0 for a label outside
+    if (live && (found || (j == 0 && !(y >= 0 && y < V))))
+      nll_s[threadIdx.x / tpr] = mine;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      const long long left = rows - (long long)blockIdx.x * rpb;
+      const int ra = left < rpb ? (int)left : rpb;
+      float t = 0.f;
+      for (int q = threadIdx.x; q < ra; q += 32) t += nll_s[q];
+      t = warp_sum(t);
+      if (threadIdx.x == 0) {
+        if (gridDim.x == 1)
+          *loss = t / (float)rows;
+        else
+          part[blockIdx.x] = t;
+      }
+    }
+  }
 }
 
-template <typename T, bool kVec>
-int reg_launch(const void* x, void* probs, int rows, int V, long sr, int tpr,
+// softmax_xent's second pass: the blocks' partials summed in a fixed order
+// (thread t partials t, t + kXentSumThreads, ... in order, the xor tree of
+// each warp, the warps in order), divided by the rows
+__global__ void __launch_bounds__(kXentSumThreads)
+xent_mean_kernel(const float* __restrict__ part, int n,
+                 float* __restrict__ loss, int rows) {
+  __shared__ float red[kXentSumThreads / 32];
+  float t = 0.f;
+  for (int i = threadIdx.x; i < n; i += kXentSumThreads) t += part[i];
+  t = warp_sum(t);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = t;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = red[0];
+    for (int w = 1; w < kXentSumThreads / 32; ++w) sum += red[w];
+    *loss = sum / (float)rows;
+  }
+}
+
+template <typename T, bool kVec, bool kXent>
+int reg_launch(const void* x, const long long* labels, void* probs,
+               float* part, float* loss, int rows, int V, long sr, int tpr,
                int rpb, int per, cudaStream_t s) {
   const unsigned blocks = (unsigned)((rows + rpb - 1) / rpb);
   const T* xi = static_cast<const T*>(x);
   T* po = static_cast<T*>(probs);
+  cudaError_t err = cudaErrorInvalidValue;
 #define X(P_)                                                              \
   if (per == P_) {                                                         \
-    softmax_reg_kernel<T, kVec, P_>                                        \
-        <<<blocks, tpr * rpb, 0, s>>>(xi, po, rows, V, sr, tpr, rpb);      \
-    return (int)cudaGetLastError();                                        \
+    softmax_reg_kernel<T, kVec, P_, kXent><<<blocks, tpr * rpb, 0, s>>>(   \
+        xi, labels, po, part, loss, rows, V, sr, tpr, rpb);                \
+    err = cudaGetLastError();                                              \
   }
   X(1) X(2) X(4) X(8)
 #undef X
+  if (err != cudaSuccess || !kXent || blocks == 1) return (int)err;
+  xent_mean_kernel<<<1, kXentSumThreads, 0, s>>>(part, (int)blocks, loss,
+                                                 rows);
+  return (int)cudaGetLastError();
+}
+
+// what the "rows" kernel assumes of its launch (both externs)
+bool reg_ok(const void* x, int rows, int V, long long sr, int tpr, int rpb,
+            int per, int vec, int dtype) {
+  const int e = vec ? (dtype == kBF16 ? 8 : 4) : 1;
+  return !(rows < 1 || V < 1 || tpr < 1 || (tpr & (tpr - 1)) != 0 ||
+           rpb < 1 || tpr * rpb > kRowsMaxThreads || (tpr * rpb) % 32 != 0 ||
+           (long long)per * tpr * e < V ||
+           (vec && (reinterpret_cast<uintptr_t>(x) % 16 != 0 || sr % e != 0 ||
+                    V % e != 0)));
+}
+
+template <bool kXent>
+int reg_dispatch(const void* x, const long long* labels, void* probs,
+                 float* part, float* loss, int rows, int V, long long sr,
+                 int tpr, int rpb, int per, int vec, int dtype,
+                 cudaStream_t s) {
+  if (dtype == kBF16)
+    return vec ? reg_launch<bf16, true, kXent>(x, labels, probs, part, loss,
+                                              rows, V, sr, tpr, rpb, per, s)
+               : reg_launch<bf16, false, kXent>(x, labels, probs, part, loss,
+                                               rows, V, sr, tpr, rpb, per, s);
+  if (dtype == kF32)
+    return vec ? reg_launch<float, true, kXent>(x, labels, probs, part, loss,
+                                               rows, V, sr, tpr, rpb, per, s)
+               : reg_launch<float, false, kXent>(x, labels, probs, part,
+                                                loss, rows, V, sr, tpr, rpb,
+                                                per, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -263,22 +390,28 @@ extern "C" int repro_softmax_rows(const void* x, const void* labels,
 extern "C" int repro_softmax_reg(const void* x, void* probs, int rows, int V,
                                  long long sr, int tpr, int rpb, int per,
                                  int vec, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = vec ? (dtype == kBF16 ? 8 : 4) : 1;
-  if (rows < 1 || V < 1 || tpr < 1 || (tpr & (tpr - 1)) != 0 || rpb < 1 ||
-      tpr * rpb > kRowsMaxThreads || (tpr * rpb) % 32 != 0 ||
-      (long long)per * tpr * e < V ||
-      (vec && (reinterpret_cast<uintptr_t>(x) % 16 != 0 || sr % e != 0 ||
-               V % e != 0)))
+  if (!reg_ok(x, rows, V, sr, tpr, rpb, per, vec, dtype))
     return (int)cudaErrorInvalidValue;
-  if (dtype == kBF16)
-    return vec ? reg_launch<bf16, true>(x, probs, rows, V, sr, tpr, rpb, per, s)
-               : reg_launch<bf16, false>(x, probs, rows, V, sr, tpr, rpb, per,
-                                         s);
-  if (dtype == kF32)
-    return vec ? reg_launch<float, true>(x, probs, rows, V, sr, tpr, rpb, per,
-                                         s)
-               : reg_launch<float, false>(x, probs, rows, V, sr, tpr, rpb,
-                                          per, s);
-  return (int)cudaErrorInvalidValue;
+  return reg_dispatch<false>(x, nullptr, probs, nullptr, nullptr, rows, V,
+                             sr, tpr, rpb, per, vec, dtype,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// softmax_xent's route "rows": as repro_softmax_reg, with the int64 labels
+// (rows,), the f32 scalar loss, and part: f32 (ceil(rows / rpb),) partials
+// where that is more than one block (then a second launch sums them), else
+// unused (may be NULL)
+extern "C" int repro_softmax_xent_reg(const void* x, const void* labels,
+                                      void* probs, void* part, void* loss,
+                                      int rows, int V, long long sr, int tpr,
+                                      int rpb, int per, int vec, int dtype,
+                                      void* stream) {
+  if (!reg_ok(x, rows, V, sr, tpr, rpb, per, vec, dtype) || !labels ||
+      !loss || (rows > rpb && !part))
+    return (int)cudaErrorInvalidValue;
+  return reg_dispatch<true>(x, static_cast<const long long*>(labels), probs,
+                            static_cast<float*>(part),
+                            static_cast<float*>(loss), rows, V, sr, tpr, rpb,
+                            per, vec, dtype,
+                            static_cast<cudaStream_t>(stream));
 }

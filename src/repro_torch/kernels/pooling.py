@@ -20,9 +20,21 @@ in ``maxpool.routes`` beside ``launches``:
   its window by the image's four strides.
 
 The backward, for windows that do not overlap (stride >= k, as JAX's
-kernel), gathers: one thread per input pixel takes its window's ``dy`` if
-the stored argmax is its own padded index (no atomics); overlapping pools
-take the plain scatter in the ops layer.
+kernel), gathers: every input pixel takes its window's ``dy`` if the
+stored argmax is its own padded index, else 0 (no atomics, every pixel
+written once); overlapping pools take the plain scatter in the ops layer.
+Two routes, picked by ``maxpool_bwd_plan`` from the layouts and the
+stride and counted in ``maxpool_bwd.routes``:
+
+* "window": dy's and the argmax's rows of unit stride, stride 2 or 3 (a
+  template parameter of the kernel; k does not enter the backward).  A
+  thread owns a 16-byte vector of output columns across the ``stride``
+  image rows of one window row: it loads the argmax and dy of the windows
+  its columns fall in once and writes ``stride`` vectors.  The block,
+  (vectors, window rows, planes), packs several small planes or takes a
+  band of a large plane's window rows (``maxpool_bwd_band``).
+* "pixel": every other layout and stride: the first port's kernel, one
+  thread per input pixel reading dy and the argmax by their strides.
 """
 from __future__ import annotations
 
@@ -193,6 +205,91 @@ maxpool.launches = 0
 maxpool.routes = dict.fromkeys(ROUTES, 0)
 
 
+BWD_ROUTES = ("window", "pixel")
+# the "window" kernel (csrc/pooling.cu:maxpool_bwd_window_kernel): the
+# strides it is instantiated for, a block's most threads (kBwdThreads) and
+# planes (kBwdMaxPlanes: the block's z extent), the most bands of a plane
+# (the grid's y extent); the units (16-byte vectors across a window row) a
+# block aims at and the blocks the grid must reach where the shape allows
+# (one an SM).  Swept on the H100 (chip_smoke.py phase 3, "pool_bwd
+# sweep")
+BWD_STRIDES = (2, 3)
+BWD_THREADS = 512
+BWD_MAX_PLANES = 64
+BWD_MAX_BANDS = 65535
+BWD_UNITS = 256
+BWD_BLOCKS = 132
+
+
+class BwdBand(NamedTuple):
+    """A "window" block: ``cols`` 16-byte vectors of a row, ``groups``
+    window rows and ``planes`` planes (its x, y and z extents, threads
+    looping past them), its ``threads``, 16-byte stores (``vec``) and the
+    grid's ``blocks``."""
+    cols: int
+    groups: int
+    planes: int
+    threads: int
+    vec: bool
+    blocks: int
+
+
+def window_rows(h: int, stride: int, pad: int) -> int:
+    """The window rows (``stride`` padded rows each) that hold image rows:
+    ``pad // stride`` to ``(h - 1 + pad) // stride``."""
+    return (h - 1 + pad) // stride - pad // stride + 1
+
+
+def maxpool_bwd_plan(dtype: torch.dtype, x_shape: Sequence[int],
+                     dy_strides: Sequence[int], arg_strides: Sequence[int],
+                     k: int, stride: int, pad: int) -> str:
+    """The backward's route: "window" where dy's and the argmax's rows
+    have unit stride (or one window), the stride is one the kernel is
+    instantiated for (``BWD_STRIDES``), and the planes, the bands and the
+    padded plane fit its 32-bit indices and grid; "pixel" for every other
+    layout and stride."""
+    n, c, h, w = x_shape
+    ow = conv_out_size(w, k, stride, pad)
+
+    def unit(st):
+        return st[3] == 1 or ow == 1
+
+    fits = (n * c < 2 ** 31 and window_rows(h, stride, pad) <= BWD_MAX_BANDS
+            and (h + 2 * pad) * (w + 2 * pad) < 2 ** 31)
+    return "window" if stride in BWD_STRIDES and unit(dy_strides) \
+        and unit(arg_strides) and fits else "pixel"
+
+
+def maxpool_bwd_band(dtype: torch.dtype, x_shape: Sequence[int],
+                     stride: int, pad: int) -> BwdBand:
+    """The "window" block for these shapes.  A plane of fewer than
+    ``BWD_UNITS`` units (window rows x 16-byte vectors): as many whole
+    planes as make them (at most ``BWD_MAX_PLANES``); a larger one: the
+    window rows whose vectors make them.  Then, while the grid has fewer
+    than ``BWD_BLOCKS`` blocks, halve the planes, then the window rows,
+    which are then split evenly.  16-byte stores where the rows are whole
+    vectors (the output is contiguous)."""
+    n, c, h, w = x_shape
+    e = 16 // dtype.itemsize
+    g_all, nv = window_rows(h, stride, pad), _cdiv(w, e)
+    cols = min(nv, BWD_UNITS)
+    if g_all * nv < BWD_UNITS:
+        planes, groups = min(BWD_UNITS // (g_all * nv), BWD_MAX_PLANES), g_all
+    else:
+        planes, groups = 1, min(g_all, max(1, BWD_UNITS // cols))
+
+    def blocks(planes, groups):
+        return _cdiv(n * c, planes) * _cdiv(g_all, groups)
+
+    while blocks(planes, groups) < BWD_BLOCKS and planes > 1:
+        planes = _cdiv(planes, 2)
+    while blocks(planes, groups) < BWD_BLOCKS and groups > 1:
+        groups = _cdiv(groups, 2)
+    groups = _cdiv(g_all, _cdiv(g_all, groups))
+    return BwdBand(cols, groups, planes, cols * groups * planes,
+                   w % e == 0, blocks(planes, groups))
+
+
 def maxpool_bwd(dy: torch.Tensor, argmax: torch.Tensor, x_shape, k: int,
                 stride: int, pad: int = 0) -> torch.Tensor:
     """dy (N,C,OH,OW) and the forward's int32 argmax -> the (N,C,H,W)
@@ -219,14 +316,28 @@ def maxpool_bwd(dy: torch.Tensor, argmax: torch.Tensor, x_shape, k: int,
     out = torch.empty((n, c, h, w), dtype=dy.dtype, device=dy.device)
     if out.numel() == 0:
         return out
-    rc = _build.lib().repro_maxpool_bwd(
-        dy.data_ptr(), argmax.data_ptr(), out.data_ptr(), n, c, h, w,
-        *dy.stride(), *argmax.stride(), stride, pad, oh, ow,
-        DTYPES[dy.dtype], torch.cuda.current_stream(dy.device).cuda_stream,
-    )
+    route = maxpool_bwd_plan(dy.dtype, (n, c, h, w), dy.stride(),
+                             argmax.stride(), k, stride, pad)
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    if route == "window":
+        b = maxpool_bwd_band(dy.dtype, (n, c, h, w), stride, pad)
+        rc = _build.lib().repro_maxpool_bwd_window(
+            dy.data_ptr(), argmax.data_ptr(), out.data_ptr(), n, c, h, w,
+            *dy.stride()[:3], *argmax.stride()[:3], stride, pad, oh, ow,
+            b.cols, b.groups, b.planes,
+            int(b.vec and out.data_ptr() % 16 == 0), DTYPES[dy.dtype],
+            stream)
+    else:
+        rc = _build.lib().repro_maxpool_bwd(
+            dy.data_ptr(), argmax.data_ptr(), out.data_ptr(), n, c, h, w,
+            *dy.stride(), *argmax.stride(), stride, pad, oh, ow,
+            DTYPES[dy.dtype], stream)
     _build.check(rc, "maxpool_bwd")
     maxpool_bwd.launches += 1
+    maxpool_bwd.routes[route] += 1
     return out
 
 
 maxpool_bwd.launches = 0
+# launches per route, beside the total
+maxpool_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)

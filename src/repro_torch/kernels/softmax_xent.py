@@ -2,11 +2,13 @@
 Hopper kernels of Caffe's Softmax and SoftmaxWithLoss.
 
 Replace ``repro/kernels/softmax_xent.py:softmax_pallas``,
-``softmax_xent_pallas`` and ``softmax_xent_bwd_pallas``.  One kernel template (``csrc/softmax_xent.cu``),
-one warp per row, max and sum of exponentials in f32: softmax writes
-``e / sum(e)``, softmax_xent ``exp(logp)`` and each row's NLL in f32,
-whose mean over all B rows the wrapper takes (JAX takes it outside its
-kernel too: ``softmax_xent.py:107``).  A label outside [0, V) gives its
+``softmax_xent_pallas`` and ``softmax_xent_bwd_pallas``.  The first
+kernel template (``csrc/softmax_xent.cu``): one warp per row, max and sum
+of exponentials in f32; softmax writes ``e / sum(e)``, softmax_xent
+``exp(logp)`` and each row's NLL in f32, whose mean over all B rows is
+taken after it (JAX takes it outside its kernel too:
+``softmax_xent.py:107``; the "rows" route below fuses it).  A label
+outside [0, V) gives its
 row an NLL of 0, the rule of JAX's Pallas kernel (its one-hot never
 matches such a label; JAX's oracle wraps -1 to the last class instead),
 and the mean still divides by B.  The backward kernel writes ``(p -
@@ -24,6 +26,23 @@ beside ``launches``:
   sum by shuffle trees, ``e / sum(e)`` stored from the registers.
 * "strided": the kernel above (rows of any stride, the transposed
   crossing's column-major blob; a base off 16 bytes).
+
+softmax_xent has the same two routes, picked by ``softmax_xent_plan``
+(the same rule) and counted in ``softmax_xent.routes``:
+
+* "rows": the register-row kernel with the loss fused in
+  (``softmax_xent_rows``): ``logp = (x - max) - lse`` once per element,
+  ``exp(logp)`` stored from the registers, the label's lane giving the
+  row's NLL to shared memory, and the block's NLLs summed in a fixed
+  order (no atomics, no (B,) NLL tensor).  Where the whole batch fits one
+  block (LeNet's 64 x 10) that block writes the mean: one launch.  Past
+  one block each block writes a partial and a one-block second kernel
+  sums them in block order and divides by B: two launches.
+* "strided": the first kernel, then the mean of its (B,) NLLs
+  (``nll.mean()``, a second launch).
+
+Labels are read as int64; labels that are int64 already and contiguous
+(LeNet's: ``data/synthetic.py``) are passed as they are, with no copy.
 """
 from __future__ import annotations
 
@@ -74,6 +93,15 @@ ROWS_MAX_THREADS = 512
 SOFTMAX_ITEMS = 1
 SOFTMAX_THREADS = 128
 SOFTMAX_BLOCKS = 132
+# softmax_xent's "rows" grid (softmax_xent_rows): softmax's, packed into
+# one block for the whole batch where a lane then holds at most XENT_PACK
+# items (LeNet's 64 x 10: 8 lanes a row, 2 elements a lane); the second
+# pass's threads (csrc/softmax_xent.cu:kXentSumThreads).  Swept on the
+# H100 (chip_smoke.py phase 3, "softmax_xent rows sweep"): at 64 x 10
+# every one-block plan tied (0.0064-0.0066 ms), the 32-block plan and its
+# second launch took 0.0086
+XENT_PACK = 2
+XENT_SUM_THREADS = 256
 
 
 class Rows(NamedTuple):
@@ -138,6 +166,41 @@ def softmax_rows(dtype: torch.dtype, shape: Sequence[int],
     return Rows(tpr, rpb, per, vec, tpr * rpb, _cdiv(rows, rpb))
 
 
+def softmax_xent_plan(dtype: torch.dtype, shape: Sequence[int],
+                      strides: Sequence[int], aligned: bool) -> str:
+    """softmax_xent's route: ``softmax_plan``'s rule ("rows" for rows of
+    unit stride on a 16-byte aligned base that the registers hold), and
+    "strided" for an empty batch or row, whose mean the plain ``.mean()``
+    takes."""
+    rows, v = shape
+    if rows < 1 or v < 1:
+        return "strided"
+    return softmax_plan(dtype, shape, strides, aligned)
+
+
+def softmax_xent_rows(dtype: torch.dtype, shape: Sequence[int],
+                      strides: Sequence[int], aligned: bool) -> Rows:
+    """softmax_xent's "rows" grid.  One block for the whole batch where it
+    fits: from ``softmax_rows``' threads a row, halved while the batch
+    passes ``ROWS_MAX_THREADS`` threads and a lane would hold at most
+    ``XENT_PACK`` items; if the batch then fits, one block of it (rows
+    rounded up to whole warps), whose kernel writes the mean: one launch.
+    Else ``softmax_rows``' grid, each block a partial, summed by a second
+    launch."""
+    rows, _ = shape
+    items, _ = _items(dtype, shape, strides, aligned)
+    g = softmax_rows(dtype, shape, strides, aligned)
+    tpr = g.tpr
+    while rows * tpr > ROWS_MAX_THREADS and tpr > 1 \
+            and _cdiv(items, tpr // 2) <= XENT_PACK:
+        tpr //= 2
+    if rows * tpr > ROWS_MAX_THREADS:
+        return g
+    per = next(p for p in ROWS_PER if p * tpr >= items)
+    threads = _cdiv(rows * tpr, 32) * 32
+    return Rows(tpr, threads // tpr, per, g.vec, threads, 1)
+
+
 def softmax(x: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis, any leading rank, f32 inside, in
     ``x.dtype``, on the route ``softmax_plan`` picks.  CPU tensors take
@@ -188,10 +251,34 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
         return softmax_xent_ref(logits, labels)
     _build.guard_grad("softmax_xent", logits)
     _check_labels("softmax_xent", logits, labels)
-    probs, nll = _rows("softmax_xent", logits,
-                       labels.to(torch.int64).contiguous())
+    if logits.dtype not in DTYPES:
+        raise TypeError(f"softmax_xent: dtype {logits.dtype} not supported")
+    lab = labels.to(torch.int64).contiguous()
+    aligned = logits.data_ptr() % 16 == 0
+    route = softmax_xent_plan(logits.dtype, logits.shape, logits.stride(),
+                              aligned)
+    if route == "rows":
+        rows, v = logits.shape
+        g = softmax_xent_rows(logits.dtype, logits.shape, logits.stride(),
+                              aligned)
+        probs = torch.empty((rows, v), dtype=logits.dtype,
+                            device=logits.device)
+        loss = torch.empty((), dtype=torch.float32, device=logits.device)
+        part = None if g.blocks == 1 else torch.empty(
+            (g.blocks,), dtype=torch.float32, device=logits.device)
+        rc = _build.lib().repro_softmax_xent_reg(
+            logits.data_ptr(), lab.data_ptr(), probs.data_ptr(),
+            None if part is None else part.data_ptr(), loss.data_ptr(),
+            rows, v, logits.stride(0), g.tpr, g.rows, g.per, int(g.vec),
+            DTYPES[logits.dtype],
+            torch.cuda.current_stream(logits.device).cuda_stream)
+        _build.check(rc, "softmax_xent")
+    else:
+        probs, nll = _rows("softmax_xent", logits, lab)
+        loss = nll.mean()
     softmax_xent.launches += 1
-    return nll.mean(), probs
+    softmax_xent.routes[route] += 1
+    return loss, probs
 
 
 def softmax_xent_bwd(probs: torch.Tensor,
@@ -225,4 +312,5 @@ softmax.launches = 0
 # launches per route, beside the total
 softmax.routes = dict.fromkeys(ROUTES, 0)
 softmax_xent.launches = 0
+softmax_xent.routes = dict.fromkeys(ROUTES, 0)
 softmax_xent_bwd.launches = 0
