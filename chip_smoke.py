@@ -23,7 +23,10 @@ failure (non-zero exit, no result line):
               backward gemm of both LeNets' train steps, col2im in both
               column layouts and at pad 2, maxpool_bwd on ties with pads
               0 and 1, relu_bwd on a column-major x, softmax_xent_bwd
-              with labels -1 and V; conv2d_direct at the five LeNet
+              with the cotangent folded in (g 1.7, labels -1 and V, 256 x
+              1000, a column-major probs, a base off 16 bytes), CIFAR's
+              two average-pool backwards (aten's gather against the
+              window gather's autograd); conv2d_direct at the five LeNet
               convolutions, JAX's test cases, the autotuner's conv3x3
               cell, in bf16 and on a channels-last x), and the training
               step's: rmsnorm_bwd at 512 rows of 2048 and 5120 (dw the
@@ -62,8 +65,8 @@ failure (non-zero exit, no result line):
               the three decodes (contiguous slab, bf16 pool, int8 pool),
               the three chunked prefills, rmsnorm_bwd, conv2d_direct,
               relu_bwd, maxpool, relu, ssd_scan, softmax, rmsnorm,
-              bias_add_rows, im2col, col2im, softmax_xent and
-              maxpool_bwd have routes
+              bias_add_rows, im2col, col2im, softmax_xent, maxpool_bwd
+              and softmax_xent_bwd have routes
               (``kernels/gemm.py:plan``,
               ``kernels/flash_attention.py:bwd_plan``, ``fwd_plan``,
               ``decode_plan``, ``chunk_plan``,
@@ -75,7 +78,8 @@ failure (non-zero exit, no result line):
               ``kernels/mamba_scan.py:ssd_plan``,
               ``kernels/softmax_xent.py:softmax_plan``,
               ``softmax_xent_plan``, ``kernels/im2col.py:im2col_plan``,
-              ``col2im_plan``, ``kernels/pooling.py:maxpool_bwd_plan``):
+              ``col2im_plan``, ``kernels/pooling.py:maxpool_bwd_plan``,
+              ``kernels/softmax_xent.py:softmax_xent_bwd_plan``):
               each row prints the
               route its wrapper took, every bf16 training shape must take
               the tensor-core kernels, the bf16 forward the tensor-core
@@ -108,7 +112,12 @@ failure (non-zero exit, no result line):
               and argmax at stride 2 or 3 the window-owner kernel
               ("window": MNIST's pools, ties, pad 1, a 3/3 and a 2/3
               pool, a row of no whole vectors, bf16; a column-major dy
-              and a stride of 4 "pixel").
+              and a stride of 4 "pixel"), every softmax_xent_bwd of
+              unit-stride probs the register-row kernel with g folded in
+              ("rows": the 64 x 10 backward one launch, as the profiler
+              shows; a column-major probs and a base off 16 bytes
+              "strided"), each bit for bit the first kernel then torch's
+              ``* g``.
               conv2d_direct's rows are also timed on the scalar kernel
               (``forced_scalar_conv``) and swept over ``tiles``' caps at
               the LeNet shapes (``grep "conv sweep"``), relu_bwd's on the
@@ -135,7 +144,9 @@ failure (non-zero exit, no result line):
               (``forced_pixel_pool_bwd``, bit for bit) and swept over
               ``maxpool_bwd_band``'s caps (``grep "maxpool_bwd window
               sweep"``), both beside the timer's plain write and read of
-              their bytes (``grep "timer floor"``).  The
+              their bytes (``grep "timer floor"``), softmax_xent_bwd's
+              as the first kernel then torch's ``* g``
+              (``forced_twostep_xent_bwd``, bit for bit).  The
               forward (at the --check shape and at the training shape,
               B 2 x S 256, with qwen2.5-3b's, zamba2's and, windowed,
               mixtral's heads), the three decodes and the three chunks
@@ -259,12 +270,17 @@ failure (non-zero exit, no result line):
               row-major dy: ``caffe_relu_bwd_routes``), every maxpool
               "plane" and every relu "vec" ("strided" and "vec" in
               ``transfer+transpose``: ``caffe_fwd_routes``), every
-              softmax_xent "rows" ("strided" in ``transfer+transpose``)
-              and every MNIST maxpool_bwd "window" in all three modes
-              (``caffe_pool_bwd_routes``); (d) the paper's
-              Table 2, forward + backward (ms per iteration in the three
-              boundary modes, ms per train step, one profiled step's
-              device busy share).
+              softmax_xent "rows" ("strided" in ``transfer+transpose``),
+              every MNIST maxpool_bwd "window" in all three modes
+              (``caffe_pool_bwd_routes``) and every softmax_xent_bwd
+              "rows" in all three modes (``caffe_xent_bwd_routes``); (d)
+              the paper's Table 2, forward + backward (ms per iteration in
+              the three boundary modes, ms per train step, one profiled
+              step's device busy share: CIFAR's with no
+              ``indexing_backward_kernel`` and one aten average-pool
+              backward a pool, and the backward node and forward op behind
+              each, with the window gather's autograd forced and
+              without).
 10. direct  — the direct convolution: both LeNets' forward at batch 64
               in f32 on the hopper backend, then ``ops.conv2d_direct`` on
               each Convolution layer's bottom blob under
@@ -301,8 +317,8 @@ The line before the last is a JSON object with one entry per kernel (the
 routed kernels' -- the gemm's, the attention backward's and forward's,
 the three decodes', the three chunked prefills', rmsnorm_bwd's,
 conv2d_direct's, relu_bwd's, maxpool's, relu's, ssd_scan's,
-softmax's, rmsnorm's, bias_add_rows', im2col's, col2im's, softmax_xent's
-and maxpool_bwd's -- with ``routes``:
+softmax's, rmsnorm's, bias_add_rows', im2col's, col2im's, softmax_xent's,
+maxpool_bwd's and softmax_xent_bwd's -- with ``routes``:
 the main paths' launches per route, phases 4-10); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -543,7 +559,8 @@ def phase_kernels(torch):
     # version computed in f32 and rounded once, as the kernel rounds: one
     # bf16 ulp.  softmax_xent_bwd subtracts and scales in f32 and rounds
     # once; the plain version rounds p - onehot to p's dtype first and
-    # divides by B (exact at B = 64): one bf16 ulp, f32 one rounding
+    # divides by B (exact at B = 64): one bf16 ulp, f32 one rounding; both
+    # then multiply by the same g and round again
     TOL.update({(dt, n): 0.0 for dt in ("float32", "bfloat16")
                 for n in ("maxpool_bwd", "relu_bwd")})
     TOL.update({("float32", "col2im"): 1e-5, ("bfloat16", "col2im"): 2 ** -7,
@@ -1463,12 +1480,21 @@ def phase_kernels(torch):
                    "softmax_xent": f", on the strided kernel and torch's "
                                    f"mean forced {tot['forced_ms']:.4f} ms",
                    "maxpool_bwd": f", on the pixel kernel forced "
-                                  f"{tot['forced_ms']:.4f} ms"}.get(name,
-                                                                    "")
+                                  f"{tot['forced_ms']:.4f} ms",
+                   "softmax_xent_bwd": f", as the first kernel and torch's "
+                                       f"* g forced "
+                                       f"{tot['forced_ms']:.4f} ms"}.get(
+                                           name, "")
             print(f"[3 kernels] {name}: one f32 {step} at B={LENET_B}: "
                   f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, "
                   f"plain {tot['plain_ms']:.4f} ms, library "
                   f"{tot['library_ms']:.4f} ms{was}", flush=True)
+    tot = totals("avgpool_bwd", "cifar train")
+    print(f"[3 kernels] avgpool backward: CIFAR's two 3/2 pools of one f32 "
+          f"train step at B={LENET_B}: aten's gather (AvgPoolFn) "
+          f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.5f} ms, the window "
+          f"gather's autograd it replaced {tot['plain_ms']:.4f} ms, aten's "
+          f"call alone {tot['library_ms']:.4f} ms", flush=True)
     for step in ("mnist direct", "cifar direct"):
         tot = totals("conv2d_direct", step)
         print(f"[3 kernels] conv2d_direct: the convolutions of one f32 "
@@ -2154,6 +2180,117 @@ def forced_flat_col2im():
     return forced_route(IC, "col2im_plan", "col2im", "flat")
 
 
+# the loss's backward as phase 3 calls it: one call with the cotangent
+# folded in, or (under ``forced_twostep_xent_bwd``) the composition it
+# replaced
+TWO_STEP = []
+
+
+def xent_bwd_of(p, y, g):
+    """``softmax_xent_bwd(p, y, g)``, or, where ``forced_twostep_xent_bwd``
+    holds, ``softmax_xent_bwd(p, y) * g``: the kernel without g, then
+    torch's multiply, a second launch."""
+    from repro_torch.kernels.softmax_xent import softmax_xent_bwd
+
+    if TWO_STEP:
+        return softmax_xent_bwd(p, y) * g
+    return softmax_xent_bwd(p, y, g)
+
+
+@contextlib.contextmanager
+def forced_twostep_xent_bwd():
+    """The loss's backward as it ran before this slice: the first port's
+    kernel (route "strided", ``softmax_xent_bwd_plan`` made to name it)
+    without g, then torch's ``* g`` (``xent_bwd_of``)."""
+    from repro_torch.kernels import softmax_xent as SXm
+
+    with forced_route(SXm, "softmax_xent_bwd_plan", "softmax_xent_bwd",
+                      "strided"):
+        TWO_STEP.append(True)
+        try:
+            yield
+        finally:
+            TWO_STEP.pop()
+
+
+@contextlib.contextmanager
+def forced_windows_avgpool():
+    """The average pool's backward as before this slice: torch autograd of
+    ``ref.avgpool``'s window gather (an ``index_put_`` with accumulation,
+    on CUDA the sort-based ``indexing_backward_kernel``):
+    ``ops.avgpool_plan`` made to name "windows"."""
+    from repro_torch.kernels import ops
+
+    saved = ops.avgpool_plan
+    ops.avgpool_plan = lambda *args: "windows"
+    try:
+        yield
+    finally:
+        ops.avgpool_plan = saved
+
+
+def short_kernel(name):
+    """A device kernel's name without its namespaces, template arguments
+    and argument list."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def backward_kernel_frames(torch, fn, names=None):
+    """One call of ``fn`` (a train step) under the profiler with Python
+    stacks and shapes, warmed by one call before: for each device kernel
+    launched inside a backward node (every one, or those whose short name
+    starts with one of ``names``), per launch the node, the port's Python frames around
+    the forward op that made the node (linked by the autograd sequence
+    number; where the profiler links no Python frame, that op's name and
+    input shapes) and the device us.  Returns {name: [(node, frames, us),
+    ...]}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True, record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+
+    def frames_of(e):
+        """The port's Python frames among ``e``'s parents, possibly none."""
+        out, up = [], e.cpu_parent
+        while up is not None:
+            if "repro_torch/" in up.name:
+                out.append(up.name.split("repro_torch/")[-1])
+            up = up.cpu_parent
+        return out
+
+    # sequence number -> the frames of the forward ops that carry it, the
+    # latest first (a custom Function's forward is one op of that name)
+    fwd = {}
+    for e in sorted(evs, key=lambda e: -e.time_range.start):
+        if e.sequence_nr >= 0 and "Backward" not in e.name \
+                and not e.name.startswith("autograd::"):
+            fwd.setdefault(e.sequence_nr, []).append(
+                (f"{e.name} {list(e.input_shapes or [])[:2]}", frames_of(e)))
+    found = {}
+    for e in evs:
+        for kern in getattr(e, "kernels", None) or []:
+            short = short_kernel(kern.name)
+            node = e
+            while node is not None and not (
+                    node.sequence_nr >= 0 and "Backward" in node.name):
+                node = node.cpu_parent
+            if node is None or (names is not None
+                                and not short.startswith(tuple(names))):
+                continue
+            cands = fwd.get(node.sequence_nr, [])
+            frames = next((f for _, f in cands if f),
+                          [op for op, _ in cands[:1]] or ["(no forward op)"])
+            found.setdefault(short, []).append(
+                (node.name.split(": ")[-1], frames, kern.duration))
+    return found
+
+
 def bitwise(torch, t):
     """``t``'s bytes, to compare two results bit for bit (``torch.equal``
     on floats holds -0 equal to +0)."""
@@ -2771,13 +2908,14 @@ def want_route(name, route, want):
 # ``forced_strided_pool``, ``forced_scalar_relu``, ``forced_block_ssd``,
 # ``forced_strided_softmax``, ``forced_scalar_norm``,
 # ``forced_scalar_bias``, ``forced_flat_im2col``, ``forced_flat_col2im``,
-# ``forced_strided_xent``, ``forced_pixel_pool_bwd``)
+# ``forced_strided_xent``, ``forced_pixel_pool_bwd``,
+# ``forced_twostep_xent_bwd``)
 REDESIGNED = ("flash_attention", "flash_decode", "flash_decode_paged",
               "flash_decode_paged_quant", "flash_prefill_chunk",
               "flash_prefill_chunk_paged", "flash_prefill_chunk_paged_quant",
               "rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool", "relu",
               "ssd_scan", "softmax", "rmsnorm", "bias_add_rows", "im2col",
-              "col2im", "softmax_xent", "maxpool_bwd")
+              "col2im", "softmax_xent", "maxpool_bwd", "softmax_xent_bwd")
 # the f32 small-M kernel's routes (csrc/gemm_f32.cu), K whole or split
 SMALL_ROUTES = ("f32_small", "f32_splitk")
 # the Caffe forward's batch (both solvers' batch_size) and phase 3's steps
@@ -3130,8 +3268,15 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
     (``count``: launches per step beyond the forward's, whose im2col the
     backward repeats), col2im on the backward product's strided view and
     on contiguous (N, C*K*K, OH*OW) columns, maxpool_bwd on exact ties
-    with pads 0 and 1, softmax_xent_bwd with labels -1 and V; then each
-    new kernel once in bf16.  relu_bwd's rows are timed beside the strided
+    with pads 0 and 1, softmax_xent_bwd with the cotangent folded in (g =
+    1 on the path; g = 1.7, labels -1 and V, 256 x 1000, a column-major
+    probs and a base off 16 bytes off it), CIFAR's two average-pool
+    backwards (aten's gather against the window gather's autograd); then
+    each new kernel once in bf16.  softmax_xent_bwd's rows take "rows"
+    (the two off-layout ones "strided"), each bit for bit the composition
+    it replaced (the first kernel, then torch's ``* g``) forced and timed
+    beside it; the 64 x 10 backward must run one kernel a call
+    (``kernels_of_call``).  relu_bwd's rows are timed beside the strided
     kernel forced, and its vec kernel swept over ``relu_vec_grid``'s
     block caps (``vec_grid_sweep``); col2im's take "tile" (the registered
     layout at an odd P, bf16 and a 3 x 3 window too), each bit for bit the
@@ -3153,6 +3298,7 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
     from repro_torch.kernels.gemm import gemm
     from repro_torch.kernels.im2col import col2im
     from repro_torch.kernels.pooling import maxpool, maxpool_bwd
+    from repro_torch.kernels import ops
     from repro_torch.kernels.softmax_xent import softmax_xent_bwd
 
     f32, bf, n = torch.float32, torch.bfloat16, LENET_B
@@ -3240,22 +3386,79 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
 
-    def xent_bwd_case(step, case, count, dtype=f32, outside=False):
-        p = torch.softmax(3 * rnd((n, 10), f32), -1).to(dtype)
-        y = torch.randint(0, 10, (n,), generator=g, device="cuda")
+    def xent_bwd_case(step, case, count, dtype=f32, rows=n, v=10, cot=1.0,
+                      outside=False, layout=None, route="rows"):
+        """The loss's backward with the cotangent ``cot`` folded in, on
+        ``route``: within ``TOL`` of the plain version
+        (``ref.softmax_xent_bwd(p, y) * g``) and bit for bit the
+        composition it replaced (the first kernel without g, then torch's
+        ``* g``: ``forced_twostep_xent_bwd``), timed beside it.
+        ``layout``: "column-major" probs, or a base "off 16 bytes" (both
+        "strided").  Its bytes: one read of p, the int64 labels and g, one
+        write of the gradient.  Returns the call and its bytes."""
+        es = torch.tensor([], dtype=dtype).element_size()
+        p = torch.softmax(3 * rnd((rows, v), f32), -1).to(dtype)
+        if layout == "column-major":
+            p = p.T.contiguous().T
+        elif layout == "off 16 bytes":
+            buf = torch.empty(rows * v + 1, dtype=dtype, device="cuda")
+            buf[1:].copy_(p.reshape(-1))
+            p = buf[1:].view(rows, v)
+        y = torch.randint(0, v, (rows,), generator=g, device="cuda")
         if outside:
-            y[0], y[1] = -1, 10
+            y[0], y[1] = -1, v
+        gt = torch.tensor(cot, device="cuda")
         lfn = None
         if not outside:
-            leaf = (3 * rnd((n, 10), dtype)).requires_grad_(True)
+            leaf = (3 * rnd((rows, v), dtype)).requires_grad_(True)
             loss = F.cross_entropy(leaf, y)
-            lfn = lambda: torch.autograd.grad(loss, leaf,  # noqa: E731
+            lfn = lambda: torch.autograd.grad(loss, leaf, gt,  # noqa: E731
                                               retain_graph=True)
-        es = p.element_size()
-        run(softmax_xent_bwd, f"{case} {n}x10", dtype, step, count,
-            lambda: softmax_xent_bwd(p, y),
-            lambda: ref.softmax_xent_bwd(p, y), lfn,
-            2 * n * 10 * es + 8 * n, 2.0 * n * 10)
+
+        def kfn():
+            return xent_bwd_of(p, y, gt)
+
+        nbytes = 2 * rows * v * es + 8 * rows + 4
+        want_route("softmax_xent_bwd", run(
+            softmax_xent_bwd, f"{case} {rows}x{v}"
+            f"{f' g {cot}' if cot != 1.0 else ''}"
+            f"{f' {layout}' if layout else ''}", dtype, step, count, kfn,
+            lambda: ref.softmax_xent_bwd(p, y) * gt, lfn, nbytes,
+            3.0 * rows * v, forced=forced_twostep_xent_bwd), route)
+        equal_forced(torch, f"softmax_xent_bwd {case}", kfn,
+                     forced_twostep_xent_bwd)
+        return kfn, nbytes
+
+    def avgpool_bwd():
+        """Names phase 3's rows of the average pool's backward, which is
+        aten's (avgpool has no TPU kernel, so none of the port's)."""
+
+    def avgpool_bwd_case(step, case, c, h, count, k=3, st=2):
+        """CIFAR's average pool's backward through ``torch.autograd.grad``:
+        ``AvgPoolFn``'s (aten's ``avg_pool2d_backward``, a gather per input
+        pixel, one launch) against the backward it replaced, autograd of
+        ``ref.avgpool``'s window gather (``index_put_`` with accumulation:
+        a sort, then ``indexing_backward_kernel``; ``forced_windows_
+        avgpool``), within 1e-6 (up to 4 windows' terms in another
+        order); the library yardstick aten's call alone.  Its bytes: one
+        read of the cotangent, one write of dx."""
+        x = rnd((n, c, h, h), f32).requires_grad_(True)
+        out = ops.avgpool(x, k, st)
+        if type(out.grad_fn).__name__ != "AvgPoolFnBackward":
+            raise SystemExit(f"chip_smoke: avgpool {case}: took "
+                             f"{type(out.grad_fn).__name__}")
+        with forced_windows_avgpool():
+            old = ops.avgpool(x, k, st)
+        dy = rnd(tuple(out.shape), f32)
+        run(avgpool_bwd, f"{case} {n}x{c}x{h}x{h} k{k} s{st}", f32, step,
+            count, lambda: torch.autograd.grad(out, x, dy,
+                                               retain_graph=True)[0],
+            lambda: torch.autograd.grad(old, x, dy, retain_graph=True)[0],
+            lambda: aten.avg_pool2d_backward(dy, x.detach(), (k, k),
+                                             (st, st), (0, 0), False, True,
+                                             k * k),
+            4 * (dy.numel() + x.numel()), 1.0 * dy.numel() * k * k,
+            tol=1e-6)
 
     def gemm_case(step, case, a, b, count, route):
         """``route``: the one ``plan`` must pick; the f32 small-M route's
@@ -3325,9 +3528,38 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
                        lambda x=x, dy=dy: relu_bwd(x, dy), f32, x.numel())
     relu_bwd_case("cifar train", "relu3, x column-major", (n, 64, 7, 7), 0,
                   x_column_major=True)
-    xent_bwd_case("mnist train", "loss", 1)
+    # the loss's backward (V = 10) of both nets, g = 1 as a train step
+    # gives it; then off the path (counts 0): g = 1.7, labels -1 and V,
+    # 256 x 1000, a column-major probs and a base off 16 bytes ("strided")
+    fn, nbytes = xent_bwd_case("mnist train", "loss", 1)
     xent_bwd_case("cifar train", "loss", 1)
-    xent_bwd_case("mnist train", "labels -1 and V", 0, outside=True)
+    # one launch a call, the gradient and g's multiply in one kernel (the
+    # composition it replaced: two); each kernel at most once a call (the
+    # profiler may drop a few records)
+    names = kernels_of_call(torch, fn)
+    if {k.split("<")[0] for k in names} != {"xent_bwd_reg_kernel"} or any(
+            cnt > 1 for cnt, _ in names.values()):
+        raise SystemExit(f"chip_smoke: softmax_xent_bwd {n}x10: one call ran "
+                         f"{names}, expected xent_bwd_reg_kernel once")
+    with forced_twostep_xent_bwd():
+        was = kernels_of_call(torch, fn)
+    print(f"[3 kernels] softmax_xent_bwd {n}x10 f32: one call's kernels "
+          f"(launches, device us, L2 warm) {names}; the composition it "
+          f"replaced {was}", flush=True)
+    timer_floor(torch, clock, f"softmax_xent_bwd mnist train {n}x10",
+                nbytes // 4)
+    xent_bwd_case("mnist train", "loss", 0, cot=1.7)
+    xent_bwd_case("mnist train", "labels -1 and V", 0, cot=1.7,
+                  outside=True)
+    xent_bwd_case("v 1000", "loss", 0, rows=256, v=1000, cot=1.7)
+    xent_bwd_case("off path", "loss", 0, cot=1.7, layout="column-major",
+                  route="strided")
+    xent_bwd_case("off path", "loss", 0, cot=1.7, layout="off 16 bytes",
+                  route="strided")
+    # CIFAR's two 3/2 average pools (pool2 on conv2's 32 x 15 x 15, pool3 on
+    # conv3's 64 x 7 x 7)
+    avgpool_bwd_case("cifar train", "pool2", 32, 15, 1)
+    avgpool_bwd_case("cifar train", "pool3", 64, 7, 1)
     # the backward products: the convolutions' dw = dy_flat @ cols^T (M = F,
     # K = N*OH*OW, B read along K) and dcols = w_mat^T @ dy_flat (A read
     # along M), the inner products' da = g @ W^T (B along K) and db = x^T
@@ -3361,6 +3593,8 @@ def caffe_train_kernels(torch, F, rnd, run, clock):
     maxpool_bwd_case("bf16", "pool2", rnd((n, 50, 8, 8), bf), 2, 2, 0, 0)
     relu_bwd_case("bf16", "relu1", (n, 500), 0, dtype=bf, slope=0.1)
     xent_bwd_case("bf16", "loss", 0, dtype=bf)
+    xent_bwd_case("bf16", "loss", 0, dtype=bf, cot=1.7, outside=True)
+    xent_bwd_case("bf16", "loss", 0, dtype=bf, rows=256, v=1000, cot=1.7)
 
 
 def small_gemm_cases(torch, rnd, run, clock):
@@ -3671,7 +3905,8 @@ CHUNKS = ("flash_prefill_chunk", "flash_prefill_chunk_paged",
 ROUTED = ("gemm", "flash_attention_bwd", "flash_attention") + DECODES \
     + CHUNKS + ("rmsnorm_bwd", "conv2d_direct", "relu_bwd", "maxpool",
                 "relu", "ssd_scan", "softmax", "rmsnorm", "bias_add_rows",
-                "im2col", "col2im", "softmax_xent", "maxpool_bwd")
+                "im2col", "col2im", "softmax_xent", "maxpool_bwd",
+                "softmax_xent_bwd")
 ROUTE_SOURCES = {
     ("gemm", "skinny"): "src/repro_torch/kernels/csrc/gemm.cu",
     ("gemm", "tiled"): "src/repro_torch/kernels/csrc/gemm.cu",
@@ -3714,6 +3949,10 @@ ROUTE_SOURCES = {
     ("softmax_xent", "rows"):
         "src/repro_torch/kernels/csrc/softmax_xent.cu",
     ("softmax_xent", "strided"):
+        "src/repro_torch/kernels/csrc/softmax_xent.cu",
+    ("softmax_xent_bwd", "rows"):
+        "src/repro_torch/kernels/csrc/softmax_xent.cu",
+    ("softmax_xent_bwd", "strided"):
         "src/repro_torch/kernels/csrc/softmax_xent.cu",
     ("maxpool_bwd", "window"): "src/repro_torch/kernels/csrc/pooling.cu",
     ("maxpool_bwd", "pixel"): "src/repro_torch/kernels/csrc/pooling.cu",
@@ -5089,6 +5328,7 @@ def caffe_profile(torch, fwd, name, reps=10, tag="8 caffe",
                       f"{e.self_device_time_total / 1e3 / reps:.4f} ms "
                       f"x{e.count // reps}" for e in events[:8]),
           flush=True)
+    return events
 
 
 def phase_caffe(torch):
@@ -5382,6 +5622,17 @@ def caffe_xent_routes(spec, boundary, labels=True):
     return {"softmax_xent": {route: n} if n else {}}
 
 
+def caffe_xent_bwd_routes(spec, boundary):
+    """``softmax_xent_bwd``'s launches per route in one train step of the
+    net ``spec`` (one a SoftmaxWithLoss layer): "rows" in every boundary
+    mode, as its probs are the forward kernel's fresh contiguous output
+    whichever layout the logits arrived in
+    (``tests/test_torch_xent_bwd_plan.py`` walks the crossings on the
+    CPU)."""
+    n = sum(ls.type == "SoftmaxWithLoss" for ls in spec.layers)
+    return {"softmax_xent_bwd": {"rows": n}}
+
+
 def caffe_pool_bwd_routes(spec, boundary):
     """``maxpool_bwd``'s launches per route in one train step of the net
     ``spec``: "window" for each max pool whose windows do not overlap at
@@ -5517,6 +5768,54 @@ def caffe_timed(torch, fn, reps=CAFFE_REPS):
     return statistics.median(times)
 
 
+# the device kernels of the average pool's backward before this slice
+# (autograd of the window gather: ``index_put_`` with accumulation) and
+# after it (``AvgPoolFn``: aten's gather)
+WINDOW_BWD_KERNELS = ("indexing_backward_kernel",)
+AVGPOOL_BWD_KERNELS = ("avg_pool2d_backward",)
+
+
+def caffe_avgpool_bwd(torch, events, step, name, spec, reps=10):
+    """The average pools' backward in a train step of ``spec`` (from
+    ``caffe_profile``'s ``events`` over ``reps`` steps): no
+    ``indexing_backward_kernel``, and one aten gather a pool; then one
+    step each with the window gather's autograd forced
+    (``forced_windows_avgpool``, the route before this slice) and on
+    ``AvgPoolFn``, under the profiler with Python stacks: which backward
+    node launched each of those kernels, from which forward op, and its
+    device us."""
+    pools = sum(ls.type == "Pooling" and ls.pool == "ave"
+                for ls in spec.layers)
+    ran = [(short_kernel(e.key), e) for e in events
+           if e.self_device_time_total > 0]
+    old = [k for k, _ in ran if k.startswith(WINDOW_BWD_KERNELS)]
+    new = [(k, e) for k, e in ran if k.startswith(AVGPOOL_BWD_KERNELS)]
+    if old or sum(e.count for _, e in new) != pools * reps:
+        raise SystemExit(f"chip_smoke: {name}: the average pools' backward "
+                         f"ran {old + [k for k, _ in new]}, expected "
+                         f"{AVGPOOL_BWD_KERNELS[0]} {pools} a step")
+    if not pools:
+        return
+    print(f"[9 caffe train] {name}: the {pools} average pools' backward a "
+          "step: " + "; ".join(f"{k} x{e.count // reps} "
+                               f"{e.self_device_time_total / 1e3 / reps:.4f}"
+                               " ms" for k, e in new)
+          + "; no indexing_backward_kernel", flush=True)
+    from repro_torch.core.policy import use_backend
+
+    kernels = WINDOW_BWD_KERNELS + AVGPOOL_BWD_KERNELS
+    with use_backend("hopper"):
+        for how, ctx in (("the window gather's autograd forced",
+                          forced_windows_avgpool),
+                         ("AvgPoolFn", contextlib.nullcontext)):
+            with ctx():
+                found = backward_kernel_frames(torch, step, kernels)
+            print(f"[9 caffe train] {name}, {how}: " + "; ".join(
+                f"{k} from {node} ({' <- '.join(frames[:4])}) {us:.1f} us"
+                for k, lst in sorted(found.items())
+                for node, frames, us in lst), flush=True)
+
+
 def phase_caffe_train(torch):
     """Phase 9: Caffe's TRAIN phase for LeNet-MNIST and LeNet-CIFAR-10
     quick at batch 64 in f32 on the hopper backend, seeded params with
@@ -5608,6 +5907,7 @@ def phase_caffe_train(torch):
                 routes=caffe_gemm_routes(net.spec, net.blob_shapes, True),
                 kernel_routes={**caffe_relu_bwd_routes(net.spec, None),
                                **caffe_pool_bwd_routes(net.spec, None),
+                               **caffe_xent_bwd_routes(net.spec, None),
                                **caffe_fwd_routes(net.spec, None),
                                **caffe_conv_routes(net.spec, None, True)})
             for k, v in got.items():
@@ -5634,6 +5934,7 @@ def phase_caffe_train(torch):
                     transpose=boundary == "transfer+transpose"),
                 kernel_routes={**caffe_relu_bwd_routes(net.spec, boundary),
                                **caffe_pool_bwd_routes(net.spec, boundary),
+                               **caffe_xent_bwd_routes(net.spec, boundary),
                                **caffe_fwd_routes(net.spec, boundary),
                                **caffe_conv_routes(net.spec, boundary,
                                                    True)})
@@ -5683,8 +5984,10 @@ def phase_caffe_train(torch):
                           f"({ms[b] / ms[None]:.2f}x)" for b in ms)
               + f"; ms per train step (fused, update included) "
               f"{ms_step:.4f}", flush=True)
-        caffe_profile(torch, lambda: step(st, data, label), name,
-                      tag="9 caffe train", what="train step")
+        events = caffe_profile(torch, lambda: step(st, data, label), name,
+                               tag="9 caffe train", what="train step")
+        caffe_avgpool_bwd(torch, events, lambda: step(st, data, label),
+                          name, net.spec)
 
     # (c)
     solver = Solver(Net(lenet_mnist()), lenet_mnist_solver(

@@ -126,9 +126,13 @@ _SIGNATURES = {
     # rows, V, row stride, threads a row, rows a block, items a lane, vec,
     # dtype, stream
     "repro_softmax_xent_reg": [_P] * 5 + [_I, _I, _L] + [_I] * 5 + [_P],
-    # probs, labels, out, rows, V, row stride, column stride, 1/B, dtype,
-    # stream
-    "repro_softmax_xent_bwd": [_P, _P, _P, _I, _I, _L, _L, _F, _I, _P],
+    # probs, labels, g (f32 scalar or NULL), out, rows, V, row stride,
+    # column stride, 1/B, dtype, stream
+    "repro_softmax_xent_bwd": [_P] * 4 + [_I, _I, _L, _L, _F, _I, _P],
+    # probs, labels, g (f32 scalar or NULL), out, rows, V, row stride,
+    # threads a row, rows a block, items a lane, vec, 1/B, dtype, stream
+    "repro_softmax_xent_bwd_reg": [_P] * 4 + [_I, _I, _L] + [_I] * 4
+                                  + [_F, _I, _P],
     # q, k, v, out, pos0, width, block_table, ksc, vsc, B, Hkv, G, C, D,
     # n_keys, page, bt_sb, q_sb, q_sc, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
     # v_sh, o_sb, o_sc, o_sh, sc_sp, sc_sh, window, scale, dtype, kv_dtype,

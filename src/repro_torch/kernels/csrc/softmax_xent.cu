@@ -49,12 +49,26 @@
 // one-block grid is the point: the first kernel plus torch's mean took two
 // launches (0.0096 ms at 64 x 10 on the H100, chip_smoke.py phase 3).
 //
-// softmax_xent's backward (replaces softmax_xent_bwd_pallas): dlogits =
-// (p - [j == label]) * (1/B), in f32 and rounded once to p's dtype; a
-// label outside [0, V) matches no column, so its row is p / B, as the TPU
-// kernel's one-hot.  Bound by bytes (a read of p, a write of the same
-// size); the same geometry, one warp per row, lanes striding the row, p
-// read by its strides, the output contiguous (B, V).
+// softmax_xent's backward (replaces softmax_xent_bwd_pallas): t = (p -
+// [j == label]) * (1/B), in f32 and rounded once to p's dtype; a label
+// outside [0, V) matches no column, so its row is p / B, as the TPU
+// kernel's one-hot.  The loss's cotangent g (an f32 scalar read from device
+// memory, no host sync) is folded in: out = round(float(t) * float(g_T)),
+// g_T being g rounded to T as torch's multiply rounds a 0-d operand, the
+// roundings of the kernel-then-`* g` composition that JAX runs outside its
+// kernel (repro/kernels/ops.py:_xent_p_bwd), so the result is the port's
+// composition on the card bit for bit, in one launch; with no g (NULL) the
+// kernel writes t, JAX's kernel function.  Bound by bytes (a read of p, a write of
+// the same size); at LeNet's 64 x 10, launch latency.  Two routes
+// (kernels/softmax_xent.py:softmax_xent_bwd_plan):
+//   "strided" (repro_softmax_xent_bwd): the first port's geometry, one warp
+//   per row, lanes striding the row, p read by its strides;
+//   "rows" (repro_softmax_xent_bwd_reg): p's rows of unit stride on a
+//   16-byte aligned base, packed by sub-warps of tpr lanes as the forward's
+//   register rows (softmax_xent_bwd_rows: LeNet's whole batch in one block,
+//   8 lanes of 2 elements a row), every lane's items loaded (16-byte
+//   vectors where whole) before its first store.
+// Both write a contiguous (B, V).
 #include "common.cuh"
 
 namespace {
@@ -109,19 +123,37 @@ void launch(const void* x, const long long* labels, void* probs, float* nll,
         rows, V, sr, sc);
 }
 
+// the cotangent as the composition's multiply takes it: torch's product of
+// a T tensor and an f32 0-d tensor on the card rounds the 0-d operand to T
+// first (bf16: 1.7 -> 1.703125); 1 where the caller gave none
+template <typename T>
+__device__ __forceinline__ float xent_g(const float* g) {
+  return g ? to_f32(from_f32<T>(__ldg(g))) : 1.f;
+}
+
+// the backward's value at column c of a row whose label is y and element
+// p: t = (p - onehot) * scale rounded to T, then times g (xent_g) in f32,
+// exact for bf16 operands, so one rounding as torch's; g = 1 gives t
+template <typename T>
+__device__ __forceinline__ float xent_grad(float p, int c, long long y,
+                                           float scale, float g) {
+  return to_f32(from_f32<T>((p - (c == y ? 1.f : 0.f)) * scale)) * g;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 xent_bwd_kernel(const T* __restrict__ p, const long long* __restrict__ labels,
-                T* __restrict__ out, int rows, int V, long sr, long sc,
-                float scale) {
+                const float* __restrict__ g, T* __restrict__ out, int rows,
+                int V, long sr, long sc, float scale) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= rows) return;
   const T* pr = p + (long)row * sr;
   T* o = out + (long)row * V;
   const long long y = labels[row];
+  const float gv = xent_g<T>(g);
   for (int v = lane; v < V; v += 32)
-    o[v] = from_f32<T>((to_f32(pr[v * sc]) - (v == y ? 1.f : 0.f)) * scale);
+    o[v] = from_f32<T>(xent_grad<T>(to_f32(pr[v * sc]), v, y, scale, gv));
 }
 
 // ---------------------------------------------------------------------------
@@ -290,6 +322,70 @@ xent_mean_kernel(const float* __restrict__ part, int n,
   }
 }
 
+// softmax_xent's backward, route "rows": tpr lanes a row (no reductions,
+// so rows need not fill warps), each holding up to kPer items of p in
+// registers, all loaded before the first store; the row's label and g read
+// once; the same xent_grad as the strided kernel, so the same bits
+template <typename T, bool kVec, int kPer>
+__global__ void __launch_bounds__(kRowsMaxThreads)
+xent_bwd_reg_kernel(const T* __restrict__ p,
+                    const long long* __restrict__ labels,
+                    const float* __restrict__ g, T* __restrict__ out,
+                    int rows, int V, long sr, int tpr, int rpb,
+                    float scale) {
+  constexpr int E = kVec ? Vec<T>::N : 1;  // elements an item
+  const int j = threadIdx.x % tpr;
+  const int row = blockIdx.x * rpb + threadIdx.x / tpr;
+  if (row >= rows) return;
+  const int items = V / E;
+  const T* pr = p + (long)row * sr;
+  T* o = out + (long)row * V;
+  const long long y = labels[row];
+  const float gv = xent_g<T>(g);
+  float v[kPer][E];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = j + i * tpr;
+    if (idx < items) {
+      if constexpr (kVec)
+        load16(pr + (long)idx * E, v[i]);
+      else
+        v[i][0] = to_f32(pr[idx]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = j + i * tpr;
+    if (idx < items) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        v[i][e] = xent_grad<T>(v[i][e], idx * E + e, y, scale, gv);
+      if constexpr (kVec)
+        store16(o + (long)idx * E, v[i]);
+      else
+        o[idx] = from_f32<T>(v[i][0]);
+    }
+  }
+}
+
+template <typename T, bool kVec>
+int bwd_reg_launch(const void* p, const long long* labels, const float* g,
+                   void* out, int rows, int V, long sr, int tpr, int rpb,
+                   int per, float scale, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((rows + rpb - 1) / rpb);
+  const T* pi = static_cast<const T*>(p);
+  T* po = static_cast<T*>(out);
+#define X(P_)                                                              \
+  if (per == P_) {                                                         \
+    xent_bwd_reg_kernel<T, kVec, P_><<<blocks, tpr * rpb, 0, s>>>(         \
+        pi, labels, g, po, rows, V, sr, tpr, rpb, scale);                  \
+    return (int)cudaGetLastError();                                        \
+  }
+  X(1) X(2) X(4) X(8)
+#undef X
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, bool kVec, bool kXent>
 int reg_launch(const void* x, const long long* labels, void* probs,
                float* part, float* loss, int rows, int V, long sr, int tpr,
@@ -344,25 +440,56 @@ int reg_dispatch(const void* x, const long long* labels, void* probs,
 
 }  // namespace
 
-// probs (rows, V) by strides, labels int64, out contiguous; scale = 1/B
+// softmax_xent's backward, route "strided": probs (rows, V) by strides,
+// labels int64, g the f32 scalar cotangent (NULL: none, JAX's kernel
+// function), out contiguous; scale = 1/B
 extern "C" int repro_softmax_xent_bwd(const void* probs, const void* labels,
-                                      void* out, int rows, int V,
-                                      long long sr, long long sc,
+                                      const void* g, void* out, int rows,
+                                      int V, long long sr, long long sc,
                                       float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* y = static_cast<const long long*>(labels);
+  const float* gp = static_cast<const float*>(g);
   const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
   if (dtype == kBF16)
     xent_bwd_kernel<bf16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const bf16*>(probs), y, static_cast<bf16*>(out), rows, V,
-        sr, sc, scale);
+        static_cast<const bf16*>(probs), y, gp, static_cast<bf16*>(out), rows,
+        V, sr, sc, scale);
   else if (dtype == kF32)
     xent_bwd_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(probs), y, static_cast<float*>(out), rows,
-        V, sr, sc, scale);
+        static_cast<const float*>(probs), y, gp, static_cast<float*>(out),
+        rows, V, sr, sc, scale);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// softmax_xent's backward, route "rows": probs (rows, V) of unit stride and
+// row stride sr, labels int64, g as repro_softmax_xent_bwd's, out
+// contiguous; tpr, rpb, per and vec as repro_softmax_reg's (no reduction:
+// rpb rows need not make whole warps, but the launch keeps reg_ok's rules)
+extern "C" int repro_softmax_xent_bwd_reg(const void* probs,
+                                          const void* labels, const void* g,
+                                          void* out, int rows, int V,
+                                          long long sr, int tpr, int rpb,
+                                          int per, int vec, float scale,
+                                          int dtype, void* stream) {
+  if (!reg_ok(probs, rows, V, sr, tpr, rpb, per, vec, dtype) || !labels)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* y = static_cast<const long long*>(labels);
+  const float* gp = static_cast<const float*>(g);
+  if (dtype == kBF16)
+    return vec ? bwd_reg_launch<bf16, true>(probs, y, gp, out, rows, V, sr,
+                                            tpr, rpb, per, scale, s)
+               : bwd_reg_launch<bf16, false>(probs, y, gp, out, rows, V, sr,
+                                             tpr, rpb, per, scale, s);
+  if (dtype == kF32)
+    return vec ? bwd_reg_launch<float, true>(probs, y, gp, out, rows, V, sr,
+                                             tpr, rpb, per, scale, s)
+               : bwd_reg_launch<float, false>(probs, y, gp, out, rows, V, sr,
+                                              tpr, rpb, per, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // labels == nullptr: softmax (nll unused); else softmax_xent, labels int64

@@ -29,11 +29,14 @@ backward launches the backward kernels where the TPU port has them
 ``flash_attention_bwd`` from the saved out and lse; ``relu``:
 ``relu_bwd``; ``conv2d``: im2col again, two gemms and ``col2im``;
 ``maxpool``: ``maxpool_bwd`` where the windows do not overlap;
-``softmax_xent``: ``softmax_xent_bwd``) and is plain PyTorch where JAX's
-is jnp (``bias_add_rows``: ``(g, g.sum(0))``; the convolution's bias
-gradient; ``col2im`` at a stride other than 1 and the overlapping
-maxpool's scatter; ``ssd_scan``: the vjp of the plain version, as JAX
-has no SSD backward kernel either).  A kernel wrapper called outside
+``softmax_xent``: ``softmax_xent_bwd`` with the cotangent folded in)
+and is plain PyTorch where JAX's is jnp (``bias_add_rows``: ``(g,
+g.sum(0))``; the convolution's bias gradient; ``col2im`` at a stride
+other than 1 and the overlapping maxpool's scatter; ``ssd_scan``: the vjp
+of the plain version, as JAX has no SSD backward kernel either).  The
+reference-only ``avgpool`` takes, on both lowerings, ``AvgPoolFn``: the
+plain forward and aten's one-launch pool backward in place of autograd's
+``index_put_`` through the window gather.  A kernel wrapper called outside
 these Functions on a tensor that requires grad raises
 (``_build.guard_grad``) rather than cut the graph.  The serving ops
 (decode, chunked prefill) are not differentiable, nor are the hopper
@@ -253,9 +256,11 @@ class MaxPoolFn(torch.autograd.Function):
 
 class XentFn(torch.autograd.Function):
     """The mean NLL, saving ``(probs, labels)``; backward
-    ``softmax_xent_bwd(probs, labels) * g``, the ``* g`` outside the
-    kernel (``repro/kernels/ops.py:318-352``).  ``hopper``: the
-    softmax_xent and softmax_xent_bwd kernels; else the plain versions."""
+    ``softmax_xent_bwd(probs, labels) * g``, as JAX's
+    (``repro/kernels/ops.py:318-352``, the ``* g`` outside its kernel).
+    ``hopper``: the softmax_xent kernel forward, and the softmax_xent_bwd
+    kernel with ``g`` folded in (one launch, the same bits as the kernel
+    then ``* g``); else the plain versions."""
 
     @staticmethod
     def forward(ctx, logits, labels, hopper):
@@ -268,8 +273,45 @@ class XentFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         probs, labels = ctx.saved_tensors
-        bwd = SX.softmax_xent_bwd if ctx.hopper else ref.softmax_xent_bwd
-        return bwd(probs, labels) * g, None, None
+        if ctx.hopper:
+            return SX.softmax_xent_bwd(probs, labels, g), None, None
+        return ref.softmax_xent_bwd(probs, labels) * g, None, None
+
+
+def avgpool_plan(k: int, stride: int, pad: int, h: int, w: int) -> str:
+    """The average pool's backward under autograd, from the window and the
+    plane's size: "gather" (``AvgPoolFn``: aten's ``avg_pool2d_backward``,
+    one launch that gathers each input pixel's windows) where aten takes
+    the window (a pad of at most half of it, at least one output);
+    "windows" (autograd of ``ref.avgpool``'s window gather: an
+    ``index_put_`` with accumulation, on CUDA a sort) for the rest."""
+    out = min(ref.conv_out_size(h, k, stride, pad),
+              ref.conv_out_size(w, k, stride, pad))
+    return "gather" if 2 * pad <= k and out >= 1 else "windows"
+
+
+class AvgPoolFn(torch.autograd.Function):
+    """The average pool with a one-launch backward, on either backend
+    (avgpool is reference-only, as in JAX: no kernel of the port's).
+    Forward: ``ref.avgpool``, its values unchanged.  Backward: aten's
+    ``avg_pool2d_backward`` at the floor rule with divisor k*k, JAX's
+    windows (``repro/kernels/ref.py:212-226``): each window sends ``g /
+    (k*k)`` to each of its taps, padding taps dropped, as the transpose of
+    JAX's ``mean`` does."""
+
+    @staticmethod
+    def forward(ctx, x, k, stride, pad):
+        ctx.save_for_backward(x)
+        ctx.opts = (k, stride, pad)
+        return ref.avgpool(x, k, stride, pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        k, stride, pad = ctx.opts
+        dx = torch.ops.aten.avg_pool2d_backward(
+            g, x, (k, k), (stride, stride), (pad, pad), False, True, k * k)
+        return dx, None, None, None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -507,8 +549,12 @@ def maxpool(x: torch.Tensor, k: int, stride: int,
 
 def avgpool(x: torch.Tensor, k: int, stride: int,
             pad: int = 0) -> torch.Tensor:
-    """Reference-only, as in JAX: under grad, torch autograd of the plain
-    version on either backend."""
+    """Reference-only, as in JAX: the plain version on either backend;
+    under grad through ``AvgPoolFn`` where ``avgpool_plan`` names
+    "gather", else torch autograd of the plain version."""
+    if needs_grad(x) and avgpool_plan(k, stride, pad, *x.shape[-2:]) \
+            == "gather":
+        return AvgPoolFn.apply(x, k, stride, pad)
     return ref.avgpool(x, k, stride, pad)
 
 

@@ -11,9 +11,13 @@ taken after it (JAX takes it outside its kernel too:
 outside [0, V) gives its
 row an NLL of 0, the rule of JAX's Pallas kernel (its one-hot never
 matches such a label; JAX's oracle wraps -1 to the last class instead),
-and the mean still divides by B.  The backward kernel writes ``(p -
-onehot) / B`` from the saved probs, one warp per row as well; such a
-row's one-hot is empty, so it gets ``p / B``.
+and the mean still divides by B.  The backward writes ``(p - onehot) /
+B`` from the saved probs, rounded to their dtype, times the loss's
+cotangent ``g`` where the caller gives one (``XentFn``: read from device
+memory and rounded to the probs' dtype, as torch's multiply by a 0-d f32
+tensor rounds it on the card, the product rounded again: bit for bit the
+kernel-then-``* g`` composition, in one launch); such a row's one-hot is
+empty, so it gets ``p / B``.
 
 softmax has two routes, picked by ``softmax_plan`` from the layout and
 alignment (never by trying a kernel) and counted in ``softmax.routes``
@@ -41,12 +45,22 @@ softmax_xent has the same two routes, picked by ``softmax_xent_plan``
 * "strided": the first kernel, then the mean of its (B,) NLLs
   (``nll.mean()``, a second launch).
 
+softmax_xent_bwd has the same two routes, picked by
+``softmax_xent_bwd_plan`` (the same rule) and counted in
+``softmax_xent_bwd.routes``, each one launch with ``g`` folded in:
+
+* "rows": the forward's register rows without the reductions
+  (``softmax_xent_bwd_rows``: LeNet's 64 x 10 in one block, 8 lanes of 2
+  elements a row), every item loaded before the first store.
+* "strided": the first port's kernel, one warp a row, p read by its
+  strides (a column-major probs, a base off 16 bytes, an empty batch).
+
 Labels are read as int64; labels that are int64 already and contiguous
 (LeNet's: ``data/synthetic.py``) are passed as they are, with no copy.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -201,6 +215,23 @@ def softmax_xent_rows(dtype: torch.dtype, shape: Sequence[int],
     return Rows(tpr, threads // tpr, per, g.vec, threads, 1)
 
 
+def softmax_xent_bwd_plan(dtype: torch.dtype, shape: Sequence[int],
+                          strides: Sequence[int], aligned: bool) -> str:
+    """softmax_xent_bwd's route, from the probs' shape, strides and
+    alignment: ``softmax_xent_plan``'s rule ("rows" for rows of unit stride
+    on a 16-byte aligned base that the registers hold; "strided" for other
+    layouts, bases and an empty batch or row)."""
+    return softmax_xent_plan(dtype, shape, strides, aligned)
+
+
+def softmax_xent_bwd_rows(dtype: torch.dtype, shape: Sequence[int],
+                          strides: Sequence[int], aligned: bool) -> Rows:
+    """softmax_xent_bwd's "rows" grid: the forward's
+    (``softmax_xent_rows``), so that LeNet's whole batch is one block; past
+    one block the kernel needs no second pass, as it writes no sum."""
+    return softmax_xent_rows(dtype, shape, strides, aligned)
+
+
 def softmax(x: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis, any leading rank, f32 inside, in
     ``x.dtype``, on the route ``softmax_plan`` picks.  CPU tensors take
@@ -281,30 +312,52 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
     return loss, probs
 
 
-def softmax_xent_bwd(probs: torch.Tensor,
-                     labels: torch.Tensor) -> torch.Tensor:
+def softmax_xent_bwd(probs: torch.Tensor, labels: torch.Tensor,
+                     g: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B,V) probs, (B,) int labels -> ``(probs - onehot) / B`` in the
-    probs' dtype, contiguous.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    probs' dtype, contiguous, times ``g`` (the loss's f32 scalar cotangent,
+    on the probs' device) where given: ``softmax_xent_bwd(p, y, g)`` is
+    ``softmax_xent_bwd(p, y) * g`` bit for bit, in one launch.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel on the route
+    ``softmax_xent_bwd_plan`` picks, or raise."""
     if not probs.is_cuda:
-        return softmax_xent_bwd_ref(probs, labels)
+        out = softmax_xent_bwd_ref(probs, labels)
+        return out if g is None else out * g
     _build.guard_grad("softmax_xent_bwd", probs)
     _check_labels("softmax_xent_bwd", probs, labels)
     if probs.dtype not in DTYPES:
         raise TypeError(f"softmax_xent_bwd: dtype {probs.dtype} not "
                         "supported")
+    if g is not None and (g.dtype != torch.float32 or g.numel() != 1
+                          or g.device != probs.device):
+        raise TypeError("softmax_xent_bwd: g must be one f32 element on "
+                        f"{probs.device}, got {g.dtype} {tuple(g.shape)} on "
+                        f"{g.device}")
     rows, v = probs.shape
     out = torch.empty((rows, v), dtype=probs.dtype, device=probs.device)
     if out.numel() == 0:
         return out
     lab = labels.to(torch.int64).contiguous()
-    rc = _build.lib().repro_softmax_xent_bwd(
-        probs.data_ptr(), lab.data_ptr(), out.data_ptr(), rows, v,
-        probs.stride(0), probs.stride(1), 1.0 / rows, DTYPES[probs.dtype],
-        torch.cuda.current_stream(probs.device).cuda_stream,
-    )
+    gp = None if g is None else g.data_ptr()
+    stream = torch.cuda.current_stream(probs.device).cuda_stream
+    aligned = probs.data_ptr() % 16 == 0
+    route = softmax_xent_bwd_plan(probs.dtype, probs.shape, probs.stride(),
+                                  aligned)
+    if route == "rows":
+        grid = softmax_xent_bwd_rows(probs.dtype, probs.shape,
+                                     probs.stride(), aligned)
+        rc = _build.lib().repro_softmax_xent_bwd_reg(
+            probs.data_ptr(), lab.data_ptr(), gp, out.data_ptr(), rows, v,
+            probs.stride(0), grid.tpr, grid.rows, grid.per, int(grid.vec),
+            1.0 / rows, DTYPES[probs.dtype], stream)
+    else:
+        rc = _build.lib().repro_softmax_xent_bwd(
+            probs.data_ptr(), lab.data_ptr(), gp, out.data_ptr(), rows, v,
+            probs.stride(0), probs.stride(1), 1.0 / rows,
+            DTYPES[probs.dtype], stream)
     _build.check(rc, "softmax_xent_bwd")
     softmax_xent_bwd.launches += 1
+    softmax_xent_bwd.routes[route] += 1
     return out
 
 
@@ -314,3 +367,4 @@ softmax.routes = dict.fromkeys(ROUTES, 0)
 softmax_xent.launches = 0
 softmax_xent.routes = dict.fromkeys(ROUTES, 0)
 softmax_xent_bwd.launches = 0
+softmax_xent_bwd.routes = dict.fromkeys(ROUTES, 0)
