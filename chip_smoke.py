@@ -289,6 +289,28 @@ failure (non-zero exit, no result line):
               the layer's top blob from
               the net's im2col + gemm kernels and to the plain version;
               ms per layer and per net against the im2col + gemm form.
+11. share   — prefix sharing and sampled decoding through the engine,
+              every run under ``drive``'s checks (exact launch counts and
+              routes, ``set_sync_debug_mode("error")`` in prefill and
+              decode): (a) full width in bf16, qwen2.5-3b paged over the
+              bf16 and the int8 pool, zamba2-2.7b paged (pages and
+              snapshots) and mamba2-2.7b (snapshots only), chunk 16,
+              batch 4, page 16, 32 tokens each for 8 requests of a
+              256-token system prompt plus 16-48 of their own, the first
+              alone for ``WARM_CYCLES`` cycles: sharing on and off in
+              turns (two pairs, one for the int8 pool); it must engage
+              on every arch
+              and lower qwen2.5-3b's and zamba2-2.7b's peak pages; the
+              sharing counts, peak pages and KV bytes, the late requests'
+              mean TTFT per run and the streams' agreement are printed,
+              and the sampler's kernels and times against greedy's; (b)
+              the same traffic in f32 at phase 5's depths: sharing on and
+              off give identical streams over the f32 and bf16 pools (the
+              int8 pool's agreement printed); (c) the card's Threefry
+              bits and uniforms equal numpy's as integers, and qwen2.5-3b
+              in f32 at 2 layers sampled at T 0.8, top-k 50, seed 0 gives
+              one stream under ``steps_per_sync`` {1, 8} x chunk {1, 16},
+              top-k 1 the greedy one.
 
 The random 64- and 54-layer Mamba stacks are chaotic: the plain reference
 alone, in bf16 and in f32 on the same weights, disagrees on nearly every
@@ -319,7 +341,7 @@ the three decodes', the three chunked prefills', rmsnorm_bwd's,
 conv2d_direct's, relu_bwd's, maxpool's, relu's, ssd_scan's,
 softmax's, rmsnorm's, bias_add_rows', im2col's, col2im's, softmax_xent's,
 maxpool_bwd's and softmax_xent_bwd's -- with ``routes``:
-the main paths' launches per route, phases 4-10); the last line is
+the main paths' launches per route, phases 4-11); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -409,6 +431,10 @@ def main() -> int:
 
     # --------------------------------------------------------------- 10
     for name, n in phase_direct(torch).items():
+        launches[name] += n
+
+    # --------------------------------------------------------------- 11
+    for name, n in phase_share(torch).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -3897,7 +3923,7 @@ def kernel_fns():
 DECODES = ("flash_decode", "flash_decode_paged", "flash_decode_paged_quant")
 # the kernels with several routes (``fn.routes``: launches per route,
 # beside ``fn.launches``), each route's source, and the launches per route
-# summed over every counted run of a main path (phases 4-10)
+# summed over every counted run of a main path (phases 4-11)
 # the chunked prefills: bf16 on the tensor-core chunk kernel, f32 on the
 # template
 CHUNKS = ("flash_prefill_chunk", "flash_prefill_chunk_paged",
@@ -4005,10 +4031,8 @@ def ssd_routes(cfg, steps, chunked, forwards=0):
 
 
 def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
-    """Serve ``reqs`` on the hopper backend with the launch counts set to
-    0 just before and read just after; the prefill and decode loops may
-    not synchronise with the host.  Returns (launches, outputs, stats)."""
-    from repro_torch.core.policy import use_backend
+    """Serve ``reqs`` on the hopper backend (``drive``).  Returns
+    (launches, outputs, stats)."""
     from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
 
     eng = ServingEngine(model, params, batch=B, max_len=MAX_LEN,
@@ -4016,18 +4040,39 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
                                           kv_dtype=kv_dtype),
                         config=EngineConfig(steps_per_sync=8,
                                             prefill_chunk=chunk))
-    for toks in reqs:
-        eng.submit(toks, GEN_LEN)
-    fns = kernel_fns()
     pool = f", {kv_dtype} pool" if kv_dtype != "f32" else ""
     tag = (f"[4 serving] {model.cfg.name}, {layout}{pool}, prefill chunk "
            f"{chunk}:")
+    return drive(torch, eng, tag, [(0, reqs)])[:3]
+
+
+def drive(torch, eng, tag, arrivals):
+    """Serve on the hopper backend: ``arrivals`` lists (cycle, prompts),
+    each prompt submitted for ``GEN_LEN`` tokens before that cycle, every
+    cycle one ``admit``, ``prefill``, ``decode``, ``harvest``.  The launch
+    counts are set to 0 just before the first cycle and read just after
+    the last; the prefill and decode loops may not synchronise with the
+    host.  Every launch count, decode and chunk route and scan route
+    must be what the steps run imply.  Returns (launches, outputs,
+    stats, the request ids in arrival order)."""
+    from repro_torch.core.policy import use_backend
+
+    model = eng.model
+    reqs = [toks for _, batch in arrivals for toks in batch]
+    rids = []
+    fns = kernel_fns()
     with use_backend("hopper"):
         zero_counts(fns)
         t0 = time.perf_counter()
         t_pre = t_dec = t_harvest = 0.0
-        while eng.busy():
+        cycle = 0
+        while eng.busy() or any(c >= cycle for c, _ in arrivals):
+            rids += [eng.submit(toks, GEN_LEN) for c, batch in arrivals
+                     if c == cycle for toks in batch]
+            cycle += 1
             eng.admit()
+            if not eng.busy():        # idle until the next arrival
+                continue
             torch.cuda.set_sync_debug_mode("error")
             try:
                 t1 = time.perf_counter()
@@ -4046,6 +4091,7 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
         launches = read_counts(fns)
     s = eng.stats()
     pre, dec = eng.prefill_steps, eng.steps
+    s.update(wall_s=wall, decode_enqueue_ms=1e3 * t_dec / dec)
     print(f"{tag} {len(reqs)} requests (prompts "
           f"{min(len(r) for r in reqs)}-{max(len(r) for r in reqs)}), gen "
           f"{GEN_LEN}, batch {B}: {pre} prefill + {dec} decode steps in "
@@ -4100,10 +4146,10 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
                          f"expected {want_rt}")
     want = {name: 0 for name in KERNELS}
     want.update({name: n * (pre + dec) for name, n in steps.items()})
-    k_dec, k_pre = ATTN[layout, kv_dtype]
+    k_dec, k_pre = ATTN[eng.cache.layout, eng.cache.kv_dtype]
     want[k_dec] += n_attn * dec
     want[k_pre] += n_attn * pre
-    if launches != want or (chunk > 1) != (pre > 0):
+    if launches != want or (eng.prefill_chunk > 1) != (pre > 0):
         raise SystemExit(f"chip_smoke: {tag} launches "
                          f"{launches}, expected {want} for {pre} prefill + "
                          f"{dec} decode steps")
@@ -4112,7 +4158,7 @@ def serve_path(torch, model, params, reqs, layout, chunk, kv_dtype):
             len(o) != GEN_LEN or o.min() < 0 or o.max() >= model.cfg.vocab_size
             for o in outs.values()):
         raise SystemExit(f"chip_smoke: {tag} serving outputs malformed")
-    return launches, outs, s
+    return launches, outs, s, rids
 
 
 def first_logits(torch, model, params, toks, layout, backend):
@@ -4382,9 +4428,9 @@ class Decisions:
             self.probs.append(probs.detach().clone())
             return top_k(probs, k)
 
-        def traced_sample(logits):
+        def traced_sample(logits, *args):
             self.logits.append(logits.detach().float().clone())
-            return sample(logits)
+            return sample(logits, *args)
 
         for (m, n), fn in zip(self.hooks, (traced_top_k, traced_sample)):
             setattr(m, n, fn)
@@ -6115,6 +6161,299 @@ def phase_direct(torch):
                              "under grad")
     print("[10 direct] under grad ops.conv2d_direct raises", flush=True)
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 11: prefix sharing and sampled decoding
+# ---------------------------------------------------------------------------
+
+SYSTEM_LEN = 256      # the common system prompt: 16 pages of 16 tokens
+WARM_CYCLES = 3       # cycles the first request serves alone
+SHARE_MAX_LEN = SYSTEM_LEN + 48 + GEN_LEN + 1
+# 11a: full width in bf16, (pool, (sharing on, off) pairs run in turns)
+# of each arch ("f32": the model's dtype); mamba2 has no KV, so sharing
+# is its snapshot store alone
+SHARE_FULL = (("qwen2.5-3b", (("f32", 2), ("int8", 1))),
+              ("zamba2-2.7b", (("f32", 2),)),
+              ("mamba2-2.7b", (("f32", 2),)))
+# 11b: f32 at phase 5's depths over each pool
+SHARE_F32 = (("qwen2.5-3b", 2, ("f32", "bf16", "int8")),
+             ("zamba2-2.7b", GATE_LAYERS, ("f32", "bf16", "int8")),
+             ("mamba2-2.7b", 2, ("f32",)))
+SAMPLE_KW = dict(temperature=0.8, top_k=50, seed=0)
+M32 = 0xFFFFFFFF
+
+
+def system_prompt_requests(vocab, seed):
+    """8 prompts: one 256-token system prompt, then 16-48 tokens of each
+    request's own."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, SYSTEM_LEN)
+    return [np.concatenate([system, rng.integers(
+        0, vocab, int(rng.integers(16, 49)))]) for _ in range(8)]
+
+
+def serve_shared(torch, model, params, reqs, kv_dtype, sharing, tag, *,
+                 layout="paged", steps_per_sync=8, chunk=CHUNK, **kw):
+    """The first request alone for ``WARM_CYCLES`` cycles, so its prompt
+    pages (and boundary snapshots) are written, then the other 7, through
+    ``drive``.  Returns (launches, streams in arrival order, stats, the
+    mean TTFT of the 7 late requests in s on the host clock)."""
+    from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
+
+    eng = ServingEngine(
+        model, params, batch=B, max_len=SHARE_MAX_LEN,
+        cache=CacheConfig(layout=layout, page_size=PAGE, kv_dtype=kv_dtype),
+        config=EngineConfig(steps_per_sync=steps_per_sync,
+                            prefill_chunk=chunk, prefix_sharing=sharing,
+                            **kw))
+    launches, outs, st, rids = drive(torch, eng, tag,
+                                     [(0, reqs[:1]), (WARM_CYCLES, reqs[1:])])
+    late = float(np.mean([eng.ttft[r] for r in rids[1:]]))
+    return launches, [outs[r] for r in rids], st, late
+
+
+def sharing_pair(torch, model, params, reqs, kv_dtype, name, total,
+                 reps=1):
+    """``reps`` pairs of runs with sharing on and off, in turns (on, off,
+    off, on, ...); their launches added to ``total``.  Prints the sharing
+    counts of both, the late requests' mean TTFT of every run and how
+    many streams the first pair shares.  Returns {sharing: [(streams,
+    stats, ttft), ...]}."""
+    pool = f", {kv_dtype} pool" if kv_dtype != "f32" else ""
+    runs = {True: [], False: []}
+    for rep in range(reps):
+        for sharing in ((True, False) if rep % 2 == 0 else (False, True)):
+            tag = (f"{name} {model.cfg.name}{pool}, sharing "
+                   f"{'on' if sharing else 'off'}:")
+            launches, streams, st, ttft = serve_shared(
+                torch, model, params, reqs, kv_dtype, sharing, tag)
+            for k, n in launches.items():
+                total[k] += n
+            runs[sharing].append((streams, st, ttft))
+    on, off = runs[True][0][1], runs[False][0][1]
+    keys = ("shared_prompt_tokens", "cow_pages", "snap_slots_peak",
+            "kv_pages_peak", "kv_resident_bytes_peak")
+    print(f"{name} {model.cfg.name}{pool}: " + ", ".join(
+        f"{k} {int(on[k]) if k in on else '-'} / "
+        f"{int(off[k]) if k in off else '-'}" for k in keys)
+        + " (sharing on / off)", flush=True)
+    print(f"{name} {model.cfg.name}{pool}: mean TTFT of the 7 late requests "
+          f"(host clock, ms): sharing on " + ", ".join(
+              f"{1e3 * r[2]:.1f}" for r in runs[True]) + "; off " + ", ".join(
+              f"{1e3 * r[2]:.1f}" for r in runs[False]), flush=True)
+    def agree(a, b):
+        return sum(np.array_equal(x, y) for x, y in zip(a[0], b[0]))
+
+    # repeats of one setting tell run-to-run noise from the schedule:
+    # sharing moves decode-phase rows between chunk steps (at width 1)
+    # and decode steps, whose kernels round bf16 differently
+    print(f"{name} {model.cfg.name}{pool}: streams, sharing on vs off: "
+          f"{agree(runs[True][0], runs[False][0])} of {len(reqs)} "
+          f"identical" + "".join(
+              f"; {'on' if k else 'off'} vs its repeat "
+              f"{agree(runs[k][0], runs[k][1])}" for k in (True, False)
+              if len(runs[k]) > 1), flush=True)
+    if not on.get("shared_prompt_tokens"):
+        raise SystemExit(f"chip_smoke: {model.cfg.name}{pool}: sharing "
+                         "never engaged")
+    return runs
+
+
+def sampler_cost(torch, model, params, reqs, greedy, total):
+    """Full width, bf16: the sampler's kernels and times a call against
+    the greedy argmax's, on logits of the vocabulary's width (profiler
+    launches a call, host us to enqueue a call, CUDA-event ms a call);
+    then the phase's traffic sampled (sharing on), its decode enqueue ms
+    a step against the greedy run's (``greedy``: its stats)."""
+    from repro_torch.serving import engine as E
+
+    v = model.cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    logits = torch.randn((B, v), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    slots = E.init_slots(B, 8, torch.device("cuda"))._replace(
+        rng=torch.randint(0, 2 ** 32, (B, 2), generator=gen, device="cuda"))
+    wpos = torch.arange(300, 300 + B, device="cuda")
+    clock = Timer(torch, reps=25)
+    line = []
+    for way, kw in (("greedy", dict(temperature=0.0, top_k=0)),
+                    ("sampled", dict(temperature=0.8, top_k=50))):
+        def call(kw=kw):
+            return E._sample(logits, slots, wpos, **kw)
+        n = sum(c for c, _ in kernels_of_call(torch, call).values())
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            call()
+        host = 1e6 * (time.perf_counter() - t0) / 50
+        torch.cuda.synchronize()
+        line.append(f"{way} {n:g} kernels, host {host:.1f} us, device "
+                    f"{clock(call):.4f} ms")
+    print(f"[11 sample] {model.cfg.name} _sample on {B} x {v} bf16 logits, "
+          "a call: " + "; ".join(line), flush=True)
+    launches, _, st, _ = serve_shared(
+        torch, model, params, reqs, "f32", True,
+        f"[11 sample] {model.cfg.name}, sampled, sharing on:", **SAMPLE_KW)
+    for k, n in launches.items():
+        total[k] += n
+    print(f"[11 sample] {model.cfg.name}: decode enqueue "
+          f"{st['decode_enqueue_ms']:.2f} ms/step sampled (T 0.8, top-k "
+          f"50) against {greedy['decode_enqueue_ms']:.2f} greedy; "
+          f"{st['wall_s']:.2f} s against {greedy['wall_s']:.2f} s a run",
+          flush=True)
+
+
+def np_threefry(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds) in numpy uint64 masked to 32 bits: the
+    card's PRNG is held to this, not to itself."""
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & M32, (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in rot[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = (((x1 << np.uint64(r)) | (x1 >> np.uint64(32 - r))) & M32
+                  ) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + np.uint64(i + 1)) & M32
+    return x0, x1
+
+
+def prng_bits_check(torch, vocab):
+    """The card's bits and uniforms of 16 (key, position) pairs over a
+    vocabulary's width against numpy's Threefry: exact as integers."""
+    from repro_torch.serving import prng
+
+    rng = np.random.default_rng(SEED + 4)
+    keys = rng.integers(0, 2 ** 32, (16, 2), dtype=np.uint64)
+    pos = rng.integers(0, 2 ** 31, 16, dtype=np.uint64)
+    s0, s1 = np_threefry(keys[:, 0], keys[:, 1], np.zeros_like(pos), pos)
+    i = np.arange(vocab, dtype=np.uint64)
+    b0, b1 = np_threefry(s0[:, None], s1[:, None], i >> np.uint64(32),
+                         i & M32)
+    want = b0 ^ b1
+    f = (((want >> np.uint64(9)) | 0x3F800000).astype(np.uint32)
+         .view(np.float32) - np.float32(1))
+    tiny = np.finfo(np.float32).tiny
+    want_u = np.maximum(f + tiny, tiny)
+    sub = prng.fold_in(torch.as_tensor(keys.astype(np.int64), device="cuda"),
+                       torch.as_tensor(pos.astype(np.int64), device="cuda"))
+    got = prng.random_bits(sub, vocab).cpu().numpy()
+    got_u = prng.uniform(sub, vocab).cpu().numpy()
+    ok = (np.array_equal(got, want.astype(np.int64))
+          and np.array_equal(got_u.view(np.uint32), want_u.view(np.uint32)))
+    print(f"[11 sample] Threefry on the card vs numpy, 16 (key, position) "
+          f"pairs x {vocab}: bits and uniforms identical: {ok}", flush=True)
+    if not ok:
+        raise SystemExit("chip_smoke: the card's PRNG bits differ from "
+                         "numpy's Threefry")
+
+
+def phase_share(torch):
+    """Phase 11, prefix sharing and sampled decoding.  (a) full width in
+    bf16 (``SHARE_FULL``), the system-prompt traffic with sharing on and
+    off, one or two pairs each: sharing must engage on every arch and
+    lower the peak pages of the archs with KV; the sharing counts, the
+    late requests' TTFT and the streams' agreement are printed, and, for
+    qwen2.5-3b, the sampler's cost.  (b) f32 at phase 5's depths
+    (``SHARE_F32``): sharing on and off must give identical streams over
+    the f32 and bf16 pools (the int8 pool's agreement printed: a page
+    requantized in another order may round otherwise).  (c) sampling:
+    the card's Threefry bits against numpy's, and qwen2.5-3b in f32 at 2
+    layers sampled (T 0.8, top-k 50, seed 0) under ``steps_per_sync`` {1,
+    8} x chunk {1, 16}: identical streams, and top-k 1 the greedy one.
+    Every run goes through ``drive`` (exact launch counts, no host sync
+    in prefill and decode); their launches are returned."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import build_model
+
+    total = {name: 0 for name in KERNELS}
+    for arch, pools in SHARE_FULL:
+        cfg = get_arch(arch)
+        model = build_model(cfg)
+        params = model.init_params(SEED)
+        perturb(torch, params, SEED + 1)
+        reqs = system_prompt_requests(cfg.vocab_size, SEED + 3)
+        for kv_dtype, reps in pools:
+            runs = sharing_pair(torch, model, params, reqs, kv_dtype,
+                                "[11 share]", total, reps=reps)
+            on, off = runs[True][0][1], runs[False][0][1]
+            if "kv_pages_peak" in off and not (
+                    on["kv_pages_peak"] < off["kv_pages_peak"]):
+                raise SystemExit(f"chip_smoke: {cfg.name}: peak pages "
+                                 f"{on['kv_pages_peak']} with sharing, "
+                                 f"{off['kv_pages_peak']} without")
+            if arch == "qwen2.5-3b" and kv_dtype == "f32":
+                sampler_cost(torch, model, params, reqs, on, total)
+        del params, model
+        torch.cuda.empty_cache()
+
+    failed = []
+    for arch, layers, pools in SHARE_F32:
+        model = build_model(dataclasses.replace(
+            get_arch(arch), n_layers=layers, dtype="float32"))
+        params = model.init_params(SEED)
+        perturb(torch, params, SEED + 1)
+        reqs = system_prompt_requests(model.cfg.vocab_size, SEED + 3)
+        for kv_dtype in pools:
+            runs = sharing_pair(torch, model, params, reqs, kv_dtype,
+                                f"[11 f32, {layers} layers]", total)
+            same = all(np.array_equal(a, b) for a, b in zip(
+                runs[True][0][0], runs[False][0][0]))
+            if kv_dtype != "int8" and not same:
+                failed.append((arch, kv_dtype))
+        if arch == "qwen2.5-3b":
+            sampled_schedules(torch, model, params, total)
+        del params, model
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: f32 streams differ with sharing on "
+                         f"and off: {failed}")
+    prng_bits_check(torch, get_arch("qwen2.5-3b").vocab_size)
+    return total
+
+
+def sampled_schedules(torch, model, params, total):
+    """qwen2.5-3b in f32 at 2 layers, phase 4's requests, paged, sampled
+    (``SAMPLE_KW``) under ``steps_per_sync`` {1, 8} x chunk {1, 16}: one
+    stream whatever the schedule; top-k 1 gives the greedy stream."""
+    from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
+
+    reqs = requests(8, 16, 64, model.cfg.vocab_size, SEED)
+
+    def run(tag, **kw):
+        eng = ServingEngine(model, params, batch=B, max_len=MAX_LEN,
+                            cache=CacheConfig(layout="paged", page_size=PAGE),
+                            config=EngineConfig(**kw))
+        launches, outs, _, rids = drive(torch, eng, f"[11 sample] {tag}:",
+                                        [(0, reqs)])
+        for k, n in launches.items():
+            total[k] += n
+        return [outs[r] for r in rids]
+
+    streams = {(sps, c): run(f"sampled, steps_per_sync {sps}, chunk {c}",
+                             steps_per_sync=sps, prefill_chunk=c,
+                             **SAMPLE_KW)
+               for sps in (1, 8) for c in (1, CHUNK)}
+    first = streams[1, 1]
+    same = {k: sum(np.array_equal(a, b) for a, b in zip(first, v))
+            for k, v in streams.items()}
+    top1 = run("top-k 1", prefill_chunk=CHUNK,
+               **{**SAMPLE_KW, "top_k": 1})
+    greedy = run("greedy", prefill_chunk=CHUNK)
+    same_greedy = sum(np.array_equal(a, b) for a, b in zip(top1, greedy))
+    differs = sum(not np.array_equal(a, b) for a, b in zip(first, greedy))
+    print(f"[11 sample] {model.cfg.name} f32, {model.cfg.n_layers} layers, "
+          f"T 0.8, top-k 50, seed 0: streams identical to steps_per_sync 1 "
+          f"chunk 1's, by (steps_per_sync, chunk): {same}; top-k 1 vs "
+          f"greedy {same_greedy} of {len(reqs)} identical; sampled vs "
+          f"greedy {differs} of {len(reqs)} differ", flush=True)
+    if (any(n != len(reqs) for n in same.values())
+            or same_greedy != len(reqs) or not differs):
+        raise SystemExit("chip_smoke: sampled streams depend on the "
+                         "schedule, or top-k 1 is not greedy")
 
 
 if __name__ == "__main__":

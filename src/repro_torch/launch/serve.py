@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --batch 4 --requests 8 --prompt-len 32 --gen 32 \\
         [--layout paged --page-size 16 --n-pages N [--kv-dtype int8]] \\
-        [--prefill-chunk 16] [--check]
+        [--prefill-chunk 16] [--temperature 0.8 --top-k 50] \\
+        [--prefix-sharing] [--check]
 
 ``--arch`` takes qwen2.5-3b, mamba2-2.7b, zamba2-2.7b, mixtral-8x7b,
 qwen3-moe-235b-a22b or their ``-smoke`` variants.  ``--kv-dtype`` (paged
@@ -11,10 +12,15 @@ only) stores the page pool in the model's dtype (``f32``, the default),
 ``bf16`` or ``int8`` with per-(page, head) scales.  ``--n-layers`` cuts
 the depth and keeps the width: mixtral-8x7b's 32 layers do not fit one
 80 GB card, 16 do.  Random weights from
-``--seed``, random prompts, greedy decoding through the Hopper kernels;
-prints tokens/s, time per decode step, mean time to first token, the
-chunked-prefill step count and, paged, the peak pages in use and the
-resident KV bytes at that peak.  Runs on the card (``--device cuda``, the
+``--seed``, random prompts, greedy decoding through the Hopper kernels, or
+sampled (``--temperature``, ``--top-k``, keyed by ``--seed`` and the
+request id as in JAX); ``--prefix-sharing`` (paged) lets a request map a
+resident row's written prompt pages (random prompts share none, so it
+reports 0 shared tokens here; ``chip_smoke.py`` phase 11 serves a common
+system prompt); prints tokens/s, time per decode step, mean time to first
+token, the chunked-prefill step count and, paged, the peak pages in use
+and the resident KV bytes at that peak, and the sharing and snapshot
+counts when they apply.  Runs on the card (``--device cuda``, the
 default) and raises when there is none; ``--device cpu`` runs the plain
 PyTorch versions.
 
@@ -45,7 +51,7 @@ import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.models.model import build_model
-from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
+from repro_torch.serving import ServingEngine, configs_from_flags
 from repro_torch.serving.checks import assert_decode_matches_teacher_forced
 
 
@@ -76,6 +82,14 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill-chunk", type=int, default=1,
                     help="prompt tokens ingested per engine step (chunked "
                          "prefill; 1 = token-by-token)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy; >0 samples with per-request keys")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="page-level prompt prefix sharing (needs --layout "
+                         "paged): attention families alias pages with "
+                         "copy-on-write; recurrent families (ssm/hybrid) "
+                         "restore page-boundary state snapshots")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--check", action="store_true",
@@ -104,11 +118,7 @@ def main(argv=None) -> int:
         0, cfg.vocab_size, (n_req, args.prompt_len))
 
     # no host tier in the port: a pool below the worst case queues
-    cache = CacheConfig(layout=args.layout, page_size=args.page_size,
-                        n_pages=args.n_pages, kv_dtype=args.kv_dtype,
-                        host_spill=False if args.n_pages else None)
-    config = EngineConfig(steps_per_sync=args.steps_per_sync,
-                          prefill_chunk=args.prefill_chunk)
+    cache, config = configs_from_flags(args)
 
     def serve():
         eng = ServingEngine(
@@ -135,6 +145,13 @@ def main(argv=None) -> int:
                  f"{int(s['kv_pages'])} "
                  f"({int(s['kv_resident_bytes_peak'])} bytes of KV)")
     print(line)
+    if "snap_slots" in s:
+        print(f"state snapshots: peak {int(s['snap_slots_peak'])} of "
+              f"{int(s['snap_slots'])} page-boundary slots")
+    if "shared_prompt_tokens" in s:
+        print(f"prefix sharing: {int(s['shared_prompt_tokens'])} prompt "
+              f"tokens served from shared pages and snapshots "
+              f"({int(s['cow_pages'])} CoW copies)")
     print("sample:", outs[rids[0]][:16].tolist())
     if args.check:
         prompt = torch.as_tensor(prompts[: args.batch], device=model.device)

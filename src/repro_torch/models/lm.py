@@ -4,7 +4,7 @@ dtype, bf16 or int8 (the port's subset of ``repro.models.lm``).
 
 Public functions mirror the JAX module: ``init_params``, ``forward``,
 ``train_loss``, ``init_decode_state``, ``decode_step``, ``prefill_chunk``,
-``reset_decode_rows`` and ``lm_logits``.  Where JAX scans over stacked
+``reset_decode_rows``, ``restore_snapshots`` and ``lm_logits``.  Where JAX scans over stacked
 layer params, the port keeps lists of per-layer dicts and loops in
 Python: ``params["layers"]`` (dense, moe, ssm) or ``params["groups"]``,
 ``g`` lists of ``attn_every`` Mamba layers each followed by the shared
@@ -17,6 +17,14 @@ that shares them), which saves a full rewrite of the cache on every
 step; the recurrent ``ssm``/``conv`` states are written layer by layer
 into their stacks the same way.  The small allocator tensors (block
 table, free list, refcounts) are replaced, as in JAX.
+
+Prefix sharing follows the JAX module: under ``cow`` the paged steps run
+copy-on-write before their writes (``_paged_cow``), and the recurrent
+families' snapshot store (``init_decode_state(snapshots=True)``) records
+each row's full-depth SSM and conv state at every page boundary a step
+ends on (``_snap_capture``, under ``snap_every``); ``restore_snapshots``
+loads a donor's boundary state into an admitted row.  The snapshot pools
+carry a trailing sentinel slot, as the page pools do.
 """
 from __future__ import annotations
 
@@ -142,7 +150,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       per_row_pos: bool = False,
                       layout: str = "contiguous", page_size: int = 16,
                       n_pages: Optional[int] = None, kv_dtype: str = "f32",
-                      cache=None, device: str | torch.device = "cuda"
+                      snapshots: bool = False, cache=None,
+                      device: str | torch.device = "cuda"
                       ) -> Dict[str, torch.Tensor]:
     """Decode caches: the contiguous slab ``(stacks, B, max_len, Hkv, hd)``,
     or (``layout="paged"``) page pools ``(stacks, n_pages + 1, page_size,
@@ -159,14 +168,21 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     the layout.  ``n_pages=None`` sizes the pool
     at the worst case, ``batch * ceil(max_len / page_size)``.  ``cache``
     (a ``CacheConfig``) supplies layout, page size, pool size and
-    ``kv_dtype``.
+    ``kv_dtype``, and ``snapshots``.
     ``per_row_pos=True`` keeps ``pos`` as a (B,) vector so rows may sit at
-    different depths (continuous batching)."""
+    different depths (continuous batching).  ``snapshots`` (recurrent
+    families, paged layout) adds the page-boundary snapshot store, sized
+    at the worst case, ``batch * ceil(max_len / page_size)`` slots plus
+    the sentinel: ``snap_ssm`` ``(slots + 1, layers, H, P, N)`` f32,
+    ``snap_conv`` ``(slots + 1, layers, K-1, d_inner)``, the slot table
+    ``snap_table`` ``(B, ceil(max_len / page_size))`` (column ``j`` maps
+    boundary ``j + 1``) and its allocator ``snap_free``/``snap_top``/
+    ``snap_rc``; the other families ignore it, as in JAX."""
     check_family(cfg)
     if cache is not None:
         layout, page_size, n_pages = cache.layout, cache.page_size, \
             cache.n_pages
-        kv_dtype = cache.kv_dtype
+        kv_dtype, snapshots = cache.kv_dtype, cache.snapshots
     if layout not in ("contiguous", "paged"):
         raise ValueError(f"unknown KV-cache layout {layout!r}")
     if kv_dtype not in ("f32", "bf16", "int8"):
@@ -184,12 +200,34 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     state = {"pos": torch.zeros((batch,) if per_row_pos else (),
                                 dtype=torch.int32, device=dev)}
     if cfg.family in ("ssm", "hybrid"):
+        if snapshots and layout != "paged":
+            raise ValueError(
+                "recurrent-state snapshots use page-boundary granularity — "
+                "layout='paged' required"
+            )
         state["ssm"] = torch.zeros(
             (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
              cfg.ssm_state), dtype=torch.float32, device=dev)
         state["conv"] = torch.zeros(
             (cfg.n_layers, batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dt,
             device=dev)
+        if snapshots:
+            # every row can snapshot every boundary it can reach, so the
+            # slot allocator never runs dry mid-request
+            n_bound = -(-max_len // page_size)
+            n_slots = batch * n_bound
+            ss = PG.init_pager(n_slots, dev)
+            state.update({
+                "snap_ssm": torch.zeros(
+                    (n_slots + 1, cfg.n_layers, cfg.ssm_heads,
+                     cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32,
+                    device=dev),
+                "snap_conv": torch.zeros(
+                    (n_slots + 1, cfg.n_layers, cfg.ssm_conv - 1,
+                     cfg.d_inner), dtype=dt, device=dev),
+                "snap_table": PG.init_block_table(batch, n_bound, dev),
+                "snap_free": ss.free, "snap_top": ss.top, "snap_rc": ss.rc,
+            })
     if cfg.family == "ssm":
         return state
     stacks = (cfg.n_layers if cfg.family in ("dense", "moe")
@@ -275,6 +313,86 @@ def _paged_commit(state, pstate: PG.PagerState, bt: torch.Tensor):
             "page_rc": pstate.rc, "block_table": bt}
 
 
+def _paged_cow(state, wpos, active, *, cow: bool):
+    """The allocator and block table every paged write starts from: with
+    ``cow`` (an engine that can share pages), after copy-on-write of the
+    page each row writes at ``wpos``, whose written slots (and, int8, its
+    scales) are copied into the private page in place.  Returns
+    ``(PagerState, block_table)``."""
+    pstate, bt = _pager(state), state["block_table"]
+    if cow:
+        pstate, bt, src, dst, lim, _ = PG.cow_on_write(
+            pstate, bt, wpos, active, page_size=state["kp"].shape[2])
+        for key in ("kp", "vp"):
+            PG.copy_page_prefix(state[key], src, dst, lim)
+        if "ksc" in state:
+            # the copied prefix keeps dequantizing with its donor's scales;
+            # the next write max-merges (and requantizes) from there
+            for key in ("ksc", "vsc"):
+                PG.copy_page_scale(state[key], src, dst)
+    return pstate, bt
+
+
+def _snap_pager(state) -> PG.PagerState:
+    return PG.PagerState(state["snap_free"], state["snap_top"],
+                         state["snap_rc"])
+
+
+def _snap_commit(state, sstate: PG.PagerState, stbl: torch.Tensor):
+    return {**state, "snap_free": sstate.free, "snap_top": sstate.top,
+            "snap_rc": sstate.rc, "snap_table": stbl}
+
+
+def _snap_capture(state, pos_after: torch.Tensor, active: torch.Tensor,
+                  snap_every: int):
+    """Snapshot the full-depth SSM and conv state of every active row
+    whose step ended exactly at a boundary (``pos_after`` a positive
+    multiple of ``snap_every``): allocate the slot of boundary
+    ``pos_after / snap_every - 1`` (boundary space is block space with
+    page size 1) and copy the row's states into the pools, in place.  A
+    slot still shared with a peer (rc > 1) is never overwritten.  Rows
+    that capture nothing write the sentinel slot."""
+    at = active & (pos_after > 0) & (pos_after % snap_every == 0)
+    bound = pos_after // snap_every - 1
+    sstate, stbl = PG.alloc_on_write(_snap_pager(state), state["snap_table"],
+                                     bound, at, page_size=1)
+    n_slots = state["snap_ssm"].shape[0] - 1
+    nb = stbl.shape[1]
+    slot = stbl.gather(1, bound.long().clamp(0, nb - 1)[:, None])[:, 0]
+    ok = at & (bound >= 0) & (bound < nb) & (slot >= 0)
+    ok &= sstate.rc.index_select(0, slot.long().clamp(0, n_slots)) <= 1
+    tgt = torch.where(ok, slot.long(), n_slots)
+    state["snap_ssm"].index_copy_(0, tgt, state["ssm"].transpose(0, 1))
+    state["snap_conv"].index_copy_(
+        0, tgt, state["conv"].transpose(0, 1).to(state["snap_conv"].dtype))
+    return _snap_commit(state, sstate, stbl)
+
+
+def restore_snapshots(state, mask: torch.Tensor, src, nblk):
+    """Prefix-sharing admission of recurrent state: map the donor rows'
+    first ``nblk`` snapshot slots into the masked rows' tables
+    (``share_prefix`` on boundary space: the refcounts keep them past the
+    donor's release) and load slot ``nblk - 1``, the donor's state after
+    its first ``nblk`` pages, into the rows' SSM and conv states in
+    place, so prefill resumes at the first unshared token.  ``nblk == 0``
+    rows are untouched."""
+    sstate, stbl = PG.share_prefix(_snap_pager(state), state["snap_table"],
+                                   src, nblk, mask)
+    b, nb = stbl.shape
+    nblk_b = torch.as_tensor(nblk, device=stbl.device).to(
+        torch.int64).reshape(-1).expand(b)
+    slot = stbl.gather(1, (nblk_b - 1).clamp(0, nb - 1)[:, None])[:, 0]
+    ok = mask & (nblk_b > 0) & (slot >= 0)
+    n_slots = state["snap_ssm"].shape[0] - 1
+    sl = slot.long().clamp(0, n_slots)
+    for key, snap in (("ssm", "snap_ssm"), ("conv", "snap_conv")):
+        live = state[key]                                # (L, B, ...)
+        got = state[snap].index_select(0, sl).transpose(0, 1)
+        live.copy_(torch.where(ok.view(1, -1, *[1] * (live.dim() - 2)),
+                               got.to(live.dtype), live))
+    return _snap_commit(state, sstate, stbl)
+
+
 def _ffn(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     """A layer's MLP or MoE block on (B, d) (decode: the MoE block sees
     (B, 1, d)) or (B, C, d)."""
@@ -358,6 +476,7 @@ def _recurrent(state, block):
 def decode_step(
     cfg: ArchConfig, params, state, token: torch.Tensor,   # (B,) int
     *, active: Optional[torch.Tensor] = None,               # (B,) bool
+    cow: bool = False, snap_every: int = 0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token for every sequence in the batch; returns (logits, state).
 
@@ -368,6 +487,9 @@ def decode_step(
     advance.  A ``block_table`` key in the state selects the paged layout
     (pages are mapped on write, positions are absolute and windows are
     masked in attention); the caches and states are updated in place.
+    ``cow`` runs copy-on-write before the paged write (engines that can
+    share pages); ``snap_every`` captures each row's state when the step
+    ends on a page boundary (a snapshot store and per-row ``pos``).
     """
     pos = state["pos"]
     paged = "block_table" in state
@@ -383,9 +505,9 @@ def decode_step(
             cache_len = pos + 1
         rope_pos = pos[..., None] if pos.dim() == 1 else pos[None]
         if paged:
-            pstate, bt = PG.alloc_on_write(
-                _pager(state), state["block_table"], idx, active,
-                page_size=state["kp"].shape[2])
+            pstate, bt = _paged_cow(state, idx, active, cow=cow)
+            pstate, bt = PG.alloc_on_write(pstate, bt, idx, active,
+                                           page_size=state["kp"].shape[2])
             state = _paged_commit(state, pstate, bt)
         # inactive rows are routed to slot -1, which _cache_update drops
         if active is not None and not paged and idx.dim() == 1:
@@ -435,13 +557,19 @@ def decode_step(
         new_pos = pos + active.to(torch.int32)
     else:
         new_pos = pos + 1
-    return logits, {**state, "pos": new_pos}
+    state = {**state, "pos": new_pos}
+    if snap_every and "snap_table" in state and pos.dim() == 1:
+        act = (active if active is not None
+               else torch.ones_like(pos, dtype=torch.bool))
+        state = _snap_capture(state, new_pos, act, snap_every)
+    return logits, state
 
 
 def prefill_chunk(
     cfg: ArchConfig, params, state, toks: torch.Tensor,   # (B, C) int
     width,                                               # () or (B,) int
     *, active: Optional[torch.Tensor] = None,             # (B,) bool
+    cow: bool = False, snap_every: int = 0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Ingest up to C prompt tokens per row in one step.
 
@@ -456,7 +584,11 @@ def prefill_chunk(
     the carried state; the final norm and the LM head run on the B
     gathered last positions only.  Requires ``per_row_pos`` state;
     sliding-window archs need the paged layout (the contiguous ring cache
-    recycles slots the in-chunk queries still read).
+    recycles slots the in-chunk queries still read).  ``cow`` and
+    ``snap_every`` as in ``decode_step``: shared blocks are a page-aligned
+    prefix, so only the chunk's first position can land in one, and a
+    chunk that crosses a boundary without ending on it records nothing
+    for it (the engine clips chunks to end on boundaries).
     """
     pos = state["pos"]
     if pos.dim() != 1:
@@ -485,9 +617,10 @@ def prefill_chunk(
         if paged:
             # map every block the chunk touches up front (admission-time
             # reservation guarantees the pops succeed)
+            pstate, bt = _paged_cow(state, pos, active, cow=cow)
             pstate, bt = PG.alloc_range(
-                _pager(state), state["block_table"], pos, pos + width - 1,
-                active, page_size=state["kp"].shape[2], max_chunk=c)
+                pstate, bt, pos, pos + width - 1, active,
+                page_size=state["kp"].shape[2], max_chunk=c)
             state = _paged_commit(state, pstate, bt)
         cos, sin = C.rope_freqs(cfg, posmat)              # (B, C, hd/2)
 
@@ -530,7 +663,10 @@ def prefill_chunk(
     last = x.gather(1, (width.long() - 1)[:, None, None].expand(
         b, 1, x.shape[-1]))[:, 0]
     logits = lm_logits(cfg, params, C.norm(cfg, params["ln_f"], last))
-    return logits, {**state, "pos": pos + torch.where(active, width, 0)}
+    state = {**state, "pos": pos + torch.where(active, width, 0)}
+    if snap_every and "snap_table" in state:
+        state = _snap_capture(state, state["pos"], active, snap_every)
+    return logits, state
 
 
 def reset_decode_rows(
@@ -544,14 +680,19 @@ def reset_decode_rows(
     under the paged layout the rows *release* their pages (the pool is
     never zeroed: a recycled page is written by its next owner before any
     masked-in read can see it, and a page's scales are reset by the write
-    of its slot 0).  Requires per-row ``pos`` state."""
+    of its slot 0); snapshot slots are released with their rows the same
+    way (slots a sharer still maps stay).  Requires per-row ``pos``
+    state."""
     if state["pos"].dim() != 1:
         raise ValueError(
             "reset_decode_rows needs per_row_pos=True decode state"
         )
     paged_keys = {"kp", "vp", "ksc", "vsc", "block_table", "page_free",
                   "page_top", "page_rc"}
-    unknown = set(state) - {"pos", "k", "v", "ssm", "conv"} - paged_keys
+    snap_keys = {"snap_ssm", "snap_conv", "snap_table", "snap_free",
+                 "snap_top", "snap_rc"}
+    unknown = (set(state) - {"pos", "k", "v", "ssm", "conv"} - paged_keys
+               - snap_keys)
     if unknown:
         # a silently skipped cache key would leak the previous request's
         # state into the slot's next occupant
@@ -563,6 +704,10 @@ def reset_decode_rows(
         pstate, bt = PG.release_rows(_pager(state), state["block_table"],
                                      mask)
         out = _paged_commit(out, pstate, bt)
+    if "snap_table" in state:
+        sstate, stbl = PG.release_rows(_snap_pager(state),
+                                       state["snap_table"], mask)
+        out = _snap_commit(out, sstate, stbl)
     for key in ("k", "v", "ssm", "conv"):
         if key in state:
             t = state[key]                    # (stacks, B, ...)

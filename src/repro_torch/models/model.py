@@ -49,6 +49,11 @@ class Model:
     def reset_decode_rows(self, state, mask, **kw):
         return lm.reset_decode_rows(self.cfg, state, mask, **kw)
 
+    def restore_snapshots(self, state, mask, src, nblk):
+        """Map the donor rows' first ``nblk`` snapshot slots into the
+        masked rows and load their boundary states (prefix sharing)."""
+        return lm.restore_snapshots(state, mask, src, nblk)
+
     def lm_logits(self, params, h):
         return lm.lm_logits(self.cfg, params, h)
 

@@ -4,9 +4,13 @@
 loop, with the JAX package's field names, defaults and ``ValueError``s.
 The port serves both KV layouts (the contiguous slab and the paged pool,
 any page size and pool size), the paged pool's storage precisions
-(``kv_dtype``), chunked prefill of any width, and greedy decoding.  Every
-field it does not serve yet raises ``NotImplementedError`` naming the
-slice that brings it; none is silently ignored.
+(``kv_dtype``), chunked prefill of any width, greedy and sampled decoding
+(``seed``, ``temperature``, ``top_k``), and prefix sharing with its
+recurrent-state snapshots.  Every field it does not serve yet raises
+``NotImplementedError`` naming the slice that brings it; none is silently
+ignored.  ``validate_configs`` holds the checks that span both objects
+and ``configs_from_flags`` builds both from a CLI's flags, as the JAX
+package's do.
 """
 from __future__ import annotations
 
@@ -14,10 +18,8 @@ import dataclasses
 from typing import Any, Optional
 
 # the slices of the port that serve each feature (ROADMAP.md, Queue 1)
-SHARING = "the prefix-sharing slice (with recurrent-state snapshots)"
 PRESSURE = "the pressure slice (host spill tier, prefill budgets)"
 SPEC = "the speculative-decoding slice"
-SAMPLING = "a later slice (sampling)"
 
 
 def _unserved(obj: Any, field: str, served, slice_name: str) -> None:
@@ -37,7 +39,9 @@ class CacheConfig:
     would preempt into one).  ``kv_dtype`` is the paged pool's storage:
     ``"f32"`` the model's own dtype, ``"bf16"`` half-width pages read by
     the same kernels (which upcast K/V to f32), ``"int8"`` pages with f32
-    per-(page, head) scales, dequantized inside the attention kernels."""
+    per-(page, head) scales, dequantized inside the attention kernels.
+    ``snapshots`` adds the recurrent families' page-boundary state
+    snapshots (paged layout; prefix sharing implies it)."""
 
     layout: str = "contiguous"
     page_size: int = 16
@@ -69,7 +73,6 @@ class CacheConfig:
                 "scales are per page) — layout='paged' required for "
                 f"kv_dtype={self.kv_dtype!r}"
             )
-        _unserved(self, "snapshots", (False,), SHARING)
         _unserved(self, "host_spill", (None, False), PRESSURE)
 
 
@@ -77,13 +80,16 @@ class CacheConfig:
 class EngineConfig:
     """Serving-loop behaviour: ``steps_per_sync`` fused decode steps per
     harvest sync, ``prefill_chunk`` prompt tokens per row per prefill
-    step.  Prefix sharing, prefill budgets, sampling and speculation come
-    with later slices."""
+    step, ``prefix_sharing`` page-level prompt sharing (paged layout only,
+    checked in ``validate_configs``), ``seed`` / ``temperature`` /
+    ``top_k`` per-request sampling (0.0 = greedy).  Prefill budgets and
+    speculation come with later slices."""
 
     steps_per_sync: int = 8
     prefill_chunk: int = 1
     prefix_sharing: bool = False
     prefill_budget: int = 0
+    seed: int = 0
     temperature: float = 0.0
     top_k: int = 0
     spec: Optional[Any] = None
@@ -98,7 +104,44 @@ class EngineConfig:
         if self.top_k < 0:
             raise ValueError("top_k must be >= 0 (0 = full vocab)")
         _unserved(self, "prefill_budget", (0,), PRESSURE)
-        _unserved(self, "prefix_sharing", (False,), SHARING)
-        _unserved(self, "temperature", (0.0,), SAMPLING)
-        _unserved(self, "top_k", (0,), SAMPLING)
         _unserved(self, "spec", (None,), SPEC)
+
+
+def validate_configs(cache: CacheConfig, config: EngineConfig) -> None:
+    """Checks that span both objects, with the JAX package's messages
+    (its speculation checks come with the speculative-decoding slice,
+    which ``EngineConfig`` refuses until then)."""
+    if config.prefix_sharing and cache.layout != "paged":
+        raise ValueError(
+            "prefix sharing needs layout='paged' — pages are the "
+            "sharing unit (the contiguous slab has per-row storage)"
+        )
+
+
+def configs_from_flags(args):
+    """``(CacheConfig, EngineConfig)`` from an argparse namespace, as the
+    JAX package's ``configs_from_flags``: a flag the driver does not
+    declare takes the config's default.  No host tier in the port: a
+    pool below the worst case (``--n-pages``) queues requests instead
+    (``host_spill=False``)."""
+    n_pages = getattr(args, "n_pages", None)
+    cache = CacheConfig(
+        layout=getattr(args, "layout", "contiguous"),
+        page_size=int(getattr(args, "page_size", 16)),
+        n_pages=n_pages,
+        snapshots=bool(getattr(args, "snapshots", False)),
+        host_spill=getattr(args, "host_spill",
+                           False if n_pages else None),
+        kv_dtype=getattr(args, "kv_dtype", "f32"),
+    )
+    config = EngineConfig(
+        steps_per_sync=int(getattr(args, "steps_per_sync", 8)),
+        prefill_chunk=int(getattr(args, "prefill_chunk", 1)),
+        prefix_sharing=bool(getattr(args, "prefix_sharing", False)),
+        prefill_budget=int(getattr(args, "prefill_budget", 0)),
+        seed=int(getattr(args, "seed", 0)),
+        temperature=float(getattr(args, "temperature", 0.0)),
+        top_k=int(getattr(args, "top_k", 0)),
+    )
+    validate_configs(cache, config)
+    return cache, config

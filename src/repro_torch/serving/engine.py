@@ -1,7 +1,7 @@
 """Continuous-batching serving engine (the port's ``repro.serving.engine``:
 the dense, moe, ssm and hybrid families, contiguous or paged KV layout,
 the paged pool in the model's dtype, bf16 or int8, token-by-token or
-chunked prefill, greedy).
+chunked prefill, greedy or sampled decoding, prefix sharing).
 
 The control state of every batch row lives on the device as fixed-shape
 tensors (``SlotState``): the token buffer holds the prompt and then the
@@ -12,13 +12,16 @@ interaction; a cycle (``step``) is
 
     admit    — queued requests enter free rows (one host->device copy);
                under the paged layout a request is admitted only if its
-               worst-case pages fit the pool's unreserved remainder,
+               worst-case pages fit the pool's unreserved remainder;
+               with prefix sharing it maps a resident donor's prompt
+               pages (and restores its recurrent-state snapshot) and
+               starts at the first unshared token,
     prefill  — chunked-prefill steps while some row has >= 2 prompt
                tokens left (``prefill_chunk > 1`` only), no host sync,
     decode   — ``steps_per_sync`` engine steps back to back, no host sync,
     harvest  — one device->host readback (tokens, active rows and the
-               pool's free count); finished rows return their tokens and,
-               paged, release their pages.
+               free counts of the page and snapshot pools); finished rows
+               return their tokens and release their pages and slots.
 
 The host keeps a mirror of per-row progress: a row's progress after a step
 is a pure function of its prompt and total lengths and the chunk width, so
@@ -27,11 +30,26 @@ device.  ``prefill`` and ``decode`` must never synchronise with the device;
 ``chip_smoke.py`` runs both under ``torch.cuda.set_sync_debug_mode("error")``
 (the port of the JAX engine's ``no_transfer_audit``).
 
+Sampling (``temperature > 0``) draws each token with JAX's own Threefry
+streams (``serving/prng.py``): row keys come from ``(seed, req_id)`` at
+admission and each token is keyed by ``fold_in(key, position)``, so the
+sampled streams equal the JAX engine's and do not depend on the batch,
+``steps_per_sync`` or the chunk schedule.
+
+Prefix sharing (``prefix_sharing=True``, paged layout) keeps the JAX
+engine's host-side index of page-aligned prompt chunks (chained hashes,
+verified token by token, no device sync).  Attention families read the
+donor's pages (refcounted) and copy-on-write the one page a fully shared
+prompt writes again; the recurrent families restore the donor's state
+snapshot at the last shared boundary, which every snapshot engine
+captures because its chunks are clipped to end on page boundaries.
+
 Unlike JAX's jitted steps, the port runs eagerly; the caches, page pools
 and the token buffer are updated in place.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import time
 from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional
@@ -39,8 +57,14 @@ from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.serving.config import PRESSURE, CacheConfig, EngineConfig
-from repro_torch.serving.pager import pages_needed
+from repro_torch.serving import prng
+from repro_torch.serving.config import (
+    PRESSURE,
+    CacheConfig,
+    EngineConfig,
+    validate_configs,
+)
+from repro_torch.serving.pager import PagerState, pages_needed, share_prefix
 from repro_torch.serving.queue import Request, RequestQueue
 
 if TYPE_CHECKING:  # the model imports the pager, which lives here
@@ -55,6 +79,7 @@ class SlotState(NamedTuple):
     total_len: torch.Tensor   # (B,) int64: prompt_len + max_new_tokens
     progress: torch.Tensor    # (B,) int64: tokens fed to the model so far
     active: torch.Tensor      # (B,) bool: row currently serving a request
+    rng: torch.Tensor         # (B, 2) int64: the row's uint32 sampling key
 
 
 def init_slots(batch: int, max_len: int, device: torch.device) -> SlotState:
@@ -64,49 +89,78 @@ def init_slots(batch: int, max_len: int, device: torch.device) -> SlotState:
         total_len=torch.ones((batch,), dtype=torch.int64, device=device),
         progress=torch.zeros((batch,), dtype=torch.int64, device=device),
         active=torch.zeros((batch,), dtype=torch.bool, device=device),
+        rng=torch.zeros((batch, 2), dtype=torch.int64, device=device),
     )
 
 
-def _sample(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy next token; ``torch.argmax`` takes the first maximum, as
-    ``jnp.argmax`` does."""
-    return torch.argmax(logits, dim=-1)
+def _sample(logits: torch.Tensor, slots: SlotState, wpos: torch.Tensor,
+            temperature: float, top_k: int) -> torch.Tensor:
+    """Next token of every row (``repro.serving.engine._sample``).  At
+    ``temperature <= 0`` the greedy argmax (the first maximum, as
+    ``jnp.argmax``).  Otherwise the f32 logits over the temperature
+    (times its f32 reciprocal, as XLA folds the division by a constant),
+    cut below the ``top_k``-th value, and drawn by ``categorical`` under
+    ``fold_in(row key, wpos)``: a token's key depends only on the row's
+    admission key and the position it lands at, so the schedule of steps
+    that reaches a position cannot change it."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    sub = prng.fold_in(slots.rng, wpos)
+    lg = logits.float() * float(np.float32(1) / np.float32(temperature))
+    if top_k > 0:
+        kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
+        lg = torch.where(lg < kth, -torch.inf, lg)
+    return prng.categorical(sub, lg)
 
 
 def engine_step(model: "Model", params, mstate, slots: SlotState, *,
-                chunk: int = 1):
+                chunk: int = 1, temperature: float = 0.0, top_k: int = 0,
+                cow: bool = False, snap_every: int = 0):
     """One decode (``chunk == 1``) or chunked-prefill step for every row,
     no host interaction.
 
     Decode: row b feeds ``tokens[b, progress[b]]``.  Prefill: row b feeds
     ``tokens[b, progress[b] : progress[b] + width[b]]`` with ``width =
-    clip(prompt_len - progress, 1, chunk)``, so a chunk never crosses into
-    generated positions and the last one ends at ``prompt_len - 1``;
-    decode-phase rows ride along at width 1.  The sampled token is written
-    at ``progress + stride`` once that position is past the prompt.  A row
-    is done after the step that produces its last token (``progress``
-    reaches ``total_len - 1``).  Inactive rows keep their lane but never
-    advance, never write their caches and never take pages (``active``
-    flows into the model step).
+    clip(prompt_len - progress, 1, limit)``, ``limit = chunk``, so a
+    chunk never crosses into generated positions and the last one ends at
+    ``prompt_len - 1``; decode-phase rows ride along at width 1.  The
+    sampled token is written at ``progress + stride`` once that position
+    is past the prompt.  A row is done after the step that produces its
+    last token (``progress`` reaches ``total_len - 1``).  Inactive rows
+    keep their lane but never advance, never write their caches and never
+    take pages (``active`` flows into the model step).
+
+    ``cow`` runs copy-on-write in the model step (engines that can share
+    pages).  ``snap_every`` (snapshot engines) also cuts ``limit`` to end
+    each chunk on a page boundary it would cross, so every boundary is a
+    step's end and gets its snapshot; the host mirror's ``_chunk_limit``
+    replays the same cut.
     """
     b, max_len = slots.tokens.shape
     if chunk > 1:
-        width = (slots.prompt_len - slots.progress).clamp(1, chunk)
+        limit = torch.full_like(slots.progress, chunk)
+        if snap_every:
+            limit = torch.minimum(limit,
+                                  snap_every - slots.progress % snap_every)
+        width = torch.minimum((slots.prompt_len - slots.progress).clamp(
+            min=1), limit)
         gidx = (slots.progress[:, None]
                 + torch.arange(chunk, device=slots.tokens.device)[None, :]
                 ).clamp(0, max_len - 1)
         toks = slots.tokens.gather(1, gidx)
         logits, mstate = model.prefill_chunk(params, mstate, toks, width,
-                                             active=slots.active)
+                                             active=slots.active, cow=cow,
+                                             snap_every=snap_every)
         stride = width
     else:
         feed_idx = slots.progress.clamp(0, max_len - 1)
         tok = slots.tokens.gather(1, feed_idx[:, None])[:, 0]
         logits, mstate = model.decode_step(params, mstate, tok,
-                                           active=slots.active)
+                                           active=slots.active, cow=cow,
+                                           snap_every=snap_every)
         stride = 1
     wpos = slots.progress + stride
-    nxt = _sample(logits)
+    nxt = _sample(logits, slots, wpos, temperature, top_k)
     writes = slots.active & (wpos >= slots.prompt_len) & (wpos < max_len)
     # one column per row: a clamped column of a row that does not write
     # takes back its own old value, and no other row shares the row
@@ -117,7 +171,7 @@ def engine_step(model: "Model", params, mstate, slots: SlotState, *,
     progress = slots.progress + stride * slots.active.long()
     active = slots.active & (progress < slots.total_len - 1)
     return mstate, SlotState(tokens, slots.prompt_len, slots.total_len,
-                             progress, active)
+                             progress, active, slots.rng)
 
 
 def _timed(method):
@@ -148,6 +202,23 @@ class ServingEngine:
     than the worst case needs ``host_spill=False`` (requests then wait in
     the queue until pages are released, as the JAX engine's do without a
     host tier).
+
+    ``temperature > 0`` samples (optionally cut to the ``top_k`` best);
+    each request's key is a pure function of (``seed``, request id), so
+    its tokens equal the JAX engine's and do not depend on the batch.
+
+    ``prefix_sharing=True`` (paged layout): a request whose prompt starts
+    with page-aligned chunks a resident row has already written maps that
+    row's pages (and, for ssm and hybrid, restores its state snapshot at
+    the last shared boundary) and starts prefill at the first unshared
+    token.  Tokens are those of the engine without sharing; what changes
+    is TTFT and resident KV.  Admission still reserves the full worst
+    case plus one copy-on-write spare for a fully shared attention prompt
+    (a donor may finish first and leave the sharer the only holder), and
+    the snapshot pool is sized to the worst case, so neither allocator
+    can run dry inside a step.  MoE: sharing changes which tokens batch
+    into a routing step, so token identity needs ``capacity_factor >=
+    n_experts``, as in JAX.
     """
 
     def __init__(self, model: "Model", params, *, batch: int, max_len: int,
@@ -155,6 +226,7 @@ class ServingEngine:
                  config: Optional[EngineConfig] = None) -> None:
         self.cache = cache if cache is not None else CacheConfig()
         self.config = config if config is not None else EngineConfig()
+        validate_configs(self.cache, self.config)
         if (self.config.prefill_chunk > 1 and model.cfg.window
                 and self.cache.layout != "paged"
                 and model.cfg.family in ("dense", "moe", "hybrid")):
@@ -171,12 +243,22 @@ class ServingEngine:
         self.steps_per_sync = self.config.steps_per_sync
         self.prefill_chunk = self.config.prefill_chunk
         self.page_size = self.cache.page_size
+        self.prefix_sharing = self.config.prefix_sharing
+        self.temperature = self.config.temperature
+        self.top_k = self.config.top_k
+        self._seed = int(self.config.seed)
         self.queue = RequestQueue(max_len=max_len)
-        self._mstate = model.init_decode_state(batch, max_len,
-                                               per_row_pos=True,
-                                               cache=self.cache)
+        # the snapshot store exists when asked for, or implied by sharing
+        # on a recurrent family
+        self._mstate = model.init_decode_state(
+            batch, max_len, per_row_pos=True,
+            cache=dataclasses.replace(
+                self.cache,
+                snapshots=self.cache.snapshots or self.prefix_sharing))
         # attention-free families have no pages whatever the layout
         self._paged = "block_table" in self._mstate
+        self._snap = "snap_table" in self._mstate
+        self._recurrent = model.cfg.family in ("ssm", "hybrid")
         self.n_pages = 0
         self._kv_bytes_per_page = 0
         if self._paged:
@@ -197,6 +279,17 @@ class ServingEngine:
                     f"{PRESSURE}; pass CacheConfig(host_spill=False) to "
                     "queue requests until pages are released instead"
                 )
+        self.n_snap_slots = (self._mstate["snap_free"].shape[0] - 1
+                             if self._snap else 0)
+        # every family shares: dense and moe through aliased pages, ssm
+        # through restored snapshots, hybrid through both.  Only engines
+        # that can share a page run the CoW pass (recurrent rows resume on
+        # an unshared boundary and never write a shared page), and only
+        # snapshot engines capture and clip chunks to boundaries.
+        self._share_eligible = self.prefix_sharing and (self._paged
+                                                        or self._snap)
+        self._cow = self._share_eligible and self._paged
+        self._snap_every = self.page_size if self._snap else 0
         self._slots = init_slots(batch, max_len, self.device)
         # host mirror: which request occupies each row (None = free), how
         # far it has been fed, and its worst-case page reservation
@@ -204,13 +297,22 @@ class ServingEngine:
         self._row_progress: List[int] = [0] * batch
         self._row_pages: List[int] = [0] * batch
         self._pages_reserved = 0
+        # host-side prefix index: chained chunk hash -> (slot, epoch); an
+        # epoch bump invalidates a released slot's entries, and a match
+        # is verified token for token, so a collision never maps pages
+        self._prefix_index: Dict[int, tuple] = {}
+        self._slot_epoch: List[int] = [0] * batch
+        self._slot_hashes: List[List[int]] = [[] for _ in range(batch)]
         self._crossed: List[int] = []   # first token produced, not yet read
         self.outputs: Dict[int, np.ndarray] = {}
         self.steps = 0            # decode steps executed (all rows per step)
         self.prefill_steps = 0    # chunked-prefill steps executed
         self.generated = 0        # tokens returned to callers
         self.prompt_tokens = 0    # prompt tokens fed (host arithmetic)
+        self.shared_prompt_tokens = 0   # prompt tokens skipped by sharing
+        self.cow_pages = 0              # CoW copies (host-predicted)
         self.peak_pages_in_use = 0
+        self.peak_snaps_in_use = 0
         self.seconds = 0.0        # wall time inside the cycle's phases
         self.ttft: Dict[int, float] = {}        # req_id -> seconds
         self._t_submit: Dict[int, float] = {}
@@ -237,59 +339,178 @@ class ServingEngine:
     def busy(self) -> bool:
         return bool(self.queue) or any(r is not None for r in self._slot_req)
 
+    # -- host-side prefix index (no device sync anywhere) --------------------
+
+    def _prefix_chain(self, tokens: np.ndarray):
+        """Chained hashes of the prompt's full page-aligned chunks: chunk
+        i's hash folds in chunk i-1's, so a hit at depth i vouches for the
+        whole prefix (a page's K/V depends on every token before it)."""
+        s = self.page_size
+        h = 0x51ED2701
+        for i in range(len(tokens) // s):
+            h = hash((h, tokens[i * s:(i + 1) * s].tobytes()))
+            yield i, h
+
+    def _register_prefix(self, b: int, tokens: np.ndarray) -> None:
+        ep = self._slot_epoch[b]
+        for _, h in self._prefix_chain(tokens):
+            ent = self._prefix_index.get(h)
+            if ent is not None:
+                src, src_ep = ent
+                if (src_ep == self._slot_epoch[src]
+                        and self._slot_req[src] is not None):
+                    # a live row already serves this chunk: keep it (a
+                    # sharer taking it over would take it to its own,
+                    # likely earlier, end)
+                    continue
+            self._prefix_index[h] = (b, ep)
+            self._slot_hashes[b].append(h)
+
+    def _evict_prefix(self, b: int) -> None:
+        """Invalidate slot b's index entries (its request left).  The epoch
+        bump is what makes them stale; the deletes keep the index bounded
+        by resident prompts."""
+        old = (b, self._slot_epoch[b])
+        self._slot_epoch[b] += 1
+        dropped = False
+        for h in self._slot_hashes[b]:
+            if self._prefix_index.get(h) == old:
+                del self._prefix_index[h]
+                dropped = True
+        self._slot_hashes[b] = []
+        if dropped:
+            # hand the dropped chunks to surviving holders: a sharer keeps
+            # the donor's pages resident (refcounts), so it can donate
+            # them onward (registration only fills gaps)
+            for s, req in enumerate(self._slot_req):
+                if req is not None:
+                    self._register_prefix(s, req.tokens)
+
+    def _match_prefix(self, tokens: np.ndarray):
+        """Longest page-aligned prefix shared with a resident row: (donor
+        slot, shared blocks), (0, 0) when nothing matches.  A hit counts
+        only if the donor still holds its request (epoch), its mirror
+        progress shows the chunk written (and so, in a snapshot engine,
+        its boundary captured), the chunk is all prompt, and the tokens
+        are equal: the hash only routes."""
+        if not self._share_eligible:
+            return 0, 0
+        best = (0, 0)
+        s = self.page_size
+        for i, h in self._prefix_chain(tokens):
+            ent = self._prefix_index.get(h)
+            if ent is None:
+                continue
+            src, ep = ent
+            end = (i + 1) * s
+            req = self._slot_req[src]
+            if (ep != self._slot_epoch[src] or req is None
+                    or req.prompt_len < end
+                    or self._row_progress[src] < end
+                    or not np.array_equal(tokens[:end], req.tokens[:end])):
+                continue
+            best = (src, i + 1)
+        return best
+
+    def _plan_admission(self, req: Request):
+        """(donor, shared blocks, start, CoW pages, worst-case pages) of
+        one request, from the mirror alone.  Recurrent families resume
+        from a restored snapshot, so their shared depth stops at a
+        boundary strictly inside the prompt; a fully shared attention
+        prompt re-feeds its last token, whose write copies the last shared
+        page (one spare page).  A spare that would overflow the pool
+        serves the request unshared."""
+        src, nblk = self._match_prefix(req.tokens)
+        if self._recurrent:
+            nblk = min(nblk, (req.prompt_len - 1) // self.page_size)
+        shared = nblk * self.page_size
+        start = min(shared, req.prompt_len - 1)
+        cow = 1 if shared > start else 0
+        need = 0
+        if self._paged:
+            need = pages_needed(req.total_len, self.page_size) + cow
+            if need > self.n_pages:
+                src = nblk = start = cow = 0
+                need = pages_needed(req.total_len, self.page_size)
+        return src, nblk, start, cow, need
+
     # -- the phases of a cycle -------------------------------------------------
 
     @_timed
     def admit(self) -> int:
-        """Admit queued requests into free rows: one masked write of the
-        slot state and a reset of those rows' caches.  Paged, the queue
-        head is admitted only while its worst-case pages fit the pool's
-        unreserved remainder; admission stops at the first head that does
-        not fit (first in, first out)."""
+        """Admit queued requests into free rows: one host->device copy,
+        a reset of those rows' caches with their clocks at their first
+        unshared token, and (sharing) the donors' pages and snapshots
+        mapped.  Paged, the queue head is admitted only while its
+        worst-case pages fit the pool's unreserved remainder; admission
+        stops at the first head that does not fit (first in, first out).
+        Rows are registered as donors only after the copy, so rows
+        admitted together never pick each other."""
         free = [b for b, r in enumerate(self._slot_req) if r is None]
         if not free or not self.queue:
             return 0
-        new_tokens = np.zeros((self.batch, self.max_len), np.int64)
-        new_plen = np.ones((self.batch,), np.int64)
-        new_total = np.ones((self.batch,), np.int64)
-        mask = np.zeros((self.batch,), bool)
+        bsz, max_len = self.batch, self.max_len
+        # one int64 block: tokens, then per row prompt_len, total_len,
+        # start, donor, shared blocks, the key's two words and the mask
+        host = np.zeros((bsz, max_len + 8), np.int64)
+        registrations = []
         n = 0
         for b in free:
             req = self.queue.peek()
             if req is None:
                 break
-            need = (pages_needed(req.total_len, self.page_size)
-                    if self._paged else 0)
+            src, nblk, start, cow, need = self._plan_admission(req)
             if self._paged and self._pages_reserved + need > self.n_pages:
                 break
             self.queue.pop()
             self._slot_req[b] = req
-            self._row_progress[b] = 0
+            self._row_progress[b] = start
             self._row_pages[b] = need
             self._pages_reserved += need
-            new_tokens[b, : req.prompt_len] = req.tokens
-            new_plen[b] = req.prompt_len
-            new_total[b] = req.total_len
-            mask[b] = True
+            host[b, : req.prompt_len] = req.tokens
+            host[b, max_len:] = (req.prompt_len, req.total_len, start, src,
+                                 nblk, *prng.req_key(self._seed, req.req_id),
+                                 1)
+            self.shared_prompt_tokens += start
+            self.cow_pages += cow
+            if self._share_eligible:
+                registrations.append((b, req.tokens))
             n += 1
         if n == 0:
             return 0
-        dev = self.device
-        m = torch.as_tensor(mask, device=dev)
-        self._mstate = self.model.reset_decode_rows(self._mstate, m)
+        got = torch.as_tensor(host, device=self.device)
+        new_tokens = got[:, :max_len]
+        plen, total, start, src, nblk, key0, key1, m = got[:, max_len:].T
+        m = m.bool()
+        self._mstate = self.model.reset_decode_rows(self._mstate, m,
+                                                    start=start.int())
+        if self._paged:
+            ms = self._mstate
+            pstate, bt = share_prefix(
+                PagerState(ms["page_free"], ms["page_top"], ms["page_rc"]),
+                ms["block_table"], src, nblk, m)
+            self._mstate = {**ms, "block_table": bt,
+                            "page_free": pstate.free,
+                            "page_top": pstate.top, "page_rc": pstate.rc}
+        if self._snap:
+            self._mstate = self.model.restore_snapshots(self._mstate, m, src,
+                                                        nblk)
         s = self._slots
         self._slots = SlotState(
-            tokens=torch.where(m[:, None], torch.as_tensor(new_tokens,
-                                                           device=dev),
-                               s.tokens),
-            prompt_len=torch.where(m, torch.as_tensor(new_plen, device=dev),
-                                   s.prompt_len),
-            total_len=torch.where(m, torch.as_tensor(new_total, device=dev),
-                                  s.total_len),
-            progress=torch.where(m, 0, s.progress),
+            tokens=torch.where(m[:, None], new_tokens, s.tokens),
+            prompt_len=torch.where(m, plen, s.prompt_len),
+            total_len=torch.where(m, total, s.total_len),
+            progress=torch.where(m, start, s.progress),
             active=s.active | m,
+            rng=torch.where(m[:, None], torch.stack([key0, key1], 1), s.rng),
         )
+        for b, toks in registrations:
+            self._register_prefix(b, toks)
         return n
+
+    def _step_kw(self):
+        return dict(temperature=self.temperature, top_k=self.top_k,
+                    cow=self._cow, snap_every=self._snap_every)
 
     @_timed
     def prefill(self) -> int:
@@ -302,14 +523,14 @@ class ServingEngine:
         n = 0
         while self._prompt_phase_rows():
             widths = [
-                max(1, min(self.prefill_chunk,
+                max(1, min(self._chunk_limit(self._row_progress[b]),
                            req.prompt_len - self._row_progress[b]))
                 if req is not None else 1
                 for b, req in enumerate(self._slot_req)
             ]
             self._mstate, self._slots = engine_step(
                 self.model, self.params, self._mstate, self._slots,
-                chunk=self.prefill_chunk,
+                chunk=self.prefill_chunk, **self._step_kw(),
             )
             self.prefill_steps += 1
             self._advance_mirror(widths)
@@ -321,7 +542,8 @@ class ServingEngine:
         """``steps_per_sync`` engine steps back to back — no host sync."""
         for _ in range(self.steps_per_sync):
             self._mstate, self._slots = engine_step(
-                self.model, self.params, self._mstate, self._slots
+                self.model, self.params, self._mstate, self._slots,
+                **self._step_kw(),
             )
         self.steps += self.steps_per_sync
         self._advance_mirror([self.steps_per_sync] * self.batch)
@@ -329,21 +551,27 @@ class ServingEngine:
     @_timed
     def harvest(self) -> int:
         """The one device->host readback of the cycle: collect finished
-        rows' tokens, stamp first-token latencies, read the pool's free
-        count (peak pages in use) and, paged, release the finished rows'
-        pages.  Returns the number of requests completed."""
+        rows' tokens, stamp first-token latencies, read the page and
+        snapshot pools' free counts (their peaks in use) and release the
+        finished rows' pages and snapshot slots.  Returns the number of
+        requests completed."""
         s = self._slots
         parts = [s.active.long(), s.tokens.reshape(-1)]
-        if self._paged:
-            parts.append(self._mstate["page_top"].long().reshape(1))
+        for key in ("page_top", "snap_top"):
+            if key in self._mstate:
+                parts.append(self._mstate[key].long().reshape(1))
         got = torch.cat(parts).cpu().numpy()
         b_, n_tok = self.batch, self.batch * self.max_len
         active = got[:b_].astype(bool)
         tokens = got[b_: b_ + n_tok].reshape(b_, self.max_len).astype(
             np.int32)
+        tops = got[b_ + n_tok:]
         if self._paged:
             self.peak_pages_in_use = max(self.peak_pages_in_use,
-                                         self.n_pages - int(got[-1]))
+                                         self.n_pages - int(tops[0]))
+        if self._snap:
+            self.peak_snaps_in_use = max(self.peak_snaps_in_use,
+                                         self.n_snap_slots - int(tops[-1]))
         now = time.perf_counter()
         for rid in self._crossed:
             t0 = self._t_submit.pop(rid, None)
@@ -361,11 +589,14 @@ class ServingEngine:
             self._slot_req[b] = None
             self._pages_reserved -= self._row_pages[b]
             self._row_pages[b] = 0
+            # the prompt leaves the index; its pages live on while a
+            # sharer still maps them (device refcounts)
+            self._evict_prefix(b)
             release[b] = True
             finished += 1
-        if self._paged and release.any():
-            # free on completion: the pages return to the pool now, not
-            # when the row happens to be refilled
+        if (self._paged or self._snap) and release.any():
+            # free on completion: pages and snapshot slots return to their
+            # pools now, not when the row happens to be refilled
             self._mstate = self.model.reset_decode_rows(
                 self._mstate, torch.as_tensor(release, device=self.device))
         return finished
@@ -390,6 +621,15 @@ class ServingEngine:
             if p < req.prompt_len <= np_:
                 self._crossed.append(req.req_id)
             self._row_progress[b] = np_
+
+    def _chunk_limit(self, progress: int) -> int:
+        """Host mirror of ``engine_step``'s chunk-width cap (snapshot
+        engines end chunks on page boundaries); the two must stay
+        identical, as the mirror's schedule depends on it."""
+        if self._snap_every:
+            return min(self.prefill_chunk,
+                       self._snap_every - progress % self._snap_every)
+        return self.prefill_chunk
 
     def _prompt_phase_rows(self) -> bool:
         """True while some occupied, unfinished row still has >= 2 prompt
@@ -441,4 +681,10 @@ class ServingEngine:
             out["kv_pages_peak"] = float(self.peak_pages_in_use)
             out["kv_resident_bytes_peak"] = float(
                 self.peak_pages_in_use * self._kv_bytes_per_page)
+        if self._snap:
+            out["snap_slots"] = float(self.n_snap_slots)
+            out["snap_slots_peak"] = float(self.peak_snaps_in_use)
+        if self.prefix_sharing:
+            out["shared_prompt_tokens"] = float(self.shared_prompt_tokens)
+            out["cow_pages"] = float(self.cow_pages)
         return out

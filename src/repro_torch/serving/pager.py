@@ -1,7 +1,7 @@
 """Device-side page allocator for the paged KV-cache layout (the port's
-subset of ``repro.serving.pager``: allocation, release and the paged K/V
-writes, plain and int8; sharing, copy-on-write (with ``copy_page_scale``)
-and spill come with later slices).
+subset of ``repro.serving.pager``: allocation, release, the paged K/V
+writes, plain and int8, and prefix sharing with copy-on-write; spill
+comes with the pressure slice).
 
 Layout contract (the JAX package's, plus one trash page):
 
@@ -34,6 +34,18 @@ max-merged by every later one; when it grows, the page's written slots
 are requantized in the same whole-page write (``write_page_quant``).  A
 dropped payload write drops its scale write too (both go to the
 sentinel), so the two pools never disagree about a real page.
+
+**Prefix sharing** (JAX's contract): ``share_prefix`` maps a donor row's
+leading blocks into an admitted row and bumps their refcounts; a page
+with ``rc > 1`` is read-only, so ``cow_on_write`` moves a row about to
+write one onto a fresh page (dropping its ref; a ref that reaches 0
+sends the page back to the free list) and ``copy_page_prefix`` /
+``copy_page_scale`` move the written slots and an int8 page's scales
+across.  CoW pops rank before the step's allocation pops, rows by batch
+index.  Rows that do not move carry the sentinel as source and target,
+so their copies land in the sentinel page.  The same functions manage
+the recurrent families' snapshot slots with ``page_size=1``
+(``lm.init_decode_state(snapshots=True)``).
 
 Every function is pure tensor work with fixed shapes — no ``.item()``, no
 boolean-mask indexing, no ``nonzero``, no Python branch on a tensor — so
@@ -191,6 +203,118 @@ def release_rows(
     free, top = _push_freed(pager.free, pager.top, freed)
     block_table = torch.where(mask[:, None], -1, block_table)
     return PagerState(free, top, rc), block_table
+
+
+def share_prefix(
+    pager: PagerState,
+    block_table: torch.Tensor,   # (B, max_blocks) int32
+    src,                         # (B,) int: donor row per admitted row
+    nblk,                        # (B,) int: leading blocks to share
+    mask: torch.Tensor,          # (B,) bool: rows being admitted
+) -> Tuple[PagerState, torch.Tensor]:
+    """Map the donor rows' first ``nblk`` blocks into the masked rows and
+    bump the shared pages' refcounts (duplicates accumulate: two rows
+    sharing one donor page raise it by two).  ``nblk == 0`` rows are
+    untouched, unmapped donor entries skipped; the bumps of skipped
+    entries land on the sentinel's count."""
+    b, max_blocks = block_table.shape
+    dev = block_table.device
+    n_pages = pager.free.shape[0] - 1
+    donor = block_table.index_select(0, _per_row(src, b, dev).clamp(0, b - 1))
+    col = torch.arange(max_blocks, device=dev)[None, :]
+    take = (mask[:, None] & (col < _per_row(nblk, b, dev)[:, None])
+            & (donor >= 0))
+    block_table = torch.where(take, donor, block_table)
+    pages = torch.where(take, donor.long(), n_pages).reshape(-1)
+    rc = pager.rc.index_add(0, pages, torch.ones_like(pages,
+                                                      dtype=pager.rc.dtype))
+    return PagerState(pager.free, pager.top, rc), block_table
+
+
+def cow_on_write(
+    pager: PagerState,
+    block_table: torch.Tensor,             # (B, max_blocks) int32
+    idx,                                   # () or (B,): position written
+    active: Optional[torch.Tensor] = None,  # (B,) bool; None = all rows
+    *,
+    page_size: int,
+):
+    """Un-share the page each active row is about to write: a row whose
+    target block maps a page with ``rc > 1`` pops a fresh page (rows
+    ranked by batch index, as ``alloc_on_write``), swaps its block-table
+    entry, sets the fresh page's refcount to 1 and drops its ref on the
+    shared page; a ref that reaches 0 (every holder moved at once) pushes
+    the page back.  Returns ``(pager, block_table, src, dst, limit,
+    moved)``: copy slots ``[0, limit)`` of page ``src`` into ``dst``
+    (``copy_page_prefix``) before the write; rows that did not move have
+    the sentinel in ``src`` and ``dst``.  A dry pop leaves the row on the
+    shared page (admission reserves one spare page per fully shared
+    prompt, so it does not happen)."""
+    b, max_blocks = block_table.shape
+    dev = block_table.device
+    n_pages = pager.free.shape[0] - 1
+    idx_b = _per_row(idx, b, dev)
+    if active is None:
+        active = torch.ones((b,), dtype=torch.bool, device=dev)
+    blk = idx_b // page_size
+    blk_c = blk.clamp(0, max_blocks - 1)
+    cur = block_table.gather(1, blk_c[:, None])[:, 0]
+    shared = (active & (blk < max_blocks) & (cur >= 0)
+              & (pager.rc.index_select(0, cur.long().clamp(0, n_pages))
+                 > 1))
+    rank = torch.cumsum(shared, 0) - 1
+    grant = shared & (rank < pager.top)
+    slot = (pager.top - 1 - rank).clamp(0, max(n_pages - 1, 0))
+    fresh = torch.where(grant, pager.free.index_select(0, slot), cur)
+    col = torch.arange(max_blocks, device=dev)
+    block_table = torch.where(
+        grant[:, None] & (col[None, :] == blk_c[:, None]), fresh[:, None],
+        block_table,
+    )
+    top = pager.top - grant.sum(dtype=torch.int32)
+    old = torch.where(grant, cur.long(), n_pages)
+    dec = torch.zeros_like(pager.rc).index_add_(
+        0, old, torch.ones_like(old, dtype=pager.rc.dtype))
+    rc = pager.rc - dec
+    orphaned = ((pager.rc > 0) & (rc <= 0) & (dec > 0))[:n_pages]
+    dst = torch.where(grant, fresh.long(), n_pages)
+    rc = rc.clamp(min=0).index_put(
+        (dst,), torch.ones((), dtype=rc.dtype, device=dev))
+    free, top = _push_freed(pager.free, top, orphaned)
+    return (PagerState(free, top, rc), block_table, old, dst,
+            idx_b % page_size, grant)
+
+
+def copy_page_prefix(
+    pool: torch.Tensor,   # (stacks, n_pages + 1, page_size, Hkv, hd)
+    src: torch.Tensor,    # (B,) page ids (the sentinel: row did not move)
+    dst: torch.Tensor,    # (B,) page ids (the sentinel: row did not move)
+    limit: torch.Tensor,  # (B,): copy slots [0, limit)
+) -> None:
+    """The CoW data move, in place: each moved row's written slot prefix
+    from its old page to its fresh one across every layer slab; slots at
+    and above ``limit`` are zeroed (garbage by the sequential-write
+    contract, never read).  Rows that did not move copy the sentinel page
+    onto itself."""
+    page_size = pool.shape[2]
+    content = pool.index_select(1, src)          # (stacks, B, S, ...)
+    keep = (torch.arange(page_size, device=pool.device)[None, :]
+            < limit[:, None])
+    content = torch.where(keep[None, :, :, None, None], content,
+                          torch.zeros((), dtype=pool.dtype,
+                                      device=pool.device))
+    pool.index_copy_(1, dst, content)
+
+
+def copy_page_scale(
+    scales: torch.Tensor,  # (stacks, n_pages + 1, Hkv) f32
+    src: torch.Tensor,     # (B,) page ids (the sentinel: row did not move)
+    dst: torch.Tensor,     # (B,) page ids (the sentinel: row did not move)
+) -> None:
+    """The CoW scale move, in place: the fresh page inherits its donor's
+    per-(page, head) scales, so the prefix ``copy_page_prefix`` moved
+    dequantizes bit for bit."""
+    scales.index_copy_(1, dst, scales.index_select(1, src))
 
 
 def write_page(

@@ -200,18 +200,23 @@ def test_served_config_fields(cls, field, value):
     (EngineConfig, "spec", object()),
 ])
 def test_unserved_config_fields_raise(cls, field, value):
-    """Fields of later slices are never silently ignored.  A sub-f32
+    """Fields of later slices are never silently ignored: host spill,
+    prefill budgets and speculation raise naming their slices.  A sub-f32
     ``kv_dtype`` is served on the paged pool and refused, as JAX refuses
-    it, on the contiguous slab; snapshots need the paged layout before
-    they reach the prefix-sharing slice's refusal."""
-    if field == "kv_dtype":
+    it, on the contiguous slab; snapshots, like it, need the paged layout.
+    Sampling and prefix sharing (with snapshots) are served now
+    (``test_torch_sampling.py``, ``test_torch_prefix_sharing.py``)."""
+    if field in ("kv_dtype", "snapshots"):
         with pytest.raises(ValueError, match="layout='paged' required"):
             cls(**{field: value})
-        assert cls(layout="paged", **{field: value}).kv_dtype == value
+        assert getattr(cls(layout="paged", **{field: value}),
+                       field) == value
         return
-    kw = {"layout": "paged"} if field == "snapshots" else {}
+    if field in ("prefix_sharing", "temperature", "top_k"):
+        assert getattr(cls(**{field: value}), field) == value
+        return
     with pytest.raises(NotImplementedError, match="comes with"):
-        cls(**kw, **{field: value})
+        cls(**{field: value})
 
 
 def test_config_validation_matches_jax():
