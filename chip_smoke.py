@@ -9,7 +9,8 @@ failure (non-zero exit, no result line):
 
 1. device   — CUDA present, sm_90; prints nvidia-smi's name and power limit.
 2. build    — compiles every ``csrc/*.cu`` kernel with nvcc for sm_90a.
-3. kernels  — each of the twenty-three kernels against its plain PyTorch
+3. kernels  — each of the twenty-three kernels (and the page copy, phase 12)
+              against its plain PyTorch
               version at the main paths' shapes (bf16 and f32; qwen2.5-3b's,
               the recurrent archs' and mixtral-8x7b's, the attention
               kernels also at glm4-9b's, deepseek-coder-33b's and
@@ -311,6 +312,30 @@ failure (non-zero exit, no result line):
               in f32 at 2 layers sampled at T 0.8, top-k 50, seed 0 gives
               one stream under ``steps_per_sync`` {1, 8} x chunk {1, 16},
               top-k 1 the greedy one.
+12. pressure — serving under pressure through the engine
+              (``drive_pressure``): batch 4, page 16, chunk 16, a pool of
+              32 pages (half the worst case), four priority-0 requests of
+              190-210 prompt tokens, two priority-1 of 24-48 two cycles
+              later, which preempt, and a ``FaultPlan`` at cycle 3 (pages
+              held until cycle 6, a poisoned priority-1 row, a queued
+              request past a 0 ms deadline, the other resident row
+              cancelled) so the preempted row restores; admit (spills and
+              restores included), prefill and decode under
+              ``set_sync_debug_mode("error")``, the spilled row's host
+              pages and the restored row's device pages bit for bit what
+              was moved, every tier conserved after the drain, exact
+              launch counts with one page copy (``csrc/page_copy.cu``) a
+              pool a spill or restore.  (a) full width in bf16:
+              qwen2.5-3b over the bf16 and int8 pools (and the bf16
+              pool's priority-1 TTFT with and without pressure),
+              zamba2-2.7b with prefix sharing (its snapshot slots spill);
+              the copies' pages, bytes and device times beside a pinned
+              ``copy_``.  (b) f32 at phase 5's depths: the surviving
+              streams equal an uncontended run's (worst-case pool, no
+              plan) over qwen's f32, bf16 and int8 pools and zamba2's.
+              Phase 3 also holds the page copy, device -> pinned and
+              back, at these pools' shapes (and 2 of zamba2's 71 MB
+              snapshot slots) bit for bit its plain version.
 
 The random 64- and 54-layer Mamba stacks are chaotic: the plain reference
 alone, in bf16 and in f32 on the same weights, disagrees on nearly every
@@ -370,6 +395,12 @@ SEED = 0
 T_START = time.perf_counter()
 
 
+def stamp(phase: int) -> None:
+    """The host clock when a phase starts, for the script's time budget."""
+    print(f"[phase {phase}] starts at {time.perf_counter() - T_START:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -404,37 +435,51 @@ def main() -> int:
           f"{_build.library_path().name} in {secs:.1f} s", flush=True)
 
     # ---------------------------------------------------------------- 3
+    stamp(3)
     kernels = phase_kernels(torch)
 
     # ---------------------------------------------------------------- 4
+    stamp(4)
     launches = phase_serving(torch)
 
     # ---------------------------------------------------------------- 5
+    stamp(5)
     for name, n in phase_f32(torch).items():
         launches[name] += n
 
     # ---------------------------------------------------------------- 6
+    stamp(6)
     for name, n in phase_check(torch).items():
         launches[name] += n
 
     # ---------------------------------------------------------------- 7
+    stamp(7)
     for name, n in phase_train(torch).items():
         launches[name] += n
 
     # ---------------------------------------------------------------- 8
+    stamp(8)
     for name, n in phase_caffe(torch).items():
         launches[name] += n
 
     # ---------------------------------------------------------------- 9
+    stamp(9)
     for name, n in phase_caffe_train(torch).items():
         launches[name] += n
 
     # --------------------------------------------------------------- 10
+    stamp(10)
     for name, n in phase_direct(torch).items():
         launches[name] += n
 
     # --------------------------------------------------------------- 11
+    stamp(11)
     for name, n in phase_share(torch).items():
+        launches[name] += n
+
+    # --------------------------------------------------------------- 12
+    stamp(12)
+    for name, n in phase_pressure(torch).items():
         launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -447,8 +492,8 @@ def main() -> int:
                 for r, n in k["routes"].items() if n}))
         if not k["launches"]:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "
-                             "a serving, check, training, Caffe or direct "
-                             "convolution path")
+                             "a serving, check, training, Caffe, direct "
+                             "convolution or pressure path")
 
     print(f"[done] {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -493,7 +538,7 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     """Least time for the work: bytes over HBM rate vs ops over the peak
     rate of the type; returns (ms, what bounds it)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / PEAK_FLOPS[dtype] if flops else 0.0
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1331,6 +1376,7 @@ def phase_kernels(torch):
     caffe_train_kernels(torch, F, rnd, run, timer)
     small_gemm_cases(torch, rnd, run, slow)
     direct_kernels(torch, F, rnd, run, timer)
+    page_copy_kernels(torch, rnd, run, timer)
 
     # per-kernel totals over one bf16 step at B = 4: a decode step for the
     # decode-path kernels, a prefill step (C = 16) for the chunk kernels
@@ -1398,6 +1444,12 @@ def phase_kernels(torch):
         "conv2d_direct": ("src/repro_torch/kernels/csrc/conv_direct.cu",
                           "src/repro/kernels/conv_direct.py:53",
                           "mnist direct"),
+        # the page copy of phase 12: one spill and one restore of a
+        # 13-page qwen2.5-3b row over the bf16 pool (kp and vp each)
+        "copy_pages": ("src/repro_torch/kernels/csrc/page_copy.cu",
+                       "none: port-side (JAX's spill/restore data plane, "
+                       "src/repro/serving/pager.py:484 copy_pages, is jnp)",
+                       "pressure"),
     }
 
     def totals(name, step):
@@ -3794,6 +3846,96 @@ def direct_kernels(torch, F, rnd, run, clock):
             conv_tile_sweep(clock, f"{step} {what}", fn, x, w, st, p)
 
 
+# phase 3's page copies: (case, pool shape with None on the page axis,
+# page axis, dtype, step, count, device pages, host slots, pages moved).
+# 12a's pools: qwen2.5-3b's KV pool of half the worst case (32 pages of
+# B x 16) and its worst-case host tier, a 200-token row's 13 pages moved;
+# zamba2-2.7b's snapshot pools cut to 4 slots a tier (71 MB a slot), 2
+# moved, timed 3 times (the staged plain version takes ≈ 1.4 s a call)
+COPY_CASES = (
+    ("qwen2.5-3b kv page 36x16x2x128", (36, None, 16, 2, 128), 1,
+     "bfloat16", "pressure", 2, 32, 64, 13),
+    ("qwen2.5-3b int8 kv page 36x16x2x128", (36, None, 16, 2, 128), 1,
+     "int8", "int8 pressure", 2, 32, 64, 13),
+    ("qwen2.5-3b int8 scales 36x2", (36, None, 2), 1, "float32",
+     "int8 pressure", 2, 32, 64, 13),
+    ("zamba2-2.7b kv page 9x16x32x80", (9, None, 16, 32, 80), 1,
+     "bfloat16", "zamba2 pressure", 2, 32, 64, 13),
+    ("zamba2-2.7b ssm snapshot 54x80x64x64", (None, 54, 80, 64, 64), 0,
+     "float32", "zamba2 pressure", 1, 4, 4, 2),
+    ("zamba2-2.7b conv snapshot 54x3x5120", (None, 54, 3, 5120), 0,
+     "bfloat16", "zamba2 pressure", 1, 4, 4, 2),
+)
+
+
+def page_copy_kernels(torch, rnd, run, clock):
+    """``copy_pages`` (csrc/page_copy.cu) at phase 12's pools, device ->
+    pinned (a spill) and pinned -> device (a restore), with B x 16 id
+    pairs, ``moved`` of them real and the rest sentinels: bit for bit
+    its plain version (``copy_pages_ref``: the staged, synchronous
+    index_select / index_copy_), timed beside it and beside a plain
+    pinned ``copy_`` of the same bytes in one piece (the host link's
+    yardstick)."""
+    from repro_torch.kernels.page_copy import copy_pages, copy_pages_ref
+
+    gen = np.random.default_rng(SEED + 12)
+    few = Timer(torch, reps=3, warm=1)
+    for (case, shape, axis, dt, step, count, n_dev, n_host,
+         moved) in COPY_CASES:
+        dtype = getattr(torch, dt)
+
+        def pool(n, pinned):
+            full = [n + 1 if d is None else d for d in shape]
+            if dtype == torch.int8:
+                t = torch.randint(-127, 128, full, dtype=dtype,
+                                  device="cuda")
+            else:
+                t = rnd(full, dtype)
+            return t.cpu().pin_memory() if pinned else t
+
+        dev, host = pool(n_dev, False), pool(n_host, True)
+        # one page's bytes across the pool's stacks
+        unit = dev.numel() // dev.shape[axis] * dev.element_size()
+        pairs = B * 16
+        dev_ids = gen.permutation(n_dev)[:moved]
+        host_ids = gen.permutation(n_host)[:moved]
+        at = gen.permutation(pairs)[:moved]
+        for way, (src_pool, n_src, src_ids, dst_pool, n_dst, dst_ids) in (
+                ("device -> pinned", (dev, n_dev, dev_ids, host, n_host,
+                                      host_ids)),
+                ("pinned -> device", (host, n_host, host_ids, dev, n_dev,
+                                      dev_ids))):
+            src = np.full(pairs, n_src)
+            dst = np.full(pairs, n_dst)
+            src[at], dst[at] = src_ids, dst_ids
+            src_t = torch.as_tensor(src, device="cuda")
+            dst_t = torch.as_tensor(dst, device="cuda")
+            k_dst, p_dst = dst_pool.clone(), dst_pool.clone()
+            if not dst_pool.is_cuda:
+                k_dst, p_dst = k_dst.pin_memory(), p_dst.pin_memory()
+            real = (slice(None),) * axis + (slice(0, n_dst),)
+            nbytes = 2 * moved * unit
+            run(copy_pages, f"{case}, {moved} pages {way}", dtype, step,
+                count,
+                lambda s_=src_pool, d_=k_dst, a=src_t, b=dst_t, x=axis:
+                    copy_pages(d_, s_, a, b, axis=x)[real],
+                lambda s_=src_pool, d_=p_dst, a=src_t, b=dst_t, x=axis:
+                    copy_pages_ref(d_, s_, a, b, axis=x)[real],
+                None, nbytes, 0.0, tol=0.0,
+                clock=few if axis == 0 else clock)
+            one = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+            pin = torch.empty(nbytes // 2, dtype=torch.uint8).pin_memory()
+            a_, b_ = (pin, one) if way == "device -> pinned" else (one, pin)
+            yard = clock(lambda a_=a_, b_=b_: a_.copy_(b_, non_blocking=True))
+            print(f"[3 kernels] copy_pages {case}, {way}: "
+                  f"{nbytes // 2 / 2 ** 20:.1f} MiB a call; pinned copy_ "
+                  f"of the same bytes in one piece {yard:.4f} ms "
+                  f"({nbytes / 2 / yard / 1e6:.1f} GB/s)", flush=True)
+            del k_dst, p_dst, one, pin
+        del dev, host
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width serving through the port's engine
 # ---------------------------------------------------------------------------
@@ -3847,7 +3989,7 @@ KERNELS = ("gemm", "rmsnorm", "bias_add_rows", "flash_decode",
            "flash_prefill_chunk_paged_quant", "flash_attention", "ssd_scan",
            "rmsnorm_bwd", "flash_attention_bwd", "im2col", "maxpool", "relu",
            "softmax", "softmax_xent", "col2im", "maxpool_bwd", "relu_bwd",
-           "softmax_xent_bwd", "conv2d_direct")
+           "softmax_xent_bwd", "conv2d_direct", "copy_pages")
 # the attention kernels of each (layout, pool): (decode step, prefill step)
 ATTN = {("contiguous", "f32"): ("flash_decode", "flash_prefill_chunk"),
         ("paged", "f32"): ("flash_decode_paged", "flash_prefill_chunk_paged"),
@@ -3903,6 +4045,7 @@ def kernel_fns():
     from repro_torch.kernels.gemm import gemm
     from repro_torch.kernels.im2col import col2im, im2col
     from repro_torch.kernels.mamba_scan import ssd_scan
+    from repro_torch.kernels.page_copy import copy_pages
     from repro_torch.kernels.pooling import maxpool, maxpool_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.softmax_xent import (softmax, softmax_xent,
@@ -3913,7 +4056,7 @@ def kernel_fns():
            "softmax": softmax, "softmax_xent": softmax_xent,
            "col2im": col2im, "maxpool_bwd": maxpool_bwd,
            "relu_bwd": relu_bwd, "softmax_xent_bwd": softmax_xent_bwd,
-           "conv2d_direct": conv2d_direct}
+           "conv2d_direct": conv2d_direct, "copy_pages": copy_pages}
     fns.update({name: getattr(FA, name) for name in KERNELS
                 if name.startswith("flash_")})
     return fns
@@ -4112,6 +4255,23 @@ def drive(torch, eng, tag, arrivals):
     print(f"{tag} launches {launches}; rmsnorm routes "
           f"{fns['rmsnorm'].routes}, bias_add_rows routes "
           f"{fns['bias_add_rows'].routes}", flush=True)
+    check_launches(eng, tag, fns, launches, pre, dec)
+    outs = eng.outputs
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(o) != GEN_LEN or o.min() < 0 or o.max() >= model.cfg.vocab_size
+            for o in outs.values()):
+        raise SystemExit(f"chip_smoke: {tag} serving outputs malformed")
+    return launches, outs, s, rids
+
+
+def check_launches(eng, tag, fns, launches, pre, dec, copies=0):
+    """Every bf16 decode on the split kernel and chunk on the tensor-core
+    kernel (f32 on the template), every SSD decode scan on "step" and
+    chunk scan on "split", and every launch count what ``pre`` prefill
+    and ``dec`` decode steps imply: ``per_step`` a step, the layout's
+    attention kernels, and ``copies`` page copies (``copy_pages``: the
+    spills' and restores')."""
+    model = eng.model
     # every bf16 decode launch (slab, bf16 pool, int8 pool) on the split
     # kernel
     for name in DECODES:
@@ -4145,6 +4305,7 @@ def drive(torch, eng, tag, arrivals):
         raise SystemExit(f"chip_smoke: {tag} ssd_scan routes {rt}, "
                          f"expected {want_rt}")
     want = {name: 0 for name in KERNELS}
+    want["copy_pages"] = copies
     want.update({name: n * (pre + dec) for name, n in steps.items()})
     k_dec, k_pre = ATTN[eng.cache.layout, eng.cache.kv_dtype]
     want[k_dec] += n_attn * dec
@@ -4153,12 +4314,6 @@ def drive(torch, eng, tag, arrivals):
         raise SystemExit(f"chip_smoke: {tag} launches "
                          f"{launches}, expected {want} for {pre} prefill + "
                          f"{dec} decode steps")
-    outs = eng.outputs
-    if sorted(outs) != list(range(len(reqs))) or any(
-            len(o) != GEN_LEN or o.min() < 0 or o.max() >= model.cfg.vocab_size
-            for o in outs.values()):
-        raise SystemExit(f"chip_smoke: {tag} serving outputs malformed")
-    return launches, outs, s, rids
 
 
 def first_logits(torch, model, params, toks, layout, backend):
@@ -6454,6 +6609,364 @@ def sampled_schedules(torch, model, params, total):
             or same_greedy != len(reqs) or not differs):
         raise SystemExit("chip_smoke: sampled streams depend on the "
                          "schedule, or top-k 1 is not greedy")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: serving under pressure
+# ---------------------------------------------------------------------------
+
+PRESS_MAX_LEN = 256    # 16 pages of 16: a 210-token prompt and 32 tokens
+PRESS_PAGES = 32       # about half the worst case, B x 16 = 64 pages
+# 12a: full width in bf16, (arch, pools, prefix sharing) ("f32": the
+# model's own dtype); zamba2's sharing gives it the snapshot store, whose
+# slots spill too
+PRESS_FULL = (("qwen2.5-3b", ("f32", "int8"), False),
+              ("zamba2-2.7b", ("f32",), True))
+# 12b: f32 at phase 5's depths, (arch, layers, pools, prefix sharing)
+PRESS_F32 = (("qwen2.5-3b", 2, ("f32", "bf16", "int8"), False),
+             ("zamba2-2.7b", GATE_LAYERS, ("f32",), True))
+# (device pool, host pool) pairs a spill or restore moves, one page-copy
+# launch each
+TIER_POOLS = (("kp", "hkp"), ("vp", "hvp"), ("ksc", "hksc"),
+              ("vsc", "hvsc"), ("snap_ssm", "hsnap_ssm"),
+              ("snap_conv", "hsnap_conv"))
+
+
+def pressure_traffic(vocab, seed):
+    """(cycle, priority, prompt): four priority-0 requests of 190-210
+    prompt tokens at cycle 0 (two fit the pool at a time), then two
+    priority-1 requests of 24-48 at cycle 2, which must preempt."""
+    rng = np.random.default_rng(seed)
+    low = [(0, 0, rng.integers(0, vocab, int(rng.integers(190, 211))))
+           for _ in range(4)]
+    high = [(2, 1, rng.integers(0, vocab, int(rng.integers(24, 49))))
+            for _ in range(2)]
+    return low + high
+
+
+def pressure_plan(traffic):
+    """At cycle 3 (the fourth admit): five pages held until cycle 6,
+    request 5 (priority 1, resident) poisoned, request 2 (queued) past a
+    0 ms deadline, and the resident priority-0 row that was not preempted
+    cancelled.  The preempted row is the one of requests 0 and 1 with the
+    shorter prompt (least progress; the older on a tie), so it is
+    restored and survives, with requests 3 and 4."""
+    from repro_torch.serving import FaultEvent, FaultPlan
+
+    victim = min((0, 1), key=lambda r: (len(traffic[r][2]), r))
+    return FaultPlan((
+        FaultEvent(cycle=3, kind="exhaust_pool", pages=5),
+        FaultEvent(cycle=3, kind="poison", req_id=5),
+        FaultEvent(cycle=3, kind="cancel", req_id=1 - victim),
+        FaultEvent(cycle=3, kind="deadline", req_id=2, deadline_ms=0.0),
+        FaultEvent(cycle=6, kind="release_pool")))
+
+
+def tier_pages(eng, b, tables):
+    """Row b's pages (and snapshot slots) in the pools of each tier,
+    in block order, gathered through ``tables`` (the device tier's or the
+    host tier's), copied to the CPU: {pool name: tensor}."""
+    ms = eng._mstate
+    out = {}
+    for (dev, host), table, axis in zip(
+            TIER_POOLS, ("block_table",) * 4 + ("snap_table",) * 2,
+            (1, 1, 1, 1, 0, 0)):
+        key = dev if tables == "device" else host
+        tkey = table if tables == "device" else (
+            "host_table" if table == "block_table" else "hsnap_table")
+        if host not in ms:
+            continue
+        ids = ms[tkey][b]
+        ids = ids[ids >= 0].long().to(ms[key].device)
+        out[dev] = ms[key].index_select(axis, ids).cpu()
+    return out
+
+
+def pages_at(eng, b, saved_tables):
+    """Row b's device pages through block tables saved before a spill."""
+    ms = eng._mstate
+    out = {}
+    for (dev, host), table, axis in zip(
+            TIER_POOLS, ("block_table",) * 4 + ("snap_table",) * 2,
+            (1, 1, 1, 1, 0, 0)):
+        if host not in ms:
+            continue
+        ids = saved_tables[table][b]
+        out[dev] = ms[dev].index_select(axis, ids[ids >= 0].long()).cpu()
+    return out
+
+
+def same_pages(torch, a, b):
+    """Two {pool: pages} gathers equal, pool by pool."""
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+
+
+def conserved(eng):
+    """Every tier's free list full and its table unmapped."""
+    ms = eng._mstate
+    for pre, table in (("page", "block_table"), ("host", "host_table"),
+                       ("snap", "snap_table"), ("hsnap", "hsnap_table")):
+        if pre + "_top" in ms:
+            n = ms[pre + "_free"].shape[0] - 1
+            if int(ms[pre + "_top"]) != n or not bool(
+                    (ms[table] == -1).all()):
+                return False
+    return True
+
+
+def drive_pressure(torch, eng, tag, traffic, plan=None):
+    """Serve ``traffic`` ((cycle, priority, prompt) triples, ``GEN_LEN``
+    tokens each) under ``plan`` on the hopper backend, every cycle's
+    admit (spills and restores included), prefill and decode under
+    ``set_sync_debug_mode("error")``.  Right after each admit, outside
+    the debug mode: a spilled row's host pages must equal its device
+    pages at the ids it held before, and a restored row's device pages
+    what was spilled, bit for bit.  The launch counts are set to 0 just
+    before the first cycle and read after the last: each spill and
+    restore call one page copy a pool.  Returns (launches, outputs,
+    stats, request ids in arrival order, the page copies' records)."""
+    from repro_torch.core.policy import use_backend
+    from repro_torch.models import lm as LM
+    from repro_torch.serving import pager as PG
+
+    fns = kernel_fns()
+    calls = {"spill": 0, "restore": 0}
+    records = []      # (direction, src ids, sentinel, unit bytes, events)
+    real = (LM.spill_rows, LM.restore_rows, PG.copy_pages)
+
+    def counted(kind, fn):
+        def wrapped(state, mask):
+            calls[kind] += 1
+            return fn(state, mask)
+        return wrapped
+
+    def timed_copy(dst_pool, src_pool, src, dst, *, axis=1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real[2](dst_pool, src_pool, src, dst, axis=axis)
+        ev[1].record()
+        unit = (src_pool.numel() // src_pool.shape[axis]
+                * src_pool.element_size())
+        records.append(("restore" if dst_pool.is_cuda else "spill",
+                        src.clone(), src_pool.shape[axis] - 1, unit, ev))
+        return out
+
+    rids, saved, checked = [], {}, {"spilled": 0, "restored": 0}
+    LM.spill_rows = counted("spill", real[0])
+    LM.restore_rows = counted("restore", real[1])
+    PG.copy_pages = timed_copy
+    try:
+        with use_backend("hopper"):
+            eng.set_fault_plan(plan)
+            zero_counts(fns)
+            t0 = time.perf_counter()
+            cycle = 0
+            while eng.busy() or any(c >= cycle for c, _, _ in traffic):
+                rids += [eng.submit(toks, GEN_LEN, priority=p)
+                         for c, p, toks in traffic if c == cycle]
+                cycle += 1
+                tables = {k: eng._mstate[k].clone() for k in
+                          ("block_table", "snap_table") if k in eng._mstate}
+                was = list(eng._row_spilled)
+                held = [r.req_id if r is not None else None
+                        for r in eng._slot_req]
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eng.admit()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                for b in range(eng.batch):
+                    req = eng._slot_req[b]
+                    if req is None or req.req_id != held[b]:
+                        continue
+                    if eng._row_spilled[b] and not was[b]:
+                        host = tier_pages(eng, b, "host")
+                        if not same_pages(torch, host,
+                                          pages_at(eng, b, tables)):
+                            raise SystemExit(f"chip_smoke: {tag} row {b}: "
+                                             "spilled pages differ")
+                        saved[req.req_id] = host
+                        checked["spilled"] += 1
+                    elif was[b] and not eng._row_spilled[b]:
+                        if not same_pages(torch,
+                                          tier_pages(eng, b, "device"),
+                                          saved.pop(req.req_id)):
+                            raise SystemExit(f"chip_smoke: {tag} row {b}: "
+                                             "restored pages differ")
+                        checked["restored"] += 1
+                if not any(r is not None for r in eng._slot_req):
+                    continue
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eng.prefill()
+                    eng.decode()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                eng.harvest()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts(fns)
+    finally:
+        LM.spill_rows, LM.restore_rows, PG.copy_pages = real
+    s = eng.stats()
+    pre, dec = eng.prefill_steps, eng.steps
+    s.update(wall_s=wall)
+    pools = sum(host in eng._mstate for _, host in TIER_POOLS)
+    check_launches(eng, tag, fns, launches, pre, dec,
+                   copies=pools * (calls["spill"] + calls["restore"]))
+    doomed = eng.cancelled | eng.expired | eng.poisoned
+    outs = eng.outputs
+    if (sorted(outs) != [r for r in rids if r not in doomed] or any(
+            len(o) != GEN_LEN or o.min() < 0
+            or o.max() >= eng.model.cfg.vocab_size for o in outs.values())):
+        raise SystemExit(f"chip_smoke: {tag} serving outputs malformed")
+    if not conserved(eng):
+        raise SystemExit(f"chip_smoke: {tag} a tier leaked pages or slots")
+    print(f"{tag} {len(rids)} requests, pool {eng.n_pages} pages: {pre} "
+          f"prefill + {dec} decode steps in {wall:.2f} s; preemptions "
+          f"{int(s.get('preemptions', 0))}, restores "
+          f"{int(s.get('restores', 0))}, cancelled {sorted(eng.cancelled)}, "
+          f"expired {sorted(eng.expired)}, poisoned {sorted(eng.poisoned)};"
+          f" {calls['spill']} spill and {calls['restore']} restore calls, "
+          f"{launches['copy_pages']} page copies; rows checked bit for bit "
+          f"after spill {checked['spilled']}, after restore "
+          f"{checked['restored']}; every tier conserved", flush=True)
+    return launches, outs, s, rids, records
+
+
+def copy_report(torch, tag, records, clock):
+    """Pages and bytes moved per spill and per restore, the copy kernel's
+    device time a call (CUDA events around each launch in the run) and a
+    plain pinned ``copy_`` of the largest call's bytes in one piece, each
+    way (the host link's yardstick)."""
+    by = {"spill": [], "restore": []}
+    for way, src, n, unit, ev in records:
+        pages = int((src < n).sum())
+        by[way].append((pages, pages * unit, ev[0].elapsed_time(ev[1])))
+    for way, rows in by.items():
+        if not rows:
+            continue
+        nbytes = max(r[1] for r in rows)
+        one = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        pin = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+        a, b = (pin, one) if way == "spill" else (one, pin)
+        yard = clock(lambda: a.copy_(b, non_blocking=True))
+        moved = sum(r[1] for r in rows)
+        ms = sum(r[2] for r in rows)
+        print(f"{tag} {way}: {len(rows)} page copies, pages a copy "
+              f"{[r[0] for r in rows]}, {moved / 2 ** 20:.1f} MiB in "
+              f"{ms:.3f} ms of copy kernels ({moved / ms / 1e6:.1f} GB/s); "
+              f"ms a copy {[round(r[2], 4) for r in rows]}; pinned copy_ of "
+              f"{nbytes / 2 ** 20:.1f} MiB in one piece {yard:.4f} ms "
+              f"({nbytes / yard / 1e6:.1f} GB/s)", flush=True)
+        del one, pin
+
+
+def pressure_engine(model, params, kv_dtype, sharing, n_pages):
+    from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
+
+    return ServingEngine(
+        model, params, batch=B, max_len=PRESS_MAX_LEN,
+        cache=CacheConfig(layout="paged", page_size=PAGE, n_pages=n_pages,
+                          kv_dtype=kv_dtype),
+        config=EngineConfig(steps_per_sync=8, prefill_chunk=CHUNK,
+                            prefix_sharing=sharing))
+
+
+def phase_pressure(torch):
+    """Phase 12, serving under pressure.  (a) full width in bf16
+    (``PRESS_FULL``): ``pressure_traffic`` under ``pressure_plan`` in a
+    pool of half the worst case, through ``drive_pressure``: preemptions
+    and restores >= 1, spilled and restored pages bit for bit, every tier
+    conserved, the copies' pages, bytes and device times against a plain
+    pinned ``copy_``, and, for qwen2.5-3b over the bf16 pool, the
+    priority-1 requests' TTFT with and without pressure (the same traffic
+    in a worst-case pool, no plan).  (b) f32 at phase 5's depths
+    (``PRESS_F32``): the surviving streams under pressure equal the
+    uncontended run's token for token.  Returns the launches."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import build_model
+
+    total = {name: 0 for name in KERNELS}
+    clock = Timer(torch, reps=10)
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    for arch, pools, sharing in PRESS_FULL:
+        cfg = get_arch(arch)
+        model = build_model(cfg)
+        params = model.init_params(SEED)
+        perturb(torch, params, SEED + 1)
+        traffic = pressure_traffic(cfg.vocab_size, SEED + 12)
+        for kv_dtype in pools:
+            pool = f", {kv_dtype} pool" if kv_dtype != "f32" else ""
+            share = ", prefix sharing" if sharing else ""
+            tag = f"[12 pressure] {cfg.name}{pool}{share}:"
+            eng = pressure_engine(model, params, kv_dtype, sharing,
+                                  PRESS_PAGES)
+            launches, _, st, rids, records = drive_pressure(
+                torch, eng, tag, traffic, pressure_plan(traffic))
+            add(launches)
+            if not (st["preemptions"] >= 1 and st["restores"] >= 1):
+                raise SystemExit(f"chip_smoke: {tag} no preemption or "
+                                 "restore")
+            copy_report(torch, tag, records, clock)
+            if kv_dtype == "f32" and arch == "qwen2.5-3b":
+                high = [r for (_, p, _), r in zip(traffic, rids) if p == 1]
+                calm = pressure_engine(model, params, kv_dtype, sharing,
+                                       None)
+                add(drive_pressure(torch, calm, f"{tag} uncontended",
+                                   traffic)[0])
+
+                def ttft(e):
+                    return [round(1e3 * e.ttft[r], 1) for r in high
+                            if r in e.ttft]
+
+                print(f"{tag} TTFT of the priority-1 requests {high} "
+                      f"(host clock, ms): under pressure {ttft(eng)}, "
+                      f"uncontended {ttft(calm)}", flush=True)
+                del calm
+            del eng
+            torch.cuda.empty_cache()
+        del params, model
+        torch.cuda.empty_cache()
+
+    failed = []
+    for arch, layers, pools, sharing in PRESS_F32:
+        model = build_model(dataclasses.replace(
+            get_arch(arch), n_layers=layers, dtype="float32"))
+        params = model.init_params(SEED)
+        perturb(torch, params, SEED + 1)
+        traffic = pressure_traffic(model.cfg.vocab_size, SEED + 12)
+        for kv_dtype in pools:
+            pool = f", {kv_dtype} pool" if kv_dtype != "f32" else ""
+            tag = f"[12 f32, {layers} layers] {model.cfg.name}{pool}:"
+            eng = pressure_engine(model, params, kv_dtype, sharing,
+                                  PRESS_PAGES)
+            launches, outs, st, rids, _ = drive_pressure(
+                torch, eng, tag, traffic, pressure_plan(traffic))
+            add(launches)
+            calm = pressure_engine(model, params, kv_dtype, sharing, None)
+            launches, want, _, _, _ = drive_pressure(
+                torch, calm, f"{tag} uncontended", traffic)
+            add(launches)
+            same = [r for r in outs if np.array_equal(outs[r], want[r])]
+            print(f"{tag} surviving streams identical to the uncontended "
+                  f"run's: {len(same)} of {len(outs)} "
+                  f"(preemptions {int(st['preemptions'])}, restores "
+                  f"{int(st['restores'])})", flush=True)
+            if len(same) != len(outs) or not st["restores"]:
+                failed.append((arch, kv_dtype))
+            del eng, calm
+        del params, model
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: f32 streams under pressure differ "
+                         f"from the uncontended run's: {failed}")
+    return total
 
 
 if __name__ == "__main__":

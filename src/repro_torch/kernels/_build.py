@@ -185,6 +185,9 @@ _SIGNATURES = {
     # as repro_ssd_scan, with lanes, vecs and rows a block before dtype
     "repro_ssd_scan_split": [_P] * 8 + [_I] * 6 + [_L] * 13 + [_I] * 4
                             + [_P],
+    # src pool, dst pool, src ids, dst ids (int64), n_pairs, stacks,
+    # page_bytes, n_src, n_dst, src_stack_bytes, dst_stack_bytes, stream
+    "repro_page_copy": [_P] * 4 + [_L] * 7 + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -19,8 +19,9 @@ resident row's written prompt pages (random prompts share none, so it
 reports 0 shared tokens here; ``chip_smoke.py`` phase 11 serves a common
 system prompt); prints tokens/s, time per decode step, mean time to first
 token, the chunked-prefill step count and, paged, the peak pages in use
-and the resident KV bytes at that peak, and the sharing and snapshot
-counts when they apply.  Runs on the card (``--device cuda``, the
+and the resident KV bytes at that peak, and the sharing, snapshot and
+preemption counts when they apply (a pool below the worst case, set by
+``--n-pages``, preempts into the host tier, as in JAX).  Runs on the card (``--device cuda``, the
 default) and raises when there is none; ``--device cpu`` runs the plain
 PyTorch versions.
 
@@ -117,7 +118,7 @@ def main(argv=None) -> int:
     prompts = np.random.default_rng(args.seed + 1).integers(
         0, cfg.vocab_size, (n_req, args.prompt_len))
 
-    # no host tier in the port: a pool below the worst case queues
+    # a pool below the worst case (--n-pages) preempts into the host tier
     cache, config = configs_from_flags(args)
 
     def serve():
@@ -148,6 +149,9 @@ def main(argv=None) -> int:
     if "snap_slots" in s:
         print(f"state snapshots: peak {int(s['snap_slots_peak'])} of "
               f"{int(s['snap_slots'])} page-boundary slots")
+    if s.get("preemptions"):
+        print(f"pressure: {int(s['preemptions'])} preemptions into the host "
+              f"tier, {int(s['restores'])} restores")
     if "shared_prompt_tokens" in s:
         print(f"prefix sharing: {int(s['shared_prompt_tokens'])} prompt "
               f"tokens served from shared pages and snapshots "

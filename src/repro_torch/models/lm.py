@@ -4,7 +4,8 @@ dtype, bf16 or int8 (the port's subset of ``repro.models.lm``).
 
 Public functions mirror the JAX module: ``init_params``, ``forward``,
 ``train_loss``, ``init_decode_state``, ``decode_step``, ``prefill_chunk``,
-``reset_decode_rows``, ``restore_snapshots`` and ``lm_logits``.  Where JAX scans over stacked
+``reset_decode_rows``, ``restore_snapshots``, ``spill_rows``,
+``restore_rows`` and ``lm_logits``.  Where JAX scans over stacked
 layer params, the port keeps lists of per-layer dicts and loops in
 Python: ``params["layers"]`` (dense, moe, ssm) or ``params["groups"]``,
 ``g`` lists of ``attn_every`` Mamba layers each followed by the shared
@@ -25,6 +26,14 @@ each row's full-depth SSM and conv state at every page boundary a step
 ends on (``_snap_capture``, under ``snap_every``); ``restore_snapshots``
 loads a donor's boundary state into an admitted row.  The snapshot pools
 carry a trailing sentinel slot, as the page pools do.
+
+Preemption follows the JAX module too: ``init_decode_state(host_spill=
+True)`` adds the host tier behind the page pools (and, for the hybrid
+family's snapshot store, behind the snapshot pools); ``spill_rows`` moves
+victim rows' pages and snapshot slots there and ``restore_rows`` brings
+them back.  On the card the host tier's payloads are pinned host memory,
+moved by the page-copy kernel (``kernels/page_copy.py``); its bookkeeping
+stays on the device.
 """
 from __future__ import annotations
 
@@ -150,8 +159,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       per_row_pos: bool = False,
                       layout: str = "contiguous", page_size: int = 16,
                       n_pages: Optional[int] = None, kv_dtype: str = "f32",
-                      snapshots: bool = False, cache=None,
-                      device: str | torch.device = "cuda"
+                      snapshots: bool = False, host_spill: bool = False,
+                      cache=None, device: str | torch.device = "cuda"
                       ) -> Dict[str, torch.Tensor]:
     """Decode caches: the contiguous slab ``(stacks, B, max_len, Hkv, hd)``,
     or (``layout="paged"``) page pools ``(stacks, n_pages + 1, page_size,
@@ -167,8 +176,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     contiguous under either layout; ssm has no KV and so no pool whatever
     the layout.  ``n_pages=None`` sizes the pool
     at the worst case, ``batch * ceil(max_len / page_size)``.  ``cache``
-    (a ``CacheConfig``) supplies layout, page size, pool size and
-    ``kv_dtype``, and ``snapshots``.
+    (a ``CacheConfig``) supplies layout, page size, pool size,
+    ``kv_dtype``, ``snapshots`` and ``host_spill``.
     ``per_row_pos=True`` keeps ``pos`` as a (B,) vector so rows may sit at
     different depths (continuous batching).  ``snapshots`` (recurrent
     families, paged layout) adds the page-boundary snapshot store, sized
@@ -177,12 +186,23 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     ``snap_conv`` ``(slots + 1, layers, K-1, d_inner)``, the slot table
     ``snap_table`` ``(B, ceil(max_len / page_size))`` (column ``j`` maps
     boundary ``j + 1``) and its allocator ``snap_free``/``snap_top``/
-    ``snap_rc``; the other families ignore it, as in JAX."""
+    ``snap_rc``; the other families ignore it, as in JAX.  ``host_spill``
+    (paged families with KV pages, as in JAX) adds the host tier behind
+    preemption, sized at the worst case, ``batch * ceil(max_len /
+    page_size)`` slots plus the sentinel: ``hkp``/``hvp`` mirror the page
+    pools (``hksc``/``hvsc`` the int8 pools' scales), with the slot table
+    ``host_table`` and its allocator ``host_free``/``host_top``/
+    ``host_rc``; the hybrid family's snapshot store gets ``hsnap_ssm``/
+    ``hsnap_conv``, ``hsnap_table`` and ``hsnap_free``/``hsnap_top``/
+    ``hsnap_rc``.  The payloads are pinned host memory when the state is
+    on the card, the tables and allocators device tensors; pure ssm has
+    no pages to relieve and ignores the flag."""
     check_family(cfg)
     if cache is not None:
         layout, page_size, n_pages = cache.layout, cache.page_size, \
             cache.n_pages
         kv_dtype, snapshots = cache.kv_dtype, cache.snapshots
+        host_spill = bool(cache.host_spill)
     if layout not in ("contiguous", "paged"):
         raise ValueError(f"unknown KV-cache layout {layout!r}")
     if kv_dtype not in ("f32", "bf16", "int8"):
@@ -228,6 +248,17 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                 "snap_table": PG.init_block_table(batch, n_bound, dev),
                 "snap_free": ss.free, "snap_top": ss.top, "snap_rc": ss.rc,
             })
+            if host_spill and layout == "paged" and cfg.family == "hybrid":
+                # the snapshot store's host tier, at the device store's
+                # worst case
+                hs = PG.init_pager(n_slots, dev)
+                state.update({
+                    "hsnap_ssm": _host_zeros(state["snap_ssm"], dev),
+                    "hsnap_conv": _host_zeros(state["snap_conv"], dev),
+                    "hsnap_table": PG.init_block_table(batch, n_bound, dev),
+                    "hsnap_free": hs.free, "hsnap_top": hs.top,
+                    "hsnap_rc": hs.rc,
+                })
     if cfg.family == "ssm":
         return state
     stacks = (cfg.n_layers if cfg.family in ("dense", "moe")
@@ -250,6 +281,19 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
             for key in ("ksc", "vsc"):
                 state[key] = torch.zeros((stacks, pages + 1, hkv),
                                          dtype=torch.float32, device=dev)
+        if host_spill:
+            # worst case (every row fully resident, all spilled at once),
+            # so a spill's pops never run dry; int8 pools spill their
+            # payload and scales as they are
+            n_h = batch * max_blocks
+            hs = PG.init_pager(n_h, dev)
+            state.update({"h" + key: _host_zeros(state[key], dev, n_h + 1)
+                          for key in ("kp", "vp", "ksc", "vsc")
+                          if key in state})
+            state.update({
+                "host_table": PG.init_block_table(batch, max_blocks, dev),
+                "host_free": hs.free, "host_top": hs.top, "host_rc": hs.rc,
+            })
         return state
     # sliding-window archs only ever need `window` cache slots (ring buffer)
     eff = min(max_len, cfg.window) if cfg.window else max_len
@@ -257,6 +301,21 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     state["k"] = torch.zeros(shape, dtype=dt, device=dev)
     state["v"] = torch.zeros(shape, dtype=dt, device=dev)
     return state
+
+
+def _host_zeros(like: torch.Tensor, dev: torch.device,
+                pages: Optional[int] = None) -> torch.Tensor:
+    """A host-tier pool shaped as ``like`` (with ``pages`` entries on its
+    page axis: 1 for the (stacks, pages, ...) KV and scale pools, 0 for
+    the snapshot pools), zeroed: pinned host memory when the state is on
+    the card, which the page-copy kernel reads and writes through its
+    device address; on ``dev`` otherwise."""
+    shape = list(like.shape)
+    if pages is not None:
+        shape[1] = pages
+    if dev.type == "cuda":
+        return torch.zeros(shape, dtype=like.dtype, pin_memory=True)
+    return torch.zeros(shape, dtype=like.dtype, device=dev)
 
 
 def _cache_index(cfg: ArchConfig, pos: torch.Tensor) -> torch.Tensor:
@@ -303,14 +362,22 @@ def _cache_update_chunk(cache: torch.Tensor, new: torch.Tensor,
     cache.scatter_(1, tgt, val)
 
 
-def _pager(state) -> PG.PagerState:
-    return PG.PagerState(state["page_free"], state["page_top"],
-                         state["page_rc"])
+# the table of each tier's allocator (``<tier>_free``/``_top``/``_rc``):
+# the device pages, the snapshot slots, and their host tiers
+_TABLES = {"page": "block_table", "host": "host_table",
+           "snap": "snap_table", "hsnap": "hsnap_table"}
 
 
-def _paged_commit(state, pstate: PG.PagerState, bt: torch.Tensor):
-    return {**state, "page_free": pstate.free, "page_top": pstate.top,
-            "page_rc": pstate.rc, "block_table": bt}
+def _tier(state, tier: str):
+    """``(PagerState, table)`` of a tier of ``_TABLES``."""
+    return (PG.PagerState(state[tier + "_free"], state[tier + "_top"],
+                          state[tier + "_rc"]), state[_TABLES[tier]])
+
+
+def _commit_tier(state, tier: str, pstate: PG.PagerState,
+                 table: torch.Tensor):
+    return {**state, tier + "_free": pstate.free, tier + "_top": pstate.top,
+            tier + "_rc": pstate.rc, _TABLES[tier]: table}
 
 
 def _paged_cow(state, wpos, active, *, cow: bool):
@@ -319,7 +386,7 @@ def _paged_cow(state, wpos, active, *, cow: bool):
     page each row writes at ``wpos``, whose written slots (and, int8, its
     scales) are copied into the private page in place.  Returns
     ``(PagerState, block_table)``."""
-    pstate, bt = _pager(state), state["block_table"]
+    pstate, bt = _tier(state, "page")
     if cow:
         pstate, bt, src, dst, lim, _ = PG.cow_on_write(
             pstate, bt, wpos, active, page_size=state["kp"].shape[2])
@@ -333,16 +400,6 @@ def _paged_cow(state, wpos, active, *, cow: bool):
     return pstate, bt
 
 
-def _snap_pager(state) -> PG.PagerState:
-    return PG.PagerState(state["snap_free"], state["snap_top"],
-                         state["snap_rc"])
-
-
-def _snap_commit(state, sstate: PG.PagerState, stbl: torch.Tensor):
-    return {**state, "snap_free": sstate.free, "snap_top": sstate.top,
-            "snap_rc": sstate.rc, "snap_table": stbl}
-
-
 def _snap_capture(state, pos_after: torch.Tensor, active: torch.Tensor,
                   snap_every: int):
     """Snapshot the full-depth SSM and conv state of every active row
@@ -354,8 +411,8 @@ def _snap_capture(state, pos_after: torch.Tensor, active: torch.Tensor,
     that capture nothing write the sentinel slot."""
     at = active & (pos_after > 0) & (pos_after % snap_every == 0)
     bound = pos_after // snap_every - 1
-    sstate, stbl = PG.alloc_on_write(_snap_pager(state), state["snap_table"],
-                                     bound, at, page_size=1)
+    sstate, stbl = PG.alloc_on_write(*_tier(state, "snap"), bound, at,
+                                     page_size=1)
     n_slots = state["snap_ssm"].shape[0] - 1
     nb = stbl.shape[1]
     slot = stbl.gather(1, bound.long().clamp(0, nb - 1)[:, None])[:, 0]
@@ -365,7 +422,7 @@ def _snap_capture(state, pos_after: torch.Tensor, active: torch.Tensor,
     state["snap_ssm"].index_copy_(0, tgt, state["ssm"].transpose(0, 1))
     state["snap_conv"].index_copy_(
         0, tgt, state["conv"].transpose(0, 1).to(state["snap_conv"].dtype))
-    return _snap_commit(state, sstate, stbl)
+    return _commit_tier(state, "snap", sstate, stbl)
 
 
 def restore_snapshots(state, mask: torch.Tensor, src, nblk):
@@ -376,8 +433,7 @@ def restore_snapshots(state, mask: torch.Tensor, src, nblk):
     its first ``nblk`` pages, into the rows' SSM and conv states in
     place, so prefill resumes at the first unshared token.  ``nblk == 0``
     rows are untouched."""
-    sstate, stbl = PG.share_prefix(_snap_pager(state), state["snap_table"],
-                                   src, nblk, mask)
+    sstate, stbl = PG.share_prefix(*_tier(state, "snap"), src, nblk, mask)
     b, nb = stbl.shape
     nblk_b = torch.as_tensor(nblk, device=stbl.device).to(
         torch.int64).reshape(-1).expand(b)
@@ -390,7 +446,60 @@ def restore_snapshots(state, mask: torch.Tensor, src, nblk):
         got = state[snap].index_select(0, sl).transpose(0, 1)
         live.copy_(torch.where(ok.view(1, -1, *[1] * (live.dim() - 2)),
                                got.to(live.dtype), live))
-    return _snap_commit(state, sstate, stbl)
+    return _commit_tier(state, "snap", sstate, stbl)
+
+
+# (device pool, host pool) pairs moved by a spill or restore: the page
+# pools and an int8 pool's scales along the page axis (1), the snapshot
+# pools along the slot axis (0)
+_TIER_POOLS = (("kp", "hkp"), ("vp", "hvp"), ("ksc", "hksc"), ("vsc", "hvsc"))
+_SNAP_TIER_POOLS = (("snap_ssm", "hsnap_ssm"), ("snap_conv", "hsnap_conv"))
+
+
+def _move_rows(state, mask: torch.Tensor, fn, to_host: bool):
+    """``spill_rows`` (``fn = PG.spill_rows``, ``to_host``) or its mirror:
+    the bookkeeping of both spaces, then one ``copy_pages`` a pool."""
+    if "host_table" not in state:
+        raise ValueError(
+            f"{'spill' if to_host else 'restore'}_rows needs "
+            "init_decode_state(host_spill=True) paged state")
+    out = state
+    for dev_tier, host_tier, pools, axis in (
+            ("page", "host", _TIER_POOLS, 1),
+            ("snap", "hsnap", _SNAP_TIER_POOLS, 0)):
+        if host_tier + "_table" not in state:
+            continue
+        pstate, table = _tier(state, dev_tier)
+        hstate, htable = _tier(state, host_tier)
+        pstate, table, hstate, htable, src, dst = fn(pstate, table, hstate,
+                                                     htable, mask)
+        for dev_key, host_key in pools:
+            if host_key in state:
+                a, b = ((state[host_key], state[dev_key]) if to_host
+                        else (state[dev_key], state[host_key]))
+                PG.copy_pages(a, b, src, dst, axis=axis)
+        out = _commit_tier(_commit_tier(out, dev_tier, pstate, table),
+                           host_tier, hstate, htable)
+    return out
+
+
+def spill_rows(state, mask: torch.Tensor):
+    """Preemption: move the masked rows' KV pages, and with a host
+    snapshot tier their boundary snapshot slots, to the host tier
+    (``pager.spill_rows`` on each space, then ``copy_pages`` for each of
+    its pools: one page-copy launch a pool on the card).  The rows' lane
+    state (``pos``, the live ssm/conv carries) stays in place: a spilled
+    row keeps its slot and idles with ``active=False``.  Needs
+    ``init_decode_state(host_spill=True)``."""
+    return _move_rows(state, mask, PG.spill_rows, to_host=True)
+
+
+def restore_rows(state, mask: torch.Tensor):
+    """The mirror of ``spill_rows``: fresh device pages (and snapshot
+    slots) for the masked rows' host-table entries, the content copied
+    back, the host slots released.  The caller's reservation ledger must
+    already cover the rows' worst-case pages."""
+    return _move_rows(state, mask, PG.restore_rows, to_host=False)
 
 
 def _ffn(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -508,7 +617,7 @@ def decode_step(
             pstate, bt = _paged_cow(state, idx, active, cow=cow)
             pstate, bt = PG.alloc_on_write(pstate, bt, idx, active,
                                            page_size=state["kp"].shape[2])
-            state = _paged_commit(state, pstate, bt)
+            state = _commit_tier(state, "page", pstate, bt)
         # inactive rows are routed to slot -1, which _cache_update drops
         if active is not None and not paged and idx.dim() == 1:
             w_idx = torch.where(active, idx, -1)
@@ -621,7 +730,7 @@ def prefill_chunk(
             pstate, bt = PG.alloc_range(
                 pstate, bt, pos, pos + width - 1, active,
                 page_size=state["kp"].shape[2], max_chunk=c)
-            state = _paged_commit(state, pstate, bt)
+            state = _commit_tier(state, "page", pstate, bt)
         cos, sin = C.rope_freqs(cfg, posmat)              # (B, C, hd/2)
 
     def attn(a, x, stack):
@@ -681,18 +790,17 @@ def reset_decode_rows(
     never zeroed: a recycled page is written by its next owner before any
     masked-in read can see it, and a page's scales are reset by the write
     of its slot 0); snapshot slots are released with their rows the same
-    way (slots a sharer still maps stay).  Requires per-row ``pos``
+    way (slots a sharer still maps stay), and so are the host tier's
+    slots of a row drained while spilled.  Requires per-row ``pos``
     state."""
     if state["pos"].dim() != 1:
         raise ValueError(
             "reset_decode_rows needs per_row_pos=True decode state"
         )
-    paged_keys = {"kp", "vp", "ksc", "vsc", "block_table", "page_free",
-                  "page_top", "page_rc"}
-    snap_keys = {"snap_ssm", "snap_conv", "snap_table", "snap_free",
-                 "snap_top", "snap_rc"}
-    unknown = (set(state) - {"pos", "k", "v", "ssm", "conv"} - paged_keys
-               - snap_keys)
+    known = {"pos", "k", "v", "ssm", "conv", *_TABLES.values()}
+    known |= {key for pair in _TIER_POOLS + _SNAP_TIER_POOLS for key in pair}
+    known |= {t + f for t in _TABLES for f in ("_free", "_top", "_rc")}
+    unknown = set(state) - known
     if unknown:
         # a silently skipped cache key would leak the previous request's
         # state into the slot's next occupant
@@ -700,14 +808,12 @@ def reset_decode_rows(
             f"reset_decode_rows: unhandled decode-state keys {sorted(unknown)}"
         )
     out = {**state, "pos": torch.where(mask, start, state["pos"])}
-    if "block_table" in state:
-        pstate, bt = PG.release_rows(_pager(state), state["block_table"],
-                                     mask)
-        out = _paged_commit(out, pstate, bt)
-    if "snap_table" in state:
-        sstate, stbl = PG.release_rows(_snap_pager(state),
-                                       state["snap_table"], mask)
-        out = _snap_commit(out, sstate, stbl)
+    # pages and snapshot slots are released in every tier: a row drained
+    # while spilled returns its host slots (host copies are private, rc 1)
+    for tier in _TABLES:
+        if tier + "_free" in state:
+            pstate, table = PG.release_rows(*_tier(state, tier), mask)
+            out = _commit_tier(out, tier, pstate, table)
     for key in ("k", "v", "ssm", "conv"):
         if key in state:
             t = state[key]                    # (stacks, B, ...)

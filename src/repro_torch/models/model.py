@@ -54,6 +54,15 @@ class Model:
         masked rows and load their boundary states (prefix sharing)."""
         return lm.restore_snapshots(state, mask, src, nblk)
 
+    def spill_rows(self, state, mask):
+        """Move the masked rows' pages (and snapshot slots) to the host
+        tier (preemption)."""
+        return lm.spill_rows(state, mask)
+
+    def restore_rows(self, state, mask):
+        """Bring spilled rows' pages (and snapshot slots) back."""
+        return lm.restore_rows(state, mask)
+
     def lm_logits(self, params, h):
         return lm.lm_logits(self.cfg, params, h)
 

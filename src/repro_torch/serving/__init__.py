@@ -1,4 +1,5 @@
-"""Serving: request queue, typed configuration, continuous-batching engine."""
+"""Serving: request queue, typed configuration, fault plans,
+continuous-batching engine."""
 from repro_torch.serving.config import (  # noqa: F401
     CacheConfig,
     EngineConfig,
@@ -6,9 +7,16 @@ from repro_torch.serving.config import (  # noqa: F401
     validate_configs,
 )
 from repro_torch.serving.engine import (  # noqa: F401
+    RequestHandle,
     ServingEngine,
     SlotState,
     engine_step,
     init_slots,
 )
-from repro_torch.serving.queue import Request, RequestQueue  # noqa: F401
+from repro_torch.serving.faults import FaultEvent, FaultPlan  # noqa: F401
+from repro_torch.serving.queue import (  # noqa: F401
+    QueueEmpty,
+    QueueFullError,
+    Request,
+    RequestQueue,
+)

@@ -5,20 +5,21 @@ loop, with the JAX package's field names, defaults and ``ValueError``s.
 The port serves both KV layouts (the contiguous slab and the paged pool,
 any page size and pool size), the paged pool's storage precisions
 (``kv_dtype``), chunked prefill of any width, greedy and sampled decoding
-(``seed``, ``temperature``, ``top_k``), and prefix sharing with its
-recurrent-state snapshots.  Every field it does not serve yet raises
-``NotImplementedError`` naming the slice that brings it; none is silently
-ignored.  ``validate_configs`` holds the checks that span both objects
-and ``configs_from_flags`` builds both from a CLI's flags, as the JAX
-package's do.
+(``seed``, ``temperature``, ``top_k``), prefix sharing with its
+recurrent-state snapshots, and serving under pressure: the host tier
+behind preemption (``host_spill``) and prefill budgets
+(``prefill_budget``).  Speculative decoding (``spec``) is the one field
+it does not serve yet: it raises ``NotImplementedError`` naming the slice
+that brings it, and is never silently ignored.  ``validate_configs``
+holds the checks that span both objects and ``configs_from_flags`` builds
+both from a CLI's flags, as the JAX package's do.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
 
-# the slices of the port that serve each feature (ROADMAP.md, Queue 1)
-PRESSURE = "the pressure slice (host spill tier, prefill budgets)"
+# the slice of the port that serves speculation (ROADMAP.md, Queue 1)
 SPEC = "the speculative-decoding slice"
 
 
@@ -34,9 +35,10 @@ def _unserved(obj: Any, field: str, served, slice_name: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
     """Decode-cache shape: what ``init_decode_state`` allocates.  The page
-    fields belong to the paged layout; ``host_spill=None`` means "no host
-    tier" here (the engine refuses a pool so small that the JAX engine
-    would preempt into one).  ``kv_dtype`` is the paged pool's storage:
+    fields belong to the paged layout; ``host_spill`` adds the host tier
+    behind preemption (``None`` lets the engine default it to "paged
+    layout only", ``False`` queues requests and never preempts).
+    ``kv_dtype`` is the paged pool's storage:
     ``"f32"`` the model's own dtype, ``"bf16"`` half-width pages read by
     the same kernels (which upcast K/V to f32), ``"int8"`` pages with f32
     per-(page, head) scales, dequantized inside the attention kernels.
@@ -73,7 +75,6 @@ class CacheConfig:
                 "scales are per page) — layout='paged' required for "
                 f"kv_dtype={self.kv_dtype!r}"
             )
-        _unserved(self, "host_spill", (None, False), PRESSURE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,8 +83,9 @@ class EngineConfig:
     harvest sync, ``prefill_chunk`` prompt tokens per row per prefill
     step, ``prefix_sharing`` page-level prompt sharing (paged layout only,
     checked in ``validate_configs``), ``seed`` / ``temperature`` /
-    ``top_k`` per-request sampling (0.0 = greedy).  Prefill budgets and
-    speculation come with later slices."""
+    ``top_k`` per-request sampling (0.0 = greedy), ``prefill_budget``
+    the chunked-prefill steps a cycle may run (0 = unbounded).
+    Speculation comes with a later slice."""
 
     steps_per_sync: int = 8
     prefill_chunk: int = 1
@@ -103,7 +105,6 @@ class EngineConfig:
             raise ValueError("prefill_budget must be >= 0 (0 = unbounded)")
         if self.top_k < 0:
             raise ValueError("top_k must be >= 0 (0 = full vocab)")
-        _unserved(self, "prefill_budget", (0,), PRESSURE)
         _unserved(self, "spec", (None,), SPEC)
 
 
@@ -121,17 +122,15 @@ def validate_configs(cache: CacheConfig, config: EngineConfig) -> None:
 def configs_from_flags(args):
     """``(CacheConfig, EngineConfig)`` from an argparse namespace, as the
     JAX package's ``configs_from_flags``: a flag the driver does not
-    declare takes the config's default.  No host tier in the port: a
-    pool below the worst case (``--n-pages``) queues requests instead
-    (``host_spill=False``)."""
-    n_pages = getattr(args, "n_pages", None)
+    declare takes the config's default, so ``host_spill`` stays None and
+    a pool below the worst case (``--n-pages``) preempts into the host
+    tier, as in JAX."""
     cache = CacheConfig(
         layout=getattr(args, "layout", "contiguous"),
         page_size=int(getattr(args, "page_size", 16)),
-        n_pages=n_pages,
+        n_pages=getattr(args, "n_pages", None),
         snapshots=bool(getattr(args, "snapshots", False)),
-        host_spill=getattr(args, "host_spill",
-                           False if n_pages else None),
+        host_spill=getattr(args, "host_spill", None),
         kv_dtype=getattr(args, "kv_dtype", "f32"),
     )
     config = EngineConfig(

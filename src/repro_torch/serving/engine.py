@@ -1,7 +1,9 @@
 """Continuous-batching serving engine (the port's ``repro.serving.engine``:
 the dense, moe, ssm and hybrid families, contiguous or paged KV layout,
 the paged pool in the model's dtype, bf16 or int8, token-by-token or
-chunked prefill, greedy or sampled decoding, prefix sharing).
+chunked prefill, greedy or sampled decoding, prefix sharing, and serving
+under pressure: priorities, deadlines, cancellation, preemption into a
+host tier, prefill budgets and scripted faults).
 
 The control state of every batch row lives on the device as fixed-shape
 tensors (``SlotState``): the token buffer holds the prompt and then the
@@ -10,25 +12,34 @@ its prompt or generating.  ``engine_step`` is one decode step (or, with
 ``chunk > 1``, one chunked-prefill step) for all rows with no host
 interaction; a cycle (``step``) is
 
-    admit    — queued requests enter free rows (one host->device copy);
-               under the paged layout a request is admitted only if its
-               worst-case pages fit the pool's unreserved remainder;
-               with prefix sharing it maps a resident donor's prompt
-               pages (and restores its recurrent-state snapshot) and
-               starts at the first unshared token,
+    admit    — the cycle's scripted faults fire, queued requests past
+               their deadline leave, spilled rows that fit come back, and
+               queued requests enter free rows (host->device copies from
+               pinned memory, no sync); under the paged layout a request
+               is admitted only if its worst-case pages fit the pool's
+               unreserved remainder, preempting rows of strictly lower
+               priority into the host tier where that makes it fit; with
+               prefix sharing it maps a resident donor's prompt pages
+               (and restores its recurrent-state snapshot) and starts at
+               the first unshared token,
     prefill  — chunked-prefill steps while some row has >= 2 prompt
-               tokens left (``prefill_chunk > 1`` only), no host sync,
-    decode   — ``steps_per_sync`` engine steps back to back, no host sync,
+               tokens left (``prefill_chunk > 1`` only, at most
+               ``prefill_budget`` of them when it is set), no host sync,
+    decode   — ``steps_per_sync`` engine steps back to back, no host sync;
+               rows a budget stop left mid-prompt are frozen,
     harvest  — one device->host readback (tokens, active rows and the
                free counts of the page and snapshot pools); finished rows
-               return their tokens and release their pages and slots.
+               return their tokens, and they and the cancelled, poisoned
+               and expired rows release their pages and slots in every
+               tier.
 
 The host keeps a mirror of per-row progress: a row's progress after a step
 is a pure function of its prompt and total lengths and the chunk width, so
 the prefill schedule and time-to-first-token are known without reading the
-device.  ``prefill`` and ``decode`` must never synchronise with the device;
-``chip_smoke.py`` runs both under ``torch.cuda.set_sync_debug_mode("error")``
-(the port of the JAX engine's ``no_transfer_audit``).
+device.  ``admit`` (spill and restore included), ``prefill`` and ``decode``
+must never synchronise with the device; ``chip_smoke.py`` runs them under
+``torch.cuda.set_sync_debug_mode("error")`` (the port of the JAX engine's
+``no_transfer_audit``).
 
 Sampling (``temperature > 0``) draws each token with JAX's own Threefry
 streams (``serving/prng.py``): row keys come from ``(seed, req_id)`` at
@@ -44,6 +55,14 @@ prompt writes again; the recurrent families restore the donor's state
 snapshot at the last shared boundary, which every snapshot engine
 captures because its chunks are clipped to end on page boundaries.
 
+Under pressure the port keeps the JAX engine's scheduler contract (the
+class docstring): the queue orders by priority, deadline budget and
+arrival; a head that cannot reserve its pages spills victims of strictly
+lower priority to the host tier (``model.spill_rows``: on the card one
+page-copy launch a pool into pinned host memory) and they come back
+(``model.restore_rows``) as soon as their reservation fits; cancelled,
+poisoned and expired rows drain at the harvest through the release path.
+
 Unlike JAX's jitted steps, the port runs eagerly; the caches, page pools
 and the token buffer are updated in place.
 """
@@ -52,18 +71,18 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional
+from typing import TYPE_CHECKING, Dict, List, NamedTuple, Optional, Set
 
 import numpy as np
 import torch
 
 from repro_torch.serving import prng
 from repro_torch.serving.config import (
-    PRESSURE,
     CacheConfig,
     EngineConfig,
     validate_configs,
 )
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.pager import PagerState, pages_needed, share_prefix
 from repro_torch.serving.queue import Request, RequestQueue
 
@@ -187,25 +206,43 @@ def _timed(method):
     return wrapper
 
 
+class RequestHandle(int):
+    """What ``submit`` returns: the request id (an ``int``, so it indexes
+    ``outputs`` and ``ttft`` and compares equal to the id) with
+    ``handle.rid`` and ``handle.cancel()``."""
+
+    def __new__(cls, rid: int, engine: "ServingEngine"):
+        self = super().__new__(cls, rid)
+        self._engine = engine
+        return self
+
+    @property
+    def rid(self) -> int:
+        """The request id as a plain ``int``."""
+        return int(self)
+
+    def cancel(self) -> bool:
+        """Cancel this request (``ServingEngine.cancel``)."""
+        return self._engine.cancel(self.rid)
+
+
 class ServingEngine:
     """Fixed-shape continuous-batching engine over a ``Model``.
 
     >>> eng = ServingEngine(model, params, batch=4, max_len=128,
     ...                     cache=CacheConfig(layout="paged"),
     ...                     config=EngineConfig(prefill_chunk=16))
-    >>> rid = eng.submit([3, 17, 5], max_new_tokens=16)
+    >>> h = eng.submit([3, 17, 5], max_new_tokens=16)   # RequestHandle
     >>> outs = eng.run()          # {rid: np.ndarray of generated tokens}
 
     The engine runs on ``model.device``.  ``cache``/``config`` take the
-    typed configuration; fields the port does not serve yet raise in
-    their constructors.  The port has no host tier: a paged pool smaller
-    than the worst case needs ``host_spill=False`` (requests then wait in
-    the queue until pages are released, as the JAX engine's do without a
-    host tier).
+    typed configuration; a field the port does not serve yet raises in
+    its constructor.
 
     ``temperature > 0`` samples (optionally cut to the ``top_k`` best);
     each request's key is a pure function of (``seed``, request id), so
-    its tokens equal the JAX engine's and do not depend on the batch.
+    its tokens equal the JAX engine's and do not depend on the batch or
+    on the order of admission.
 
     ``prefix_sharing=True`` (paged layout): a request whose prompt starts
     with page-aligned chunks a resident row has already written maps that
@@ -219,11 +256,34 @@ class ServingEngine:
     can run dry inside a step.  MoE: sharing changes which tokens batch
     into a routing step, so token identity needs ``capacity_factor >=
     n_experts``, as in JAX.
+
+    Scheduler contract (the JAX engine's).  Admission orders the queue by
+    (priority desc, deadline budget asc, arrival asc).  When the head
+    cannot reserve its worst-case pages, victims are spilled: resident
+    rows of strictly lower priority, lowest priority first, then least
+    progress, then oldest; a spill moves the row's KV pages (and snapshot
+    slots) to the host tier and keeps its lane and live recurrent state in
+    place, and the victims are committed only if they admit the head.
+    Spilled rows come back (highest priority, then oldest) as soon as
+    their reservation fits, deferring to a strictly-higher-priority queue
+    head that could itself fit.  ``host_spill`` defaults to the paged
+    layout (``CacheConfig(host_spill=False)`` queues instead of
+    preempting).  ``cancel(req_id)`` and deadlines (``submit + deadline_ms``
+    on the host's monotonic clock) take effect at once for queued
+    requests and at the next harvest for resident, mid-prefill and
+    spilled rows, which drain through the release path in every tier
+    with no output.  ``prefill_budget`` bounds the chunked-prefill steps
+    of a cycle; rows it stops mid-prompt are frozen through the cycle's
+    decode, so their chunk boundaries (and so their logits) stay the
+    unpressured schedule's.  A ``FaultPlan`` (``fault_plan=`` or
+    ``set_fault_plan``) scripts pool exhaustion, cancels, deadline storms
+    and poisoned rows against the cycle clock, through the same paths.
     """
 
     def __init__(self, model: "Model", params, *, batch: int, max_len: int,
                  cache: Optional[CacheConfig] = None,
-                 config: Optional[EngineConfig] = None) -> None:
+                 config: Optional[EngineConfig] = None,
+                 fault_plan: Optional[FaultPlan] = None) -> None:
         self.cache = cache if cache is not None else CacheConfig()
         self.config = config if config is not None else EngineConfig()
         validate_configs(self.cache, self.config)
@@ -242,22 +302,30 @@ class ServingEngine:
         self.device = model.device
         self.steps_per_sync = self.config.steps_per_sync
         self.prefill_chunk = self.config.prefill_chunk
+        self.prefill_budget = self.config.prefill_budget
         self.page_size = self.cache.page_size
         self.prefix_sharing = self.config.prefix_sharing
         self.temperature = self.config.temperature
         self.top_k = self.config.top_k
         self._seed = int(self.config.seed)
         self.queue = RequestQueue(max_len=max_len)
+        host_spill = self.cache.host_spill
+        if host_spill is None:
+            # preemption only where there are pages to spill
+            host_spill = self.cache.layout == "paged"
         # the snapshot store exists when asked for, or implied by sharing
         # on a recurrent family
         self._mstate = model.init_decode_state(
             batch, max_len, per_row_pos=True,
             cache=dataclasses.replace(
                 self.cache,
-                snapshots=self.cache.snapshots or self.prefix_sharing))
+                snapshots=self.cache.snapshots or self.prefix_sharing,
+                host_spill=host_spill))
         # attention-free families have no pages whatever the layout
         self._paged = "block_table" in self._mstate
         self._snap = "snap_table" in self._mstate
+        # the host tier exists for paged families with KV pages
+        self._spillable = "host_table" in self._mstate
         self._recurrent = model.cfg.family in ("ssm", "hybrid")
         self.n_pages = 0
         self._kv_bytes_per_page = 0
@@ -269,16 +337,6 @@ class ServingEngine:
             # them out
             self._kv_bytes_per_page = (2 * kp.element_size() * kp.shape[0]
                                        * int(np.prod(kp.shape[2:])))
-            worst = batch * -(-max_len // self.page_size)
-            if self.cache.host_spill is None and self.n_pages < worst:
-                # the JAX engine defaults to a host tier here and preempts
-                # into it; the port must not serve a different schedule
-                raise NotImplementedError(
-                    f"a pool of {self.n_pages} pages < the worst case "
-                    f"{worst} preempts into the host tier, which comes with "
-                    f"{PRESSURE}; pass CacheConfig(host_spill=False) to "
-                    "queue requests until pages are released instead"
-                )
         self.n_snap_slots = (self._mstate["snap_free"].shape[0] - 1
                              if self._snap else 0)
         # every family shares: dense and moe through aliased pages, ssm
@@ -292,10 +350,14 @@ class ServingEngine:
         self._snap_every = self.page_size if self._snap else 0
         self._slots = init_slots(batch, max_len, self.device)
         # host mirror: which request occupies each row (None = free), how
-        # far it has been fed, and its worst-case page reservation
+        # far it has been fed, and its worst-case page reservation; a
+        # spilled row keeps its lane and request, and ``_spill_need``
+        # holds the pages it re-reserves when it comes back
         self._slot_req: List[Optional[Request]] = [None] * batch
         self._row_progress: List[int] = [0] * batch
         self._row_pages: List[int] = [0] * batch
+        self._row_spilled: List[bool] = [False] * batch
+        self._spill_need: List[int] = [0] * batch
         self._pages_reserved = 0
         # host-side prefix index: chained chunk hash -> (slot, epoch); an
         # epoch bump invalidates a released slot's entries, and a match
@@ -313,15 +375,50 @@ class ServingEngine:
         self.cow_pages = 0              # CoW copies (host-predicted)
         self.peak_pages_in_use = 0
         self.peak_snaps_in_use = 0
+        self.preemptions = 0
+        self.restores = 0
         self.seconds = 0.0        # wall time inside the cycle's phases
         self.ttft: Dict[int, float] = {}        # req_id -> seconds
         self._t_submit: Dict[int, float] = {}
+        # deadlines (absolute, host clock), resident rows marked for the
+        # next harvest's drain, and the records of requests that never
+        # completed
+        self._deadline: Dict[int, float] = {}
+        self._cancel_req: Set[int] = set()
+        self._poison_req: Set[int] = set()
+        self.cancelled: Set[int] = set()
+        self.expired: Set[int] = set()
+        self.poisoned: Set[int] = set()
+        # the fault plan's cycle clock and the pages it holds hostage
+        self.fault_plan = fault_plan
+        self._cycle = 0
+        self._fault_hold_pages = 0
 
     # -- request intake ------------------------------------------------------
 
-    def submit(self, tokens, max_new_tokens: int) -> int:
-        """Queue a request; returns its id.  Under the paged layout a
-        request that could never reserve its pages is rejected now."""
+    def submit(self, tokens, max_new_tokens: Optional[int] = None, *,
+               priority: int = 0,
+               deadline_ms: Optional[float] = None) -> RequestHandle:
+        """Queue a request; returns its ``RequestHandle``.  Takes ``(tokens,
+        max_new_tokens, priority=, deadline_ms=)`` or one
+        ``Request.spec(...)``.  ``priority`` (larger first) and
+        ``deadline_ms`` (a budget from now, None = none) feed the
+        scheduler contract of the class docstring.  Under the paged layout
+        a request that could never reserve its pages is rejected now."""
+        if isinstance(tokens, Request):
+            req = tokens
+            if max_new_tokens is not None:
+                raise TypeError(
+                    "submit(Request, ...) takes the whole spec from the "
+                    "Request — max_new_tokens must not also be passed"
+                )
+            tokens, max_new_tokens = req.tokens, req.max_new_tokens
+            priority, deadline_ms = req.priority, req.deadline_ms
+        elif max_new_tokens is None:
+            raise TypeError(
+                "submit() needs max_new_tokens unless a Request spec "
+                "is passed"
+            )
         if self._paged:
             need = pages_needed(len(tokens) + max_new_tokens, self.page_size)
             if need > self.n_pages:
@@ -332,12 +429,67 @@ class ServingEngine:
                     f"{self.n_pages} (prompt {len(tokens)} + "
                     f"{max_new_tokens} new, page_size {self.page_size})"
                 )
-        rid = self.queue.submit(tokens, max_new_tokens)
-        self._t_submit[rid] = time.perf_counter()
-        return rid
+        rid = self.queue.submit(tokens, max_new_tokens, priority=priority,
+                                deadline_ms=deadline_ms)
+        now = time.perf_counter()
+        self._t_submit[rid] = now
+        if deadline_ms is not None:
+            self._deadline[rid] = now + deadline_ms / 1e3
+        return RequestHandle(rid, self)
+
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a request wherever it is.  Queued: removed now.
+        Resident (active, mid-prefill or spilled): marked, and drained
+        through the release path at the next harvest with no output.
+        False when the id is unknown or already finished."""
+        if self.queue.cancel(req_id) is not None:
+            self.cancelled.add(req_id)
+            self._deadline.pop(req_id, None)
+            self._t_submit.pop(req_id, None)
+            return True
+        if any(r is not None and r.req_id == req_id for r in self._slot_req):
+            self._cancel_req.add(req_id)
+            return True
+        return False
+
+    def set_fault_plan(self, plan: Optional[FaultPlan]) -> None:
+        """Arm a plan with the cycle clock rewound to 0."""
+        self.fault_plan = plan
+        self._cycle = 0
+
+    def _apply_faults(self) -> None:
+        """Fire the armed plan's events of the current cycle, through the
+        normal scheduler paths (``serving/faults.py`` has the kinds)."""
+        if self.fault_plan is None:
+            return
+        for e in self.fault_plan.at(self._cycle):
+            if e.kind == "exhaust_pool":
+                self._fault_hold_pages = min(e.pages, self.n_pages)
+            elif e.kind == "release_pool":
+                self._fault_hold_pages = 0
+            elif e.kind == "cancel":
+                self.cancel(e.req_id)
+            elif e.kind == "deadline":
+                self._deadline[e.req_id] = (time.perf_counter()
+                                            + e.deadline_ms / 1e3)
+            elif e.kind == "poison":
+                self._poison_req.add(e.req_id)
+
+    def _effective_pages(self) -> int:
+        """The pool the reservation ledger admits against, less the pages
+        an ``exhaust_pool`` fault holds."""
+        return self.n_pages - self._fault_hold_pages
 
     def busy(self) -> bool:
         return bool(self.queue) or any(r is not None for r in self._slot_req)
+
+    def _h2d(self, host: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device without a sync: on the card
+        through a pinned staging copy and an asynchronous transfer."""
+        t = torch.from_numpy(host)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     # -- host-side prefix index (no device sync anywhere) --------------------
 
@@ -358,7 +510,8 @@ class ServingEngine:
             if ent is not None:
                 src, src_ep = ent
                 if (src_ep == self._slot_epoch[src]
-                        and self._slot_req[src] is not None):
+                        and self._slot_req[src] is not None
+                        and not self._row_spilled[src]):
                     # a live row already serves this chunk: keep it (a
                     # sharer taking it over would take it to its own,
                     # likely earlier, end)
@@ -381,18 +534,19 @@ class ServingEngine:
         if dropped:
             # hand the dropped chunks to surviving holders: a sharer keeps
             # the donor's pages resident (refcounts), so it can donate
-            # them onward (registration only fills gaps)
+            # them onward (registration only fills gaps); a spilled row's
+            # pages are on the host tier, so it does not donate
             for s, req in enumerate(self._slot_req):
-                if req is not None:
+                if req is not None and not self._row_spilled[s]:
                     self._register_prefix(s, req.tokens)
 
     def _match_prefix(self, tokens: np.ndarray):
         """Longest page-aligned prefix shared with a resident row: (donor
         slot, shared blocks), (0, 0) when nothing matches.  A hit counts
-        only if the donor still holds its request (epoch), its mirror
-        progress shows the chunk written (and so, in a snapshot engine,
-        its boundary captured), the chunk is all prompt, and the tokens
-        are equal: the hash only routes."""
+        only if the donor still holds its request (epoch) on the device
+        (not spilled), its mirror progress shows the chunk written (and
+        so, in a snapshot engine, its boundary captured), the chunk is
+        all prompt, and the tokens are equal: the hash only routes."""
         if not self._share_eligible:
             return 0, 0
         best = (0, 0)
@@ -405,6 +559,7 @@ class ServingEngine:
             end = (i + 1) * s
             req = self._slot_req[src]
             if (ep != self._slot_epoch[src] or req is None
+                    or self._row_spilled[src]
                     or req.prompt_len < end
                     or self._row_progress[src] < end
                     or not np.array_equal(tokens[:end], req.tokens[:end])):
@@ -434,18 +589,126 @@ class ServingEngine:
                 need = pages_needed(req.total_len, self.page_size)
         return src, nblk, start, cow, need
 
+    # -- the scheduler (host mirror only) ------------------------------------
+
+    def _expire_queued(self, now: float) -> None:
+        """Deadline sweep of the queue (resident rows expire at harvest)."""
+        if not self._deadline:
+            return
+        for rid in self.queue.pending_ids():
+            t = self._deadline.get(rid)
+            if (t is not None and now >= t
+                    and self.queue.cancel(rid) is not None):
+                self.expired.add(rid)
+                self._deadline.pop(rid, None)
+                self._t_submit.pop(rid, None)
+
+    def _doomed(self, rid: int, now: float) -> bool:
+        """Cancelled, poisoned or past its deadline: drained at harvest."""
+        t = self._deadline.get(rid)
+        return (rid in self._cancel_req or rid in self._poison_req
+                or (t is not None and now >= t))
+
+    def _try_preempt(self, req: Request, need: int, protected) -> bool:
+        """Spill rows of strictly lower priority until ``req``'s
+        reservation fits, and only if it then fits (no spill that does not
+        admit the head).  Victims: lowest priority, then least progress,
+        then oldest; ``protected`` rows (this cycle's admissions and their
+        prefix donors) and rows marked for a drain are never chosen."""
+        if not self._spillable:
+            return False
+        victims = sorted(
+            (b for b, r in enumerate(self._slot_req)
+             if r is not None and not self._row_spilled[b]
+             and r.priority < req.priority and b not in protected
+             and r.req_id not in self._cancel_req
+             and r.req_id not in self._poison_req),
+            key=lambda b: (self._slot_req[b].priority,
+                           self._row_progress[b], self._slot_req[b].req_id))
+        chosen, freed = [], 0
+        for b in victims:
+            if self._pages_reserved - freed + need <= self._effective_pages():
+                break
+            chosen.append(b)
+            freed += self._row_pages[b]
+        if (not chosen or self._pages_reserved - freed + need
+                > self._effective_pages()):
+            return False
+        mask = np.zeros((self.batch,), bool)
+        for b in chosen:
+            mask[b] = True
+            self._spill_need[b] = self._row_pages[b]
+            self._pages_reserved -= self._row_pages[b]
+            self._row_pages[b] = 0
+            self._row_spilled[b] = True
+            self.preemptions += 1
+            # its pages leave the device: no new sharer may map them
+            self._evict_prefix(b)
+        m = self._h2d(mask)
+        self._mstate = self.model.spill_rows(self._mstate, m)
+        self._slots = self._slots._replace(active=self._slots.active & ~m)
+        return True
+
+    def _try_restore(self, now: float) -> int:
+        """Bring spilled rows back (highest priority, then oldest) while
+        their worst-case reservation fits, which is what keeps the
+        restore's device pops from running dry.  A row defers to a
+        strictly-higher-priority queue head that could itself fit; doomed
+        rows stay spilled and drain from the host tier at harvest."""
+        spilled = [b for b in range(self.batch) if self._row_spilled[b]]
+        if not spilled:
+            return 0
+        head = self.queue.peek()
+        head_fits = (head is not None
+                     and pages_needed(head.total_len, self.page_size)
+                     <= self._effective_pages())
+        spilled.sort(key=lambda b: (-self._slot_req[b].priority,
+                                    self._slot_req[b].req_id))
+        mask = np.zeros((self.batch,), bool)
+        for b in spilled:
+            req = self._slot_req[b]
+            need = self._spill_need[b]
+            if (self._doomed(req.req_id, now)
+                    or (head_fits and head.priority > req.priority)
+                    or self._pages_reserved + need > self._effective_pages()):
+                continue
+            mask[b] = True
+            self._row_spilled[b] = False
+            self._row_pages[b] = need
+            self._spill_need[b] = 0
+            self._pages_reserved += need
+            self.restores += 1
+        if not mask.any():
+            return 0
+        m = self._h2d(mask)
+        self._mstate = self.model.restore_rows(self._mstate, m)
+        self._slots = self._slots._replace(active=self._slots.active | m)
+        if self._share_eligible:
+            # back on the device: the rows may donate their prefixes again
+            for b in np.flatnonzero(mask):
+                self._register_prefix(int(b), self._slot_req[b].tokens)
+        return int(mask.sum())
+
     # -- the phases of a cycle -------------------------------------------------
 
     @_timed
     def admit(self) -> int:
-        """Admit queued requests into free rows: one host->device copy,
-        a reset of those rows' caches with their clocks at their first
-        unshared token, and (sharing) the donors' pages and snapshots
-        mapped.  Paged, the queue head is admitted only while its
-        worst-case pages fit the pool's unreserved remainder; admission
-        stops at the first head that does not fit (first in, first out).
-        Rows are registered as donors only after the copy, so rows
-        admitted together never pick each other."""
+        """The first phase of a cycle: fire the fault plan's events, drop
+        queued requests past their deadline, restore spilled rows that
+        fit, then admit queued requests into free rows: one host->device
+        copy, a reset of those rows' caches with their clocks at their
+        first unshared token, and (sharing) the donors' pages and
+        snapshots mapped.  Paged, the queue head is admitted only while
+        its worst-case pages fit the pool's unreserved remainder,
+        preempting lower-priority rows where that makes it fit; admission
+        stops at the first head that does not fit.  Rows are registered
+        as donors only after the copy, so rows admitted together never
+        pick each other.  No sync with the device."""
+        self._apply_faults()
+        self._cycle += 1
+        now = time.perf_counter()
+        self._expire_queued(now)
+        self._try_restore(now)
         free = [b for b, r in enumerate(self._slot_req) if r is None]
         if not free or not self.queue:
             return 0
@@ -454,14 +717,20 @@ class ServingEngine:
         # start, donor, shared blocks, the key's two words and the mask
         host = np.zeros((bsz, max_len + 8), np.int64)
         registrations = []
-        n = 0
+        pending: Set[int] = set()     # rows admitted in this call
+        donors: Set[int] = set()      # and their prefix donors
         for b in free:
             req = self.queue.peek()
             if req is None:
                 break
             src, nblk, start, cow, need = self._plan_admission(req)
-            if self._paged and self._pages_reserved + need > self.n_pages:
-                break
+            if (self._paged and self._pages_reserved + need
+                    > self._effective_pages()):
+                if not self._try_preempt(req, need, pending | donors):
+                    break
+                # the victims left the donor set: plan again (the match
+                # can only shrink, so the preemption still admits it)
+                src, nblk, start, cow, need = self._plan_admission(req)
             self.queue.pop()
             self._slot_req[b] = req
             self._row_progress[b] = start
@@ -475,10 +744,12 @@ class ServingEngine:
             self.cow_pages += cow
             if self._share_eligible:
                 registrations.append((b, req.tokens))
-            n += 1
-        if n == 0:
+            pending.add(b)
+            if nblk > 0:
+                donors.add(src)
+        if not pending:
             return 0
-        got = torch.as_tensor(host, device=self.device)
+        got = self._h2d(host)
         new_tokens = got[:, :max_len]
         plen, total, start, src, nblk, key0, key1, m = got[:, max_len:].T
         m = m.bool()
@@ -506,7 +777,7 @@ class ServingEngine:
         )
         for b, toks in registrations:
             self._register_prefix(b, toks)
-        return n
+        return len(pending)
 
     def _step_kw(self):
         return dict(temperature=self.temperature, top_k=self.top_k,
@@ -515,13 +786,15 @@ class ServingEngine:
     @_timed
     def prefill(self) -> int:
         """Chunked-prefill steps while some row has >= 2 prompt tokens
-        left — no host sync; the mirror knows every row's chunk width.
-        Decode-phase rows ride along one token per step.  Returns the
-        number of steps (0 when ``prefill_chunk == 1``)."""
+        left, at most ``prefill_budget`` of them when it is set — no host
+        sync; the mirror knows every row's chunk width.  Decode-phase rows
+        ride along one token per step.  Returns the number of steps (0
+        when ``prefill_chunk == 1``)."""
         if self.prefill_chunk == 1:
             return 0
         n = 0
-        while self._prompt_phase_rows():
+        while self._prompt_phase_rows() and (
+                not self.prefill_budget or n < self.prefill_budget):
             widths = [
                 max(1, min(self._chunk_limit(self._row_progress[b]),
                            req.prompt_len - self._row_progress[b]))
@@ -539,22 +812,43 @@ class ServingEngine:
 
     @_timed
     def decode(self) -> None:
-        """``steps_per_sync`` engine steps back to back — no host sync."""
+        """``steps_per_sync`` engine steps back to back — no host sync.  A
+        row a budget stop left mid-prompt is frozen for the call: fed
+        token by token it would leave the chunk schedule of an unpressured
+        run, whose chunk boundaries its logits depend on; it resumes
+        chunked prefill next cycle."""
+        run = np.ones((self.batch,), bool)
+        if self.prefill_chunk > 1:
+            for b, req in enumerate(self._slot_req):
+                if (req is not None and not self._row_spilled[b]
+                        and req.prompt_len - self._row_progress[b] >= 2):
+                    run[b] = False
+        frozen = None
+        if not run.all():
+            r = self._h2d(run)
+            frozen = self._slots.active & ~r
+            self._slots = self._slots._replace(active=self._slots.active & r)
         for _ in range(self.steps_per_sync):
             self._mstate, self._slots = engine_step(
                 self.model, self.params, self._mstate, self._slots,
                 **self._step_kw(),
             )
+        if frozen is not None:
+            self._slots = self._slots._replace(
+                active=self._slots.active | frozen)
         self.steps += self.steps_per_sync
-        self._advance_mirror([self.steps_per_sync] * self.batch)
+        self._advance_mirror([self.steps_per_sync if run[b] else 0
+                              for b in range(self.batch)])
 
     @_timed
     def harvest(self) -> int:
         """The one device->host readback of the cycle: collect finished
         rows' tokens, stamp first-token latencies, read the page and
-        snapshot pools' free counts (their peaks in use) and release the
-        finished rows' pages and snapshot slots.  Returns the number of
-        requests completed."""
+        snapshot pools' free counts (their peaks in use), drain the
+        cancelled, poisoned and expired rows (active, mid-prefill or
+        spilled) with no output, and release the pages and snapshot slots
+        of the rows that left, in every tier, deactivating their lanes.
+        Returns the number of requests completed."""
         s = self._slots
         parts = [s.active.long(), s.tokens.reshape(-1)]
         for key in ("page_top", "snap_top"):
@@ -580,36 +874,70 @@ class ServingEngine:
         self._crossed = []
         finished = 0
         release = np.zeros((self.batch,), bool)
+        drained = False
         for b, req in enumerate(self._slot_req):
-            if req is None or active[b]:
+            if req is None:
                 continue
-            out = tokens[b, req.prompt_len: req.total_len].copy()
-            self.outputs[req.req_id] = out
-            self.generated += out.size
-            self._slot_req[b] = None
-            self._pages_reserved -= self._row_pages[b]
-            self._row_pages[b] = 0
-            # the prompt leaves the index; its pages live on while a
-            # sharer still maps them (device refcounts)
-            self._evict_prefix(b)
+            rid = req.req_id
+            if rid in self._cancel_req:
+                self.cancelled.add(rid)
+            elif rid in self._poison_req:
+                self.poisoned.add(rid)
+            elif self._doomed(rid, now):
+                self.expired.add(rid)
+            elif self._row_spilled[b] or active[b]:
+                continue      # still running, or parked on the host tier
+            else:
+                out = tokens[b, req.prompt_len: req.total_len].copy()
+                self.outputs[rid] = out
+                self.generated += out.size
+                self._drop_row(b)
+                release[b] = True
+                finished += 1
+                continue
+            # cancelled, poisoned or expired: no output; the row (active,
+            # mid-prefill or spilled) drains through the same release
+            self._drop_row(b)
             release[b] = True
-            finished += 1
-        if (self._paged or self._snap) and release.any():
-            # free on completion: pages and snapshot slots return to their
-            # pools now, not when the row happens to be refilled
-            self._mstate = self.model.reset_decode_rows(
-                self._mstate, torch.as_tensor(release, device=self.device))
+            drained = True
+        # free on completion: pages and snapshot slots (device and host
+        # tiers) go back to their pools now, not at the row's next refill
+        if release.any() and (self._paged or self._snap or drained):
+            m = self._h2d(release)
+            self._mstate = self.model.reset_decode_rows(self._mstate, m)
+            # a drained row may still be device-active
+            self._slots = self._slots._replace(
+                active=self._slots.active & ~m)
         return finished
+
+    def _drop_row(self, b: int) -> None:
+        """The host mirror of a row leaving the batch, finished or
+        drained: its reservation, spill mirror, prefix entries and
+        ledgers."""
+        rid = self._slot_req[b].req_id
+        self._slot_req[b] = None
+        self._pages_reserved -= self._row_pages[b]
+        self._row_pages[b] = 0
+        self._spill_need[b] = 0
+        self._row_spilled[b] = False
+        # the prompt leaves the index; its pages live on while a sharer
+        # still maps them (device refcounts)
+        self._evict_prefix(b)
+        self._cancel_req.discard(rid)
+        self._poison_req.discard(rid)
+        self._deadline.pop(rid, None)
+        self._t_submit.pop(rid, None)
 
     def _advance_mirror(self, widths: List[int]) -> None:
         """Replay one step's progress update on the host: row b advanced
         by ``widths[b]`` (a chunk width, or ``steps_per_sync`` for a fused
         decode call — the ``total_len - 1`` clamp absorbs the overshoot
-        as the device's ``active`` mask does).  Counts prompt tokens fed
-        and notes rows whose first generated token was produced (stamped
-        at the next harvest, when it exists)."""
+        as the device's ``active`` mask does; a spilled row's lane is
+        inactive and does not move).  Counts prompt tokens fed and notes
+        rows whose first generated token was produced (stamped at the
+        next harvest, when it exists)."""
         for b, req in enumerate(self._slot_req):
-            if req is None:
+            if req is None or self._row_spilled[b]:
                 continue
             p = self._row_progress[b]
             if p >= req.total_len - 1:
@@ -632,11 +960,11 @@ class ServingEngine:
         return self.prefill_chunk
 
     def _prompt_phase_rows(self) -> bool:
-        """True while some occupied, unfinished row still has >= 2 prompt
-        tokens to feed (a single remaining prompt token is a decode
-        feed)."""
+        """True while some occupied, unspilled, unfinished row still has
+        >= 2 prompt tokens to feed (a single remaining prompt token is a
+        decode feed)."""
         return any(
-            req is not None
+            req is not None and not self._row_spilled[b]
             and self._row_progress[b] < req.total_len - 1
             and req.prompt_len - self._row_progress[b] >= 2
             for b, req in enumerate(self._slot_req)
@@ -687,4 +1015,9 @@ class ServingEngine:
         if self.prefix_sharing:
             out["shared_prompt_tokens"] = float(self.shared_prompt_tokens)
             out["cow_pages"] = float(self.cow_pages)
+        if self._spillable:
+            out["preemptions"] = float(self.preemptions)
+            out["restores"] = float(self.restores)
+        out["cancelled"] = float(len(self.cancelled))
+        out["expired"] = float(len(self.expired))
         return out

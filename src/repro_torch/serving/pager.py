@@ -1,7 +1,7 @@
 """Device-side page allocator for the paged KV-cache layout (the port's
 subset of ``repro.serving.pager``: allocation, release, the paged K/V
-writes, plain and int8, and prefix sharing with copy-on-write; spill
-comes with the pressure slice).
+writes, plain and int8, prefix sharing with copy-on-write, and the host
+tier behind preemption; ``release_tail`` comes with speculative decoding).
 
 Layout contract (the JAX package's, plus one trash page):
 
@@ -47,6 +47,23 @@ so their copies land in the sentinel page.  The same functions manage
 the recurrent families' snapshot slots with ``page_size=1``
 (``lm.init_decode_state(snapshots=True)``).
 
+**Two tiers** (JAX's contract, the memory-pressure escape valve): the
+host tier is a second pool with its own per-row table and its own
+refcounted free list, sized at the worst case (``batch * max_blocks``
+slots, plus the sentinel), so a spill never finds it dry.
+``spill_rows`` pops one host slot per mapped block of each victim row
+(rows and blocks in flattened row-major order), records it in the host
+table with ``rc`` 1 (host copies are private, even of a page a
+prefix-sharing peer still maps) and releases the device pages;
+``restore_rows`` is its mirror.  Both return the ``(src, dst)`` id
+vectors of the move, the sentinel where a block did not move, for
+``copy_pages`` (``kernels/page_copy.py``): whole pages between the two
+pools, axis 1 for KV and scale pools, axis 0 for snapshot pools.  On the
+card the host pools are pinned host memory and the copy is one kernel a
+pool; the bookkeeping stays on the device, so neither call reads an id on
+the host.  The snapshot store's host tier (hybrid family) is the same
+machinery on boundary space.
+
 Every function is pure tensor work with fixed shapes — no ``.item()``, no
 boolean-mask indexing, no ``nonzero``, no Python branch on a tensor — so
 the engine's prefill and decode loops never synchronise with the host.
@@ -60,6 +77,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels.page_copy import copy_pages  # noqa: F401
 
 
 class PagerState(NamedTuple):
@@ -229,6 +248,83 @@ def share_prefix(
     rc = pager.rc.index_add(0, pages, torch.ones_like(pages,
                                                       dtype=pager.rc.dtype))
     return PagerState(pager.free, pager.top, rc), block_table
+
+
+def spill_rows(
+    pager: PagerState,
+    table: torch.Tensor,         # (B, max_blocks) int32: device-tier table
+    hpager: PagerState,          # host-tier allocator (n_slots + 1 entries)
+    htable: torch.Tensor,        # (B, max_blocks) int32: host-tier table
+    mask: torch.Tensor,          # (B,) bool: victim rows
+):
+    """Move the masked rows' mapped blocks to the host tier (preemption):
+    pop a host slot for every mapped block (rows and blocks ranked in
+    flattened row-major order, popping ``free[top - 1 - rank]``), record
+    it in the host table with ``rc`` 1 (a private copy, even of a page a
+    prefix-sharing peer still maps), then release the device pages
+    (``release_rows``: a page a peer still references stays resident).
+    Returns ``(pager, table, hpager, htable, src, dst)``: ``src`` /
+    ``dst`` are the flattened ``(B * max_blocks,)`` int64 ids of the move
+    (device page to read, host slot to fill), the sentinels where a block
+    did not move; ``copy_pages`` moves the data (the release touches only
+    bookkeeping, so copying after it is safe).  A dry pop skips the block
+    (worst-case sizing rules it out); its rc write lands on the
+    sentinel's entry."""
+    b, max_blocks = table.shape
+    n_pages = pager.free.shape[0] - 1
+    n_slots = hpager.free.shape[0] - 1
+    give = mask[:, None] & (table >= 0) & (htable < 0)
+    flat = give.reshape(-1)
+    rank = torch.cumsum(flat, 0) - 1
+    grant = flat & (rank < hpager.top)
+    sidx = (hpager.top - 1 - rank).clamp(0, max(n_slots - 1, 0))
+    slot = torch.where(grant, hpager.free.index_select(0, sidx), n_slots)
+    h_top = hpager.top - grant.sum(dtype=torch.int32)
+    h_rc = hpager.rc.index_put(
+        (slot.long(),), torch.ones((), dtype=hpager.rc.dtype,
+                                   device=slot.device))
+    htable = torch.where(grant.reshape(b, max_blocks),
+                         slot.reshape(b, max_blocks), htable)
+    src = torch.where(grant, table.reshape(-1).long(), n_pages)
+    pager, table = release_rows(pager, table, mask)
+    return (pager, table, PagerState(hpager.free, h_top, h_rc), htable, src,
+            slot.long())
+
+
+def restore_rows(
+    pager: PagerState,
+    table: torch.Tensor,         # (B, max_blocks) int32: device-tier table
+    hpager: PagerState,          # host-tier allocator (n_slots + 1 entries)
+    htable: torch.Tensor,        # (B, max_blocks) int32: host-tier table
+    mask: torch.Tensor,          # (B,) bool: rows to bring back
+):
+    """The mirror of ``spill_rows``: pop a device page for every host-table
+    entry of the masked rows (the same flattened ranking), set its rc to
+    1 (a restored row owns its pages even where it used to share), then
+    release the host slots.  Returns ``(pager, table, hpager, htable,
+    src, dst)`` with ``src`` the host slots to read and ``dst`` the fresh
+    device pages to fill, the sentinels where a block did not move.  The
+    engine's reservation ledger re-reserves the row's worst case before
+    this runs, so the device pops do not run dry."""
+    b, max_blocks = table.shape
+    n_pages = pager.free.shape[0] - 1
+    n_slots = hpager.free.shape[0] - 1
+    take = mask[:, None] & (htable >= 0) & (table < 0)
+    flat = take.reshape(-1)
+    rank = torch.cumsum(flat, 0) - 1
+    grant = flat & (rank < pager.top)
+    pidx = (pager.top - 1 - rank).clamp(0, max(n_pages - 1, 0))
+    page = torch.where(grant, pager.free.index_select(0, pidx), n_pages)
+    top = pager.top - grant.sum(dtype=torch.int32)
+    rc = pager.rc.index_put(
+        (page.long(),), torch.ones((), dtype=pager.rc.dtype,
+                                   device=page.device))
+    table = torch.where(grant.reshape(b, max_blocks),
+                        page.reshape(b, max_blocks), table)
+    src = torch.where(grant, htable.reshape(-1).long(), n_slots)
+    hpager, htable = release_rows(hpager, htable, mask)
+    return (PagerState(pager.free, top, rc), table, hpager, htable, src,
+            page.long())
 
 
 def cow_on_write(

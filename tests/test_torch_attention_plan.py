@@ -19,7 +19,9 @@ emulations in plain PyTorch against JAX's Pallas kernels in interpret
 mode on the same numpy inputs -- the tensor-core forward (64-row query
 tiles over ``dq_key_tiles``, 64-key tiles, the online softmax in f32, P
 rounded to bf16 before PV) against ``flash_attention_pallas`` within one
-bf16 ulp of the largest output and lse within 1e-5, and the split decode
+bf16 ulp of the largest output and lse within 1e-5 (each side also held
+to the same tile arithmetic in f64, so a failure names the side that
+moved), and the split decode
 (f32 partials per split, merged in split order) against
 ``flash_decode_paged_quant_pallas``, ``flash_decode_pallas`` and
 ``flash_decode_paged_pallas`` within 1e-5 on f32 queries.
@@ -52,7 +54,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     fwd_plan,
 )
 
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F32, F64 = torch.bfloat16, torch.float32, torch.float64
 NEG = -1e30
 
 
@@ -175,25 +177,29 @@ def _visible(sq, sk, causal, window):
     return vis
 
 
-def _fwd_tc_emulation(q, k, v, causal, window, scale):
+def _fwd_tc_emulation(q, k, v, causal, window, scale, dtype=F32):
     """The tensor-core forward's arithmetic in plain PyTorch, block by
     block: 64 query rows over the key tiles of ``dq_key_tiles``, 64 keys a
-    tile, the online softmax in f32, P rounded to bf16 before PV, l summed
-    from the f32 P; out = acc / l, lse = m + log(l), l == 0 taken as 1."""
+    tile, the online softmax in f32 (``dtype``: f64 gives the same
+    arithmetic nearly exactly), P rounded to bf16 before PV, l summed
+    from the unrounded P; out = acc / l, lse = m + log(l), l == 0 taken
+    as 1."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g, t = hq // hkv, BWD_TILE
+    q, k, v = (x.to(dtype) for x in (q, k, v))
     vis = _visible(sq, sk, causal, window)
     out = torch.zeros_like(q)
-    lse = torch.zeros((b, hq, sq))
+    lse = torch.zeros((b, hq, sq), dtype=dtype)
     for bi in range(b):
         for h in range(hq):
             hk = h // g
             for q0 in range(0, sq, t):
                 qs = slice(q0, min(q0 + t, sq))
                 n = qs.stop - q0
-                m, l = torch.full((n,), NEG), torch.zeros(n)
-                acc = torch.zeros((n, d))
+                m = torch.full((n,), NEG, dtype=dtype)
+                l, acc = torch.zeros(n, dtype=dtype), torch.zeros(
+                    (n, d), dtype=dtype)
                 for k0 in dq_key_tiles(q0, sq, sk, causal, window):
                     ks = slice(k0, min(k0 + t, sk))
                     s = (q[bi, qs, h] @ k[bi, ks, hk].T) * scale
@@ -204,7 +210,7 @@ def _fwd_tc_emulation(q, k, v, causal, window, scale):
                     alpha = torch.exp(m - m_new)
                     l = l * alpha + p.sum(-1)
                     acc = acc * alpha[:, None] + \
-                        p.to(BF16).float() @ v[bi, ks, hk]
+                        p.to(BF16).to(dtype) @ v[bi, ks, hk]
                     m = m_new
                 l_safe = torch.where(l == 0, 1.0, l)
                 out[bi, qs, h] = acc / l_safe[:, None]
@@ -231,13 +237,19 @@ def test_fwd_tile_emulation_matches_jax(b, sq, sk, hq, hkv, d, causal,
     k, v = (torch.from_numpy(rng.standard_normal(
         (b, sk, hkv, d)).astype(np.float32)).to(BF16).float()
         for _ in range(2))
-    out, lse = _fwd_tc_emulation(q, k, v, causal, window,
-                                 1.0 / math.sqrt(d))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = _fwd_tc_emulation(q, k, v, causal, window, scale)
+    exact = _fwd_tc_emulation(q, k, v, causal, window, scale, F64)[1]
     w_out, w_lse = (np.asarray(x) for x in flash_attention_pallas(
         *(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=causal,
         window=window, interpret=True))
     # P rounded to bf16 before PV: within one bf16 ulp of the largest output
     assert np.abs(out.numpy() - w_out).max() <= 2 ** -7 * np.abs(w_out).max()
+    # each side's lse against the same arithmetic in f64 first, so that a
+    # failure names the side that moved, then against each other
+    for name, got in (("emulation", lse.numpy()), ("JAX", w_lse)):
+        np.testing.assert_allclose(got, exact.numpy(), rtol=0, atol=1e-5,
+                                   err_msg=f"{name} lse vs f64")
     np.testing.assert_allclose(lse.numpy(), w_lse, rtol=0, atol=1e-5)
 
 

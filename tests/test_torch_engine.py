@@ -160,15 +160,24 @@ def test_submit_rejects_what_the_pool_cannot_hold():
 
 
 def test_engine_refuses_what_needs_a_host_tier_or_a_ring():
-    """A pool below the worst case with ``host_spill`` unset would preempt
-    in the JAX engine; chunked prefill on a windowed arch needs pages."""
+    """A pool below the worst case with ``host_spill`` unset gets a host
+    tier, as in the JAX engine, and preempts into it: a priority-1
+    arrival spills the resident row, which comes back and finishes
+    (``test_torch_pressure.py`` holds the tokens to JAX's).  Chunked
+    prefill on a windowed arch still needs pages."""
     _, tree, _ = jax_params()
     params = params_from_jax(tree, device="cpu")
     model = build_model(get_arch(ARCH), device="cpu")
-    with pytest.raises(NotImplementedError, match="comes with the pressure"):
-        ServingEngine(model, params, batch=2, max_len=8,
-                      cache=CacheConfig(layout="paged", page_size=4,
-                                        n_pages=3))
+    eng = ServingEngine(model, params, batch=2, max_len=8,
+                        cache=CacheConfig(layout="paged", page_size=4,
+                                          n_pages=3),
+                        config=EngineConfig(steps_per_sync=1))
+    assert eng._spillable and "host_table" in eng._mstate
+    eng.submit([1, 2, 3], 4)                  # 2 of the 3 pages
+    eng.step()
+    eng.submit([4, 5, 6], 4, priority=1)      # 2 more: only by preempting
+    assert sorted(eng.run()) == [0, 1]
+    assert eng.preemptions == eng.restores == 1
     windowed = build_model(dataclasses.replace(get_arch(ARCH), window=4),
                            device="cpu")
     with pytest.raises(ValueError, match="needs layout='paged'"):
@@ -200,19 +209,21 @@ def test_served_config_fields(cls, field, value):
     (EngineConfig, "spec", object()),
 ])
 def test_unserved_config_fields_raise(cls, field, value):
-    """Fields of later slices are never silently ignored: host spill,
-    prefill budgets and speculation raise naming their slices.  A sub-f32
-    ``kv_dtype`` is served on the paged pool and refused, as JAX refuses
-    it, on the contiguous slab; snapshots, like it, need the paged layout.
-    Sampling and prefix sharing (with snapshots) are served now
-    (``test_torch_sampling.py``, ``test_torch_prefix_sharing.py``)."""
+    """Fields of later slices are never silently ignored: speculation
+    raises naming its slice.  A sub-f32 ``kv_dtype`` is served on the
+    paged pool and refused, as JAX refuses it, on the contiguous slab;
+    snapshots, like it, need the paged layout.  Sampling, prefix sharing
+    (with snapshots), the host tier and prefill budgets are served now
+    (``test_torch_sampling.py``, ``test_torch_prefix_sharing.py``,
+    ``test_torch_pressure.py``)."""
     if field in ("kv_dtype", "snapshots"):
         with pytest.raises(ValueError, match="layout='paged' required"):
             cls(**{field: value})
         assert getattr(cls(layout="paged", **{field: value}),
                        field) == value
         return
-    if field in ("prefix_sharing", "temperature", "top_k"):
+    if field in ("prefix_sharing", "temperature", "top_k", "host_spill",
+                 "prefill_budget"):
         assert getattr(cls(**{field: value}), field) == value
         return
     with pytest.raises(NotImplementedError, match="comes with"):

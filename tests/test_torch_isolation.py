@@ -90,6 +90,7 @@ def test_build_needs_no_toolchain_at_import():
         "flash_attention.cu", "flash_attention_bwd.cu",
         "flash_attention_bwd_tc.cu", "flash_attention_tc.cu",
         "flash_decode_split.cu", "flash_chunk_tc.cu", "ssd_scan.cu",
-        "im2col.cu", "pooling.cu", "softmax_xent.cu", "conv_direct.cu"}
+        "im2col.cu", "pooling.cu", "softmax_xent.cu", "conv_direct.cu",
+        "page_copy.cu"}
     assert _build._LIB is None
     assert _build.library_path().parent == _build.BUILD_DIR

@@ -265,7 +265,8 @@ def test_seed_changes_the_streams(port_model):
 ])
 def test_configs_from_flags_match_jax(flags):
     """The same flags give the same fields as JAX's ``configs_from_flags``
-    (the port's ``host_spill`` stays None: it has no host tier)."""
+    (``host_spill`` stays None on both sides, so a pool below the worst
+    case gets the host tier and preempts into it)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--layout", default="contiguous")
     ap.add_argument("--page-size", type=int, default=16)
