@@ -336,6 +336,28 @@ failure (non-zero exit, no result line):
               Phase 3 also holds the page copy, device -> pinned and
               back, at these pools' shapes (and 2 of zamba2's 71 MB
               snapshot slots) bit for bit its plain version.
+13. spec    — speculative decoding through the engine (``SpecConfig``):
+              (a) full width in bf16, 8 requests of a repeated random
+              block (so prompt lookup finds n-grams) at batch 4, paged,
+              chunk 16: qwen2.5-3b over the bf16 and the int8 pool with
+              prompt lookup at k 4, zamba2-2.7b (18 layers) with its own
+              Mamba layers drafting at k 3, mamba2-2.7b (16 layers) with
+              prompt lookup; prefill and decode under
+              ``set_sync_debug_mode("error")``, launches exact for each
+              verify step (``spec_passes``: one chunk pass of width K + 1,
+              two for the recurrent families, the drafter's own), every
+              page back, emitted = accepted + the active rows' verify
+              steps (a device counter); printed: the accept rate, tokens a
+              verify step, the device time of a verify step against a
+              decode step (profiler), host ms per generated token spec
+              against plain over the runs, and bf16 agreement with plain
+              decode (not held: a verify chunk rounds differently).  (b)
+              f32 at phase 5's depths: spec streams equal plain greedy
+              chunked streams on the slab and the bf16 pool for each
+              drafter, and hopper spec streams equal reference spec streams
+              on the int8 pool.  Phase 3 also holds the three chunk
+              attentions at the verify shape (C = 5 from mid-page, batch
+              4) and the head over every chunk position (M = 20).
 
 The random 64- and 54-layer Mamba stacks are chaotic: the plain reference
 alone, in bf16 and in f32 on the same weights, disagrees on nearly every
@@ -356,8 +378,8 @@ token: where phase 5 finds mixtral's streams split there, it finds the
 first decision the two runs take differently and requires it to be a
 near tie, and each step from the same caches to agree
 (``synced_steps``).  Nothing is cut in width; depth is cut only in
-those checks, in phase 7's f32 comparisons (2 layers) and, for mixtral,
-to fit the card.  The LeNets run at full size (Caffe's own nets) and
+those checks, in phase 7's f32 comparisons (2 layers), for mixtral, to
+fit the card, and in phase 13's recurrent runs, to fit the time.  The LeNets run at full size (Caffe's own nets) and
 the solvers' batch of 64.
 
 The line before the last is a JSON object with one entry per kernel (the
@@ -366,7 +388,7 @@ the three decodes', the three chunked prefills', rmsnorm_bwd's,
 conv2d_direct's, relu_bwd's, maxpool's, relu's, ssd_scan's,
 softmax's, rmsnorm's, bias_add_rows', im2col's, col2im's, softmax_xent's,
 maxpool_bwd's and softmax_xent_bwd's -- with ``routes``:
-the main paths' launches per route, phases 4-11); the last line is
+the main paths' launches per route, phases 4-13); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -481,6 +503,11 @@ def main() -> int:
     stamp(12)
     for name, n in phase_pressure(torch).items():
         launches[name] += n
+
+    # --------------------------------------------------------------- 13
+    stamp(13)
+    for name, n in phase_spec(torch).items():
+        launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] in ROUTED:
@@ -493,7 +520,7 @@ def main() -> int:
         if not k["launches"]:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "
                              "a serving, check, training, Caffe, direct "
-                             "convolution or pressure path")
+                             "convolution, pressure or speculation path")
 
     print(f"[done] {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -1187,6 +1214,7 @@ def phase_kernels(torch):
                 + B * maxb2 * 4,
                 4.0 * pairs2 * hq2 * d2 + 2.0 * keys2 * hkv2 * d2), "tc")
             del q2, k2, v2, kq2, vq2
+            verify_rows(torch, F, rnd, run, gen, dtype, es)
 
         # -- the SSD scan.  B and C are column slices of an in_proj output
         # (row width 2 d_inner + 2 N + H), read in place as the model
@@ -1590,6 +1618,16 @@ def phase_kernels(torch):
               f"{tot['ms']:.3f} ms vs bound {tot['bound_ms']:.3f} ms, plain "
               f"{tot['plain_ms']:.3f} ms, on the block kernel forced "
               f"{tot['forced_ms']:.3f} ms", flush=True)
+    # speculative decoding's verify step (phase 13): qwen2.5-3b at k 4
+    for name, what in (("flash_prefill_chunk_paged", "bf16 pool"),
+                       ("flash_prefill_chunk_paged_quant", "int8 pool"),
+                       ("gemm", "the head over every position")):
+        tot = totals(name, "verify")
+        print(f"[3 kernels] {name}: one bf16 qwen2.5-3b verify step "
+              f"({what}) at B={B}, C={VERIFY_C} from mid-page: "
+              f"{tot['ms']:.4f} ms vs bound {tot['bound_ms']:.4f} ms, plain "
+              f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms",
+              flush=True)
     tot = totals("gemm", "prefill")
     print(f"[3 kernels] gemm: one bf16 prefill step at M={B * c} (the "
           f"chunk's projections; the head runs at M={B}): {tot['ms']:.3f} ms"
@@ -1609,6 +1647,112 @@ def phase_kernels(torch):
           f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms",
           flush=True)
     return out
+
+
+
+# speculative decoding's verify step at qwen2.5-3b's shapes (phase 13):
+# a chunk of the current token and K = 4 drafts, C = 5, from mid-page
+# positions, at batch 4 (rows of 5, 5, 3 and 1 real tokens)
+VERIFY_C, VERIFY_START, VERIFY_WIDTH = 5, (37, 50, 21, 90), (5, 5, 3, 1)
+
+
+def verify_rows(torch, F, rnd, run, gen, dtype, es):
+    """Phase 3's rows at the verify step's shapes (step "verify"): the
+    three chunk attentions over the slab, the bf16 pool and the int8 pool
+    (pages of 16, shuffled, the int8 pool filled by the pager's quantized
+    chunk write) at qwen2.5-3b's heads, and the LM head over every chunk
+    position (``logits_all``), M = B x C = 20.  Each on the tensor-core
+    route, held to its plain version, with its bound and SDPA or
+    ``torch.matmul``.  Counts: launches of one qwen verify step over a
+    paged pool (36 attention blocks, one head); the slab's 0."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_prefill_chunk,
+        flash_prefill_chunk_paged,
+        flash_prefill_chunk_paged_quant,
+    )
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.serving import pager as PG
+
+    hq, hkv, hd, smax, page, c = 16, 2, 128, 128, 16, VERIFY_C
+    maxb = smax // page
+    start = torch.tensor(VERIFY_START, dtype=torch.int32, device="cuda")
+    width = torch.tensor(VERIFY_WIDTH, dtype=torch.int32, device="cuda")
+    lens_l = [s0 + w0 for s0, w0 in zip(VERIFY_START, VERIFY_WIDTH)]
+    qc = rnd((B, c, hq, hd), dtype)
+    kc, vc = (rnd((B, smax, hkv, hd), dtype) for _ in range(2))
+    n_pages = 2 * B * maxb
+    ids = torch.randperm(n_pages, generator=gen, device="cuda").int()
+    bt = torch.full((B, maxb), -1, dtype=torch.int32, device="cuda")
+    for i, n in enumerate(lens_l):
+        nb = -(-n // page)
+        bt[i, :nb] = ids[i * maxb: i * maxb + nb]
+    kp, vp = (rnd((n_pages + 1, page, hkv, hd), dtype) for _ in range(2))
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    kq = torch.zeros((n_pages + 1, page, hkv, hd), dtype=torch.int8,
+                     device="cuda")
+    vq = torch.zeros_like(kq)
+    ksc = torch.zeros((n_pages + 1, hkv), device="cuda")
+    vsc = torch.zeros_like(ksc)
+    PG.write_page_chunk_quant(kq, ksc, kc, bt, 0, lens)
+    PG.write_page_chunk_quant(vq, vsc, vc, bt, 0, lens)
+    # the library yardstick reads gathered (and, int8, dequantized) copies
+    # made outside the timed call
+    kg = ref._gather_pages(kp, bt, B).transpose(1, 2)
+    vg = ref._gather_pages(vp, bt, B).transpose(1, 2)
+    kqg = ref._gather_pages(ref._dequant(kq, ksc), bt, B).to(
+        dtype).transpose(1, 2)
+    vqg = ref._gather_pages(ref._dequant(vq, vsc), bt, B).to(
+        dtype).transpose(1, 2)
+    kpos = torch.arange(smax, device="cuda")
+    qpos = start[:, None] + torch.minimum(
+        torch.arange(c, device="cuda")[None, :], width[:, None] - 1)
+    cmask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
+    qcs = qc.transpose(1, 2)
+    keys = sum(lens_l)
+    qo = 2 * B * c * hq * hd * es
+    flops = 4.0 * int(cmask.sum().item()) * hq * hd
+    bt_bytes = B * maxb * 4
+    pages = int((bt >= 0).sum().item())
+    case = f"verify q 4x{c}x{hq}x{hd} from {list(VERIFY_START)}"
+
+    def sdpa(k_, v_):
+        return lambda: F.scaled_dot_product_attention(
+            qcs, k_, v_, attn_mask=cmask, enable_gqa=True)
+
+    want_route("flash_prefill_chunk", run(
+        flash_prefill_chunk, f"{case}, cache 4x{smax}x{hkv}x{hd}", dtype,
+        "verify", 0,
+        lambda: flash_prefill_chunk(qc, kc, vc, start, width),
+        lambda: ref.attention_prefill_chunk(qc, kc, vc, start, width),
+        sdpa(kc.transpose(1, 2), vc.transpose(1, 2)),
+        qo + 2 * keys * hkv * hd * es, flops), "tc")
+    want_route("flash_prefill_chunk_paged", run(
+        flash_prefill_chunk_paged,
+        f"{case}, pool {n_pages}+1x{page}x{hkv}x{hd}", dtype, "verify", 36,
+        lambda: flash_prefill_chunk_paged(qc, kp, vp, start, width, bt),
+        lambda: ref.attention_prefill_chunk_paged(qc, kp, vp, start, width,
+                                                  bt),
+        sdpa(kg, vg), qo + 2 * keys * hkv * hd * es + bt_bytes, flops), "tc")
+    want_route("flash_prefill_chunk_paged_quant", run(
+        flash_prefill_chunk_paged_quant,
+        f"{case}, int8 pool {n_pages}+1x{page}x{hkv}x{hd}", dtype, "verify",
+        36,
+        lambda: flash_prefill_chunk_paged_quant(qc, kq, vq, ksc, vsc, start,
+                                                width, bt),
+        lambda: ref.attention_prefill_chunk_paged_quant(
+            qc, kq, vq, ksc, vsc, start, width, bt),
+        sdpa(kqg, vqg),
+        qo + 2 * keys * hkv * hd + 2 * pages * hkv * 4 + bt_bytes,
+        flops + 2.0 * keys * hkv * hd), "tc")
+    # the head over every chunk position: M = B x C
+    m, k, n = B * c, 2048, 151936
+    x, w = rnd((m, k), dtype), rnd((n, k), dtype, 0.02).T
+    run(gemm, f"head {m}x{k} @ embed.T (NT), logits_all", dtype, "verify", 1,
+        lambda: gemm(x, w), lambda: ref.gemm(x, w),
+        lambda: torch.matmul(x, w), (m * k + k * n + m * n) * es,
+        2.0 * m * n * k)
+    del kc, vc, kp, vp, kq, vq, kg, vg, kqg, vqg, x, w
 
 
 CROSS_M = (1, 2, 4, 8, 16, 32, 64, 96, 128, 192, 256, 320)
@@ -4264,13 +4408,40 @@ def drive(torch, eng, tag, arrivals):
     return launches, outs, s, rids
 
 
+def spec_passes(eng, pre, dec):
+    """The model passes of ``pre`` prefill and ``dec`` decode steps:
+    (single-token passes, chunk passes, the drafter's own launches).
+    Plain decode runs a single-token pass a decode step.  A verify step
+    (``eng.spec``) runs one chunk pass of width K + 1, two for the
+    recurrent families (the discarded scoring pass and the commit); the
+    hybrid_ssm drafter adds, a prefill step and a verify step, one
+    ingestion (a Mamba-only chunk pass: 2 projections, 2 norms and one
+    SSD scan a layer) and, a verify step, K Mamba-only decode passes with
+    the final norm and the head."""
+    cfg = eng.model.cfg
+    spec = getattr(eng, "spec", None)
+    if spec is None:
+        return dec, pre, {}, {"step": 0, "split": 0}
+    chunked = pre + dec * (2 if cfg.family in ("ssm", "hybrid") else 1)
+    if spec.drafter != "hybrid_ssm":
+        return 0, chunked, {}, {"step": 0, "split": 0}
+    ingests, steps = pre + dec, spec.k * dec
+    layers = cfg.n_layers
+    own = {"gemm": 2 * layers * (ingests + steps) + steps,
+           "rmsnorm": 2 * layers * (ingests + steps) + steps,
+           "ssd_scan": layers * (ingests + steps)}
+    return 0, chunked, own, {"step": layers * steps, "split": layers * ingests}
+
+
 def check_launches(eng, tag, fns, launches, pre, dec, copies=0):
     """Every bf16 decode on the split kernel and chunk on the tensor-core
     kernel (f32 on the template), every SSD decode scan on "step" and
     chunk scan on "split", and every launch count what ``pre`` prefill
-    and ``dec`` decode steps imply: ``per_step`` a step, the layout's
-    attention kernels, and ``copies`` page copies (``copy_pages``: the
-    spills' and restores')."""
+    and ``dec`` decode steps imply (``spec_passes``: under speculation a
+    decode step is a verify step): ``per_step`` a pass, the layout's
+    attention kernels, a hybrid_ssm drafter's own launches, and
+    ``copies`` page copies (``copy_pages``: the spills' and
+    restores')."""
     model = eng.model
     # every bf16 decode launch (slab, bf16 pool, int8 pool) on the split
     # kernel
@@ -4296,9 +4467,11 @@ def check_launches(eng, tag, fns, launches, pre, dec, copies=0):
             raise SystemExit(f"chip_smoke: {tag} {name} routes {rt}, "
                              f"expected {want_rt}")
     steps, n_attn = per_step(model.cfg)
+    singles, chunked, own, own_ssd = spec_passes(eng, pre, dec)
     # every decode scan on "step", every chunk's on "split"
-    rt, want_rt = dict(fns["ssd_scan"].routes), ssd_routes(model.cfg, dec,
-                                                           pre)
+    rt = dict(fns["ssd_scan"].routes)
+    want_rt = ssd_routes(model.cfg, singles, chunked)
+    want_rt = {r: n + own_ssd.get(r, 0) for r, n in want_rt.items()}
     if launches["ssd_scan"]:
         print(f"{tag} ssd_scan routes {rt}", flush=True)
     if rt != want_rt:
@@ -4306,10 +4479,12 @@ def check_launches(eng, tag, fns, launches, pre, dec, copies=0):
                          f"expected {want_rt}")
     want = {name: 0 for name in KERNELS}
     want["copy_pages"] = copies
-    want.update({name: n * (pre + dec) for name, n in steps.items()})
+    want.update({name: n * (singles + chunked) for name, n in steps.items()})
+    for name, n in own.items():
+        want[name] += n
     k_dec, k_pre = ATTN[eng.cache.layout, eng.cache.kv_dtype]
-    want[k_dec] += n_attn * dec
-    want[k_pre] += n_attn * pre
+    want[k_dec] += n_attn * singles
+    want[k_pre] += n_attn * chunked
     if launches != want or (eng.prefill_chunk > 1) != (pre > 0):
         raise SystemExit(f"chip_smoke: {tag} launches "
                          f"{launches}, expected {want} for {pre} prefill + "
@@ -6966,6 +7141,261 @@ def phase_pressure(torch):
     if failed:
         raise SystemExit(f"chip_smoke: f32 streams under pressure differ "
                          f"from the uncontended run's: {failed}")
+    return total
+
+
+
+# ---------------------------------------------------------------------------
+# phase 13: speculative decoding
+# ---------------------------------------------------------------------------
+
+# (arch, layers, ((pool, runs), ...), k, drafter): full width, bf16,
+# paged, chunk 16, page 16, 8 requests at batch 4 (mamba2 has no pages
+# whatever the layout); each pool served ``runs`` times with speculation
+# and as often without, alternately, for the host clock.  The recurrent
+# archs are cut in depth (zamba2 3 of 9 groups, mamba2 16 of 64 layers):
+# their verify steps run 2-5 passes of the model, which at full depth
+# took 44-45 s a run on an H100 (PERF.md), past the script's time budget
+SPEC_FULL = (("qwen2.5-3b", None, (("f32", 3), ("int8", 1)), 4,
+              "prompt_lookup"),
+             ("zamba2-2.7b", 18, (("f32", 1),), 3, "hybrid_ssm"),
+             ("mamba2-2.7b", 16, (("f32", 1),), 4, "prompt_lookup"))
+# (arch, layers, drafters, int8 drafter): f32 at phase 5's depths
+SPEC_F32 = (("qwen2.5-3b", 2, ("prompt_lookup",), "prompt_lookup"),
+            ("mamba2-2.7b", 2, ("prompt_lookup",), None),
+            ("zamba2-2.7b", 12, ("prompt_lookup", "hybrid_ssm"),
+             "hybrid_ssm"))
+SPEC_F32_GEN, SPEC_F32_REQS = 12, 4
+# decode steps profiled for the device time of a step
+SPEC_PROFILED = 2
+
+
+def repeated_prompts(n, vocab, seed):
+    """``n`` prompts of 16-64 tokens, each a block of 3-12 random tokens
+    repeated, so that prompt lookup finds its n-grams."""
+    rng = np.random.default_rng(seed)
+    return [np.resize(rng.integers(0, vocab, int(rng.integers(3, 13))),
+                      int(rng.integers(16, 65))) for _ in range(n)]
+
+
+def spec_engine(model, params, kv_dtype, spec, *, layout="paged",
+                max_len=MAX_LEN, steps_per_sync=8):
+    from repro_torch.serving import CacheConfig, EngineConfig, ServingEngine
+
+    return ServingEngine(
+        model, params, batch=B, max_len=max_len,
+        cache=CacheConfig(layout=layout, page_size=PAGE, kv_dtype=kv_dtype),
+        config=EngineConfig(steps_per_sync=steps_per_sync,
+                            prefill_chunk=CHUNK, spec=spec))
+
+
+def count_active_steps(torch, eng):
+    """A device counter of the rows active at each verify step (added
+    before the step, no sync): emitted must equal accepted plus it."""
+    counter = torch.zeros((), dtype=torch.int64, device="cuda")
+    step = eng._spec_step
+
+    def counted():
+        counter.add_(eng._slots.active.sum())
+        step()
+
+    eng._spec_step = counted
+    return counter
+
+
+def profile_decode(torch, eng, reqs):
+    """Admit and prefill ``reqs``, then one ``decode`` call (the engine's
+    ``steps_per_sync`` steps) under the profiler: device ms a step and,
+    under speculation, the tokens the call emitted.  The engine is left
+    undrained."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.policy import use_backend
+
+    with use_backend("hopper"):
+        for toks in reqs:
+            eng.submit(toks, GEN_LEN)
+        eng.admit()
+        eng.prefill()
+        before = eng._acc.clone() if eng.spec is not None else None
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.decode()
+            torch.cuda.synchronize()
+        emitted = (int((eng._acc - before)[2]) if before is not None
+                   else None)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return busy / eng.steps_per_sync, emitted
+
+
+def spec_full(torch, arch, layers, pools, k, drafter, total):
+    """One full-width bf16 arch (``layers`` deep, None: all): for each
+    pool a spec run through ``drive`` (sync-free, exact launches), with
+    the counters' law, every page back, the plain engine's streams beside
+    it (agreement printed, not held: a verify chunk rounds differently
+    from a decode step), host ms per generated token spec against plain
+    over the pool's runs, and the device time of a verify step against a
+    decode step from the profiler."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import SpecConfig
+
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = build_model(cfg)
+    params = model.init_params(SEED)
+    perturb(torch, params, SEED + 1)
+    reqs = repeated_prompts(8, cfg.vocab_size, SEED + 13)
+    spec = SpecConfig(k=k, drafter=drafter, ngram=2)
+    for kv_dtype, runs in pools:
+        t0 = time.perf_counter()
+        pool = f", {kv_dtype} pool" if kv_dtype != "f32" else ""
+        tag = (f"[13 spec] {cfg.name}, {cfg.n_layers} layers{pool}, "
+               f"{drafter} k {k}:")
+        host = {"spec": [], "plain": []}
+        outs = {}
+        for rep in range(runs):
+            for kind in ("spec", "plain"):
+                eng = spec_engine(model, params, kv_dtype,
+                                  spec if kind == "spec" else None)
+                counter = (count_active_steps(torch, eng)
+                           if kind == "spec" else None)
+                launches, got, st, _ = drive(torch, eng, f"{tag} {kind}",
+                                             [(0, reqs)])
+                for name, n in launches.items():
+                    total[name] += n
+                host[kind].append(round(1e3 * st["wall_s"]
+                                        / st["generated_tokens"], 3))
+                if rep:
+                    continue
+                outs[kind] = got
+                if not conserved(eng):
+                    raise SystemExit(f"chip_smoke: {tag} {kind}: pages "
+                                     "not all back")
+                if kind == "plain":
+                    continue
+                rows = int(counter)
+                acc, prop, emit = (int(st[f"spec_{x}"]) for x in
+                                   ("accepted", "proposed", "emitted"))
+                print(f"{tag} accept rate {st['spec_accept_rate']:.4f} "
+                      f"({acc} of {prop} drafts), {emit} tokens emitted by "
+                      f"{eng.steps} verify steps = "
+                      f"{emit / eng.steps:.3f} a step for the batch, "
+                      f"{emit / rows:.3f} a row's verify step ({rows} "
+                      f"row-steps)", flush=True)
+                if emit != acc + rows or prop > k * rows:
+                    raise SystemExit(f"chip_smoke: {tag} counters: emitted "
+                                     f"{emit}, accepted {acc}, proposed "
+                                     f"{prop}, active row-steps {rows}")
+                del eng
+        same = sum(np.array_equal(outs["spec"][i], outs["plain"][i])
+                   for i in range(len(reqs)))
+        print(f"{tag} bf16 streams spec vs plain decode: {same} of "
+              f"{len(reqs)} identical (printed, not held)", flush=True)
+        print(f"{tag} host ms per generated token (wall of the run over "
+              f"its tokens, not a claim): spec {host['spec']}, plain "
+              f"{host['plain']}", flush=True)
+        v_ms, emitted = profile_decode(
+            torch, spec_engine(model, params, kv_dtype, spec,
+                               steps_per_sync=SPEC_PROFILED), reqs)
+        d_ms, _ = profile_decode(
+            torch, spec_engine(model, params, kv_dtype, None,
+                               steps_per_sync=SPEC_PROFILED), reqs)
+        print(f"{tag} device time (profiler): {v_ms:.4f} ms a verify "
+              f"step, {SPEC_PROFILED * v_ms / max(emitted, 1):.4f} ms an "
+              f"emitted token ({emitted} emitted by {SPEC_PROFILED} "
+              f"steps); {d_ms:.4f} ms a plain "
+              f"decode step ({d_ms / B:.4f} ms a token at batch {B}); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+    del params, model
+    torch.cuda.empty_cache()
+
+
+def spec_streams(torch, model, params, reqs, kv_dtype, spec, layout,
+                 backend, total):
+    """``reqs`` served for ``SPEC_F32_GEN`` tokens on ``backend``; on
+    hopper with the launches counted and checked (``check_launches``)."""
+    from repro_torch.core.policy import use_backend
+
+    eng = spec_engine(model, params, kv_dtype, spec, layout=layout,
+                      max_len=96)
+    with use_backend(backend):
+        rids = [eng.submit(t, SPEC_F32_GEN) for t in reqs]
+        if backend != "hopper":
+            outs = eng.run()
+        else:
+            fns = kernel_fns()
+            zero_counts(fns)
+            outs = eng.run()
+            launches = read_counts(fns)
+            check_launches(eng, f"[13 f32] {model.cfg.name}", fns, launches,
+                           eng.prefill_steps, eng.steps)
+            for name, n in launches.items():
+                total[name] += n
+    if not conserved(eng):
+        raise SystemExit(f"chip_smoke: [13 f32] {model.cfg.name}: pages "
+                         "not all back")
+    return [outs[r] for r in rids]
+
+
+def phase_spec(torch):
+    """Phase 13, speculative decoding.  (a) full width in bf16
+    (``SPEC_FULL``, ``spec_full``).  (b) f32 at phase 5's depths
+    (``SPEC_F32``): spec streams equal plain greedy chunked streams on
+    the slab and on the bf16 pool for each drafter that applies, and, on
+    the int8 pool, hopper-lowering spec streams equal reference-lowering
+    ones.  Returns the launches."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import SpecConfig
+
+    total = {name: 0 for name in KERNELS}
+    for case in SPEC_FULL:
+        spec_full(torch, *case, total)
+
+    failed = []
+    for arch, layers, drafters, int8 in SPEC_F32:
+        t0 = time.perf_counter()
+        model = build_model(dataclasses.replace(
+            get_arch(arch), n_layers=layers, dtype="float32"))
+        params = model.init_params(SEED)
+        perturb(torch, params, SEED + 1)
+        reqs = repeated_prompts(SPEC_F32_REQS, model.cfg.vocab_size,
+                                SEED + 14)
+        tag = f"[13 f32, {layers} layers] {model.cfg.name}"
+        pools = ((("contiguous", "f32"),) if model.cfg.family == "ssm"
+                 else (("contiguous", "f32"), ("paged", "bf16")))
+        for layout, kv_dtype in pools:
+            want = spec_streams(torch, model, params, reqs, kv_dtype, None,
+                                layout, "hopper", total)
+            for drafter in drafters:
+                got = spec_streams(torch, model, params, reqs, kv_dtype,
+                                   SpecConfig(k=4, drafter=drafter),
+                                   layout, "hopper", total)
+                same = sum(np.array_equal(a, b) for a, b in zip(got, want))
+                print(f"{tag}, {layout}, {kv_dtype} pool, {drafter} k 4: "
+                      f"spec streams equal plain greedy chunked streams: "
+                      f"{same} of {len(reqs)}", flush=True)
+                if same != len(reqs):
+                    failed.append((arch, layout, kv_dtype, drafter))
+        if int8 is not None:
+            spec = SpecConfig(k=4, drafter=int8)
+            got, want = (spec_streams(torch, model, params, reqs, "int8",
+                                      spec, "paged", b, total)
+                         for b in ("hopper", "reference"))
+            same = sum(np.array_equal(a, b) for a, b in zip(got, want))
+            print(f"{tag}, int8 pool, {int8} k 4: hopper spec streams equal "
+                  f"reference spec streams: {same} of {len(reqs)}",
+                  flush=True)
+            if same != len(reqs):
+                failed.append((arch, "int8", int8))
+        print(f"{tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+        del params, model
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: f32 spec streams differ: {failed}")
     return total
 
 

@@ -4,7 +4,8 @@
         --batch 4 --requests 8 --prompt-len 32 --gen 32 \\
         [--layout paged --page-size 16 --n-pages N [--kv-dtype int8]] \\
         [--prefill-chunk 16] [--temperature 0.8 --top-k 50] \\
-        [--prefix-sharing] [--check]
+        [--prefix-sharing] [--spec-k 4 --spec-drafter prompt_lookup
+        --spec-ngram 2] [--check]
 
 ``--arch`` takes qwen2.5-3b, mamba2-2.7b, zamba2-2.7b, mixtral-8x7b,
 qwen3-moe-235b-a22b or their ``-smoke`` variants.  ``--kv-dtype`` (paged
@@ -17,10 +18,15 @@ sampled (``--temperature``, ``--top-k``, keyed by ``--seed`` and the
 request id as in JAX); ``--prefix-sharing`` (paged) lets a request map a
 resident row's written prompt pages (random prompts share none, so it
 reports 0 shared tokens here; ``chip_smoke.py`` phase 11 serves a common
-system prompt); prints tokens/s, time per decode step, mean time to first
+system prompt); ``--spec-k K`` (with ``--prefill-chunk`` >= 2, greedy)
+decodes by draft and verify: ``--spec-drafter prompt_lookup`` (n-gram
+lookup of ``--spec-ngram`` tokens, any family) or ``hybrid_ssm`` (the
+hybrid family's own Mamba layers) drafts K tokens a row and one chunk of
+width K + 1 verifies them, with the tokens of plain greedy decode; prints
+tokens/s, time per decode step, mean time to first
 token, the chunked-prefill step count and, paged, the peak pages in use
-and the resident KV bytes at that peak, and the sharing, snapshot and
-preemption counts when they apply (a pool below the worst case, set by
+and the resident KV bytes at that peak, and the sharing, snapshot,
+preemption and speculation counts when they apply (a pool below the worst case, set by
 ``--n-pages``, preempts into the host tier, as in JAX).  Runs on the card (``--device cuda``, the
 default) and raises when there is none; ``--device cpu`` runs the plain
 PyTorch versions.
@@ -91,6 +97,17 @@ def main(argv=None) -> int:
                          "paged): attention families alias pages with "
                          "copy-on-write; recurrent families (ssm/hybrid) "
                          "restore page-boundary state snapshots")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft K tokens per row per "
+                         "step and verify them through the chunked prefill "
+                         "path (0 = off; needs --prefill-chunk >= 2, "
+                         "greedy only)")
+    ap.add_argument("--spec-drafter", default="prompt_lookup",
+                    choices=["prompt_lookup", "hybrid_ssm"],
+                    help="draft source: n-gram prompt lookup (any family) "
+                         "or the hybrid family's own Mamba layers")
+    ap.add_argument("--spec-ngram", type=int, default=2,
+                    help="prompt-lookup n-gram match length")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--check", action="store_true",
@@ -156,6 +173,11 @@ def main(argv=None) -> int:
         print(f"prefix sharing: {int(s['shared_prompt_tokens'])} prompt "
               f"tokens served from shared pages and snapshots "
               f"({int(s['cow_pages'])} CoW copies)")
+    if "spec_accept_rate" in s:
+        print(f"speculation: {int(s['spec_accepted'])}/"
+              f"{int(s['spec_proposed'])} drafts accepted "
+              f"({s['spec_accept_rate']:.0%}), "
+              f"{int(s['spec_emitted'])} tokens via verify steps")
     print("sample:", outs[rids[0]][:16].tolist())
     if args.check:
         prompt = torch.as_tensor(prompts[: args.batch], device=model.device)

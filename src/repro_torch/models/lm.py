@@ -362,6 +362,11 @@ def _cache_update_chunk(cache: torch.Tensor, new: torch.Tensor,
     cache.scatter_(1, tgt, val)
 
 
+# the hybrid_ssm drafter's private recurrent state
+# (``serving/drafter.py``): ``drf_ssm``/``drf_conv`` (layers, B, ...) and
+# its ingestion clock ``drf_pos`` (B,)
+_DRAFT = ("drf_ssm", "drf_conv", "drf_pos")
+
 # the table of each tier's allocator (``<tier>_free``/``_top``/``_rc``):
 # the device pages, the snapshot slots, and their host tiers
 _TABLES = {"page": "block_table", "host": "host_table",
@@ -678,7 +683,7 @@ def prefill_chunk(
     cfg: ArchConfig, params, state, toks: torch.Tensor,   # (B, C) int
     width,                                               # () or (B,) int
     *, active: Optional[torch.Tensor] = None,             # (B,) bool
-    cow: bool = False, snap_every: int = 0,
+    cow: bool = False, snap_every: int = 0, logits_all: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Ingest up to C prompt tokens per row in one step.
 
@@ -698,6 +703,9 @@ def prefill_chunk(
     prefix, so only the chunk's first position can land in one, and a
     chunk that crosses a boundary without ending on it records nothing
     for it (the engine clips chunks to end on boundaries).
+    ``logits_all`` (speculative decoding's verifier) applies the final norm
+    and the head at every chunk position and returns (B, C, V) logits;
+    padding positions carry garbage the caller masks by width.
     """
     pos = state["pos"]
     if pos.dim() != 1:
@@ -767,16 +775,106 @@ def prefill_chunk(
         state, lambda p, x, s1, s2: C.mamba_prefill_block(
             cfg, p, x, s1, s2, valid, ssm_out=s1)))
 
-    # the last real position of each row, gathered *before* the final norm
-    # and the head (both are position-wise), so the head runs at M = B
-    last = x.gather(1, (width.long() - 1)[:, None, None].expand(
-        b, 1, x.shape[-1]))[:, 0]
-    logits = lm_logits(cfg, params, C.norm(cfg, params["ln_f"], last))
+    if logits_all:
+        logits = lm_logits(cfg, params, C.norm(cfg, params["ln_f"], x))
+    else:
+        # the last real position of each row, gathered *before* the final
+        # norm and the head (both are position-wise), so the head runs at
+        # M = B
+        last = x.gather(1, (width.long() - 1)[:, None, None].expand(
+            b, 1, x.shape[-1]))[:, 0]
+        logits = lm_logits(cfg, params, C.norm(cfg, params["ln_f"], last))
     state = {**state, "pos": pos + torch.where(active, width, 0)}
     if snap_every and "snap_table" in state:
         state = _snap_capture(state, state["pos"], active, snap_every)
     return logits, state
 
+
+
+def init_scratch(cfg: ArchConfig, state, chunk: int):
+    """The buffers of ``score_chunk``, allocated once (an engine's life):
+    the recurrent families' ``ssm``/``conv`` shaped as the state's, and,
+    for the hybrid family's KV, room for every page (with the sentinel)
+    or slab slot a chunk of width ``chunk`` can write: the pages of
+    ``(chunk - 1) // page_size + 2`` blocks a row, with their int8 scales,
+    or ``chunk`` slots a row."""
+    scratch = {key: torch.empty_like(state[key]) for key in ("ssm", "conv")
+               if key in state}
+    b = state["pos"].shape[0]
+    if "block_table" in state:
+        n = b * ((chunk - 1) // state["kp"].shape[2] + 2) + 1
+        for key in ("kp", "vp", "ksc", "vsc"):
+            if key in state:
+                shape = list(state[key].shape)
+                shape[1] = n
+                scratch[key] = state[key].new_empty(shape)
+    else:
+        for key in ("k", "v"):
+            if key in state:
+                shape = list(state[key].shape)
+                shape[2] = chunk
+                scratch[key] = state[key].new_empty(shape)
+    return scratch
+
+
+def score_chunk(
+    cfg: ArchConfig, params, state, toks: torch.Tensor,   # (B, C) int
+    width, *, active: torch.Tensor, scratch,
+) -> torch.Tensor:
+    """``prefill_chunk(logits_all=True)`` as a discarded pass: the (B, C, V)
+    logits, with every tensor of ``state`` left byte-identical.  The port
+    writes its state in place, so the recurrent families run the chunk on
+    ``scratch``'s copies of ``ssm``/``conv``, and the hybrid family's KV
+    writes are undone: the pages the chunk can touch (every block from
+    ``pos // page_size`` on that its writes and int8 requantization reach,
+    mapped after the chunk's own allocation, unmapped ones as the
+    sentinel, plus the sentinel itself) and their scales, or the slab's
+    slots, are saved before the pass and written back after.  The
+    allocator is functional, so its returned state is simply dropped.  No
+    copy-on-write and no snapshot capture, as JAX's discarded pass."""
+    b, c = toks.shape
+    pos = state["pos"]
+    dev = toks.device
+    saved = []
+    if "block_table" in state:
+        page = state["kp"].shape[2]
+        w = torch.as_tensor(width, device=dev).to(torch.int32).reshape(
+            -1).expand(b).clamp(1, c)
+        _, bt = PG.alloc_range(*_tier(state, "page"), pos, pos + w - 1,
+                               active, page_size=page, max_chunk=c)
+        n_pages, max_blocks = state["kp"].shape[1] - 1, bt.shape[1]
+        blk = (pos.long() // page)[:, None] + torch.arange(
+            (c - 1) // page + 2, device=dev)[None, :]
+        ids = bt.gather(1, blk.clamp(max=max_blocks - 1)).long()
+        ids = torch.where((blk < max_blocks) & (ids >= 0), ids, n_pages)
+        ids = torch.cat([ids.reshape(-1), ids.new_full((1,), n_pages)])
+        for key in ("kp", "vp", "ksc", "vsc"):
+            if key in state:
+                torch.index_select(state[key], 1, ids, out=scratch[key])
+                saved.append((key, ids))
+    elif "k" in state:
+        s_len = state["k"].shape[2]
+        slots = (pos.long()[:, None] + torch.arange(c, device=dev)[None, :]
+                 ).clamp(0, s_len - 1)
+        for key in ("k", "v"):
+            t = state[key]
+            idx = slots[None, :, :, None, None].expand(
+                t.shape[0], b, c, *t.shape[3:])
+            torch.gather(t, 2, idx, out=scratch[key])
+            saved.append((key, idx))
+    run = dict(state)
+    for key in ("ssm", "conv"):
+        if key in state:
+            scratch[key].copy_(state[key])
+            run[key] = scratch[key]
+    logits, _ = prefill_chunk(cfg, params, run, toks, width, active=active,
+                              logits_all=True)
+    for key, idx in saved:
+        if key in ("k", "v"):
+            state[key].scatter_(2, idx, scratch[key])
+        else:
+            state[key].index_copy_(1, idx, scratch[key])
+    return logits
 
 def reset_decode_rows(
     cfg: ArchConfig, state: Dict[str, torch.Tensor],
@@ -791,13 +889,15 @@ def reset_decode_rows(
     masked-in read can see it, and a page's scales are reset by the write
     of its slot 0); snapshot slots are released with their rows the same
     way (slots a sharer still maps stay), and so are the host tier's
-    slots of a row drained while spilled.  Requires per-row ``pos``
-    state."""
+    slots of a row drained while spilled.  The hybrid_ssm drafter's
+    private state (``drf_ssm``/``drf_conv``, zeroed; its clock
+    ``drf_pos``, set to ``start``) resets with the row, as in JAX.
+    Requires per-row ``pos`` state."""
     if state["pos"].dim() != 1:
         raise ValueError(
             "reset_decode_rows needs per_row_pos=True decode state"
         )
-    known = {"pos", "k", "v", "ssm", "conv", *_TABLES.values()}
+    known = {"pos", "k", "v", "ssm", "conv", *_TABLES.values(), *_DRAFT}
     known |= {key for pair in _TIER_POOLS + _SNAP_TIER_POOLS for key in pair}
     known |= {t + f for t in _TABLES for f in ("_free", "_top", "_rc")}
     unknown = set(state) - known
@@ -808,13 +908,15 @@ def reset_decode_rows(
             f"reset_decode_rows: unhandled decode-state keys {sorted(unknown)}"
         )
     out = {**state, "pos": torch.where(mask, start, state["pos"])}
+    if "drf_pos" in state:
+        out["drf_pos"] = torch.where(mask, start, state["drf_pos"])
     # pages and snapshot slots are released in every tier: a row drained
     # while spilled returns its host slots (host copies are private, rc 1)
     for tier in _TABLES:
         if tier + "_free" in state:
             pstate, table = PG.release_rows(*_tier(state, tier), mask)
             out = _commit_tier(out, tier, pstate, table)
-    for key in ("k", "v", "ssm", "conv"):
+    for key in ("k", "v", "ssm", "conv", "drf_ssm", "drf_conv"):
         if key in state:
             t = state[key]                    # (stacks, B, ...)
             t.masked_fill_(mask.view(1, -1, *[1] * (t.dim() - 2)), 0)

@@ -44,7 +44,17 @@ class Model:
         return lm.decode_step(self.cfg, params, state, token, **kw)
 
     def prefill_chunk(self, params, state, toks, width, **kw):
+        """``lm.prefill_chunk``'s keywords (``logits_all`` included)."""
         return lm.prefill_chunk(self.cfg, params, state, toks, width, **kw)
+
+    def init_scratch(self, state, chunk: int):
+        """``score_chunk``'s buffers, allocated once."""
+        return lm.init_scratch(self.cfg, state, chunk)
+
+    def score_chunk(self, params, state, toks, width, **kw):
+        """All-position logits of a discarded chunk pass: ``state`` is left
+        byte-identical (``lm.score_chunk``)."""
+        return lm.score_chunk(self.cfg, params, state, toks, width, **kw)
 
     def reset_decode_rows(self, state, mask, **kw):
         return lm.reset_decode_rows(self.cfg, state, mask, **kw)

@@ -1,9 +1,10 @@
 """Continuous-batching serving engine (the port's ``repro.serving.engine``:
 the dense, moe, ssm and hybrid families, contiguous or paged KV layout,
 the paged pool in the model's dtype, bf16 or int8, token-by-token or
-chunked prefill, greedy or sampled decoding, prefix sharing, and serving
+chunked prefill, greedy or sampled decoding, prefix sharing, serving
 under pressure: priorities, deadlines, cancellation, preemption into a
-host tier, prefill budgets and scripted faults).
+host tier, prefill budgets and scripted faults, and speculative
+decoding).
 
 The control state of every batch row lives on the device as fixed-shape
 tensors (``SlotState``): the token buffer holds the prompt and then the
@@ -25,10 +26,12 @@ interaction; a cycle (``step``) is
     prefill  — chunked-prefill steps while some row has >= 2 prompt
                tokens left (``prefill_chunk > 1`` only, at most
                ``prefill_budget`` of them when it is set), no host sync,
-    decode   — ``steps_per_sync`` engine steps back to back, no host sync;
-               rows a budget stop left mid-prompt are frozen,
-    harvest  — one device->host readback (tokens, active rows and the
-               free counts of the page and snapshot pools); finished rows
+    decode   — ``steps_per_sync`` engine steps (or draft-and-verify steps)
+               back to back, no host sync; rows a budget stop left
+               mid-prompt are frozen,
+    harvest  — one device->host readback (tokens, active rows, under
+               speculation progress and the accept counter, and the free
+               counts of the page and snapshot pools); finished rows
                return their tokens, and they and the cancelled, poisoned
                and expired rows release their pages and slots in every
                tier.
@@ -63,6 +66,20 @@ page-copy launch a pool into pinned host memory) and they come back
 (``model.restore_rows``) as soon as their reservation fits; cancelled,
 poisoned and expired rows drain at the harvest through the release path.
 
+Speculative decoding (``spec=SpecConfig(k, drafter)``, greedy, chunk >= 2)
+turns the decode phase into draft and verify, as JAX's: a drafter
+(``serving/drafter.py``: n-gram prompt lookup, or the hybrid family's own
+Mamba layers) proposes K tokens a row, one ``prefill_chunk(logits_all=
+True)`` of width K + 1 scores them, and each row keeps its leading run of
+drafts equal to the verifier's argmax, so the tokens are plain greedy
+decode's.  Attention families roll a rejected suffix back by rewinding
+``pos`` and ``pager.release_tail``; the recurrent ones, whose state the
+port writes in place, score on a discarded pass that leaves the state
+byte-identical (``lm.score_chunk``: scratch ``ssm``/``conv`` and, for
+the hybrid's KV, the touched pages saved and written back) and commit
+with a second pass of the accepted width.  Strides then depend on the
+data, so the host mirror takes the device's progress at the harvest.
+
 Unlike JAX's jitted steps, the port runs eagerly; the caches, page pools
 and the token buffer are updated in place.
 """
@@ -80,10 +97,17 @@ from repro_torch.serving import prng
 from repro_torch.serving.config import (
     CacheConfig,
     EngineConfig,
+    from_kwargs,
     validate_configs,
 )
+from repro_torch.serving.drafter import make_drafter
 from repro_torch.serving.faults import FaultPlan
-from repro_torch.serving.pager import PagerState, pages_needed, share_prefix
+from repro_torch.serving.pager import (
+    PagerState,
+    pages_needed,
+    release_tail,
+    share_prefix,
+)
 from repro_torch.serving.queue import Request, RequestQueue
 
 if TYPE_CHECKING:  # the model imports the pager, which lives here
@@ -236,8 +260,17 @@ class ServingEngine:
     >>> outs = eng.run()          # {rid: np.ndarray of generated tokens}
 
     The engine runs on ``model.device``.  ``cache``/``config`` take the
-    typed configuration; a field the port does not serve yet raises in
-    its constructor.
+    typed configuration; the legacy kwarg pile (``layout=``,
+    ``prefill_chunk=``, ...) still works through ``from_kwargs``, with a
+    ``DeprecationWarning`` at the construction site, and mixing both
+    styles is a ``TypeError``.
+
+    ``spec=SpecConfig(k=K, drafter=...)`` (greedy, ``prefill_chunk >=
+    2``) drafts K tokens a row and verifies them in one chunk step, each
+    row advancing by its accepted length; the tokens are plain greedy
+    decode's, and ``stats()`` gains ``spec_proposed``, ``spec_accepted``,
+    ``spec_emitted`` and ``spec_accept_rate``.  ``drafter="hybrid_ssm"``
+    needs the hybrid family and no prefix sharing.
 
     ``temperature > 0`` samples (optionally cut to the ``top_k`` best);
     each request's key is a pure function of (``seed``, request id), so
@@ -283,7 +316,15 @@ class ServingEngine:
     def __init__(self, model: "Model", params, *, batch: int, max_len: int,
                  cache: Optional[CacheConfig] = None,
                  config: Optional[EngineConfig] = None,
-                 fault_plan: Optional[FaultPlan] = None) -> None:
+                 fault_plan: Optional[FaultPlan] = None, **legacy) -> None:
+        if legacy:
+            if cache is not None or config is not None:
+                raise TypeError(
+                    "pass cache=CacheConfig(...) / config=EngineConfig(...) "
+                    "or the legacy kwargs, not both"
+                )
+            # the warning points at the caller's construction site
+            cache, config = from_kwargs(_stacklevel=3, **legacy)
         self.cache = cache if cache is not None else CacheConfig()
         self.config = config if config is not None else EngineConfig()
         validate_configs(self.cache, self.config)
@@ -307,6 +348,7 @@ class ServingEngine:
         self.prefix_sharing = self.config.prefix_sharing
         self.temperature = self.config.temperature
         self.top_k = self.config.top_k
+        self.spec = self.config.spec
         self._seed = int(self.config.seed)
         self.queue = RequestQueue(max_len=max_len)
         host_spill = self.cache.host_spill
@@ -321,6 +363,25 @@ class ServingEngine:
                 self.cache,
                 snapshots=self.cache.snapshots or self.prefix_sharing,
                 host_spill=host_spill))
+        # speculative decoding: a stateful drafter's private recurrence
+        # joins the decode state, so reset, spill and restore treat it as
+        # lane state; the recurrent families' scoring pass runs on scratch
+        # buffers allocated here once
+        self._drafter = None
+        self._scratch = None
+        self._acc = None
+        if self.spec is not None:
+            self._drafter = make_drafter(self.spec, model.cfg)
+            if self._drafter.stateful:
+                self._mstate = {**self._mstate,
+                                **self._drafter.init_state(batch,
+                                                           self.device)}
+            if model.cfg.family in ("ssm", "hybrid"):
+                self._scratch = model.init_scratch(self._mstate,
+                                                   self.spec.k + 1)
+            # [accepted, proposed, emitted], read at the harvest
+            self._acc = torch.zeros((3,), dtype=torch.int64,
+                                    device=self.device)
         # attention-free families have no pages whatever the layout
         self._paged = "block_table" in self._mstate
         self._snap = "snap_table" in self._mstate
@@ -371,6 +432,10 @@ class ServingEngine:
         self.prefill_steps = 0    # chunked-prefill steps executed
         self.generated = 0        # tokens returned to callers
         self.prompt_tokens = 0    # prompt tokens fed (host arithmetic)
+        # speculation: the device counter's values at the last harvest
+        self.spec_proposed = 0    # verifiable draft positions scored
+        self.spec_accepted = 0    # drafts equal to the verifier's argmax
+        self.spec_emitted = 0     # tokens emitted by verify steps
         self.shared_prompt_tokens = 0   # prompt tokens skipped by sharing
         self.cow_pages = 0              # CoW copies (host-predicted)
         self.peak_pages_in_use = 0
@@ -805,6 +870,12 @@ class ServingEngine:
                 self.model, self.params, self._mstate, self._slots,
                 chunk=self.prefill_chunk, **self._step_kw(),
             )
+            if self._drafter is not None and self._drafter.stateful:
+                # keep the drafter's clock within a chunk of its rows:
+                # decode-phase rows ride prefill steps at width 1
+                self._mstate = self._drafter.ingest(
+                    self.params, self._mstate, self._slots.tokens,
+                    self._slots.progress, self.prefill_chunk)
             self.prefill_steps += 1
             self._advance_mirror(widths)
             n += 1
@@ -812,11 +883,14 @@ class ServingEngine:
 
     @_timed
     def decode(self) -> None:
-        """``steps_per_sync`` engine steps back to back — no host sync.  A
-        row a budget stop left mid-prompt is frozen for the call: fed
-        token by token it would leave the chunk schedule of an unpressured
-        run, whose chunk boundaries its logits depend on; it resumes
-        chunked prefill next cycle."""
+        """``steps_per_sync`` engine steps back to back — no host sync;
+        under ``spec``, as many draft-and-verify steps (``_spec_step``),
+        whose strides depend on the data, so the host mirror is refreshed
+        at the harvest instead of replayed here.  A row a budget stop left
+        mid-prompt is frozen for the call: fed token by token it would
+        leave the chunk schedule of an unpressured run, whose chunk
+        boundaries its logits depend on; it resumes chunked prefill next
+        cycle."""
         run = np.ones((self.batch,), bool)
         if self.prefill_chunk > 1:
             for b, req in enumerate(self._slot_req):
@@ -829,16 +903,90 @@ class ServingEngine:
             frozen = self._slots.active & ~r
             self._slots = self._slots._replace(active=self._slots.active & r)
         for _ in range(self.steps_per_sync):
-            self._mstate, self._slots = engine_step(
-                self.model, self.params, self._mstate, self._slots,
-                **self._step_kw(),
-            )
+            if self.spec is not None:
+                self._spec_step()
+            else:
+                self._mstate, self._slots = engine_step(
+                    self.model, self.params, self._mstate, self._slots,
+                    **self._step_kw(),
+                )
         if frozen is not None:
             self._slots = self._slots._replace(
                 active=self._slots.active | frozen)
         self.steps += self.steps_per_sync
-        self._advance_mirror([self.steps_per_sync if run[b] else 0
-                              for b in range(self.batch)])
+        if self.spec is None:
+            self._advance_mirror([self.steps_per_sync if run[b] else 0
+                                  for b in range(self.batch)])
+
+    def _spec_step(self) -> None:
+        """One draft-and-verify step for every row (JAX's ``_spec_step``),
+        no host sync.  The verify chunk is the row's current token and its
+        K drafts, of width ``w`` (never past the row's last token, never
+        across a snapshot boundary without ending on it).  Acceptance
+        keeps the leading run of drafts equal to the verifier's argmax
+        (in-chunk causality makes slot j's logits exact while slots 0..j
+        are true tokens), so the tokens are plain greedy decode's; the
+        row advances by ``stride``, the accepted drafts plus the
+        verifier's own next token.  Attention families score in place and
+        roll back: ``pos`` rewinds (KV past the frontier is never
+        attended) and, paged, ``release_tail`` returns the tail blocks.
+        The recurrent families cannot roll back, so they score on a
+        discarded pass (``score_chunk``: the state left byte-identical)
+        and commit with a second pass of exact width."""
+        model, params, s = self.model, self.params, self._slots
+        k = self.spec.k
+        bsz, buf_len = s.tokens.shape
+        act, prog = s.active, s.progress
+        drafts, self._mstate = self._drafter.propose(
+            params, self._mstate, s.tokens, prog, act)
+        cur = s.tokens.gather(1, prog.clamp(0, buf_len - 1)[:, None])
+        chunk = torch.cat([cur, drafts], dim=1)              # (B, K + 1)
+        limit = torch.full_like(prog, k + 1)
+        if self._snap_every:
+            limit = torch.minimum(
+                limit, self._snap_every - prog % self._snap_every)
+        w = torch.minimum((s.total_len - 1 - prog).clamp(min=1), limit)
+        if self._recurrent:
+            logits = model.score_chunk(params, self._mstate, chunk, w,
+                                       active=act, scratch=self._scratch)
+        else:
+            logits, ms2 = model.prefill_chunk(
+                params, self._mstate, chunk, w, active=act, cow=self._cow,
+                snap_every=self._snap_every, logits_all=True)
+        g = torch.argmax(logits, dim=-1)                     # (B, K + 1)
+        ok = (g[:, :k] == chunk[:, 1:]) & (
+            torch.arange(k, device=g.device)[None, :] < (w - 1)[:, None])
+        acc_n = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+        stride = torch.where(act, acc_n + 1, 0)
+        if self._recurrent:
+            _, self._mstate = model.prefill_chunk(
+                params, self._mstate, chunk, stride.clamp(min=1),
+                active=act, cow=self._cow, snap_every=self._snap_every)
+        else:
+            ms = {**ms2, "pos": (prog + stride).to(ms2["pos"].dtype)}
+            if self._paged:
+                pstate, bt = release_tail(
+                    PagerState(ms["page_free"], ms["page_top"],
+                               ms["page_rc"]),
+                    ms["block_table"], prog + stride, act,
+                    page_size=self.page_size)
+                ms = {**ms, "block_table": bt, "page_free": pstate.free,
+                      "page_top": pstate.top, "page_rc": pstate.rc}
+            self._mstate = ms
+        # the accepted tokens g[:, 0 .. acc_n] land at prog + 1 ..
+        # prog + 1 + acc_n (generated positions: a spec row has
+        # prog >= prompt_len - 1)
+        col = torch.arange(buf_len, device=g.device)[None, :]
+        rel = col - (prog + 1)[:, None]
+        sel = (act[:, None] & (rel >= 0) & (rel <= acc_n[:, None])
+               & (col >= s.prompt_len[:, None]))
+        tokens = torch.where(sel, g.gather(1, rel.clamp(0, k)), s.tokens)
+        progress = prog + stride
+        self._slots = SlotState(tokens, s.prompt_len, s.total_len, progress,
+                                act & (progress < s.total_len - 1), s.rng)
+        self._acc += torch.stack([torch.where(act, acc_n, 0).sum(),
+                                  torch.where(act, w - 1, 0).sum(),
+                                  stride.sum()])
 
     @_timed
     def harvest(self) -> int:
@@ -851,6 +999,10 @@ class ServingEngine:
         Returns the number of requests completed."""
         s = self._slots
         parts = [s.active.long(), s.tokens.reshape(-1)]
+        if self.spec is not None:
+            # under speculation the strides depend on the data: progress
+            # and the counter ride the same readback
+            parts += [s.progress, self._acc]
         for key in ("page_top", "snap_top"):
             if key in self._mstate:
                 parts.append(self._mstate[key].long().reshape(1))
@@ -860,6 +1012,11 @@ class ServingEngine:
         tokens = got[b_: b_ + n_tok].reshape(b_, self.max_len).astype(
             np.int32)
         tops = got[b_ + n_tok:]
+        if self.spec is not None:
+            self._refresh_mirror(tops[:b_])
+            self.spec_accepted, self.spec_proposed, self.spec_emitted = (
+                int(x) for x in tops[b_: b_ + 3])
+            tops = tops[b_ + 3:]
         if self._paged:
             self.peak_pages_in_use = max(self.peak_pages_in_use,
                                          self.n_pages - int(tops[0]))
@@ -950,6 +1107,21 @@ class ServingEngine:
                 self._crossed.append(req.req_id)
             self._row_progress[b] = np_
 
+    def _refresh_mirror(self, progress: np.ndarray) -> None:
+        """Under speculation the device's per-row progress is the truth:
+        the mirror takes it, and the prompt tokens fed and the rows whose
+        first generated token was produced are recovered from old against
+        new, as the replay would have counted them."""
+        for b, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            old, new = self._row_progress[b], int(progress[b])
+            plen = req.prompt_len
+            self.prompt_tokens += min(new, plen) - min(old, plen)
+            if old < plen <= new:
+                self._crossed.append(req.req_id)
+            self._row_progress[b] = new
+
     def _chunk_limit(self, progress: int) -> int:
         """Host mirror of ``engine_step``'s chunk-width cap (snapshot
         engines end chunks on page boundaries); the two must stay
@@ -1018,6 +1190,36 @@ class ServingEngine:
         if self._spillable:
             out["preemptions"] = float(self.preemptions)
             out["restores"] = float(self.restores)
+        if self.spec is not None:
+            out["spec_proposed"] = float(self.spec_proposed)
+            out["spec_accepted"] = float(self.spec_accepted)
+            out["spec_emitted"] = float(self.spec_emitted)
+            out["spec_accept_rate"] = (self.spec_accepted
+                                       / max(self.spec_proposed, 1))
         out["cancelled"] = float(len(self.cancelled))
         out["expired"] = float(len(self.expired))
         return out
+
+
+def serve_all(model: "Model", params, requests, *, batch: int, max_len: int,
+              steps_per_sync: int = 8, cache: Optional[CacheConfig] = None,
+              config: Optional[EngineConfig] = None,
+              **engine_kwargs) -> Dict[int, np.ndarray]:
+    """Submit ``[(tokens, max_new_tokens), ...]`` and drain; the outputs
+    keyed by submission order (0..n-1).  Takes the config objects (then
+    ``steps_per_sync`` lives in ``config``) or the legacy kwarg pile,
+    which goes through the engine's ``from_kwargs`` adapter, as the JAX
+    package's ``serve_all``."""
+    if cache is not None or config is not None:
+        eng = ServingEngine(model, params, batch=batch, max_len=max_len,
+                            cache=cache, config=config, **engine_kwargs)
+    elif engine_kwargs:
+        eng = ServingEngine(model, params, batch=batch, max_len=max_len,
+                            steps_per_sync=steps_per_sync, **engine_kwargs)
+    else:
+        eng = ServingEngine(model, params, batch=batch, max_len=max_len,
+                            config=EngineConfig(
+                                steps_per_sync=steps_per_sync))
+    for tokens, gen in requests:
+        eng.submit(tokens, gen)
+    return eng.run()

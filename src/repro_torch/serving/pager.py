@@ -1,7 +1,8 @@
 """Device-side page allocator for the paged KV-cache layout (the port's
 subset of ``repro.serving.pager``: allocation, release, the paged K/V
-writes, plain and int8, prefix sharing with copy-on-write, and the host
-tier behind preemption; ``release_tail`` comes with speculative decoding).
+writes, plain and int8, prefix sharing with copy-on-write, the host tier
+behind preemption, and ``release_tail``, speculative decoding's
+rollback).
 
 Layout contract (the JAX package's, plus one trash page):
 
@@ -223,6 +224,38 @@ def release_rows(
     block_table = torch.where(mask[:, None], -1, block_table)
     return PagerState(free, top, rc), block_table
 
+
+
+def release_tail(
+    pager: PagerState,
+    block_table: torch.Tensor,   # (B, max_blocks) int32
+    frontier,                    # () or (B,): highest live position + 1
+    mask: torch.Tensor,          # (B,) bool: rows to roll back
+    *,
+    page_size: int,
+) -> Tuple[PagerState, torch.Tensor]:
+    """Release the masked rows' blocks strictly beyond the one covering
+    position ``frontier - 1`` (speculative decoding's rollback: a verify
+    step maps pages for its whole drafted chunk, and a row that accepts
+    fewer tokens gives the tail back).  The refcount discipline of
+    ``release_rows``: each dropped entry decrements its page once, a page
+    reaching 0 goes back on the stack in ascending id, and a row whose
+    tail is empty is a no-op.  Dropped entries' decrements land on the
+    sentinel's count."""
+    b, max_blocks = block_table.shape
+    dev = block_table.device
+    n_pages = pager.free.shape[0] - 1
+    keep = (_per_row(frontier, b, dev).clamp(min=1) - 1) // page_size
+    col = torch.arange(max_blocks, device=dev)[None, :]
+    give = mask[:, None] & (block_table >= 0) & (col > keep[:, None])
+    pages = torch.where(give, block_table.long(), n_pages).reshape(-1)
+    dec = torch.zeros_like(pager.rc).index_add_(
+        0, pages, torch.ones_like(pages, dtype=pager.rc.dtype))
+    rc = pager.rc - dec
+    freed = ((pager.rc > 0) & (rc <= 0) & (dec > 0))[:n_pages]
+    rc = rc.clamp(min=0)
+    free, top = _push_freed(pager.free, pager.top, freed)
+    return PagerState(free, top, rc), torch.where(give, -1, block_table)
 
 def share_prefix(
     pager: PagerState,

@@ -21,6 +21,7 @@ from repro_torch.serving import (  # noqa: E402
     CacheConfig,
     EngineConfig,
     ServingEngine,
+    SpecConfig,
 )
 
 from torch_parity import ARCH, jax_params, requests  # noqa: E402
@@ -206,28 +207,25 @@ def test_served_config_fields(cls, field, value):
     (EngineConfig, "prefix_sharing", True),
     (EngineConfig, "temperature", 0.7),
     (EngineConfig, "top_k", 5),
-    (EngineConfig, "spec", object()),
+    (EngineConfig, "spec", SpecConfig(k=2)),
 ])
 def test_unserved_config_fields_raise(cls, field, value):
-    """Fields of later slices are never silently ignored: speculation
-    raises naming its slice.  A sub-f32 ``kv_dtype`` is served on the
-    paged pool and refused, as JAX refuses it, on the contiguous slab;
-    snapshots, like it, need the paged layout.  Sampling, prefix sharing
-    (with snapshots), the host tier and prefill budgets are served now
-    (``test_torch_sampling.py``, ``test_torch_prefix_sharing.py``,
-    ``test_torch_pressure.py``)."""
+    """Every field of the typed config is served now; the test keeps its
+    name from the slices that refused some.  A sub-f32 ``kv_dtype`` is
+    served on the paged pool and refused, as JAX refuses it, on the
+    contiguous slab; snapshots, like it, need the paged layout.  Sampling,
+    prefix sharing (with snapshots), the host tier, prefill budgets and
+    speculative decoding are served (``test_torch_sampling.py``,
+    ``test_torch_prefix_sharing.py``, ``test_torch_pressure.py``,
+    ``test_torch_spec_decode.py``); speculation's cross-object checks are
+    ``validate_configs``'s, as in JAX."""
     if field in ("kv_dtype", "snapshots"):
         with pytest.raises(ValueError, match="layout='paged' required"):
             cls(**{field: value})
         assert getattr(cls(layout="paged", **{field: value}),
                        field) == value
         return
-    if field in ("prefix_sharing", "temperature", "top_k", "host_spill",
-                 "prefill_budget"):
-        assert getattr(cls(**{field: value}), field) == value
-        return
-    with pytest.raises(NotImplementedError, match="comes with"):
-        cls(**{field: value})
+    assert getattr(cls(**{field: value}), field) == value
 
 
 def test_config_validation_matches_jax():

@@ -323,10 +323,11 @@ def test_reset_guards_unknown_keys():
     cfg = get_arch("mamba2-2.7b-smoke")
     state = lm.init_decode_state(cfg, 2, 8, per_row_pos=True, device="cpu")
     with pytest.raises(ValueError, match="unhandled decode-state keys"):
-        # the snapshot store's keys are known since prefix sharing and
-        # the host tier's (``hsnap_*``) since the pressure slice; the
-        # drafter's (``drf_*``) come with speculative decoding
-        lm.reset_decode_rows(cfg, {**state, "drf_ssm": state["ssm"]},
+        # the snapshot store's keys are known since prefix sharing, the
+        # host tier's (``hsnap_*``) since the pressure slice and the
+        # drafter's (``drf_*``) since speculative decoding: a key no JAX
+        # or port state has
+        lm.reset_decode_rows(cfg, {**state, "xssm": state["ssm"]},
                              torch.tensor([True, False]))
 
 
