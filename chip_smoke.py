@@ -395,6 +395,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import statistics
@@ -459,55 +460,16 @@ def main() -> int:
     # ---------------------------------------------------------------- 3
     stamp(3)
     kernels = phase_kernels(torch)
+    launches = {name: 0 for name in KERNELS}
+    for n, phase in ((4, phase_serving), (5, phase_f32), (6, phase_check),
+                     (7, phase_train), (8, phase_caffe),
+                     (9, phase_caffe_train), (10, phase_direct),
+                     (11, phase_share), (12, phase_pressure),
+                     (13, phase_spec), (14, phase_encdec_vlm)):
+        stamp(n)
+        for name, k in phase(torch).items():
+            launches[name] += k
 
-    # ---------------------------------------------------------------- 4
-    stamp(4)
-    launches = phase_serving(torch)
-
-    # ---------------------------------------------------------------- 5
-    stamp(5)
-    for name, n in phase_f32(torch).items():
-        launches[name] += n
-
-    # ---------------------------------------------------------------- 6
-    stamp(6)
-    for name, n in phase_check(torch).items():
-        launches[name] += n
-
-    # ---------------------------------------------------------------- 7
-    stamp(7)
-    for name, n in phase_train(torch).items():
-        launches[name] += n
-
-    # ---------------------------------------------------------------- 8
-    stamp(8)
-    for name, n in phase_caffe(torch).items():
-        launches[name] += n
-
-    # ---------------------------------------------------------------- 9
-    stamp(9)
-    for name, n in phase_caffe_train(torch).items():
-        launches[name] += n
-
-    # --------------------------------------------------------------- 10
-    stamp(10)
-    for name, n in phase_direct(torch).items():
-        launches[name] += n
-
-    # --------------------------------------------------------------- 11
-    stamp(11)
-    for name, n in phase_share(torch).items():
-        launches[name] += n
-
-    # --------------------------------------------------------------- 12
-    stamp(12)
-    for name, n in phase_pressure(torch).items():
-        launches[name] += n
-
-    # --------------------------------------------------------------- 13
-    stamp(13)
-    for name, n in phase_spec(torch).items():
-        launches[name] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] in ROUTED:
@@ -520,7 +482,8 @@ def main() -> int:
         if not k["launches"]:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "
                              "a serving, check, training, Caffe, direct "
-                             "convolution, pressure or speculation path")
+                             "convolution, pressure, speculation or "
+                             "lockstep path")
 
     print(f"[done] {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -575,6 +538,7 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 # ---------------------------------------------------------------------------
 
 def phase_kernels(torch):
+    """Every kernel against its plain version at the path's shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -1397,6 +1361,7 @@ def phase_kernels(torch):
                 fbytes, 4.0 * 2 * hq_ * d_ * pairs,
                 forced=forced_scalar if dtype == torch.bfloat16 else None),
                 "tc" if dtype == torch.bfloat16 else "scalar")
+        encdec_vlm_kernels(torch, F, rnd, run, dtype, es)
         train_kernels(torch, F, rnd, run, slow, dtype, es)
         gemm_crossover(torch, rnd, check, slow, dtype, TOL)
         torch.cuda.empty_cache()
@@ -1542,6 +1507,24 @@ def phase_kernels(torch):
                       f"{lib if lib is None else round(lib, 3)} ms"
                       + (f", on its route before this slice "
                          f"{tot['forced_ms']:.3f} ms" if name in REDESIGNED
+                         else ""), flush=True)
+    # phase 14's steps in bf16 at B = 4: seamless-m4t-medium's decode
+    # step, its C = 16 chunk step and its teacher-forced forward (the
+    # encoder's and the decoder's attentions), and the vision model's
+    # decode step and forward at 20 layers
+    for step in ("seamless decode", "seamless prefill", "seamless forward",
+                 "vision decode", "vision forward"):
+        for name in ("gemm", "rmsnorm", "flash_attention", "flash_decode",
+                     "flash_prefill_chunk"):
+            tot = totals(name, step)
+            if tot["ms"]:
+                lib = tot["library_ms"]
+                print(f"[3 kernels] {name}: one bf16 {step} step at B={B}:"
+                      f" {tot['ms']:.4f} ms vs bound {tot['bound_ms']:.4f} "
+                      f"ms, plain {tot['plain_ms']:.4f} ms, library "
+                      f"{lib if lib is None else round(lib, 4)} ms"
+                      + (f", on its route before its redesign "
+                         f"{tot['forced_ms']:.4f} ms" if name in REDESIGNED
                          else ""), flush=True)
     # the norms and biases of the steps past decode: 64 rows a prefill
     # step, 512 a train step
@@ -1756,6 +1739,197 @@ def verify_rows(torch, F, rnd, run, gen, dtype, es):
 
 
 CROSS_M = (1, 2, 4, 8, 16, 32, 64, 96, 128, 192, 256, 320)
+
+
+# the encdec and vlm families served in phase 14: seamless-m4t-medium
+# (12 encoder and 12 decoder layers, d 1024, 16/16 heads of 64, vocab
+# 256206, frames of ENC_FRAMES positions) and llama-3.2-vision-90b cut to
+# VIS_LAYERS of its 100 layers (4 groups of 4 self-attention layers and a
+# cross layer; d 8192, 64/8 heads of 128, vocab 128256, N_VIS vision
+# tokens a row), a lockstep loop of LOCK_PROMPT prompt and LOCK_GEN
+# generated tokens at batch B
+ENC_FRAMES, N_VIS, VIS_LAYERS = 256, 1601, 20
+LOCK_PROMPT, LOCK_GEN = 32, 32
+LOCK_LEN = LOCK_PROMPT + LOCK_GEN + 1
+
+
+def encdec_vlm_kernels(torch, F, rnd, run, dtype, es):
+    """Phase 3's rows at phase 14's shapes: seamless-m4t-medium's decode
+    step (self-attention at head dim 64 over the slab, cross-attention
+    over the 256-position memory at a scalar length), its C = 16 chunk
+    step (the cross chunk at ``start = 255``, ``width = 1``: every query
+    row sees the whole memory), the vision model's decode step (the cross
+    decode over 1601 keys, a last tile of one key), and the forward
+    attentions of both models' teacher-forced ``Model.prefill`` (the
+    non-causal encoder, the causal self-attention and the cross over the
+    memory at Sq 32, one cross with Sk < Sq).  bf16 also the products (seamless's head, N = 256206, unaligned, on the scalar
+    ``tiled`` route at every M, timed beside the skinny kernel forced)
+    and the norms of the steps."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_decode,
+        flash_prefill_chunk,
+    )
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    bf = dtype == torch.bfloat16
+    c = CHUNK
+
+    def sdpa(q4, k4, v4, mask=None):
+        """The library call on (B, S, H, D) operands."""
+        qt, kt, vt = (t.transpose(1, 2) for t in (q4, k4, v4))
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    if bf:
+        # (case, M, K, N, step, launches a step): seamless's projections
+        # (self q, k, v, o and cross q, o a layer; the MLP's three), the
+        # head; the vision model's (16 self and 4 cross layers)
+        prods = [("q,k,v,o,xq,xo {m}x1024 @ 1024x1024", 1024, 1024, 72),
+                 ("wg,wi {m}x1024 @ 1024x4096", 1024, 4096, 24),
+                 ("wo {m}x4096 @ 4096x1024", 4096, 1024, 12)]
+        rows = [(case.format(m=m_), m_, k, n, step, cnt)
+                for m_, step in ((B, "seamless decode"),
+                                 (B * c, "seamless prefill"))
+                for case, k, n, cnt in prods]
+        rows += [("head 4x1024 @ 1024x256206", B, 1024, 256206,
+                  "seamless decode", 1),
+                 ("head 4x1024 @ 1024x256206", B, 1024, 256206,
+                  "seamless prefill", 1),
+                 ("head 64x1024 @ 1024x256206", B * c, 1024, 256206,
+                  "seamless train", 0),
+                 ("wq,wo,xq,xo 4x8192 @ 8192x8192", B, 8192, 8192,
+                  "vision decode", 40),
+                 ("wk,wv 4x8192 @ 8192x1024", B, 8192, 1024,
+                  "vision decode", 32),
+                 ("wg,wi 4x8192 @ 8192x28672", B, 8192, 28672,
+                  "vision decode", 40),
+                 ("wo 4x28672 @ 28672x8192", B, 28672, 8192,
+                  "vision decode", 20),
+                 ("head 4x8192 @ 8192x128256", B, 8192, 128256,
+                  "vision decode", 1)]
+        for case, m_, k, n, step, cnt in rows:
+            a = rnd((m_, k), dtype)
+            w = rnd((k, n), dtype, k ** -0.5)
+            route = run(gemm, case, dtype, step, cnt,
+                        lambda a=a, w=w: gemm(a, w),
+                        lambda a=a, w=w: ref.gemm(a, w),
+                        lambda a=a, w=w: torch.matmul(a, w),
+                        (m_ * k + k * n + m_ * n) * es, 2.0 * m_ * n * k,
+                        forced=forced_skinny_bf16 if n == 256206 else None)
+            if n == 256206:
+                want_route("gemm", route, "tiled")
+            del a, w
+        # (width, rows, step, launches a step)
+        for wd, m_, step, cnt in ((1024, B, "seamless decode", 37),
+                                  (1024, B * c, "seamless prefill", 36),
+                                  (1024, B, "seamless prefill", 1),
+                                  (8192, B, "vision decode", 41)):
+            xr = rnd((m_, wd), dtype)
+            wr = (1 + 0.1 * rnd((wd,), torch.float32)).to(dtype)
+            want_route("rmsnorm", run(
+                rmsnorm, f"{m_}x{wd}", dtype, step, cnt,
+                lambda xr=xr, wr=wr: rmsnorm(xr, wr),
+                lambda xr=xr, wr=wr: ref.rmsnorm(xr, wr),
+                lambda xr=xr, wr=wr, wd=wd: F.rms_norm(xr, (wd,), wr, 1e-6),
+                (2 * m_ * wd + wd) * es, 4.0 * m_ * wd), "vec")
+
+    # -- the forward of the teacher-forced ``Model.prefill`` over the
+    # LOCK_PROMPT-token prompt (B 4): seamless's encoder over the frames,
+    # its decoder's causal self-attention and its cross-attention, and
+    # the vision model's self- and cross-attention; and a cross with
+    # Sk < Sq (frames shorter than the prompt; no launch in phase 14).
+    # (case, Sq, Sk, Hq, Hkv, D, causal, step, launches)
+    for case, sq, sk, hq, hkv, d, causal, step, cnt in (
+            ("seamless encoder", ENC_FRAMES, ENC_FRAMES, 16, 16, 64, False,
+             "seamless forward", 12),
+            ("seamless self", LOCK_PROMPT, LOCK_PROMPT, 16, 16, 64, True,
+             "seamless forward", 12),
+            ("seamless cross", LOCK_PROMPT, ENC_FRAMES, 16, 16, 64, False,
+             "seamless forward", 12),
+            ("seamless cross", ENC_FRAMES, 64, 16, 16, 64, False,
+             "seamless forward", 0),
+            ("vision self", LOCK_PROMPT, LOCK_PROMPT, 64, 8, 128, True,
+             "vision forward", 16),
+            ("vision cross", LOCK_PROMPT, N_VIS, 64, 8, 128, False,
+             "vision forward", 4)):
+        q = rnd((B, sq, hq, d), dtype)
+        k, v = rnd((B, sk, hkv, d), dtype), rnd((B, sk, hkv, d), dtype)
+        pairs = sq * (sq + 1) // 2 if causal else sq * sk
+        mask = (torch.ones((sq, sk), dtype=torch.bool, device="cuda").tril()
+                if causal else None)
+        want_route("flash_attention", run(
+            flash_attention,
+            f"{case} {B}x{sq}x{hq}x{d}, {sk} keys of {hkv} heads, "
+            + ("causal" if causal else "not causal"), dtype, step, cnt,
+            lambda q=q, k=k, v=v, c_=causal: flash_attention(q, k, v,
+                                                              causal=c_),
+            lambda q=q, k=k, v=v, c_=causal: ref.mha_attention(q, k, v,
+                                                               causal=c_),
+            sdpa(q, k, v, mask),
+            (2 * B * sq * hq * d + 2 * B * sk * hkv * d) * es
+            + 4 * B * hq * sq, 4.0 * B * hq * d * pairs,
+            forced=forced_scalar if bf else None), "tc" if bf else "scalar")
+        del q, k, v
+
+    # -- the contiguous decode: (case, Hq, Hkv, D, Smax, length, step,
+    # launches); the cross decodes read every memory key at one scalar
+    # length
+    for case, hq, hkv, d, smax, n, step, cnt in (
+            ("seamless self", 16, 16, 64, LOCK_LEN, 48, "seamless decode",
+             12),
+            ("seamless cross", 16, 16, 64, ENC_FRAMES, ENC_FRAMES,
+             "seamless decode", 12),
+            ("vision self", 64, 8, 128, LOCK_LEN, 48, "vision decode", 16),
+            ("vision cross", 64, 8, 128, N_VIS, N_VIS, "vision decode", 4)):
+        q = rnd((B, hq, d), dtype)
+        kc, vc = rnd((B, smax, hkv, d), dtype), rnd((B, smax, hkv, d), dtype)
+        ln = torch.full((), n, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(smax, device="cuda") < n)[None, None, None, :]
+        want_route("flash_decode", run(
+            flash_decode,
+            f"{case} q 4x{hq}x{d}, cache 4x{smax}x{hkv}x{d} at {n}", dtype,
+            step, cnt,
+            lambda q=q, kc=kc, vc=vc, ln=ln: flash_decode(q, kc, vc, ln),
+            lambda q=q, kc=kc, vc=vc, ln=ln: ref.attention_decode(
+                q, kc, vc, ln),
+            sdpa(q[:, None], kc, vc, mask),
+            (2 * B * hq * d + 2 * B * n * hkv * d) * es,
+            4.0 * B * n * hq * d,
+            forced=forced_template("flash_decode") if bf else None),
+            "split" if bf else "template")
+        del q, kc, vc
+
+    # -- the contiguous chunk at head dim 64: the self-attention's second
+    # chunk of a 32-token prompt, and the cross chunk anchored at the
+    # memory's last position with width 1
+    for case, smax, st, wd, step in (
+            ("seamless self", LOCK_LEN, 16, 16, "seamless prefill"),
+            ("seamless cross, start 255 width 1", ENC_FRAMES,
+             ENC_FRAMES - 1, 1, "seamless prefill")):
+        q = rnd((B, c, 16, 64), dtype)
+        kc, vc = rnd((B, smax, 16, 64), dtype), rnd((B, smax, 16, 64), dtype)
+        start = torch.full((B,), st, dtype=torch.int32, device="cuda")
+        width = torch.full((B,), wd, dtype=torch.int32, device="cuda")
+        qpos = st + torch.clamp(torch.arange(c, device="cuda"), max=wd - 1)
+        mask = (torch.arange(smax, device="cuda")[None, :]
+                <= qpos[:, None])[None, None]
+        keys = st + wd
+        want_route("flash_prefill_chunk", run(
+            flash_prefill_chunk,
+            f"{case} q 4x{c}x16x64, cache 4x{smax}x16x64", dtype, step, 12,
+            lambda q=q, kc=kc, vc=vc, s_=start, w_=width:
+                flash_prefill_chunk(q, kc, vc, s_, w_),
+            lambda q=q, kc=kc, vc=vc, s_=start, w_=width:
+                ref.attention_prefill_chunk(q, kc, vc, s_, w_),
+            sdpa(q, kc, vc, mask),
+            (2 * B * c * 16 * 64 + 2 * B * keys * 16 * 64) * es,
+            4.0 * B * 16 * 64 * int(mask.sum().item()),
+            forced=forced_template("flash_prefill_chunk") if bf else None),
+            "tc" if bf else "template")
+        del q, kc, vc
 
 
 def gemm_crossover(torch, rnd, check, clock, dtype, tol):
@@ -2229,6 +2403,27 @@ def train_kernels(torch, F, rnd, run, clock, dtype, es):
                    else "tiled")
     del gemms, w_qo, w_kv, w_gi, w_o, embed, x, h, g_d, g_kv, g_ff, g_v
     del xa, bn, bk, xm, bn2, bk2
+
+
+@contextlib.contextmanager
+def forced_skinny_bf16():
+    """bf16 products of M <= 64 on the skinny kernel (``gemm.SKINNY_MAX_M``
+    raised for bf16), timed beside the route ``plan`` gives seamless's
+    unaligned head (``tiled``): the head's candidate route, measured, not
+    taken; every launch inside must take it."""
+    import torch
+
+    from repro_torch.kernels import gemm as gemm_mod
+
+    saved, before = gemm_mod.SKINNY_MAX_M, dict(gemm_mod.gemm.routes)
+    gemm_mod.SKINNY_MAX_M = {**saved, torch.bfloat16: 64}
+    try:
+        yield
+    finally:
+        gemm_mod.SKINNY_MAX_M = saved
+    taken = {r for r, n in gemm_mod.gemm.routes.items() if n != before[r]}
+    if taken != {"skinny"}:
+        raise SystemExit(f"chip_smoke: forced skinny gemm took {taken}")
 
 
 @contextlib.contextmanager
@@ -4088,7 +4283,9 @@ def perturb(torch, params, seed: int) -> None:
     """Non-zero qkv biases, non-unit norm weights and, in the Mamba blocks,
     non-trivial decay, step bias and skip (the JAX init sets them to 0, 1,
     a_log = dt_bias = 0 and d_skip = 1, which would leave the bias kernel,
-    the weight multiply and the per-head decay untested)."""
+    the weight multiply and the per-head decay untested); the vision
+    model's cross gates set to 0.5 + noise (at 0, tanh(gate) would take
+    the cross-attention out of the logits)."""
     gen = torch.Generator(device=params["embed"].device).manual_seed(seed)
 
     def noise(t, scale):
@@ -4119,6 +4316,16 @@ def perturb(torch, params, seed: int) -> None:
             mamba(p["mamba"])
     if "shared_attn" in params:
         attn_mlp(params["shared_attn"], params["shared_mlp"])
+    for p in params.get("enc_layers", []) + params.get("dec_layers", []):
+        attn_mlp(p["attn"], p["mlp"])
+        if "cross" in p:
+            p["cross"]["ln"] = p["cross"]["ln"] + noise(p["cross"]["ln"], 0.1)
+    for cp in params.get("cross", []):
+        attn_mlp(cp["attn"], cp["mlp"])
+        gate = cp["attn"]["gate"]
+        cp["attn"]["gate"] = (0.5 + noise(gate, 0.2).float()).to(gate.dtype)
+    if "ln_enc" in params:
+        params["ln_enc"] = params["ln_enc"] + noise(params["ln_enc"], 0.1)
 
 
 def requests(n, lo, hi, vocab, seed):
@@ -6500,12 +6707,14 @@ def phase_direct(torch):
 SYSTEM_LEN = 256      # the common system prompt: 16 pages of 16 tokens
 WARM_CYCLES = 3       # cycles the first request serves alone
 SHARE_MAX_LEN = SYSTEM_LEN + 48 + GEN_LEN + 1
-# 11a: full width in bf16, (pool, (sharing on, off) pairs run in turns)
-# of each arch ("f32": the model's dtype); mamba2 has no KV, so sharing
-# is its snapshot store alone
-SHARE_FULL = (("qwen2.5-3b", (("f32", 2), ("int8", 1))),
-              ("zamba2-2.7b", (("f32", 2),)),
-              ("mamba2-2.7b", (("f32", 2),)))
+# 11a: full width in bf16, (arch, layers, (pool, (sharing on, off) pairs
+# run in turns)) ("f32": the model's dtype); mamba2 has no KV, so sharing
+# is its snapshot store alone.  The recurrent archs are cut in depth as
+# in phase 13 (zamba2 3 of 9 groups, mamba2 16 of 64 layers): at full
+# depth their 8 runs took 110 s of the script's time budget on an H100
+SHARE_FULL = (("qwen2.5-3b", None, (("f32", 2), ("int8", 1))),
+              ("zamba2-2.7b", 18, (("f32", 2),)),
+              ("mamba2-2.7b", 16, (("f32", 2),)))
 # 11b: f32 at phase 5's depths over each pool
 SHARE_F32 = (("qwen2.5-3b", 2, ("f32", "bf16", "int8")),
              ("zamba2-2.7b", GATE_LAYERS, ("f32", "bf16", "int8")),
@@ -6683,9 +6892,9 @@ def prng_bits_check(torch, vocab):
 
 def phase_share(torch):
     """Phase 11, prefix sharing and sampled decoding.  (a) full width in
-    bf16 (``SHARE_FULL``), the system-prompt traffic with sharing on and
-    off, one or two pairs each: sharing must engage on every arch and
-    lower the peak pages of the archs with KV; the sharing counts, the
+    bf16 (``SHARE_FULL``; zamba2 and mamba2 cut in depth), the
+    system-prompt traffic with sharing on and off, one or two pairs
+    each: sharing must engage on every arch and lower the peak pages of the archs with KV; the sharing counts, the
     late requests' TTFT and the streams' agreement are printed, and, for
     qwen2.5-3b, the sampler's cost.  (b) f32 at phase 5's depths
     (``SHARE_F32``): sharing on and off must give identical streams over
@@ -6700,8 +6909,10 @@ def phase_share(torch):
     from repro_torch.models.model import build_model
 
     total = {name: 0 for name in KERNELS}
-    for arch, pools in SHARE_FULL:
+    for arch, layers, pools in SHARE_FULL:
         cfg = get_arch(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
         model = build_model(cfg)
         params = model.init_params(SEED)
         perturb(torch, params, SEED + 1)
@@ -7398,6 +7609,343 @@ def phase_spec(torch):
         raise SystemExit(f"chip_smoke: f32 spec streams differ: {failed}")
     return total
 
+
+# ---------------------------------------------------------------------------
+# phase 14: the encdec and vlm families through the lockstep loop
+# ---------------------------------------------------------------------------
+
+# (c)'s depths, full width, f32: seamless-m4t-medium at 2 encoder and 2
+# decoder layers, the vision model at one group of 5 layers
+F32_SEAMLESS_LAYERS, F32_VIS_LAYERS = 2, 5
+# bf16 decode against the teacher-forced pass, and chunks against token by
+# token: within 5% of the largest |logit| (the port's bf16 scale_tol)
+LOCK_TOL = 0.05
+
+
+def lockstep_launches(cfg, steps, frames):
+    """Kernel launches of ``serve_lockstep`` over ``steps`` decode steps:
+    each step's blocks (a self-attention block runs 4 projections, a norm
+    and the slab decode; a cross block 2 projections (q, o; its K/V are
+    cached), a norm and the decode over the memory; an MLP 3 projections
+    and a norm; the head a projection and the final norm), filling the
+    cross K/V (a norm and 2 projections a cross block) and, encdec with
+    ``frames``, the encoder (a non-causal attention block and an MLP a
+    layer, then ``ln_enc``)."""
+    if cfg.family == "encdec":
+        # a decoder layer: self-attention, cross-attention, MLP
+        n_self = n_cross = n_mlp = cfg.n_layers
+    else:
+        # a self-attention layer and a cross layer each end in an MLP
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        n_self = cfg.n_layers - n_cross
+        n_mlp = cfg.n_layers
+    want = {"gemm": steps * (4 * n_self + 2 * n_cross + 3 * n_mlp + 1)
+            + 2 * n_cross,
+            "rmsnorm": steps * (n_self + n_cross + n_mlp + 1) + n_cross,
+            "flash_decode": steps * (n_self + n_cross)}
+    if cfg.family == "encdec" and frames:
+        e = cfg.encoder_layers
+        want["gemm"] += 7 * e
+        want["rmsnorm"] += 2 * e + 1
+        want["flash_attention"] = e
+    return want
+
+
+def only_routes(fns, route):
+    """Fail unless every attention launch since ``zero_counts`` took the
+    route of its kind in ``route`` (forward, decode, chunk)."""
+    for name, want in zip(("flash_attention", "flash_decode",
+                           "flash_prefill_chunk"), route):
+        other = {r: n for r, n in fns[name].routes.items()
+                 if n and r != want}
+        if other:
+            raise SystemExit(f"chip_smoke: {name} took {other}, expected "
+                             f"only {want}")
+
+
+def counted_lockstep(torch, model, params, prompt, fns, tag, backend,
+                     **memory):
+    """``serve_lockstep`` on ``backend`` with the launch counts set to 0
+    just before and read just after; on the hopper backend they must be
+    ``lockstep_launches``' exactly, on the routes of the dtype.  Returns
+    (tokens, prompt logits, host ms a step, launches)."""
+    from repro_torch.core.policy import use_backend
+    from repro_torch.launch.serve import serve_lockstep
+
+    cfg = model.cfg
+    zero_counts(fns)
+    with use_backend(backend):
+        toks, logits, secs, steps = serve_lockstep(model, params, prompt,
+                                                   LOCK_GEN, **memory)
+    got = read_counts(fns)
+    if backend == "hopper":
+        want = lockstep_launches(cfg, steps, memory.get("frames")
+                                 is not None)
+        bad = {k: (n, want.get(k, 0)) for k, n in got.items()
+               if n != want.get(k, 0)}
+        if bad:
+            raise SystemExit(f"chip_smoke: {tag} launches (got, want): "
+                             f"{bad}")
+        only_routes(fns, ("tc", "split", "tc") if cfg.dtype == "bfloat16"
+                    else ("scalar", "template", "template"))
+    ms = 1e3 * secs / steps
+    print(f"{tag} lockstep on {backend}: {LOCK_PROMPT} prompt + {LOCK_GEN} "
+          f"generated tokens at B={B}: {secs:.3f} s, {ms:.3f} ms per decode "
+          f"step (host clock, synchronized); launches "
+          f"{ {k: n for k, n in got.items() if n} }", flush=True)
+    return toks, logits.float(), ms, got
+
+
+def device_ms(torch, fn):
+    """Device time of ``fn``'s kernels under the profiler (ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def decode_bound_ms(cfg, params, state):
+    """The byte bound of one bf16 decode step at ``state``'s position: the
+    weights the step reads (every decoder weight but the cross blocks' K/V
+    projections, whose K/V are cached; the head and the final norm; the
+    embedding's B rows) and the K/V of every self-attention block up to
+    the position and of every cross block over the whole memory, each
+    once, over the card's memory rate.  Returns (ms, bytes)."""
+    from repro_torch.optim.optimizers import tree_leaves
+
+    if cfg.family == "encdec":
+        layers = params["dec_layers"]
+        crosses = [p["cross"] for p in layers]
+        n_self = cfg.n_layers
+    else:
+        selfs = [p for group in params["groups"] for p in group]
+        layers = selfs + params["cross"]
+        crosses = [cp["attn"] for cp in params["cross"]]
+        n_self = len(selfs)
+    cached = {id(blk[key]) for blk in crosses for key in ("wk", "wv")}
+    weights = sum(t.numel() for p in layers for t in tree_leaves(p)
+                  if id(t) not in cached)
+    weights += params["lm_head"].numel() + params["ln_f"].numel() \
+        + B * cfg.d_model
+    pos = int(state["pos"].max()) + 1
+    n_cross, n_mem = state["xk"].shape[0], state["xk"].shape[2]
+    kv = 2 * B * cfg.n_kv_heads * cfg.head_dim_ * (n_self * pos
+                                                    + n_cross * n_mem)
+    nbytes = 2 * (weights + kv)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, nbytes
+
+
+def step_profile(torch, model, params, state, tag):
+    """One bf16 decode step's device time under the profiler (taken again
+    if it reads 0: the profiler can drop a run's records), the share
+    of it the cross-attention decodes take (one cross block's decode over
+    the memory K/V timed alone by CUDA events, L2 flushed, times the
+    cross blocks), and the step's byte bound."""
+    from repro_torch.core.policy import use_backend
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    tok = torch.zeros((B,), dtype=torch.int64, device="cuda")
+    bound, nbytes = decode_bound_ms(cfg, params, state)
+    n_cross = state["xk"].shape[0]
+    with use_backend("hopper"), torch.no_grad():
+        step_ms = 0.0
+        for _ in range(3):
+            step_ms = step_ms or device_ms(torch, lambda: model.decode_step(
+                params, dict(state), tok))
+        q = torch.randn((B, cfg.n_heads, cfg.head_dim_), device="cuda").to(
+            cfg.dtype_())
+        n_mem = torch.full((), state["xk"].shape[2], dtype=torch.int32,
+                           device="cuda")
+        cross_ms = n_cross * Timer(torch, reps=10)(
+            lambda: ops.attention_decode(q, state["xk"][0], state["xv"][0],
+                                         n_mem))
+    print(f"{tag} one decode step at position {int(state['pos'].max())}: "
+          f"device {step_ms:.4f} ms under the profiler, of it the "
+          f"{n_cross} cross-attention decodes {cross_ms:.4f} ms by CUDA "
+          f"events ("
+          + (f"{100 * cross_ms / step_ms:.1f}%" if step_ms else
+             "the profiler recorded nothing")
+          + f"); byte bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
+
+
+def held(name, got, want, tol=LOCK_TOL):
+    """max |got - want| within ``tol`` of max |want|; returns both."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    print(f"{name}: max_abs_err {err:.4g} (max|logit| {scale:.4g}, "
+          f"tolerance {tol:g} of it)", flush=True)
+    if not (np.isfinite(err) and err <= tol * scale):
+        raise SystemExit(f"chip_smoke: {name}: {err:.4g} > {tol:g} x "
+                         f"{scale:.4g}")
+    return err, scale
+
+
+def encdec_vlm_full(torch, fns, total):
+    """(a) seamless-m4t-medium and (b) llama-3.2-vision-90b at 20 layers,
+    bf16, full width: the lockstep loop (counted), the teacher-forced
+    ``Model.prefill`` at the last prompt position, seamless's chunks of 16
+    against token by token and its CLI, and a profiled decode step."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.policy import use_backend
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+    from repro_torch.models.model import build_model
+
+    rng = np.random.default_rng(SEED + 14)
+    for arch, layers in (("seamless-m4t-medium", None),
+                         ("llama-3.2-vision-90b", VIS_LAYERS)):
+        t0 = time.perf_counter()
+        cfg = get_arch(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = build_model(cfg)
+        params = model.init_params(SEED)
+        perturb(torch, params, SEED + 1)
+        enc = cfg.family == "encdec"
+        depth = (f"{cfg.encoder_layers} + {cfg.n_layers} layers" if enc
+                 else f"{cfg.n_layers} of 100 layers")
+        tag = f"[14 {cfg.family}] {cfg.name}, bf16, {depth}:"
+        mem = torch.as_tensor(rng.standard_normal(
+            (B, ENC_FRAMES if enc else N_VIS, cfg.d_model)),
+            dtype=cfg.dtype_(), device="cuda")
+        memory = {"frames" if enc else "vision": mem}
+        prompt = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (B, LOCK_PROMPT)), device="cuda")
+        torch.cuda.synchronize()
+        print(f"{tag} d {cfg.d_model}, vocab {cfg.vocab_size}; params in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        toks, logits, _, got = counted_lockstep(
+            torch, model, params, prompt, fns, tag, "hopper", **memory)
+        for k, n in got.items():
+            total[k] += n
+        if not torch.isfinite(logits).all() or toks.shape != (B, LOCK_GEN):
+            raise SystemExit(f"chip_smoke: {tag} logits not finite or "
+                             "tokens misshapen")
+        zero_counts(fns)
+        with use_backend("hopper"), torch.no_grad():
+            want = model.prefill(params, {"tokens": prompt, **memory})
+        got = read_counts(fns)
+        # the forward's launches, as phase 3's "seamless forward" and
+        # "vision forward" rows count them
+        n_fwd = (cfg.encoder_layers + 2 * cfg.n_layers if enc
+                 else cfg.n_layers)
+        if got["flash_attention"] != n_fwd:
+            raise SystemExit(f"chip_smoke: {tag} forward launches "
+                             f"{got['flash_attention']} != {n_fwd}")
+        for k, n in got.items():
+            total[k] += n
+        held(f"{tag} decode vs teacher-forced prefill at the last prompt "
+             "position", logits, want)
+        # a state at the prompt's end: chunks of 16 (encdec) or token by
+        # token (vlm has no chunked prefill)
+        with use_backend("hopper"), torch.no_grad():
+            state = model.init_decode_state(B, LOCK_LEN, per_row_pos=True)
+            src = encdec.encode(cfg, params, mem) if enc else mem
+            state = model.prefill_cross_cache(params, src, state)
+            if enc:
+                zero_counts(fns)
+                for j in range(0, LOCK_PROMPT, CHUNK):
+                    lg, state = model.prefill_chunk(
+                        params, state, prompt[:, j: j + CHUNK], CHUNK)
+                got = read_counts(fns)
+                n_chunk = LOCK_PROMPT // CHUNK * 2 * cfg.n_layers
+                if got["flash_prefill_chunk"] != n_chunk:
+                    raise SystemExit(f"chip_smoke: {tag} chunk launches "
+                                     f"{got['flash_prefill_chunk']} != "
+                                     f"{n_chunk}")
+                only_routes(fns, ("tc", "split", "tc"))
+                for k, n in got.items():
+                    total[k] += n
+                held(f"{tag} chunks of {CHUNK} vs token by token at the "
+                     "last prompt position", lg, logits)
+            else:
+                for j in range(LOCK_PROMPT):
+                    _, state = model.decode_step(params, state, prompt[:, j])
+        step_profile(torch, model, params, state, tag)
+        del state
+        if enc:
+            zero_counts(fns)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                serve.main(["--arch", arch, "--batch", str(B),
+                            "--prompt-len", str(LOCK_PROMPT), "--gen",
+                            str(LOCK_GEN), "--seed", str(SEED)])
+            got = read_counts(fns)
+            for k, n in got.items():
+                total[k] += n
+            print(f"{tag} the serving CLI: "
+                  f"{out.getvalue().strip().splitlines()[0]}; launches "
+                  f"{ {k: n for k, n in got.items() if n} }", flush=True)
+        print(f"{tag} {time.perf_counter() - t0:.1f} s", flush=True)
+        del params, model, mem, memory
+        torch.cuda.empty_cache()
+
+
+def encdec_vlm_f32(torch, fns, total):
+    """(c) f32 at reduced depth, full width: the greedy tokens of the
+    lockstep loop through the kernels equal those through the plain
+    versions, token for token."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import build_model
+
+    rng = np.random.default_rng(SEED + 15)
+    failed = []
+    for arch, kw in (("seamless-m4t-medium",
+                      dict(n_layers=F32_SEAMLESS_LAYERS,
+                           encoder_layers=F32_SEAMLESS_LAYERS)),
+                     ("llama-3.2-vision-90b",
+                      dict(n_layers=F32_VIS_LAYERS))):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(arch), dtype="float32", **kw)
+        model = build_model(cfg)
+        params = model.init_params(SEED)
+        perturb(torch, params, SEED + 1)
+        enc = cfg.family == "encdec"
+        mem = torch.as_tensor(rng.standard_normal(
+            (B, ENC_FRAMES if enc else N_VIS, cfg.d_model)),
+            dtype=torch.float32, device="cuda")
+        memory = {"frames" if enc else "vision": mem}
+        prompt = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (B, LOCK_PROMPT)), device="cuda")
+        tag = f"[14 f32, {cfg.n_layers} layers] {cfg.name}:"
+        hop = counted_lockstep(torch, model, params, prompt, fns, tag,
+                               "hopper", **memory)
+        for k, n in hop[3].items():
+            total[k] += n
+        refl = counted_lockstep(torch, model, params, prompt, fns, tag,
+                                "reference", **memory)
+        same = int((hop[0] == refl[0]).all(dim=1).sum())
+        print(f"{tag} greedy tokens, kernels vs plain versions: {same} of "
+              f"{B} rows identical; prompt logits max_abs_err "
+              f"{(hop[1] - refl[1]).abs().max().item():.3g} (max|logit| "
+              f"{refl[1].abs().max().item():.3g}); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if same != B:
+            failed.append(cfg.name)
+        del params, model, mem, memory
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: f32 lockstep tokens differ: {failed}")
+
+
+def phase_encdec_vlm(torch):
+    """Phase 14, the encdec and vlm families: (a) and (b) full width in
+    bf16 (``encdec_vlm_full``), (c) f32 token identity at reduced depth
+    (``encdec_vlm_f32``).  Returns the launches."""
+    fns = kernel_fns()
+    total = {name: 0 for name in KERNELS}
+    encdec_vlm_full(torch, fns, total)
+    encdec_vlm_f32(torch, fns, total)
+    for name in ("gemm", "rmsnorm", "flash_attention", "flash_decode",
+                 "flash_prefill_chunk"):
+        if not total[name]:
+            raise SystemExit(f"chip_smoke: phase 14 never launched {name}")
+    return total
 
 if __name__ == "__main__":
     sys.exit(main())

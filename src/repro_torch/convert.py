@@ -1,13 +1,16 @@
 """Parameters from the JAX package into the port.
 
-``params_from_jax`` takes a ``repro.models.lm.init_params`` tree whose
-leaves are numpy arrays (``jax.device_get`` of the params) and returns the
-port's params: the stacked leading layer axis of ``params["layers"]``
-(dense, moe, ssm) is split into a list of per-layer dicts (a moe layer's
-``router`` stays f32 and its ``wg``/``wi``/``wo`` keep their leading
-expert axis), and the two stacked
-axes of the hybrid ``params["groups"]`` (group, layer in the group) into
-lists of lists; ``shared_attn`` and ``shared_mlp`` are not stacked.
+``params_from_jax`` takes a ``repro.models.lm.init_params`` or
+``repro.models.encdec.init_params`` tree whose leaves are numpy arrays
+(``jax.device_get`` of the params) and returns the port's params: the
+stacked leading layer axis of ``params["layers"]`` (dense, moe, ssm),
+``params["enc_layers"]``/``params["dec_layers"]`` (encdec) and vlm's
+``params["cross"]`` is split into a list of per-layer dicts (a moe
+layer's ``router`` stays f32 and its ``wg``/``wi``/``wo`` keep their
+leading expert axis), and the two stacked axes of ``params["groups"]``
+(group, layer in the group: hybrid's Mamba layers, vlm's dense ones)
+into lists of lists; ``shared_attn``, ``shared_mlp`` and ``ln_enc`` are
+not stacked.
 numpy's bf16 is the ``ml_dtypes`` type, which torch cannot take directly,
 so bf16 leaves cross as 16-bit integers and are reinterpreted as
 ``torch.bfloat16`` bit for bit.
@@ -36,12 +39,13 @@ from repro_torch.optim.optimizers import tree_leaves
 
 
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
-    """One numpy leaf as a torch tensor on ``device``, bits unchanged."""
-    a = np.ascontiguousarray(a)
+    """One numpy leaf as a torch tensor on ``device``, bits and shape
+    unchanged (a 0-d leaf, such as vlm's cross ``gate``, stays 0-d)."""
+    a = np.array(a, copy=True, order="C")
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(
+        return torch.from_numpy(a.view(np.int16)).view(
             torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _map(tree, fn):
@@ -61,24 +65,25 @@ def _unstack(tree, fn):
 
 def params_from_jax(tree: Dict[str, Any], *,
                     device: str | torch.device = "cuda") -> Dict[str, Any]:
-    """Dense, moe, ssm or hybrid params tree (numpy leaves) -> the port's
-    params."""
+    """A params tree of any family (numpy leaves) -> the port's params."""
     dev = resolve_device(device)
-    unknown = set(tree) - {"embed", "ln_f", "lm_head", "layers", "groups",
-                           "shared_attn", "shared_mlp"}
+    stacked = ("layers", "enc_layers", "dec_layers", "cross")
+    unknown = set(tree) - {"embed", "ln_f", "lm_head", "groups",
+                           "shared_attn", "shared_mlp", "ln_enc", *stacked}
     if unknown:
         raise NotImplementedError(
-            f"params_from_jax: keys {sorted(unknown)} belong to families "
-            "the port does not serve yet"
+            f"params_from_jax: keys {sorted(unknown)} belong to none of the "
+            "families the port serves"
         )
 
     def leaf(a):
         return _to_tensor(a, dev)
 
     out = {k: _map(v, leaf) for k, v in tree.items()
-           if k not in ("layers", "groups")}
-    if "layers" in tree:
-        out["layers"] = _unstack(tree["layers"], lambda t: _map(t, leaf))
+           if k not in stacked + ("groups",)}
+    for key in stacked:
+        if key in tree:
+            out[key] = _unstack(tree[key], lambda t: _map(t, leaf))
     if "groups" in tree:
         out["groups"] = _unstack(tree["groups"], lambda g: _unstack(
             g, lambda t: _map(t, leaf)))
@@ -104,8 +109,9 @@ def train_state_from_jax(tree: Dict[str, Any], *,
 
 def to_jax_layout(tree) -> Any:
     """A port tree of tensors -> numpy leaves in JAX's layout: the
-    per-layer lists under ``layers`` stacked on a leading axis, the groups
-    of ``groups`` on two.  bf16 leaves come out as float32 (exact)."""
+    per-layer lists (``layers``, ``enc_layers``, ``dec_layers``,
+    ``cross``) stacked on a leading axis, the groups of ``groups`` on
+    two.  bf16 leaves come out as float32 (exact)."""
     def leaf(t):
         t = t.detach()
         return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()

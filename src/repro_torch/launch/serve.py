@@ -1,4 +1,5 @@
-"""Serving CLI — a thin command line over the port's continuous-batching engine.
+"""Serving CLI — a thin command line over the port's continuous-batching
+engine, and the lockstep loop of the families the engine does not take.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --batch 4 --requests 8 --prompt-len 32 --gen 32 \\
@@ -8,7 +9,16 @@
         --spec-ngram 2] [--check]
 
 ``--arch`` takes qwen2.5-3b, mamba2-2.7b, zamba2-2.7b, mixtral-8x7b,
-qwen3-moe-235b-a22b or their ``-smoke`` variants.  ``--kv-dtype`` (paged
+qwen3-moe-235b-a22b, seamless-m4t-medium, llama-3.2-vision-90b or their
+``-smoke`` variants (``get_arch`` resolves the other dense archs too).
+The encdec (seamless-m4t-medium) and vlm (llama-3.2-vision-90b) families
+run ``serve_lockstep``, as ``repro.launch.serve`` does: the ``--batch``
+prompts decoded token by token over the contiguous slab, then greedy
+generation, the argmax kept on the device; vlm attends to zero vision
+embeddings and encdec to zero cross K/V, as JAX's loop does (the engine's
+flags are ignored with a warning, and ``--check`` is not run).
+``--n-layers`` on a vlm arch must be a multiple of its
+``cross_attn_every`` (else the model raises).  ``--kv-dtype`` (paged
 only) stores the page pool in the model's dtype (``f32``, the default),
 ``bf16`` or ``int8`` with per-(page, head) scales.  ``--n-layers`` cuts
 the depth and keeps the width: mixtral-8x7b's 32 layers do not fit one
@@ -52,14 +62,59 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_arch
-from repro_torch.models.model import build_model
+from repro_torch.models import encdec
+from repro_torch.models.model import Model, build_model
 from repro_torch.serving import ServingEngine, configs_from_flags
 from repro_torch.serving.checks import assert_decode_matches_teacher_forced
+
+
+def serve_lockstep(model: Model, params, prompt: torch.Tensor, gen: int, *,
+                   vision: Optional[torch.Tensor] = None,
+                   frames: Optional[torch.Tensor] = None):
+    """Lockstep greedy serving (``repro.launch.serve._serve_lockstep``):
+    a decode state for ``prompt``'s B rows and ``prompt_len + gen + 1``
+    positions, the cross K/V from ``vision`` (vlm; zeros when None) or
+    from the encoder over ``frames`` (encdec; left zero when None), the
+    prompt (B, n) decoded token by token, then ``gen`` greedy tokens, each
+    the argmax of the last step's logits, kept on the device.  Returns
+    ``(tokens (B, gen), logits (B, V), seconds, steps)``: the logits at
+    the last prompt position (what the teacher-forced pass gives there),
+    the host clock from the first prompt step to the last token on the
+    device (synchronized on the card), and the decode steps it ran."""
+    cfg = model.cfg
+    b, n = prompt.shape
+    with torch.no_grad():
+        state = model.init_decode_state(b, n + gen + 1)
+        if cfg.family == "vlm":
+            if vision is None:
+                vision = torch.zeros((b, cfg.n_vision_tokens, cfg.d_model),
+                                     dtype=cfg.dtype_(), device=model.device)
+            state = model.prefill_cross_cache(params, vision, state)
+        elif frames is not None:
+            memory = encdec.encode(cfg, params, frames)
+            state = model.prefill_cross_cache(params, memory, state)
+        sync = (torch.cuda.synchronize if model.device.type == "cuda"
+                else (lambda: None))
+        sync()
+        t0 = time.perf_counter()
+        for i in range(n):
+            logits, state = model.decode_step(params, state, prompt[:, i])
+        prompt_logits = logits
+        tok = logits.argmax(dim=-1)
+        out = [tok]
+        for _ in range(gen - 1):
+            logits, state = model.decode_step(params, state, tok)
+            tok = logits.argmax(dim=-1)
+            out.append(tok)
+        sync()
+        secs = time.perf_counter() - t0
+    return torch.stack(out, dim=1), prompt_logits, secs, n + gen - 1
 
 
 def main(argv=None) -> int:
@@ -134,6 +189,8 @@ def main(argv=None) -> int:
     n_req = args.requests or args.batch
     prompts = np.random.default_rng(args.seed + 1).integers(
         0, cfg.vocab_size, (n_req, args.prompt_len))
+    if cfg.family in ("encdec", "vlm"):
+        return lockstep_main(model, params, prompts, args)
 
     # a pool below the worst case (--n-pages) preempts into the host tier
     cache, config = configs_from_flags(args)
@@ -191,6 +248,30 @@ def main(argv=None) -> int:
               f"{err:.3g}, max |logit| {scale:.3g})")
     if args.profile:
         profile(serve)
+    return 0
+
+
+def lockstep_main(model: Model, params, prompts, args) -> int:
+    """The CLI for the families without per-row decode state: the first
+    ``--batch`` prompts through ``serve_lockstep``."""
+    cfg = model.cfg
+    if (args.layout != "contiguous" or args.temperature > 0 or args.top_k
+            or args.prefix_sharing or args.spec_k or args.prefill_chunk > 1
+            or args.kv_dtype != "f32" or args.check or args.profile
+            or (args.requests or args.batch) != args.batch):
+        print(f"warning: --layout/--kv-dtype/--temperature/--top-k/"
+              f"--prefix-sharing/--spec-k/--prefill-chunk/--requests/"
+              f"--check/--profile are engine features; the {cfg.family} "
+              f"loop is lockstep greedy over the contiguous cache and "
+              f"ignores them")
+    prompt = torch.as_tensor(prompts[: args.batch], device=model.device)
+    toks, _, secs, steps = serve_lockstep(model, params, prompt, args.gen)
+    total = args.batch * (args.prompt_len + args.gen)
+    print(f"{cfg.name} on {model.device}: lockstep, batch {args.batch}: "
+          f"{args.gen} tokens after a {args.prompt_len}-token prompt in "
+          f"{secs:.2f} s ({total / secs:.1f} tok/s incl. prefill, "
+          f"{1e3 * secs / steps:.2f} ms per step)")
+    print("sample:", toks[0, :16].tolist())
     return 0
 
 

@@ -13,8 +13,8 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
-from repro_torch.models.model import build_model
+from repro_torch.models import encdec, lm
+from repro_torch.models.model import build_model, check_family
 from repro_torch.optim.optimizers import (
     OptConfig,
     apply_updates,
@@ -26,10 +26,12 @@ from repro_torch.optim.optimizers import (
 
 
 def loss_and_grads(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]):
-    """(loss, grads) of ``train_loss`` — ``jax.value_and_grad`` of it:
-    the grads are a new tree of the params' structure, in the params'
-    dtypes (a param the loss does not reach gets zeros)."""
-    loss = lm.train_loss(cfg, params, batch)
+    """(loss, grads) of the family's ``train_loss`` —
+    ``jax.value_and_grad`` of it: the grads are a new tree of the params'
+    structure, in the params' dtypes (a param the loss does not reach gets
+    zeros)."""
+    loss = (encdec if cfg.family == "encdec" else lm).train_loss(
+        cfg, params, batch)
     grads = torch.autograd.grad(loss, tree_leaves(params),
                                 materialize_grads=True)
     return loss.detach(), tree_unflatten(params, list(grads))
@@ -41,8 +43,10 @@ def make_train_step(cfg: ArchConfig, opt: OptConfig, *,
     ``{"params", "opt"}`` (``init_train_state``) and is updated in place.
     ``microbatches > 1`` accumulates the loss and the grads in f32 over
     batch slices, as the ``lax.scan`` of ``repro.launch.steps`` does,
-    which divides the activations held at once by the microbatch count."""
-    lm.check_family(cfg)
+    which divides the activations held at once by the microbatch count.
+    A vlm batch carries ``vision``, an encdec batch ``frames``, split
+    with the tokens."""
+    check_family(cfg)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params = state["params"]

@@ -20,10 +20,11 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.policy import resolve_device
 from repro_torch.data.synthetic import TokenStream, TokenStreamSpec
@@ -31,22 +32,34 @@ from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.optim.optimizers import OptConfig
 
 
-def make_batch(stream: TokenStream, step: int,
-               device: torch.device) -> Dict[str, torch.Tensor]:
+def make_batch(stream: TokenStream, step: int, device: torch.device,
+               cfg: Optional[ArchConfig] = None) -> Dict[str, torch.Tensor]:
     """Step ``step``'s batch as ``{"tokens": (B, S+1)}`` on ``device``,
-    where the stream's sequences are S+1 long."""
+    where the stream's sequences are S+1 long; with a vlm ``cfg`` also
+    zero ``vision`` (B, n_vision_tokens, d), with an encdec one zero
+    ``frames`` (B, max(seq_len // 4, 4), d), as ``repro.launch.train`` makes
+    them."""
     inputs, targets = stream.batch(step)
-    return {"tokens": torch.cat([inputs, targets[:, -1:]], dim=1).to(device)}
+    out = {"tokens": torch.cat([inputs, targets[:, -1:]], dim=1).to(device)}
+    b, seq = out["tokens"].shape[0], stream.spec.seq_len
+    if cfg is not None and cfg.family == "vlm":
+        out["vision"] = torch.zeros((b, cfg.n_vision_tokens, cfg.d_model),
+                                    dtype=cfg.dtype_(), device=device)
+    if cfg is not None and cfg.family == "encdec":
+        out["frames"] = torch.zeros((b, max(seq // 4, 4), cfg.d_model),
+                                    dtype=cfg.dtype_(), device=device)
+    return out
 
 
 def train_loop(step_fn: Callable, state, stream: TokenStream, *, steps: int,
-               device: torch.device) -> Iterator[dict]:
+               device: torch.device,
+               cfg: Optional[ArchConfig] = None) -> Iterator[dict]:
     """Run ``steps`` steps and yield one record per step: its loss, wall ms
     (batch on the device to loss read), tokens per second and, on the
     card, the peak allocated bytes so far."""
     cuda = device.type == "cuda"
     for s in range(steps):
-        batch = make_batch(stream, s, device)
+        batch = make_batch(stream, s, device, cfg)
         if cuda:
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
@@ -90,7 +103,7 @@ def main(argv=None) -> int:
           f"{args.seq - 1} tokens, {args.microbatches} microbatch(es)",
           flush=True)
     for rec in train_loop(step_fn, state, stream, steps=args.steps,
-                          device=dev):
+                          device=dev, cfg=cfg):
         if rec["step"] % args.log_every == 0 or rec["step"] == args.steps:
             peak = ("" if rec["peak_bytes"] is None else
                     f", peak {rec['peak_bytes'] / 2 ** 30:.2f} GiB")

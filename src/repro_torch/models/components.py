@@ -1,5 +1,5 @@
-"""Model components of the dense decoder, the MoE block and the Mamba-2
-block (the port's subset of ``repro.models.components``).
+"""Model components: the self- and cross-attention block, the MLP, the MoE
+block and the Mamba-2 block (the port's ``repro.models.components``).
 
 Everything is built on the portable ops (``repro_torch.kernels.ops``), so
 the model is single-source across the reference and hopper backends.
@@ -66,7 +66,11 @@ def init_normal(gen: torch.Generator, shape, scale: float,
             * scale).to(dtype)
 
 
-def init_attention(cfg: ArchConfig, gen: torch.Generator) -> Params:
+def init_attention(cfg: ArchConfig, gen: torch.Generator, *,
+                   cross: bool = False) -> Params:
+    """Attention params.  A ``cross`` block (llama-vision's) has no qkv
+    biases and a scalar ``gate``, zero at init, whose tanh scales its
+    output."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     s = 1.0 / math.sqrt(d)
     dt, dev = cfg.dtype_(), gen.device
@@ -77,10 +81,12 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator) -> Params:
         "wo": init_normal(gen, (h * hd, d), s, dt),
         "ln": torch.ones((d,), dtype=dt, device=dev),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((h * hd,), dtype=dt, device=dev)
         p["bk"] = torch.zeros((hkv * hd,), dtype=dt, device=dev)
         p["bv"] = torch.zeros((hkv * hd,), dtype=dt, device=dev)
+    if cross:
+        p["gate"] = torch.zeros((), dtype=dt, device=dev)
     return p
 
 
@@ -106,23 +112,64 @@ def mlp_block(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def attention_block(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                     positions: Optional[torch.Tensor] = None,
                     causal: bool = True,
+                    kv_src: Optional[torch.Tensor] = None,
                     window: Optional[int] = None) -> torch.Tensor:
-    """Pre-norm self-attention with residual over a whole sequence
-    x (B, S, d): RoPE at ``positions`` (default ``0 .. S-1``), then the
-    flash-attention forward."""
+    """Pre-norm attention with residual over a whole sequence x (B, S, d).
+    Self-attention: RoPE at ``positions`` (default ``0 .. S-1``), then the
+    flash-attention forward.  Cross-attention (``kv_src``, a memory
+    (B, Sk, d)): K and V from ``cross_kv``, never causal.  A block with a
+    ``gate`` scales its output by ``tanh(gate)``."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     xn = norm(cfg, p["ln"], x)
     q = dense(xn, p["wq"], p.get("bq")).reshape(b, s, h, hd)
-    k = dense(xn, p["wk"], p.get("bk")).reshape(b, s, hkv, hd)
-    v = dense(xn, p["wv"], p.get("bv")).reshape(b, s, hkv, hd)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    cos, sin = rope_freqs(cfg, positions)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    o = ops.attention(q, k, v, causal=causal, window=window)
-    return x + dense(o.reshape(b, s, h * hd), p["wo"])
+    if kv_src is None:
+        k = dense(xn, p["wk"], p.get("bk")).reshape(b, s, hkv, hd)
+        v = dense(xn, p["wv"], p.get("bv")).reshape(b, s, hkv, hd)
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        cos, sin = rope_freqs(cfg, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    else:
+        k, v = cross_kv(cfg, p, kv_src)
+    o = ops.attention(q, k, v, causal=causal and kv_src is None,
+                      window=window)
+    return x + _gated(p, dense(o.reshape(b, s, h * hd), p["wo"]))
+
+
+def _gated(p: Params, o: torch.Tensor) -> torch.Tensor:
+    """``tanh(gate) * o`` for a block with a ``gate`` (llama-vision's
+    cross blocks), else ``o``."""
+    return torch.tanh(p["gate"]) * o if "gate" in p else o
+
+
+def cross_kv(cfg: ArchConfig, p: Params,
+             memory: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A cross block's K and V (B, Sk, Hkv, hd) from a memory (B, Sk, d):
+    the memory normed with the block's own ``ln`` and projected, no
+    RoPE."""
+    b, s = memory.shape[:2]
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    src = norm(cfg, p["ln"], memory)
+    k = dense(src, p["wk"], p.get("bk")).reshape(b, s, hkv, hd)
+    v = dense(src, p["wv"], p.get("bv")).reshape(b, s, hkv, hd)
+    return k, v
+
+
+def cross_decode(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                 xk: torch.Tensor, xv: torch.Tensor,
+                 n_mem: torch.Tensor) -> torch.Tensor:
+    """One token a row (B, d) through a cross block over the memory's
+    cached K/V ``xk``/``xv`` (B, Sk, Hkv, hd): the decode kernel reads
+    every key at the scalar length ``n_mem``.  Returns x plus the block's
+    (gated) output."""
+    b = x.shape[0]
+    xn = norm(cfg, p["ln"], x)
+    q = dense(xn, p["wq"], p.get("bq")).reshape(b, cfg.n_heads,
+                                                 cfg.head_dim_)
+    o = ops.attention_decode(q, xk, xv, n_mem)
+    return x + _gated(p, dense(o.reshape(b, -1), p["wo"]))
 
 
 # ---------------------------------------------------------------------------

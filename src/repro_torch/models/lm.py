@@ -1,18 +1,21 @@
-"""Decoder-only LM: the dense, moe, ssm (Mamba-2) and hybrid (Zamba2)
-families, contiguous or paged KV cache, the paged pool in the model's
-dtype, bf16 or int8 (the port's subset of ``repro.models.lm``).
+"""Decoder-only LM: the dense, moe, ssm (Mamba-2), hybrid (Zamba2) and
+vlm (Llama-3.2-Vision) families, contiguous or paged KV cache, the paged
+pool in the model's dtype, bf16 or int8 (the port's ``repro.models.lm``).
 
 Public functions mirror the JAX module: ``init_params``, ``forward``,
-``train_loss``, ``init_decode_state``, ``decode_step``, ``prefill_chunk``,
-``reset_decode_rows``, ``restore_snapshots``, ``spill_rows``,
-``restore_rows`` and ``lm_logits``.  Where JAX scans over stacked
-layer params, the port keeps lists of per-layer dicts and loops in
-Python: ``params["layers"]`` (dense, moe, ssm) or ``params["groups"]``,
-``g`` lists of ``attn_every`` Mamba layers each followed by the shared
-attention and MLP block (hybrid).  JAX's functions are pure; the port
-updates the KV caches and page pools **in place** (``decode_step``,
-``prefill_chunk`` and ``reset_decode_rows`` write into
-``state["k"]``/``state["v"]`` or ``state["kp"]``/``state["vp"]`` (and an
+``train_loss``, ``prefill``, ``init_decode_state``, ``decode_step``,
+``prefill_chunk``, ``reset_decode_rows``, ``restore_snapshots``,
+``spill_rows``, ``restore_rows``, ``prefill_vlm_cross_cache`` and
+``lm_logits``.  Where JAX scans over stacked layer params, the port keeps
+lists of per-layer dicts and loops in Python: ``params["layers"]``
+(dense, moe, ssm) or ``params["groups"]``, ``g`` lists of ``attn_every``
+Mamba layers each followed by the shared attention and MLP block
+(hybrid), or of ``cross_attn_every - 1`` dense layers each followed by
+the group's cross-attention layer ``params["cross"][g]`` (vlm).  vlm
+runs the contiguous slab only, and has no chunked prefill, as in JAX.
+JAX's functions are pure; the port updates the KV caches and page pools
+**in place** (``decode_step``, ``prefill_chunk`` and ``reset_decode_rows``
+write into ``state["k"]``/``state["v"]`` or ``state["kp"]``/``state["vp"]`` (and an
 int8 pool's scales ``state["ksc"]``/``state["vsc"]``) and return a dict
 that shares them), which saves a full rewrite of the cache on every
 step; the recurrent ``ssm``/``conv`` states are written layer by layer
@@ -54,15 +57,15 @@ from repro_torch.models import components as C
 from repro_torch.serving import pager as PG
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 KV_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
 
 
 def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves {', '.join(FAMILIES)} "
-            "(vlm, encdec come with later slices)"
+            f"family {cfg.family!r}: this module serves "
+            f"{', '.join(FAMILIES)} (encdec is models/encdec.py)"
         )
 
 
@@ -72,8 +75,11 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     list of ``{"attn": ..., "mlp": ...}`` (dense), ``{"attn": ...,
     "moe": ...}`` (moe) or ``{"mamba": ...}`` (ssm) dicts; hybrid has
     ``params["groups"]``, ``g`` lists of ``attn_every`` ``{"mamba": ...}``
-    dicts, and the unstacked ``shared_attn`` and ``shared_mlp`` (JAX
-    stacks the layers)."""
+    dicts, and the unstacked ``shared_attn`` and ``shared_mlp``; vlm has
+    ``params["groups"]``, ``g`` lists of ``cross_attn_every - 1``
+    ``{"attn": ..., "mlp": ...}`` dicts, and ``params["cross"]``, ``g``
+    ``{"attn": ..., "mlp": ...}`` dicts whose attention is a gated cross
+    block (JAX stacks the layers)."""
     check_family(cfg)
     dt = cfg.dtype_()
     params: Dict[str, Any] = {
@@ -98,6 +104,18 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     elif cfg.family == "ssm":
         params["layers"] = [{"mamba": C.init_mamba(cfg, gen)}
                             for _ in range(cfg.n_layers)]
+    elif cfg.family == "vlm":
+        n_groups = _vlm_groups(cfg)
+        params["groups"] = [
+            [{"attn": C.init_attention(cfg, gen), "mlp": C.init_mlp(cfg, gen)}
+             for _ in range(cfg.cross_attn_every - 1)]
+            for _ in range(n_groups)
+        ]
+        params["cross"] = [
+            {"attn": C.init_attention(cfg, gen, cross=True),
+             "mlp": C.init_mlp(cfg, gen)}
+            for _ in range(n_groups)
+        ]
     else:
         params["groups"] = [
             [{"mamba": C.init_mamba(cfg, gen)}
@@ -109,24 +127,45 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, Any]:
     return params
 
 
+def _vlm_groups(cfg: ArchConfig) -> int:
+    """The vlm's group count, ``n_layers // cross_attn_every``; a depth
+    that is no multiple of ``cross_attn_every`` raises (JAX floors it)."""
+    if cfg.n_layers % cfg.cross_attn_every:
+        raise ValueError(
+            f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of "
+            f"cross_attn_every {cfg.cross_attn_every}")
+    return cfg.n_layers // cfg.cross_attn_every
+
+
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+            vision: Optional[torch.Tensor] = None,
             remat: bool = True) -> torch.Tensor:
     """Teacher-forced forward over tokens (B, S) from empty caches: the
     final-normed hidden states (B, S, d) (``repro.models.lm.forward``).
-    With grad mode on and ``remat``, each layer (and, hybrid, each group
-    too) runs under ``torch.utils.checkpoint``, as JAX checkpoints them:
-    only the layer inputs are kept, and the backward runs each layer's
-    forward again.  Nothing here writes in place into a tensor autograd
-    saved (the caches of the serving functions are not touched)."""
+    vlm needs ``vision`` (B, P, d), the patch embeddings its cross blocks
+    attend to.  With grad mode on and ``remat``, each layer (and, hybrid
+    and vlm, each group too) runs under ``torch.utils.checkpoint``, as JAX
+    checkpoints them: only the layer inputs are kept, and the backward
+    runs each layer's forward again.  Nothing here writes in place into a
+    tensor autograd saved (the caches of the serving functions are not
+    touched)."""
     check_family(cfg)
+    if cfg.family == "vlm" and vision is None:
+        raise ValueError("vlm needs vision embeddings")
     x = params["embed"][tokens].to(cfg.dtype_())
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+    def cross(cp, x, _):
+        x = C.attention_block(cfg, cp["attn"], x, kv_src=vision,
+                              causal=False)
+        return C.mlp_block(cfg, cp["mlp"], x)
+
     x = _trunk(
         cfg, params, x,
         lambda p, x, _: C.attention_block(cfg, p, x, positions=positions,
                                           window=cfg.window),
         lambda p, x, _: C.mamba_block(cfg, p, x),
-        remat=remat and torch.is_grad_enabled())
+        cross=cross, remat=remat and torch.is_grad_enabled())
     return C.norm(cfg, params["ln_f"], x)
 
 
@@ -142,10 +181,19 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def train_loss(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]
                ) -> torch.Tensor:
     """Next-token loss of ``batch["tokens"]`` (B, S+1): the forward over
-    the first S tokens, the head, and the f32 NLL of the last S."""
+    the first S tokens (vlm: beside ``batch["vision"]``), the head, and the
+    f32 NLL of the last S."""
     tokens = batch["tokens"]
-    h = forward(cfg, params, tokens[:, :-1])
+    h = forward(cfg, params, tokens[:, :-1], vision=batch.get("vision"))
     return _xent(lm_logits(cfg, params, h), tokens[:, 1:])
+
+
+def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, *,
+            vision: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The last position's logits (B, V) of the teacher-forced forward
+    (``repro.models.lm.prefill``: caches are not filled)."""
+    h = forward(cfg, params, tokens, vision=vision, remat=False)
+    return lm_logits(cfg, params, h[:, -1])
 
 
 def lm_logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
@@ -177,7 +225,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     the layout.  ``n_pages=None`` sizes the pool
     at the worst case, ``batch * ceil(max_len / page_size)``.  ``cache``
     (a ``CacheConfig``) supplies layout, page size, pool size,
-    ``kv_dtype``, ``snapshots`` and ``host_spill``.
+    ``kv_dtype``, ``snapshots`` and ``host_spill``.  vlm has the
+    contiguous slab only (a paged layout raises, as in JAX): ``k``/``v``
+    ``(g, cross_attn_every - 1, B, max_len, Hkv, hd)``, a cache per self-
+    attention layer of each group, and the cross K/V ``xk``/``xv``
+    ``(g, B, n_vision_tokens, Hkv, hd)``, zero until
+    ``prefill_vlm_cross_cache`` fills them.
     ``per_row_pos=True`` keeps ``pos`` as a (B,) vector so rows may sit at
     different depths (continuous batching).  ``snapshots`` (recurrent
     families, paged layout) adds the page-boundary snapshot store, sized
@@ -205,6 +258,10 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
         host_spill = bool(cache.host_spill)
     if layout not in ("contiguous", "paged"):
         raise ValueError(f"unknown KV-cache layout {layout!r}")
+    if cfg.family == "vlm" and layout == "paged":
+        raise NotImplementedError(
+            "paged KV layout: vlm's grouped self-attention cache is not "
+            "paged (serving engine families are dense/moe/ssm/hybrid)")
     if kv_dtype not in ("f32", "bf16", "int8"):
         raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
                          "(expected 'f32', 'bf16', or 'int8')")
@@ -260,6 +317,14 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                     "hsnap_rc": hs.rc,
                 })
     if cfg.family == "ssm":
+        return state
+    if cfg.family == "vlm":
+        g = _vlm_groups(cfg)
+        shape = (g, cfg.cross_attn_every - 1, batch, max_len, hkv, hd)
+        xshape = (g, batch, cfg.n_vision_tokens, hkv, hd)
+        for key, shp in (("k", shape), ("v", shape), ("xk", xshape),
+                         ("xv", xshape)):
+            state[key] = torch.zeros(shp, dtype=dt, device=dev)
         return state
     stacks = (cfg.n_layers if cfg.family in ("dense", "moe")
               else cfg.n_layers // cfg.attn_every)
@@ -360,6 +425,48 @@ def _cache_update_chunk(cache: torch.Tensor, new: torch.Tensor,
     val = torch.where(valid[:, :, None, None], new.to(cache.dtype),
                       cache.gather(1, tgt))
     cache.scatter_(1, tgt, val)
+
+
+def _self_qkv(cfg: ArchConfig, a, x: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor):
+    """A self-attention block's q (B, T, H, hd) and new k, v (B, T, Hkv,
+    hd) from its input x (B, T, d): normed with the block's ``ln``,
+    projected, q and k rotated by ``cos``/``sin``."""
+    b, t = x.shape[:2]
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    xn = C.norm(cfg, a["ln"], x)
+    q = C.dense(xn, a["wq"], a.get("bq")).reshape(b, t, cfg.n_heads, hd)
+    k = C.dense(xn, a["wk"], a.get("bk")).reshape(b, t, hkv, hd)
+    v = C.dense(xn, a["wv"], a.get("bv")).reshape(b, t, hkv, hd)
+    return C.apply_rope(q, cos, sin), C.apply_rope(k, cos, sin), v
+
+
+def _decode_attn_slab(cfg: ArchConfig, a, x: torch.Tensor, ck, cv, cos,
+                      sin, w_idx: torch.Tensor,
+                      cache_len: torch.Tensor) -> torch.Tensor:
+    """One token a row (B, d) through a self-attention block over a
+    contiguous cache ``ck``/``cv`` (B, S, Hkv, hd): the new K/V written in
+    place at ``w_idx`` (-1 drops a row), then the decode kernel over
+    ``cache_len`` keys.  Returns x plus the block's output."""
+    q, k, v = (t[:, 0] for t in _self_qkv(cfg, a, x[:, None], cos, sin))
+    _cache_update(ck, k, w_idx)
+    _cache_update(cv, v, w_idx)
+    o = ops.attention_decode(q, ck, cv, cache_len)
+    return x + C.dense(o.reshape(x.shape[0], -1), a["wo"])
+
+
+def _chunk_attn_slab(cfg: ArchConfig, a, x: torch.Tensor, ck, cv, cos, sin,
+                     posmat: torch.Tensor, valid: torch.Tensor,
+                     pos: torch.Tensor, width: torch.Tensor) -> torch.Tensor:
+    """A chunk (B, C, d) through a self-attention block over a contiguous
+    cache ``ck``/``cv``: the ``valid`` tokens' K/V written in place at
+    ``posmat``, then the chunk kernel from ``pos`` over ``width`` real
+    tokens a row.  Returns x plus the block's output."""
+    q, k, v = _self_qkv(cfg, a, x, cos, sin)
+    _cache_update_chunk(ck, k, posmat, valid)
+    _cache_update_chunk(cv, v, posmat, valid)
+    o = ops.attention_prefill_chunk(q, ck, cv, pos, width)
+    return x + C.dense(o.reshape(*x.shape[:2], -1), a["wo"])
 
 
 # the hybrid_ssm drafter's private recurrent state
@@ -542,12 +649,14 @@ def _remat(fn, on: bool):
 
 
 def _trunk(cfg: ArchConfig, params, x: torch.Tensor, attn, mamba, *,
-           remat: bool = False):
-    """The layer stack of every family: ``attn(p, x, stack)`` and
-    ``mamba(p, x, layer)`` are the caller's blocks (``stack`` indexes the
-    KV caches: the layer for dense and moe, the group for hybrid).
-    ``remat`` checkpoints every layer and every hybrid group, as
-    ``repro.models.lm.forward`` does (``lm.py:135-149``)."""
+           cross=None, remat: bool = False):
+    """The layer stack of every family: ``attn(p, x, stack)``,
+    ``mamba(p, x, layer)`` and (vlm) ``cross(cp, x, group)`` are the
+    caller's blocks (``stack`` indexes the KV caches: the layer for dense
+    and moe, the group for hybrid, the (group, layer) pair for vlm;
+    ``cross`` runs a vlm group's cross-attention layer, attention and
+    MLP).  ``remat`` checkpoints every layer and every hybrid or vlm
+    group, as ``repro.models.lm.forward`` does (``lm.py:135-176``)."""
     if cfg.family == "ssm":
         layer_fn = _remat(lambda x, p, layer: mamba(p["mamba"], x, layer),
                           remat)
@@ -559,6 +668,19 @@ def _trunk(cfg: ArchConfig, params, x: torch.Tensor, attn, mamba, *,
             remat)
         for layer, p in enumerate(params["layers"]):
             x = layer_fn(x, p, layer)
+    elif cfg.family == "vlm":
+        layer_fn = _remat(
+            lambda x, p, stack: _ffn(cfg, p, attn(p["attn"], x, stack)),
+            remat)
+
+        def group_fn(x, group, g):
+            for i, p in enumerate(group):
+                x = layer_fn(x, p, (g, i))
+            return cross(params["cross"][g], x, g)
+
+        group_fn = _remat(group_fn, remat)
+        for g, group in enumerate(params["groups"]):
+            x = group_fn(x, group, g)
     else:
         layer_fn = _remat(lambda x, p, layer: mamba(p["mamba"], x, layer),
                           remat)
@@ -610,7 +732,6 @@ def decode_step(
     quant = paged and "ksc" in state          # int8 pools with scales
     x = params["embed"].index_select(0, token).to(cfg.dtype_())   # (B, d)
     b = x.shape[0]
-    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
     if cfg.family != "ssm":
         idx = pos if paged else _cache_index(cfg, pos)
         if cfg.window and not paged:
@@ -632,38 +753,42 @@ def decode_step(
         cos, sin = C.rope_freqs(cfg, rope_pos)
 
     def attn(a, x, stack):
-        xn = C.norm(cfg, a["ln"], x)
-        q = C.dense(xn, a["wq"], a.get("bq")).reshape(b, 1, cfg.n_heads, hd)
-        k_new = C.dense(xn, a["wk"], a.get("bk")).reshape(b, 1, hkv, hd)
-        v_new = C.dense(xn, a["wv"], a.get("bv")).reshape(b, hkv, hd)
-        q = C.apply_rope(q, cos, sin).reshape(b, cfg.n_heads, hd)
-        k_new = C.apply_rope(k_new, cos, sin).reshape(b, hkv, hd)
+        if not paged:
+            return _decode_attn_slab(cfg, a, x, state["k"][stack],
+                                     state["v"][stack], cos, sin, w_idx,
+                                     cache_len)
+        q, k_new, v_new = (t[:, 0] for t in _self_qkv(cfg, a, x[:, None],
+                                                      cos, sin))
+        ck, cv = state["kp"][stack], state["vp"][stack]
         if quant:
-            ck, cv = state["kp"][stack], state["vp"][stack]
             ksc, vsc = state["ksc"][stack], state["vsc"][stack]
             PG.write_page_quant(ck, ksc, k_new, bt, idx, active)
             PG.write_page_quant(cv, vsc, v_new, bt, idx, active)
             o = ops.attention_decode(q, ck, cv, cache_len, block_table=bt,
                                      kv_scales=(ksc, vsc),
                                      window=cfg.window)
-        elif paged:
-            ck, cv = state["kp"][stack], state["vp"][stack]
+        else:
             PG.write_page(ck, k_new, bt, idx, active)
             PG.write_page(cv, v_new, bt, idx, active)
             o = ops.attention_decode(q, ck, cv, cache_len, block_table=bt,
                                      window=cfg.window)
-        else:
-            ck, cv = state["k"][stack], state["v"][stack]
-            _cache_update(ck, k_new, w_idx)
-            _cache_update(cv, v_new, w_idx)
-            o = ops.attention_decode(q, ck, cv, cache_len)
         return x + C.dense(o.reshape(b, -1), a["wo"])
+
+    if cfg.family == "vlm":
+        # the cross-attention reads every vision key: a scalar length
+        n_vis = torch.full((), state["xk"].shape[2], dtype=torch.int32,
+                           device=x.device)
+
+    def cross(cp, x, g):
+        x = C.cross_decode(cfg, cp["attn"], x, state["xk"][g],
+                           state["xv"][g], n_vis)
+        return C.mlp_block(cfg, cp["mlp"], x)
 
     # inactive rows carry their recurrent states through bit for bit
     val = active[:, None] if active is not None else None
     x = _trunk(cfg, params, x, attn, _recurrent(
         state, lambda p, x, s1, s2: C.mamba_decode_block(
-            cfg, p, x, s1, s2, valid=val, ssm_out=s1)))
+            cfg, p, x, s1, s2, valid=val, ssm_out=s1)), cross=cross)
 
     x = C.norm(cfg, params["ln_f"], x)
     logits = lm_logits(cfg, params, x)
@@ -707,6 +832,10 @@ def prefill_chunk(
     and the head at every chunk position and returns (B, C, V) logits;
     padding positions carry garbage the caller masks by width.
     """
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            "prefill_chunk: unsupported family 'vlm' (JAX has no vlm "
+            "chunked prefill)")
     pos = state["pos"]
     if pos.dim() != 1:
         raise ValueError("prefill_chunk needs per_row_pos=True decode state")
@@ -729,7 +858,6 @@ def prefill_chunk(
     offs = torch.arange(c, dtype=torch.int32, device=dev)[None, :]
     posmat = pos[:, None] + offs                          # (B, C) absolute
     valid = active[:, None] & (offs < width[:, None])     # real tokens
-    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
     if cfg.family != "ssm":
         if paged:
             # map every block the chunk touches up front (admission-time
@@ -742,14 +870,13 @@ def prefill_chunk(
         cos, sin = C.rope_freqs(cfg, posmat)              # (B, C, hd/2)
 
     def attn(a, x, stack):
-        xn = C.norm(cfg, a["ln"], x)
-        q = C.dense(xn, a["wq"], a.get("bq")).reshape(b, c, cfg.n_heads, hd)
-        k_new = C.dense(xn, a["wk"], a.get("bk")).reshape(b, c, hkv, hd)
-        v_new = C.dense(xn, a["wv"], a.get("bv")).reshape(b, c, hkv, hd)
-        q = C.apply_rope(q, cos, sin)
-        k_new = C.apply_rope(k_new, cos, sin)
+        if not paged:
+            return _chunk_attn_slab(cfg, a, x, state["k"][stack],
+                                    state["v"][stack], cos, sin, posmat,
+                                    valid, pos, width)
+        q, k_new, v_new = _self_qkv(cfg, a, x, cos, sin)
+        ck, cv = state["kp"][stack], state["vp"][stack]
         if quant:
-            ck, cv = state["kp"][stack], state["vp"][stack]
             ksc, vsc = state["ksc"][stack], state["vsc"][stack]
             PG.write_page_chunk_quant(ck, ksc, k_new, bt, pos, width, active)
             PG.write_page_chunk_quant(cv, vsc, v_new, bt, pos, width, active)
@@ -757,18 +884,12 @@ def prefill_chunk(
                                             block_table=bt,
                                             kv_scales=(ksc, vsc),
                                             window=cfg.window)
-        elif paged:
-            ck, cv = state["kp"][stack], state["vp"][stack]
+        else:
             PG.write_page_chunk(ck, k_new, bt, pos, width, active)
             PG.write_page_chunk(cv, v_new, bt, pos, width, active)
             o = ops.attention_prefill_chunk(q, ck, cv, pos, width,
                                             block_table=bt,
                                             window=cfg.window)
-        else:
-            ck, cv = state["k"][stack], state["v"][stack]
-            _cache_update_chunk(ck, k_new, posmat, valid)
-            _cache_update_chunk(cv, v_new, posmat, valid)
-            o = ops.attention_prefill_chunk(q, ck, cv, pos, width)
         return x + C.dense(o.reshape(b, c, -1), a["wo"])
 
     x = _trunk(cfg, params, x, attn, _recurrent(
@@ -891,13 +1012,15 @@ def reset_decode_rows(
     way (slots a sharer still maps stay), and so are the host tier's
     slots of a row drained while spilled.  The hybrid_ssm drafter's
     private state (``drf_ssm``/``drf_conv``, zeroed; its clock
-    ``drf_pos``, set to ``start``) resets with the row, as in JAX.
-    Requires per-row ``pos`` state."""
+    ``drf_pos``, set to ``start``) resets with the row, as in JAX, and so
+    do vlm's cross K/V ``xk``/``xv`` (zeroed; its self-attention caches
+    have the batch on axis 2).  Requires per-row ``pos`` state."""
     if state["pos"].dim() != 1:
         raise ValueError(
             "reset_decode_rows needs per_row_pos=True decode state"
         )
-    known = {"pos", "k", "v", "ssm", "conv", *_TABLES.values(), *_DRAFT}
+    known = {"pos", "k", "v", "xk", "xv", "ssm", "conv", *_TABLES.values(),
+             *_DRAFT}
     known |= {key for pair in _TIER_POOLS + _SNAP_TIER_POOLS for key in pair}
     known |= {t + f for t in _TABLES for f in ("_free", "_top", "_rc")}
     unknown = set(state) - known
@@ -916,8 +1039,24 @@ def reset_decode_rows(
         if tier + "_free" in state:
             pstate, table = PG.release_rows(*_tier(state, tier), mask)
             out = _commit_tier(out, tier, pstate, table)
-    for key in ("k", "v", "ssm", "conv", "drf_ssm", "drf_conv"):
+    for key in ("k", "v", "xk", "xv", "ssm", "conv", "drf_ssm",
+                "drf_conv"):
         if key in state:
             t = state[key]                    # (stacks, B, ...)
-            t.masked_fill_(mask.view(1, -1, *[1] * (t.dim() - 2)), 0)
+            # vlm's self-attention caches are (groups, per, B, ...)
+            axis = 2 if cfg.family == "vlm" and key in ("k", "v") else 1
+            t.masked_fill_(mask.view(*[1] * axis, -1,
+                                     *[1] * (t.dim() - axis - 1)), 0)
     return out
+
+
+def prefill_vlm_cross_cache(cfg: ArchConfig, params, vision: torch.Tensor,
+                            state):
+    """Fill vlm's cross K/V from the vision embeddings (B, P, d), in
+    place: each group's memory normed with its cross block's ``ln`` and
+    projected (``repro.models.lm.prefill_vlm_cross_cache``)."""
+    for g, cp in enumerate(params["cross"]):
+        k, v = C.cross_kv(cfg, cp["attn"], vision)
+        state["xk"][g].copy_(k)
+        state["xv"][g].copy_(v)
+    return {**state}

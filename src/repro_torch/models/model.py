@@ -1,8 +1,9 @@
-"""The ``Model`` facade — one config and one device, the LM functions bound
-to them (the port's ``repro.models.model``).
+"""The ``Model`` facade — one config and one device, the family's functions
+bound to them (the port's ``repro.models.model``).
 
 ``build_model(cfg)`` places the model on ``"cuda"`` unless the caller asks
-for the CPU, and raises when no card is present.
+for the CPU, and raises when no card is present.  The encdec family binds
+``models/encdec.py``; every other family ``models/lm.py``.
 """
 from __future__ import annotations
 
@@ -13,7 +14,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
+
+def check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "encdec":
+        lm.check_family(cfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,31 +26,66 @@ class Model:
     cfg: ArchConfig
     device: torch.device
 
+    @property
+    def _encdec(self) -> bool:
+        return self.cfg.family == "encdec"
+
     def init_params(self, seed: int = 0) -> Dict[str, Any]:
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return lm.init_params(self.cfg, gen)
+        return (encdec if self._encdec else lm).init_params(self.cfg, gen)
 
     def init_decode_state(self, batch: int, max_len: int, **kw):
         """Contiguous slab or (``layout="paged"`` / ``cache=``) page pool;
-        ``lm.init_decode_state`` has the keywords."""
+        ``lm.init_decode_state`` has the keywords.  encdec's cross K/V are
+        sized for ``max(max_len // 4, 8)`` memory positions, as in JAX,
+        until ``prefill_cross_cache`` replaces them."""
+        if self._encdec:
+            return encdec.init_decode_state(
+                self.cfg, batch, max_len, enc_len=max(max_len // 4, 8),
+                device=self.device, **kw)
         return lm.init_decode_state(self.cfg, batch, max_len,
                                     device=self.device, **kw)
 
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, *, vision=None, frames=None):
         """Final-normed hidden states (B, S, d) of the teacher-forced
-        forward; ``lm_logits`` maps them to logits."""
-        return lm.forward(self.cfg, params, tokens)
+        forward (vlm beside ``vision``, encdec's decoder over the memory
+        of ``frames``); ``lm_logits`` maps them to logits."""
+        if self._encdec:
+            memory = encdec.encode(self.cfg, params, frames)
+            return encdec.decode_train(self.cfg, params, tokens, memory)
+        return lm.forward(self.cfg, params, tokens, vision=vision)
 
     def train_loss(self, params, batch):
-        """Mean next-token NLL of ``batch["tokens"]`` (B, S+1), f32."""
-        return lm.train_loss(self.cfg, params, batch)
+        """Mean next-token NLL of ``batch["tokens"]`` (B, S+1), f32
+        (``batch["vision"]`` or ``batch["frames"]`` beside it)."""
+        return (encdec if self._encdec else lm).train_loss(self.cfg, params,
+                                                           batch)
+
+    def prefill(self, params, batch):
+        """Last-position logits (B, V) of the teacher-forced pass over
+        ``batch["tokens"]`` (and ``"vision"`` or ``"frames"``), JAX's
+        ``Model.prefill``."""
+        if self._encdec:
+            return encdec.prefill(self.cfg, params, batch["tokens"],
+                                  batch["frames"])
+        return lm.prefill(self.cfg, params, batch["tokens"],
+                          vision=batch.get("vision"))
+
+    def prefill_cross_cache(self, params, memory, state):
+        """The cross K/V from ``memory``: encdec's encoder output, or vlm's
+        vision embeddings."""
+        if self._encdec:
+            return encdec.prefill_cross_cache(self.cfg, params, memory, state)
+        return lm.prefill_vlm_cross_cache(self.cfg, params, memory, state)
 
     def decode_step(self, params, state, token, **kw):
-        return lm.decode_step(self.cfg, params, state, token, **kw)
+        return (encdec if self._encdec else lm).decode_step(
+            self.cfg, params, state, token, **kw)
 
     def prefill_chunk(self, params, state, toks, width, **kw):
         """``lm.prefill_chunk``'s keywords (``logits_all`` included)."""
-        return lm.prefill_chunk(self.cfg, params, state, toks, width, **kw)
+        return (encdec if self._encdec else lm).prefill_chunk(
+            self.cfg, params, state, toks, width, **kw)
 
     def init_scratch(self, state, chunk: int):
         """``score_chunk``'s buffers, allocated once."""
@@ -57,7 +97,8 @@ class Model:
         return lm.score_chunk(self.cfg, params, state, toks, width, **kw)
 
     def reset_decode_rows(self, state, mask, **kw):
-        return lm.reset_decode_rows(self.cfg, state, mask, **kw)
+        return (encdec if self._encdec else lm).reset_decode_rows(
+            self.cfg, state, mask, **kw)
 
     def restore_snapshots(self, state, mask, src, nblk):
         """Map the donor rows' first ``nblk`` snapshot slots into the
@@ -78,5 +119,5 @@ class Model:
 
 
 def build_model(cfg: ArchConfig, device: str | torch.device = "cuda") -> Model:
-    lm.check_family(cfg)
+    check_family(cfg)
     return Model(cfg=cfg, device=resolve_device(device))

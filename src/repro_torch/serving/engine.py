@@ -328,6 +328,10 @@ class ServingEngine:
         self.cache = cache if cache is not None else CacheConfig()
         self.config = config if config is not None else EngineConfig()
         validate_configs(self.cache, self.config)
+        if model.cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+            # encdec and vlm are served by launch/serve.py's lockstep loop
+            raise NotImplementedError(
+                f"serving engine: unsupported family {model.cfg.family!r}")
         if (self.config.prefill_chunk > 1 and model.cfg.window
                 and self.cache.layout != "paged"
                 and model.cfg.family in ("dense", "moe", "hybrid")):

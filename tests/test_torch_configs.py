@@ -1,5 +1,5 @@
 """The port's ArchConfig is the JAX package's, field for field, for every
-arch of the families the port serves; one of the dense archs added after
+arch; one of the dense archs added after
 qwen2.5-3b (untied head, no qkv bias) is served token for token as JAX's
 engine serves it."""
 import dataclasses
@@ -31,7 +31,9 @@ from torch_parity import jax_params, requests  # noqa: E402
     "deepseek-coder-33b-smoke", "internlm2-20b", "internlm2-20b-smoke",
     "glm4-9b", "glm4-9b-smoke", "mamba2-2.7b", "mamba2-2.7b-smoke",
     "zamba2-2.7b", "zamba2-2.7b-smoke", "mixtral-8x7b", "mixtral-8x7b-smoke",
-    "qwen3-moe-235b-a22b", "qwen3-moe-235b-a22b-smoke"])
+    "qwen3-moe-235b-a22b", "qwen3-moe-235b-a22b-smoke",
+    "seamless-m4t-medium", "seamless-m4t-medium-smoke",
+    "llama-3.2-vision-90b", "llama-3.2-vision-90b-smoke"])
 def test_fields_match_jax(arch):
     port, ref = get_arch(arch), jax_get_arch(arch)
     assert [f.name for f in dataclasses.fields(port)] == \
@@ -55,13 +57,18 @@ def test_reduced_matches_jax_for_every_family_branch():
         dataclasses.asdict(JaxArchConfig(**base).reduced())
 
 
-def test_registry_lists_the_served_archs():
-    assert arch_ids() == ["qwen2.5-3b", "deepseek-coder-33b",
-                          "internlm2-20b", "glm4-9b", "mamba2-2.7b",
-                          "zamba2-2.7b", "mixtral-8x7b",
-                          "qwen3-moe-235b-a22b"]
+def test_registry_matches_jax():
+    """The port's registry holds JAX's ten archs, in JAX's order, and the
+    two archs of the encdec and vlm families resolve field for field as
+    JAX's do; an unknown name raises."""
+    from repro.configs.registry import arch_ids as jax_arch_ids
+    assert arch_ids() == jax_arch_ids()
+    assert len(arch_ids()) == 10
+    for arch in ("seamless-m4t-medium", "llama-3.2-vision-90b"):
+        assert dataclasses.asdict(get_arch(arch)) == \
+            dataclasses.asdict(jax_get_arch(arch))
     with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("llama-3.2-vision-90b")
+        get_arch("llama-3.2-vision-11b")
 
 
 @pytest.mark.parametrize("layout,chunk", [("contiguous", 1), ("paged", 4)])

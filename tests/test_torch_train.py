@@ -287,9 +287,10 @@ def test_train_cli_runs_seq_minus_one_tokens_as_jax(monkeypatch):
     batches = []
     real_loop = train.train_loop
 
-    def loop(step_fn, state, stream, *, steps, device):
-        batches.append(train.make_batch(stream, 0, device)["tokens"])
-        return real_loop(step_fn, state, stream, steps=steps, device=device)
+    def loop(step_fn, state, stream, *, steps, device, cfg=None):
+        batches.append(train.make_batch(stream, 0, device, cfg)["tokens"])
+        return real_loop(step_fn, state, stream, steps=steps, device=device,
+                         cfg=cfg)
 
     monkeypatch.setattr(train, "train_loop", loop)
     with redirect_stdout(io.StringIO()):

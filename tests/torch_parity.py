@@ -7,7 +7,11 @@ qkv biases to zero, the norm weights (the moe block's too) to one and, in
 the Mamba blocks, ``a_log`` and ``dt_bias`` to zero and ``d_skip`` to
 one, which would leave the bias add, the norms' weight multiply, the
 per-head decay, the step bias and the skip scale untested, so all of them
-are perturbed with seeded numpy noise before either side sees them.
+are perturbed with seeded numpy noise before either side sees them.  The
+same holds for the encoder-decoder family's norms (``ln_enc`` and every
+block's ``ln``) and for the vision LM's cross blocks, whose ``gate`` JAX
+sets to 0: ``tanh(0)`` would multiply the cross-attention away, so the
+gates get seeded values too, and every comparison sees the cross path.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.configs.registry import get_arch as jax_get_arch
+from repro.models import encdec as jax_encdec
 from repro.models import lm as jax_lm
 
 ARCH = "qwen2.5-3b-smoke"
@@ -26,7 +31,9 @@ def jax_params(seed: int = 0, noise_seed: int = 1, arch: str = ARCH,
     """(JAX cfg, numpy params tree, JAX params) for ``arch`` (or ``cfg``),
     perturbed as the module docstring says."""
     cfg = cfg if cfg is not None else jax_get_arch(arch)
-    tree = jax.device_get(jax_lm.init_params(cfg, jax.random.PRNGKey(seed)))
+    init = jax_encdec.init_params if cfg.family == "encdec" \
+        else jax_lm.init_params
+    tree = jax.device_get(init(cfg, jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(noise_seed)
 
     def noise(a, base, scale):
@@ -53,9 +60,24 @@ def jax_params(seed: int = 0, noise_seed: int = 1, arch: str = ARCH,
                  else layers["moe"])
     if "mamba" in layers:
         mamba(layers["mamba"])
-    if "groups" in tree:
+    if "groups" in tree and "mamba" in tree["groups"]:
+        # hybrid: Mamba layers and the shared block
         mamba(tree["groups"]["mamba"])
         attn_mlp(tree["shared_attn"], tree["shared_mlp"])
+    elif "groups" in tree:
+        # vlm: dense layers, and the cross layers with tanh(gate) != 0
+        attn_mlp(tree["groups"]["attn"], tree["groups"]["mlp"])
+        attn_mlp(tree["cross"]["attn"], tree["cross"]["mlp"])
+        tree["cross"]["attn"]["gate"] = noise(tree["cross"]["attn"]["gate"],
+                                              0.5, 0.2)
+    for key in ("enc_layers", "dec_layers"):
+        if key in tree:
+            attn_mlp(tree[key]["attn"], tree[key]["mlp"])
+            if "cross" in tree[key]:
+                tree[key]["cross"]["ln"] = noise(tree[key]["cross"]["ln"],
+                                                 1.0, 0.1)
+    if "ln_enc" in tree:
+        tree["ln_enc"] = noise(tree["ln_enc"], 1.0, 0.1)
     tree["ln_f"] = noise(tree["ln_f"], 1.0, 0.1)
     return cfg, tree, jax.tree.map(jnp.asarray, tree)
 
