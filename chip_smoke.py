@@ -358,6 +358,28 @@ failure (non-zero exit, no result line):
               on the int8 pool.  Phase 3 also holds the three chunk
               attentions at the verify shape (C = 5 from mid-page, batch
               4) and the head over every chunk position (M = 20).
+14. encdec/vlm — seamless-m4t-medium and llama-3.2-vision-90b (20
+              layers) through the lockstep loop (``phase_encdec_vlm``).
+15. ckpt    — checkpoint, restart and manual data parallelism, qwen2.5-3b
+              at full width and 2 layers in bf16 through
+              ``launch/train.py``'s functions, every step under
+              ``set_sync_debug_mode("error")`` with exact launch counts
+              and routes (the saves outside it), in a temporary
+              directory removed at the end: (a) two uninterrupted 6-step
+              runs, bitwise equal or each differing leaf named; (b)
+              checkpoints every 2 steps (2 kept) and a fault before step
+              5 (from 0): "recovered from 1 failure(s)", losses and state
+              equal to (a)'s bit for bit (or within (a)'s gaps); each
+              checkpoint's bytes, host-snapshot and write seconds, the ms
+              of steps with a write in flight and without; (c) a restore
+              into a zeroed state (every leaf bitwise, the same tensors,
+              params still autograd leaves) and its seconds, then
+              ``--resume`` without the last checkpoint: from step 4 to
+              (a)'s end; (d) ``make_manual_dp_train_step`` over a
+              one-rank NCCL mesh: codec none bitwise
+              ``make_train_step``'s step, the ms a step of each codec
+              beside it, and codecs bf16 and int8 in f32, 2 steps hopper
+              against reference (``close_state``, ``close_ef``).
 
 The random 64- and 54-layer Mamba stacks are chaotic: the plain reference
 alone, in bf16 and in f32 on the same weights, disagrees on nearly every
@@ -379,8 +401,9 @@ first decision the two runs take differently and requires it to be a
 near tie, and each step from the same caches to agree
 (``synced_steps``).  Nothing is cut in width; depth is cut only in
 those checks, in phase 7's f32 comparisons (2 layers), for mixtral, to
-fit the card, and in phase 13's recurrent runs, to fit the time.  The LeNets run at full size (Caffe's own nets) and
-the solvers' batch of 64.
+fit the card, in phases 11 and 13's recurrent runs, to fit the time,
+and in phase 15 (2 layers), for the checkpoints' disk and time.  The
+LeNets run at full size (Caffe's own nets) and the solvers' batch of 64.
 
 The line before the last is a JSON object with one entry per kernel (the
 routed kernels' -- the gemm's, the attention backward's and forward's,
@@ -388,7 +411,7 @@ the three decodes', the three chunked prefills', rmsnorm_bwd's,
 conv2d_direct's, relu_bwd's, maxpool's, relu's, ssd_scan's,
 softmax's, rmsnorm's, bias_add_rows', im2col's, col2im's, softmax_xent's,
 maxpool_bwd's and softmax_xent_bwd's -- with ``routes``:
-the main paths' launches per route, phases 4-13); the last line is
+the main paths' launches per route, phases 4-15); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -465,7 +488,8 @@ def main() -> int:
                      (7, phase_train), (8, phase_caffe),
                      (9, phase_caffe_train), (10, phase_direct),
                      (11, phase_share), (12, phase_pressure),
-                     (13, phase_spec), (14, phase_encdec_vlm)):
+                     (13, phase_spec), (14, phase_encdec_vlm),
+                     (15, phase_ckpt)):
         stamp(n)
         for name, k in phase(torch).items():
             launches[name] += k
@@ -5354,6 +5378,49 @@ def counting(got, routes=None, lm=True):
             routes.update({name: dict(fns[name].routes) for name in ROUTED})
 
 
+def synced_step(torch, step_fn, counts, routes):
+    """``step_fn`` on the hopper lowering under
+    ``set_sync_debug_mode("error")`` (a host sync inside the step raises),
+    each call's launches appended to ``counts`` and its launches per route
+    to ``routes`` (``counting``)."""
+    from repro_torch.core.policy import use_backend
+
+    def step(state, batch):
+        got, rt = {}, {}
+        with use_backend("hopper"), counting(got, rt):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step_fn(state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                counts.append(got)
+                routes.append(rt)
+
+    return step
+
+
+def check_train_launches(tag, got, rt, want):
+    """Fail unless one bf16 train step launched ``want`` (``train_per_step``)
+    with every gemm on the tensor-core kernel (M = 512 and the weight
+    gradients' x.T), every attention forward and backward on the
+    tensor-core kernels, and every RMSNorm forward and backward and every
+    bias on the vector kernels."""
+    if got != want:
+        raise SystemExit(f"chip_smoke: {tag} launches {got}, expected "
+                         f"{want}")
+    on_route = {"gemm": rt["gemm"]["tc"] + rt["gemm"]["tc_splitk"],
+                "flash_attention_bwd": rt["flash_attention_bwd"]["tc"],
+                "flash_attention": rt["flash_attention"]["tc"],
+                "rmsnorm_bwd": rt["rmsnorm_bwd"]["vec"],
+                "rmsnorm": rt["rmsnorm"]["vec"],
+                "bias_add_rows": rt["bias_add_rows"]["vec"]}
+    want_routes = {k: want[k] for k in on_route}
+    if on_route != want_routes:
+        raise SystemExit(f"chip_smoke: {tag} launches on the tensor-core "
+                         f"and vector routes {on_route}, expected "
+                         f"{want_routes}")
+
+
 def leaf_names(tree, prefix=""):
     """The names of ``tree_leaves(tree)``, in its order."""
     if isinstance(tree, dict):
@@ -5509,50 +5576,18 @@ def train_loop_phase(torch):
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     stream, step_fn = train_stream(cfg), make_train_step(cfg, opt)
     want, counts, routes = train_per_step(cfg), [], []
-    # every gemm of a bf16 step on the tensor-core kernel (M = 512 and the
-    # weight gradients' x.T), every attention forward and backward on the
-    # tensor-core kernels, every RMSNorm forward and backward and every
-    # bias on the vector kernels
-    want_routes = {"gemm": want["gemm"],
-                   "flash_attention_bwd": want["flash_attention_bwd"],
-                   "flash_attention": want["flash_attention"],
-                   "rmsnorm_bwd": want["rmsnorm_bwd"],
-                   "rmsnorm": want["rmsnorm"],
-                   "bias_add_rows": want["bias_add_rows"]}
-
-    def counted(st, batch):
-        got, rt = {}, {}
-        with use_backend("hopper"), counting(got, rt):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return step_fn(st, batch)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-                counts.append(got)
-                routes.append(rt)
 
     total = {name: 0 for name in KERNELS}
     losses = []
-    for rec in train_loop(counted, state, stream, steps=TRAIN_STEPS,
-                          device=dev):
+    for rec in train_loop(synced_step(torch, step_fn, counts, routes),
+                          state, stream, steps=TRAIN_STEPS, device=dev):
         got, rt = counts[-1], routes[-1]
         print(f"[7 train] (b) step {rec['step']}: loss {rec['loss']:.6f}, "
               f"{rec['ms']:.1f} ms/step, {rec['tokens_per_s']:.1f} tok/s, "
               f"peak {rec['peak_bytes'] / 2 ** 30:.2f} GiB; launches {got}; "
               f"routes {rt}", flush=True)
-        if got != want:
-            raise SystemExit(f"chip_smoke: train (b): step {rec['step']} "
-                             f"launches {got}, expected {want}")
-        on_tc = {"gemm": rt["gemm"]["tc"] + rt["gemm"]["tc_splitk"],
-                 "flash_attention_bwd": rt["flash_attention_bwd"]["tc"],
-                 "flash_attention": rt["flash_attention"]["tc"],
-                 "rmsnorm_bwd": rt["rmsnorm_bwd"]["vec"],
-                 "rmsnorm": rt["rmsnorm"]["vec"],
-                 "bias_add_rows": rt["bias_add_rows"]["vec"]}
-        if on_tc != want_routes:
-            raise SystemExit(f"chip_smoke: train (b): step {rec['step']} "
-                             f"launches on the tensor-core and vector "
-                             f"routes {on_tc}, expected {want_routes}")
+        check_train_launches(f"train (b): step {rec['step']}", got, rt,
+                             want)
         losses.append(rec["loss"])
         for name in KERNELS:
             total[name] += got[name]
@@ -6711,8 +6746,9 @@ SHARE_MAX_LEN = SYSTEM_LEN + 48 + GEN_LEN + 1
 # run in turns)) ("f32": the model's dtype); mamba2 has no KV, so sharing
 # is its snapshot store alone.  The recurrent archs are cut in depth as
 # in phase 13 (zamba2 3 of 9 groups, mamba2 16 of 64 layers): at full
-# depth their 8 runs took 110 s of the script's time budget on an H100
-SHARE_FULL = (("qwen2.5-3b", None, (("f32", 2), ("int8", 1))),
+# depth their 8 runs took 110 s of the script's time budget on an H100;
+# qwen2.5-3b to 18 of 36 layers: its 6 runs took 120 s on a slow host
+SHARE_FULL = (("qwen2.5-3b", 18, (("f32", 2), ("int8", 1))),
               ("zamba2-2.7b", 18, (("f32", 2),)),
               ("mamba2-2.7b", 16, (("f32", 2),)))
 # 11b: f32 at phase 5's depths over each pool
@@ -6892,7 +6928,7 @@ def prng_bits_check(torch, vocab):
 
 def phase_share(torch):
     """Phase 11, prefix sharing and sampled decoding.  (a) full width in
-    bf16 (``SHARE_FULL``; zamba2 and mamba2 cut in depth), the
+    bf16 (``SHARE_FULL``; every arch cut in depth), the
     system-prompt traffic with sharing on and off, one or two pairs
     each: sharing must engage on every arch and lower the peak pages of the archs with KV; the sharing counts, the
     late requests' TTFT and the streams' agreement are printed, and, for
@@ -7945,6 +7981,446 @@ def phase_encdec_vlm(torch):
                  "flash_prefill_chunk"):
         if not total[name]:
             raise SystemExit(f"chip_smoke: phase 14 never launched {name}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 15: checkpoint, restart and compressed-gradient data parallelism
+# ---------------------------------------------------------------------------
+
+# qwen2.5-3b at full width and 2 layers (a depth cut for the disk and the
+# time: a checkpoint of its bf16 params and f32 master, m and v is about
+# 6.5 GB), bf16, AdamW, B 2 x S 256: 6 steps with a checkpoint every 2, the
+# 2 newest kept, and one fault before step 5 (counted from 0), as
+# ``launch.train --ckpt-every 2 --fail-at 5`` runs them
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_KEEP, CKPT_FAIL_AT = 2, 6, 2, 2, 5
+# steps timed per train-step function in (d)
+CKPT_TIMED = 3
+
+
+def ckpt_config():
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.optim.optimizers import OptConfig
+
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b"), n_layers=CKPT_LAYERS)
+    # launch/train.py's schedule
+    return cfg, OptConfig(lr=1e-3, warmup_steps=10, total_steps=CKPT_STEPS)
+
+
+def state_gaps(torch, got, want):
+    """``{leaf name: largest |got - want|}`` of the leaves of two train
+    states that differ bit for bit."""
+    from repro_torch.optim.optimizers import tree_leaves
+
+    gaps = {}
+    for name, a, b in zip(leaf_names(want), tree_leaves(got),
+                          tree_leaves(want)):
+        a, b = a.detach().reshape(-1), b.detach().reshape(-1)
+        if not torch.equal(bitwise(torch, a), bitwise(torch, b)):
+            gaps[name] = (a.double() - b.double()).abs().max().item()
+    return gaps
+
+
+def within_gap(tag, losses, gaps, want_losses, allowed):
+    """Fail unless a run's losses (step -> loss) and final state's gaps
+    (``state_gaps`` against the uninterrupted run) are within ``allowed``,
+    (a)'s run-to-run gaps: none when two uninterrupted runs were bitwise
+    equal."""
+    loss_gap = {s: abs(losses[s] - want_losses[s]) for s in want_losses}
+    over = {k: g for k, g in gaps.items() if g > allowed["state"].get(k, 0)}
+    over_loss = {s: g for s, g in loss_gap.items()
+                 if g > allowed["loss"].get(s, 0)}
+    print(f"[15 ckpt] {tag}: losses {[losses[s] for s in sorted(losses)]}; "
+          f"against the uninterrupted run: loss gaps "
+          f"{max(loss_gap.values()):.3g} at most, "
+          + (f"{len(gaps)} leaves differ (largest "
+             f"{max(gaps.values()):.3g})" if gaps else "bitwise equal"),
+          flush=True)
+    if over or over_loss:
+        raise SystemExit(f"chip_smoke: ckpt {tag}: beyond the uninterrupted "
+                         f"runs' own gaps: leaves {over}, losses "
+                         f"{over_loss}")
+
+
+def ckpt_restart(torch, tmp, total):
+    """(a)-(c): two uninterrupted runs, the run with checkpoints and a
+    fault, a restore into a zeroed state and ``--resume``, all through
+    ``launch/train.py``'s functions with every step under
+    ``synced_step``.  Adds the counted launches to ``total``."""
+    import shutil
+
+    from repro_torch.distributed.checkpoint import Checkpointer
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.train import train_loop, train_supervised
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg, opt = ckpt_config()
+    dev = torch.device("cuda")
+    want, counts, routes = train_per_step(cfg), [], []
+    step_fn = synced_step(torch, make_train_step(cfg, opt), counts, routes)
+
+    def fresh():
+        return init_train_state(cfg, opt, SEED)
+
+    def checked(tag):
+        for i, (got, rt) in enumerate(zip(counts, routes)):
+            check_train_launches(f"ckpt {tag}: step call {i + 1}", got, rt,
+                                 want)
+            for name in KERNELS:
+                total[name] += got[name]
+        n = len(counts)
+        counts.clear()
+        routes.clear()
+        return n
+
+    # (a) determinism: two uninterrupted runs from the seed
+    runs = []
+    for i in range(2):
+        state = fresh()
+        recs = list(train_loop(step_fn, state, train_stream(cfg),
+                               steps=CKPT_STEPS, device=dev))
+        runs.append(({r["step"]: r["loss"] for r in recs}, state))
+        checked(f"(a) run {i + 1}")
+    (want_losses, ref), (losses_2, state_2) = runs
+    gaps = state_gaps(torch, state_2, ref)
+    allowed = {"state": gaps, "loss": {s: abs(losses_2[s] - want_losses[s])
+                                       for s in want_losses}}
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(ref))
+    print(f"[15 ckpt] (a) {cfg.name} bf16, {CKPT_LAYERS} layers, "
+          f"{CKPT_STEPS} steps of B {TRAIN_B} x S {TRAIN_S} twice from seed "
+          f"{SEED}: losses {[want_losses[s] for s in sorted(want_losses)]}; "
+          f"the two final states "
+          + ("are bitwise equal" if not gaps and losses_2 == want_losses
+             else "differ: " + "; ".join(
+                 f"{k} {g:.3g}" for k, g in gaps.items())
+             + f"; losses {[losses_2[s] for s in sorted(losses_2)]}")
+          + f" (a train state of {len(tree_leaves(ref))} leaves, "
+          f"{nbytes / 1e9:.3f} GB)", flush=True)
+    del runs, state, state_2
+    free = shutil.disk_usage(tmp).free
+    # the kept checkpoints and the one being written
+    if free < (CKPT_KEEP + 1.2) * nbytes:
+        raise SystemExit(f"chip_smoke: ckpt: {free / 1e9:.1f} GB free under "
+                         f"{tmp}, {CKPT_KEEP + 1} checkpoints of "
+                         f"{nbytes / 1e9:.1f} GB need more")
+
+    # (b) checkpoints every CKPT_EVERY steps, a fault before CKPT_FAIL_AT
+    ck = Checkpointer(tmp / "run", keep=CKPT_KEEP)
+    recs, saves, lines = [], [], []
+
+    def on_record(rec):
+        recs.append(rec)
+        if rec["step"] % CKPT_EVERY == 0:
+            saves.append((rec["step"], ck.last_save))
+
+    state, final, restarts = train_supervised(
+        step_fn, fresh, train_stream(cfg), steps=CKPT_STEPS, device=dev,
+        ckpt=ck, ckpt_every=CKPT_EVERY, fail_at=CKPT_FAIL_AT,
+        on_record=on_record, log=lines.append)
+    n_steps = checked("(b)")
+    print(f"[15 ckpt] (b) checkpoints every {CKPT_EVERY} steps (keep "
+          f"{CKPT_KEEP}), a fault before step {CKPT_FAIL_AT}: {n_steps} "
+          f"steps run, each under set_sync_debug_mode(\"error\") with "
+          f"launches {({k: n for k, n in want.items() if n})}; printed "
+          f"{lines}; kept {ck.all_steps()}",
+          flush=True)
+    for rec in recs:
+        print(f"[15 ckpt] (b) step {rec['step']}: loss {rec['loss']:.6f}, "
+              f"{rec['ms']:.2f} ms" + (", a checkpoint write in flight"
+                                       if rec["saving"] else ""),
+              flush=True)
+    for step, sv in saves:
+        print(f"[15 ckpt] (b) checkpoint {step}: {sv['bytes']} bytes, host "
+              f"snapshot {sv['snapshot_s']:.3f} s, written in "
+              f"{sv['write_s']:.3f} s on a thread "
+              f"({sv['bytes'] / sv['write_s'] / 1e9:.2f} GB/s)", flush=True)
+    busy = [r["ms"] for r in recs if r["saving"]]
+    idle = [r["ms"] for r in recs if not r["saving"] and r["step"] > 1]
+    print(f"[15 ckpt] (b) ms a step, median: with a checkpoint write in "
+          f"flight {statistics.median(busy) if busy else float('nan'):.2f} "
+          f"(steps {[r['step'] for r in recs if r['saving']]}), without "
+          f"{statistics.median(idle):.2f} (the first step left out)",
+          flush=True)
+    # the steps up to the fault, then again from the last checkpoint
+    again = CKPT_FAIL_AT // CKPT_EVERY * CKPT_EVERY
+    ran = list(range(1, CKPT_FAIL_AT + 1)) + list(range(again + 1,
+                                                       CKPT_STEPS + 1))
+    if ((final, restarts) != (CKPT_STEPS, 1) or [r["step"] for r in recs]
+            != ran or lines != ["recovered from 1 failure(s) via "
+                                "checkpoint restart"]):
+        raise SystemExit(f"chip_smoke: ckpt (b): final step {final}, "
+                         f"{restarts} restarts, steps "
+                         f"{[r['step'] for r in recs]}, printed {lines}")
+    within_gap("(b) restarted run", {r["step"]: r["loss"] for r in recs},
+               state_gaps(torch, state, ref), want_losses, allowed)
+
+    # (c) the round trip into a zeroed state, then --resume without the
+    # last checkpoint
+    target = fresh()
+    with torch.no_grad():
+        for t in tree_leaves(target):
+            t.zero_()
+    ids = [id(t) for t in tree_leaves(target)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.restore(CKPT_STEPS, target)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    trip = state_gaps(torch, target, state)
+    leaves_ok = [id(t) for t in tree_leaves(target)] == ids and all(
+        p.is_leaf and p.requires_grad for p in tree_leaves(target["params"]))
+    print(f"[15 ckpt] (c) restore of checkpoint {CKPT_STEPS} into a zeroed "
+          f"state: {restore_s:.3f} s (the files just written: a warm read), "
+          + ("every leaf bitwise equal" if not trip else f"differs: {trip}")
+          + f"; the same tensors, params autograd leaves: {leaves_ok}",
+          flush=True)
+    if trip or not leaves_ok:
+        raise SystemExit("chip_smoke: ckpt (c): the round trip")
+    del target, state
+    shutil.rmtree(ck.dir / f"step_{CKPT_STEPS}")
+    recs, lines = [], []
+    state, final, restarts = train_supervised(
+        step_fn, fresh, train_stream(cfg), steps=CKPT_STEPS, device=dev,
+        ckpt=Checkpointer(ck.dir, keep=CKPT_KEEP), ckpt_every=CKPT_EVERY,
+        resume=True, on_record=recs.append, log=lines.append)
+    checked("(c) resume")
+    resumed = f"resumed from step {CKPT_STEPS - CKPT_EVERY}"
+    print(f"[15 ckpt] (c) --resume without step_{CKPT_STEPS}: printed "
+          f"{lines}; steps {[r['step'] for r in recs]}", flush=True)
+    if (lines != [resumed] or final != CKPT_STEPS or restarts
+            or [r["step"] for r in recs] != list(
+                range(CKPT_STEPS - CKPT_EVERY + 1, CKPT_STEPS + 1))):
+        raise SystemExit(f"chip_smoke: ckpt (c): resume printed {lines}, "
+                         f"ran {[r['step'] for r in recs]}")
+    within_gap("(c) resumed run", {r["step"]: r["loss"] for r in recs},
+               state_gaps(torch, state, ref),
+               {s: want_losses[s] for s in (r["step"] for r in recs)},
+               allowed)
+    del state, ref
+    torch.cuda.empty_cache()
+
+
+def close_ef(torch, hop, ref, steps_taken, gscale, unsettled, flips):
+    """The error-feedback trees of two manual-DP train states.  The codec
+    rounds each corrected gradient (grad + error feedback) to a bf16 or
+    int8 step; where the two sides sit within their summation noise of a
+    rounding boundary they round it each their own way: their new
+    residuals have opposite signs and differ by one step, and m by (1 -
+    b1) times that step (clipped), which for a bf16 step is 2^-8 of the
+    element, past ``close_state``'s 2e-3 (v by twice that, weighted by 1 -
+    b2).  An element whose residuals have opposite signs and differ beyond
+    the residuals' tolerance, or whose m or v differs beyond
+    ``close_state``'s, is such a flip (``flips``:
+    leaf index -> (mask, m budget), kept across steps); flips may not pass
+    1% of a leaf.  Elsewhere a residual is its gradients' rounding
+    remainder, so it carries their noise: it is held at phase 7 (c)'s
+    grad tolerance after one step, ``F32_GRAD_TOL`` of ``gscale`` (each
+    leaf's largest reference gradient, summed over the steps taken), and
+    after more at ``close_state``'s 1e-3, as the moments (the
+    trajectories have parted at the unsettled elements).  At a flipped
+    element m may differ by (1 - b1) times the residual gaps of the steps
+    that flipped, v is not held, and the params and master join
+    ``unsettled`` (``close_state``'s two learning rates a step).  Returns
+    (failures, the hop state with the reference's m and v at the flipped
+    elements, for ``close_state``, flipped elements in all, the largest
+    gap over its tolerance outside them)."""
+    from repro_torch.optim.optimizers import (
+        OptConfig,
+        tree_leaves,
+        tree_unflatten,
+    )
+
+    b1 = OptConfig().b1
+    rel = 5e-5 if steps_taken == 1 else 1e-3
+    rel_g = F32_GRAD_TOL if steps_taken == 1 else 1e-3
+    fails, n_flip, m_held, v_held, worst = [], 0, [], [], 0.0
+    lv = {key: (tree_leaves(hop["opt"][key]), tree_leaves(ref["opt"][key]))
+          for key in ("ef", "m", "v")}
+    for i, (e_h, e_r) in enumerate(zip(*lv["ef"])):
+        m_h, m_r = lv["m"][0][i], lv["m"][1][i]
+        v_h, v_r = lv["v"][0][i], lv["v"][1][i]
+        atol = rel_g * gscale[i]
+        gap = (e_h - e_r).abs()
+        m_atol = rel * m_r.abs().max().item() + 2e-3 * m_r.abs()
+        v_atol = rel * v_r.abs().max().item() + 2e-3 * v_r.abs()
+        flip = (torch.sign(e_h) != torch.sign(e_r)) & (
+            (gap > atol) | ((m_h - m_r).abs() > m_atol)
+            | ((v_h - v_r).abs() > v_atol))
+        mask, budget = flips.get(i, (torch.zeros_like(flip),
+                                     torch.zeros_like(gap)))
+        mask = mask | flip
+        budget = budget + (1 - b1) * torch.where(flip, gap, 0.0)
+        flips[i] = (mask, budget)
+        n = int(mask.sum().item())
+        n_flip += n
+        if n > 1e-2 * mask.numel():
+            fails.append(("ef flips", i, n))
+        room = torch.where(mask, 0.0, gap / (atol + 2e-3 * e_r.abs()))
+        worst = max(worst, room.max().item())
+        out = room > 1
+        if out.any():
+            fails.append(("ef", i, int(out.sum().item()),
+                          gap[out].max().item(), atol))
+        if not ((m_h - m_r).abs() <= budget + m_atol)[mask].all():
+            fails.append(("m at flips", i))
+        unsettled[i] = unsettled[i] | mask if i in unsettled else mask
+        m_held.append(torch.where(mask, m_r, m_h))
+        v_held.append(torch.where(mask, v_r, v_h))
+    opt = dict(hop["opt"])
+    opt["m"] = tree_unflatten(hop["opt"]["m"], m_held)
+    opt["v"] = tree_unflatten(hop["opt"]["v"], v_held)
+    return fails, {"params": hop["params"], "opt": opt}, n_flip, worst
+
+
+def ckpt_manual_dp(torch, total):
+    """(d) ``make_manual_dp_train_step`` over a ("data", "model") mesh of
+    one rank on NCCL (``launch/mesh.py``): codec ``none`` bitwise
+    ``make_train_step`` (bf16, full width, 2 layers), each step's ms beside
+    it, then codecs ``bf16`` and ``int8`` in f32 at 2 layers, 2 steps
+    hopper against reference (``close_state`` and ``close_ef``).  Adds the
+    hopper launches to ``total``."""
+    import torch.distributed as dist
+
+    from repro_torch.core.policy import use_backend
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.steps import (
+        init_train_state,
+        loss_and_grads,
+        make_manual_dp_train_step,
+        make_train_step,
+    )
+    from repro_torch.launch.train import make_batch
+    from repro_torch.optim import compress as GC
+    from repro_torch.optim.optimizers import OptConfig, tree_leaves, tree_map
+
+    cfg, opt = ckpt_config()
+    dev = torch.device("cuda")
+    mesh = make_mesh_for(1)
+    print(f"[15 ckpt] (d) mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+          f" over {dist.get_backend()}, world size {dist.get_world_size()}",
+          flush=True)
+    want = train_per_step(cfg)
+
+    def counted(fn, *args):
+        got = {}
+        with use_backend("hopper"), counting(got):
+            out = fn(*args)
+        if got != want:
+            raise SystemExit(f"chip_smoke: ckpt (d): launches {got}, "
+                             f"expected {want}")
+        for name in KERNELS:
+            total[name] += got[name]
+        return out
+
+    stream = train_stream(cfg)
+    dp_state = init_train_state(cfg, opt, SEED)
+    dp_state["opt"]["ef"] = GC.init_error_feedback(dp_state["params"])
+    plain_state = init_train_state(cfg, opt, SEED)
+    batch = make_batch(stream, 0, dev)
+    _, l_dp = counted(make_manual_dp_train_step(cfg, opt, mesh, "none"),
+                      dp_state, batch)
+    _, l_plain = counted(make_train_step(cfg, opt), plain_state, batch)
+    ef = dp_state["opt"].pop("ef")
+    gaps = state_gaps(torch, dp_state, plain_state)
+    same_loss = torch.equal(bitwise(torch, l_dp.reshape(-1)),
+                            bitwise(torch, l_plain.reshape(-1)))
+    ef_zero = not any(bool(t.any()) for t in tree_leaves(ef))
+    print(f"[15 ckpt] (d) codec none, one bf16 step against make_train_step"
+          f": loss {l_dp.item():.6f} / {l_plain.item():.6f}, "
+          + ("state bitwise equal" if not gaps else f"differs: {gaps}")
+          + f", error feedback {'all zero' if ef_zero else 'not zero'}",
+          flush=True)
+    if gaps or not same_loss or not ef_zero:
+        raise SystemExit("chip_smoke: ckpt (d): codec none is not the "
+                         "train step bit for bit")
+    dp_state["opt"]["ef"] = ef
+    ms = {}
+    for tag, fn, st in (
+            ("make_train_step", make_train_step(cfg, opt), plain_state),
+            *((f"manual DP {c}", make_manual_dp_train_step(
+                cfg, opt, mesh, c), dp_state) for c in GC.CODECS)):
+        times = []
+        for s in range(CKPT_TIMED):
+            batch = make_batch(stream, 1 + s, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_backend("hopper"):
+                fn(st, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms[tag] = statistics.median(times)
+    print(f"[15 ckpt] (d) ms a bf16 step (median of {CKPT_TIMED}, host "
+          f"clock, synchronized): " + "; ".join(
+              f"{k} {v:.2f}" for k, v in ms.items()), flush=True)
+    del dp_state, plain_state, ef
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    opt32 = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)   # as 7 (c)
+    failed = []
+    for codec in ("bf16", "int8"):
+        hop = train_setup(torch, cfg32, opt32)
+        hop["opt"]["ef"] = GC.init_error_feedback(hop["params"])
+        ref = {"params": tree_map(
+                   lambda p: p.detach().clone().requires_grad_(True),
+                   hop["params"]),
+               "opt": tree_map(lambda t: t.clone(), hop["opt"])}
+        step_fn = make_manual_dp_train_step(cfg32, opt32, mesh, codec)
+        unsettled, flips = {}, {}
+        gscale = [0.0] * len(tree_leaves(ref["params"]))
+        for step in range(2):
+            batch = make_batch(stream, step, dev)
+            with use_backend("reference"):
+                _, grads = loss_and_grads(cfg32, ref["params"], batch)
+            gscale = [s + g.abs().max().item()
+                      for s, g in zip(gscale, tree_leaves(grads))]
+            del grads
+            hop, l_h = counted(step_fn, hop, batch)
+            with use_backend("reference"):
+                ref, l_r = step_fn(ref, batch)
+            lgap = abs(l_h.item() - l_r.item()) / abs(l_r.item())
+            ef_fails, held, n_flip, worst = close_ef(
+                torch, hop, ref, step + 1, gscale, unsettled, flips)
+            fails, rows = close_state(torch, held, ref, step + 1, opt32.lr,
+                                      unsettled)
+            del held
+            print(f"[15 ckpt] (d) codec {codec}, f32, {CKPT_LAYERS} layers,"
+                  f" step {step + 1}: loss hopper {l_h.item():.7f}, "
+                  f"reference {l_r.item():.7f} (relative gap {lgap:.3g}); "
+                  f"error feedback: {n_flip} elements rounded the other way"
+                  f", elsewhere at most {worst:.3g} of the tolerance, "
+                  f"failing {ef_fails}; params, master, m, v: leaves "
+                  f"outside the tolerance {len(rows)}, failing {fails}",
+                  flush=True)
+            if lgap > F32_LOSS_TOL or fails or ef_fails:
+                failed.append(f"{codec}: step {step + 1}")
+        del hop, ref, unsettled, flips
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: ckpt (d): {failed}")
+
+
+def phase_ckpt(torch):
+    """Phase 15: checkpoint, restart and manual data parallelism
+    (``ckpt_restart``, ``ckpt_manual_dp``) in a temporary directory,
+    removed at the end, and the process group torn down, on failure too.
+    Returns the launches."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    total = {name: 0 for name in KERNELS}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        print(f"[15 ckpt] {tmp}: {shutil.disk_usage(tmp).free / 1e9:.1f} GB"
+              f" free", flush=True)
+        ckpt_restart(torch, tmp, total)
+        ckpt_manual_dp(torch, total)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return total
 
 if __name__ == "__main__":

@@ -25,7 +25,10 @@ train step's: params, velocity and the int32 iteration counter).
 tree across (params, which become autograd leaves, and the optimizer's
 ``step`` and param-shaped f32 ``master``/``m``/``v`` or ``mom``), and
 ``to_jax_layout`` goes the other way for comparisons: a port tree (params,
-grads, optimizer trees) as numpy in JAX's stacked layout.
+grads, optimizer trees) as numpy in JAX's stacked layout.  Its rule, a
+per-layer list is a leading axis (``groups``' lists of lists two), is
+``stacked_view``'s, which ``distributed.checkpoint`` also reads and
+writes by (``stacked_leaves``: each JAX leaf's path and per-layer parts).
 """
 from __future__ import annotations
 
@@ -107,28 +110,52 @@ def train_state_from_jax(tree: Dict[str, Any], *,
     return {"params": params, "opt": opt}
 
 
+def stacked_view(tree) -> Any:
+    """A port tree in JAX's stacked structure, the tensors untouched: a
+    list of per-layer trees becomes one tree whose leaves are lists (one
+    list level a stacked axis: ``layers`` one, ``groups`` two), dicts keep
+    their keys.  The inverse of ``params_from_jax``'s split; the layout
+    rule of ``to_jax_layout`` and of the checkpoint format."""
+    def zip_(subs):
+        if subs and isinstance(subs[0], dict):
+            return {k: zip_([s[k] for s in subs]) for k in subs[0]}
+        return subs
+
+    if isinstance(tree, dict):
+        return {k: stacked_view(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return zip_([stacked_view(t) for t in tree])
+    return tree
+
+
+def stacked_leaves(tree):
+    """``(path, parts)`` for each leaf of ``stacked_view(tree)`` in
+    ``jax.tree.leaves`` order (dict keys sorted): ``path`` the tuple of
+    keys, ``parts`` a tensor or a nested list of the per-layer tensors
+    that JAX stacks into that leaf."""
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from walk(t[k], path + (k,))
+        else:
+            yield path, t
+
+    return walk(stacked_view(tree), ())
+
+
 def to_jax_layout(tree) -> Any:
-    """A port tree of tensors -> numpy leaves in JAX's layout: the
-    per-layer lists (``layers``, ``enc_layers``, ``dec_layers``,
-    ``cross``) stacked on a leading axis, the groups of ``groups`` on
-    two.  bf16 leaves come out as float32 (exact)."""
-    def leaf(t):
-        t = t.detach()
-        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
-
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return np.stack(trees)
-
+    """A port tree of tensors -> numpy leaves in JAX's layout
+    (``stacked_view``'s lists stacked on leading axes).  bf16 leaves come
+    out as float32 (exact)."""
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
         if isinstance(t, list):
-            return stack([conv(v) for v in t])
-        return leaf(t)
+            return np.stack([conv(v) for v in t])
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
-    return conv(tree)
+    return conv(stacked_view(tree))
 
 
 def caffe_params_from_jax(tree: Dict[str, Dict[str, Any]], *,

@@ -1,10 +1,10 @@
-"""Train-step constructors: the train step (``repro.launch.steps``'s
-``make_train_step`` and ``init_train_state``).
+"""Train-step constructors (``repro.launch.steps``): ``make_train_step``,
+``init_train_state`` and ``make_manual_dp_train_step``, the
+data-parallel step whose gradient all-reduce is explicit and optionally
+compressed (``optim.compress``) over a ``torch.distributed`` mesh.
 
-One device: JAX's sharding hints have nothing to do here.  The
-manual-data-parallel step with compressed gradients
-(``make_manual_dp_train_step``, ``repro.optim.compress``) is multi-device
-and comes with the distributed slice.
+JAX's sharding hints have nothing to do on one device; the manual-DP
+step's collectives run at any world size, a single rank included.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, lm
 from repro_torch.models.model import build_model, check_family
+from repro_torch.optim import compress as GC
 from repro_torch.optim.optimizers import (
     OptConfig,
     apply_updates,
@@ -88,3 +89,36 @@ def init_train_state(cfg: ArchConfig, opt: OptConfig, seed: int = 0, *,
     for p in tree_leaves(params):
         p.requires_grad_(True)
     return {"params": params, "opt": init_opt_state(opt, params)}
+
+
+def make_manual_dp_train_step(cfg: ArchConfig, opt: OptConfig, mesh,
+                              codec: str = "bf16") -> Callable:
+    """Pure data-parallel ``train_step(state, batch) -> (state, loss)``
+    over ``mesh`` (a ``DeviceMesh``, ``launch.mesh``), in place like
+    ``make_train_step``; each rank passes its own slice of the batch.
+    Params replicated; the f32 grads are all-reduced over the mesh's first
+    axis with wire compression and error feedback (``state["opt"]["ef"]``,
+    ``optim.compress.init_error_feedback``), averaged over any further
+    axis, then the optimizer updates every leaf but ``ef``, which takes
+    the new residuals; the loss is averaged over every axis."""
+    check_family(cfg)
+    axes = mesh.mesh_dim_names
+
+    def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        params, opt_state = state["params"], state["opt"]
+        loss, grads = loss_and_grads(cfg, params, batch)
+        grads = tree_map(lambda g: g.float(), grads)
+        red, new_ef = GC.psum_compressed(
+            grads, opt_state["ef"], mesh.get_group(axes[0]), codec)
+        del grads
+        for i, a in enumerate(axes[1:], 1):
+            for g in tree_leaves(red):
+                GC.all_reduce_(g, mesh.get_group(a)).div_(mesh.size(i))
+        apply_updates(opt, red, {k: v for k, v in opt_state.items()
+                                 if k != "ef"}, params)
+        opt_state["ef"] = new_ef
+        for i, a in enumerate(axes):
+            loss = GC.all_reduce_(loss, mesh.get_group(a)) / mesh.size(i)
+        return state, loss
+
+    return step

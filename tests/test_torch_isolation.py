@@ -40,7 +40,7 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_default_to_cuda(no_card):
+def test_entry_points_default_to_cuda(no_card, tmp_path):
     from repro_torch.configs import get_arch
     from repro_torch.convert import params_from_jax
     from repro_torch.launch import serve
@@ -62,6 +62,20 @@ def test_entry_points_default_to_cuda(no_card):
         steps.init_train_state(cfg, OptConfig())
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         train.main(["--arch", "qwen2.5-3b-smoke"])
+    ckpt_dir = tmp_path / "ckpt"
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        train.main(["--arch", "qwen2.5-3b-smoke", "--ckpt-dir",
+                    str(ckpt_dir), "--ckpt-every", "2", "--fail-at", "1",
+                    "--resume"])
+    assert not ckpt_dir.exists()
+    import torch.distributed as dist
+    from repro_torch.distributed.fault_tolerance import ElasticPlan
+    from repro_torch.launch.mesh import make_mesh_for
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        make_mesh_for(1)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        ElasticPlan(1, 1).make_mesh()
+    assert not dist.is_initialized()
     from repro_torch.caffe import Net, Solver, lenet_mnist, \
         lenet_mnist_solver
     from repro_torch.convert import caffe_params_from_jax

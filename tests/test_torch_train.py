@@ -4,7 +4,8 @@
 ``repro.optim.optimizers``; the token stream's successor table and its
 batches; one and two ``make_train_step`` steps of the four served
 families' smoke archs from JAX's initial train state on JAX's batches, and
-the microbatched step; remat against no remat; and the training CLI.
+the microbatched step; remat against no remat; and the training CLI, its
+checkpoints, injected fault and resume included.
 
 Tolerances.  The loss within 1e-5 of its value (f32, summation order).
 The moments (m = 0.1 * clip * g, v = 0.05 * (clip * g)^2 after one step)
@@ -27,6 +28,7 @@ leaf is held with no exception.
 """
 import dataclasses
 import io
+import shutil
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -287,10 +289,10 @@ def test_train_cli_runs_seq_minus_one_tokens_as_jax(monkeypatch):
     batches = []
     real_loop = train.train_loop
 
-    def loop(step_fn, state, stream, *, steps, device, cfg=None):
+    def loop(step_fn, state, stream, *, steps, device, cfg=None, **kw):
         batches.append(train.make_batch(stream, 0, device, cfg)["tokens"])
         return real_loop(step_fn, state, stream, steps=steps, device=device,
-                         cfg=cfg)
+                         cfg=cfg, **kw)
 
     monkeypatch.setattr(train, "train_loop", loop)
     with redirect_stdout(io.StringIO()):
@@ -306,7 +308,7 @@ def test_train_cli_runs_seq_minus_one_tokens_as_jax(monkeypatch):
     assert batches[0][:, :-1].shape[1] == 11
 
 
-def test_train_cli_on_the_cpu():
+def test_train_cli_on_the_cpu(tmp_path):
     out = io.StringIO()
     with redirect_stdout(out):
         assert train.main(["--arch", "qwen2.5-3b-smoke", "--steps", "3",
@@ -320,7 +322,27 @@ def test_train_cli_on_the_cpu():
     # as repro.launch.train's does
     assert "3 steps x 2x15 tokens" in lines[0]
     assert lines[-1] == "done at step 3"
-    for flag in (["--resume"], ["--fail-at", "2"], ["--ckpt-dir", "x"]):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            train.main(["--arch", "qwen2.5-3b-smoke", "--device", "cpu",
-                        *flag])
+    # checkpoints every 2 steps and a fault before step 5 (from 0): the
+    # run restores step 4 and runs steps 5 and 6 again; --resume from the
+    # directory without step_6 continues at step 4 and logs only steps 5
+    # and 6, with the losses of the first run
+    argv = ["--arch", "qwen2.5-3b-smoke", "--steps", "6", "--batch", "2",
+            "--seq", "16", "--log-every", "1", "--device", "cpu",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    runs = []
+    for extra in (["--fail-at", "5"], ["--resume"]):
+        out = io.StringIO()
+        with redirect_stdout(out):
+            assert train.main(argv + extra) == 0
+        runs.append(out.getvalue().splitlines())
+        if extra == ["--fail-at", "5"]:
+            shutil.rmtree(tmp_path / "step_6")
+    logged = [[(int(line.split(":")[0].split()[1]),
+                line.split("loss=")[1].split()[0])
+               for line in lines if line.startswith("step ")]
+              for lines in runs]
+    assert [s for s, _ in logged[0]] == [1, 2, 3, 4, 5, 5, 6]
+    assert "recovered from 1 failure(s) via checkpoint restart" in runs[0]
+    assert runs[0][-1] == runs[1][-1] == "done at step 6"
+    assert "resumed from step 4" in runs[1]
+    assert logged[1] == logged[0][-2:]
